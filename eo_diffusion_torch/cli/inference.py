@@ -1,0 +1,177 @@
+"""Sampling CLI of the port (the main-path flags of ``eo_diffusion_tpu.cli.inference``).
+
+``python -m eo_diffusion_torch.cli.inference --preset sen12mscr256
+--dataset synthetic --sampler ddim --sampler_steps 50 --batch_size 8 --save``
+
+Runs on the GPU (``--device cuda``, the default) and raises when there is
+none; the CPU is used only with ``--device cpu``. It writes the same
+``samples/`` PNG grids as the JAX CLI. Flags of the JAX CLI that later
+slices bring (SSIM/PSNR ``--metrics``, guidance, DeepCache, other samplers,
+latent/DiT/flow presets, ...) are not accepted yet; ROADMAP lists them by
+queue.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="EO diffusion inference (PyTorch/CUDA)")
+    parser.add_argument("--preset", type=str, default="inria64")
+    parser.add_argument("--dataset", type=str, default=None)
+    parser.add_argument("--image_size", type=int, default=None)
+    parser.add_argument("--timesteps", type=int, default=None)
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--sampler", type=str, default="ddpm", choices=["ddpm", "ddim"])
+    parser.add_argument("--sampler_steps", type=int, default=250)
+    parser.add_argument("--eta", type=float, default=0.0)
+    parser.add_argument("--ddim_spacing", type=str, default="uniform",
+                        choices=["uniform", "quad", "trailing"])
+    parser.add_argument("--ddim_clip", action="store_true",
+                        help="clamp pred_x0 in DDIM steps (the reference DDIM never clips)")
+    parser.add_argument("--no_clip", action="store_true",
+                        help="ddpm: posterior mean from eps instead of the clipped x0")
+    parser.add_argument("--jump_len", type=int, default=0,
+                        help="RePaint resampling jump length (ddpm sampler)")
+    parser.add_argument("--jump_n", type=int, default=1,
+                        help="RePaint resamplings per jump point (1 = single descent)")
+    parser.add_argument("--ckpt", type=str, default="",
+                        help="a reference .pt checkpoint or a saved port state dict")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--n_iter", type=int, default=None,
+                        help="stop after batch index n_iter (0 = one batch)")
+    parser.add_argument("--no_bf16", action="store_true")
+    parser.add_argument("--outdir", type=str, default="results/run")
+    parser.add_argument("--save", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; never falls back silently")
+    return parser.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("eo_diffusion_torch.cli.inference: no CUDA device is "
+                         "available; pass --device cpu to sample on the CPU")
+    return device
+
+
+def _build_cond(batch, cond_type):
+    """(cond, mask) for one batch (reference inference.py:98-109): a paired
+    "cond_image" view is the concat conditioning; otherwise (image | mask)
+    with the mask inverted for ``cond_type="sum"`` (known = non-cloud)."""
+    if cond_type is None:
+        return None, None
+    image = np.asarray(batch["image"], np.float32)
+    if cond_type == "concat" and "cond_image" in batch:
+        return np.asarray(batch["cond_image"], np.float32), None
+    mask = (np.asarray(batch["segmentation"], np.float32)
+            if "segmentation" in batch else None)
+    if mask is None:
+        return None, None
+    if cond_type == "sum":
+        mask = 1.0 - mask
+    return np.concatenate([image, mask], axis=-1), mask
+
+
+def main(args):
+    """Sample ``args.n_iter + 1`` batches. Returns a summary dict with the
+    last batch's samples (``[N, H, W, C]`` float32 numpy), the batch and
+    image counts and the seconds spent inside the samplers."""
+    from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+    from eo_diffusion_torch.data.factories import DATASET_FACTORIES
+    from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
+    from eo_diffusion_torch.weights import load_reference_checkpoint
+
+    device = resolve_device(args.device)
+    preset = get_preset(args.preset)
+    dataset = args.dataset or preset.dataset
+    if dataset not in DATASET_FACTORIES:
+        raise NotImplementedError(f"--dataset {dataset}: only 'synthetic' is ported "
+                                  "so far (ROADMAP queue 7)")
+    image_size = args.image_size or preset.image_size
+    preset.image_size = image_size
+    timesteps = args.timesteps or preset.timesteps
+    cond_type = preset.cond_type
+
+    _, test_loader = DATASET_FACTORIES[dataset](
+        batch_size=args.batch_size, image_size=image_size, channels=preset.in_channels,
+        with_cond_image=cond_type == "concat")
+    data_range = test_loader.dataset.data_range
+    peek = {k: np.asarray(v)[None] for k, v in test_loader.dataset[0].items()}
+    peek_cond, _ = _build_cond(peek, cond_type)
+    cond_channels = peek_cond.shape[-1] if cond_type == "concat" and peek_cond is not None else 0
+
+    ucfg = preset.unet_config(bf16=not args.no_bf16, cond_channels=cond_channels)
+    model = build_denoiser(ucfg)
+    if args.ckpt:
+        print("loading checkpoint...")
+        model.load_state_dict(load_reference_checkpoint(args.ckpt, ucfg), strict=True)
+        print("loaded!")
+    model = model.to(device).eval()
+    diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Diffusion with {n_params / 1e6} M params on {device}")
+    model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
+
+    dir_samples = os.path.join(args.outdir, "samples")
+    os.makedirs(dir_samples, exist_ok=True)
+    offset = len(os.listdir(dir_samples)) // (1 if cond_type is None else 3)
+
+    print("start inference")
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    to_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
+    samples, n_images, seconds, n = None, 0, 0.0, 0
+    with torch.inference_mode():
+        for j, batch in enumerate(test_loader):
+            print(f"data {j}")
+            image = np.asarray(batch["image"], np.float32)
+            bsz = image.shape[0]
+            cond, mask = _build_cond(batch, cond_type)
+            t0 = time.perf_counter()
+            if args.sampler == "ddpm":
+                out = diffusion.ddpm_sample(
+                    model_fn, bsz, device=device, generator=generator,
+                    cond=to_dev(cond), clip=not args.no_clip,
+                    jump_len=args.jump_len, jump_n=args.jump_n)
+            else:
+                mask_j = to_dev(mask) if cond_type == "sum" else None
+                out = diffusion.ddim_sample(
+                    model_fn, bsz, device=device, generator=generator,
+                    num_steps=args.sampler_steps, eta=args.eta, method=args.ddim_spacing,
+                    cond=to_dev(cond) if cond_type == "concat" else None,
+                    mask=mask_j, x0=to_dev(image) if mask_j is not None else None,
+                    clip=args.ddim_clip)
+            samples = out.x.float().cpu().numpy()  # waits for the device
+            seconds += time.perf_counter() - t0
+            n_images += bsz
+
+            samples01 = rescale_to_unit(samples, data_range)
+            idx = j + offset
+            nrow = int(math.sqrt(bsz)) or 1
+            if args.save:
+                if cond is not None:
+                    cond_vis = (image * np.clip(mask + 0.7, 0, 1) if mask is not None
+                                else cond[..., :image.shape[-1]])
+                    save_image_grid(rescale_to_unit(image, data_range),
+                                    os.path.join(dir_samples, f"sample_{idx}_gt.png"), nrow=nrow)
+                    save_image_grid(rescale_to_unit(cond_vis, data_range),
+                                    os.path.join(dir_samples, f"sample_{idx}_cond.png"), nrow=nrow)
+                save_image_grid(samples01, os.path.join(dir_samples, f"sample_{idx}.png"),
+                                nrow=nrow)
+            n += 1
+            if args.n_iter is not None and j >= args.n_iter:
+                break
+    return {"samples": samples, "batches": n, "images": n_images,
+            "sample_seconds": seconds}
+
+
+if __name__ == "__main__":
+    main(parse_args())

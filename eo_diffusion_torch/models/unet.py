@@ -1,0 +1,445 @@
+"""OpenAI-style UNet denoiser in PyTorch (counterpart of ``eo_diffusion_tpu/models/unet.py``).
+
+The architecture comes from the same static :class:`UNetPlan` as the JAX
+package (a copy of :func:`build_unet_plan`, which mirrors the reference
+constructor ``unet_openai.py:607-744`` block for block). Submodules carry the
+reference's torch state-dict names (``time_embed.0``,
+``input_blocks.N.M.in_layers.0``, ``.qkv``, ``.proj_out``, ``out.2``, ...), so
+a reference ``clouds_best.pt`` state dict loads with ``load_state_dict`` and
+no renaming (see :mod:`eo_diffusion_torch.weights`).
+
+Activations are NHWC ``[N, H, W, C]``, like the JAX package; parameters are
+float32 and each layer computes in ``UNetConfig.dtype`` (bf16 on the sampling
+path), with GroupNorm statistics and softmax in float32. Self-attention goes
+through :func:`eo_diffusion_torch.ops.attention.attention_from_qkv`, which
+launches the CUDA kernel on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eo_diffusion_torch.nn.primitives import (
+    Conv,
+    Dense,
+    GroupNorm32,
+    PointwiseConv1d,
+    ZeroConv,
+    avg_pool_2d,
+    nearest_upsample_2d,
+    timestep_embedding,
+)
+from eo_diffusion_torch.ops.attention import attention_from_qkv
+
+__all__ = [
+    "UNetConfig",
+    "UNet",
+    "build_unet_plan",
+    "UNetPlan",
+    "LayerSpec",
+    "unet_eo_train",
+    "unet_clouds",
+    "unet_big",
+    "unet_std",
+    "unet_small",
+]
+
+
+# ---------------------------------------------------------------------------
+# Config + plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Mirrors the reference ``UNetModel.__init__`` surface (unet_openai.py:553-575)."""
+
+    image_size: int
+    in_channels: int
+    model_channels: int
+    out_channels: int
+    num_res_blocks: int
+    attention_resolutions: Tuple[int, ...] = ()
+    time_emb_factor: int = 4
+    dropout: float = 0.0
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 8)
+    conv_resample: bool = True
+    num_classes: Optional[int] = None
+    num_heads: int = 1
+    num_head_channels: int = -1
+    num_heads_upsample: int = -1
+    use_scale_shift_norm: bool = False
+    resblock_updown: bool = False
+    use_new_attention_order: bool = False
+    dtype: torch.dtype = torch.float32  # compute dtype (params stay float32)
+    attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
+    class_dropout_prob: float = 0.0  # > 0 adds the CFG null-class row
+    # later slices of the port; the constructor raises when they are set
+    context_dim: int = 0
+    dual_time: bool = False
+    freeu: Optional[Tuple[float, float, float, float]] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "attention_resolutions", tuple(self.attention_resolutions))
+        object.__setattr__(self, "channel_mult", tuple(self.channel_mult))
+
+    @property
+    def label_vocab(self) -> Optional[int]:
+        if self.num_classes is None:
+            return None
+        return self.num_classes + (1 if self.class_dropout_prob > 0 else 0)
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.model_channels * self.time_emb_factor
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer inside a (TimestepEmbedSequential-equivalent) block."""
+
+    kind: str  # "conv" | "res" | "attn" | "down" | "up"
+    in_ch: int
+    out_ch: int
+    num_heads: int = 0
+    up: bool = False
+    down: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetPlan:
+    """Static layer plan, shared by the model and the checkpoint loader."""
+
+    input_blocks: Tuple[Tuple[LayerSpec, ...], ...]
+    middle_block: Tuple[LayerSpec, ...]
+    output_blocks: Tuple[Tuple[LayerSpec, ...], ...]
+    out_ch: int  # channels entering the output head
+
+
+def _attn_heads(cfg: UNetConfig, ch: int, upsample: bool) -> int:
+    if cfg.num_head_channels == -1:
+        heads = cfg.num_heads_upsample if (upsample and cfg.num_heads_upsample != -1) else cfg.num_heads
+    else:
+        assert ch % cfg.num_head_channels == 0, (ch, cfg.num_head_channels)
+        heads = ch // cfg.num_head_channels
+    assert ch % heads == 0, (ch, heads)
+    return heads
+
+
+def build_unet_plan(cfg: UNetConfig) -> UNetPlan:
+    """Replicates the block construction of reference ``unet_openai.py:607-744``."""
+    ch = int(cfg.channel_mult[0] * cfg.model_channels)
+    input_blocks = [(LayerSpec("conv", cfg.in_channels, ch),)]
+    input_block_chans = [ch]
+    ds = 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            layers = [LayerSpec("res", ch, int(mult * cfg.model_channels))]
+            ch = int(mult * cfg.model_channels)
+            if ds in cfg.attention_resolutions:
+                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False)))
+            input_blocks.append(tuple(layers))
+            input_block_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            out_ch = ch
+            if cfg.resblock_updown:
+                input_blocks.append((LayerSpec("res", ch, out_ch, down=True),))
+            else:
+                input_blocks.append((LayerSpec("down", ch, out_ch),))
+            ch = out_ch
+            input_block_chans.append(ch)
+            ds *= 2
+
+    middle = (
+        LayerSpec("res", ch, ch),
+        LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False)),
+        LayerSpec("res", ch, ch),
+    )
+
+    output_blocks = []
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            ich = input_block_chans.pop()
+            layers = [LayerSpec("res", ch + ich, int(cfg.model_channels * mult))]
+            ch = int(cfg.model_channels * mult)
+            if ds in cfg.attention_resolutions:
+                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, True)))
+            if level and i == cfg.num_res_blocks:
+                out_ch = ch
+                if cfg.resblock_updown:
+                    layers.append(LayerSpec("res", ch, out_ch, up=True))
+                else:
+                    layers.append(LayerSpec("up", ch, out_ch))
+                ds //= 2
+            output_blocks.append(tuple(layers))
+
+    return UNetPlan(
+        input_blocks=tuple(input_blocks),
+        middle_block=middle,
+        output_blocks=tuple(output_blocks),
+        out_ch=ch,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+class ResBlock(nn.Module):
+    """Residual block (reference ``ResBlock``, unet_openai.py:274-385).
+
+    GroupNorm32 -> SiLU -> conv3x3, timestep-embedding add (or FiLM
+    scale-shift), GroupNorm32 -> SiLU -> dropout -> zero-init conv3x3, with a
+    1x1 skip projection when channels change. ``up``/``down`` resample both
+    branches between the first norm and conv.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, emb_ch: int, dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False, up: bool = False,
+                 down: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(),
+                                       Conv(in_ch, out_ch, 3, dtype=dtype))
+        emb_width = 2 * out_ch if use_scale_shift_norm else out_ch
+        self.emb_layers = nn.Sequential(nn.SiLU(), Dense(emb_ch, emb_width, dtype=dtype))
+        self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(dropout),
+                                        ZeroConv(out_ch, out_ch, 3, dtype=dtype))
+        self.skip_connection = (nn.Identity() if out_ch == in_ch
+                                else Conv(in_ch, out_ch, 1, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.in_layers[0](x))
+        if self.up:
+            h, x = nearest_upsample_2d(h), nearest_upsample_2d(x)
+        elif self.down:
+            h, x = avg_pool_2d(h), avg_pool_2d(x)
+        h = self.in_layers[2](h)
+        emb_out = self.emb_layers(emb)[:, None, None, :].to(h.dtype)
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[3](self.out_layers[2](F.silu(h)))
+        else:
+            h = self.out_layers(h + emb_out)
+        return self.skip_connection(x) + h
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention (reference ``AttentionBlock``, unet_openai.py:388-433).
+
+    The NHWC input is viewed as tokens ``[B, T, C]``; the fused ``qkv``
+    projection feeds :func:`attention_from_qkv` in either reference head
+    order, and the zero-init ``proj_out`` closes the residual.
+    """
+
+    def __init__(self, ch: int, num_heads: int, use_new_attention_order: bool = False,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+        super().__init__()
+        self.num_heads, self.new_order, self.attn_impl = num_heads, use_new_attention_order, attn_impl
+        self.norm = GroupNorm32(ch)
+        self.qkv = PointwiseConv1d(ch, 3 * ch, dtype=dtype)
+        self.proj_out = PointwiseConv1d(ch, ch, dtype=dtype, zero=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hgt, wid, c = x.shape
+        xt = x.reshape(b, hgt * wid, c)
+        qkv = self.qkv(self.norm(xt))
+        a = attention_from_qkv(qkv, self.num_heads, new_order=self.new_order,
+                               impl=self.attn_impl)
+        return (xt + self.proj_out(a)).reshape(b, hgt, wid, c)
+
+
+class Upsample(nn.Module):
+    """2x nearest upsample + optional conv (reference unet_openai.py:211-242)."""
+
+    def __init__(self, ch: int, out_ch: int, use_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv(ch, out_ch, 3, dtype=dtype) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nearest_upsample_2d(x)
+        return self.conv(x) if self.conv is not None else x
+
+
+class Downsample(nn.Module):
+    """Stride-2 conv or avg-pool downsample (reference unet_openai.py:245-271)."""
+
+    def __init__(self, ch: int, out_ch: int, use_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if not use_conv:
+            assert ch == out_ch, (ch, out_ch)
+        self.op = Conv(ch, out_ch, 3, stride=2, dtype=dtype) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op(x) if self.op is not None else avg_pool_2d(x)
+
+
+# ---------------------------------------------------------------------------
+# UNet
+# ---------------------------------------------------------------------------
+
+
+def _make_layer(cfg: UNetConfig, spec: LayerSpec) -> nn.Module:
+    if spec.kind == "conv":
+        return Conv(spec.in_ch, spec.out_ch, 3, dtype=cfg.dtype)
+    if spec.kind == "res":
+        return ResBlock(spec.in_ch, spec.out_ch, cfg.time_embed_dim, dropout=cfg.dropout,
+                        use_scale_shift_norm=cfg.use_scale_shift_norm, up=spec.up,
+                        down=spec.down, dtype=cfg.dtype)
+    if spec.kind == "attn":
+        return AttentionBlock(spec.out_ch, spec.num_heads, cfg.use_new_attention_order,
+                              dtype=cfg.dtype, attn_impl=cfg.attn_impl)
+    if spec.kind == "down":
+        return Downsample(spec.in_ch, spec.out_ch, cfg.conv_resample, dtype=cfg.dtype)
+    if spec.kind == "up":
+        return Upsample(spec.in_ch, spec.out_ch, cfg.conv_resample, dtype=cfg.dtype)
+    raise ValueError(spec.kind)
+
+
+class UNet(nn.Module):
+    """The timestep-embedded UNet (reference ``UNetModel``, unet_openai.py:522-780).
+
+    ``forward(x, timesteps, cond=None, y=None)`` with x ``[N, H, W, C]``
+    (NHWC), timesteps ``[N]``, cond ``[N, H, W, Cc]`` channel-concat
+    conditioning (unet_openai.py:754-756) and y ``[N]`` class labels whose
+    embedding is added to the timestep embedding (:604-605, :764-766).
+    Returns ``[N, H, W, out_channels]`` in x's dtype.
+    """
+
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = self.config = config
+        for name, unset in (("context_dim", cfg.context_dim == 0),
+                            ("dual_time", not cfg.dual_time),
+                            ("freeu", cfg.freeu is None)):
+            if not unset:
+                raise NotImplementedError(
+                    f"UNetConfig.{name} is not ported yet (ROADMAP queue 11/13)")
+        plan = build_unet_plan(cfg)
+        ted, dt = cfg.time_embed_dim, cfg.dtype
+        self.time_embed = nn.Sequential(Dense(cfg.model_channels, ted, dtype=dt), nn.SiLU(),
+                                        Dense(ted, ted, dtype=dt))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.label_vocab, ted)
+        mk = lambda block: nn.ModuleList([_make_layer(cfg, s) for s in block])
+        self.input_blocks = nn.ModuleList([mk(b) for b in plan.input_blocks])
+        self.middle_block = mk(plan.middle_block)
+        self.output_blocks = nn.ModuleList([mk(b) for b in plan.output_blocks])
+        self.out = nn.Sequential(GroupNorm32(plan.out_ch), nn.SiLU(),
+                                 ZeroConv(plan.out_ch, cfg.out_channels, 3, dtype=dt))
+
+    @staticmethod
+    def _run(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        for layer in block:
+            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+        return h
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                cond: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        if cond is not None:
+            x = torch.cat([x, cond.to(x.dtype)], dim=-1)
+        assert (y is not None) == (cfg.num_classes is not None), (
+            "must specify y if and only if the model is class-conditional")
+        assert x.shape[-1] == cfg.in_channels, (x.shape, cfg.in_channels)
+
+        emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels))
+        if cfg.num_classes is not None:
+            emb = emb + self.label_emb(y).to(emb.dtype)
+
+        h = x.to(cfg.dtype)
+        hs = []
+        for block in self.input_blocks:
+            h = self._run(block, h, emb)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb)
+        for block in self.output_blocks:
+            h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
+            h = self._run(block, h, emb)
+        h = self.out[2](F.silu(self.out[0](h)))
+        return h.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Factory presets
+# ---------------------------------------------------------------------------
+
+
+def _preset_mults(image_size: int) -> Tuple[int, ...]:
+    if image_size == 128:
+        return (1, 1, 2, 3, 4)
+    if image_size == 64:
+        return (1, 2, 3, 4)
+    if image_size in (32, 28):
+        return (1, 2, 2, 2)
+    raise ValueError(f"unsupported image size: {image_size}")
+
+
+def _preset_attn_ds(image_size: int) -> Tuple[int, ...]:
+    res = "28,14,7" if image_size == 28 else "32,16,8"
+    return tuple(image_size // int(r) for r in res.split(","))
+
+
+def unet_eo_train(image_size: int = 64, in_channels: int = 3, out_channels: int = 3,
+                  base_dim: int = 128, num_classes: Optional[int] = None,
+                  dtype: torch.dtype = torch.float32) -> UNetConfig:
+    """The reference train.py:50 config: base 128, mults [1,2,3,4], no
+    attention, 1 res-block, 1 head."""
+    return UNetConfig(
+        image_size=image_size, in_channels=in_channels, model_channels=base_dim,
+        out_channels=out_channels, num_res_blocks=1, attention_resolutions=(),
+        channel_mult=(1, 2, 3, 4), num_heads=1, num_classes=num_classes, dtype=dtype,
+    )
+
+
+def unet_clouds(image_size: int = 64, in_channels: int = 3, out_channels: int = 3,
+                num_classes: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> UNetConfig:
+    """The published clouds checkpoint config (reference configs/Configs.txt:20-23):
+    base 128, mults [1,2,3,4], attention at ds 4/8, 2 res-blocks, 8 heads."""
+    return UNetConfig(
+        image_size=image_size, in_channels=in_channels, model_channels=128,
+        out_channels=out_channels, num_res_blocks=2, attention_resolutions=(4, 8),
+        channel_mult=(1, 2, 3, 4), num_heads=8, num_classes=num_classes, dtype=dtype,
+    )
+
+
+def _preset(image_size: int, base_width: int, num_res_blocks: int, head_ch: int,
+            time_emb_factor: int = 4, in_channels: int = 3, out_channels: int = 3,
+            num_classes: Optional[int] = None,
+            dtype: torch.dtype = torch.float32) -> UNetConfig:
+    return UNetConfig(
+        image_size=image_size, in_channels=in_channels, model_channels=base_width,
+        out_channels=out_channels, num_res_blocks=num_res_blocks,
+        attention_resolutions=_preset_attn_ds(image_size), dropout=0.1,
+        channel_mult=_preset_mults(image_size), num_classes=num_classes,
+        num_heads=4, num_head_channels=head_ch, time_emb_factor=time_emb_factor,
+        use_scale_shift_norm=True, resblock_updown=True,
+        use_new_attention_order=True, dtype=dtype,
+    )
+
+
+def unet_big(image_size: int, **kw) -> UNetConfig:
+    """Reference ``UNetBig`` preset (unet_openai.py:783-827)."""
+    return _preset(image_size, base_width=kw.pop("base_width", 192), num_res_blocks=3, head_ch=64, **kw)
+
+
+def unet_std(image_size: int, **kw) -> UNetConfig:
+    """Reference ``UNet`` preset (unet_openai.py:830-874)."""
+    return _preset(image_size, base_width=kw.pop("base_width", 64), num_res_blocks=3, head_ch=64, **kw)
+
+
+def unet_small(image_size: int, **kw) -> UNetConfig:
+    """Reference ``UNetSmall`` preset (unet_openai.py:877-922)."""
+    return _preset(image_size, base_width=kw.pop("base_width", 32), num_res_blocks=2,
+                   head_ch=32, time_emb_factor=2, **kw)

@@ -1,0 +1,153 @@
+"""Weights for the port's UNet: from JAX params, from reference checkpoints,
+or seeded random values.
+
+Counterpart of ``eo_diffusion_tpu/tools/convert_ckpt.py`` (the port keeps its
+own copy because that module imports the JAX model). The port's UNet uses
+the reference's torch state-dict names and layouts, so:
+
+* a reference ``.pt`` (``clouds_best.pt``-style ``{"model": sd, "model_ema":
+  sd}``, with ``model.``/``module.`` prefixes, schedule buffers and the dead
+  ``nout/act/conv_out`` head) loads after :func:`fix_legacy_dict` and
+  dropping those extras (:func:`load_reference_checkpoint`);
+* a flax param tree maps over with the transposes of
+  ``params_to_state_dict`` (:func:`state_dict_from_jax_params`): conv HWIO ->
+  OIHW, Dense ``[I, O]`` -> Linear ``[O, I]``, attention ``qkv``/``proj_out``
+  -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from eo_diffusion_torch.models.unet import LayerSpec, UNetConfig, build_unet_plan
+
+__all__ = [
+    "fix_legacy_dict",
+    "state_dict_from_jax_params",
+    "load_reference_checkpoint",
+    "randomize_parameters",
+]
+
+_SCHEDULE_BUFFERS = {
+    "betas", "alphas", "alphas_cumprod", "sqrt_alphas_cumprod",
+    "sqrt_one_minus_alphas_cumprod",
+}
+_DEAD_PREFIXES = ("nout.", "conv_out.", "act.")
+
+
+def fix_legacy_dict(d: Mapping) -> Dict[str, torch.Tensor]:
+    """Normalize the reference's checkpoint-dict variants (``model``/
+    ``state_dict`` nesting, ``module.``/``model.`` prefixes; data.py:373-387,
+    inference.py:82-86) to a flat name -> tensor mapping."""
+    if "model" in d and isinstance(d["model"], Mapping):
+        d = d["model"]
+    if "state_dict" in d and isinstance(d.get("state_dict"), Mapping):
+        d = d["state_dict"]
+    out = {}
+    for k, v in d.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith("model."):
+            k = k[len("model."):]
+        out[k] = torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v.detach().cpu()
+    return out
+
+
+def load_reference_checkpoint(path: str, cfg: UNetConfig, use_ema: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference ``.pt`` checkpoint (or the port's own saved state dict)
+    as a float32 state dict for ``UNet(cfg)``. Prefers the EMA weights
+    (``model_ema``) like the reference's sampling path (train.py:148-149)."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(raw, Mapping) and use_ema and "model_ema" in raw:
+        sd = fix_legacy_dict({"model": raw["model_ema"]})
+    else:
+        sd = fix_legacy_dict(raw)
+    return {k: v.float() for k, v in sd.items()
+            if k not in _SCHEDULE_BUFFERS and not k.startswith(_DEAD_PREFIXES)
+            and not k.startswith("n_averaged")}
+
+
+def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``UNet`` params (numpy arrays; with or without the ``"params"``
+    level) -> the port's state dict."""
+    p = params["params"] if "params" in params else params
+    plan = build_unet_plan(cfg)
+    sd: Dict[str, np.ndarray] = {}
+
+    def put(prefix, weight, bias):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = weight, np.asarray(bias)
+
+    def dense(prefix, d):
+        put(prefix, np.asarray(d["kernel"]).T, d["bias"])
+
+    def conv(prefix, d):
+        put(prefix, np.asarray(d["kernel"]).transpose(3, 2, 0, 1), d["bias"])
+
+    def conv1d(prefix, d):
+        put(prefix, np.asarray(d["kernel"]).T[:, :, None], d["bias"])
+
+    def gn(prefix, d):
+        put(prefix, np.asarray(d["GroupNorm_0"]["scale"]), d["GroupNorm_0"]["bias"])
+
+    def layer(spec: LayerSpec, d, prefix):
+        if spec.kind == "conv":
+            conv(prefix, d)
+        elif spec.kind == "res":
+            gn(f"{prefix}.in_layers.0", d["in_norm"])
+            conv(f"{prefix}.in_layers.2", d["in_conv"])
+            dense(f"{prefix}.emb_layers.1", d["emb_proj"])
+            gn(f"{prefix}.out_layers.0", d["out_norm"])
+            conv(f"{prefix}.out_layers.3", d["out_conv"])
+            if "skip_conv" in d:
+                conv(f"{prefix}.skip_connection", d["skip_conv"])
+        elif spec.kind == "attn":
+            gn(f"{prefix}.norm", d["norm"])
+            conv1d(f"{prefix}.qkv", d["qkv"])
+            conv1d(f"{prefix}.proj_out", d["proj_out"])
+        elif spec.kind == "down":
+            conv(f"{prefix}.op", d["conv"])
+        elif spec.kind == "up":
+            conv(f"{prefix}.conv", d["conv"])
+
+    dense("time_embed.0", p["time_embed_0"])
+    dense("time_embed.2", p["time_embed_2"])
+    if cfg.num_classes is not None:
+        sd["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"])
+    for bi, block in enumerate(plan.input_blocks):
+        for li, spec in enumerate(block):
+            layer(spec, p[f"input_{bi}_{li}"], f"input_blocks.{bi}.{li}")
+    for li, spec in enumerate(plan.middle_block):
+        layer(spec, p[f"middle_{li}"], f"middle_block.{li}")
+    for bi, block in enumerate(plan.output_blocks):
+        for li, spec in enumerate(block):
+            layer(spec, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
+    gn("out.0", p["out_norm"])
+    conv("out.2", p["out_conv"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+@torch.no_grad()
+def randomize_parameters(module: nn.Module, seed: int) -> nn.Module:
+    """Overwrite every parameter with seeded values (numpy generator, in
+    ``named_parameters`` order, so CPU and GPU copies agree). Weights draw
+    N(0, 1/fan_in), biases N(0, 0.05^2) and norm scales 1 + N(0, 0.05^2).
+    Unlike a fresh init this leaves no zero-initialized output layer, so a
+    forward pass exercises every block."""
+    rng = np.random.default_rng(seed)
+    for name, prm in module.named_parameters():
+        shape = tuple(prm.shape)
+        if prm.ndim >= 2:
+            fan_in = int(np.prod(shape[1:])) if "label_emb" not in name else 1
+            vals = rng.normal(size=shape) / np.sqrt(fan_in)
+        elif name.endswith("weight"):
+            vals = 1.0 + 0.05 * rng.normal(size=shape)
+        else:
+            vals = 0.05 * rng.normal(size=shape)
+        prm.copy_(torch.from_numpy(vals.astype(np.float32)))
+    return module

@@ -1,0 +1,72 @@
+"""The port's sampling CLI (python -m eo_diffusion_torch.cli.inference) on the
+CPU: tiny presets, synthetic data, random initial weights."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny CPU ops: one thread is several times faster
+    yield
+    torch.set_num_threads(n)
+
+
+def _cli(*argv):
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.run([sys.executable, "-m", "eo_diffusion_torch.cli.inference", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_tiny_cr_ddim_writes_grids(tmp_path):
+    res = _cli("--preset", "tiny-cr", "--dataset", "synthetic", "--device", "cpu",
+               "--sampler", "ddim", "--sampler_steps", "5", "--n_iter", "0", "--save",
+               "--batch_size", "4", "--outdir", str(tmp_path))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "Diffusion with" in res.stdout and "on cpu" in res.stdout
+    # concat conditioning: the sample grid, the clear target and the cloudy view
+    assert sorted(os.listdir(tmp_path / "samples")) == [
+        "sample_0.png", "sample_0_cond.png", "sample_0_gt.png"]
+
+
+def test_tiny_ddpm_runs_in_process(tmp_path):
+    from eo_diffusion_torch.cli import inference
+
+    args = inference.parse_args(["--preset", "tiny", "--sampler", "ddpm", "--device", "cpu",
+                                 "--timesteps", "10", "--batch_size", "2", "--n_iter", "1",
+                                 "--outdir", str(tmp_path)])
+    res = inference.main(args)
+    assert res["batches"] == 2 and res["images"] == 4
+    x = torch.as_tensor(res["samples"])
+    assert x.shape == (2, 8, 8, 3) and bool(torch.isfinite(x).all())
+
+
+def test_no_gpu_without_device_cpu_fails_clearly(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default --device cuda is valid")
+    res = _cli("--preset", "tiny", "--sampler", "ddim", "--sampler_steps", "2",
+               "--n_iter", "0", "--outdir", str(tmp_path))
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and "--device cpu" in res.stderr
+    assert not (tmp_path / "samples").exists()
+
+
+def test_unported_presets_and_datasets_raise():
+    from eo_diffusion_torch.cli import inference
+    from eo_diffusion_torch.cli.presets import get_preset
+
+    with pytest.raises(NotImplementedError, match="queue 10"):
+        get_preset("latent256")
+    with pytest.raises(ValueError):
+        get_preset("no-such-preset")
+    with pytest.raises(NotImplementedError, match="synthetic"):
+        inference.main(inference.parse_args(["--preset", "tiny", "--dataset", "eurosat",
+                                             "--device", "cpu"]))

@@ -1,0 +1,154 @@
+"""The port's schedules and samplers against eo_diffusion_tpu (f32, CPU).
+
+The two packages draw random numbers differently, so the JAX package's own
+draws (its per-step key splits) are replayed into the port through
+``noise_fn``; deterministic paths (DDIM eta = 0) share ``x_T``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eo_diffusion_torch.core import schedules as TS
+from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion as TGD
+from eo_diffusion_torch.diffusion.gaussian import repaint_op_sequence
+from eo_diffusion_tpu.core import schedules as JS
+from eo_diffusion_tpu.diffusion.gaussian import GaussianDiffusion as JGD
+from torch_parity import configs, one_torch_thread, port_model, random_params, rel_err  # noqa: F401
+
+# whole-trajectory f32 sampler parity: max |port - jax| / max |jax|
+# (DESIGN.md:52-54: ~4e-5 over a 25-step DDIM trajectory)
+TRAJ_TOL = 5e-5
+SHAPE = (2, 8, 8, 3)
+UNET = dict(image_size=8, in_channels=3, model_channels=32, out_channels=3,
+            num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+            num_heads=2)
+
+
+@pytest.mark.parametrize("schedule,timesteps", [("cosine_eo", 50), ("linear", 40)])
+def test_schedule_tables_equal(schedule, timesteps):
+    js, ts = JS.make_schedule(timesteps, schedule), TS.make_schedule(timesteps, schedule)
+    for name in ("betas", "alphas", "alphas_cumprod", "alphas_cumprod_prev",
+                 "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+                 "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod"):
+        np.testing.assert_array_equal(getattr(ts, name), getattr(js, name))
+    # S=30 of T=40/50 takes the reference's off-by-one guard (T/S < 2)
+    for method in ("uniform", "quad", "trailing"):
+        for steps, eta in ((10, 0.0), (30, 0.7)):
+            jd = JS.make_ddim_schedule(js, steps, eta, method)
+            td = TS.make_ddim_schedule(ts, steps, eta, method)
+            for name in ("timesteps", "alphas", "alphas_prev", "sigmas",
+                         "sqrt_one_minus_alphas"):
+                np.testing.assert_array_equal(getattr(td, name), getattr(jd, name))
+    np.testing.assert_array_equal(TS.rescale_zero_terminal_snr(js.betas),
+                                  JS.rescale_zero_terminal_snr(js.betas))
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, tcfg = configs(**UNET)
+    jmodel, params = random_params(jcfg, seed=11)
+    tmodel = port_model(tcfg, params)
+    jfn = jax.jit(lambda x, t, c, y: jmodel.apply(params, x, t, cond=c, y=y))
+
+    def tfn(x, t, c, y):
+        with torch.no_grad():
+            return tmodel(x, t, cond=c, y=y)
+
+    return jfn, tfn
+
+
+def _x0_and_mask():
+    rng = np.random.default_rng(5)
+    x0 = rng.uniform(-1, 1, size=SHAPE).astype(np.float32)
+    mask = (rng.uniform(size=SHAPE[:3] + (1,)) > 0.5).astype(np.float32)
+    return x0, mask
+
+
+@pytest.mark.parametrize("inpaint", [False, True])
+def test_ddim_eta0_trajectory(models, inpaint):
+    jfn, tfn = models
+    x_T = np.random.default_rng(1).normal(size=SHAPE).astype(np.float32)
+    x0, mask = _x0_and_mask() if inpaint else (None, None)
+    jd = JGD.create(timesteps=50, image_size=8, in_channels=3)
+    key = jax.random.PRNGKey(2)
+    ref = jd.ddim_sample(jfn, key, 2, num_steps=10, x_T=jnp.asarray(x_T),
+                         mask=None if mask is None else jnp.asarray(mask),
+                         x0=None if x0 is None else jnp.asarray(x0)).x
+    # replay the JAX sampler's per-step mask-composite draws
+    k = jax.random.split(key)[1]
+    draws = []
+    for _ in range(10):
+        k, _nk, mk = jax.random.split(k, 3)
+        draws.append(torch.from_numpy(np.array(jax.random.normal(mk, SHAPE, jnp.float32))))
+    td = TGD.create(timesteps=50, image_size=8, in_channels=3)
+    out = td.ddim_sample(tfn, 2, device="cpu", num_steps=10, x_T=torch.from_numpy(x_T),
+                         mask=None if mask is None else torch.from_numpy(mask),
+                         x0=None if x0 is None else torch.from_numpy(x0),
+                         noise_fn=lambda i, role: draws[i]).x
+    assert out.dtype == torch.float32
+    assert rel_err(out, ref) <= TRAJ_TOL
+
+
+def _jax_ddpm_draws(key, n_ops):
+    """x_T and per-op noises exactly as JGD.ddpm_sample draws them."""
+    init_rng, k = jax.random.split(key)
+    x_T = np.array(jax.random.normal(init_rng, SHAPE, jnp.float32))
+    draws = []
+    for _ in range(n_ops):
+        k, nk = jax.random.split(k)
+        draws.append(np.array(jax.random.normal(nk, SHAPE, jnp.float32)))
+    return x_T, draws
+
+
+def test_ddpm_repaint_steps_match_reverse_step(models):
+    """Port ddpm_sample (RePaint-sum, injected noise) against JAX's
+    _reverse_step plus the known-region composite, step by step."""
+    jfn, tfn = models
+    T = 6
+    gt, known = _x0_and_mask()
+    x_T, draws = _jax_ddpm_draws(jax.random.PRNGKey(3), T)
+    jd = JGD.create(timesteps=T, image_size=8, in_channels=3, cond_type="sum")
+    x = jnp.asarray(x_T)
+    for i, t_scalar in enumerate(range(T - 1, -1, -1)):
+        t = jnp.full((2,), t_scalar, jnp.int32)
+        noise = jnp.asarray(draws[i])
+        x = known * jd.q_sample(jnp.asarray(gt), t, noise) + (1.0 - known) * x
+        x, _ = jd._reverse_step(jfn, x, t, noise, None, None, clip=True)
+    td = TGD.create(timesteps=T, image_size=8, in_channels=3, cond_type="sum")
+    cond = torch.from_numpy(np.concatenate([gt, known], axis=-1))
+    out = td.ddpm_sample(tfn, 2, device="cpu", cond=cond, x_T=torch.from_numpy(x_T),
+                         noise_fn=lambda i, role: torch.from_numpy(draws[i])).x
+    assert rel_err(out, x) <= TRAJ_TOL
+
+
+def test_ddpm_repaint_jumps_match_jax_sampler(models):
+    jfn, tfn = models
+    T, jump_len, jump_n = 6, 2, 2
+    gt, known = _x0_and_mask()
+    cond = np.concatenate([gt, known], axis=-1)
+    key = jax.random.PRNGKey(4)
+    jd = JGD.create(timesteps=T, image_size=8, in_channels=3, cond_type="sum")
+    ref = jd.ddpm_sample(jfn, key, 2, cond=jnp.asarray(cond), jump_len=jump_len,
+                         jump_n=jump_n).x
+    t_ops, _ = repaint_op_sequence(T, jump_len, jump_n)
+    n_ops = len(t_ops)
+    assert n_ops > T  # the jumps add forward ops
+    x_T, draws = _jax_ddpm_draws(key, n_ops)
+    td = TGD.create(timesteps=T, image_size=8, in_channels=3, cond_type="sum")
+    out = td.ddpm_sample(tfn, 2, device="cpu", cond=torch.from_numpy(cond),
+                         x_T=torch.from_numpy(x_T), jump_len=jump_len, jump_n=jump_n,
+                         noise_fn=lambda i, role: torch.from_numpy(draws[i])).x
+    assert rel_err(out, ref) <= TRAJ_TOL
+
+
+def test_unported_sampler_options_raise(models):
+    _, tfn = models
+    td = TGD.create(timesteps=4, image_size=8, in_channels=3)
+    with pytest.raises(NotImplementedError):
+        td.ddim_sample(tfn, 1, device="cpu", num_steps=2, guidance_scale=3.0)
+    with pytest.raises(NotImplementedError):
+        td.ddpm_sample(tfn, 1, device="cpu", dynamic_threshold=0.995)
+    with pytest.raises(NotImplementedError):
+        TGD.create(timesteps=4, self_condition=True)

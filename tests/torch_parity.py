@@ -1,0 +1,83 @@
+"""Helpers for the port's parity tests: one UNet config built in both packages,
+with every JAX param leaf overwritten by seeded values and carried into the
+port through eo_diffusion_torch.weights.state_dict_from_jax_params.
+
+Every leaf is randomized because ZeroConv/ZeroDense make the fresh output
+conv, each ResBlock's out_layers.3 and each attention proj_out exactly zero:
+on fresh params the eps prediction would compare as 0 = 0."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eo_diffusion_torch.models import unet as TU
+from eo_diffusion_torch.weights import state_dict_from_jax_params
+from eo_diffusion_tpu.models import unet as JU
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Tiny CPU ops run several times faster on one thread, and the test
+    workers share the machine's cores; import this into a test module to
+    use it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def configs(**kw):
+    """The same UNet config for the JAX package (f32) and the port (f32)."""
+    jcfg = JU.UNetConfig(**kw)
+    fields = {f.name for f in dataclasses.fields(TU.UNetConfig)} - {"dtype", "attn_impl"}
+    tcfg = TU.UNetConfig(**{k: v for k, v in kw.items() if k in fields})
+    return jcfg, tcfg
+
+
+def random_params(jcfg, seed, cond_channels=0):
+    """Seeded values for every leaf of ``JU.UNet(jcfg)``'s param tree (numpy):
+    kernels N(0, 1/fan_in), embeddings N(0, 1), norm scales 1 + N(0, 0.05^2),
+    biases N(0, 0.05^2)."""
+    model = JU.UNet(jcfg)
+    s = jcfg.image_size
+    kw = {}
+    if cond_channels:
+        kw["cond"] = jnp.zeros((1, s, s, cond_channels))
+    if jcfg.num_classes is not None:
+        kw["y"] = jnp.zeros((1,), jnp.int32)
+    x = jnp.zeros((1, s, s, jcfg.in_channels - cond_channels))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x,
+                            jnp.zeros((1,), jnp.int32), **kw)
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            vals = rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "embedding":
+            vals = rng.normal(size=shape)
+        elif name == "scale":
+            vals = 1.0 + 0.05 * rng.normal(size=shape)
+        else:
+            vals = 0.05 * rng.normal(size=shape)
+        return vals.astype(np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def port_model(tcfg, params):
+    """The port's UNet loaded (strictly) with the JAX params."""
+    model = TU.UNet(tcfg)
+    model.load_state_dict(state_dict_from_jax_params(params, tcfg), strict=True)
+    return model.eval()
+
+
+def rel_err(out, ref):
+    """max |out - ref| / max |ref|"""
+    out = out.detach().numpy() if torch.is_tensor(out) else np.asarray(out)
+    ref = np.asarray(ref)
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
