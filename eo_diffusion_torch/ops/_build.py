@@ -65,7 +65,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # one builder per checkout at a time
+        fcntl.flock(lock, fcntl.LOCK_EX)  # one build per checkout at a time
         procs, out = {}, {}
         t0 = time.perf_counter()
         for name in names:

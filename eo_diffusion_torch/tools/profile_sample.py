@@ -68,7 +68,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="chiprun_out/profile_sample.json")
+    ap.add_argument("--out", default="results/profile_sample.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sample: needs a CUDA device")
