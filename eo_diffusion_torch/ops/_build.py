@@ -84,6 +84,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         for name, (proc, tmp, lib) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
                 continue
             os.replace(tmp, lib)

@@ -1,0 +1,67 @@
+"""The port's kernel build (eo_diffusion_torch.ops._build) without a GPU: a
+stand-in ``nvcc`` shows the build, cache and failure paths."""
+
+import os
+import stat
+
+import pytest
+
+from eo_diffusion_torch.ops import _build
+
+FAKE_NVCC = """#!/bin/sh
+# stand-in compiler: write the -o target, or fail when the source says so
+out=""; src=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift ;; *.cu) src="$1" ;; esac
+  shift
+done
+if grep -q FAIL "$src"; then echo "error: bad source" ; exit 2; fi
+echo "ptxas info    : Used 32 registers"
+echo built > "$out"
+"""
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel v1\n")
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "KERNELS", {"k": "k.cu"})
+    monkeypatch.setattr(_build, "_loaded", {})
+    return csrc / "k.cu"
+
+
+def test_build_caches_by_source_hash(fake_toolchain):
+    first = _build.build_all()["k"]
+    assert first["path"].exists() and "32 registers" in first["log"]
+    again = _build.build_all()["k"]  # unchanged source: reused, not rebuilt
+    assert again["path"] == first["path"] and again["seconds"] == 0.0
+    assert "32 registers" in again["log"]
+    fake_toolchain.write_text("// kernel v2\n")  # an edited kernel gets a new library
+    edited = _build.build_all()["k"]
+    assert edited["path"] != first["path"] and edited["path"].exists()
+    assert not [p for p in os.listdir(_build.BUILD_DIR) if ".tmp" in p]
+
+
+def test_failed_build_raises_with_the_log(fake_toolchain):
+    fake_toolchain.write_text("// FAIL\n")
+    with pytest.raises(RuntimeError, match="bad source"):
+        _build.build_all()
+    assert not _build.library_path("k").exists()
+
+
+def test_no_nvcc_is_a_clear_error(tmp_path, monkeypatch):
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has a CUDA toolkit")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
