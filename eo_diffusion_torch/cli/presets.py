@@ -36,7 +36,9 @@ class Preset:
     batch_size: int = 128
     objective: str = "eps"
 
-    def unet_config(self, bf16: bool = True, cond_channels: int = 0) -> UNetConfig:
+    def unet_config(self, bf16: bool = True, cond_channels: int = 0,
+                    num_classes: Optional[int] = None,
+                    class_dropout_prob: float = 0.0) -> UNetConfig:
         return UNetConfig(
             image_size=self.image_size,
             in_channels=self.in_channels + cond_channels,
@@ -46,7 +48,8 @@ class Preset:
             attention_resolutions=self.attention_resolutions,
             channel_mult=self.dim_mults,
             num_heads=self.num_heads,
-            num_classes=self.num_classes or None,
+            num_classes=num_classes or self.num_classes or None,
+            class_dropout_prob=class_dropout_prob,
             dtype=torch.bfloat16 if bf16 else torch.float32,
         )
 

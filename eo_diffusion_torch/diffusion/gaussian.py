@@ -1,8 +1,12 @@
-"""Gaussian diffusion: DDPM (with RePaint) and DDIM samplers in PyTorch.
+"""Gaussian diffusion: the training loss, DDPM (with RePaint) and DDIM
+samplers in PyTorch.
 
-Counterpart of ``eo_diffusion_tpu/diffusion/gaussian.py`` on the sampling
-path:
+Counterpart of ``eo_diffusion_tpu/diffusion/gaussian.py``:
 
+* ``train_loss``: the objective-MSE loss (reference ``EODiffusion.forward``,
+  model.py:38-44, plus the x0/v objectives and the p2, min-SNR and VLB
+  reweightings), with ``training_tuple`` / ``training_weight`` as its
+  decomposition;
 * ``EODiffusion`` (reference ``diffusion/model.py:12-150``): cosine-beta
   DDPM, ancestral sampling with optional x0 clipping and RePaint-"sum"
   masked conditioning (``model.py:58-60``), plus RePaint jumps
@@ -13,8 +17,9 @@ path:
 The reverse loops are plain Python loops over the steps. x_t is carried in
 float32 and only the model input is cast to ``dtype`` (per-step bf16
 rounding accumulates over the chain). Random draws come from an explicit
-``torch.Generator``; ``noise_fn(i, role)`` replaces them, so tests can feed
-the JAX package's noise. All tensors are NHWC.
+``torch.Generator``; ``noise_fn(i, role)`` replaces them in the samplers and
+``t=`` / ``noise=`` in ``train_loss``, so tests can feed the JAX package's
+draws. All tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -101,22 +106,38 @@ class GaussianDiffusion:
     in_channels: int
     cond_type: Optional[str] = None  # None | "sum" (RePaint) | "concat"
     objective: str = "eps"  # "eps" | "x0" | "v"
+    # p2 loss reweighting (arXiv:2204.00227): (k + SNR)^-gamma; gamma 0 = off
+    p2_loss_weight_k: float = 1.0
+    p2_loss_weight_gamma: float = 0.0
+    # min-SNR-gamma weighting (arXiv:2303.09556); 0 = off
+    min_snr_gamma: float = 0.0
+    # CompVis-style VLB auxiliary loss: total = L_simple + elbo_weight *
+    # E_t[lvlb_w(t) * err(t)]; 0 = off
+    elbo_weight: float = 0.0
     _tables: Dict[Any, torch.Tensor] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def create(cls, timesteps: int = 1000, image_size: int = 64, in_channels: int = 3,
                cond_type: Optional[str] = None, schedule: str = "cosine_eo",
-               objective: str = "eps", zero_terminal_snr: bool = False,
-               self_condition: bool = False) -> "GaussianDiffusion":
+               objective: str = "eps", p2_loss_weight_k: float = 1.0,
+               p2_loss_weight_gamma: float = 0.0, self_condition: bool = False,
+               elbo_weight: float = 0.0, zero_terminal_snr: bool = False,
+               min_snr_gamma: float = 0.0) -> "GaussianDiffusion":
         assert objective in ("eps", "x0", "v"), objective
+        # with SNR(T) = 0 the model sees pure noise at the terminal step, so
+        # eps-prediction degenerates; the rescale is only sound under v
         assert not zero_terminal_snr or objective == "v", (
-            "zero_terminal_snr requires objective='v' (arXiv:2305.08891 §2.2)")
+            "zero_terminal_snr requires objective='v' (at SNR=0 the eps/x0 "
+            "parameterizations cannot recover x0; arXiv:2305.08891 §2.2)")
         _unported(self_condition=self_condition)
         return cls(schedule=make_schedule(timesteps, schedule,
                                           zero_terminal_snr=zero_terminal_snr),
                    image_size=image_size, in_channels=in_channels,
-                   cond_type=cond_type, objective=objective)
+                   cond_type=cond_type, objective=objective,
+                   p2_loss_weight_k=p2_loss_weight_k,
+                   p2_loss_weight_gamma=p2_loss_weight_gamma,
+                   elbo_weight=elbo_weight, min_snr_gamma=min_snr_gamma)
 
     @property
     def timesteps(self) -> int:
@@ -139,6 +160,116 @@ class GaussianDiffusion:
         """q(x_t | x_0) (reference ``_forward_diffusion``, model.py:94-98)."""
         return (self._bcast("sqrt_alphas_cumprod", t) * x0
                 + self._bcast("sqrt_one_minus_alphas_cumprod", t) * noise)
+
+    # -- training ---------------------------------------------------------
+
+    def _target(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Regression target per objective; v = a*eps - s*x0 with
+        a = sqrt(acp), s = sqrt(1-acp) (Salimans & Ho 2022)."""
+        if self.objective == "eps":
+            return noise
+        if self.objective == "x0":
+            return x0
+        return (self._bcast("sqrt_alphas_cumprod", t) * noise
+                - self._bcast("sqrt_one_minus_alphas_cumprod", t) * x0)
+
+    def _p2_weight(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.p2_loss_weight_gamma == 0.0:
+            return None
+        acp = self._table("alphas_cumprod", t.device)[t]
+        snr = acp / (1.0 - acp)
+        return (self.p2_loss_weight_k + snr) ** (-self.p2_loss_weight_gamma)
+
+    def _min_snr_weight(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """min-SNR-gamma weight per sample (arXiv:2303.09556 §3.2), in the
+        parameterization actually trained (the paper states weights w.r.t.
+        the x0 loss; dividing by the objective's SNR power converts)."""
+        if self.min_snr_gamma == 0.0:
+            return None
+        acp = self._table("alphas_cumprod", t.device)[t]
+        snr = acp / torch.clamp(1.0 - acp, min=1e-12)
+        clipped = torch.clamp(snr, max=self.min_snr_gamma)
+        if self.objective == "eps":
+            return clipped / torch.clamp(snr, min=1e-12)
+        if self.objective == "v":
+            return clipped / (snr + 1.0)
+        return clipped  # x0
+
+    def _lvlb_weights(self, device) -> torch.Tensor:
+        """CompVis lvlb weights for the eps parameterization
+        (ddpm.py:164-174): beta^2 / (2 sigma_posterior^2 alpha (1-acp)),
+        with the t=0 term copied from t=1 to avoid the 0/0."""
+        key = ("lvlb", str(device))
+        if key not in self._tables:
+            betas, alphas = self._table("betas", device), self._table("alphas", device)
+            acp = self._table("alphas_cumprod", device)
+            acp_prev = self._table("alphas_cumprod_prev", device)
+            posterior_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+            w = betas**2 / (2.0 * torch.clamp(posterior_var, min=1e-20) * alphas * (1.0 - acp))
+            w[0] = w[1]
+            self._tables[key] = w
+        return self._tables[key]
+
+    def _draw_t_noise(self, x0, generator, t, noise):
+        n = x0.shape[0]
+        if t is None:
+            t = torch.randint(0, self.timesteps, (n,), generator=generator, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                                dtype=x0.dtype)
+        return t.to(device=x0.device, dtype=torch.long), noise.to(x0.dtype)
+
+    def training_tuple(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       t: Optional[torch.Tensor] = None):
+        """Draw one training instance ``(x_t, t, target)`` such that
+        ``mean(w * (model(x_t, t) - target)^2)`` with ``w`` from
+        :meth:`training_weight` equals :meth:`train_loss`."""
+        t, noise = self._draw_t_noise(x0, generator, t, noise)
+        x_t = self.q_sample(x0, t, noise)
+        return x_t, t, self._target(x0.float(), t, noise.float())
+
+    def training_weight(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """Per-sample loss weight [N]: the reweightings are per-sample scalars
+        in t and compose multiplicatively, ``w = p2 * min_snr * (1 +
+        elbo_weight * lvlb)``. None when no reweighting is configured."""
+        w = None
+        for part in (self._p2_weight(t), self._min_snr_weight(t)):
+            if part is not None:
+                w = part if w is None else w * part
+        if self.elbo_weight > 0.0:
+            vlb = 1.0 + self.elbo_weight * self._lvlb_weights(t.device)[t]
+            w = vlb if w is None else w * vlb
+        return w
+
+    def train_loss(self, model_fn: DenoiseFn, x0: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   cond: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Objective-MSE training loss (a float32 scalar).
+
+        The reference's active path is epsilon-MSE (model.py:38-44 +
+        train.py:86,117); the "x0"/"v" objectives and p2 reweighting follow
+        the vendored lucidrains trainer's options. The timesteps and the noise
+        are drawn from ``generator`` unless given: ``noise`` is the fixed eps
+        per sample of the reference's ``EODiffusion.forward``, ``t`` lets a
+        test feed another framework's draw. The error and the target are
+        float32 whatever the model computes in.
+        """
+        t, noise = self._draw_t_noise(x0, generator, t, noise)
+        x_t = self.q_sample(x0, t, noise).to(x0.dtype)
+        pred = model_fn(x_t, t, cond, y)
+        target = self._target(x0.float(), t, noise.float())
+        err = (pred.float() - target) ** 2
+        for w in (self._p2_weight(t), self._min_snr_weight(t)):
+            if w is not None:
+                err = err * w[:, None, None, None]
+        loss = err.mean()
+        if self.elbo_weight > 0.0:
+            per = err.mean(dim=(1, 2, 3))
+            loss = loss + self.elbo_weight * (self._lvlb_weights(t.device)[t] * per).mean()
+        return loss
 
     def _to_eps_x0(self, pred: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
         """Model output -> (eps, x0) for the reverse process (float32)."""

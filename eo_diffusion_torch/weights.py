@@ -29,6 +29,7 @@ __all__ = [
     "fix_legacy_dict",
     "state_dict_from_jax_params",
     "load_reference_checkpoint",
+    "load_jax_train_state",
     "randomize_parameters",
 ]
 
@@ -128,8 +129,33 @@ def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, to
             layer(spec, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
     gn("out.0", p["out_norm"])
     conv("out.2", p["out_conv"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
             for k, v in sd.items()}
+
+
+@torch.no_grad()
+def load_jax_train_state(state, cfg: UNetConfig, params: Mapping, ema_params: Mapping,
+                         mu: Mapping = None, nu: Mapping = None, step: int = 0,
+                         opt_step: int = None):
+    """Fill the port's train state (``train.trainer.TrainState``) from a JAX
+    ``TrainState`` given as numpy arrays: ``params`` and ``ema_params`` (flax
+    trees), Adam's first and second moments ``mu`` / ``nu`` (same trees; None
+    leaves the optimizer fresh), the micro-step counter ``step`` and the
+    number of optimizer updates ``opt_step`` (default ``step``). Both
+    trainers can then start from the same state, mid-run too."""
+    state.model.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)
+    state.ema_model.load_state_dict(state_dict_from_jax_params(ema_params, cfg), strict=True)
+    state.step = int(step)
+    state.opt_step = int(step if opt_step is None else opt_step)
+    if mu is not None:
+        mu_sd, nu_sd = (state_dict_from_jax_params(m, cfg) for m in (mu, nu))
+        for name, prm in state.model.named_parameters():
+            state.optimizer.state[prm] = {
+                "step": torch.tensor(float(state.opt_step)),
+                "exp_avg": mu_sd[name].to(prm.device),
+                "exp_avg_sq": nu_sd[name].to(prm.device),
+            }
+    return state
 
 
 @torch.no_grad()

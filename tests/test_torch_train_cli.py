@@ -1,0 +1,121 @@
+"""The port's training CLI (python -m eo_diffusion_torch.cli.train) on the CPU:
+the tiny concat preset, synthetic data, one short epoch."""
+
+import os
+import signal
+
+import pytest
+import torch
+
+from eo_diffusion_torch.cli import inference, train
+from torch_parity import one_torch_thread  # noqa: F401  (autouse fixture)
+
+BASE = ["--preset", "tiny-cr", "--dataset", "synthetic", "--device", "cpu", "--batch_size", "4",
+        "--steps_per_epoch", "4", "--n_samples", "4", "--preview_sampler", "ddim",
+        "--preview_steps", "2", "--log_freq", "2", "--dir", "results/t"]
+
+
+@pytest.fixture()
+def workdir(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the CLI writes logs/ and results/ under the cwd
+    return tmp_path
+
+
+def test_one_epoch_writes_checkpoints_and_previews_then_resumes(workdir, capsys):
+    res = train.main(train.parse_args(BASE + ["--epochs", "1", "--sample_every", "4",
+                                              "--save_every", "2"]))
+    assert res["steps"] == 4 and len(res["losses"]) == 4 and res["preempted"] is None
+    assert all(x == x and abs(x) < 10 for x in res["losses"])
+    assert sorted(os.listdir(workdir / "logs" / "t")) == ["steps_00000002", "steps_00000004"]
+    assert sorted(os.listdir(workdir / "results" / "t")) == [
+        "steps_00000004.png", "steps_00000004_cond.png"]
+    out = capsys.readouterr().out
+    assert "Epoch[1/1],Step[0/4],loss:" in out and "done: 4 steps in" in out
+
+    # --resume picks up the newest checkpoint and continues step, LR and EMA cadence
+    res2 = train.main(train.parse_args(BASE + ["--epochs", "2", "--sample_every", "0",
+                                               "--save_every", "0", "--resume"]))
+    out = capsys.readouterr().out
+    assert "auto-resume: found" in out and "resuming from step 4" in out
+    assert "Epoch[2/2],Step[0/4]" in out and "Epoch[1/2]" not in out
+    assert res2["steps"] == 8 and len(res2["losses"]) == 4
+    assert res2["checkpoint"].endswith("steps_00000008") and res2["state"].opt_step == 8
+
+    # the sampling CLI reads the training checkpoint (EMA weights first)
+    args = inference.parse_args(["--preset", "tiny-cr", "--dataset", "synthetic", "--device",
+                                 "cpu", "--sampler", "ddim", "--sampler_steps", "2",
+                                 "--n_iter", "0", "--batch_size", "2", "--ckpt",
+                                 res2["checkpoint"], "--outdir", str(workdir / "out")])
+    x = torch.as_tensor(inference.main(args)["samples"])
+    assert x.shape == (2, 8, 8, 3) and bool(torch.isfinite(x).all())
+
+
+def test_best_checkpoint_follows_the_loss_from_the_reference_bar(workdir, monkeypatch):
+    """A ``best`` checkpoint is written when the loss falls below 0.9 and then
+    below its own best (train.py:100, :133-155)."""
+    from eo_diffusion_torch.train import trainer as TR
+
+    losses = iter([1.2, 0.95, 0.8, 0.85, 0.5, 0.7])
+    real_step = TR.Trainer.step
+
+    def step(self, state, batch):
+        state, m = real_step(self, state, batch)
+        return state, dict(m, loss=torch.tensor(next(losses)))
+
+    monkeypatch.setattr(TR.Trainer, "step", step)
+    saved = []
+    from eo_diffusion_torch.train import checkpoint as C
+    real_save = C.save_checkpoint
+    monkeypatch.setattr(C, "save_checkpoint", lambda d, s, step=None, name=None: (
+        saved.append((name, s["step"])), real_save(d, s, step=step, name=name))[1])
+    train.main(train.parse_args(BASE + ["--epochs", "1", "--steps_per_epoch", "6",
+                                        "--sample_every", "0", "--save_every", "0"]))
+    assert saved == [("best", 3), ("best", 5), (None, 6)]
+
+
+def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, capsys):
+    from eo_diffusion_torch.train import trainer as TR
+
+    real_step = TR.Trainer.step
+
+    def step(self, state, batch):
+        out = real_step(self, state, batch)
+        if out[0].step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    monkeypatch.setattr(TR.Trainer, "step", step)
+    before = signal.getsignal(signal.SIGTERM)
+    res = train.main(train.parse_args(BASE + ["--epochs", "3", "--sample_every", "0",
+                                              "--save_every", "0"]))
+    assert res["preempted"] == signal.SIGTERM and res["steps"] == 2
+    assert os.path.exists(workdir / "logs" / "t" / "steps_00000002")
+    assert "rerun with --resume" in capsys.readouterr().out
+    assert signal.getsignal(signal.SIGTERM) is before
+
+
+@pytest.mark.parametrize("flag,queue", [("--fsdp", 16), ("--optimizer=muon", 14),
+                                        ("--posthoc_ema", 11), ("--data_root", 7),
+                                        ("--tome_ratio", 13), ("--ae_ckpt", 10)])
+def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
+    with pytest.raises(SystemExit) as exc:
+        train.parse_args(["--preset", "tiny", flag])
+    assert exc.value.code != 0
+    assert f"ROADMAP queue {queue}" in capsys.readouterr().err
+
+
+def test_unported_presets_and_datasets_raise(workdir):
+    with pytest.raises(NotImplementedError, match="queue 10"):
+        train.main(train.parse_args(["--preset", "latent256", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="synthetic"):
+        train.main(train.parse_args(["--preset", "tiny", "--dataset", "eurosat",
+                                     "--device", "cpu"]))
+
+
+def test_no_gpu_without_device_cpu_fails_clearly(workdir):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default --device cuda is valid")
+    with pytest.raises(SystemExit) as exc:
+        train.main(train.parse_args(["--preset", "tiny", "--dataset", "synthetic"]))
+    assert "no CUDA device" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
+    assert not (workdir / "logs").exists()
