@@ -6,21 +6,24 @@ Phases, in order; the first failure exits non-zero:
 
 1. require CUDA; print the card's name and power limit; TF32 off;
 2. build every CUDA kernel of the port from the sources in this checkout;
-3. hold each kernel (attention forward, attention backward) against its
-   plain PyTorch version on the card at the shapes the main paths give it,
-   and time kernel, plain version, the PyTorch library call and the card's
-   lower bound;
-4. one clouds-UNet forward at 256 px, kernel attention against plain, then
-   one loss and backward, kernel against plain: every parameter gets a
-   finite gradient, the attention's qkv weights a non-zero one;
+3. hold each kernel (attention forward, attention backward, GroupNorm +
+   FiLM + SiLU forward and backward) against its plain PyTorch version on
+   the card at the shapes the main paths give it, and time kernel, plain
+   version, the PyTorch library call and the card's lower bound;
+4. one clouds-UNet forward at 256 px, kernels against the all-plain model
+   (plain attention and plain norms), then one loss and backward, kernels
+   against plain: every parameter gets a finite gradient, the attention's
+   qkv weights a non-zero one;
 5. the sampling path through the entry point: ``eo_diffusion_torch.cli.inference``
    with ``sen12mscr256`` (concat cloud removal), DDIM-50, batch 8, seeded
-   random weights; the kernel counter must rise by 11 x 50 per batch;
+   random weights; the attention counter must rise by 11 x 50 per batch and
+   the GroupNorm counter by 56 x 50;
 6. the reference's own 64 px path: ``clouds64-attn`` RePaint DDPM-100;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
-   steps from seeded weights; both kernel counters must rise by 11 a step;
-   the checkpoint restores and the sampling entry point samples from it;
+   steps from seeded weights; the attention counters must rise by 11 a step
+   and the GroupNorm counters by 56; the checkpoint restores and the
+   sampling entry point samples from it;
 8. print the ``{"kernels": [...]}`` line, the card line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -44,10 +47,11 @@ import torch.nn.functional as F
 from eo_diffusion_torch.cli import inference as cli
 from eo_diffusion_torch.cli import train as cli_train
 from eo_diffusion_torch.cli.presets import get_preset
-from eo_diffusion_torch.models.unet import AttentionBlock, UNet, unet_clouds
+from eo_diffusion_torch.models.unet import UNet, unet_clouds
 from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.ops import attention as A
+from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -75,6 +79,19 @@ TOL_BWD = {torch.bfloat16: 4e-2, torch.float32: 2e-4}
 # ulps in every block, and the difference crosses the bf16 layers both ways
 TOL_UNET_GRAD_REL = 1e-2
 ATTN_PER_FORWARD = 11  # clouds UNet: 5 attention blocks at ds 4, 6 at ds 8
+# clouds UNet: 22 ResBlocks x 2 norms, 11 attention norms, the output norm
+GN_PER_FORWARD = 56
+# GroupNorm kernel vs plain (both f32 from the same inputs, one rounding):
+# forward |kernel - plain| <= TOL_GN * max(1, |plain|); bf16 one output ulp
+# (2^-7 relative) where the two f32 values straddle a rounding boundary, f32
+# the order of the sums (the mean-100 case moves the mean by ulps of 100).
+# Backward: dx the same against max(rms of dx, |plain|); dgamma and dbeta,
+# f32 sums over HW in another order, TOL_GN_PARAMS of max(rms, |plain|)
+TOL_GN = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TOL_GN_PARAMS = 1e-3
+# f32 operations an element (not on the tensor cores): forward statistics
+# and affine 5, SiLU 4 more; backward 11, SiLU's derivative 8 more
+GN_OPS = {("fwd", "none"): 5, ("fwd", "silu"): 9, ("bwd", "none"): 11, ("bwd", "silu"): 19}
 TRAIN_STEPS = 8
 
 
@@ -192,6 +209,113 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen):
     return row
 
 
+def reset_counts():
+    A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+    G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
+
+
+def counts():
+    return {"attn_fwd": A.qkv_attention_cuda.launches,
+            "attn_bwd": A.qkv_attention_bwd_cuda.launches,
+            "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches}
+
+
+def gn_bound_ms(direction, act, n, hw, c, groups, esize):
+    """The card's least time: each input read once and each output written
+    once (x and y, or x, dy and dx; gamma, beta [N, C] and mean, rstd [N, G]
+    f32; dgamma, dbeta [N, C] f32), or the f32 operations at 67 TFLOP/s."""
+    elems = n * hw * c
+    if direction == "fwd":
+        nbytes = 2 * elems * esize + 4 * (2 * n * c + 2 * n * groups)
+    else:
+        nbytes = 3 * elems * esize + 4 * (4 * n * c + 2 * n * groups)
+    flops = GN_OPS[(direction, act)] * elems
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
+    """GroupNorm kernels (forward, then backward from the kernel's mean and
+    rstd) vs their plain versions on one shape, with timings; returns the
+    forward and backward result rows."""
+    x = (loc + torch.randn(n, hw, c, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(n, hw, c, generator=gen, device="cuda").to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    if film:  # per-sample FiLM folded into gamma and beta, from a bf16 projection
+        s = (0.2 * torch.randn(n, c, generator=gen, device="cuda")).to(dtype).float()
+        t = (0.2 * torch.randn(n, c, generator=gen, device="cuda")).to(dtype).float()
+        gamma, beta = w * (1 + s), b * (1 + s) + t
+    else:
+        gamma, beta = w.expand(n, c).contiguous(), b.expand(n, c).contiguous()
+    y, mean, rstd = G.group_norm_fwd_cuda(x, gamma, beta, groups, 1e-5, act)
+    dx, dgamma, dbeta = G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, groups, act)
+    ref = G.group_norm_reference(x, gamma, beta, groups, act=act)
+    rdx, rdgamma, rdbeta = G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
+                                                           groups, act)
+    torch.cuda.synchronize()
+    # the statistics against float64, and the sum-of-squares recipe of the TPU
+    # kernel (E[x^2] - E[x]^2 in f32) beside them
+    xg = x.double().reshape(n, hw, groups, c // groups)
+    var64 = xg.var(dim=(1, 3), unbiased=False)
+    var_err = ((1 / rstd.double() ** 2 - 1e-5 - var64).abs() / var64).max().item()
+    xf = x.float().reshape(n, hw, groups, c // groups)
+    naive = xf.pow(2).mean(dim=(1, 3)) - xf.mean(dim=(1, 3)).pow(2)
+    naive_var_err = ((naive.double() - var64).abs() / var64).max().item()
+
+    def scaled(got, want, floor):
+        diff = (got.float() - want.float()).abs()
+        return diff.max().item(), (diff / want.float().abs().clamp(min=floor)).max().item()
+
+    err, sc = scaled(y, ref, 1.0)
+    label = f"N{n} HW{hw} C{c} G{groups} {act}{' film' if film else ''}{' mean100' if loc else ''}"
+    assert math.isfinite(err) and sc <= TOL_GN[dtype] and var_err <= 1e-4, (
+        f"group norm forward vs plain at {label} {dtype}: {sc} > {TOL_GN[dtype]} "
+        f"(variance rel err {var_err})")
+    dx_err, dx_sc = scaled(dx, rdx, rdx.float().pow(2).mean().sqrt().item())
+    p_sc = max(scaled(got, want, want.pow(2).mean().sqrt().item())[1]
+               for got, want in ((dgamma, rdgamma), (dbeta, rdbeta)))
+    assert math.isfinite(dx_err) and dx_sc <= TOL_GN[dtype] and p_sc <= TOL_GN_PARAMS, (
+        f"group norm backward vs plain at {label} {dtype}: dx {dx_sc}, params {p_sc}")
+    del ref, rdx
+
+    big = n * hw * c >= 2**24
+    reps, preps = (20, 3) if big else (100, 20)
+    fwd_ms = cuda_ms(lambda: G.group_norm_fwd_cuda(x, gamma, beta, groups, 1e-5, act), reps)
+    bwd_ms = cuda_ms(lambda: G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, groups,
+                                                   act), reps)
+    fwd_plain = cuda_ms(lambda: G.group_norm_reference(x, gamma, beta, groups, act=act), preps,
+                        warmup=1)
+    bwd_plain = cuda_ms(lambda: G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
+                                                                groups, act), preps, warmup=1)
+    # the library's yardstick: F.group_norm (affine [C], no SiLU) on an
+    # NCHW-contiguous copy of the same data, and its backward alone
+    xl = x.permute(0, 2, 1).contiguous().requires_grad_()
+    wl, bl = (v.to(dtype).requires_grad_() for v in (w, b))  # it takes x's dtype
+    yl = F.group_norm(xl, groups, wl, bl, 1e-5)
+    dyl = dy.permute(0, 2, 1).contiguous()
+    lib_fwd = cuda_ms(lambda: F.group_norm(xl.detach(), groups, wl.detach(), bl.detach(),
+                                           1e-5), reps)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl, retain_graph=True),
+                      reps)
+    del xl, yl, dyl
+    esize = x.element_size()
+    rows = []
+    for direction, kms, pms, lms, e, s in (("fwd", fwd_ms, fwd_plain, lib_fwd, err, sc),
+                                           ("bwd", bwd_ms, bwd_plain, lib_bwd, dx_err, dx_sc)):
+        bound, by = gn_bound_ms(direction, act, n, hw, c, groups, esize)
+        row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": e,
+               "max_scaled_err": s, "kernel_ms": kms, "plain_ms": pms, "library_ms": lms,
+               "bound_ms": bound, "bound_by": by}
+        if direction == "fwd":
+            row.update(var_rel_err=var_err, naive_var_rel_err=naive_var_err)
+        else:
+            row["params_max_scaled_err"] = p_sc
+        print(f"group_norm_{direction} " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def unet_backward_check(model, gen):
     """One loss and backward of the 256 px UNet with the kernels against the
     plain attention: same weights, same batch, same timesteps and noise."""
@@ -200,20 +324,17 @@ def unet_backward_check(model, gen):
     noise = torch.randn(2, 256, 256, 3, generator=gen, device="cuda")
     ts = torch.tensor([10, 500], device="cuda")
     model_fn = lambda x, t, c, y: model(x, t)
-    grads, losses, counts = {}, {}, None
+    grads, losses, launched = {}, {}, None
     for impl in ("auto", "plain"):
-        for m in model.modules():
-            if isinstance(m, AttentionBlock):
-                m.attn_impl = impl
-        model.zero_grad(set_to_none=True)
-        A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+        model.set_impl(attn=impl, norm=impl).zero_grad(set_to_none=True)
+        reset_counts()
         loss = diffusion.train_loss(model_fn, x0, t=ts, noise=noise)
         loss.backward()
         torch.cuda.synchronize()
         if impl == "auto":
-            counts = (A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches)
+            launched = counts()
         else:
-            assert A.qkv_attention_cuda.launches == A.qkv_attention_bwd_cuda.launches == 0
+            assert not any(counts().values()), counts()
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -228,10 +349,10 @@ def unet_backward_check(model, gen):
     rel = math.sqrt(num / den)
     print(f"unet256 loss+backward: loss {losses['auto']:.6f} (plain {losses['plain']:.6f}), "
           f"{len(grads['auto'])} parameter gradients finite, rel L2 kernel vs plain "
-          f"{rel:.3e} (tol {TOL_UNET_GRAD_REL}), launches fwd {counts[0]} bwd {counts[1]}",
-          flush=True)
+          f"{rel:.3e} (tol {TOL_UNET_GRAD_REL}), launches {launched}", flush=True)
     assert rel <= TOL_UNET_GRAD_REL, rel
-    assert counts == (ATTN_PER_FORWARD, ATTN_PER_FORWARD), counts
+    assert launched == {"attn_fwd": ATTN_PER_FORWARD, "attn_bwd": ATTN_PER_FORWARD,
+                        "gn_fwd": GN_PER_FORWARD, "gn_bwd": GN_PER_FORWARD}, launched
 
 
 def run_train(tmp, seed):
@@ -242,17 +363,16 @@ def run_train(tmp, seed):
             "--save_every", "0", "--model_ema_steps", "2", "--log_freq", "1",
             "--seed", str(seed), "--device", "cuda", "--dir", "results/train_smoke"]
     torch.cuda.reset_peak_memory_stats()
-    A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+    reset_counts()
     with contextlib.chdir(tmp):  # the CLI writes logs/ and results/ under the cwd
         res = cli_train.main(cli_train.parse_args(argv))
-    res["fwd_launches"] = A.qkv_attention_cuda.launches
-    res["bwd_launches"] = A.qkv_attention_bwd_cuda.launches
+    res["launches"] = counts()
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     assert res["steps"] == TRAIN_STEPS and len(res["losses"]) == TRAIN_STEPS, res["steps"]
     assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
-    want = ATTN_PER_FORWARD * TRAIN_STEPS
-    assert (res["fwd_launches"], res["bwd_launches"]) == (want, want), (
-        res["fwd_launches"], res["bwd_launches"], want)
+    want_attn, want_gn = ATTN_PER_FORWARD * TRAIN_STEPS, GN_PER_FORWARD * TRAIN_STEPS
+    assert res["launches"] == {"attn_fwd": want_attn, "attn_bwd": want_attn,
+                               "gn_fwd": want_gn, "gn_bwd": want_gn}, res["launches"]
 
     # parameters and EMA moved away from the seeded initial weights
     state = res["state"]
@@ -273,11 +393,12 @@ def run_train(tmp, seed):
                            "ddim", "--sampler_steps", "4", "--batch_size", "2", "--n_iter", "0",
                            "--device", "cuda", "--ckpt", ckpt, "--seed", str(seed),
                            "--outdir", os.path.join(tmp, "out_train")])
-    A.qkv_attention_cuda.launches = 0
+    reset_counts()
     sampled = cli.main(args)
     x = torch.as_tensor(sampled["samples"])
     assert x.shape == (2, 256, 256, 3) and bool(torch.isfinite(x).all()), x.shape
-    assert A.qkv_attention_cuda.launches == ATTN_PER_FORWARD * 4, A.qkv_attention_cuda.launches
+    assert counts() == {"attn_fwd": ATTN_PER_FORWARD * 4, "attn_bwd": 0,
+                        "gn_fwd": GN_PER_FORWARD * 4, "gn_bwd": 0}, counts()
     del res["state"]
     return res
 
@@ -290,9 +411,9 @@ def run_cli(argv, cfg, seed, tmp):
     args = cli.parse_args(argv + ["--ckpt", ckpt, "--outdir", os.path.join(tmp, "out"),
                                   "--seed", str(seed)])
     torch.cuda.reset_peak_memory_stats()
-    A.qkv_attention_cuda.launches = 0
+    reset_counts()
     res = cli.main(args)
-    res["launches"] = A.qkv_attention_cuda.launches
+    res["launches"] = counts()
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     x = res["samples"]
     assert x is not None and bool(torch.isfinite(torch.as_tensor(x)).all()), "non-finite samples"
@@ -343,25 +464,43 @@ def main() -> int:
     bwd_rows.append(attention_bwd_case(3, 1000, 4, 48, torch.bfloat16, True, gen))  # ragged T
     torch.cuda.empty_cache()
 
-    # 4. UNet forward at 256 px: kernel against plain attention, same weights
+    # GroupNorm + FiLM + SiLU, forward and backward: the clouds UNet's norm
+    # sites at 256 px, batch 8 (levels 0-3; the attention norm has no SiLU;
+    # 896 channels are groups of 28), then FiLM, a narrow width, f32 and the
+    # mean-100 case where E[x^2] - E[x]^2 in f32 cancels
+    gn_rows = []
+    for n, hw, c, groups, act, dtype, film, loc in (
+            (8, 65536, 128, 32, "silu", torch.bfloat16, False, 0.0),
+            (8, 16384, 256, 32, "silu", torch.bfloat16, False, 0.0),
+            (8, 4096, 384, 32, "none", torch.bfloat16, False, 0.0),
+            (8, 1024, 512, 32, "silu", torch.bfloat16, False, 0.0),
+            (8, 4096, 896, 32, "silu", torch.bfloat16, False, 0.0),
+            (8, 4096, 384, 32, "silu", torch.bfloat16, True, 0.0),
+            (8, 4096, 24, 24, "silu", torch.bfloat16, False, 0.0),
+            (2, 16384, 256, 32, "silu", torch.float32, False, 0.0),
+            (2, 65536, 128, 32, "silu", torch.float32, False, 100.0)):
+        gn_rows.append(gn_case(n, hw, c, groups, act, dtype, gen, film=film, loc=loc))
+    torch.cuda.empty_cache()
+
+    # 4. UNet forward at 256 px: the kernels against the all-plain model
+    # (plain attention and plain norms), same weights
     cfg = unet_clouds(256, dtype=torch.bfloat16)
     model = randomize_parameters(UNet(cfg), seed=1).cuda().eval()
     x = torch.randn(2, 256, 256, 3, generator=gen, device="cuda")
     ts = torch.tensor([10, 500], device="cuda")
     with torch.inference_mode():
-        A.qkv_attention_cuda.launches = 0
+        reset_counts()
         out_k = model(x, ts).float()
-        fwd_launches = A.qkv_attention_cuda.launches
-        for m in model.modules():
-            if isinstance(m, AttentionBlock):
-                m.attn_impl = "plain"
-        out_p = model(x, ts).float()
+        fwd_launches = counts()
+        out_p = model.set_impl(attn="plain", norm="plain")(x, ts).float()
+        assert not any(counts()[k] - fwd_launches[k] for k in fwd_launches), counts()
     rel = ((out_k - out_p).norm() / out_p.norm()).item()
-    print(f"unet256 forward: rel L2 kernel vs plain {rel:.3e} (tol {TOL_UNET_REL}), "
+    print(f"unet256 forward: rel L2 kernels vs plain {rel:.3e} (tol {TOL_UNET_REL}), "
           f"max abs {(out_k - out_p).abs().max().item():.3e}, |out| rms "
           f"{out_p.pow(2).mean().sqrt().item():.3e}, launches {fwd_launches}", flush=True)
     assert torch.isfinite(out_k).all() and rel <= TOL_UNET_REL, rel
-    assert fwd_launches == ATTN_PER_FORWARD, fwd_launches
+    assert fwd_launches == {"attn_fwd": ATTN_PER_FORWARD, "attn_bwd": 0,
+                            "gn_fwd": GN_PER_FORWARD, "gn_bwd": 0}, fwd_launches
     del out_k, out_p
     unet_backward_check(model.train(), gen)
     del model
@@ -376,7 +515,9 @@ def main() -> int:
                             "--batch_size", "8", "--n_iter", "0", "--device", "cuda"],
                            sen.unet_config(cond_channels=3), seed=2, tmp=tmp)
         assert main_res["samples"].shape == (8, 256, 256, 3), main_res["samples"].shape
-        want = ATTN_PER_FORWARD * steps * main_res["batches"]
+        calls = steps * main_res["batches"]
+        want = {"attn_fwd": ATTN_PER_FORWARD * calls, "attn_bwd": 0,
+                "gn_fwd": GN_PER_FORWARD * calls, "gn_bwd": 0}
         assert main_res["launches"] == want, (main_res["launches"], want)
         print(f"main path sen12mscr256 DDIM-{steps} b8: {main_res['images']} images in "
               f"{main_res['sample_seconds']:.3f} s = "
@@ -391,7 +532,9 @@ def main() -> int:
                          "--n_iter", "1", "--device", "cuda"],
                         get_preset("clouds64-attn").unet_config(), seed=3, tmp=tmp)
         assert res64["samples"].shape == (8, 64, 64, 3), res64["samples"].shape
-        want64 = ATTN_PER_FORWARD * t64 * res64["batches"]
+        calls64 = t64 * res64["batches"]
+        want64 = {"attn_fwd": ATTN_PER_FORWARD * calls64, "attn_bwd": 0,
+                  "gn_fwd": GN_PER_FORWARD * calls64, "gn_bwd": 0}
         assert res64["launches"] == want64, (res64["launches"], want64)
         print(f"clouds64-attn RePaint DDPM-{t64} b8: {res64['images']} images in "
               f"{res64['sample_seconds']:.3f} s = "
@@ -405,27 +548,28 @@ def main() -> int:
         print(f"training path sen12mscr256 b8 bf16: {train_res['steps']} steps in "
               f"{train_res['seconds']:.3f} s; steady {sps:.4f} steps/s = {8 * sps:.4f} img/s; "
               f"loss {train_res['losses'][0]:.5f} -> {train_res['losses'][-1]:.5f}; "
-              f"launches fwd {train_res['fwd_launches']} bwd {train_res['bwd_launches']}; "
+              f"launches {train_res['launches']}; "
               f"|d params| {train_res['param_delta']:.4e} |d ema| {train_res['ema_delta']:.4e}; "
               f"peak memory {train_res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
     # 8. the result lines
     main_row = rows[0]
     bwd_row = bwd_rows[0]
+    gn_fwd_rows, gn_bwd_rows = [r[0] for r in gn_rows], [r[1] for r in gn_rows]
     kernels = [{
         "name": "qkv_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:738",
-        "launches": main_res["launches"],
+        "launches": main_res["launches"]["attn_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "launches_clouds64": res64["launches"],
-        "launches_train": train_res["fwd_launches"],
+        "launches_clouds64": res64["launches"]["attn_fwd"],
+        "launches_train": train_res["launches"]["attn_fwd"],
         "ms_with_lse": lse_rows[0]["kernel_ms"],
         "shapes": rows,
     }, {
@@ -433,7 +577,7 @@ def main() -> int:
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_bwd.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:502",
-        "launches": train_res["bwd_launches"],
+        "launches": train_res["launches"]["attn_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "bfloat16"),
         "ms": bwd_row["kernel_ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -441,7 +585,26 @@ def main() -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
         "shapes": bwd_rows,
-    }]
+    }] + [{
+        "name": f"group_norm_{direction}",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/group_norm.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in gn if r["dtype"] == "bfloat16"),
+        "ms": gn[0]["kernel_ms"],
+        "plain_ms": gn[0]["plain_ms"],
+        "bound_ms": gn[0]["bound_ms"],
+        "bound_by": gn[0]["bound_by"],
+        "library_ms": gn[0]["library_ms"],
+        **extra,
+        "shapes": gn,
+    } for direction, replaces, launches, gn, extra in (
+        ("fwd", "eo_diffusion_tpu/ops/group_norm.py:48", main_res["launches"]["gn_fwd"],
+         gn_fwd_rows, {"launches_clouds64": res64["launches"]["gn_fwd"],
+                       "launches_train": train_res["launches"]["gn_fwd"]}),
+        ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
+         gn_bwd_rows, {}))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,11 @@ no renaming (see :mod:`eo_diffusion_torch.weights`).
 Activations are NHWC ``[N, H, W, C]``, like the JAX package; parameters are
 float32 and each layer computes in ``UNetConfig.dtype`` (bf16 on the sampling
 path), with GroupNorm statistics and softmax in float32. Self-attention goes
-through :func:`eo_diffusion_torch.ops.attention.attention_from_qkv`, which
-launches the CUDA kernel on the card.
+through :func:`eo_diffusion_torch.ops.attention.attention_from_qkv`, and
+every GroupNorm, with the SiLU and the FiLM scale-shift that follow it
+folded in, through :func:`eo_diffusion_torch.ops.group_norm.fused_group_norm`;
+both launch their CUDA kernels on the card. :meth:`UNet.set_impl` puts
+either on its plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from eo_diffusion_torch.nn.primitives import (
@@ -197,7 +199,10 @@ class ResBlock(nn.Module):
     GroupNorm32 -> SiLU -> conv3x3, timestep-embedding add (or FiLM
     scale-shift), GroupNorm32 -> SiLU -> dropout -> zero-init conv3x3, with a
     1x1 skip projection when channels change. ``up``/``down`` resample both
-    branches between the first norm and conv.
+    branches between the first norm and conv. Each norm runs with its SiLU
+    (and the FiLM scale-shift) folded in; the ``nn.SiLU`` entries stay in
+    the ``Sequential`` modules so the state-dict names keep the reference's
+    indices.
     """
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, dropout: float = 0.0,
@@ -215,19 +220,19 @@ class ResBlock(nn.Module):
                                 else Conv(in_ch, out_ch, 1, dtype=dtype))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.in_layers[0](x))
+        h = self.in_layers[0](x, act="silu")
         if self.up:
             h, x = nearest_upsample_2d(h), nearest_upsample_2d(x)
         elif self.down:
             h, x = avg_pool_2d(h), avg_pool_2d(x)
         h = self.in_layers[2](h)
-        emb_out = self.emb_layers(emb)[:, None, None, :].to(h.dtype)
+        emb_out = self.emb_layers(emb)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-            h = self.out_layers[3](self.out_layers[2](F.silu(h)))
+            h = self.out_layers[0](h, act="silu", scale=scale, shift=shift)
         else:
-            h = self.out_layers(h + emb_out)
+            h = self.out_layers[0](h + emb_out[:, None, None, :].to(h.dtype), act="silu")
+        h = self.out_layers[3](self.out_layers[2](h))
         return self.skip_connection(x) + h
 
 
@@ -337,6 +342,20 @@ class UNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(plan.out_ch), nn.SiLU(),
                                  ZeroConv(plan.out_ch, cfg.out_channels, 3, dtype=dt))
 
+    def set_impl(self, attn: Optional[str] = None, norm: Optional[str] = None) -> "UNet":
+        """Put every attention block (``attn``) and/or every GroupNorm
+        (``norm``) on its kernel (``"auto"``) or its plain version
+        (``"plain"``); ``None`` leaves that kind as it is."""
+        for impl in (attn, norm):
+            if impl not in (None, "auto", "plain"):
+                raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+        for m in self.modules():
+            if attn is not None and isinstance(m, AttentionBlock):
+                m.attn_impl = attn
+            if norm is not None and isinstance(m, GroupNorm32):
+                m.impl = norm
+        return self
+
     @staticmethod
     def _run(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         for layer in block:
@@ -366,7 +385,7 @@ class UNet(nn.Module):
         for block in self.output_blocks:
             h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
             h = self._run(block, h, emb)
-        h = self.out[2](F.silu(self.out[0](h)))
+        h = self.out[2](self.out[0](h, act="silu"))
         return h.to(x.dtype)
 
 

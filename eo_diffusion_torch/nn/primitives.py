@@ -10,17 +10,21 @@ to the layer's compute ``dtype`` at the call, where flax's ``dtype=`` puts the
 cast.
 
 * ``timestep_embedding`` -> reference ``unet_openai.py:81-99`` (f32, cos | sin)
-* ``GroupNorm32``        -> reference ``unet_openai.py:11-13`` (f32 statistics)
+* ``GroupNorm32``        -> reference ``unet_openai.py:11-13`` (f32 statistics),
+  through the fused GroupNorm + FiLM + SiLU kernel on the card
 * ``Zero*``              -> reference ``zero_module`` (``unet_openai.py:62-68``)
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from eo_diffusion_torch.ops.group_norm import fused_group_norm
 
 __all__ = [
     "timestep_embedding",
@@ -64,22 +68,31 @@ def _num_groups(ch: int, num_groups: int = 32) -> int:
 class GroupNorm32(nn.Module):
     """GroupNorm over a channels-last tensor ``[N, ..., C]`` with float32
     statistics (eps 1e-5) whatever the activation dtype; the result is cast
-    back to the input dtype."""
+    back to the input dtype.
+
+    ``forward(x, act="none", scale=None, shift=None)`` folds an activation
+    (``"silu"``) and a per-sample FiLM scale-shift (``[N, C]`` each:
+    ``gamma = weight * (1 + scale)``, ``beta = bias * (1 + scale) + shift``)
+    into one :func:`~eo_diffusion_torch.ops.group_norm.fused_group_norm`
+    call: the kernel on the card while ``impl`` is ``"auto"``, the plain
+    version anywhere once it is ``"plain"`` (``UNet.set_impl``).
+    """
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.groups = _num_groups(channels, num_groups)
         self.eps = eps
+        self.impl = "auto"
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c, g = x.shape[0], x.shape[-1], self.groups
-        xg = x.to(torch.float32).reshape(n, -1, g, c // g)
-        var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
-        scale = torch.rsqrt(var + self.eps) * self.weight.view(1, 1, g, c // g)
-        shift = self.bias.view(1, 1, g, c // g) - mean * scale
-        return torch.addcmul(shift, xg, scale).reshape(x.shape).to(x.dtype)
+    def forward(self, x: torch.Tensor, act: str = "none", scale: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        gamma, beta = self.weight, self.bias
+        if scale is not None:
+            s = 1 + scale.float()
+            gamma, beta = gamma * s, beta * s + shift.float()
+        return fused_group_norm(x, gamma, beta, self.groups, self.eps, act, self.impl)
 
 
 class Conv(nn.Conv2d):

@@ -27,7 +27,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: kernel name -> its CUDA source under csrc/
-KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu"}
+KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu",
+           "group_norm": "group_norm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,18 +1,20 @@
 """Where a sampling step's time goes on the GPU: the clouds UNet at 256 px.
 
-    python -m eo_diffusion_torch.tools.profile_sample [--batch_size 8] [--steps 5]
+    python -m eo_diffusion_torch.tools.profile_sample [--preset sen12mscr256] [--batch_size 8] [--steps 5]
 
-Builds the ``sen12mscr256`` denoiser (concat cloud removal, bf16) with seeded
-random weights and runs DDIM steps on synthetic inputs of the main path's
-shape. Reports, per step:
+Builds the preset's denoiser (by default ``sen12mscr256``, concat cloud
+removal; ``clouds64-attn`` is the reference's 64 px UNet) in bf16 with
+seeded random weights and runs DDIM steps on synthetic inputs of its shape
+(with a concat condition where the preset has one). Reports, per step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
-* the device time by kernel class (attention kernel, convolutions and
-  matrix products, normalisation, elementwise, copies), from
-  ``torch.profiler`` over ``--steps`` steps, and the device's idle share
-  (1 - device time / step time);
-* the forward time with the attention kernel against the plain attention,
-  from CUDA events.
+* the device time by kernel class (attention kernel, GroupNorm kernel,
+  convolutions and matrix products, other reductions, elementwise, copies),
+  from ``torch.profiler`` over ``--steps`` steps, and the device's idle
+  share (1 - device time / step time);
+* the kernels' launches per step;
+* the forward time with the kernels against the plain attention and
+  norms, from CUDA events.
 
 Prints one JSON line and writes it to ``--out`` as well.
 """
@@ -30,13 +32,15 @@ from collections import defaultdict
 import torch
 
 from eo_diffusion_torch.cli.presets import build_process, get_preset
-from eo_diffusion_torch.models.unet import AttentionBlock, UNet
+from eo_diffusion_torch.models.unet import UNet
 from eo_diffusion_torch.ops import attention as A
+from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.weights import randomize_parameters
 
 # kernel name -> class, first match wins
 _CLASSES = (
     ("attention", re.compile(r"attn_fwd")),
+    ("group_norm", re.compile(r"gn_(stats|finalize|apply)")),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
     ("norm_reduce", re.compile(r"reduce|norm|var_mean|welford", re.I)),
@@ -65,6 +69,7 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="sen12mscr256")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -76,15 +81,16 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    preset = get_preset("sen12mscr256")
-    cfg = preset.unet_config(cond_channels=preset.in_channels)
+    preset = get_preset(args.preset)
+    concat = preset.cond_type == "concat"
+    cfg = preset.unet_config(cond_channels=preset.in_channels if concat else 0)
     model = randomize_parameters(UNet(cfg), args.seed).to(dev).eval()
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
-                              cond_type=preset.cond_type)
+                              cond_type=preset.cond_type if concat else None)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     n, s, c = args.batch_size, preset.image_size, preset.in_channels
     x_T = torch.randn(n, s, s, c, generator=g, device=dev)
-    cond = torch.rand(n, s, s, c, generator=g, device=dev)
+    cond = torch.rand(n, s, s, c, generator=g, device=dev) if concat else None
     model_fn = lambda x, t, cc, y: model(x, t, cond=cc, y=y)
 
     def sample(steps):
@@ -100,11 +106,12 @@ def main(argv=None) -> dict:
         step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        A.qkv_attention_cuda.launches = 0
+        A.qkv_attention_cuda.launches = G.group_norm_fwd_cuda.launches = 0
         with torch.profiler.profile(activities=acts) as prof:
             sample(args.steps)
             torch.cuda.synchronize()
         launches = A.qkv_attention_cuda.launches
+        gn_launches = G.group_norm_fwd_cuda.launches
         by_class, by_kernel = defaultdict(float), defaultdict(float)
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -117,25 +124,24 @@ def main(argv=None) -> dict:
         xin = x_T.to(cfg.dtype)
         t = torch.full((n,), 500, device=dev, dtype=torch.long)
         fwd_kernel_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 5)
-        for m in model.modules():
-            if isinstance(m, AttentionBlock):
-                m.attn_impl = "plain"
+        model.set_impl(attn="plain", norm="plain")
         fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 3)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     res = {
-        "card": card.strip(), "config": "sen12mscr256 DDIM, bf16",
+        "card": card.strip(), "config": f"{args.preset} DDIM, bf16",
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
         "img_per_s_at_50_steps": n / (step_ms * 50 / 1e3),
         "device_ms_per_step": device_ms,
         "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[k[:90], v] for k, v in top],
-        "forward_ms_kernel_attention": fwd_kernel_ms,
-        "forward_ms_plain_attention": fwd_plain_ms,
+        "forward_ms_kernels": fwd_kernel_ms,
+        "forward_ms_plain": fwd_plain_ms,
         "attention_launches_per_step": launches / args.steps,
+        "group_norm_launches_per_step": gn_launches / args.steps,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     line = json.dumps(res)

@@ -9,10 +9,10 @@ step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class, from ``torch.profiler`` over ``--steps``
-  steps, with the attention forward (with lse) and the attention backward
-  as classes of their own, and the device's idle share
-  (1 - device time / step time);
-* the attention kernels' launches per step and the peak device memory.
+  steps, with the attention forward (with lse), the attention backward and
+  the GroupNorm kernel's forward and backward as classes of their own, and
+  the device's idle share (1 - device time / step time);
+* the kernels' launches per step and the peak device memory.
 
 Prints one JSON line and writes it to ``--out`` as well.
 """
@@ -33,6 +33,7 @@ import torch
 from eo_diffusion_torch.cli.presets import build_process, get_preset
 from eo_diffusion_torch.models.unet import UNet
 from eo_diffusion_torch.ops import attention as A
+from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -40,6 +41,8 @@ from eo_diffusion_torch.weights import randomize_parameters
 _CLASSES = (
     ("attention_fwd_lse", re.compile(r"attn_fwd")),
     ("attention_bwd", re.compile(r"attn_bwd")),
+    ("group_norm_fwd", re.compile(r"gn_(stats|finalize|apply)")),
+    ("group_norm_bwd", re.compile(r"gn_(bwd|dx)")),
     ("optimizer_ema", re.compile(r"multi_tensor|foreach|adam", re.I)),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
@@ -99,9 +102,11 @@ def main(argv=None) -> dict:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+    G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         steps(args.steps)
     fwd_launches, bwd_launches = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+    gn_launches = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
     by_class, by_kernel = defaultdict(float), defaultdict(float)
     for e in prof.key_averages():
         # kernels only: a profiler annotation such as "Optimizer.step#AdamW.step"
@@ -128,6 +133,8 @@ def main(argv=None) -> dict:
         "top_kernels_ms": [[k[:90], v] for k, v in top],
         "attention_fwd_launches_per_step": fwd_launches / args.steps,
         "attention_bwd_launches_per_step": bwd_launches / args.steps,
+        "group_norm_fwd_launches_per_step": gn_launches[0] / args.steps,
+        "group_norm_bwd_launches_per_step": gn_launches[1] / args.steps,
         "peak_mem_gib": peak_gib,
     }
     line = json.dumps(res)

@@ -217,3 +217,146 @@ def test_unet_backward_gives_attention_weights_a_gradient(dev):
         q = ref[name]
         rel = ((p.grad - q.grad).norm() / q.grad.norm().clamp(min=floor)).item()
         assert rel <= 1e-3, (name, rel)
+
+
+# -- the GroupNorm kernel (K5) ---------------------------------------------------
+
+from eo_diffusion_torch.ops import group_norm as G  # noqa: E402
+
+# forward, |kernel - plain| <= TOL_GN * max(1, |plain|) elementwise: both compute
+# in f32 from the same inputs and round once, so bf16 differs by at most one
+# output ulp (2^-7 relative) where the two f32 values straddle a rounding
+# boundary; f32 by the order of the sums (the mean-100 case moves the mean by
+# ulps of 100) and expf/rsqrtf's last bits.
+TOL_GN = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# backward: dx like the forward against max(rms of dx, |plain|); dgamma and
+# dbeta are f32 sums over HW in another order, held at 1e-3 of max(rms, |plain|)
+TOL_GN_PARAMS = 1e-3
+
+
+def _gn_inputs(n, hw, c, dtype, seed, loc=0.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (loc + torch.randn(n, hw, c, generator=g, device="cuda")).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(n, c, generator=g, device="cuda")
+    beta = 0.1 * torch.randn(n, c, generator=g, device="cuda")
+    dy = torch.randn(n, hw, c, generator=g, device="cuda").to(dtype)
+    return x, gamma, beta, dy
+
+
+def _scaled_err(got, want, floor):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).abs() / want.abs().clamp(min=floor)).max().item()
+
+
+def _check_gn(x, gamma, beta, dy, groups, act):
+    f0, b0 = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
+    y, mean, rstd = G.group_norm_fwd_cuda(x, gamma, beta, groups, 1e-5, act)
+    dx, dgamma, dbeta = G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, groups, act)
+    torch.cuda.synchronize()
+    assert (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    assert y.shape == dx.shape == x.shape and y.dtype == dx.dtype == x.dtype
+    ref_mean, ref_rstd = G._stats(x, groups, 1e-5)
+    assert (mean - ref_mean).abs().max().item() <= 1e-4 * max(1.0, ref_mean.abs().max().item())
+    assert ((rstd - ref_rstd).abs() / ref_rstd).max().item() <= 1e-4
+    ref = G.group_norm_reference(x, gamma, beta, groups, act=act)
+    assert _scaled_err(y, ref, 1.0) <= TOL_GN[x.dtype]
+    rdx, rdgamma, rdbeta = G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
+                                                           groups, act)
+    assert _scaled_err(dx, rdx, rdx.float().pow(2).mean().sqrt().item()) <= TOL_GN[x.dtype]
+    for got, want in ((dgamma, rdgamma), (dbeta, rdbeta)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _scaled_err(got, want, want.pow(2).mean().sqrt().item()) <= TOL_GN_PARAMS
+
+
+# (HW, C, groups): the UNet's widths (C/G 4 ... 32, and 12, 16), narrow ones
+# (24 in 24 groups, 8 in 8), ragged HW, a width that is not a multiple of 8
+@pytest.mark.parametrize("hw,c,groups", [(1024, 128, 32), (256, 384, 32), (64, 1024, 32),
+                                         (100, 24, 24), (33, 8, 8), (17, 36, 12),
+                                         (4096, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_group_norm_kernels_match_plain(dev, hw, c, groups, dtype, act):
+    _check_gn(*_gn_inputs(2, hw, c, dtype, seed=hw + c), groups, act)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_mean_100_and_one_sample(dev, dtype):
+    """|mean| >> std: the shifted sums and Chan's combine keep the variance."""
+    _check_gn(*_gn_inputs(1, 9000, 64, dtype, seed=3, loc=100.0), 32, "silu")
+
+
+def test_group_norm_is_reproducible_and_refuses(dev):
+    x, gamma, beta, dy = _gn_inputs(3, 500, 96, torch.bfloat16, seed=4)
+    y1, m1, r1 = G.group_norm_fwd_cuda(x, gamma, beta, 32, act="silu")
+    y2, m2, r2 = G.group_norm_fwd_cuda(x, gamma, beta, 32, act="silu")
+    assert torch.equal(y1, y2) and torch.equal(m1, m2) and torch.equal(r1, r2)
+    a = G.group_norm_bwd_cuda(x, gamma, beta, m1, r1, dy, 32, "silu")
+    b = G.group_norm_bwd_cuda(x, gamma, beta, m1, r1, dy, 32, "silu")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))  # no atomics: the same bits
+    f0, b0 = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
+    with pytest.raises(ValueError):  # 96 channels do not split into 36 groups
+        G.group_norm_fwd_cuda(x, gamma, beta, 36)
+    with pytest.raises(ValueError):
+        G.group_norm_fwd_cuda(x.half(), gamma, beta, 32)
+    with pytest.raises(ValueError):
+        G.group_norm_fwd_cuda(x, gamma.bfloat16(), beta, 32)
+    with pytest.raises(ValueError):
+        G.group_norm_bwd_cuda(x, gamma, beta, m1[:, :-1], r1, dy, 32)
+    with pytest.raises(RuntimeError):  # 4099 odd channels: wider than a block
+        G.group_norm_fwd_cuda(torch.zeros(1, 4, 4099, device="cuda"),
+                              torch.ones(1, 4099, device="cuda"),
+                              torch.zeros(1, 4099, device="cuda"), 1)
+    assert (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches) == (f0, b0)
+
+
+@pytest.mark.parametrize("film", [False, True])
+def test_group_norm_autograd_matches_plain(dev, film):
+    """fused_group_norm on the card (GroupNormFn: both kernels) against plain
+    autograd through group_norm_reference, gamma/beta [C] or FiLM-folded."""
+    x, _, _, dy = _gn_inputs(2, 300, 64, torch.float32, seed=5)
+    w = (1 + 0.1 * torch.randn(64, device="cuda")).requires_grad_()
+    b = (0.1 * torch.randn(64, device="cuda")).requires_grad_()
+    s, t = 0.2 * torch.randn(2, 64, device="cuda"), 0.2 * torch.randn(2, 64, device="cuda")
+    x = x.requires_grad_()
+
+    def run(impl):
+        ga, be = (w * (1 + s), b * (1 + s) + t) if film else (w, b)
+        y = G.fused_group_norm(x, ga, be, 32, act="silu", impl=impl)
+        return torch.autograd.grad(y, (x, w, b), dy)
+
+    f0, b0 = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
+    got = run("auto")
+    assert (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    want = run("plain")
+    assert (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    for a, r in zip(got, want):
+        assert ((a - r).abs().max() / r.abs().max()).item() <= 1e-4
+
+
+def test_unet_norms_go_through_the_kernels(dev):
+    """Every GroupNorm of a UNet forward and backward on the card launches
+    K5; the all-plain model (set_impl) launches none and agrees."""
+    cfg = TU.UNetConfig(image_size=16, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=2, use_scale_shift_norm=True)
+    model = randomize_parameters(TU.UNet(cfg), seed=0).to(dev)
+    plan = TU.build_unet_plan(cfg)
+    kinds = [s.kind for blk in (*plan.input_blocks, plan.middle_block, *plan.output_blocks)
+             for s in blk]
+    sites = 2 * kinds.count("res") + kinds.count("attn") + 1
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 16, 16, 3, generator=g, device="cuda")
+    t = torch.tensor([3, 700], device="cuda")
+    grads = {}
+    for impl in ("auto", "plain"):
+        model.set_impl(attn=impl, norm=impl).zero_grad(set_to_none=True)
+        f0, b0 = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
+        model(x, t).square().mean().backward()
+        launched = (G.group_norm_fwd_cuda.launches - f0, G.group_norm_bwd_cuda.launches - b0)
+        assert launched == ((sites, sites) if impl == "auto" else (0, 0)), launched
+        grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    floor = 1e-2 * sum(v.norm().item() for v in grads["plain"].values()) / len(grads["plain"])
+    for name, got in grads["auto"].items():
+        want = grads["plain"][name]
+        assert ((got - want).norm() / want.norm().clamp(min=floor)).item() <= 1e-3, name
