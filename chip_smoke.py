@@ -6,24 +6,32 @@ Phases, in order; the first failure exits non-zero:
 
 1. require CUDA; print the card's name and power limit; TF32 off;
 2. build every CUDA kernel of the port from the sources in this checkout;
-3. hold each kernel (attention forward, attention backward, GroupNorm +
-   FiLM + SiLU forward and backward) against its plain PyTorch version on
-   the card at the shapes the main paths give it, and time kernel, plain
-   version, the PyTorch library call and the card's lower bound;
+3. hold each kernel (attention forward through its fused-qkv entry and
+   through its separate-tensor entry, attention backward through both,
+   GroupNorm + FiLM + SiLU forward and backward) against its plain PyTorch
+   version on the card at the shapes the main paths give it (the clouds UNet
+   at 256, 384 and 512 px), and time kernel, plain version, the PyTorch
+   library call and the card's lower bound;
 4. one clouds-UNet forward at 256 px, kernels against the all-plain model
    (plain attention and plain norms), then one loss and backward, kernels
    against plain: every parameter gets a finite gradient, the attention's
-   qkv weights a non-zero one;
+   qkv weights a non-zero one; 4b. the same at 384 px, batch 1, where every
+   attention takes the separate-tensor route;
 5. the sampling path through the entry point: ``eo_diffusion_torch.cli.inference``
    with ``sen12mscr256`` (concat cloud removal), DDIM-50, batch 8, seeded
    random weights; the attention counter must rise by 11 x 50 per batch and
-   the GroupNorm counter by 56 x 50;
+   the GroupNorm counter by 56 x 50; 5b. the same entry point at
+   ``--image_size 512``, DDIM-20 (5 separate-tensor and 6 fused-qkv
+   launches a forward); 5c. ``tiled_ddim_sample`` of 512 x 512 scenes with
+   the 256 px denoiser (3 x 3 tiles at overlap 0.5, DDIM-20);
 6. the reference's own 64 px path: ``clouds64-attn`` RePaint DDPM-100;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
    and the GroupNorm counters by 56; the checkpoint restores and the
-   sampling entry point samples from it;
+   sampling entry point samples from it; 7b. the same entry point at
+   ``--image_size 512``, batch 4 (attention forward and backward 5 + 6 a
+   step);
 8. print the ``{"kernels": [...]}`` line, the card line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -50,6 +58,7 @@ from eo_diffusion_torch.cli.presets import get_preset
 from eo_diffusion_torch.models.unet import UNet, unet_clouds
 from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
@@ -78,7 +87,11 @@ TOL_BWD = {torch.bfloat16: 4e-2, torch.float32: 2e-4}
 # relative L2 over all parameter gradients. The two attentions differ by bf16
 # ulps in every block, and the difference crosses the bf16 layers both ways
 TOL_UNET_GRAD_REL = 1e-2
-ATTN_PER_FORWARD = 11  # clouds UNet: 5 attention blocks at ds 4, 6 at ds 8
+# the clouds UNet's 11 attention launches a forward (5 blocks at ds 4, 6 at
+# ds 8) by image size, (fused-qkv entry, separate-tensor entry):
+# ds 4 / ds 8 give T 256 / 64 at 64 px and 4096 / 1024 at 256 px (all
+# fused-qkv), 9216 / 2304 at 384 (neither), 16384 / 4096 at 512 (ds 8 only)
+ROUTES = {64: (11, 0), 256: (11, 0), 384: (0, 11), 512: (6, 5)}
 # clouds UNet: 22 ResBlocks x 2 norms, 11 attention norms, the output norm
 GN_PER_FORWARD = 56
 # GroupNorm kernel vs plain (both f32 from the same inputs, one rounding):
@@ -93,6 +106,8 @@ TOL_GN_PARAMS = 1e-3
 # and affine 5, SiLU 4 more; backward 11, SiLU's derivative 8 more
 GN_OPS = {("fwd", "none"): 5, ("fwd", "silu"): 9, ("bwd", "none"): 11, ("bwd", "silu"): 19}
 TRAIN_STEPS = 8
+TRAIN_STEPS_512 = 6
+STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
 
 
 def card_line() -> str:
@@ -209,15 +224,156 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen):
     return row
 
 
+def make_planes(b, t, heads, d, dtype, layout, gen):
+    """q, k, v [B, T, H, D]: the split_qkv views of one projection in either
+    head order ("legacy", "new"), or three contiguous tensors; q and k x2."""
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda") for _ in range(3))
+        q.mul_(2.0)
+        k.mul_(2.0)
+        return [x.to(dtype) for x in (q, k, v)]
+    qkv = torch.randn(b, t, 3 * heads * d, generator=gen, device="cuda")
+    q, k, _ = A.split_qkv(qkv, heads, layout == "new")
+    q.mul_(2.0)
+    k.mul_(2.0)
+    return list(A.split_qkv(qkv.to(dtype), heads, layout == "new"))
+
+
+def plain_fwd(q, k, v, chunk, with_lse=True):
+    """The plain forward, ``chunk`` samples at a time (its [B, H, T, T] f32
+    scores at B8 T16384 H8 would take 69 GB); the same function."""
+    res = [A.reference_attention(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+                                 return_lse=with_lse) for i in range(0, q.shape[0], chunk)]
+    if not with_lse:
+        return torch.cat(res)
+    return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+
+def plain_bwd(q, k, v, o, lse, do, hchunk):
+    """The plain backward, one sample and ``hchunk`` heads at a time (it
+    holds about five [B, H, T, T] f32 tensors); the same function."""
+    b, t, h, _ = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    lse4 = lse.reshape(b, h, t)
+    for i in range(b):
+        for j in range(0, h, hchunk):
+            sl = (slice(i, i + 1), slice(None), slice(j, j + hchunk))
+            part = A.reference_attention_bwd(q[sl], k[sl], v[sl], o[sl],
+                                             lse4[i, j:j + hchunk], do[sl])
+            for g, x in zip(grads, part):
+                g[sl] = x
+    return grads
+
+
+def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
+    """The separate-tensor forward entry vs plain (with the lse) on one
+    shape, timed without the lse as sampling runs it; returns a result row."""
+    q, k, v = make_planes(b, t, heads, d, dtype, layout, gen)
+    chunk = chunk or b
+    out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
+    ref, ref_lse = plain_fwd(q, k, v, chunk)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse).abs().max().item()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    scaled = (diff / ref.float().abs().clamp(min=1.0)).max().item()
+    label = f"B{b} T{t} H{heads} D{d} {layout}"
+    assert math.isfinite(err) and scaled <= TOL[dtype] and lse_err <= TOL_LSE, (
+        f"flash forward vs plain at {label} {dtype}: {scaled} > {TOL[dtype]} or lse {lse_err}")
+    del out, lse, ref, ref_lse, diff
+    torch.cuda.empty_cache()
+
+    big = t >= 8192
+    reps = 10 if big else 20
+    kernel_ms = cuda_ms(lambda: A.flash_attention_cuda(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: plain_fwd(q, k, v, chunk, with_lse=False), 2 if big else 3,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                scale=1.0 / math.sqrt(d)), reps)
+    del q4, k4, v4
+    flops = 4.0 * b * heads * t * t * d
+    nbytes = q.element_size() * b * t * heads * d * 4  # q, k, v read, o written
+    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "max_scaled_err": scaled, "lse_max_abs_err": lse_err, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "plain_chunk": chunk, "library_ms": library_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           else "bytes"}
+    print("flash_fwd " + json.dumps(row), flush=True)
+    return row
+
+
+def flash_bwd_case(b, t, heads, d, dtype, layout, gen, hchunk):
+    """The separate-tensor backward entry vs plain on one shape (o and lse
+    from the forward entry); returns a result row."""
+    q, k, v = make_planes(b, t, heads, d, dtype, layout, gen)
+    dout = torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
+    out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
+    got = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    plain = lambda: plain_bwd(q, k, v, out, lse, dout, hchunk)
+    ref = plain()
+    torch.cuda.synchronize()
+    rms = torch.stack([r.float() for r in ref]).pow(2).mean().sqrt().item()
+    err = scaled = 0.0
+    for a, want in zip(got, ref):
+        diff = (a.float() - want.float()).abs()
+        err = max(err, diff.max().item())
+        scaled = max(scaled, (diff / want.float().abs().clamp(min=rms)).max().item())
+    label = f"B{b} T{t} H{heads} D{d} {layout}"
+    assert math.isfinite(err) and scaled <= TOL_BWD[dtype], (
+        f"flash backward vs plain at {label} {dtype}: {scaled} > {TOL_BWD[dtype]}")
+    del got, ref, diff
+    torch.cuda.empty_cache()
+
+    big = t >= 8192
+    kernel_ms = cuda_ms(lambda: A.flash_attention_bwd_cuda(q, k, v, out, lse, dout),
+                        5 if big else 10)
+    plain_ms = cuda_ms(plain, 1 if big else 2, warmup=1)
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0 / math.sqrt(d))
+    g4 = dout.permute(0, 2, 1, 3).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True),
+                         5 if big else 10)
+    del q4, k4, v4, o4, g4
+    flops = 10.0 * b * heads * t * t * d
+    # q, k, v, o, do read and dq, dk, dv written once each, plus the lse
+    nbytes = q.element_size() * b * t * heads * d * 8 + 4 * b * heads * t
+    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    row = {"shape": label, "dtype": str(dtype).split(".")[-1], "grad_rms": rms,
+           "max_abs_err": err, "max_scaled_err": scaled, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "plain_heads_a_chunk": hchunk, "library_ms": library_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           else "bytes"}
+    print("flash_bwd " + json.dumps(row), flush=True)
+    return row
+
+
 def reset_counts():
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+    A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
 
 
 def counts():
     return {"attn_fwd": A.qkv_attention_cuda.launches,
             "attn_bwd": A.qkv_attention_bwd_cuda.launches,
+            "flash_fwd": A.flash_attention_cuda.launches,
+            "flash_bwd": A.flash_attention_bwd_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches}
+
+
+def expected(size, forwards, backwards=0):
+    """The launch counts of ``forwards`` UNet forwards and ``backwards``
+    backwards at ``size`` px."""
+    qkv, flash = ROUTES[size]
+    return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
+            "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
+            "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards}
 
 
 def gn_bound_ms(direction, act, n, hw, c, groups, esize):
@@ -316,13 +472,37 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
     return rows
 
 
-def unet_backward_check(model, gen):
-    """One loss and backward of the 256 px UNet with the kernels against the
-    plain attention: same weights, same batch, same timesteps and noise."""
-    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=256)
-    x0 = torch.randn(2, 256, 256, 3, generator=gen, device="cuda")
-    noise = torch.randn(2, 256, 256, 3, generator=gen, device="cuda")
-    ts = torch.tensor([10, 500], device="cuda")
+def unet_forward_check(size, batch, gen):
+    """One clouds-UNet forward at ``size`` px: the kernels against the
+    all-plain model (plain attention and plain norms), same weights; returns
+    the model."""
+    cfg = unet_clouds(size, dtype=torch.bfloat16)
+    model = randomize_parameters(UNet(cfg), seed=1).cuda().eval()
+    x = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
+    ts = torch.tensor([10, 500][:batch], device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        out_k = model(x, ts).float()
+        fwd_launches = counts()
+        out_p = model.set_impl(attn="plain", norm="plain")(x, ts).float()
+        assert not any(counts()[k] - fwd_launches[k] for k in fwd_launches), counts()
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    print(f"unet{size} forward: rel L2 kernels vs plain {rel:.3e} (tol {TOL_UNET_REL}), "
+          f"max abs {(out_k - out_p).abs().max().item():.3e}, |out| rms "
+          f"{out_p.pow(2).mean().sqrt().item():.3e}, launches {fwd_launches}", flush=True)
+    assert torch.isfinite(out_k).all() and rel <= TOL_UNET_REL, rel
+    assert fwd_launches == expected(size, 1), fwd_launches
+    return model
+
+
+def unet_backward_check(model, size, batch, gen):
+    """One loss and backward of the UNet with the kernels against the
+    plain attention and norms: same weights, same batch, same timesteps and
+    noise."""
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size)
+    x0 = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
+    noise = torch.randn(batch, size, size, 3, generator=gen, device="cuda")
+    ts = torch.tensor([10, 500][:batch], device="cuda")
     model_fn = lambda x, t, c, y: model(x, t)
     grads, losses, launched = {}, {}, None
     for impl in ("auto", "plain"):
@@ -347,12 +527,12 @@ def unet_backward_check(model, gen):
         num += (gk - gp).pow(2).sum().item()
         den += gp.pow(2).sum().item()
     rel = math.sqrt(num / den)
-    print(f"unet256 loss+backward: loss {losses['auto']:.6f} (plain {losses['plain']:.6f}), "
-          f"{len(grads['auto'])} parameter gradients finite, rel L2 kernel vs plain "
-          f"{rel:.3e} (tol {TOL_UNET_GRAD_REL}), launches {launched}", flush=True)
+    print(f"unet{size} loss+backward: loss {losses['auto']:.6f} (plain "
+          f"{losses['plain']:.6f}), {len(grads['auto'])} parameter gradients finite, rel L2 "
+          f"kernel vs plain {rel:.3e} (tol {TOL_UNET_GRAD_REL}), launches {launched}",
+          flush=True)
     assert rel <= TOL_UNET_GRAD_REL, rel
-    assert launched == {"attn_fwd": ATTN_PER_FORWARD, "attn_bwd": ATTN_PER_FORWARD,
-                        "gn_fwd": GN_PER_FORWARD, "gn_bwd": GN_PER_FORWARD}, launched
+    assert launched == expected(size, 1, 1), launched
 
 
 def run_train(tmp, seed):
@@ -370,9 +550,7 @@ def run_train(tmp, seed):
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     assert res["steps"] == TRAIN_STEPS and len(res["losses"]) == TRAIN_STEPS, res["steps"]
     assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
-    want_attn, want_gn = ATTN_PER_FORWARD * TRAIN_STEPS, GN_PER_FORWARD * TRAIN_STEPS
-    assert res["launches"] == {"attn_fwd": want_attn, "attn_bwd": want_attn,
-                               "gn_fwd": want_gn, "gn_bwd": want_gn}, res["launches"]
+    assert res["launches"] == expected(256, TRAIN_STEPS, TRAIN_STEPS), res["launches"]
 
     # parameters and EMA moved away from the seeded initial weights
     state = res["state"]
@@ -397,10 +575,52 @@ def run_train(tmp, seed):
     sampled = cli.main(args)
     x = torch.as_tensor(sampled["samples"])
     assert x.shape == (2, 256, 256, 3) and bool(torch.isfinite(x).all()), x.shape
-    assert counts() == {"attn_fwd": ATTN_PER_FORWARD * 4, "attn_bwd": 0,
-                        "gn_fwd": GN_PER_FORWARD * 4, "gn_bwd": 0}, counts()
+    assert counts() == expected(256, 4), counts()
     del res["state"]
     return res
+
+
+def run_train_512(tmp, seed):
+    """The training entry point at --image_size 512, batch 4: ds 4 attends
+    over T 16384 through the separate-tensor entries both ways."""
+    argv = ["--preset", "sen12mscr256", "--image_size", "512", "--dataset", "synthetic",
+            "--batch_size", "4", "--epochs", "1", "--steps_per_epoch", str(TRAIN_STEPS_512),
+            "--sample_every", "0", "--save_every", "0", "--model_ema_steps", "2",
+            "--log_freq", "1", "--seed", str(seed), "--device", "cuda",
+            "--dir", "results/train_smoke_512"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.chdir(tmp):
+        res = cli_train.main(cli_train.parse_args(argv))
+    res["launches"] = counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    assert res["steps"] == TRAIN_STEPS_512, res["steps"]
+    assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert res["launches"] == expected(512, TRAIN_STEPS_512, TRAIN_STEPS_512), res["launches"]
+    del res["state"]
+    return res
+
+
+def run_tiled(cfg, seed, gen, n, steps):
+    """tiled_ddim_sample of n 512 x 512 scenes with the 256 px denoiser
+    (3 x 3 tiles at overlap 0.5, one model call a step over all tiles),
+    concat cond, the weights of the whole-scene run."""
+    model = randomize_parameters(UNet(cfg), seed).cuda().eval()
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=256, cond_type="concat")
+    cond = torch.randn(n, 512, 512, 3, generator=gen, device="cuda").clamp(-1, 1)
+    model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        x = tiled_ddim_sample(diffusion, model_fn, n, 512, 512, device="cuda", generator=gen,
+                              num_steps=steps, cond=cond).x.float().cpu()
+        seconds = time.perf_counter() - t0
+    launched = counts()
+    assert x.shape == (n, 512, 512, 3) and bool(torch.isfinite(x).all()), x.shape
+    assert launched == expected(256, steps), launched
+    return {"seconds": seconds, "images": n, "launches": launched,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def run_cli(argv, cfg, seed, tmp):
@@ -449,6 +669,7 @@ def main() -> int:
     rows.append(attention_case(8, 256, 8, 48, torch.bfloat16, False, gen))  # 64 px, ds 4
     rows.append(attention_case(8, 64, 8, 64, torch.bfloat16, False, gen))   # 64 px, ds 8
     rows.append(attention_case(2, 1024, 8, 64, torch.float32, False, gen))  # --no_bf16
+    rows.append(attention_case(8, 4096, 8, 64, torch.bfloat16, False, gen))  # 512 px, ds 8
     # the forward as training runs it: with the lse, at the two main shapes
     lse_rows = [attention_case(8, 4096, 8, 48, torch.bfloat16, False, gen, with_lse=True),
                 attention_case(8, 1024, 8, 64, torch.bfloat16, False, gen, with_lse=True)]
@@ -462,6 +683,28 @@ def main() -> int:
     bwd_rows.append(attention_bwd_case(8, 64, 8, 64, torch.bfloat16, False, gen))   # 64 px
     bwd_rows.append(attention_bwd_case(2, 1024, 8, 64, torch.float32, False, gen))  # --no_bf16
     bwd_rows.append(attention_bwd_case(3, 1000, 4, 48, torch.bfloat16, True, gen))  # ragged T
+    torch.cuda.empty_cache()
+
+    # the separate-tensor entries (K2/K3's forward, K4 behind it): the clouds
+    # UNet at 512 px (ds 4, T 16384) and 384 px (T 9216 and 2304), both head
+    # orders of the split_qkv views and contiguous tensors, a ragged f32 case
+    flash_rows = [
+        flash_case(8, 16384, 8, 48, torch.bfloat16, "legacy", gen, chunk=1),
+        flash_case(1, 16384, 8, 48, torch.bfloat16, "new", gen),
+        flash_case(8, 9216, 8, 48, torch.bfloat16, "legacy", gen, chunk=2),
+        flash_case(2, 9216, 8, 48, torch.bfloat16, "new", gen),
+        flash_case(8, 2304, 8, 64, torch.bfloat16, "legacy", gen),
+        flash_case(8, 2304, 8, 64, torch.bfloat16, "new", gen),
+        flash_case(8, 2304, 8, 64, torch.bfloat16, "contiguous", gen),
+        flash_case(2, 2309, 4, 48, torch.float32, "legacy", gen),
+    ]
+    torch.cuda.empty_cache()
+    flash_bwd_rows = [
+        flash_bwd_case(4, 16384, 8, 48, torch.bfloat16, "legacy", gen, hchunk=2),  # 512 px b4
+        flash_bwd_case(1, 16384, 2, 48, torch.bfloat16, "new", gen, hchunk=2),
+        flash_bwd_case(4, 2304, 8, 64, torch.bfloat16, "legacy", gen, hchunk=8),  # 384 px
+        flash_bwd_case(2, 2309, 4, 48, torch.float32, "contiguous", gen, hchunk=4),
+    ]
     torch.cuda.empty_cache()
 
     # GroupNorm + FiLM + SiLU, forward and backward: the clouds UNet's norm
@@ -478,33 +721,21 @@ def main() -> int:
             (8, 4096, 384, 32, "silu", torch.bfloat16, True, 0.0),
             (8, 4096, 24, 24, "silu", torch.bfloat16, False, 0.0),
             (2, 16384, 256, 32, "silu", torch.float32, False, 0.0),
-            (2, 65536, 128, 32, "silu", torch.float32, False, 100.0)):
+            (2, 65536, 128, 32, "silu", torch.float32, False, 100.0),
+            (8, 262144, 128, 32, "silu", torch.bfloat16, False, 0.0)):  # 512 px, level 0
         gn_rows.append(gn_case(n, hw, c, groups, act, dtype, gen, film=film, loc=loc))
     torch.cuda.empty_cache()
 
-    # 4. UNet forward at 256 px: the kernels against the all-plain model
-    # (plain attention and plain norms), same weights
-    cfg = unet_clouds(256, dtype=torch.bfloat16)
-    model = randomize_parameters(UNet(cfg), seed=1).cuda().eval()
-    x = torch.randn(2, 256, 256, 3, generator=gen, device="cuda")
-    ts = torch.tensor([10, 500], device="cuda")
-    with torch.inference_mode():
-        reset_counts()
-        out_k = model(x, ts).float()
-        fwd_launches = counts()
-        out_p = model.set_impl(attn="plain", norm="plain")(x, ts).float()
-        assert not any(counts()[k] - fwd_launches[k] for k in fwd_launches), counts()
-    rel = ((out_k - out_p).norm() / out_p.norm()).item()
-    print(f"unet256 forward: rel L2 kernels vs plain {rel:.3e} (tol {TOL_UNET_REL}), "
-          f"max abs {(out_k - out_p).abs().max().item():.3e}, |out| rms "
-          f"{out_p.pow(2).mean().sqrt().item():.3e}, launches {fwd_launches}", flush=True)
-    assert torch.isfinite(out_k).all() and rel <= TOL_UNET_REL, rel
-    assert fwd_launches == {"attn_fwd": ATTN_PER_FORWARD, "attn_bwd": 0,
-                            "gn_fwd": GN_PER_FORWARD, "gn_bwd": 0}, fwd_launches
-    del out_k, out_p
-    unet_backward_check(model.train(), gen)
-    del model
-    torch.cuda.empty_cache()
+    # 4. UNet forward and backward at 256 px, batch 2, and (4b) at 384 px,
+    # batch 1: the kernels against the all-plain model (plain attention and
+    # plain norms), same weights. At 384 px every attention takes the
+    # separate-tensor route, and the plain model's saved softmaxes still fit
+    # (about 2.7 GB a block at ds 4); the 512 px all-plain backward would not
+    for size, batch in ((256, 2), (384, 1)):
+        model = unet_forward_check(size, batch, gen)
+        unet_backward_check(model.train(), size, batch, gen)
+        del model
+        torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. the main path through the entry point
@@ -515,15 +746,36 @@ def main() -> int:
                             "--batch_size", "8", "--n_iter", "0", "--device", "cuda"],
                            sen.unet_config(cond_channels=3), seed=2, tmp=tmp)
         assert main_res["samples"].shape == (8, 256, 256, 3), main_res["samples"].shape
-        calls = steps * main_res["batches"]
-        want = {"attn_fwd": ATTN_PER_FORWARD * calls, "attn_bwd": 0,
-                "gn_fwd": GN_PER_FORWARD * calls, "gn_bwd": 0}
+        want = expected(256, steps * main_res["batches"])
         assert main_res["launches"] == want, (main_res["launches"], want)
         print(f"main path sen12mscr256 DDIM-{steps} b8: {main_res['images']} images in "
               f"{main_res['sample_seconds']:.3f} s = "
               f"{main_res['images'] / main_res['sample_seconds']:.4f} img/s, "
               f"kernel launches {main_res['launches']}, peak memory "
               f"{main_res['peak_mem_gb']:.2f} GiB", flush=True)
+
+        # 5b. the same entry point at 512 px: whole scenes, ds 4 at T 16384
+        res512 = run_cli(["--preset", "sen12mscr256", "--image_size", "512", "--dataset",
+                          "synthetic", "--sampler", "ddim", "--sampler_steps", str(STEPS_512),
+                          "--batch_size", "8", "--n_iter", "0", "--device", "cuda"],
+                         sen.unet_config(cond_channels=3), seed=2, tmp=tmp)
+        assert res512["samples"].shape == (8, 512, 512, 3), res512["samples"].shape
+        want = expected(512, STEPS_512 * res512["batches"])
+        assert res512["launches"] == want, (res512["launches"], want)
+        print(f"sen12mscr256 --image_size 512 DDIM-{STEPS_512} b8: {res512['images']} images "
+              f"in {res512['sample_seconds']:.3f} s = "
+              f"{res512['images'] / res512['sample_seconds']:.4f} img/s, "
+              f"kernel launches {res512['launches']}, peak memory "
+              f"{res512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+
+        # 5c. the same scenes tiled: the 256 px denoiser over 3 x 3 tiles
+        tiled = run_tiled(sen.unet_config(cond_channels=3), seed=2, gen=gen, n=8,
+                          steps=STEPS_512)
+        print(f"tiled_ddim_sample 512x512 tile 256 overlap 0.5 DDIM-{STEPS_512} b8: "
+              f"{tiled['images']} scenes in {tiled['seconds']:.3f} s = "
+              f"{tiled['images'] / tiled['seconds']:.4f} img/s (whole scene "
+              f"{res512['sample_seconds']:.3f} s), kernel launches {tiled['launches']}, "
+              f"peak memory {tiled['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
         # 6. the reference's 64 px RePaint DDPM path
         t64 = 100
@@ -532,9 +784,7 @@ def main() -> int:
                          "--n_iter", "1", "--device", "cuda"],
                         get_preset("clouds64-attn").unet_config(), seed=3, tmp=tmp)
         assert res64["samples"].shape == (8, 64, 64, 3), res64["samples"].shape
-        calls64 = t64 * res64["batches"]
-        want64 = {"attn_fwd": ATTN_PER_FORWARD * calls64, "attn_bwd": 0,
-                  "gn_fwd": GN_PER_FORWARD * calls64, "gn_bwd": 0}
+        want64 = expected(64, t64 * res64["batches"])
         assert res64["launches"] == want64, (res64["launches"], want64)
         print(f"clouds64-attn RePaint DDPM-{t64} b8: {res64['images']} images in "
               f"{res64['sample_seconds']:.3f} s = "
@@ -551,6 +801,16 @@ def main() -> int:
               f"launches {train_res['launches']}; "
               f"|d params| {train_res['param_delta']:.4e} |d ema| {train_res['ema_delta']:.4e}; "
               f"peak memory {train_res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+
+        # 7b. the training entry point at 512 px, batch 4
+        train512 = run_train_512(tmp, seed=5)
+        steady = train512["step_seconds"][2:]
+        sps512 = len(steady) / sum(steady)
+        print(f"training path sen12mscr256 --image_size 512 b4 bf16: {train512['steps']} "
+              f"steps in {train512['seconds']:.3f} s; steady {sps512:.4f} steps/s = "
+              f"{4 * sps512:.4f} img/s; loss {train512['losses'][0]:.5f} -> "
+              f"{train512['losses'][-1]:.5f}; launches {train512['launches']}; peak memory "
+              f"{train512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
     # 8. the result lines
     main_row = rows[0]
@@ -585,6 +845,35 @@ def main() -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
         "shapes": bwd_rows,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+        "replaces": "eo_diffusion_tpu/ops/attention.py:271",
+        "replaces_also": "eo_diffusion_tpu/ops/attention.py:227",
+        "launches": res512["launches"]["flash_fwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows if r["dtype"] == "bfloat16"),
+        "ms": flash_rows[0]["kernel_ms"],
+        "plain_ms": flash_rows[0]["plain_ms"],
+        "bound_ms": flash_rows[0]["bound_ms"],
+        "bound_by": flash_rows[0]["bound_by"],
+        "library_ms": flash_rows[0]["library_ms"],
+        "launches_train_512": train512["launches"]["flash_fwd"],
+        "shapes": flash_rows,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attention_bwd.cu",
+        "replaces": "eo_diffusion_tpu/ops/attention.py:502",
+        "launches": train512["launches"]["flash_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_bwd_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": flash_bwd_rows[0]["kernel_ms"],
+        "plain_ms": flash_bwd_rows[0]["plain_ms"],
+        "bound_ms": flash_bwd_rows[0]["bound_ms"],
+        "bound_by": flash_bwd_rows[0]["bound_by"],
+        "library_ms": flash_bwd_rows[0]["library_ms"],
+        "shapes": flash_bwd_rows,
     }] + [{
         "name": f"group_norm_{direction}",
         "route": "cuda",

@@ -19,10 +19,18 @@ in float32.
   kernels: it saves ``qkv``, ``out`` and the row logsumexp in the forward
   (only when a gradient is needed) and launches the backward kernel, or on
   the CPU the plain backward, in ``backward``.
-* :func:`attention_from_qkv` dispatches on the tensor's device: a CUDA
-  tensor launches the kernels (or raises), whatever T is; only an explicit
-  ``impl="plain"`` runs the plain version on the card, under ordinary
-  autograd.
+* :func:`flash_attention_cuda` / :func:`flash_attention_bwd_cuda` launch the
+  same two kernels through their separate-tensor entries: q, k, v as three
+  strided ``[B, T, H, D]`` tensors or views. They are the port of the TPU's
+  ``flash_attention`` forward (K2, the resident branch, and K3, the
+  grid-tiled one) and of K4 behind it; :class:`FlashAttention` joins them,
+  and :func:`flash_attention` / :func:`fused_attention` are the entries.
+* :func:`attention_from_qkv` keeps the JAX package's routing: shapes its
+  fused-qkv kernel takes (:func:`_qkv_kernel_takes`) go through
+  :class:`QKVAttention`, the others through :class:`FlashAttention` on the
+  :func:`split_qkv` views. A CUDA tensor launches the kernels (or raises),
+  whatever T is; only an explicit ``impl="plain"`` runs the plain version
+  on the card, under ordinary autograd.
 """
 
 from __future__ import annotations
@@ -37,10 +45,25 @@ from eo_diffusion_torch.ops import _build
 
 __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "stack_qkv", "attention_from_qkv", "qkv_attention_cuda", "qkv_attention_bwd_cuda",
-           "QKVAttention"]
+           "QKVAttention", "flash_attention_cuda", "flash_attention_bwd_cuda",
+           "FlashAttention", "flash_attention", "fused_attention"]
 
 _KERNEL = "attention_fwd"
 _KERNEL_BWD = "attention_bwd"
+# the JAX package's fused-qkv kernel takes T up to this (its _MAX_RESIDENT_KV)
+_MAX_QKV_T = 4096
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# argument types of the C entry points (every pointer and the stream as
+# c_void_p, so none is cut to 32 bits)
+_ARGTYPES = {
+    "eo_qkv_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _I, _P],
+    "eo_attention_fwd": [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "eo_qkv_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _F,
+                             _I, _P],
+    "eo_attention_bwd": [_P] * 6 + [_STRIDES] + [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+}
 
 
 def _scale(d: int) -> float:
@@ -142,15 +165,11 @@ def _check_qkv(qkv: torch.Tensor, heads: int, who: str):
     return b, t, c, d
 
 
-def _kernel_fn():
-    """The kernel's C entry point, with its argument types declared (every
-    pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    fn = _build.load(_KERNEL).eo_qkv_attention_fwd
+def _entry(kernel: str, name: str):
+    """A kernel's C entry point, with its argument types declared."""
+    fn = getattr(_build.load(kernel), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -165,7 +184,7 @@ def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
     kernel does not take and on a failed launch; never falls back.
     """
     b, t, c, d = _check_qkv(qkv, heads, "qkv_attention_cuda")
-    fn = _kernel_fn()
+    fn = _entry(_KERNEL, "eo_qkv_attention_fwd")
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b * heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
@@ -182,17 +201,6 @@ def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
 
 
 qkv_attention_cuda.launches = 0
-
-
-def _kernel_bwd_fn():
-    """The backward kernel's C entry point, with its argument types declared."""
-    fn = _build.load(_KERNEL_BWD).eo_qkv_attention_bwd
-    if fn.argtypes is None:
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, i64,
-                       i32, f32, f32, i32, ptr]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
@@ -219,7 +227,7 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tens
         dout = dout.clone()
     if out.data_ptr() % 16 or lse.data_ptr() % 4:
         raise ValueError("out needs a 16-byte-aligned base")
-    fn = _kernel_bwd_fn()
+    fn = _entry(_KERNEL_BWD, "eo_qkv_attention_bwd")
     dqkv = torch.empty((b, t, 3 * c), dtype=qkv.dtype, device=qkv.device)
     delta = torch.empty((b * heads, t), dtype=torch.float32, device=qkv.device)
     sc = _scale(d)
@@ -279,27 +287,226 @@ class QKVAttention(torch.autograd.Function):
         return stack_qkv(*grads, new_order=new_order), None, None
 
 
+def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
+    """Raise on q, k, v the separate-tensor kernels do not take; returns
+    (b, t, h, d)."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"{who} needs CUDA tensors")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one [B, T, H, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if {k.dtype, v.dtype} != {q.dtype} or {k.device, v.device} != {q.device}:
+        raise ValueError("q, k, v must share one dtype and device")
+    b, t, h, d = q.shape
+    if d > 128:
+        raise ValueError(f"head dim {d} > 128: not ported yet (the remaining part of "
+                         f"K2/K3, ROADMAP queue 2)")
+    if d < 8 or d % 8:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up to 128")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the launch grid")
+    return b, t, h, d
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """x itself where every ``[B, T, H, D]`` row starts on 16 bytes (unit
+    stride along D, strides multiples of 8, aligned base), else a contiguous
+    copy."""
+    s = x.stride()
+    if s[3] == 1 and not (s[0] % 8 or s[1] % 8 or s[2] % 8 or x.data_ptr() % 16):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _dense16(x: torch.Tensor) -> torch.Tensor:
+    """x itself where it is contiguous with a 16-byte-aligned base, else a copy."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(*xs: torch.Tensor):
+    """(batch, token, head) strides of each tensor, in order, as a C array."""
+    vals = [st for x in xs for st in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         return_lse: bool = False):
+    """Launch the attention forward kernel on three CUDA tensors.
+
+    ``q``, ``k``, ``v`` are ``[B, T, H, D]`` bf16 or float32, any strides
+    with unit stride along D (the :func:`split_qkv` views and contiguous
+    tensors need no copy; others, and k, v of different token strides, are
+    copied); returns ``o`` ``[B, T, H, D]`` contiguous and, with
+    ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T; D a multiple of 8 up
+    to 128. Raises on anything the kernel does not take and on a failed
+    launch; never falls back.
+    """
+    b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda")
+    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    if k.stride(1) != v.stride(1):  # the kernel reads K and V rows at one token stride
+        k, v = k.contiguous(), v.contiguous()
+    fn = _entry(_KERNEL, "eo_attention_fwd")
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, int(q.dtype == torch.float32), b, t, h,
+            d, float(torch.tensor(_scale(d), dtype=q.dtype)), q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_fwd launch failed: error {rc}")
+    flash_attention_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """Launch the attention backward kernel on separate CUDA tensors.
+
+    ``q``, ``k``, ``v`` as for :func:`flash_attention_cuda`; ``out`` and
+    ``lse`` what it returned for them, ``dout`` the gradient of ``out``.
+    Returns ``(dq, dk, dv)``, each ``[B, T, H, D]`` contiguous in q's dtype.
+    Any T: beyond 4096, where the JAX package recomputes with XLA einsums,
+    this kernel computes the same gradient. Raises on anything the kernel
+    does not take and on a failed launch; never falls back.
+    """
+    b, t, h, d = _check_planes(q, k, v, "flash_attention_bwd_cuda")
+    for name, x, shape, dtype in (("out", out, (b, t, h, d), q.dtype),
+                                  ("dout", dout, (b, t, h, d), q.dtype),
+                                  ("lse", lse, (b * h, t), torch.float32)):
+        if x.device != q.device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {shape} {dtype} on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    out, dout, lse = _dense16(out), _dense16(dout), _dense16(lse)
+    fn = _entry(_KERNEL_BWD, "eo_attention_bwd")
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    sc = _scale(d)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, dq, dk, dv), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), int(q.dtype == torch.float32), b, t, h, d,
+            float(torch.tensor(sc, dtype=q.dtype)), sc, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd launch failed: error {rc}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on three ``[B, T, H, D]`` tensors with a kernel on both
+    sides: the port of the JAX package's ``flash_attention`` ``custom_vjp``
+    (``ops/attention.py:642-678``).
+
+    Forward: on CUDA :func:`flash_attention_cuda`, asking for the row
+    logsumexp only when an input needs a gradient; on the CPU the plain
+    version. Backward: on CUDA :func:`flash_attention_bwd_cuda` at every T,
+    on the CPU :func:`reference_attention_bwd`.
+    """
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        need = any(ctx.needs_input_grad)
+        if q.is_cuda:
+            res = flash_attention_cuda(q, k, v, return_lse=need)
+        elif q.device.type == "cpu":
+            res = reference_attention(q, k, v, return_lse=need)
+        else:
+            raise ValueError(f"no attention kernel for device {q.device}")
+        out, lse = res if need else (res, None)
+        if need:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        return reference_attention_bwd(q, k, v, out, lse, dout)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    impl: str = "auto") -> torch.Tensor:
+    """Attention, ``[B, T, H, D]`` x3 -> ``[B, T, H, D]``: the port of the JAX
+    package's ``flash_attention`` (``ops/attention.py:643``).
+
+    ``impl="auto"`` goes through :class:`FlashAttention`: the CUDA kernels for
+    CUDA tensors, forward and backward, whatever T is (one streaming kernel
+    covers the JAX package's resident and grid-tiled regimes, so there are no
+    ``block_q``/``block_k`` knobs); the plain versions for CPU tensors.
+    ``impl="plain"``: the plain version on any device, under ordinary
+    autograd.
+    """
+    if impl == "plain":
+        return reference_attention(q, k, v)
+    if impl != "auto":
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    return FlashAttention.apply(q, k, v)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The port of the JAX package's ``fused_attention`` (``ops/attention.py:681``).
+
+    It has no ``min_seq``: where the JAX package sends short sequences and
+    CPU arrays to XLA einsums, this launches the kernel on a CUDA tensor
+    whatever T is, as :func:`attention_from_qkv` does, and runs the plain
+    version on a CPU tensor. Otherwise it is :func:`flash_attention`.
+    """
+    return flash_attention(q, k, v)
+
+
+def _qkv_kernel_takes(t: int, d: int) -> bool:
+    """Whether the JAX package sends T tokens of head dim d to its fused-qkv
+    kernel K1 (``attention_from_qkv``'s gate, ``ops/attention.py:927-935``,
+    at its default blocks); the other shapes go to ``fused_attention``."""
+    block_q = t if t <= 1024 else 512
+    bq, bk = min(block_q, t), min(2048, t)
+    return t % bq == 0 and t % bk == 0 and bq % 8 == 0 and d <= 128 and t <= _MAX_QKV_T
+
+
 def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
                        impl: str = "auto", return_lse: bool = False
                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention straight from the fused projection: ``[B, T, 3C]`` ->
     ``[B, T, C]`` with channel ``h*D + d``.
 
-    ``impl="auto"`` goes through :class:`QKVAttention`: the CUDA kernels for a
-    CUDA tensor (forward and backward), the plain versions for a CPU tensor.
+    ``impl="auto"``: where the JAX package runs its fused-qkv kernel
+    (:func:`_qkv_kernel_takes`: T <= 4096 in its aligned blocks, e.g. the
+    clouds UNet at 256 px) through :class:`QKVAttention`, elsewhere (e.g. T
+    2304, 9216 and 16384 at 384 and 512 px) through :class:`FlashAttention`
+    on the :func:`split_qkv` views: the CUDA kernels for a CUDA tensor
+    (forward and backward), the plain versions for a CPU tensor.
     ``impl="plain"``: the plain version on any device, under ordinary
     autograd. ``return_lse`` also returns the ``[B*H, T]`` row logsumexp and
     is for inspection only: that call carries no gradient on the auto path.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    b, t, c3 = qkv.shape
+    fused = _qkv_kernel_takes(t, c3 // 3 // heads)
     if impl == "auto" and not return_lse:
-        return QKVAttention.apply(qkv, heads, new_order)
+        if fused:
+            return QKVAttention.apply(qkv, heads, new_order)
+        return FlashAttention.apply(*split_qkv(qkv, heads, new_order)).reshape(b, t, c3 // 3)
     if impl == "auto" and qkv.is_cuda:
-        return qkv_attention_cuda(qkv, heads, new_order, return_lse)
+        if fused:
+            return qkv_attention_cuda(qkv, heads, new_order, return_lse)
+        out, lse = flash_attention_cuda(*split_qkv(qkv, heads, new_order), return_lse=True)
+        return out.reshape(b, t, c3 // 3), lse
     if impl == "auto" and qkv.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {qkv.device}")
-    b, t, c3 = qkv.shape
     res = reference_attention(*split_qkv(qkv, heads, new_order), return_lse=return_lse)
     if return_lse:
         return res[0].reshape(b, t, c3 // 3), res[1]

@@ -1,8 +1,10 @@
-// Fused-qkv self-attention backward for Hopper (sm_90a), bound through ctypes.
+// Self-attention backward for Hopper (sm_90a), bound through ctypes.
 //
 // Replaces the TPU kernels `_resident_bwd_kernel_tpv` / `_resident_bwd_kernel`
 // (eo_diffusion_tpu/ops/attention.py:502 / :429, launched by `_flash_bwd_impl`
-// at :569 and entered through `_qkv5_bwd` at :858). It computes the same
+// at :569 and entered through `_qkv5_bwd` at :858 and `_flash_bwd` at :669),
+// and for T > 4096 the XLA recompute that `_flash_bwd` falls back to. It
+// computes the same
 // function from the forward's saved row logsumexp, not the same block
 // structure. Per batch and head, with s = D^-1/4:
 //
@@ -16,12 +18,15 @@
 //   dQ = (dS_b ks) * s            dS_b = dS rounded to the input dtype
 //   dK = (dS_b^T qs) * s
 //
-// dQ, dK and dV accumulate in f32 and round once. q, k and v are read
-// straight out of the projection qkv [B, T, 3C] (base pointer + strides,
-// either head order), O and dO from [B, T, C] at channel h*D + d, and the
-// three gradients are written straight into dqkv [B, T, 3C] in the
-// projection's head order, so no slice, transpose or stack surrounds the
-// kernel. lse is the forward's [B*H, T] f32 natural-log row statistic; the
+// dQ, dK and dV accumulate in f32 and round once. q, k, v and the three
+// gradients are strided planes, element (b, t, h, d) at ptr + b*sb + t*st +
+// h*sh + d (as in attention_fwd.cu): entry `eo_qkv_attention_bwd` reads q,
+// k, v straight out of the projection qkv [B, T, 3C] and writes the
+// gradients straight into dqkv [B, T, 3C] in the projection's head order;
+// `eo_attention_bwd` takes three [B, T, H, D] tensors or views each way.
+// One kernel body serves both, so no slice, transpose or stack surrounds
+// it. O and dO are [B, T, H, D] contiguous ([B, T, C] at channel h*D + d).
+// lse is the forward's [B*H, T] f32 natural-log row statistic; the
 // exponentials run in base 2 on lse * log2(e).
 //
 // What bounds it on the H100: five products of 2*T^2*D each, 10*B*H*T^2*D
@@ -87,25 +92,28 @@ struct Tiling {
 template <int DP, bool KV>
 constexpr int kMT = (KV ? DP <= 48 : DP <= 64) ? 2 : 1;
 
+// element (b, t, h, d) of a [B, T, H, D] operand at ptr + b*sb + t*st + h*sh + d
+struct Plane {
+  void* ptr;
+  long long sb, st, sh;
+};
+
 struct Params {
-  const void* qkv;   // [B, T, 3C], strided
-  const void* out;   // [B, T, C], contiguous: the forward's output
-  const void* dout;  // [B, T, C], contiguous: its gradient
-  const float* lse;  // [B*H, T]
-  float* delta;      // [B*H, T] scratch
-  void* dqkv;        // [B, T, 3C], contiguous
-  long long stride_b;  // elements between batches of qkv
-  long long stride_t;  // elements between tokens of qkv
+  Plane q, k, v;       // inputs
+  Plane dq, dk, dv;    // outputs
+  const void* out;     // [B, T, H, D] contiguous: the forward's output
+  const void* dout;    // [B, T, H, D] contiguous: its gradient
+  const float* lse;    // [B*H, T]
+  float* delta;        // [B*H, T] scratch
   int B, T, H, D, C;
-  int new_order;       // 1: (q|k|v)-major channels, 0: head-major (legacy)
   float scale_in;      // D^-1/4 rounded to the input dtype: q*s and k*s
   float scale_out;     // D^-1/4 in f32: the chain rule's factor on dq and dk
 };
 
-// channel of element d = 0 of plane j (0 q, 1 k, 2 v) of head h
-__device__ __forceinline__ long long plane_offset(const Params& p, int j, int h) {
-  return p.new_order ? (long long)j * p.C + (long long)h * p.D
-                     : (long long)h * 3 * p.D + (long long)j * p.D;
+// row t = 0 of head h of batch b (E const for an input)
+template <typename E>
+__device__ __forceinline__ E* plane_at(const Plane& pl, int b, int h) {
+  return static_cast<E*>(pl.ptr) + (long long)b * pl.sb + (long long)h * pl.sh;
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
@@ -282,24 +290,24 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16(Params p) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int tq = lane & 3;  // thread within the group
-  const __nv_bfloat16* base =
-      static_cast<const __nv_bfloat16*>(p.qkv) + (long long)b * p.stride_b;
   const __nv_bfloat16* gbase = static_cast<const __nv_bfloat16*>(p.dout) +
                                (long long)b * p.T * p.C + (long long)h * p.D;
   const float* lse = p.lse + (long long)bh * p.T;
   const float* delta = p.delta + (long long)bh * p.T;
   const __nv_bfloat162 s2v = __float2bfloat162_rn(p.scale_in);
-  const __nv_bfloat16* q_plane = base + plane_offset(p, 0, h);
-  const __nv_bfloat16* k_plane = base + plane_offset(p, 1, h);
-  const __nv_bfloat16* v_plane = base + plane_offset(p, 2, h);
+  const __nv_bfloat16* q_plane = plane_at<const __nv_bfloat16>(p.q, b, h);
+  const __nv_bfloat16* k_plane = plane_at<const __nv_bfloat16>(p.k, b, h);
+  const __nv_bfloat16* v_plane = plane_at<const __nv_bfloat16>(p.v, b, h);
 
   // A fragments of the owned rows, straight from device memory (read once)
   const __nv_bfloat16* a1_src = KV ? k_plane : q_plane;
+  const long long a1_ld = KV ? p.k.st : p.q.st;
   const __nv_bfloat16* a2_src = KV ? v_plane : gbase;
-  const long long a2_ld = KV ? p.stride_t : (long long)p.C;
+  const long long a2_ld = KV ? p.v.st : (long long)p.C;
   const __nv_bfloat16* b1_src = KV ? q_plane : k_plane;
+  const long long b1_ld = KV ? p.q.st : p.k.st;
   const __nv_bfloat16* b2_src = KV ? gbase : v_plane;
-  const long long b2_ld = KV ? (long long)p.C : p.stride_t;
+  const long long b2_ld = KV ? (long long)p.C : p.v.st;
 
   const int row_lo = (blockIdx.x * kWarps + warp) * 16 * MT + g;
   uint32_t a1[MT][KS][4], a2[MT][KS][4];
@@ -313,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16(Params p) {
         const int col = kk * 16 + tq * 2 + 8 * (e >> 1);
         const bool in = row < p.T && col < p.D;
         a1[m][kk][e] =
-            in ? scale2(ld_u32(a1_src + (long long)row * p.stride_t + col), s2v) : 0u;
+            in ? scale2(ld_u32(a1_src + (long long)row * a1_ld + col), s2v) : 0u;
         a2[m][kk][e] = in ? ld_u32(a2_src + (long long)row * a2_ld + col) : 0u;
       }
     }
@@ -344,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16(Params p) {
   const int n_tiles = (p.T + BN - 1) / BN;
   auto issue = [&](int tile) {
     __nv_bfloat16* st = smem + (tile & 1) * Tl::kStage;
-    issue_tiles<DP>(st, st + BN * LD, b1_src, p.stride_t, b2_src, b2_ld, tile * BN, p.T, p.D);
+    issue_tiles<DP>(st, st + BN * LD, b1_src, b1_ld, b2_src, b2_ld, tile * BN, p.T, p.D);
     if (KV && threadIdx.x < 2 * BN) {
       const int which = threadIdx.x / BN;  // 0 lse, 1 delta
       const int c = threadIdx.x % BN;
@@ -446,25 +454,26 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16(Params p) {
     __syncthreads();  // stage kt & 1 is refilled with tile kt + 2 next
   }
 
-  // epilogue: round once, write into dqkv [B, T, 3C] in the projection's order
-  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.dqkv) + (long long)b * p.T * 3 * p.C;
-  const long long off1 = plane_offset(p, KV ? 1 : 0, h);
-  const long long off2 = plane_offset(p, 2, h);
+  // epilogue: round once, write dk and dv (KV pass) or dq (Q pass)
+  const Plane& p1 = KV ? p.dk : p.dq;
+  __nv_bfloat16* d1 = plane_at<__nv_bfloat16>(p1, b, h);
+  __nv_bfloat16* d2 = plane_at<__nv_bfloat16>(p.dv, b, h);
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_lo + 16 * m + 8 * r;
       if (row >= p.T) continue;
-      __nv_bfloat16* drow = dst + (long long)row * 3 * p.C;
+      __nv_bfloat16* drow1 = d1 + (long long)row * p1.st;
+      __nv_bfloat16* drow2 = d2 + (long long)row * p.dv.st;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = n * 8 + tq * 2;
         if (d >= p.D) continue;
-        *reinterpret_cast<__nv_bfloat162*>(drow + off1 + d) = __floats2bfloat162_rn(
+        *reinterpret_cast<__nv_bfloat162*>(drow1 + d) = __floats2bfloat162_rn(
             o1[m][n][2 * r] * p.scale_out, o1[m][n][2 * r + 1] * p.scale_out);
         if constexpr (KV)
-          *reinterpret_cast<__nv_bfloat162*>(drow + off2 + d) =
+          *reinterpret_cast<__nv_bfloat162*>(drow2 + d) =
               __floats2bfloat162_rn(o2[m][n][2 * r], o2[m][n][2 * r + 1]);
       }
     }
@@ -484,26 +493,27 @@ __global__ void __launch_bounds__(kF32Rows) attn_bwd_f32(Params p) {
   const int h = bh % p.H;
   const int row = blockIdx.x * kF32Rows + threadIdx.x;
   const bool own = row < p.T;
-  const float* base = static_cast<const float*>(p.qkv) + (long long)b * p.stride_b;
   const float* gbase =
       static_cast<const float*>(p.dout) + (long long)b * p.T * p.C + (long long)h * p.D;
   const float* lse = p.lse + (long long)bh * p.T;
   const float* delta = p.delta + (long long)bh * p.T;
-  const float* q_plane = base + plane_offset(p, 0, h);
-  const float* k_plane = base + plane_offset(p, 1, h);
-  const float* v_plane = base + plane_offset(p, 2, h);
+  const float* q_plane = plane_at<const float>(p.q, b, h);
+  const float* k_plane = plane_at<const float>(p.k, b, h);
+  const float* v_plane = plane_at<const float>(p.v, b, h);
   const float* a1_src = KV ? k_plane : q_plane;
+  const long long a1_ld = KV ? p.k.st : p.q.st;
   const float* a2_src = KV ? v_plane : gbase;
-  const long long a2_ld = KV ? p.stride_t : (long long)p.C;
+  const long long a2_ld = KV ? p.v.st : (long long)p.C;
   const float* b1_src = KV ? q_plane : k_plane;
+  const long long b1_ld = KV ? p.q.st : p.k.st;
   const float* b2_src = KV ? gbase : v_plane;
-  const long long b2_ld = KV ? (long long)p.C : p.stride_t;
+  const long long b2_ld = KV ? (long long)p.C : p.v.st;
 
   float a1[DP], a2[DP], o1[DP], o2[KV ? DP : 1];
 #pragma unroll
   for (int d = 0; d < DP; ++d) {
     const bool in = own && d < p.D;
-    a1[d] = in ? a1_src[(long long)row * p.stride_t + d] * p.scale_in : 0.f;
+    a1[d] = in ? a1_src[(long long)row * a1_ld + d] * p.scale_in : 0.f;
     a2[d] = in ? a2_src[(long long)row * a2_ld + d] : 0.f;
     o1[d] = 0.f;
     if constexpr (KV) o2[d] = 0.f;
@@ -521,7 +531,7 @@ __global__ void __launch_bounds__(kF32Rows) attn_bwd_f32(Params p) {
       const int d = (i % (DP / 4)) * 4;
       float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
       if (n0 + r < p.T && d < p.D) {
-        v1 = *reinterpret_cast<const float4*>(b1_src + (long long)(n0 + r) * p.stride_t + d);
+        v1 = *reinterpret_cast<const float4*>(b1_src + (long long)(n0 + r) * b1_ld + d);
         v2 = *reinterpret_cast<const float4*>(b2_src + (long long)(n0 + r) * b2_ld + d);
         v1.x *= p.scale_in; v1.y *= p.scale_in; v1.z *= p.scale_in; v1.w *= p.scale_in;
       }
@@ -554,9 +564,9 @@ __global__ void __launch_bounds__(kF32Rows) attn_bwd_f32(Params p) {
   }
 
   if (own) {
-    float* drow = static_cast<float*>(p.dqkv) + ((long long)b * p.T + row) * 3 * p.C;
-    float* d1 = drow + plane_offset(p, KV ? 1 : 0, h);
-    float* d2 = drow + plane_offset(p, 2, h);
+    const Plane& p1 = KV ? p.dk : p.dq;
+    float* d1 = plane_at<float>(p1, b, h) + (long long)row * p1.st;
+    float* d2 = plane_at<float>(p.dv, b, h) + (long long)row * p.dv.st;
 #pragma unroll
     for (int d = 0; d < DP; ++d) {
       if (d < p.D) {
@@ -590,38 +600,19 @@ int launch(const Params& p, int is_f32, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launches (0 on success), or -1 for an
-// argument the kernel does not take. Pointers are device pointers. qkv must
-// have unit stride along channels, strides and offsets multiples of 8
-// elements and a 16-byte-aligned base; out, dout and dqkv are contiguous
-// with 16-byte-aligned bases; lse and delta are [B*H, T] f32 (the wrapper
-// checks and allocates).
-extern "C" int eo_qkv_attention_bwd(const void* qkv, const void* out, const void* dout,
-                                    const float* lse, float* delta, void* dqkv, int is_f32,
-                                    int B, int T, int H, int D, long long stride_b,
-                                    long long stride_t, int new_order, float scale_in,
-                                    float scale_out, int device, void* stream) {
+// Checks the shape, fills the rest of p and launches; -1 for a shape the
+// kernel does not take.
+int run(Params& p, int B, int T, int H, int D, float scale_in, float scale_out, int is_f32,
+        int device, void* stream) {
   if (D < 8 || D > 128 || D % 8 != 0 || T < 1 || B < 1 || H < 1 || B * H > 65535)
     return -1;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  Params p;
-  p.qkv = qkv;
-  p.out = out;
-  p.dout = dout;
-  p.lse = lse;
-  p.delta = delta;
-  p.dqkv = dqkv;
-  p.stride_b = stride_b;
-  p.stride_t = stride_t;
   p.B = B;
   p.T = T;
   p.H = H;
   p.D = D;
   p.C = H * D;
-  p.new_order = new_order;
   p.scale_in = scale_in;
   p.scale_out = scale_out;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -636,4 +627,59 @@ extern "C" int eo_qkv_attention_bwd(const void* qkv, const void* out, const void
     case 128: return launch<128>(p, is_f32, st);
     default: return -1;
   }
+}
+
+}  // namespace
+
+// Both entries return cudaGetLastError() after the launches (0 on success),
+// or -1 for an argument the kernel does not take. Pointers are device
+// pointers. Every q/k/v/dq/dk/dv row must start on 16 bytes: unit stride
+// along D, strides multiples of 8 elements, 16-byte-aligned bases; out and
+// dout are [B, T, H, D] contiguous with 16-byte-aligned bases; lse and delta
+// are [B*H, T] f32 (the wrappers check and allocate).
+
+// q, k, v read from the fused projection qkv [B, T, 3C] (strided along batch
+// and token, either head order); dq, dk, dv written into dqkv [B, T, 3C],
+// contiguous, in the same head order
+extern "C" int eo_qkv_attention_bwd(const void* qkv, const void* out, const void* dout,
+                                    const float* lse, float* delta, void* dqkv, int is_f32,
+                                    int B, int T, int H, int D, long long stride_b,
+                                    long long stride_t, int new_order, float scale_in,
+                                    float scale_out, int device, void* stream) {
+  const long long C = (long long)H * D;
+  const size_t esize = is_f32 ? 4 : 2;
+  Params p;
+  Plane* in[3] = {&p.q, &p.k, &p.v};
+  Plane* grad[3] = {&p.dq, &p.dk, &p.dv};
+  for (int j = 0; j < 3; ++j) {
+    const size_t off = esize * (new_order ? j * C : j * D);
+    const long long sh = new_order ? D : 3LL * D;
+    *in[j] = {const_cast<char*>(static_cast<const char*>(qkv)) + off, stride_b, stride_t, sh};
+    *grad[j] = {static_cast<char*>(dqkv) + off, (long long)T * 3 * C, 3 * C, sh};
+  }
+  p.out = out;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  return run(p, B, T, H, D, scale_in, scale_out, is_f32, device, stream);
+}
+
+// q, k, v and dq, dk, dv as six [B, T, H, D] tensors or views; strides holds
+// their (batch, token, head) strides in elements in that order, 18 values
+extern "C" int eo_attention_bwd(const void* q, const void* k, const void* v, void* dq,
+                                void* dk, void* dv, const long long* strides, const void* out,
+                                const void* dout, const float* lse, float* delta, int is_f32,
+                                int B, int T, int H, int D, float scale_in, float scale_out,
+                                int device, void* stream) {
+  Params p;
+  void* ptrs[6] = {const_cast<void*>(q), const_cast<void*>(k), const_cast<void*>(v),
+                   dq, dk, dv};
+  Plane* planes[6] = {&p.q, &p.k, &p.v, &p.dq, &p.dk, &p.dv};
+  for (int j = 0; j < 6; ++j)
+    *planes[j] = {ptrs[j], strides[3 * j], strides[3 * j + 1], strides[3 * j + 2]};
+  p.out = out;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  return run(p, B, T, H, D, scale_in, scale_out, is_f32, device, stream);
 }

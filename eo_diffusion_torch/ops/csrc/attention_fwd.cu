@@ -1,20 +1,33 @@
-// Fused-qkv self-attention forward for Hopper (sm_90a), bound through ctypes.
+// Self-attention forward for Hopper (sm_90a), bound through ctypes.
 //
-// Replaces the TPU kernel `_qkv_layout_kernel_tpv` / `_qkv_layout_kernel`
-// (eo_diffusion_tpu/ops/attention.py:738 / :697, launched by `_qkv5_fwd_impl`
-// at :797). It computes the same function, not the same block structure:
+// Replaces three TPU kernels, which compute one function on three layouts:
+//   * `_qkv_layout_kernel_tpv` / `_qkv_layout_kernel` (K1,
+//     eo_diffusion_tpu/ops/attention.py:738 / :697, launched by
+//     `_qkv5_fwd_impl` at :797): q, k, v read from the fused projection;
+//   * `_resident_kernel` (K2, :271) and `_flash_kernel` (K3, :227), the
+//     resident and grid-tiled branches of `_flash_fwd_impl` (:333), which
+//     run `flash_attention` on folded [B*H, T, D_pad] copies of q, k and v.
+// It computes the same function, not the same block structure:
 //
-//   o = softmax((q*s) (k*s)^T) v,   s = D^-1/4 rounded to the input dtype,
+//   o = softmax((q*s) (k*s)^T) v,   s = D^-1/4 rounded to the input dtype.
 //
-// reading q, k and v straight out of the projection tensor qkv [B, T, 3C]
-// (base pointer + strides, either head order) and writing o as [B, T, C]
-// with channel h*D + d, the layout the block's proj_out reads. Scores, the
+// q, k and v are three strided planes: element (b, t, h, d) of a plane
+// sits at ptr + b*sb + t*st + h*sh + d. The fused projection qkv [B, T, 3C]
+// is one such case (the three planes of one tensor at channel offsets of
+// either head order; entry `eo_qkv_attention_fwd`), three separate
+// [B, T, H, D] tensors or views of them another (`eo_attention_fwd`), so
+// one kernel body serves K1, K2 and K3 and nothing is copied or padded. On
+// Hopper there is no VMEM residency to split on: K/V always stream through
+// shared memory, so one design covers K2's T <= 4096 and K3's longer T.
+// o is written as [B, T, H, D] contiguous, which is [B, T, C] with channel
+// h*D + d, the layout the block's proj_out reads. Scores, the
 // running max m, the running sum l and the output accumulator are f32
 // (online softmax over K/V tiles, normalized once at the end). p is rounded
 // to the input dtype before the PV product, like `p.astype(v.dtype)` in the
 // TPU kernel. Optionally it writes the row logsumexp lse = m + log(l) as
-// [B*H, T] f32 (a fully masked row gets +0.7*FLT_MAX, attention.py:784-786),
-// which the flash backward of the training slice reads.
+// [B*H, T] f32, which the flash backward reads. A row whose sum l is 0 (no
+// key: not reached by self-attention, which always has one) gives o = 0 and
+// lse = +0.7*FLT_MAX, as the TPU kernels do (attention.py:267, :311, :316).
 //
 // What bounds it on the H100: at the clouds UNet's ds-4 shape (B 8, T 4096,
 // C 384, 8 heads of D 48) one launch is 4*T^2*C*B = 206 GFLOP against about
@@ -73,21 +86,24 @@ struct Tiling {
   static_assert(BQ <= 2 * kBK, "the q tile is staged in one K/V stage");
 };
 
+// element (b, t, h, d) of a [B, T, H, D] operand at ptr + b*sb + t*st + h*sh + d
+struct Plane {
+  const void* ptr;
+  long long sb, st, sh;
+};
+
 struct Params {
-  const void* qkv;
-  void* out;
+  Plane q, k, v;
+  void* out;  // [B, T, H, D] contiguous
   float* lse;
-  long long stride_b;  // elements between batches of qkv
-  long long stride_t;  // elements between tokens of qkv
   int T, H, D, C;
-  int new_order;       // 1: (q|k|v)-major channels, 0: head-major (legacy)
   float scale;
 };
 
-// channel of element d = 0 of plane j (0 q, 1 k, 2 v) of head h
-__device__ __forceinline__ long long plane_offset(const Params& p, int j, int h) {
-  return p.new_order ? (long long)j * p.C + (long long)h * p.D
-                     : (long long)h * 3 * p.D + (long long)j * p.D;
+// row t = 0 of head h of batch b
+template <typename E>
+__device__ __forceinline__ const E* plane_at(const Plane& pl, int b, int h) {
+  return static_cast<const E*>(pl.ptr) + (long long)b * pl.sb + (long long)h * pl.sh;
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
@@ -151,20 +167,22 @@ __device__ __forceinline__ void scale8(uint4& v, __nv_bfloat162 s2) {
 
 // Issue the copies of keys [k0, k0 + kBK) of the K and V planes into one
 // stage (rows >= T and columns >= D zero-filled). D % 8 == 0, so a 16-byte
-// chunk is all in or all out.
+// chunk is all in or all out. K and V share a token stride (run() checks),
+// so a V row sits off_v elements from its K row: one row address serves
+// both copies, which keeps the copy loop as short as the fused-qkv
+// kernel's was (a second row product cost K1 6-7 % at D 48).
 template <int DP>
 __device__ __forceinline__ void issue_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
-                                         const __nv_bfloat16* base, long long off_k,
-                                         long long off_v, long long stride_t, int k0,
-                                         int T, int D) {
+                                         const __nv_bfloat16* kp, long long off_v,
+                                         long long stride_t, int k0, int T, int D) {
   constexpr int LD = Tiling<DP>::LD;
   constexpr int kChunks = DP / 8;
   for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int d = (i % kChunks) * 8;
     const bool in = k0 + r < T && d < D;
-    const __nv_bfloat16* row = base + (in ? (long long)(k0 + r) * stride_t + d : 0);
-    cp_async16(sK + r * LD + d, row + (in ? off_k : 0), in);
+    const __nv_bfloat16* row = kp + (in ? (long long)(k0 + r) * stride_t + d : 0);
+    cp_async16(sK + r * LD + d, row, in);
     cp_async16(sV + r * LD + d, row + (in ? off_v : 0), in);
   }
 }
@@ -201,26 +219,25 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(Params p) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int tq = lane & 3;  // thread within the group
-  const __nv_bfloat16* base =
-      static_cast<const __nv_bfloat16*>(p.qkv) + (long long)b * p.stride_b;
+  const __nv_bfloat16* kp = plane_at<__nv_bfloat16>(p.k, b, h);
+  const long long off_v = (reinterpret_cast<intptr_t>(plane_at<__nv_bfloat16>(p.v, b, h)) -
+                           reinterpret_cast<intptr_t>(kp)) / 2;
   const __nv_bfloat162 s2 = __float2bfloat162_rn(p.scale);
-  const long long off_k = plane_offset(p, 1, h);
-  const long long off_v = plane_offset(p, 2, h);
   const int n_tiles = (p.T + kBK - 1) / kBK;
 
   // K/V tile 0 -> stage 0 in flight while q is staged through stage 1
-  issue_kv<DP>(smem, smem + kBK * LD, base, off_k, off_v, p.stride_t, 0, p.T, p.D);
+  issue_kv<DP>(smem, smem + kBK * LD, kp, off_v, p.k.st, 0, p.T, p.D);
   cp_async_commit();
   {
     __nv_bfloat16* sQ = smem + Tl::kStage;
     constexpr int kChunks = DP / 8;
-    const long long off_q = plane_offset(p, 0, h);
+    const __nv_bfloat16* qp = plane_at<__nv_bfloat16>(p.q, b, h);
     for (int i = threadIdx.x; i < Tl::BQ * kChunks; i += kThreads) {
       const int r = i / kChunks;
       const int d = (i % kChunks) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (q0 + r < p.T && d < p.D) {
-        v = *reinterpret_cast<const uint4*>(base + (long long)(q0 + r) * p.stride_t + off_q + d);
+        v = *reinterpret_cast<const uint4*>(qp + (long long)(q0 + r) * p.q.st + d);
         scale8(v, s2);
       }
       *reinterpret_cast<uint4*>(sQ + r * LD + d) = v;
@@ -257,8 +274,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(Params p) {
     __nv_bfloat16* sV = sK + kBK * LD;
     if (kt + 1 < n_tiles) {
       __nv_bfloat16* nK = smem + ((kt + 1) & 1) * Tl::kStage;
-      issue_kv<DP>(nK, nK + kBK * LD, base, off_k, off_v, p.stride_t, (kt + 1) * kBK, p.T,
-                   p.D);
+      issue_kv<DP>(nK, nK + kBK * LD, kp, off_v, p.k.st, (kt + 1) * kBK, p.T, p.D);
     }
     cp_async_commit();  // possibly empty: keeps one group per tile
     cp_async_wait_1();  // tile kt has landed
@@ -362,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16(Params p) {
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + (warp * MT + mt) * 16 + g + 8 * r;
       if (row >= p.T) continue;
-      const float inv = 1.f / l[mt][r];
+      const float inv = l[mt][r] == 0.f ? 0.f : 1.f / l[mt][r];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = n * 8 + tq * 2;
@@ -386,16 +402,14 @@ __global__ void __launch_bounds__(kF32Rows) attn_fwd_f32(Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int row = blockIdx.x * kF32Rows + threadIdx.x;
-  const float* base = static_cast<const float*>(p.qkv) + (long long)b * p.stride_b;
-  const long long off_q = plane_offset(p, 0, h);
-  const long long off_k = plane_offset(p, 1, h);
-  const long long off_v = plane_offset(p, 2, h);
+  const float* qp = plane_at<float>(p.q, b, h);
+  const float* kp = plane_at<float>(p.k, b, h);
+  const float* vp = plane_at<float>(p.v, b, h);
 
   float q[DP], acc[DP];
 #pragma unroll
   for (int d = 0; d < DP; ++d) {
-    q[d] = (row < p.T && d < p.D) ? base[(long long)row * p.stride_t + off_q + d] * p.scale
-                                  : 0.f;
+    q[d] = (row < p.T && d < p.D) ? qp[(long long)row * p.q.st + d] * p.scale : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -409,9 +423,8 @@ __global__ void __launch_bounds__(kF32Rows) attn_fwd_f32(Params p) {
       const int d = (i % (DP / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + r < p.T && d < p.D) {
-        const float* src = base + (long long)(k0 + r) * p.stride_t;
-        kv = *reinterpret_cast<const float4*>(src + off_k + d);
-        vv = *reinterpret_cast<const float4*>(src + off_v + d);
+        kv = *reinterpret_cast<const float4*>(kp + (long long)(k0 + r) * p.k.st + d);
+        vv = *reinterpret_cast<const float4*>(vp + (long long)(k0 + r) * p.v.st + d);
         kv.x *= p.scale; kv.y *= p.scale; kv.z *= p.scale; kv.w *= p.scale;
       }
       *reinterpret_cast<float4*>(&sK[r][d]) = kv;
@@ -443,8 +456,10 @@ __global__ void __launch_bounds__(kF32Rows) attn_fwd_f32(Params p) {
     float* out = static_cast<float*>(p.out) + ((long long)b * p.T + row) * p.C +
                  (long long)h * p.D;
 #pragma unroll
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+#pragma unroll
     for (int d = 0; d < DP; ++d)
-      if (d < p.D) out[d] = acc[d] / l;
+      if (d < p.D) out[d] = acc[d] * inv;
     if (p.lse != nullptr)
       p.lse[(long long)bh * p.T + row] = l == 0.f ? kFullyMaskedLse : m + logf(l);
   }
@@ -468,31 +483,19 @@ int launch(const Params& p, int bh, int is_f32, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success), or -1 for an
-// argument the kernel does not take. Pointers are device pointers; qkv must
-// have unit stride along channels, strides and offsets multiples of 8
-// elements and a 16-byte-aligned base (the wrapper checks).
-extern "C" int eo_qkv_attention_fwd(const void* qkv, void* out, float* lse, int is_f32,
-                                    int B, int T, int H, int D, long long stride_b,
-                                    long long stride_t, int new_order, float scale,
-                                    int device, void* stream) {
+// Checks the shape, fills the rest of p and launches; -1 for a shape the
+// kernel does not take.
+int run(Params& p, int B, int T, int H, int D, float scale, int is_f32, int device,
+        void* stream) {
   if (D < 8 || D > 128 || D % 8 != 0 || T < 1 || B < 1 || H < 1 || B * H > 65535)
     return -1;
+  if (p.k.st != p.v.st) return -1;  // issue_kv addresses V rows from K rows
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  Params p;
-  p.qkv = qkv;
-  p.out = out;
-  p.lse = lse;
-  p.stride_b = stride_b;
-  p.stride_t = stride_t;
   p.T = T;
   p.H = H;
   p.D = D;
   p.C = H * D;
-  p.new_order = new_order;
   p.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16 * 16) {
@@ -506,4 +509,54 @@ extern "C" int eo_qkv_attention_fwd(const void* qkv, void* out, float* lse, int 
     case 128: return launch<128>(p, B * H, is_f32, st);
     default: return -1;
   }
+}
+
+}  // namespace
+
+// Both entries return cudaGetLastError() after the launch (0 on success), or
+// -1 for an argument the kernel does not take. Pointers are device pointers;
+// out is [B, T, H, D] contiguous and lse, when not null, [B*H, T] f32. Every
+// q/k/v row must start on 16 bytes: unit stride along D, strides multiples
+// of 8 elements, 16-byte-aligned bases; k and v share their token stride
+// (the wrappers check).
+
+// q, k and v straight out of the fused projection qkv [B, T, 3C], strided
+// along batch and token, channels (q|k|v)-major (new_order) or head-major
+extern "C" int eo_qkv_attention_fwd(const void* qkv, void* out, float* lse, int is_f32,
+                                    int B, int T, int H, int D, long long stride_b,
+                                    long long stride_t, int new_order, float scale,
+                                    int device, void* stream) {
+  const long long C = (long long)H * D;
+  const size_t esize = is_f32 ? 4 : 2;
+  Params p;
+  Plane* planes[3] = {&p.q, &p.k, &p.v};
+  for (int j = 0; j < 3; ++j) {
+    planes[j]->ptr = static_cast<const char*>(qkv) + esize * (new_order ? j * C : j * D);
+    planes[j]->sb = stride_b;
+    planes[j]->st = stride_t;
+    planes[j]->sh = new_order ? D : 3LL * D;
+  }
+  p.out = out;
+  p.lse = lse;
+  return run(p, B, T, H, D, scale, is_f32, device, stream);
+}
+
+// q, k and v as three [B, T, H, D] tensors or views; strides holds their
+// (batch, token, head) strides in elements, q's three first
+extern "C" int eo_attention_fwd(const void* q, const void* k, const void* v,
+                                const long long* strides, void* out, float* lse, int is_f32,
+                                int B, int T, int H, int D, float scale, int device,
+                                void* stream) {
+  Params p;
+  const void* ptrs[3] = {q, k, v};
+  Plane* planes[3] = {&p.q, &p.k, &p.v};
+  for (int j = 0; j < 3; ++j) {
+    planes[j]->ptr = ptrs[j];
+    planes[j]->sb = strides[3 * j];
+    planes[j]->st = strides[3 * j + 1];
+    planes[j]->sh = strides[3 * j + 2];
+  }
+  p.out = out;
+  p.lse = lse;
+  return run(p, B, T, H, D, scale, is_f32, device, stream);
 }

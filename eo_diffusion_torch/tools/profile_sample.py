@@ -1,6 +1,7 @@
 """Where a sampling step's time goes on the GPU: the clouds UNet at 256 px.
 
     python -m eo_diffusion_torch.tools.profile_sample [--preset sen12mscr256] [--batch_size 8] [--steps 5]
+    python -m eo_diffusion_torch.tools.profile_sample --image_size 512
 
 Builds the preset's denoiser (by default ``sen12mscr256``, concat cloud
 removal; ``clouds64-attn`` is the reference's 64 px UNet) in bf16 with
@@ -12,9 +13,11 @@ seeded random weights and runs DDIM steps on synthetic inputs of its shape
   convolutions and matrix products, other reductions, elementwise, copies),
   from ``torch.profiler`` over ``--steps`` steps, and the device's idle
   share (1 - device time / step time);
-* the kernels' launches per step;
+* the kernels' launches per step (the attention's fused-qkv and
+  separate-tensor entries apart);
 * the forward time with the kernels against the plain attention and
-  norms, from CUDA events.
+  norms, from CUDA events (the plain one up to 256 px: beyond, its
+  ``[B, H, T, T]`` f32 scores at batch 8 take tens of GB).
 
 Prints one JSON line and writes it to ``--out`` as well.
 """
@@ -70,6 +73,7 @@ def _cuda_ms(fn, reps: int) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="sen12mscr256")
+    ap.add_argument("--image_size", type=int, default=None, help="default: the preset's")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -82,6 +86,7 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda")
 
     preset = get_preset(args.preset)
+    preset.image_size = args.image_size or preset.image_size
     concat = preset.cond_type == "concat"
     cfg = preset.unet_config(cond_channels=preset.in_channels if concat else 0)
     model = randomize_parameters(UNet(cfg), args.seed).to(dev).eval()
@@ -107,10 +112,12 @@ def main(argv=None) -> dict:
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         A.qkv_attention_cuda.launches = G.group_norm_fwd_cuda.launches = 0
+        A.flash_attention_cuda.launches = 0
         with torch.profiler.profile(activities=acts) as prof:
             sample(args.steps)
             torch.cuda.synchronize()
         launches = A.qkv_attention_cuda.launches
+        flash_launches = A.flash_attention_cuda.launches
         gn_launches = G.group_norm_fwd_cuda.launches
         by_class, by_kernel = defaultdict(float), defaultdict(float)
         for e in prof.key_averages():
@@ -124,14 +131,16 @@ def main(argv=None) -> dict:
         xin = x_T.to(cfg.dtype)
         t = torch.full((n,), 500, device=dev, dtype=torch.long)
         fwd_kernel_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 5)
-        model.set_impl(attn="plain", norm="plain")
-        fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 3)
+        fwd_plain_ms = None
+        if s <= 256:
+            model.set_impl(attn="plain", norm="plain")
+            fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 3)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     res = {
-        "card": card.strip(), "config": f"{args.preset} DDIM, bf16",
+        "card": card.strip(), "config": f"{args.preset} at {s} px, DDIM, bf16",
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
         "img_per_s_at_50_steps": n / (step_ms * 50 / 1e3),
         "device_ms_per_step": device_ms,
@@ -141,6 +150,7 @@ def main(argv=None) -> dict:
         "forward_ms_kernels": fwd_kernel_ms,
         "forward_ms_plain": fwd_plain_ms,
         "attention_launches_per_step": launches / args.steps,
+        "flash_attention_launches_per_step": flash_launches / args.steps,
         "group_norm_launches_per_step": gn_launches / args.steps,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }

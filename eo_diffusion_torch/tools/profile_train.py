@@ -1,6 +1,7 @@
 """Where a training step's time goes on the GPU: the clouds UNet at 256 px.
 
     python -m eo_diffusion_torch.tools.profile_train [--batch_size 8] [--steps 3]
+    python -m eo_diffusion_torch.tools.profile_train --image_size 512 --batch_size 4
 
 Builds the ``sen12mscr256`` trainer (concat cloud removal, bf16 activations,
 float32 parameters, AdamW + EMA) with seeded random weights and takes
@@ -62,6 +63,7 @@ def _classify(name: str) -> str:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--image_size", type=int, default=256)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/profile_train.json")
@@ -73,6 +75,7 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda")
 
     preset = get_preset("sen12mscr256")
+    preset.image_size = args.image_size
     cfg = preset.unet_config(cond_channels=preset.in_channels)
     model = randomize_parameters(UNet(cfg), args.seed)
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
@@ -102,10 +105,12 @@ def main(argv=None) -> dict:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
+    A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         steps(args.steps)
     fwd_launches, bwd_launches = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+    flash_launches = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
     gn_launches = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
     by_class, by_kernel = defaultdict(float), defaultdict(float)
     for e in prof.key_averages():
@@ -123,7 +128,8 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]
     res = {
-        "card": card.strip(), "config": "sen12mscr256 training step, bf16, AdamW + EMA every step",
+        "card": card.strip(),
+        "config": f"sen12mscr256 training step at {s} px, bf16, AdamW + EMA every step",
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
         "steps_per_s": 1e3 / step_ms, "img_per_s": n * 1e3 / step_ms,
         "loss": float(metrics["loss"]),
@@ -133,6 +139,8 @@ def main(argv=None) -> dict:
         "top_kernels_ms": [[k[:90], v] for k, v in top],
         "attention_fwd_launches_per_step": fwd_launches / args.steps,
         "attention_bwd_launches_per_step": bwd_launches / args.steps,
+        "flash_attention_fwd_launches_per_step": flash_launches[0] / args.steps,
+        "flash_attention_bwd_launches_per_step": flash_launches[1] / args.steps,
         "group_norm_fwd_launches_per_step": gn_launches[0] / args.steps,
         "group_norm_bwd_launches_per_step": gn_launches[1] / args.steps,
         "peak_mem_gib": peak_gib,

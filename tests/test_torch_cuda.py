@@ -360,3 +360,143 @@ def test_unet_norms_go_through_the_kernels(dev):
     for name, got in grads["auto"].items():
         want = grads["plain"][name]
         assert ((got - want).norm() / want.norm().clamp(min=floor)).item() <= 1e-3, name
+
+
+# -- the separate-tensor entries (K2/K3 forward, K4 behind them) -----------------
+
+
+def _planes(b, t, h, d, dtype, seed, layout):
+    """q, k, v [B, T, H, D]: strided split_qkv views of one projection in
+    either head order, or three contiguous tensors."""
+    if layout == "contiguous":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [(2.0 * torch.randn(b, t, h, d, generator=g, device="cuda")).to(dtype)
+                for _ in range(3)]
+    return list(A.split_qkv(_qkv(b, t, h, d, dtype, seed), h, layout == "new"))
+
+
+def _check_flash(q, k, v):
+    f0 = A.flash_attention_cuda.launches
+    out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert A.flash_attention_cuda.launches == f0 + 1
+    ref, ref_lse = A.reference_attention(q, k, v, return_lse=True)
+    assert out.shape == q.shape and out.dtype == q.dtype and out.is_contiguous()
+    assert lse.shape == ref_lse.shape and (lse - ref_lse).abs().max().item() <= 1e-3
+    err = ((out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[q.dtype], err
+    return out, lse
+
+
+@pytest.mark.parametrize("t", [1, 63, 100, 2304])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["legacy", "new", "contiguous"])
+def test_flash_fwd_and_bwd_match_plain(dev, t, dtype, layout):
+    q, k, v = _planes(2, t, 2, 48 if t % 2 else 64, dtype, seed=t, layout=layout)
+    out, lse = _check_flash(q, k, v)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    b0 = A.flash_attention_bwd_cuda.launches
+    got = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bwd_cuda.launches == b0 + 1
+    ref = A.reference_attention_bwd(q, k, v, out, lse, dout)
+    rms = torch.stack([r.float() for r in ref]).pow(2).mean().sqrt().clamp(min=1e-12)
+    for name, a, want in zip("qkv", got, ref):
+        assert a.shape == q.shape and a.dtype == dtype and a.is_contiguous()
+        a, want = a.float(), want.float()
+        assert torch.isfinite(a).all(), name
+        err = ((a - want).abs() / rms / (want.abs() / rms).clamp(min=1.0)).max().item()
+        assert err <= TOL_BWD[dtype], (name, err)
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 48, 64, 96, 128])
+def test_flash_every_head_dim_bf16(dev, d):
+    _check_flash(*_planes(1, 129, 3, d, torch.bfloat16, seed=d, layout="legacy"))
+
+
+def test_flash_takes_k_and_v_of_different_strides(dev):
+    """The kernel reads K and V rows at one token stride: the wrapper copies
+    k and v whose token strides differ, and the result still matches."""
+    q, k, _ = _planes(2, 77, 2, 48, torch.bfloat16, seed=2, layout="new")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    v = torch.randn(2, 77, 2, 56, generator=g, device="cuda").to(torch.bfloat16)[..., :48]
+    assert k.stride(1) != v.stride(1)
+    _check_flash(q, k, v)
+
+
+def test_flash_matches_the_fused_entry_bit_for_bit(dev):
+    """One kernel body behind both entries: the split_qkv views give the
+    fused-qkv entry's bits."""
+    qkv = _qkv(2, 256, 4, 48, torch.bfloat16, seed=11)
+    for new_order in (False, True):
+        fused, lse = A.qkv_attention_cuda(qkv, 4, new_order, return_lse=True)
+        out, lse2 = A.flash_attention_cuda(*A.split_qkv(qkv, 4, new_order), return_lse=True)
+        assert torch.equal(out.reshape(fused.shape), fused) and torch.equal(lse2, lse)
+
+
+def test_flash_is_reproducible_and_refuses(dev):
+    q, k, v = _planes(2, 200, 2, 48, torch.bfloat16, seed=3, layout="new")
+    out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.ones_like(out)
+    a = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    b = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits
+    f0, b0 = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
+    big = [torch.zeros(1, 16, 1, 136, device="cuda", dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError, match="K2/K3, ROADMAP queue 2"):  # head dim 136 > 128
+        A.flash_attention_cuda(*big)
+    with pytest.raises(ValueError, match="K2/K3"):
+        A.attention_from_qkv(torch.zeros(1, 20, 3 * 136, device="cuda"), 1)
+    with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
+        A.flash_attention_cuda(*[x[..., :12] for x in (q, k, v)])
+    with pytest.raises(ValueError):
+        A.flash_attention_cuda(q, k, v[:, :-1])
+    with pytest.raises(ValueError):
+        A.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd_cuda(q, k, v, out, lse[:, :-1], dout)
+    assert (A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches) == (f0, b0)
+
+
+@pytest.mark.parametrize("new_order", [False, True])
+def test_gradient_reaches_qkv_through_the_flash_route(dev, new_order):
+    """T 100 fails the fused-qkv gate: attention_from_qkv takes FlashAttention
+    on the split_qkv views (both kernels), and qkv gets the plain gradient."""
+    qkv = _qkv(2, 100, 2, 32, torch.float32, seed=5).clone().requires_grad_()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dout = torch.randn(2, 100, 64, generator=g, device="cuda")
+    counters = (A.flash_attention_cuda, A.flash_attention_bwd_cuda, A.qkv_attention_cuda,
+                A.qkv_attention_bwd_cuda)
+    before = [c.launches for c in counters]
+    out = A.attention_from_qkv(qkv, 2, new_order)
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == "FlashAttentionBackward"
+    (got,) = torch.autograd.grad(out, qkv, dout)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 0, 0]
+    (want,) = torch.autograd.grad(A.attention_from_qkv(qkv, 2, new_order, impl="plain"),
+                                  qkv, dout)
+    assert got.abs().max().item() > 0
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+# the clouds UNet's attention launches a forward: (flash, fused-qkv)
+ROUTES = {256: (0, 11), 384: (11, 0), 512: (5, 6)}
+
+
+@pytest.mark.parametrize("size", [384, 512])
+def test_unet_routes_at_384_and_512_px(dev, size):
+    model = randomize_parameters(TU.UNet(TU.unet_clouds(size, dtype=torch.bfloat16)),
+                                 seed=0).to(dev).eval()
+    x = torch.randn(1, size, size, 3, device="cuda")
+    t = torch.tensor([500], device="cuda")
+    f0, q0 = A.flash_attention_cuda.launches, A.qkv_attention_cuda.launches
+    with torch.inference_mode():
+        out = model(x, t)
+        torch.cuda.synchronize()
+        assert (A.flash_attention_cuda.launches - f0, A.qkv_attention_cuda.launches - q0) \
+            == ROUTES[size]
+        assert out.shape == (1, size, size, 3) and torch.isfinite(out.float()).all()
+        model.set_impl(attn="plain")
+        model(x, t)
+        assert (A.flash_attention_cuda.launches - f0, A.qkv_attention_cuda.launches - q0) \
+            == ROUTES[size]
