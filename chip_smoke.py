@@ -25,6 +25,11 @@ Phases, in order; the first failure exits non-zero:
    launches a forward); 5c. ``tiled_ddim_sample`` of 512 x 512 scenes with
    the 256 px denoiser (3 x 3 tiles at overlap 0.5, DDIM-20);
 6. the reference's own 64 px path: ``clouds64-attn`` RePaint DDPM-100;
+5d. the DiT family through the same entry point: ``dit256`` (DiT-B/8, 12
+   blocks, hidden 768, 12 heads, patch 8) with rectified flow, Heun-8 (15
+   model calls, 180 fused-qkv attention launches a batch) and Euler-32 (384),
+   and ``dit64`` (DiT-S/4) with DDIM-50 (600), batch 8, three batches each,
+   no separate-tensor or GroupNorm launch;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -32,8 +37,16 @@ Phases, in order; the first failure exits non-zero:
    sampling entry point samples from it; 7b. the same entry point at
    ``--image_size 512``, batch 4 (attention forward and backward 5 + 6 a
    step);
-8. print the ``{"kernels": [...]}`` line, the card line and, last, the
+8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
+   once: the int8 core's error, its time beside the bf16 kernels' and the
+   Amdahl share of a DiT-B/4 call at the latent256 shape;
+9. print the ``{"kernels": [...]}`` line, the card line and, last, the
    ``{"ok": true, ...}`` line.
+
+Phase 3 also holds the int8 attention kernel against its plain version (B32
+H12 T256 D64 bf16, the probe's shape, and a smaller f32 one) and times the
+fused-qkv kernel at the DiT's shapes; phase 4c holds a DiT-B/8 forward at 256
+px and a DiT-B/4 call at the latent256 shape against the all-plain model.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -54,13 +67,16 @@ import torch.nn.functional as F
 
 from eo_diffusion_torch.cli import inference as cli
 from eo_diffusion_torch.cli import train as cli_train
-from eo_diffusion_torch.cli.presets import get_preset
+from eo_diffusion_torch.cli.presets import build_denoiser, get_preset
+from eo_diffusion_torch.models.dit import DiT, DiTConfig, dit_b
 from eo_diffusion_torch.models.unet import UNet, unet_clouds
 from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import group_norm as G
+from eo_diffusion_torch.ops import int8_attention as I8
+from eo_diffusion_torch.tools import probe_int8_attn
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -68,6 +84,7 @@ from eo_diffusion_torch.weights import randomize_parameters
 # float32 without tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores
 # kernel vs plain (plain computes in f32 from the same inputs, then rounds to
 # the input dtype): |kernel - plain| <= TOL * max(1, |plain|) elementwise.
 # bf16: both outputs round to bf16, so they may differ by one ulp (2^-7
@@ -105,6 +122,15 @@ TOL_GN_PARAMS = 1e-3
 # f32 operations an element (not on the tensor cores): forward statistics
 # and affine 5, SiLU 4 more; backward 11, SiLU's derivative 8 more
 GN_OPS = {("fwd", "none"): 5, ("fwd", "silu"): 9, ("bwd", "none"): 11, ("bwd", "silu"): 19}
+# fused-qkv attention launches of one DiT forward: one a block (12 blocks in
+# dit256, dit64 and the probe's DiT-B/4), all at aligned T (1024 or 256)
+DIT_DEPTH = 12
+# the DiT sampling runs: (preset, sampler flags, model calls a batch)
+DIT_RUNS = (("dit256", ["--sampler", "flow", "--flow_method", "heun", "--sampler_steps", "8"],
+             15),
+            ("dit256", ["--sampler", "flow", "--flow_method", "euler", "--sampler_steps", "32"],
+             32),
+            ("dit64", ["--sampler", "ddim", "--sampler_steps", "50"], 50))
 TRAIN_STEPS = 8
 TRAIN_STEPS_512 = 6
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
@@ -357,6 +383,7 @@ def reset_counts():
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
+    I8.int8_attention_cuda.launches = 0
 
 
 def counts():
@@ -364,7 +391,8 @@ def counts():
             "attn_bwd": A.qkv_attention_bwd_cuda.launches,
             "flash_fwd": A.flash_attention_cuda.launches,
             "flash_bwd": A.flash_attention_bwd_cuda.launches,
-            "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches}
+            "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
+            "int8": I8.int8_attention_cuda.launches}
 
 
 def expected(size, forwards, backwards=0):
@@ -373,7 +401,14 @@ def expected(size, forwards, backwards=0):
     qkv, flash = ROUTES[size]
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
-            "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards}
+            "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
+            "int8": 0}
+
+
+def dit_expected(forwards):
+    """The launch counts of ``forwards`` DiT forwards: the fused-qkv kernel
+    once a block, nothing else."""
+    return {**{k: 0 for k in counts()}, "attn_fwd": DIT_DEPTH * forwards}
 
 
 def gn_bound_ms(direction, act, n, hw, c, groups, esize):
@@ -470,6 +505,66 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
         print(f"group_norm_{direction} " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+def int8_case(b, heads, t, d, dtype, gen):
+    """The int8 attention kernel vs its plain version on ``[B*H, T, D]``, with
+    the bf16 flash kernel and SDPA timed on the same inputs; returns a result
+    row."""
+    bh = b * heads
+    q, k, v = (torch.randn(bh, t, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    out = I8.int8_attention_cuda(q, k, v)
+    plain, l, s_v = I8.int8_attention_reference(q, k, v, return_stats=True)
+    torch.cuda.synchronize()
+    diff = (out.float() - plain.float()).abs()
+    err = diff.max().item()
+    over = int((diff > I8.tolerance(plain, l, s_v)).sum().item())
+    # elements past the output's rounding: a step of round(p * 127) moved them
+    stepped = int((diff > 2.0 ** -7 * plain.float().abs() + 1e-7).sum().item())
+    label = f"B{b} H{heads} T{t} D{d}"
+    assert math.isfinite(err) and over == 0, (
+        f"int8 attention kernel vs plain at {label} {dtype}: {over} elements past the bound")
+    del out, plain, diff
+
+    kernel_ms = cuda_ms(lambda: I8.int8_attention_cuda(q, k, v), 50)
+    plain_ms = cuda_ms(lambda: I8.int8_attention_reference(q, k, v), 5, warmup=1)
+    views = lambda x: x.reshape(b, heads, t, d).permute(0, 2, 1, 3)  # [B, T, H, D]
+    flash_ms = cuda_ms(lambda: A.flash_attention_cuda(views(q), views(k), views(v)), 50)
+    q4, k4, v4 = (x.reshape(b, heads, t, d) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                scale=1.0 / math.sqrt(d)), 50)
+    ops = 4.0 * bh * t * t * d
+    nbytes = 4 * bh * t * d * q.element_size()  # q, k, v read, o written
+    by_ops, by_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "elements_stepped": stepped, "elements": q.numel(), "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "flash_ms": flash_ms, "library_ms": library_ms,
+           "bound_ms": max(by_ops, by_bytes) * 1e3,
+           "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    print("int8_attention " + json.dumps(row), flush=True)
+    return row
+
+
+def dit_forward_check(cfg, batch, gen, label):
+    """One DiT forward: the kernels against the all-plain model (plain
+    attention), same weights; one fused-qkv launch a block."""
+    model = randomize_parameters(DiT(cfg), seed=1).cuda().eval()
+    x = torch.randn(batch, cfg.image_size, cfg.image_size, cfg.in_channels, generator=gen,
+                    device="cuda")
+    ts = torch.linspace(999.0, 1.0, batch, device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        out_k = model(x, ts).float()
+        launched = counts()
+        out_p = model.set_impl("plain")(x, ts).float()
+        assert counts() == launched, counts()
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    print(f"{label} forward b{batch}: rel L2 kernels vs plain {rel:.3e} (tol {TOL_UNET_REL}), "
+          f"max abs {(out_k - out_p).abs().max().item():.3e}, |out| rms "
+          f"{out_p.pow(2).mean().sqrt().item():.3e}, launches {launched}", flush=True)
+    assert torch.isfinite(out_k).all() and rel <= TOL_UNET_REL, rel
+    assert launched == dit_expected(1), launched
+    return rel
 
 
 def unet_forward_check(size, batch, gen):
@@ -627,7 +722,7 @@ def run_cli(argv, cfg, seed, tmp):
     """Run the inference entry point in-process with seeded random weights
     (saved as a state dict and passed with --ckpt)."""
     ckpt = os.path.join(tmp, f"weights_{seed}.pt")
-    torch.save(randomize_parameters(UNet(cfg), seed).state_dict(), ckpt)
+    torch.save(randomize_parameters(build_denoiser(cfg), seed).state_dict(), ckpt)
     args = cli.parse_args(argv + ["--ckpt", ckpt, "--outdir", os.path.join(tmp, "out"),
                                   "--seed", str(seed)])
     torch.cuda.reset_peak_memory_stats()
@@ -670,6 +765,15 @@ def main() -> int:
     rows.append(attention_case(8, 64, 8, 64, torch.bfloat16, False, gen))   # 64 px, ds 8
     rows.append(attention_case(2, 1024, 8, 64, torch.float32, False, gen))  # --no_bf16
     rows.append(attention_case(8, 4096, 8, 64, torch.bfloat16, False, gen))  # 512 px, ds 8
+    # the DiT's shapes, new head order: dit256 (DiT-B/8), the probe's DiT-B/4
+    # at the latent256 grid, dit64 (DiT-S/4)
+    dit_rows = [attention_case(8, 1024, 12, 64, torch.bfloat16, True, gen),
+                attention_case(32, 256, 12, 64, torch.bfloat16, True, gen),
+                attention_case(8, 256, 6, 64, torch.bfloat16, True, gen)]
+    rows += dit_rows
+    # the W8A8 attention probe kernel: the probe's shape, and a smaller f32 one
+    int8_rows = [int8_case(32, 12, 256, 64, torch.bfloat16, gen),
+                 int8_case(2, 4, 128, 32, torch.float32, gen)]
     # the forward as training runs it: with the lse, at the two main shapes
     lse_rows = [attention_case(8, 4096, 8, 48, torch.bfloat16, False, gen, with_lse=True),
                 attention_case(8, 1024, 8, 64, torch.bfloat16, False, gen, with_lse=True)]
@@ -737,6 +841,17 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    # 4c. the DiT: a DiT-B/8 forward at 256 px, batch 8, and the probe's
+    # DiT-B/4 call at the latent256 shape (4 channels, 64 x 64), batch 32
+    dit_fwd = {
+        "dit256": dit_forward_check(dit_b(256, dtype=torch.bfloat16), 8, gen, "DiT-B/8 256 px"),
+        "dit_b4_latent256": dit_forward_check(
+            DiTConfig(image_size=64, in_channels=4, out_channels=4, patch_size=4,
+                      hidden_size=768, depth=DIT_DEPTH, num_heads=12, dtype=torch.bfloat16),
+            32, gen, "DiT-B/4 latent256"),
+    }
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as tmp:
         # 5. the main path through the entry point
         steps = 50
@@ -791,6 +906,28 @@ def main() -> int:
               f"{res64['images'] / res64['sample_seconds']:.4f} img/s, "
               f"kernel launches {res64['launches']}", flush=True)
 
+        # 5d. the DiT family through the entry point: three batches of 8 each,
+        # img/s over the last two (the first pays cuBLAS's first calls)
+        dit_res = {}
+        for i, (name, flags, calls) in enumerate(DIT_RUNS):
+            argv = ["--preset", name, "--dataset", "synthetic", *flags, "--batch_size", "8",
+                    "--n_iter", "2", "--device", "cuda"]
+            res = run_cli(argv, get_preset(name).model_config(), seed=6 + i, tmp=tmp)
+            size = get_preset(name).image_size
+            assert res["samples"].shape == (8, size, size, 3), res["samples"].shape
+            want = dit_expected(calls * res["batches"])
+            assert res["launches"] == want, (name, flags, res["launches"], want)
+            steady = res["batch_seconds"][1:]
+            res["img_s"] = 8 * len(steady) / sum(steady)
+            tag = f"{name} {' '.join(flags[1::2])}"
+            print(f"{tag} b8: {res['batches']} batches, {calls} model calls a batch, "
+                  f"{res['launches']['attn_fwd'] // res['batches']} fused-qkv launches a "
+                  f"batch; batch seconds {[round(x, 4) for x in res['batch_seconds']]}; "
+                  f"{res['img_s']:.4f} img/s over the last {len(steady)}; peak memory "
+                  f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+            del res["samples"]
+            dit_res[tag] = res
+
         # 7. the training path through the entry point
         train_res = run_train(tmp, seed=4)
         steady = train_res["step_seconds"][2:]  # after cuDNN's plan search
@@ -812,7 +949,14 @@ def main() -> int:
               f"{train512['losses'][-1]:.5f}; launches {train512['launches']}; peak memory "
               f"{train512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
-    # 8. the result lines
+    # 8. the W8A8 attention probe, once
+    reset_counts()
+    probe = probe_int8_attn.run(seed=0)
+    probe_launches = counts()
+    assert probe_launches["int8"] > 0, probe_launches
+    print("probe_int8_attn " + json.dumps(probe), flush=True)
+
+    # 9. the result lines
     main_row = rows[0]
     bwd_row = bwd_rows[0]
     gn_fwd_rows, gn_bwd_rows = [r[0] for r in gn_rows], [r[1] for r in gn_rows]
@@ -830,7 +974,10 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "launches_clouds64": res64["launches"]["attn_fwd"],
         "launches_train": train_res["launches"]["attn_fwd"],
+        "launches_dit": {tag: r["launches"]["attn_fwd"] for tag, r in dit_res.items()},
         "ms_with_lse": lse_rows[0]["kernel_ms"],
+        "ms_dit256": dit_rows[0]["kernel_ms"],
+        "dit_forward_rel_l2": dit_fwd,
         "shapes": rows,
     }, {
         "name": "qkv_attention_bwd",
@@ -874,6 +1021,22 @@ def main() -> int:
         "bound_by": flash_bwd_rows[0]["bound_by"],
         "library_ms": flash_bwd_rows[0]["library_ms"],
         "shapes": flash_bwd_rows,
+    }, {
+        "name": "int8_attention_fwd",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/int8_attention.cu",
+        "replaces": "tools/probe_int8_attn.py:82",
+        "launches": probe_launches["int8"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+        "ms": int8_rows[0]["kernel_ms"],
+        "plain_ms": int8_rows[0]["plain_ms"],
+        "bound_ms": int8_rows[0]["bound_ms"],
+        "bound_by": int8_rows[0]["bound_by"],
+        "library_ms": int8_rows[0]["library_ms"],
+        "library_call": "F.scaled_dot_product_attention in bf16 (not quantised)",
+        "flash_bf16_ms": int8_rows[0]["flash_ms"],
+        "probe": probe,
+        "shapes": int8_rows,
     }] + [{
         "name": f"group_norm_{direction}",
         "route": "cuda",

@@ -1,9 +1,11 @@
 """eo_diffusion_torch: the PyTorch/CUDA port of eo_diffusion_tpu for one NVIDIA H100.
 
-The sampling path so far: the clouds UNet with DDPM (RePaint) and DDIM
-samplers, driven by ``python -m eo_diffusion_torch.cli.inference``. Its
-UNet self-attention runs through a hand-written CUDA kernel
-(``ops/csrc/attention_fwd.cu``), built with ``nvcc`` on first use.
+So far: the clouds UNet samples (DDPM with RePaint, DDIM, tiled DDIM) and
+trains, and the DiT samples with DDPM/DDIM or rectified flow, driven by
+``python -m eo_diffusion_torch.cli.inference`` and ``...cli.train``. Their
+attention and GroupNorms, and the W8A8 attention probe, run through
+hand-written CUDA kernels (``ops/csrc/*.cu``), built with ``nvcc`` on first
+use.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``--device cpu``, ``device="cpu"``). The package imports torch and numpy,

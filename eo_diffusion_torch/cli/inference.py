@@ -3,12 +3,16 @@
 ``python -m eo_diffusion_torch.cli.inference --preset sen12mscr256
 --dataset synthetic --sampler ddim --sampler_steps 50 --batch_size 8 --save``
 
+``python -m eo_diffusion_torch.cli.inference --preset dit256 --sampler flow
+--flow_method heun --sampler_steps 8 --batch_size 8``
+
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; the CPU is used only with ``--device cpu``. It writes the same
-``samples/`` PNG grids as the JAX CLI. Flags of the JAX CLI that later
-slices bring (SSIM/PSNR ``--metrics``, guidance, DeepCache, other samplers,
-latent/DiT/flow presets, ...) are not accepted yet; ROADMAP lists them by
-queue.
+``samples/`` PNG grids as the JAX CLI. UNet and DiT presets sample with
+DDPM/DDIM; flow-process presets (``dit256``, ``flow64``, ``tiny-flow``) with
+``--sampler flow``, which they force. Flags of the JAX CLI that later slices
+bring (SSIM/PSNR ``--metrics``, guidance, DeepCache, other samplers, latent
+presets, ...) exit naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -21,6 +25,29 @@ import time
 import numpy as np
 import torch
 
+# flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
+# name ending in "_" stands for every flag that starts with it
+UNPORTED_FLAGS = {
+    "--data_root": 7, "--metrics": 9, "--samples_fid": 9, "--wandb": 9, "--ae_ckpt": 10,
+    "--guidance_scale": 11, "--guidance_rescale": 11, "--guidance_interval": 11,
+    "--dynamic_threshold": 11, "--dpm_spacing": 11, "--sigma_data": 11, "--cd_points": 11,
+    "--deepcache": 11, "--sdedit_strength": 11, "--pag_scale": 11, "--autoguide_": 11,
+    "--classifier_": 11, "--phema_": 11, "--random_label": 11, "--num_classes": 11,
+    "--class_dropout": 11, "--cond_type": 11, "--model_base_dim": 11,
+    "--freeu": 13, "--tome_ratio": 13, "--tome_mlp": 13, "--controlnet": 13,
+    "--lora": 14, "--int8_compute": 15,
+}
+# samplers of the JAX CLI that are not ported yet -> ROADMAP queue
+UNPORTED_SAMPLERS = {"dpm": 11, "unipc": 11, "cm": 12, "pd": 12}
+
+
+def _unported_flag(arg: str):
+    flag = arg.split("=")[0]
+    for name, queue in UNPORTED_FLAGS.items():
+        if flag == name or (name.endswith("_") and flag.startswith(name)):
+            return flag, queue
+    return None
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="EO diffusion inference (PyTorch/CUDA)")
@@ -29,7 +56,11 @@ def parse_args(argv=None):
     parser.add_argument("--image_size", type=int, default=None)
     parser.add_argument("--timesteps", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=4)
-    parser.add_argument("--sampler", type=str, default="ddpm", choices=["ddpm", "ddim"])
+    parser.add_argument("--sampler", type=str, default="ddpm",
+                        choices=["ddpm", "ddim", "flow", *UNPORTED_SAMPLERS],
+                        help="flow = the ODE sampler of flow-process presets, which force it")
+    parser.add_argument("--flow_method", type=str, default="euler", choices=["euler", "heun"],
+                        help="flow sampler integrator (heun: 2nd order, 2 model calls a step)")
     parser.add_argument("--sampler_steps", type=int, default=250)
     parser.add_argument("--eta", type=float, default=0.0)
     parser.add_argument("--ddim_spacing", type=str, default="uniform",
@@ -52,7 +83,15 @@ def parse_args(argv=None):
     parser.add_argument("--save", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; never falls back silently")
-    return parser.parse_args(argv)
+    for arg in (argv if argv is not None else __import__("sys").argv[1:]):
+        hit = _unported_flag(arg)
+        if hit:
+            parser.error(f"{hit[0]} is not ported yet (ROADMAP queue {hit[1]})")
+    args = parser.parse_args(argv)
+    if args.sampler in UNPORTED_SAMPLERS:
+        parser.error(f"--sampler {args.sampler} is not ported yet "
+                     f"(ROADMAP queue {UNPORTED_SAMPLERS[args.sampler]})")
+    return args
 
 
 def resolve_device(name: str) -> torch.device:
@@ -84,7 +123,8 @@ def _build_cond(batch, cond_type):
 def main(args):
     """Sample ``args.n_iter + 1`` batches. Returns a summary dict with the
     last batch's samples (``[N, H, W, C]`` float32 numpy), the batch and
-    image counts and the seconds spent inside the samplers."""
+    image counts and the seconds spent inside the samplers, in all and by
+    batch."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
@@ -100,6 +140,13 @@ def main(args):
     preset.image_size = image_size
     timesteps = args.timesteps or preset.timesteps
     cond_type = preset.cond_type
+    if preset.process == "flow" and args.sampler != "flow":
+        print(f"preset {preset.name} is a flow process; using --sampler flow "
+              "(its native sampler)")
+        args.sampler = "flow"
+    if args.sampler == "flow" and preset.process != "flow":
+        raise SystemExit(f"--sampler flow requires a flow-process preset; {preset.name} "
+                         f"trained the {preset.process} chain (use ddpm/ddim)")
 
     _, test_loader = DATASET_FACTORIES[dataset](
         batch_size=args.batch_size, image_size=image_size, channels=preset.in_channels,
@@ -109,7 +156,7 @@ def main(args):
     peek_cond, _ = _build_cond(peek, cond_type)
     cond_channels = peek_cond.shape[-1] if cond_type == "concat" and peek_cond is not None else 0
 
-    ucfg = preset.unet_config(bf16=not args.no_bf16, cond_channels=cond_channels)
+    ucfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels)
     model = build_denoiser(ucfg)
     if args.ckpt:
         print("loading checkpoint...")
@@ -128,7 +175,7 @@ def main(args):
     print("start inference")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     to_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
-    samples, n_images, seconds, n = None, 0, 0.0, 0
+    samples, n_images, batch_seconds, n = None, 0, [], 0
     with torch.inference_mode():
         for j, batch in enumerate(test_loader):
             print(f"data {j}")
@@ -136,7 +183,14 @@ def main(args):
             bsz = image.shape[0]
             cond, mask = _build_cond(batch, cond_type)
             t0 = time.perf_counter()
-            if args.sampler == "ddpm":
+            if args.sampler == "flow":
+                mask_j = to_dev(mask) if cond_type == "sum" else None
+                out = diffusion.sample(
+                    model_fn, bsz, device=device, generator=generator,
+                    num_steps=args.sampler_steps, method=args.flow_method,
+                    cond=to_dev(cond) if cond_type == "concat" else None,
+                    mask=mask_j, x0=to_dev(image) if mask_j is not None else None)
+            elif args.sampler == "ddpm":
                 out = diffusion.ddpm_sample(
                     model_fn, bsz, device=device, generator=generator,
                     cond=to_dev(cond), clip=not args.no_clip,
@@ -150,7 +204,7 @@ def main(args):
                     mask=mask_j, x0=to_dev(image) if mask_j is not None else None,
                     clip=args.ddim_clip)
             samples = out.x.float().cpu().numpy()  # waits for the device
-            seconds += time.perf_counter() - t0
+            batch_seconds.append(time.perf_counter() - t0)
             n_images += bsz
 
             samples01 = rescale_to_unit(samples, data_range)
@@ -170,7 +224,7 @@ def main(args):
             if args.n_iter is not None and j >= args.n_iter:
                 break
     return {"samples": samples, "batches": n, "images": n_images,
-            "sample_seconds": seconds}
+            "sample_seconds": sum(batch_seconds), "batch_seconds": batch_seconds}
 
 
 if __name__ == "__main__":

@@ -1,19 +1,22 @@
-"""Named experiment presets for the port (the pixel-space UNet + DDPM part of
-``eo_diffusion_tpu/cli/presets.py``).
+"""Named experiment presets for the port (the pixel-space UNet and DiT
+presets, DDPM and rectified flow, of ``eo_diffusion_tpu/cli/presets.py``).
 
 Each recipe is selectable with ``--preset``; presets of the other families
-(latent, DiT, flow, EDM, bridge, MeanFlow, SPADE, ...) raise and name the
-ROADMAP queue that ports them.
+(latent, EDM, bridge, MeanFlow, MoE, SPADE, ...) raise and name the ROADMAP
+queue that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+from torch import nn
 
+from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.models.unet import UNet, UNetConfig
 
 __all__ = ["Preset", "PRESETS", "get_preset", "build_denoiser", "build_process"]
@@ -35,6 +38,34 @@ class Preset:
     timesteps: int = 1000
     batch_size: int = 128
     objective: str = "eps"
+    # backbone "dit" selects models/dit.DiT (base_dim is the hidden size,
+    # depth the block count, patch_size the patchify stride); process "flow"
+    # samples with diffusion/flow.FlowMatching instead of the DDPM chain
+    backbone: str = "unet"  # "unet" | "dit"
+    patch_size: int = 4
+    depth: int = 12
+    process: str = "ddpm"  # "ddpm" | "flow"
+
+    def model_config(self, bf16: bool = True, cond_channels: int = 0,
+                     num_classes: Optional[int] = None,
+                     class_dropout_prob: float = 0.0) -> Union[UNetConfig, DiTConfig]:
+        """The backbone config of the preset's family: :meth:`unet_config`,
+        or a :class:`DiTConfig` for ``backbone="dit"``."""
+        if self.backbone == "unet":
+            return self.unet_config(bf16, cond_channels, num_classes, class_dropout_prob)
+        assert self.backbone == "dit", self.backbone
+        return DiTConfig(
+            image_size=self.image_size,
+            in_channels=self.in_channels + cond_channels,
+            out_channels=self.in_channels,
+            patch_size=self.patch_size,
+            hidden_size=self.base_dim,
+            depth=self.depth,
+            num_heads=self.num_heads,
+            num_classes=num_classes or self.num_classes or None,
+            class_dropout_prob=class_dropout_prob,
+            dtype=torch.bfloat16 if bf16 else torch.float32,
+        )
 
     def unet_config(self, bf16: bool = True, cond_channels: int = 0,
                     num_classes: Optional[int] = None,
@@ -73,6 +104,21 @@ PRESETS = {
                    timesteps=50, batch_size=16),
     "tiny-cr": Preset("tiny-cr", "synthetic", 8, 3, 32, (1, 2), (), 1, 1,
                       cond_type="concat", timesteps=50, batch_size=16),
+    # DiT family: DiT-S/4 at 64 px (T 256, D 64), DDPM
+    "dit64": Preset("dit64", "synthetic", 64, 3, 384, (), (), 0, 6, batch_size=64,
+                    backbone="dit", patch_size=4, depth=12),
+    # DiT-B/8 + rectified flow at 256 px (T 1024, D 64, 12 heads)
+    "dit256": Preset("dit256", "synthetic", 256, 3, 768, (), (), 0, 12, batch_size=16,
+                     backbone="dit", patch_size=8, depth=12, process="flow"),
+    # rectified flow on the UNet
+    "flow64": Preset("flow64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                     batch_size=64, process="flow"),
+    "tiny-dit": Preset("tiny-dit", "synthetic", 16, 3, 64, (), (), 0, 4, timesteps=50,
+                       batch_size=16, backbone="dit", patch_size=4, depth=2),
+    "tiny-dit4": Preset("tiny-dit4", "synthetic", 16, 3, 64, (), (), 0, 4, timesteps=50,
+                        batch_size=16, backbone="dit", patch_size=4, depth=4),
+    "tiny-flow": Preset("tiny-flow", "synthetic", 8, 3, 32, (1, 2), (), 1, 1, batch_size=16,
+                        process="flow"),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
@@ -80,11 +126,10 @@ _LATER = {
     "mnist": 7,
     "vpred64": 11, "tiny-vpred": 11, "edm64": 11, "tiny-edm": 11,
     "bridge64": 11, "tiny-bridge": 11, "cddpm64": 11, "tiny-cddpm": 11,
-    "latent64": 10, "tiny-latent": 10, "dit64": 10, "dit256": 10, "latent256": 10,
-    "latent256-cr": 10, "tiny-latent-cr": 10, "tiny-latent-dit": 10, "flow64": 10,
-    "cflow64": 10, "tiny-cflow": 10, "tiny-dit": 10, "tiny-dit4": 10,
-    "tiny-dit-edm": 10, "tiny-flow": 10, "tiny-latent-flow": 10,
+    "latent64": 10, "tiny-latent": 10, "latent256": 10, "latent256-cr": 10,
+    "tiny-latent-cr": 10, "tiny-latent-dit": 10, "tiny-latent-flow": 10,
     "tiny-latent-bridge": 10,
+    "cflow64": 11, "tiny-cflow": 11, "tiny-dit-edm": 11,
     "meanflow64": 12, "tiny-meanflow": 12, "cmeanflow64": 12, "tiny-cmeanflow": 12,
     "tiny-dit-meanflow": 12,
     "spade64": 13, "tiny-spade": 13, "moe-dit64": 13, "tiny-moe": 13,
@@ -101,15 +146,23 @@ def get_preset(name: str) -> Preset:
     return dataclasses.replace(PRESETS[name])
 
 
-def build_denoiser(model_cfg: UNetConfig) -> UNet:
-    """Instantiate the backbone for a config built by Preset.unet_config."""
+def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig]) -> nn.Module:
+    """Instantiate the backbone for a config built by Preset.model_config."""
+    if isinstance(model_cfg, DiTConfig):
+        return DiT(model_cfg)
     assert isinstance(model_cfg, UNetConfig), type(model_cfg)
     return UNet(model_cfg)
 
 
 def build_process(preset: Preset, timesteps: int, image_size: int,
-                  cond_type: Optional[str] = None) -> GaussianDiffusion:
-    """The DDPM process for the preset at ``image_size``."""
+                  cond_type: Optional[str] = None) -> Union[GaussianDiffusion, FlowMatching]:
+    """The preset's process at ``image_size``: the DDPM chain, or rectified
+    flow for ``process="flow"`` (where "sum" stays sampling-time
+    inpainting and "concat" conditions the model)."""
+    if preset.process == "flow":
+        return FlowMatching.create(image_size=image_size, in_channels=preset.in_channels,
+                                   cond_type=cond_type)
+    assert preset.process == "ddpm", preset.process
     return GaussianDiffusion.create(timesteps=timesteps, image_size=image_size,
                                     in_channels=preset.in_channels, cond_type=cond_type,
                                     objective=preset.objective)

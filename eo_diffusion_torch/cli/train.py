@@ -137,6 +137,10 @@ def main(args):
 
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
+    if preset.backbone != "unet" or preset.process != "ddpm":
+        raise NotImplementedError(f"preset {preset.name!r}: training the {preset.backbone} "
+                                  f"backbone with the {preset.process} process is not "
+                                  "ported yet (ROADMAP queue 10)")
     dataset = args.dataset or preset.dataset
     if dataset not in DATASET_FACTORIES:
         raise NotImplementedError(f"--dataset {dataset}: only 'synthetic' is ported "

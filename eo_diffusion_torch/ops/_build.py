@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel name -> its CUDA source under csrc/
 KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu",
-           "group_norm": "group_norm.cu"}
+           "group_norm": "group_norm.cu", "int8_attention": "int8_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

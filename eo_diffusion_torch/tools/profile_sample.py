@@ -1,16 +1,20 @@
-"""Where a sampling step's time goes on the GPU: the clouds UNet at 256 px.
+"""Where a sampling step's time goes on the GPU: the clouds UNet at 256 px, or the DiT.
 
     python -m eo_diffusion_torch.tools.profile_sample [--preset sen12mscr256] [--batch_size 8] [--steps 5]
     python -m eo_diffusion_torch.tools.profile_sample --image_size 512
+    python -m eo_diffusion_torch.tools.profile_sample --preset dit256 --flow_method heun --steps 8
 
 Builds the preset's denoiser (by default ``sen12mscr256``, concat cloud
-removal; ``clouds64-attn`` is the reference's 64 px UNet) in bf16 with
-seeded random weights and runs DDIM steps on synthetic inputs of its shape
-(with a concat condition where the preset has one). Reports, per step:
+removal; ``clouds64-attn`` is the reference's 64 px UNet; ``dit256`` and
+``dit64`` the DiT) in bf16 with seeded random weights and runs sampler steps
+on synthetic inputs of its shape (with a concat condition where the preset
+has one): DDIM, or for a flow-process preset the flow sampler, whose Heun
+step makes two model calls (one on the last interval). Reports, per step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class (attention kernel, GroupNorm kernel,
-  convolutions and matrix products, other reductions, elementwise, copies),
+  convolutions and matrix products, LayerNorm, other reductions,
+  elementwise, copies),
   from ``torch.profiler`` over ``--steps`` steps, and the device's idle
   share (1 - device time / step time);
 * the kernels' launches per step (the attention's fused-qkv and
@@ -34,8 +38,8 @@ from collections import defaultdict
 
 import torch
 
-from eo_diffusion_torch.cli.presets import build_process, get_preset
-from eo_diffusion_torch.models.unet import UNet
+from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+from eo_diffusion_torch.models.dit import DiT
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.weights import randomize_parameters
@@ -46,6 +50,7 @@ _CLASSES = (
     ("group_norm", re.compile(r"gn_(stats|finalize|apply)")),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
+    ("layer_norm", re.compile(r"layer_?norm", re.I)),
     ("norm_reduce", re.compile(r"reduce|norm|var_mean|welford", re.I)),
     ("copy_cat", re.compile(r"copy|cat|transpose|permute|nchw|nhwc|pad", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
@@ -76,6 +81,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--image_size", type=int, default=None, help="default: the preset's")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--flow_method", choices=["euler", "heun"], default="euler",
+                    help="the flow sampler's integrator (flow-process presets)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/profile_sample.json")
     args = ap.parse_args(argv)
@@ -87,18 +94,27 @@ def main(argv=None) -> dict:
 
     preset = get_preset(args.preset)
     preset.image_size = args.image_size or preset.image_size
+    sampler = "flow" if preset.process == "flow" else "ddim"
     concat = preset.cond_type == "concat"
-    cfg = preset.unet_config(cond_channels=preset.in_channels if concat else 0)
-    model = randomize_parameters(UNet(cfg), args.seed).to(dev).eval()
+    cfg = preset.model_config(cond_channels=preset.in_channels if concat else 0)
+    model = randomize_parameters(build_denoiser(cfg), args.seed).to(dev).eval()
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
                               cond_type=preset.cond_type if concat else None)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     n, s, c = args.batch_size, preset.image_size, preset.in_channels
     x_T = torch.randn(n, s, s, c, generator=g, device=dev)
     cond = torch.rand(n, s, s, c, generator=g, device=dev) if concat else None
-    model_fn = lambda x, t, cc, y: model(x, t, cond=cc, y=y)
+    calls = [0]
+
+    def model_fn(x, t, cc, y):
+        calls[0] += 1
+        return model(x, t, cond=cc, y=y)
 
     def sample(steps):
+        if sampler == "flow":
+            return diffusion.sample(model_fn, n, device=dev, num_steps=steps,
+                                    method=args.flow_method, cond=cond, x_T=x_T,
+                                    dtype=cfg.dtype).x
         return diffusion.ddim_sample(model_fn, n, device=dev, num_steps=steps, cond=cond,
                                      x_T=x_T, dtype=cfg.dtype).x
 
@@ -112,12 +128,13 @@ def main(argv=None) -> dict:
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         A.qkv_attention_cuda.launches = G.group_norm_fwd_cuda.launches = 0
-        A.flash_attention_cuda.launches = 0
+        A.flash_attention_cuda.launches = calls[0] = 0
         with torch.profiler.profile(activities=acts) as prof:
             sample(args.steps)
             torch.cuda.synchronize()
         launches = A.qkv_attention_cuda.launches
         flash_launches = A.flash_attention_cuda.launches
+        model_calls = calls[0]
         gn_launches = G.group_norm_fwd_cuda.launches
         by_class, by_kernel = defaultdict(float), defaultdict(float)
         for e in prof.key_averages():
@@ -133,16 +150,23 @@ def main(argv=None) -> dict:
         fwd_kernel_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 5)
         fwd_plain_ms = None
         if s <= 256:
-            model.set_impl(attn="plain", norm="plain")
+            if isinstance(model, DiT):
+                model.set_impl(attn="plain")
+            else:
+                model.set_impl(attn="plain", norm="plain")
             fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 3)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     res = {
-        "card": card.strip(), "config": f"{args.preset} at {s} px, DDIM, bf16",
+        "card": card.strip(),
+        "config": f"{args.preset} at {s} px, "
+                  f"{'flow ' + args.flow_method if sampler == 'flow' else 'DDIM'}, bf16",
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
+        "model_calls_per_step": model_calls / args.steps,
         "img_per_s_at_50_steps": n / (step_ms * 50 / 1e3),
+        "img_per_s_at_these_steps": n / (step_ms * args.steps / 1e3),
         "device_ms_per_step": device_ms,
         "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),

@@ -1,5 +1,5 @@
-"""Weights for the port's UNet: from JAX params, from reference checkpoints,
-or seeded random values.
+"""Weights for the port's UNet and DiT: from JAX params, from reference
+checkpoints, or seeded random values.
 
 Counterpart of ``eo_diffusion_tpu/tools/convert_ckpt.py`` (the port keeps its
 own copy because that module imports the JAX model). The port's UNet uses
@@ -12,7 +12,13 @@ the reference's torch state-dict names and layouts, so:
 * a flax param tree maps over with the transposes of
   ``params_to_state_dict`` (:func:`state_dict_from_jax_params`): conv HWIO ->
   OIHW, Dense ``[I, O]`` -> Linear ``[O, I]``, attention ``qkv``/``proj_out``
-  -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``.
+  -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``;
+* a flax DiT tree maps by module name (:func:`dit_state_dict_from_jax_params`):
+  ``block_{i}.qkv.kernel [I, O]`` -> ``block_{i}.qkv.weight [O, I]``, the
+  label table's ``embedding`` -> ``label_embed.weight``.
+
+:func:`randomize_parameters` fills any of the port's modules, the DiT
+included, with seeded values.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from eo_diffusion_torch.models.dit import DiTConfig
 from eo_diffusion_torch.models.unet import LayerSpec, UNetConfig, build_unet_plan
 
 __all__ = [
     "fix_legacy_dict",
     "state_dict_from_jax_params",
+    "dit_state_dict_from_jax_params",
     "load_reference_checkpoint",
     "load_jax_train_state",
     "randomize_parameters",
@@ -131,6 +139,35 @@ def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, to
     conv("out.2", p["out_conv"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
             for k, v in sd.items()}
+
+
+def _dit_linears(cfg: DiTConfig):
+    """The DiT's linear layers by name."""
+    blocks = [f"block_{i}.{m}" for i in range(cfg.depth)
+              for m in ("ada_mod", "qkv", "proj_out", "mlp_in", "mlp_out")]
+    return ["patch_embed", "t_embed_0", "t_embed_1", *blocks, "final_mod", "final_proj"]
+
+
+def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``DiT`` params (numpy arrays; with or without the ``"params"``
+    level) -> the port's DiT state dict. Every leaf of the tree is mapped,
+    and every parameter of ``DiT(cfg)`` filled; anything else raises."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    for name in _dit_linears(cfg):
+        d = p
+        for part in name.split("."):
+            d = d[part]
+        if set(d) != {"kernel", "bias"}:
+            raise KeyError(f"{name}: expected kernel and bias, got {sorted(d)}")
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(d["kernel"]).T, d["bias"]
+    if cfg.num_classes is not None:
+        sd["label_embed.weight"] = p["label_embed"]["embedding"]
+    leaves = lambda d: sum(leaves(v) if isinstance(v, Mapping) else 1 for v in d.values())
+    n_leaves = leaves(p)
+    if n_leaves != len(sd):
+        raise KeyError(f"the flax tree has {n_leaves} leaves, the DiT {len(sd)} parameters")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 @torch.no_grad()

@@ -70,3 +70,66 @@ def test_unported_presets_and_datasets_raise():
     with pytest.raises(NotImplementedError, match="synthetic"):
         inference.main(inference.parse_args(["--preset", "tiny", "--dataset", "eurosat",
                                              "--device", "cpu"]))
+
+
+def test_tiny_dit_ddim_runs_in_process(tmp_path):
+    from eo_diffusion_torch.cli import inference
+
+    args = inference.parse_args(["--preset", "tiny-dit", "--sampler", "ddim", "--sampler_steps",
+                                 "3", "--device", "cpu", "--batch_size", "2", "--n_iter", "0",
+                                 "--outdir", str(tmp_path)])
+    res = inference.main(args)
+    x = torch.as_tensor(res["samples"])
+    assert x.shape == (2, 16, 16, 3) and bool(torch.isfinite(x).all())
+
+
+@pytest.fixture
+def counted_model(monkeypatch):
+    """Seeded random weights for the CLI's denoiser (a fresh one outputs zeros)
+    and a count of its forward calls."""
+    from eo_diffusion_torch.cli import presets
+    from eo_diffusion_torch.weights import randomize_parameters
+
+    calls = []
+    build = presets.build_denoiser
+
+    def build_random(cfg):
+        model = randomize_parameters(build(cfg), seed=0)
+        model.register_forward_hook(lambda *a: calls.append(1))
+        return model
+
+    monkeypatch.setattr(presets, "build_denoiser", build_random)
+    return calls
+
+
+@pytest.mark.parametrize("method,calls", [("euler", 3), ("heun", 5)])
+def test_tiny_flow_forces_the_flow_sampler(tmp_path, capsys, counted_model, method, calls):
+    from eo_diffusion_torch.cli import inference
+
+    args = inference.parse_args(["--preset", "tiny-flow", "--sampler", "ddim", "--flow_method",
+                                 method, "--sampler_steps", "3", "--device", "cpu",
+                                 "--batch_size", "2", "--n_iter", "0", "--outdir", str(tmp_path)])
+    res = inference.main(args)
+    assert "using --sampler flow" in capsys.readouterr().out and args.sampler == "flow"
+    # Heun: two model calls an interval but one on the last
+    assert len(counted_model) == calls
+    x = torch.as_tensor(res["samples"])
+    assert x.shape == (2, 8, 8, 3) and bool(torch.isfinite(x).all())
+
+
+def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys):
+    from eo_diffusion_torch.cli import inference
+    from eo_diffusion_torch.cli.presets import get_preset
+
+    with pytest.raises(SystemExit, match="flow-process preset"):
+        inference.main(inference.parse_args(["--preset", "tiny-dit", "--sampler", "flow",
+                                             "--device", "cpu", "--outdir", str(tmp_path)]))
+    for argv, queue in ((["--guidance_scale", "2"], 11), (["--autoguide_scale=2"], 11),
+                        (["--sampler", "dpm"], 11), (["--sampler", "cm"], 12),
+                        (["--int8_compute"], 15)):
+        with pytest.raises(SystemExit) as exc:
+            inference.parse_args(["--preset", "tiny", *argv])
+        assert exc.value.code == 2 and f"queue {queue}" in capsys.readouterr().err
+    for name, queue in (("latent256", 10), ("tiny-dit-edm", 11), ("moe-dit64", 13)):
+        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
+            get_preset(name)

@@ -500,3 +500,72 @@ def test_unet_routes_at_384_and_512_px(dev, size):
         model(x, t)
         assert (A.flash_attention_cuda.launches - f0, A.qkv_attention_cuda.launches - q0) \
             == ROUTES[size]
+
+
+# -- the W8A8 attention probe kernel --------------------------------------------
+
+
+@pytest.mark.parametrize("bh,t,d,dtype", [(48, 256, 64, torch.bfloat16), (4, 256, 64, torch.float32),
+                                          (2, 128, 32, torch.bfloat16), (5, 32, 64, torch.float32),
+                                          (2, 96, 32, torch.float32)])
+def test_int8_kernel_matches_plain(dev, bh, t, d, dtype):
+    from eo_diffusion_torch.ops import int8_attention as I8
+
+    g = torch.Generator(device="cuda").manual_seed(t + d)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dtype) for _ in range(3))
+    q[0] *= 4.0  # a sharp softmax: l near 1, where one step of round(p * 127) shows most
+    before = I8.int8_attention_cuda.launches
+    out = I8.int8_attention(q, k, v)
+    plain, l, s_v = I8.int8_attention_reference(q, k, v, return_stats=True)
+    torch.cuda.synchronize()
+    assert I8.int8_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= I8.tolerance(plain, l, s_v)).all()), diff.max().item()
+    # the bound is for rare rounding steps; the bulk agrees to the output's ulp
+    assert (diff > 2.0 ** -7 * plain.float().abs()).float().mean().item() < 1e-2
+    # a strided view is copied, not misread
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(I8.int8_attention(qt, k, v), out)
+
+
+def test_int8_kernel_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import int8_attention as I8
+
+    before = I8.int8_attention_cuda.launches
+    for shape in ((2, 48, 64), (2, 512, 64), (2, 64, 48), (2, 64, 128)):
+        x = torch.zeros(shape, device="cuda")
+        with pytest.raises(ValueError):
+            I8.int8_attention(x, x, x)
+    x = torch.zeros(2, 64, 64, device="cuda", dtype=torch.half)
+    with pytest.raises(ValueError):
+        I8.int8_attention(x, x, x)
+    assert I8.int8_attention_cuda.launches == before
+    I8.int8_attention(*(torch.zeros(2, 64, 64, device="cuda"),) * 3, impl="plain")
+    assert I8.int8_attention_cuda.launches == before
+
+
+# -- the DiT ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dit_forward_kernel_matches_plain_and_launches_k1_a_block(dev, dtype):
+    from eo_diffusion_torch.models import dit as TD
+
+    cfg = TD.DiTConfig(image_size=64, in_channels=3, out_channels=3, patch_size=4,
+                       hidden_size=256, depth=3, num_heads=4, num_classes=5, dtype=dtype)
+    model = randomize_parameters(TD.DiT(cfg), seed=0).to(dev).eval()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2, 64, 64, 3, generator=g, device="cuda")
+    t = torch.tensor([999.0, 31.5], device="cuda")
+    y = torch.tensor([1, 4], device="cuda")
+    q0, f0 = A.qkv_attention_cuda.launches, A.flash_attention_cuda.launches
+    with torch.inference_mode():
+        out = model(x, t, y=y).float()
+        assert (A.qkv_attention_cuda.launches - q0, A.flash_attention_cuda.launches - f0) \
+            == (cfg.depth, 0)  # T 256, D 64: the fused-qkv kernel, one a block
+        ref = model.set_impl("plain")(x, t, y=y).float()
+        assert A.qkv_attention_cuda.launches - q0 == cfg.depth
+    assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert rel <= (1e-4 if dtype == torch.float32 else 3e-2), rel

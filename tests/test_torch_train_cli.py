@@ -112,6 +112,12 @@ def test_unported_presets_and_datasets_raise(workdir):
                                      "--device", "cpu"]))
 
 
+@pytest.mark.parametrize("preset", ["tiny-dit", "tiny-flow", "dit256"])
+def test_dit_and_flow_training_raises_until_ported(workdir, preset):
+    with pytest.raises(NotImplementedError, match="queue 10"):
+        train.main(train.parse_args(["--preset", preset, "--device", "cpu"]))
+
+
 def test_no_gpu_without_device_cpu_fails_clearly(workdir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the default --device cuda is valid")

@@ -1,4 +1,4 @@
-"""Helpers for the port's parity tests: one UNet config built in both packages,
+"""Helpers for the port's parity tests: one UNet (or DiT) config built in both packages,
 with every JAX param leaf overwritten by seeded values and carried into the
 port through eo_diffusion_torch.weights.state_dict_from_jax_params.
 
@@ -16,6 +16,7 @@ import torch
 
 from eo_diffusion_torch.models import unet as TU
 from eo_diffusion_torch.weights import state_dict_from_jax_params
+from eo_diffusion_tpu.models import dit as JD
 from eo_diffusion_tpu.models import unet as JU
 
 
@@ -39,9 +40,8 @@ def configs(**kw):
 
 
 def random_params(jcfg, seed, cond_channels=0):
-    """Seeded values for every leaf of ``JU.UNet(jcfg)``'s param tree (numpy):
-    kernels N(0, 1/fan_in), embeddings N(0, 1), norm scales 1 + N(0, 0.05^2),
-    biases N(0, 0.05^2)."""
+    """Seeded values (:func:`fill_params`) for every leaf of
+    ``JU.UNet(jcfg)``'s param tree."""
     model = JU.UNet(jcfg)
     s = jcfg.image_size
     kw = {}
@@ -52,6 +52,27 @@ def random_params(jcfg, seed, cond_channels=0):
     x = jnp.zeros((1, s, s, jcfg.in_channels - cond_channels))
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x,
                             jnp.zeros((1,), jnp.int32), **kw)
+    return model, fill_params(shapes, seed)
+
+
+def random_dit_params(jcfg, seed, cond_channels=0):
+    """Seeded values (:func:`fill_params`) for every leaf of
+    ``JD.DiT(jcfg)``'s param tree, the zero-initialised adaLN and output
+    projections included."""
+    model = JD.DiT(jcfg)
+    s = jcfg.image_size
+    kw = {"cond": jnp.zeros((1, s, s, cond_channels))} if cond_channels else {}
+    if jcfg.num_classes is not None:
+        kw["y"] = jnp.zeros((1,), jnp.int32)
+    x = jnp.zeros((1, s, s, jcfg.in_channels - cond_channels))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x,
+                            jnp.zeros((1,), jnp.float32), **kw)
+    return model, fill_params(shapes, seed)
+
+
+def fill_params(shapes, seed):
+    """A numpy param tree of ``shapes``' structure: kernels N(0, 1/fan_in),
+    embeddings N(0, 1), norm scales 1 + N(0, 0.05^2), biases N(0, 0.05^2)."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -66,7 +87,7 @@ def random_params(jcfg, seed, cond_channels=0):
             vals = 0.05 * rng.normal(size=shape)
         return vals.astype(np.float32)
 
-    return model, jax.tree_util.tree_map_with_path(fill, shapes)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def port_model(tcfg, params):
