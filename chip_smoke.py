@@ -40,6 +40,16 @@ Phases, in order; the first failure exits non-zero:
 8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
    once: the int8 core's error, its time beside the bf16 kernels' and the
    Amdahl share of a DiT-B/4 call at the latent256 shape;
+8b. the 3x3 conv weight-gradient kernel against its plain version (the JAX
+   tool's B8 256 x 256 C128 -> 128, the UNet's input conv C 6 -> 128 and
+   output conv 128 -> 3, a ragged shape, a small f32 one), then its tool
+   (``eo_diffusion_torch.tools.prototype_wgrad_kernel --sites unet256``)
+   once: the kernel against cuDNN's conv weight ``.grad`` at all 49 stride-1
+   3x3 sites of a 256 px training backward; the transposed-output attention
+   kernel against its plain version (B8 T4096 H8 D48 bf16, a ragged f32
+   case); the two attention-probe tools (``probe_attn_matmuls``, which holds
+   the matmul probe kernel against its plain version in the probe's seven
+   forms, and ``probe_packed_pv``) once each;
 9. print the ``{"kernels": [...]}`` line, the card line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -57,7 +67,6 @@ import contextlib
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -74,17 +83,18 @@ from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
 from eo_diffusion_torch.ops import attention as A
+from eo_diffusion_torch.ops import attn_probes as AP
+from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.ops import int8_attention as I8
-from eo_diffusion_torch.tools import probe_int8_attn
+from eo_diffusion_torch.tools import (probe_attn_matmuls, probe_int8_attn, probe_packed_pv,
+                                      prototype_wgrad_kernel)
+from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
+                                             card_line, cuda_ms)
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
 from eo_diffusion_torch.weights import randomize_parameters
 
-# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores,
-# float32 without tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_F32}
 # kernel vs plain (plain computes in f32 from the same inputs, then rounds to
 # the input dtype): |kernel - plain| <= TOL * max(1, |plain|) elementwise.
 # bf16: both outputs round to bf16, so they may differ by one ulp (2^-7
@@ -131,27 +141,24 @@ DIT_RUNS = (("dit256", ["--sampler", "flow", "--flow_method", "heun", "--sampler
             ("dit256", ["--sampler", "flow", "--flow_method", "euler", "--sampler_steps", "32"],
              32),
             ("dit64", ["--sampler", "ddim", "--sampler_steps", "50"], 50))
+# conv weight gradient, kernel vs plain: |kernel - plain| <= TOL_WGRAD *
+# max|plain|. bf16 inputs: both sides sum exact products in f32, only the
+# order differs (H100 readings 1.7e-5 at B8 256^2 C128, 1.3e-4 at worst over
+# the UNet's 49 sites), while one dy tile lost from a split's range moves
+# dW by about 3.5e-3 at B8 256^2; f32 inputs: each product rounds once
+# more, same argument (reading 2e-7)
+TOL_WGRAD = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+# kernel vs cuDNN's conv weight .grad at the UNet's sites: cuDNN rounds its
+# result to bf16 once (half an ulp, 2^-9 relative), besides the order of sums
+TOL_WGRAD_CUDNN = 1e-2
+# the matmul probe, kernel vs plain: exact bf16 products summed in f32 in
+# another order, |diff| <= TOL_PROBE * max|plain|
+TOL_PROBE = 1e-5
+# stride-1 3x3 convs of the clouds UNet (sen12mscr256): 49 sites
+WGRAD_SITES = 49
 TRAIN_STEPS = 8
 TRAIN_STEPS_512 = 6
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -384,6 +391,8 @@ def reset_counts():
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
+    CW.conv_wgrad_cuda.launches = AP.matmul_probe_cuda.launches = 0
+    AP.transposed_attention_cuda.launches = 0
 
 
 def counts():
@@ -392,7 +401,9 @@ def counts():
             "flash_fwd": A.flash_attention_cuda.launches,
             "flash_bwd": A.flash_attention_bwd_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
-            "int8": I8.int8_attention_cuda.launches}
+            "int8": I8.int8_attention_cuda.launches, "wgrad": CW.conv_wgrad_cuda.launches,
+            "mm_probe": AP.matmul_probe_cuda.launches,
+            "attn_t": AP.transposed_attention_cuda.launches}
 
 
 def expected(size, forwards, backwards=0):
@@ -402,7 +413,7 @@ def expected(size, forwards, backwards=0):
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
-            "int8": 0}
+            "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0}
 
 
 def dit_expected(forwards):
@@ -535,7 +546,7 @@ def int8_case(b, heads, t, d, dtype, gen):
                                                                 scale=1.0 / math.sqrt(d)), 50)
     ops = 4.0 * bh * t * t * d
     nbytes = 4 * bh * t * d * q.element_size()  # q, k, v read, o written
-    by_ops, by_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    by_ops, by_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES_PER_S
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "elements_stepped": stepped, "elements": q.numel(), "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "flash_ms": flash_ms, "library_ms": library_ms,
@@ -543,6 +554,75 @@ def int8_case(b, heads, t, d, dtype, gen):
            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
     print("int8_attention " + json.dumps(row), flush=True)
     return row
+
+
+def wgrad_case(b, h, w, c, co, dtype, gen):
+    """The conv weight-gradient kernel vs its plain version on one shape,
+    with the plain, cuDNN and bound times (the tool's ``measure``); returns
+    a result row."""
+    x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(b, h, w, co, generator=gen, device="cuda").to(dtype)
+    row = prototype_wgrad_kernel.measure(x, dy, reps=10 if b * h * w >= 2**16 else 50)
+    assert math.isfinite(row["max_rel_err"]) and row["max_rel_err"] <= TOL_WGRAD[dtype], (
+        f"conv_wgrad vs plain at {row['shape']} {dtype}: {row['max_rel_err']} > "
+        f"{TOL_WGRAD[dtype]}")
+    print("conv_wgrad " + json.dumps(row), flush=True)
+    return row
+
+
+def transposed_case(b, t, heads, d, dtype, gen):
+    """The transposed-output attention kernel vs its plain version on one
+    shape (plain a sample at a time), with the plain, SDPA and bound times
+    (the tool's ``measure``); returns a result row."""
+    qkv5 = torch.randn(b, 3, heads, t, d, generator=gen, device="cuda")
+    qkv5[:, :2] *= 2.0  # sharper softmax than unit inputs
+    row = probe_packed_pv.measure(qkv5.to(dtype), reps=20 if t >= 1024 else 50)
+    assert math.isfinite(row["max_abs_err"]) and row["max_scaled_err"] <= TOL[dtype], (
+        f"transposed attention vs plain at {row['shape']} {dtype}: {row['max_scaled_err']} > "
+        f"{TOL[dtype]}")
+    print("attention_fwd_transposed " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_8b(gen, card):
+    """Phase 8b: the conv weight-gradient kernel and the transposed-output
+    attention against their plain versions, then the three tools once each
+    with the launch counters set to 0 before and read after; returns the
+    kernel-vs-plain rows and the tools' results."""
+    wgrad_rows = [wgrad_case(8, 256, 256, 128, 128, torch.bfloat16, gen),  # the JAX tool's
+                  wgrad_case(8, 256, 256, 6, 128, torch.bfloat16, gen),    # the input conv
+                  wgrad_case(8, 256, 256, 128, 3, torch.bfloat16, gen),    # the output conv
+                  wgrad_case(3, 20, 27, 40, 24, torch.bfloat16, gen),      # ragged tiles
+                  wgrad_case(2, 20, 24, 16, 24, torch.float32, gen)]       # f32, TF32 off
+    attn_t_rows = [transposed_case(8, 4096, 8, 48, torch.bfloat16, gen),  # the probe's shape
+                   transposed_case(2, 1000, 3, 40, torch.float32, gen)]   # ragged f32
+    torch.cuda.empty_cache()
+    tools = {}
+    for name, tool, kw in (("wgrad", prototype_wgrad_kernel, {"sites": "unet256"}),
+                           ("mm_probe", probe_attn_matmuls, {}),
+                           ("attn_t", probe_packed_pv, {})):
+        reset_counts()
+        res = tool.run(**kw)
+        launched = counts()
+        assert launched[name] > 0, (name, launched)
+        res["launches"] = launched[name]
+        tools[name] = res
+        torch.cuda.empty_cache()
+    sweep = tools["wgrad"]
+    print("conv_wgrad_sweep " + json.dumps(sweep), flush=True)
+    assert sweep["sites"] == WGRAD_SITES, sweep["sites"]
+    assert sweep["max_cudnn_rel_err"] <= TOL_WGRAD_CUDNN, sweep["max_cudnn_rel_err"]
+    assert sweep["max_rel_err"] <= TOL_WGRAD[torch.bfloat16], sweep["max_rel_err"]
+    print("conv_wgrad over the 49 stride-1 3x3 sites of a sen12mscr256 step, b8: "
+          + json.dumps(sweep["sums"]) + f"; {card}", flush=True)
+    mm = tools["mm_probe"]
+    print("probe_attn_matmuls " + json.dumps(mm), flush=True)
+    assert all(v["max_rel_err"] <= TOL_PROBE for v in mm["variants"]), \
+        [v["max_rel_err"] for v in mm["variants"]]
+    packed = tools["attn_t"]
+    print("probe_packed_pv " + json.dumps(packed), flush=True)
+    assert packed["max_scaled_err"] <= TOL[torch.bfloat16], packed
+    return wgrad_rows, attn_t_rows, sweep, mm, packed
 
 
 def dit_forward_check(cfg, batch, gen, label):
@@ -956,6 +1036,9 @@ def main() -> int:
     assert probe_launches["int8"] > 0, probe_launches
     print("probe_int8_attn " + json.dumps(probe), flush=True)
 
+    # 8b. the conv weight-gradient kernel and the attention-matmul probes
+    wgrad_rows, attn_t_rows, sweep, mm, packed = phase_8b(gen, card)
+
     # 9. the result lines
     main_row = rows[0]
     bwd_row = bwd_rows[0]
@@ -1057,6 +1140,53 @@ def main() -> int:
                        "launches_train": train_res["launches"]["gn_fwd"]}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {}))]
+    qk = mm["variants"][0]  # QK^T as shipped, one launch
+    kernels += [{
+        "name": "conv_wgrad",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/conv_wgrad.cu",
+        "replaces": "tools/prototype_wgrad_kernel.py:40",
+        "launches": sweep["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in wgrad_rows if r["dtype"] == "bfloat16"),
+        "ms": wgrad_rows[0]["kernel_ms"],
+        "plain_ms": wgrad_rows[0]["plain_ms"],
+        "bound_ms": wgrad_rows[0]["bound_ms"],
+        "bound_by": wgrad_rows[0]["bound_by"],
+        "library_ms": wgrad_rows[0]["library_ms"],
+        "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
+        "sites": sweep["sites"],
+        "sites_sums": sweep["sums"],
+        "sites_max_cudnn_rel_err": sweep["max_cudnn_rel_err"],
+        "shapes": wgrad_rows,
+    }, {
+        "name": "attn_matmul_probe",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attn_probes.cu",
+        "replaces": "tools/probe_attn_matmuls.py:38",
+        "launches": mm["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in mm["variants"]),
+        "ms": qk["launch_ms"],
+        "plain_ms": qk["plain_launch_ms"],
+        "bound_ms": qk["launch_bound_ms"],
+        "bound_by": qk["bound_by"],
+        "library_ms": qk["library_bmm_ms"],
+        "library_call": "torch.bmm in bf16 (bf16 output, one product)",
+        "shapes": mm["variants"],
+    }, {
+        "name": "attention_fwd_transposed",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attn_probes.cu",
+        "replaces": "tools/probe_packed_pv.py:52",
+        "launches": packed["launches"],
+        "max_abs_err": attn_t_rows[0]["max_abs_err"],
+        "ms": attn_t_rows[0]["kernel_ms"],
+        "plain_ms": attn_t_rows[0]["plain_ms"],
+        "bound_ms": attn_t_rows[0]["bound_ms"],
+        "bound_by": attn_t_rows[0]["bound_by"],
+        "library_ms": attn_t_rows[0]["library_ms"],
+        "shipped_ms": packed["shipped_ms"],
+        "shapes": attn_t_rows,
+    }]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

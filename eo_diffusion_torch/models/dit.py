@@ -58,10 +58,14 @@ class DiTConfig:
     class_dropout_prob: float = 0.0
     dtype: torch.dtype = torch.float32  # compute dtype (params stay float32)
     attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
-    # later slices of the port; the constructor raises when they are set
+    # later slices of the port; the constructor raises when one leaves its JAX default
     context_dim: int = 0
     num_experts: int = 0
+    moe_top_k: int = 1
+    moe_every: int = 2
+    moe_capacity: float = 1.25
     tome_ratio: float = 0.0
+    tome_mlp: bool = False
     dual_time: bool = False
 
     @property
@@ -80,8 +84,10 @@ class DiTConfig:
         return self.grid * self.grid
 
 
-# option -> the ROADMAP queue that ports it
-_LATER = {"context_dim": 10, "num_experts": 13, "tome_ratio": 13, "dual_time": 12}
+# option -> (the ROADMAP queue that ports it, the JAX default it must keep)
+_LATER = {"context_dim": (10, 0), "num_experts": (13, 0), "moe_top_k": (13, 1),
+          "moe_every": (13, 2), "moe_capacity": (13, 1.25), "tome_ratio": (13, 0.0),
+          "tome_mlp": (13, False), "dual_time": (12, False)}
 
 
 def posemb_sincos_2d(h: int, w: int, dim: int) -> torch.Tensor:
@@ -157,8 +163,8 @@ class DiT(nn.Module):
     def __init__(self, config: DiTConfig):
         super().__init__()
         cfg = self.config = config
-        for name, queue in _LATER.items():
-            if getattr(cfg, name):
+        for name, (queue, default) in _LATER.items():
+            if getattr(cfg, name) != default:
                 raise NotImplementedError(
                     f"DiTConfig.{name} is not ported yet (ROADMAP queue {queue})")
         d, p = cfg.hidden_size, cfg.patch_size

@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface (no PyTorch
 headers, so ``nvcc`` takes seconds). It is compiled for ``sm_90a`` on first
 use into ``eo_diffusion_torch/_build/`` (listed in ``.gitignore``), under a
-file name keyed by a hash of its source and flags, so an edited kernel is
-rebuilt and an unchanged one is reused. :func:`build_all` starts one
-``nvcc`` per source at once. Nothing here runs at import time.
+file name keyed by a hash of its source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited kernel is rebuilt and an unchanged one is
+reused. :func:`build_all` starts one ``nvcc`` per source at once. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel name -> its CUDA source under csrc/
 KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu",
-           "group_norm": "group_norm.cu", "int8_attention": "int8_attention.cu"}
+           "group_norm": "group_norm.cu", "int8_attention": "int8_attention.cu",
+           "conv_wgrad": "conv_wgrad.cu", "attn_probes": "attn_probes.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +58,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = _CSRC / KERNELS[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):  # shared headers a source may include
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -28,7 +28,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 
 import torch
 import torch.nn.functional as F
@@ -36,25 +35,11 @@ import torch.nn.functional as F
 from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import int8_attention as I8
+from eo_diffusion_torch.tools.timing import PEAK_BF16, PEAK_INT8, bound_ms, card_line, cuda_ms
 from eo_diffusion_torch.weights import randomize_parameters
 
 B, H, T, D = 32, 12, 256, 64
 DEPTH = 12
-PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
-PEAK_INT8 = 1979e12  # dense int8 tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def core_f32(q, k, v):
@@ -69,11 +54,6 @@ def core_plain_bf16(q, k, v):
     return torch.bmm(torch.softmax(s, dim=-1).to(v.dtype), v)
 
 
-def bound_ms(ops: float, peak: float, nbytes: float):
-    by_ops, by_bytes = ops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes"
-
-
 def run(seed: int = 0) -> dict:
     """The three measurements; returns the result dict."""
     if not torch.cuda.is_available():
@@ -84,9 +64,7 @@ def run(seed: int = 0) -> dict:
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(B * H, T, D, generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
-    res = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                   "--format=csv,noheader"], capture_output=True,
-                                  text=True).stdout.strip(),
+    res = {"card": card_line(),
            "shapes": {"B": B, "H": H, "T": T, "D": D, "dtype": "bfloat16"}}
 
     # 1. numerics: the int8 core against the f32 core

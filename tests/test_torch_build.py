@@ -65,3 +65,11 @@ def test_no_nvcc_is_a_clear_error(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_an_edited_header_rebuilds(fake_toolchain):
+    header = fake_toolchain.parent / "tile.cuh"
+    header.write_text("// shared tile code v1\n")
+    first = _build.build_all()["k"]["path"]
+    header.write_text("// shared tile code v2\n")
+    assert _build.build_all()["k"]["path"] != first

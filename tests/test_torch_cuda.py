@@ -569,3 +569,151 @@ def test_dit_forward_kernel_matches_plain_and_launches_k1_a_block(dev, dtype):
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
     rel = ((out - ref).norm() / ref.norm()).item()
     assert rel <= (1e-4 if dtype == torch.float32 else 3e-2), rel
+
+
+# -- the 3x3 conv weight-gradient kernel -----------------------------------------
+
+# |kernel - plain| / max|plain|: both sum exact products of the inputs in f32
+# (bf16 inputs) or round each f32 product (f32 inputs); only the order differs
+WGRAD_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+
+
+def _wgrad_inputs(b, h, w, c, co, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, h, w, c, generator=g, device="cuda").to(dtype),
+            torch.randn(b, h, w, co, generator=g, device="cuda").to(dtype))
+
+
+@pytest.mark.parametrize("b,h,w,c,co,dtype", [
+    (2, 16, 16, 64, 64, torch.bfloat16),    # one (c, o) tile
+    (1, 20, 27, 40, 24, torch.bfloat16),    # ragged tiles and channels
+    (2, 9, 33, 6, 128, torch.bfloat16),     # the input conv's C 6: element loads
+    (2, 16, 16, 128, 3, torch.bfloat16),    # the output conv's Co 3
+    (3, 32, 48, 128, 192, torch.bfloat16),  # several splits a tile
+    (2, 8, 8, 512, 512, torch.bfloat16),    # 64 tile pairs, one dy tile each
+    (2, 10, 13, 16, 24, torch.float32)])
+def test_wgrad_kernel_matches_plain(dev, b, h, w, c, co, dtype):
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    x, dy = _wgrad_inputs(b, h, w, c, co, dtype, seed=c + co)
+    before = CW.conv_wgrad_cuda.launches
+    got = CW.conv_wgrad(x, dy)
+    ref = CW.conv_wgrad_reference(x, dy)
+    torch.cuda.synchronize()
+    assert CW.conv_wgrad_cuda.launches == before + 1
+    assert got.shape == (3, 3, c, co) and got.dtype == torch.float32
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= WGRAD_TOL[dtype], err
+    assert torch.equal(CW.conv_wgrad(x, dy), got)  # a fixed order of sums: the same bits
+    xt = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # strided: copied
+    assert torch.equal(CW.conv_wgrad(xt, dy), got)
+
+
+def test_wgrad_kernel_matches_cudnns_conv_weight_gradient(dev):
+    from eo_diffusion_torch.nn.primitives import Conv
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    conv = Conv(48, 40, dtype=torch.bfloat16).to(dev)
+    x = _wgrad_inputs(2, 24, 20, 48, 1, torch.bfloat16, seed=5)[0]
+    saved = {}
+    y = conv(x)
+    y.register_hook(lambda g: saved.setdefault("dy", g.contiguous()))
+    (y.float() * torch.randn_like(y.float())).sum().backward()
+    got = CW.hwio_to_oihw(CW.conv_wgrad_cuda(x, saved["dy"]))
+    want = conv.weight.grad  # cuDNN's, rounded to bf16 once
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= 1e-2, err
+
+
+def test_wgrad_kernel_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    x, dy = _wgrad_inputs(1, 8, 8, 8, 8, torch.bfloat16, seed=0)
+    before = CW.conv_wgrad_cuda.launches
+    for bad in ((x.cpu(), dy.cpu()), (x.half(), dy.half()), (x, dy.float()),
+                (x, dy[:, :4]), (x[0], dy[0])):
+        with pytest.raises(ValueError):
+            CW.conv_wgrad_cuda(*bad)
+    CW.conv_wgrad_reference(x, dy)
+    assert CW.conv_wgrad_cuda.launches == before
+
+
+# -- the attention-matmul probes ---------------------------------------------------
+
+
+@pytest.mark.parametrize("layout,a_shape,b_shape", [
+    ("nt", (48, 24), (40, 24)), ("nn", (48, 24), (24, 40)), ("tn", (24, 48), (24, 40)),
+    ("nt", (512, 48), (2048, 48)), ("nn", (512, 2048), (2048, 96)),
+    ("tn", (2048, 48), (2048, 512))])
+def test_matmul_probe_kernel_matches_plain(dev, layout, a_shape, b_shape):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    g = torch.Generator(device="cuda").manual_seed(len(layout) + a_shape[0])
+    a = torch.randn(3, *a_shape, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(3, *b_shape, generator=g, device="cuda").to(torch.bfloat16)
+    before = AP.matmul_probe_cuda.launches
+    got = AP.matmul_probe(a, b, layout)
+    ref = AP.matmul_probe_reference(a, b, layout)
+    torch.cuda.synchronize()
+    assert AP.matmul_probe_cuda.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    # exact bf16 products summed in f32 in another order
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_matmul_probe_kernel_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    a = torch.zeros(2, 16, 16, device="cuda", dtype=torch.bfloat16)
+    before = AP.matmul_probe_cuda.launches
+    for bad in ((a[:, :12], a[:, :12], "nt"), (a.float(), a.float(), "nt"),
+                (a, a[:, :8], "nn"), (a, a, "xy"), (a.cpu(), a.cpu(), "nt")):
+        with pytest.raises(ValueError):
+            AP.matmul_probe_cuda(*bad)
+    assert AP.matmul_probe_cuda.launches == before
+
+
+@pytest.mark.parametrize("b,h,t,d,dtype", [
+    (2, 2, 130, 48, torch.bfloat16), (1, 3, 64, 64, torch.bfloat16),
+    (2, 2, 77, 128, torch.bfloat16), (1, 2, 1, 40, torch.bfloat16),
+    (2, 3, 100, 40, torch.float32), (1, 2, 256, 64, torch.float32)])
+def test_transposed_attention_kernel_matches_plain(dev, b, h, t, d, dtype):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    g = torch.Generator(device="cuda").manual_seed(t + d)
+    qkv5 = torch.randn(b, 3, h, t, d, generator=g, device="cuda")
+    qkv5[:, :2] *= 2.0
+    qkv5 = qkv5.to(dtype)
+    before = AP.transposed_attention_cuda.launches
+    got = AP.transposed_attention(qkv5)
+    ref = AP.transposed_attention_reference(qkv5)
+    torch.cuda.synchronize()
+    assert AP.transposed_attention_cuda.launches == before + 1
+    assert got.shape == (b, h, d, t) and got.dtype == dtype
+    err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_transposed_attention_every_head_dim_bf16(dev, d):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    qkv5 = (2.0 * torch.randn(2, 3, 2, 70, d, generator=g, device="cuda")).to(torch.bfloat16)
+    got = AP.transposed_attention_cuda(qkv5)
+    ref = AP.transposed_attention_reference(qkv5)
+    err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[torch.bfloat16], err
+
+
+def test_transposed_attention_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    before = AP.transposed_attention_cuda.launches
+    for shape, dtype in (((1, 3, 2, 16, 12), torch.bfloat16), ((1, 3, 2, 16, 136), torch.bfloat16),
+                         ((1, 2, 2, 16, 16), torch.bfloat16), ((1, 3, 2, 16, 16), torch.half)):
+        with pytest.raises(ValueError):
+            AP.transposed_attention_cuda(torch.zeros(shape, device="cuda", dtype=dtype))
+    with pytest.raises(ValueError):
+        AP.transposed_attention_cuda(torch.zeros(1, 3, 2, 16, 16))
+    assert AP.transposed_attention_cuda.launches == before

@@ -118,3 +118,14 @@ def test_unported_options_raise(option, queue):
     value = {"context_dim": 8, "num_experts": 2, "tome_ratio": 0.5, "dual_time": True}[option]
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+
+
+@pytest.mark.parametrize("option,value", [("moe_top_k", 2), ("moe_every", 1),
+                                          ("moe_capacity", 2.0), ("tome_mlp", True)])
+def test_unported_moe_and_tome_fields_raise(option, value):
+    with pytest.raises(NotImplementedError, match="queue 13"):
+        TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+    defaults = TD.DiTConfig(**KW)  # the JAX defaults construct
+    assert (defaults.moe_top_k, defaults.moe_every, defaults.moe_capacity,
+            defaults.tome_mlp) == (1, 2, 1.25, False)
+    TD.DiT(defaults)
