@@ -50,6 +50,13 @@ Phases, in order; the first failure exits non-zero:
    case); the two attention-probe tools (``probe_attn_matmuls``, which holds
    the matmul probe kernel against its plain version in the probe's seven
    forms, and ``probe_packed_pv``) once each;
+8c. the softmax-orientation probes (statistics along rows and columns, the
+   transpose, the two hybrid attentions) and the attention variants (A-D,
+   the tile sweep of B, the fused-layout route through K1) against their
+   plain versions at a ragged shape (T 1000, D 40), then their four tools
+   (``probe_softmax_orient --extra``, ``profile_attn_variants``,
+   ``profile_attn_variants2``, ``profile_attn_fusedlayout``) once each at
+   B8 T4096 H8 D48, which hold them against their plain versions there;
 9. print the ``{"kernels": [...]}`` line, the card line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -84,10 +91,14 @@ from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
+from eo_diffusion_torch.ops import attn_variants as AV
 from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.ops import int8_attention as I8
+from eo_diffusion_torch.ops import softmax_probes as SP
 from eo_diffusion_torch.tools import (probe_attn_matmuls, probe_int8_attn, probe_packed_pv,
+                                      probe_softmax_orient, profile_attn_fusedlayout,
+                                      profile_attn_variants, profile_attn_variants2,
                                       prototype_wgrad_kernel)
 from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
                                              card_line, cuda_ms)
@@ -154,6 +165,25 @@ TOL_WGRAD_CUDNN = 1e-2
 # the matmul probe, kernel vs plain: exact bf16 products summed in f32 in
 # another order, |diff| <= TOL_PROBE * max|plain|
 TOL_PROBE = 1e-5
+# the softmax statistics, kernel vs plain: the same f32 terms summed in another
+# order (and exp's last bits), |diff| <= TOL_STATS * max|plain|; the transpose
+# doubles bf16 values in bf16 on both sides: bit-exact
+TOL_STATS = 1e-5
+# the attention probes (the transposed output, the hybrids, the variants A-D
+# and the fused-layout route), kernel vs plain (probe_packed_pv's
+# attention_errors): at unit-normal inputs about T/e keys share the weight,
+# so |plain| sits far below 1 (rms 0.026 at T 4096, D 48) and a floor of 1
+# would make TOL an absolute limit about the size of an output. Each is held
+# elementwise to TOL of max(rms, |plain|), which one dropped K/V stage breaks
+# (about sqrt(64/T) of rms), and by its relative L2 difference to
+# TOL_ATTN_L2, which a fault that scales every output breaks (l off by 1 %:
+# 1e-2). bf16: one output ulp (2^-8..2^-7 of the value) where the two f32
+# values straddle a rounding, and p rounded at another running max (B, the
+# hybrids, K1; A, C and D round p from the final statistics as plain does);
+# f32 the order of sums. Every run also reads the two faults, planted on the
+# kernel's output and through the plain version, and asserts the limits
+# catch them (check_faults_caught)
+TOL_ATTN_L2 = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 # stride-1 3x3 convs of the clouds UNet (sen12mscr256): 49 sites
 WGRAD_SITES = 49
 TRAIN_STEPS = 8
@@ -392,7 +422,9 @@ def reset_counts():
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
     CW.conv_wgrad_cuda.launches = AP.matmul_probe_cuda.launches = 0
-    AP.transposed_attention_cuda.launches = 0
+    AP.transposed_attention_cuda.launches = AP.hybrid_attention_cuda.launches = 0
+    SP.softmax_stats_cuda.launches = SP.transpose_accumulate_cuda.launches = 0
+    AV.attention_variant_cuda.launches = 0
 
 
 def counts():
@@ -403,7 +435,11 @@ def counts():
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
             "int8": I8.int8_attention_cuda.launches, "wgrad": CW.conv_wgrad_cuda.launches,
             "mm_probe": AP.matmul_probe_cuda.launches,
-            "attn_t": AP.transposed_attention_cuda.launches}
+            "attn_t": AP.transposed_attention_cuda.launches,
+            "hybrid": AP.hybrid_attention_cuda.launches,
+            "stats": SP.softmax_stats_cuda.launches,
+            "transpose": SP.transpose_accumulate_cuda.launches,
+            "variant": AV.attention_variant_cuda.launches}
 
 
 def expected(size, forwards, backwards=0):
@@ -413,7 +449,8 @@ def expected(size, forwards, backwards=0):
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
-            "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0}
+            "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
+            "transpose": 0, "variant": 0}
 
 
 def dit_expected(forwards):
@@ -577,9 +614,7 @@ def transposed_case(b, t, heads, d, dtype, gen):
     qkv5 = torch.randn(b, 3, heads, t, d, generator=gen, device="cuda")
     qkv5[:, :2] *= 2.0  # sharper softmax than unit inputs
     row = probe_packed_pv.measure(qkv5.to(dtype), reps=20 if t >= 1024 else 50)
-    assert math.isfinite(row["max_abs_err"]) and row["max_scaled_err"] <= TOL[dtype], (
-        f"transposed attention vs plain at {row['shape']} {dtype}: {row['max_scaled_err']} > "
-        f"{TOL[dtype]}")
+    check_attention(row, dtype, f"transposed attention at {row['shape']}")
     print("attention_fwd_transposed " + json.dumps(row), flush=True)
     return row
 
@@ -621,8 +656,96 @@ def phase_8b(gen, card):
         [v["max_rel_err"] for v in mm["variants"]]
     packed = tools["attn_t"]
     print("probe_packed_pv " + json.dumps(packed), flush=True)
-    assert packed["max_scaled_err"] <= TOL[torch.bfloat16], packed
+    check_attention(packed, torch.bfloat16, "probe_packed_pv")
     return wgrad_rows, attn_t_rows, sweep, mm, packed
+
+
+def check_attention(row, dtype, what):
+    """An attention probe's row against TOL and TOL_ATTN_L2."""
+    err, l2 = row["max_rms_scaled_err"], row["rel_l2_err"]
+    assert math.isfinite(err) and err <= TOL[dtype] and l2 <= TOL_ATTN_L2[dtype], (
+        f"{what} vs plain: {err} > {TOL[dtype]} of max(rms, |plain|) or rel L2 {l2} > "
+        f"{TOL_ATTN_L2[dtype]}")
+
+
+def check_faults_caught(row, what):
+    """The planted faults of an attention probe's row each break a limit."""
+    for name, f in row["planted_faults"].items():
+        assert (f["max_rms_scaled_err"] > TOL[torch.bfloat16]
+                or f["rel_l2_err"] > TOL_ATTN_L2[torch.bfloat16]), (what, name, f)
+
+
+def check_softmax_probes(res, where):
+    """The tolerances of ``probe_softmax_orient.measure``'s rows."""
+    for name in ("stats_rows", "stats_cols"):
+        err = res[name]["max_rel_err"]
+        assert math.isfinite(err) and err <= TOL_STATS, f"{name} at {where}: {err} > {TOL_STATS}"
+    assert res["transpose"]["bit_exact"], f"transpose at {where}: {res['transpose']}"
+    for name, row in res.items():
+        if name.startswith("hybrid"):
+            check_attention(row, torch.bfloat16, f"{name} at {where}")
+
+
+def check_variants(res, where):
+    """The tolerances of ``profile_attn_variants.measure``'s rows."""
+    for row in res["rows"]:
+        what = f"variant {row['variant']} at {row['warps']} warps, {row['block_k']} keys, {where}"
+        check_attention(row, torch.bfloat16, what)
+        if "planted_faults" in row:
+            check_faults_caught(row, what)
+
+
+def phase_8c(gen):
+    """Phase 8c: the softmax-orientation probes (2c: statistics, transpose,
+    hybrid attentions) and the attention variants (2d: A-D, the tile sweep,
+    the fused-layout route through K1) against their plain versions at a
+    ragged small shape (T 1000, D 40, cells that fit no tile) through the
+    tools' ``measure``, then the four tools once each at their shape (B8
+    T4096 H8 D48) with the launch counters set to 0 before and read after;
+    returns the small-shape results and the tools' results."""
+    bf16 = torch.bfloat16
+    s = 3.0 * torch.randn(3, 37, 100, generator=gen, device="cuda")
+    p = torch.randn(3, 37, 100, generator=gen, device="cuda").to(bf16)
+    qkv5 = torch.randn(2, 3, 3, 1000, 40, generator=gen, device="cuda")
+    qkv5[:, :2] *= 2.0  # sharper softmax than unit inputs
+    small = {"softmax": probe_softmax_orient.measure(s, p, qkv5.to(bf16), reps=10,
+                                                     block_ks=(64, 128))}
+    check_softmax_probes(small["softmax"], "the ragged shape")
+    q, k, v = (torch.randn(2, 1000, 3, 40, generator=gen, device="cuda").to(bf16)
+               for _ in range(3))
+    small["variants"] = profile_attn_variants.measure(q, k, v, reps=10)
+    small["sweep"] = profile_attn_variants2.measure(q, k, v, tiles=((16, 64), (16, 128)), reps=10)
+    for name in ("variants", "sweep"):
+        check_variants(small[name], "the ragged shape")
+    qkv = torch.randn(2, 1000, 3, 3, 40, generator=gen, device="cuda")
+    qkv[:, :, :2] *= 2.0
+    small["fused"] = profile_attn_fusedlayout.measure(qkv.to(bf16), reps=10)
+    check_attention(small["fused"], bf16, "the fused-layout route at the ragged shape")
+    check_faults_caught(small["fused"], "the fused-layout route at the ragged shape")
+    print("probes_2c_2d_ragged " + json.dumps(small), flush=True)
+    del s, p, qkv5, q, k, v, qkv
+    torch.cuda.empty_cache()
+
+    tools = {}
+    for name, tool, kw, counters in (
+            ("softmax", probe_softmax_orient, {"extra": True}, ("stats", "transpose", "hybrid")),
+            ("variants", profile_attn_variants, {}, ("variant",)),
+            ("sweep", profile_attn_variants2, {}, ("variant",)),
+            ("fused", profile_attn_fusedlayout, {}, ("attn_fwd",))):
+        reset_counts()
+        res = tool.run(**kw)
+        launched = counts()
+        assert all(launched[c] > 0 for c in counters), (name, launched)
+        res["launches"] = {c: launched[c] for c in counters}
+        tools[name] = res
+        print(f"{tool.__name__.rsplit('.', 1)[-1]} " + json.dumps(res), flush=True)
+        torch.cuda.empty_cache()
+    check_softmax_probes(tools["softmax"], "the probe's shape")
+    for name in ("variants", "sweep"):
+        check_variants(tools[name], "B8 T4096 H8 D48")
+    check_attention(tools["fused"], bf16, "the fused-layout route at B8 T4096 H8 D48")
+    check_faults_caught(tools["fused"], "the fused-layout route at B8 T4096 H8 D48")
+    return small, tools
 
 
 def dit_forward_check(cfg, batch, gen, label):
@@ -813,6 +936,74 @@ def run_cli(argv, cfg, seed, tmp):
     x = res["samples"]
     assert x is not None and bool(torch.isfinite(torch.as_tensor(x)).all()), "non-finite samples"
     return res
+
+
+def attention_maxima(rows):
+    """The largest errors of attention probe rows, under the names of the
+    limits they are held to (TOL, TOL_ATTN_L2)."""
+    rows = list(rows)
+    return {"max_rms_scaled_err": max(r["max_rms_scaled_err"] for r in rows),
+            "max_rel_l2_err": max(r["rel_l2_err"] for r in rows)}
+
+
+def probe_kernel_rows(small, probes):
+    """The ``kernels`` entries of phase 8c: each kernel's row at the tools'
+    shape, its launches in the tool's run, its largest error at either shape."""
+    sm, var, sweep, fused = (probes[k] for k in ("softmax", "variants", "sweep", "fused"))
+    by_tile = lambda res, v, tile: next(r for r in res["rows"]
+                                        if r["variant"] == v and (r["warps"], r["block_k"]) == tile)
+    rows = []
+    for name, source, replaces, also, launches, main_row, errs, extra in (
+            ("softmax_stats", "softmax_probes.cu", "tools/probe_softmax_orient.py:64", [],
+             sm["launches"]["stats"], sm["stats_rows"],
+             [r[k]["max_abs_err"] for r in (sm, small["softmax"]) for k in ("stats_rows",
+                                                                           "stats_cols")],
+             {"ms_columns": sm["stats_cols"]["kernel_ms"],
+              "nearest_call": sm["stats_rows"]["nearest_call"],
+              "nearest_call_ms": sm["stats_rows"]["nearest_call_ms"],
+              "nearest_call_ms_columns": sm["stats_cols"]["nearest_call_ms"]}),
+            ("transpose_accumulate", "softmax_probes.cu", "tools/probe_softmax_orient.py:90", [],
+             sm["launches"]["transpose"], sm["transpose"],
+             [r["transpose"]["max_abs_err"] for r in (sm, small["softmax"])],
+             {"nearest_call": sm["transpose"]["nearest_call"],
+              "nearest_call_ms": sm["transpose"]["nearest_call_ms"]}),
+            ("attention_hybrid", "attn_probes.cu", "tools/probe_softmax_orient.py:117",
+             ["tools/probe_softmax_orient.py:205"], sm["launches"]["hybrid"], sm["hybrid"],
+             [r[k]["max_abs_err"] for r in (sm, small["softmax"]) for k in r
+              if k.startswith("hybrid")],
+             {**attention_maxima(r[k] for r in (sm, small["softmax"]) for k in r
+                                 if k.startswith("hybrid")),
+              "ms_hybrid2": sm["hybrid2"]["kernel_ms"],
+              "ms_by_block_k": {k: sm[k]["kernel_ms"] for k in sm if k.startswith("hybrid")},
+              "transposed_epilogue_ms": sm["hybrid"]["transposed_epilogue_ms"]}),
+            ("attention_variant", "attn_variants.cu", "tools/profile_attn_variants.py:38",
+             ["tools/profile_attn_variants.py:28", "tools/profile_attn_variants.py:49",
+              "tools/profile_attn_variants.py:56", "tools/profile_attn_variants2.py:28"],
+             var["launches"]["variant"] + sweep["launches"]["variant"],
+             by_tile(var, "B", AV.K1_TILE),
+             [r["max_abs_err"] for res in (var, sweep, small["variants"], small["sweep"])
+              for r in res["rows"] if r["variant"] != "C"],
+             {**attention_maxima(r for res in (var, sweep, small["variants"], small["sweep"])
+                                 for r in res["rows"]),
+              "ms_by_variant_and_tile": {f"{r['variant']} {r['warps']}w {r['block_k']}k":
+                                         r["kernel_ms"] for res in (var, sweep)
+                                         for r in res["rows"]},
+              "shipped_k1_body_ms": var["shipped_ms"]}),
+            ("fused_layout_attention", "attention_fwd.cu", "tools/profile_attn_fusedlayout.py:28",
+             [], fused["launches"]["attn_fwd"], fused,
+             [fused["max_abs_err"], small["fused"]["max_abs_err"]],
+             {**attention_maxima((fused, small["fused"])),
+              "entry": "K1's fused-projection entry eo_qkv_attention_fwd, new head order",
+              "separate_entry_views_ms": fused["separate_entry_views_ms"],
+              "slice_fold_ms": fused["slice_fold_ms"]})):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"eo_diffusion_torch/ops/csrc/{source}", "replaces": replaces,
+                     **({"replaces_also": also} if also else {}), "launches": launches,
+                     "max_abs_err": max(errs), "ms": main_row["kernel_ms"],
+                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+                     "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+                     **extra})
+    return rows
 
 
 def main() -> int:
@@ -1039,6 +1230,9 @@ def main() -> int:
     # 8b. the conv weight-gradient kernel and the attention-matmul probes
     wgrad_rows, attn_t_rows, sweep, mm, packed = phase_8b(gen, card)
 
+    # 8c. the softmax-orientation probes and the attention variants
+    small, probes = phase_8c(gen)
+
     # 9. the result lines
     main_row = rows[0]
     bwd_row = bwd_rows[0]
@@ -1187,6 +1381,7 @@ def main() -> int:
         "shipped_ms": packed["shipped_ms"],
         "shapes": attn_t_rows,
     }]
+    kernels += probe_kernel_rows(small, probes)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

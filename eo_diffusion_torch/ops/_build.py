@@ -30,7 +30,8 @@ BUILD_DIR = _PKG / "_build"
 #: kernel name -> its CUDA source under csrc/
 KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu",
            "group_norm": "group_norm.cu", "int8_attention": "int8_attention.cu",
-           "conv_wgrad": "conv_wgrad.cu", "attn_probes": "attn_probes.cu"}
+           "conv_wgrad": "conv_wgrad.cu", "attn_probes": "attn_probes.cu",
+           "softmax_probes": "softmax_probes.cu", "attn_variants": "attn_variants.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,4 +1,4 @@
-// The attention-matmul probes for Hopper (sm_90a), bound through ctypes: two
+// The attention probes for Hopper (sm_90a), bound through ctypes: three
 // kernels with a plain C interface.
 //
 // 1. eo_matmul_probe replaces the body of `_bench` (tools/probe_attn_matmuls.py:38,
@@ -37,6 +37,36 @@
 //    contiguous tokens. Any T (the ragged tail masked), D a multiple of 8 up
 //    to 128. f32 inputs take an FMA kernel, one thread per query row, whose
 //    transposed stores are coalesced as they stand.
+//
+// 3. eo_attention_hybrid replaces `kern_hybrid` and `kern_hybrid2`
+//    (tools/probe_softmax_orient.py:117 / :205, launched by `hybrid_attn`
+//    :153 / `hybrid2_attn` :238, calls :155 / :240): the function of 2, with
+//    the same numerics, computed the hybrids' way round: S = (q s)(k s)^T with
+//    the softmax statistics along its rows, then PV transposed, acc^T [D, bq]
+//    = V^T P^T, so the accumulator already holds the output's [D, T]
+//    orientation and no epilogue transpose is left. bf16 only (the TPU probe
+//    is bf16 only).
+//    Bound on the H100: 206 GFLOP at B 8, T 4096, H 8, D 48 (0.2085 ms,
+//    operations), as for 2.
+//    Design: K1's tiling (4 warps, 32 query rows a warp for D <= 64, else 16;
+//    K/V stages of 64 keys (128 or 256 for the probe's sweep at D <= 64),
+//    double-buffered with cp.async;
+//    scores in register tiles of 64 keys). V [key][d] in shared memory is the
+//    k-outer A operand of PV^T (ldmatrix.trans), and each V fragment feeds
+//    2 MT products, as many as K1's. Two ways to hand p to the B operand:
+//    p_smem 1 (kern_hybrid's explicit transpose) writes p [query][key] into
+//    the warp's own shared tile and reads it back with ldmatrix; p_smem 0
+//    (kern_hybrid2's contraction on dim 1) needs no move at all, since the
+//    m16n8 score fragment a thread holds (query g, keys 2 tq, 2 tq + 1) is
+//    the k16 x n8 B fragment of P^T. The price of the orientation: the
+//    running max and sum belong to a thread's query rows, the acc^T columns
+//    to other lanes, so each rescale factor and each 1/l crosses the warp by
+//    one shuffle per column pair. The epilogue stores pairs of tokens
+//    straight from the accumulators.
+//
+// 2 and 3 copy K1's loop (csrc/attention_fwd.cu), not K1's code: a change to
+// K1's loop is ported here by hand and the copies re-timed against K1 before
+// a comparison with K1 is read from them (ROADMAP queue 2, item 3a).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,25 +230,14 @@ __device__ __forceinline__ const E* plane(const Params& p, int b, int j, int h) 
   return static_cast<const E*>(p.qkv) + (((long long)b * 3 + j) * p.H + h) * p.T * p.D;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// keys [k0, k0 + kBK) of the K and V planes into one stage (rows >= T and
+// keys [k0, k0 + rows) of the K and V planes into one stage (rows >= T and
 // columns >= D zero-filled; D % 8 == 0, so a 16-byte chunk is all in or out)
 template <int DP>
 __device__ __forceinline__ void issue_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
                                          const __nv_bfloat16* kp, const __nv_bfloat16* vp,
-                                         int k0, int T, int D) {
+                                         int k0, int T, int D, int rows = kBK) {
   constexpr int LD = Tiling<DP>::LD, kChunks = DP / 8;
-  for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks, d = (i % kChunks) * 8;
     const bool in = k0 + r < T && d < D;
     const long long off = in ? (long long)(k0 + r) * D + d : 0;
@@ -229,13 +248,15 @@ __device__ __forceinline__ void issue_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
 
 // k * s rounded to bf16, in place, for the chunks this thread copied
 template <int DP>
-__device__ __forceinline__ void scale_k(__nv_bfloat16* sK, __nv_bfloat162 s2) {
+__device__ __forceinline__ void scale_k(__nv_bfloat16* sK, __nv_bfloat162 s2, int rows = kBK) {
   constexpr int LD = Tiling<DP>::LD, kChunks = DP / 8;
-  for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(sK + (i / kChunks) * LD +
-                                                         (i % kChunks) * 8);
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    uint4* ptr = reinterpret_cast<uint4*>(sK + (i / kChunks) * LD + (i % kChunks) * 8);
+    uint4 v = *ptr;  // one 16-byte load and store a chunk
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
     for (int k = 0; k < 4; ++k) e[k] = __hmul2(e[k], s2);
+    *ptr = v;
   }
 }
 
@@ -479,6 +500,286 @@ int launch_attn(const Params& p, int bh, int is_f32, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------- hybrid attention
+
+constexpr int kSub = 64;  // keys of one register score tile
+
+template <int DP>
+struct HTiling {
+  static constexpr int LD = DP + 8;
+  static constexpr int MT = DP <= 64 ? 2 : 1;  // m16 query tiles a warp (K1's choice)
+  static constexpr int BQ = 16 * MT * kWarps;  // query rows a block
+  static constexpr int LDP = kSub + 8;         // a warp's p tile [16 MT][kSub] (hybrid)
+  static constexpr int kPWarp = 16 * MT * LDP;
+  // two stages of bk K rows and bk V rows, then (hybrid) the warps' p tiles
+  static int smem_bytes(int bk, bool p_smem) {
+    return 2 * (2 * 2 * bk * LD + (p_smem ? kWarps * kPWarp : 0));
+  }
+};
+
+// P_SMEM: p goes through shared memory (kern_hybrid, p transposed explicitly);
+// else p passes from the QK^T accumulators to the PV^T B operand in registers
+// (kern_hybrid2, p contracted on its dim 1)
+template <int DP, bool P_SMEM, int BK>
+__global__ void __launch_bounds__(kThreads) attn_hybrid(Params p) {
+  using Tl = HTiling<DP>;
+  constexpr int LD = Tl::LD, MT = Tl::MT, KS = DP / 16, DT = DP / 16;
+  constexpr int stage = 2 * BK * LD;  // one K tile + one V tile, elements
+  static_assert(Tl::BQ <= 2 * BK, "q is staged through one K/V stage");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * Tl::BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  __nv_bfloat16* sP = smem + 2 * stage + warp * Tl::kPWarp;
+  const __nv_bfloat16* kp = plane<__nv_bfloat16>(p, b, 1, h);
+  const __nv_bfloat16* vp = plane<__nv_bfloat16>(p, b, 2, h);
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(p.scale);
+  const int n_tiles = (p.T + BK - 1) / BK;
+
+  // K/V tile 0 -> stage 0 in flight while q * s is staged through stage 1
+  issue_kv<DP>(smem, smem + BK * LD, kp, vp, 0, p.T, p.D, BK);
+  cp_async_commit();
+  {
+    __nv_bfloat16* sQ = smem + stage;
+    const __nv_bfloat16* qp = plane<__nv_bfloat16>(p, b, 0, h);
+    constexpr int kChunks = DP / 8;
+    for (int i = threadIdx.x; i < Tl::BQ * kChunks; i += kThreads) {
+      const int r = i / kChunks, d = (i % kChunks) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < p.T && d < p.D) {
+        v = *reinterpret_cast<const uint4*>(qp + (long long)(q0 + r) * p.D + d);
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[k] = __hmul2(e[k], s2);
+      }
+      *reinterpret_cast<uint4*>(sQ + r * LD + d) = v;
+    }
+  }
+  __syncthreads();
+  uint32_t qa[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      load_a<false>(qa[mt][kk], smem + stage + ((warp * MT + mt) * 16) * LD + kk * 16, LD, lane);
+  __syncthreads();  // stage 1 is free for K/V tile 1
+
+  // acc^T [d][query]: m16 tile dt of d x n8 tile of queries (2 mt + r: rows
+  // 8r..8r+7 of query tile mt). Thread (g, tq) holds d = 16 dt + g (+8) and
+  // queries 2 tq, 2 tq + 1 of its n8 tile.
+  float acc[DT][2 * MT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int n = 0; n < 2 * MT; ++n) acc[dt][n][0] = acc[dt][n][1] = acc[dt][n][2] =
+        acc[dt][n][3] = 0.f;
+  float m[MT][2], l[MT][2];  // this thread's query rows g and g + 8 of each tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) m[mt][0] = m[mt][1] = -INFINITY, l[mt][0] = l[mt][1] = 0.f;
+  // lanes holding the statistics of queries 2 tq and 2 tq + 1 of an n8 tile
+  const int src0 = (2 * tq) * 4, src1 = (2 * tq + 1) * 4;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __nv_bfloat16* sK = smem + (kt & 1) * stage;
+    const __nv_bfloat16* sV = sK + BK * LD;
+    if (kt + 1 < n_tiles) {
+      __nv_bfloat16* nK = smem + ((kt + 1) & 1) * stage;
+      issue_kv<DP>(nK, nK + BK * LD, kp, vp, (kt + 1) * BK, p.T, p.D, BK);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    scale_k<DP>(sK, s2, BK);
+    __syncthreads();
+
+#pragma unroll
+    for (int c = 0; c < BK; c += kSub) {
+      const int k0 = kt * BK + c;
+      if (k0 >= p.T) break;  // the same for every warp
+      // S = (q s)(k s)^T: MT x 16 rows x 64 keys a warp; each K fragment
+      // (two plain 32-bit loads, as K1 reads it) feeds MT products
+      float s[MT][kSub / 8][4];
+#pragma unroll
+      for (int n = 0; n < kSub / 8; ++n) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] =
+            s[mt][n][3] = 0.f;
+        const __nv_bfloat16* kr = sK + (c + n * 8 + g) * LD + tq * 2;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(s[mt][n], qa[mt][kk], b0, b1);
+        }
+      }
+      if (k0 + kSub > p.T) {  // ragged tail: keys past T never win
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k0 + n * 8 + tq * 2 + (e & 1) >= p.T) s[mt][n][e] = -INFINITY;
+      }
+
+      // online softmax over the rows (f32, base 2), as K1; then each alpha
+      // moves from the lanes of its query row to the lanes of its acc^T column
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < kSub / 8; ++n)
+            mx = fmaxf(mx, fmaxf(s[mt][n][2 * r], s[mt][n][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(m[mt][r], mx);
+          alpha[r] = ex2((m[mt][r] - mn) * kLog2e);  // 0 on the first tile
+          m[mt][r] = mn;
+          const float mb = mn * kLog2e;
+          float rs = 0.f;
+#pragma unroll
+          for (int n = 0; n < kSub / 8; ++n) {
+            s[mt][n][2 * r] = ex2(fmaf(s[mt][n][2 * r], kLog2e, -mb));
+            s[mt][n][2 * r + 1] = ex2(fmaf(s[mt][n][2 * r + 1], kLog2e, -mb));
+            rs += s[mt][n][2 * r] + s[mt][n][2 * r + 1];
+          }
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          l[mt][r] = l[mt][r] * alpha[r] + rs;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float a0 = __shfl_sync(0xffffffffu, alpha[r], src0);
+          const float a1 = __shfl_sync(0xffffffffu, alpha[r], src1);
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) {
+            acc[dt][2 * mt + r][0] *= a0;
+            acc[dt][2 * mt + r][1] *= a1;
+            acc[dt][2 * mt + r][2] *= a0;
+            acc[dt][2 * mt + r][3] *= a1;
+          }
+        }
+      }
+
+      // the B operands of acc^T += V^T P^T (k16 x n8: 16 keys x 8 queries),
+      // p rounded to bf16: pb[mt][r][j] for keys 16 j.. of queries 8 r.. of mt
+      uint32_t pb[MT][2][kSub / 16][2];
+      if (P_SMEM) {
+        // p [query][key] into the warp's tile, read back through ldmatrix
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<uint32_t*>(sP + (mt * 16 + g + 8 * r) * Tl::LDP + n * 8 +
+                                           tq * 2) =
+                  pack_bf16(s[mt][n][2 * r], s[mt][n][2 * r + 1]);
+        __syncwarp();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < kSub / 16; ++j) {
+            uint32_t bf[2][2];
+            load_b2<false>(bf, sP + (mt * 16) * Tl::LDP + j * 16, Tl::LDP, lane);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) pb[mt][r][j][0] = bf[r][0], pb[mt][r][j][1] = bf[r][1];
+          }
+        __syncwarp();  // every lane has read the tile before it is rewritten
+      } else {
+        // the m16n8 score fragment of (query g (+8), keys 2 tq, 2 tq + 1) is
+        // the k16 x n8 B fragment of P^T: no shuffle
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int j = 0; j < kSub / 16; ++j) {
+              pb[mt][r][j][0] = pack_bf16(s[mt][2 * j][2 * r], s[mt][2 * j][2 * r + 1]);
+              pb[mt][r][j][1] = pack_bf16(s[mt][2 * j + 1][2 * r], s[mt][2 * j + 1][2 * r + 1]);
+            }
+      }
+
+      // acc^T += V^T P^T: V stored [key][d] is the k-outer A operand
+      // (ldmatrix.trans); each V fragment feeds 2 MT products
+#pragma unroll
+      for (int j = 0; j < kSub / 16; ++j)
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          uint32_t va[4];
+          load_a<true>(va, sV + (c + j * 16) * LD + dt * 16, LD, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              mma_bf16(acc[dt][2 * mt + r], va, pb[mt][r][j][0], pb[mt][r][j][1]);
+        }
+    }
+    __syncthreads();  // stage kt & 1 is refilled with tile kt + 2 next
+  }
+
+  // epilogue: acc^T / l straight into o [B, H, D, T], two tokens a store
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)bh * p.D * p.T;
+  const bool pairs = (p.T & 1) == 0;  // then every pair is 4-byte aligned
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = l[mt][r] == 0.f ? 0.f : 1.f / l[mt][r];
+      const float i0 = __shfl_sync(0xffffffffu, inv, src0);
+      const float i1 = __shfl_sync(0xffffffffu, inv, src1);
+      const int t = q0 + (warp * MT + mt) * 16 + 8 * r + 2 * tq;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int hd = 0; hd < 2; ++hd) {
+          const int d = dt * 16 + g + 8 * hd;
+          if (d >= p.D) continue;
+          const float v0 = acc[dt][2 * mt + r][2 * hd] * i0;
+          const float v1 = acc[dt][2 * mt + r][2 * hd + 1] * i1;
+          __nv_bfloat16* o = out + (long long)d * p.T + t;
+          if (pairs && t + 1 < p.T) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (t < p.T) o[0] = __float2bfloat16(v0);
+            if (t + 1 < p.T) o[1] = __float2bfloat16(v1);
+          }
+        }
+    }
+}
+
+template <int DP, int BK>
+int launch_hybrid_bk(const Params& p, int bh, int p_smem, cudaStream_t st) {
+  const int smem = HTiling<DP>::smem_bytes(BK, p_smem != 0);
+  const dim3 grid((p.T + HTiling<DP>::BQ - 1) / HTiling<DP>::BQ, bh);
+  const auto kernel = p_smem ? attn_hybrid<DP, true, BK> : attn_hybrid<DP, false, BK>;
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 64 keys a stage at every head dim; 128 and 256 (the probe's stage sweep)
+// for D <= 64
+template <int DP>
+int launch_hybrid(const Params& p, int bh, int p_smem, int bk, cudaStream_t st) {
+  if (bk == kSub) return launch_hybrid_bk<DP, kSub>(p, bh, p_smem, st);
+  if constexpr (DP <= 64) {
+    if (bk == 2 * kSub) return launch_hybrid_bk<DP, 2 * kSub>(p, bh, p_smem, st);
+    if (bk == 4 * kSub) return launch_hybrid_bk<DP, 4 * kSub>(p, bh, p_smem, st);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // a, b bf16 [BH, ...] contiguous with 16-byte-aligned bases, out f32 [BH, M, N];
@@ -528,6 +829,40 @@ extern "C" int eo_attention_fwd_transposed(const void* qkv5, void* out, int is_f
     case 96: return launch_attn<96>(p, B * H, is_f32, st);
     case 112: return launch_attn<112>(p, B * H, is_f32, st);
     case 128: return launch_attn<128>(p, B * H, is_f32, st);
+    default: return -1;
+  }
+}
+
+// The hybrid attention: qkv5 [B, 3, H, T, D] bf16 contiguous (16-byte-aligned
+// base) -> out [B, H, D, T] bf16, with PV computed transposed. p_smem 1 hands
+// p from QK^T to PV through shared memory, 0 in registers; bk keys a K/V
+// stage: 64, or for D <= 64 also 128 or 256. scale = D^-1/4 rounded to
+// bf16. Any T >= 1; D a multiple of 8 up to 128. Returns 0, a CUDA error
+// code, or -1 for an argument it does not take.
+extern "C" int eo_attention_hybrid(const void* qkv5, void* out, int p_smem, int B, int H, int T,
+                                   int D, int bk, float scale, int device, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || D < 8 || D > 128 || D % 8 || (long long)B * H > 65535 ||
+      bk < kSub)
+    return -1;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  Params p;
+  p.qkv = qkv5;
+  p.out = out;
+  p.H = H;
+  p.T = T;
+  p.D = D;
+  p.scale = scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16 * 16) {
+    case 16: return launch_hybrid<16>(p, B * H, p_smem, bk, st);
+    case 32: return launch_hybrid<32>(p, B * H, p_smem, bk, st);
+    case 48: return launch_hybrid<48>(p, B * H, p_smem, bk, st);
+    case 64: return launch_hybrid<64>(p, B * H, p_smem, bk, st);
+    case 80: return launch_hybrid<80>(p, B * H, p_smem, bk, st);
+    case 96: return launch_hybrid<96>(p, B * H, p_smem, bk, st);
+    case 112: return launch_hybrid<112>(p, B * H, p_smem, bk, st);
+    case 128: return launch_hybrid<128>(p, B * H, p_smem, bk, st);
     default: return -1;
   }
 }

@@ -1,7 +1,8 @@
 // Tensor-core tile primitives for Hopper (sm_90a) shared by the port's GEMM-shaped
-// kernels (conv_wgrad.cu, attn_probes.cu): 16-byte cp.async copies with zero
-// fill, ldmatrix fragment loads in both storage orders, and the m16n8k16 bf16
-// mma.sync with f32 accumulators.
+// kernels (conv_wgrad.cu, attn_probes.cu, attn_variants.cu): 16-byte cp.async
+// copies with zero fill, ldmatrix fragment loads in both storage orders, the
+// m16n8k16 bf16 mma.sync with f32 accumulators, and the two scalar helpers of
+// the attention kernels (ex2, bf16 pair packing).
 //
 // Storage orders. A product C[M, N] += A[M, K] B[K, N] takes A as a 16 x 16
 // (m x k) fragment and B as a 16 x 8 (k x n) fragment. An operand tile in
@@ -57,6 +58,20 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloa
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
                : "memory");
+}
+
+// 2^x on the special-function unit (flush-to-zero; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to bf16 in one 32-bit register, lo in the low half (the
+// smaller k or n index of a fragment pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c[4] += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulators.

@@ -50,6 +50,29 @@ def attention_bound_ms(b: int, t: int, h: int, d: int, dtype: torch.dtype = torc
     return bound_ms(4.0 * b * h * t * t * d, peak, 4 * b * h * t * d * esize)
 
 
+def attention_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """An attention probe's output against its plain version: the largest
+    difference; the largest against max(rms, |plain|) elementwise, rms over
+    the whole plain output (at unit-normal inputs thousands of keys share the
+    weight, so |plain| sits far below 1 and a floor of 1 would make any limit
+    an absolute one); and the relative L2 difference, which a fault that
+    scales every output (l off by 1 %) moves by its own size."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = want.pow(2).mean().sqrt()
+    return {"max_abs_err": diff.max().item(), "out_rms": rms.item(),
+            "max_rms_scaled_err": (diff / want.abs().clamp(min=rms)).max().item(),
+            "rel_l2_err": (diff.pow(2).mean().sqrt() / rms).item()}
+
+
+def planted_faults(got: torch.Tensor, want: torch.Tensor, dropped: torch.Tensor) -> dict:
+    """What :func:`attention_errors` reads for two faults a kernel could have:
+    its output ``got`` 1 % off everywhere (as from l off by 1 %), and
+    ``dropped``, the plain version with one K/V stage of keys left out."""
+    return {"scaled_1pct": attention_errors((got.float() / 1.01).to(got.dtype), want),
+            "stage_dropped": attention_errors(dropped, want)}
+
+
 def shipped(qkv5: torch.Tensor) -> torch.Tensor:
     """The port's separate-tensor kernel on the plane views, then the
     transpose to [B, H, D, T]."""
@@ -59,17 +82,12 @@ def shipped(qkv5: torch.Tensor) -> torch.Tensor:
 
 def measure(qkv5: torch.Tensor, reps: int = REPS) -> dict:
     """The transposed-output kernel against its plain version on one CUDA
-    ``qkv5``: its errors (the port's kernel tolerances are stated against
-    max(1, |plain|)), the kernel, plain and SDPA times and the bound; one
-    row."""
+    ``qkv5``: its errors (:func:`attention_errors`), the kernel, plain and
+    SDPA times and the bound; one row."""
     b, _, h, t, d = qkv5.shape
-    out = AP.transposed_attention_cuda(qkv5).float()
-    ref = AP.transposed_attention_reference(qkv5).float()
-    diff = (out - ref).abs()
     row = {"shape": f"B{b} T{t} H{h} D{d}", "dtype": str(qkv5.dtype).split(".")[-1],
-           "max_abs_err": diff.max().item(),
-           "max_scaled_err": (diff / ref.abs().clamp(min=1.0)).max().item()}
-    del out, ref, diff
+           **attention_errors(AP.transposed_attention_cuda(qkv5),
+                              AP.transposed_attention_reference(qkv5))}
     q4, k4, v4 = (qkv5[:, j] for j in range(3))  # [B, H, T, D] views
     row["kernel_ms"] = cuda_ms(lambda: AP.transposed_attention_cuda(qkv5), reps)
     row["plain_ms"] = cuda_ms(lambda: AP.transposed_attention_reference(qkv5), 2, warmup=1)

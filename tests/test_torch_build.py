@@ -2,11 +2,16 @@
 stand-in ``nvcc`` shows the build, cache and failure paths."""
 
 import os
+import re
 import stat
+from pathlib import Path
 
 import pytest
 
 from eo_diffusion_torch.ops import _build
+from eo_diffusion_torch.ops import attn_probes as AP
+from eo_diffusion_torch.ops import attn_variants as AV
+from eo_diffusion_torch.ops import softmax_probes as SP
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in compiler: write the -o target, or fail when the source says so
@@ -73,3 +78,29 @@ def test_an_edited_header_rebuilds(fake_toolchain):
     first = _build.build_all()["k"]["path"]
     header.write_text("// shared tile code v2\n")
     assert _build.build_all()["k"]["path"] != first
+
+
+def _c_entries(source: str):
+    """{name: number of parameters} of the ``extern "C"`` functions of a source."""
+    text = (Path(_build.__file__).parent / "csrc" / source).read_text()
+    return {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+
+
+def test_every_kernel_has_its_source():
+    csrc = Path(_build.__file__).parent / "csrc"
+    assert all((csrc / src).is_file() for src in _build.KERNELS.values())
+    assert {"softmax_probes", "attn_variants"} <= set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("kernel,entry,argtypes", [
+    ("softmax_probes", "eo_softmax_stats", SP._ARGTYPES["eo_softmax_stats"]),
+    ("softmax_probes", "eo_transpose_accumulate", SP._ARGTYPES["eo_transpose_accumulate"]),
+    ("attn_variants", "eo_attention_variant", AV._ARGTYPES),
+    ("attn_probes", "eo_attention_hybrid", AP._ARGTYPES["eo_attention_hybrid"]),
+], ids=lambda x: x if isinstance(x, str) else "")
+def test_the_probe_wrappers_declare_their_c_entries(kernel, entry, argtypes):
+    """The ctypes declarations of the probe kernels' wrappers match the C
+    entries in number (a missing argument would shift every one after it)."""
+    entries = _c_entries(_build.KERNELS[kernel])
+    assert entries[entry] == len(argtypes)

@@ -717,3 +717,174 @@ def test_transposed_attention_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         AP.transposed_attention_cuda(torch.zeros(1, 3, 2, 16, 16))
     assert AP.transposed_attention_cuda.launches == before
+
+
+# -- the softmax-orientation probes, the hybrid and variant attentions -------------
+
+# The attention probes against their plain versions (probe_packed_pv's
+# attention_errors): at unit-normal inputs many keys share the weight and
+# |plain| sits far below 1, so each is held elementwise to TOL of max(rms,
+# |plain|), which one dropped K/V stage breaks, and by its relative L2
+# difference to TOL_ATTN_L2, which a fault that scales every output (l off by
+# 1 %: 1e-2) breaks; bf16: one output ulp where two f32 values straddle a
+# rounding, and p rounded at another running max
+TOL_ATTN_L2 = 5e-3
+
+
+def _assert_attention_close(got, ref, what=""):
+    from eo_diffusion_torch.tools.probe_packed_pv import attention_errors
+
+    e = attention_errors(got, ref)
+    assert e["max_rms_scaled_err"] <= TOL[torch.bfloat16], (what, e)
+    assert e["rel_l2_err"] <= TOL_ATTN_L2, (what, e)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 100), (2, 64, 256), (1, 5, 3), (4, 512, 2048)])
+@pytest.mark.parametrize("axis", [1, 0])
+def test_softmax_stats_kernel_matches_plain(dev, shape, axis):
+    from eo_diffusion_torch.ops import softmax_probes as SP
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + axis)
+    s = 3.0 * torch.randn(*shape, generator=g, device="cuda")
+    before = SP.softmax_stats_cuda.launches
+    got = SP.softmax_stats(s, axis)
+    ref = SP.softmax_stats_reference(s, axis)
+    torch.cuda.synchronize()
+    assert SP.softmax_stats_cuda.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    # the order of f32 sums
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 100), (2, 64, 256), (1, 1, 33), (4, 512, 2048)])
+def test_transpose_kernel_is_bit_exact(dev, shape):
+    from eo_diffusion_torch.ops import softmax_probes as SP
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    p = torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+    before = SP.transpose_accumulate_cuda.launches
+    got = SP.transpose_accumulate(p)
+    assert SP.transpose_accumulate_cuda.launches == before + 1
+    assert torch.equal(got, SP.transpose_accumulate_reference(p))
+
+
+def test_softmax_probe_kernels_refuse_what_they_do_not_take(dev):
+    from eo_diffusion_torch.ops import softmax_probes as SP
+
+    s = torch.zeros(2, 8, 8, device="cuda")
+    before = (SP.softmax_stats_cuda.launches, SP.transpose_accumulate_cuda.launches)
+    for bad in ((s.bfloat16(), 1), (s, 2), (s[0], 1), (s.cpu(), 1)):
+        with pytest.raises(ValueError):
+            SP.softmax_stats_cuda(*bad)
+    for bad in (s, s[0].bfloat16(), s.cpu().bfloat16()):
+        with pytest.raises(ValueError):
+            SP.transpose_accumulate_cuda(bad)
+    assert (SP.softmax_stats_cuda.launches, SP.transpose_accumulate_cuda.launches) == before
+
+
+@pytest.mark.parametrize("b,h,t,d,bk", [
+    (2, 2, 130, 48, 64), (1, 3, 64, 64, 128), (2, 2, 77, 128, 64), (1, 2, 1, 40, 64),
+    (2, 3, 1000, 40, 128), (1, 2, 300, 64, 256), (1, 2, 300, 96, 64)])
+@pytest.mark.parametrize("variant", ["hybrid", "hybrid2"])
+def test_hybrid_attention_kernel_matches_plain(dev, b, h, t, d, bk, variant):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    g = torch.Generator(device="cuda").manual_seed(t + d)
+    qkv5 = torch.randn(b, 3, h, t, d, generator=g, device="cuda")
+    qkv5[:, :2] *= 2.0
+    qkv5 = qkv5.to(torch.bfloat16)
+    before = AP.hybrid_attention_cuda.launches
+    got = AP.hybrid_attention(qkv5, variant, bk)
+    ref = AP.transposed_attention_reference(qkv5)
+    torch.cuda.synchronize()
+    assert AP.hybrid_attention_cuda.launches == before + 1
+    assert got.shape == (b, h, d, t) and got.dtype == torch.bfloat16
+    _assert_attention_close(got, ref)
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_hybrid_attention_every_head_dim(dev, d):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    qkv5 = (2.0 * torch.randn(2, 3, 2, 70, d, generator=g, device="cuda")).to(torch.bfloat16)
+    ref = AP.transposed_attention_reference(qkv5)
+    for variant in AP.HYBRIDS:
+        _assert_attention_close(AP.hybrid_attention_cuda(qkv5, variant), ref, variant)
+
+
+def test_hybrid_attention_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import attn_probes as AP
+
+    before = AP.hybrid_attention_cuda.launches
+    ok = torch.zeros(1, 3, 2, 16, 16, device="cuda", dtype=torch.bfloat16)
+    wide = torch.zeros(1, 3, 2, 16, 96, device="cuda", dtype=torch.bfloat16)
+    for args in ((ok.float(),), (ok[:, :2],), (ok, "hybrid3"), (ok, "hybrid", 96),
+                 (wide, "hybrid", 128),
+                 (torch.zeros(1, 3, 2, 16, 12, device="cuda", dtype=torch.bfloat16),),
+                 (ok.cpu(),)):
+        with pytest.raises(ValueError):
+            AP.hybrid_attention_cuda(*args)
+    assert AP.hybrid_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 130, 2, 48), (1, 1000, 3, 40), (2, 64, 2, 64),
+                                     (1, 1, 2, 16), (1, 300, 2, 32)])
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_attention_variant_kernel_matches_plain(dev, b, t, h, d, variant):
+    from eo_diffusion_torch.ops import attn_variants as AV
+
+    g = torch.Generator(device="cuda").manual_seed(t + d)
+    q, k, v = (torch.randn(b, t, h, d, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    ref = AV.attention_variant_reference(q, k, v, variant)
+    for warps, bk in AV.TILES[variant]:
+        before = AV.attention_variant_cuda.launches
+        got = AV.attention_variant(q, k, v, variant, warps, bk)
+        torch.cuda.synchronize()
+        assert AV.attention_variant_cuda.launches == before + 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        _assert_attention_close(got, ref, (warps, bk))
+
+
+def test_attention_variant_b_is_k1s_function(dev):
+    """B at K1's tile against the port's attention kernel on the same tensors."""
+    from eo_diffusion_torch.ops import attn_variants as AV
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(2, 257, 3, 48, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    _assert_attention_close(AV.attention_variant_cuda(q, k, v, "B"),
+                            A.flash_attention_cuda(q, k, v))
+
+
+def test_attention_variant_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import attn_variants as AV
+
+    ok = torch.zeros(1, 16, 2, 16, device="cuda", dtype=torch.bfloat16)
+    big = torch.zeros(1, 16, 2, 80, device="cuda", dtype=torch.bfloat16)
+    before = AV.attention_variant_cuda.launches
+    for args in ((ok.float(), ok.float(), ok.float(), "B"), (big, big, big, "B"),
+                 (ok, ok, ok, "A", 16), (ok, ok, ok, "A", 4, 128), (ok, ok, ok, "B", 4, 96),
+                 (ok, ok, ok, "E"),
+                 (ok.cpu(), ok.cpu(), ok.cpu(), "B")):
+        with pytest.raises(ValueError):
+            AV.attention_variant_cuda(*args)
+    assert AV.attention_variant_cuda.launches == before
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 4096, 8, 48), (2, 1000, 3, 40), (1, 77, 2, 64)])
+def test_fused_layout_route_goes_through_k1(dev, b, t, h, d):
+    from eo_diffusion_torch.ops import attn_variants as AV
+
+    g = torch.Generator(device="cuda").manual_seed(t)
+    qkv = torch.randn(b, t, 3, h, d, generator=g, device="cuda")
+    qkv[:, :, :2] *= 2.0
+    qkv = qkv.to(torch.bfloat16)
+    before = A.qkv_attention_cuda.launches
+    got = AV.fused_layout_attention(qkv)
+    ref = AV.fused_layout_attention_reference(qkv)
+    torch.cuda.synchronize()
+    assert A.qkv_attention_cuda.launches == before + 1
+    assert got.shape == (b, t, h, d) and got.dtype == torch.bfloat16
+    _assert_attention_close(got, ref)

@@ -38,6 +38,15 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_probe_modules_are_checked():
+    """The probe kernels' modules and tools are among the sources checked."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("ops/softmax_probes.py", "ops/attn_variants.py", "ops/attn_probes.py",
+                "tools/probe_softmax_orient.py", "tools/profile_attn_variants.py",
+                "tools/profile_attn_variants2.py", "tools/profile_attn_fusedlayout.py"):
+        assert f"eo_diffusion_torch/{mod}" in names, mod
+
+
 def test_package_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
