@@ -5,13 +5,19 @@
 Phases, in order; the first failure exits non-zero:
 
 1. require CUDA; print the card's name and power limit; TF32 off;
-2. build every CUDA kernel of the port from the sources in this checkout;
+2. build every CUDA kernel of the port from the sources in this checkout,
+   and count the wgmma (HGMMA) and TMA (UTMALDG) instructions of the bf16
+   attention forward;
 3. hold each kernel (attention forward through its fused-qkv entry and
    through its separate-tensor entry, attention backward through both,
    GroupNorm + FiLM + SiLU forward and backward) against its plain PyTorch
    version on the card at the shapes the main paths give it (the clouds UNet
    at 256, 384 and 512 px), and time kernel, plain version, the PyTorch
-   library call and the card's lower bound;
+   library call and the card's lower bound. The bf16 forward is the
+   wgmma/TMA body: at every shape it is also held at unit-normal inputs to
+   the probes' limits (TOL of max(rms, |plain|), TOL_ATTN_L2), two planted
+   faults are asserted caught, and the mma.sync body it replaced is timed
+   beside it; head dims 160 and 256 and a ragged T for each entry too;
 4. one clouds-UNet forward at 256 px, kernels against the all-plain model
    (plain attention and plain norms), then one loss and backward, kernels
    against plain: every parameter gets a finite gradient, the attention's
@@ -19,11 +25,12 @@ Phases, in order; the first failure exits non-zero:
    attention takes the separate-tensor route;
 5. the sampling path through the entry point: ``eo_diffusion_torch.cli.inference``
    with ``sen12mscr256`` (concat cloud removal), DDIM-50, batch 8, seeded
-   random weights; the attention counter must rise by 11 x 50 per batch and
-   the GroupNorm counter by 56 x 50; 5b. the same entry point at
-   ``--image_size 512``, DDIM-20 (5 separate-tensor and 6 fused-qkv
-   launches a forward); 5c. ``tiled_ddim_sample`` of 512 x 512 scenes with
-   the 256 px denoiser (3 x 3 tiles at overlap 0.5, DDIM-20);
+   random weights; the attention counter (the wgmma/TMA body) must rise by
+   11 x 50 per batch, the mma.sync body's not at all (in every run of
+   phases 4-7), and the GroupNorm counter by 56 x 50; 5b. the same entry
+   point at ``--image_size 512``, DDIM-20 (5 separate-tensor and 6
+   fused-qkv launches a forward); 5c. ``tiled_ddim_sample`` of 512 x 512
+   scenes with the 256 px denoiser (3 x 3 tiles at overlap 0.5, DDIM-20);
 6. the reference's own 64 px path: ``clouds64-attn`` RePaint DDPM-100;
 5d. the DiT family through the same entry point: ``dit256`` (DiT-B/8, 12
    blocks, hidden 768, 12 heads, patch 8) with rectified flow, Heun-8 (15
@@ -74,6 +81,7 @@ import contextlib
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -100,6 +108,7 @@ from eo_diffusion_torch.tools import (probe_attn_matmuls, probe_int8_attn, probe
                                       probe_softmax_orient, profile_attn_fusedlayout,
                                       profile_attn_variants, profile_attn_variants2,
                                       prototype_wgrad_kernel)
+from eo_diffusion_torch.tools.probe_packed_pv import attention_errors, planted_faults
 from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
                                              card_line, cuda_ms)
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
@@ -212,9 +221,19 @@ def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
     assert math.isfinite(err) and scaled <= TOL[dtype], (
         f"kernel vs plain at B{b} T{t} H{heads} D{d} {dtype}: {scaled} > {TOL[dtype]}")
 
+    strict = None
+    if dtype == torch.bfloat16 and not with_lse:  # the wgmma/TMA body, unit-normal inputs
+        unit = torch.randn(b, t, 3 * c, generator=gen, device="cuda").to(dtype)
+        strict = strict_check(lambda: A.qkv_attention_cuda(unit, heads, new_order).reshape(
+            b, t, heads, d), *A.split_qkv(unit, heads, new_order), chunk=b,
+            what=f"fused-qkv entry at B{b} T{t} H{heads} D{d} new_order={new_order}")
+        del unit
+
     reps = 20 if t >= 1024 else 100
     kernel_ms = cuda_ms(lambda: A.qkv_attention_cuda(qkv, heads, new_order,
                                                      return_lse=with_lse), reps)
+    mma_ms = cuda_ms(lambda: A.qkv_attention_mma_cuda(qkv, heads, new_order,
+                                                      return_lse=with_lse), reps)
     plain_ms = cuda_ms(lambda: A.attention_from_qkv(qkv, heads, new_order, impl="plain"),
                        3 if t >= 1024 else 20, warmup=1)
     q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous() for x in A.split_qkv(qkv, heads, new_order))
@@ -224,7 +243,8 @@ def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
     nbytes = qkv.element_size() * b * t * 4 * c + (4 * b * heads * t if with_lse else 0)
     bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": f"B{b} T{t} H{heads} D{d}", "dtype": str(dtype).split(".")[-1],
-           "new_order": new_order, "max_abs_err": err, "max_scaled_err": scaled, "kernel_ms": kernel_ms,
+           "new_order": new_order, "max_abs_err": err, "max_scaled_err": scaled,
+           "unit_normal": strict, "kernel_ms": kernel_ms, "mma_body_ms": mma_ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
@@ -287,18 +307,20 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen):
     return row
 
 
-def make_planes(b, t, heads, d, dtype, layout, gen):
+def make_planes(b, t, heads, d, dtype, layout, gen, sharpen=True):
     """q, k, v [B, T, H, D]: the split_qkv views of one projection in either
-    head order ("legacy", "new"), or three contiguous tensors; q and k x2."""
+    head order ("legacy", "new"), or three contiguous tensors; q and k x2
+    where ``sharpen``."""
+    f = 2.0 if sharpen else 1.0
     if layout == "contiguous":
         q, k, v = (torch.randn(b, t, heads, d, generator=gen, device="cuda") for _ in range(3))
-        q.mul_(2.0)
-        k.mul_(2.0)
+        q.mul_(f)
+        k.mul_(f)
         return [x.to(dtype) for x in (q, k, v)]
     qkv = torch.randn(b, t, 3 * heads * d, generator=gen, device="cuda")
     q, k, _ = A.split_qkv(qkv, heads, layout == "new")
-    q.mul_(2.0)
-    k.mul_(2.0)
+    q.mul_(f)
+    k.mul_(f)
     return list(A.split_qkv(qkv.to(dtype), heads, layout == "new"))
 
 
@@ -310,6 +332,32 @@ def plain_fwd(q, k, v, chunk, with_lse=True):
     if not with_lse:
         return torch.cat(res)
     return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+
+def sm90_stage(d):
+    """Keys a K/V stage of the wgmma/TMA forward body at head dim d."""
+    return 128 if d <= 128 else 64
+
+
+def strict_check(fwd, q, k, v, chunk, what):
+    """The wgmma/TMA body at unit-normal inputs against plain with the
+    probes' limits (check_attention: TOL of max(rms, |plain|) elementwise,
+    TOL_ATTN_L2 of relative L2), and the two planted faults (its output 1 %
+    off; plain without one K/V stage of the body's, or half of T where T
+    holds less than two) caught by them; q, k, v [B, T, H, D] bf16 views,
+    ``fwd`` the entry under test. Returns the errors."""
+    got = fwd()
+    ref = plain_fwd(q, k, v, chunk, with_lse=False)
+    stage = min(sm90_stage(q.shape[-1]), q.shape[1] // 2)  # T < 2 stages: half of T
+    dropped = plain_fwd(q, profile_attn_variants.without_a_stage(k, stage),
+                        profile_attn_variants.without_a_stage(v, stage), chunk, with_lse=False)
+    torch.cuda.synchronize()
+    row = {**attention_errors(got, ref), "planted_faults": planted_faults(got, ref, dropped)}
+    check_attention(row, torch.bfloat16, what)
+    check_faults_caught(row, what)
+    del got, ref, dropped
+    torch.cuda.empty_cache()
+    return row
 
 
 def plain_bwd(q, k, v, o, lse, do, hchunk):
@@ -345,10 +393,18 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
         f"flash forward vs plain at {label} {dtype}: {scaled} > {TOL[dtype]} or lse {lse_err}")
     del out, lse, ref, ref_lse, diff
     torch.cuda.empty_cache()
+    strict = None
+    if dtype == torch.bfloat16:  # the wgmma/TMA body at unit-normal inputs
+        uq, uk, uv = make_planes(b, t, heads, d, dtype, layout, gen, sharpen=False)
+        strict = strict_check(lambda: A.flash_attention_cuda(uq, uk, uv), uq, uk, uv, chunk,
+                              f"separate-tensor entry at {label}")
+        del uq, uk, uv
 
     big = t >= 8192
     reps = 10 if big else 20
     kernel_ms = cuda_ms(lambda: A.flash_attention_cuda(q, k, v), reps)
+    mma_ms = (cuda_ms(lambda: A.flash_attention_mma_cuda(q, k, v), reps)
+              if d <= 128 else None)  # the mma.sync body takes D up to 128
     plain_ms = cuda_ms(lambda: plain_fwd(q, k, v, chunk, with_lse=False), 2 if big else 3,
                        warmup=1)
     torch.cuda.empty_cache()
@@ -360,7 +416,8 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
     nbytes = q.element_size() * b * t * heads * d * 4  # q, k, v read, o written
     bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-           "max_scaled_err": scaled, "lse_max_abs_err": lse_err, "kernel_ms": kernel_ms,
+           "max_scaled_err": scaled, "lse_max_abs_err": lse_err, "unit_normal": strict,
+           "kernel_ms": kernel_ms, "mma_body_ms": mma_ms,
            "plain_ms": plain_ms, "plain_chunk": chunk, "library_ms": library_ms,
            "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
@@ -416,9 +473,20 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, hchunk):
     return row
 
 
+def sass_census(lib):
+    """Instructions of a built library by kind (cuobjdump -sass): HGMMA is
+    wgmma.mma_async, UTMALDG a TMA tile load (cp.async.bulk.tensor), LDL/STL
+    register spills."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS", "LDL", "STL")}
+
+
 def reset_counts():
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
+    A.qkv_attention_mma_cuda.launches = A.flash_attention_mma_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
     CW.conv_wgrad_cuda.launches = AP.matmul_probe_cuda.launches = 0
@@ -432,6 +500,8 @@ def counts():
             "attn_bwd": A.qkv_attention_bwd_cuda.launches,
             "flash_fwd": A.flash_attention_cuda.launches,
             "flash_bwd": A.flash_attention_bwd_cuda.launches,
+            "attn_fwd_mma": A.qkv_attention_mma_cuda.launches,
+            "flash_fwd_mma": A.flash_attention_mma_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
             "int8": I8.int8_attention_cuda.launches, "wgrad": CW.conv_wgrad_cuda.launches,
             "mm_probe": AP.matmul_probe_cuda.launches,
@@ -448,6 +518,7 @@ def expected(size, forwards, backwards=0):
     qkv, flash = ROUTES[size]
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
+            "attn_fwd_mma": 0, "flash_fwd_mma": 0,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
             "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
             "transpose": 0, "variant": 0}
@@ -729,7 +800,7 @@ def phase_8c(gen):
     tools = {}
     for name, tool, kw, counters in (
             ("softmax", probe_softmax_orient, {"extra": True}, ("stats", "transpose", "hybrid")),
-            ("variants", profile_attn_variants, {}, ("variant",)),
+            ("variants", profile_attn_variants, {}, ("variant", "flash_fwd_mma")),
             ("sweep", profile_attn_variants2, {}, ("variant",)),
             ("fused", profile_attn_fusedlayout, {}, ("attn_fwd",))):
         reset_counts()
@@ -988,12 +1059,14 @@ def probe_kernel_rows(small, probes):
               "ms_by_variant_and_tile": {f"{r['variant']} {r['warps']}w {r['block_k']}k":
                                          r["kernel_ms"] for res in (var, sweep)
                                          for r in res["rows"]},
-              "shipped_k1_body_ms": var["shipped_ms"]}),
-            ("fused_layout_attention", "attention_fwd.cu", "tools/profile_attn_fusedlayout.py:28",
+              "mma_body_ms": var["mma_body_ms"]}),
+            ("fused_layout_attention", "attention_fwd_sm90.cu",
+             "tools/profile_attn_fusedlayout.py:28",
              [], fused["launches"]["attn_fwd"], fused,
              [fused["max_abs_err"], small["fused"]["max_abs_err"]],
              {**attention_maxima((fused, small["fused"])),
-              "entry": "K1's fused-projection entry eo_qkv_attention_fwd, new head order",
+              "entry": "K1's fused-projection entry eo_qkv_attention_fwd (the wgmma/TMA "
+                       "body), new head order",
               "separate_entry_views_ms": fused["separate_entry_views_ms"],
               "slice_fold_ms": fused["slice_fold_ms"]})):
         rows.append({"name": name, "route": "cuda",
@@ -1025,6 +1098,9 @@ def main() -> int:
     for name, info in builds.items():
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         print(f"{name}: {len(regs)} entry points; ptxas: {regs[:4]}")
+    sass = sass_census(builds["attention_fwd_sm90"]["path"])
+    print(f"attention_fwd_sm90 SASS: {json.dumps(sass)}", flush=True)
+    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass  # wgmma and TMA loads
 
     # 3. kernel vs plain at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1036,6 +1112,7 @@ def main() -> int:
     rows.append(attention_case(8, 64, 8, 64, torch.bfloat16, False, gen))   # 64 px, ds 8
     rows.append(attention_case(2, 1024, 8, 64, torch.float32, False, gen))  # --no_bf16
     rows.append(attention_case(8, 4096, 8, 64, torch.bfloat16, False, gen))  # 512 px, ds 8
+    rows.append(attention_case(3, 1000, 4, 48, torch.bfloat16, True, gen))   # ragged T
     # the DiT's shapes, new head order: dit256 (DiT-B/8), the probe's DiT-B/4
     # at the latent256 grid, dit64 (DiT-S/4)
     dit_rows = [attention_case(8, 1024, 12, 64, torch.bfloat16, True, gen),
@@ -1072,6 +1149,10 @@ def main() -> int:
         flash_case(8, 2304, 8, 64, torch.bfloat16, "new", gen),
         flash_case(8, 2304, 8, 64, torch.bfloat16, "contiguous", gen),
         flash_case(2, 2309, 4, 48, torch.float32, "legacy", gen),
+        flash_case(2, 2309, 4, 48, torch.bfloat16, "new", gen),        # ragged T
+        # head dims above 128, which only the wgmma/TMA body takes
+        flash_case(2, 2309, 4, 160, torch.bfloat16, "legacy", gen),
+        flash_case(2, 2309, 4, 256, torch.bfloat16, "new", gen),
     ]
     torch.cuda.empty_cache()
     flash_bwd_rows = [
@@ -1237,10 +1318,41 @@ def main() -> int:
     main_row = rows[0]
     bwd_row = bwd_rows[0]
     gn_fwd_rows, gn_bwd_rows = [r[0] for r in gn_rows], [r[1] for r in gn_rows]
+    sm90_rows = [r for r in rows + flash_rows if r["dtype"] == "bfloat16"]
     kernels = [{
+        "name": "attention_fwd_sm90",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+        "replaces": "eo_diffusion_tpu/ops/attention.py:738",
+        "replaces_also": ["eo_diffusion_tpu/ops/attention.py:697",
+                          "eo_diffusion_tpu/ops/attention.py:271",
+                          "eo_diffusion_tpu/ops/attention.py:227"],
+        "launches": main_res["launches"]["attn_fwd"] + main_res["launches"]["flash_fwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in sm90_rows),
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "mma_body_ms": main_row["mma_body_ms"],
+        "launches_512": res512["launches"]["attn_fwd"] + res512["launches"]["flash_fwd"],
+        "launches_train_512": train512["launches"]["attn_fwd"]
+        + train512["launches"]["flash_fwd"],
+        "mma_body_launches_on_model_paths": sum(
+            r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
+                                       *dit_res.values())
+            for k in ("attn_fwd_mma", "flash_fwd_mma")),
+        "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
+                                            if r["unit_normal"]),
+        "sass": sass,
+        "shapes": [{k: r[k] for k in ("shape", "kernel_ms", "mma_body_ms", "library_ms",
+                                      "bound_ms", "plain_ms", "max_abs_err")}
+                   for r in sm90_rows],
+    }, {
         "name": "qkv_attention_fwd",
         "route": "cuda",
-        "source": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+        "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:738",
         "launches": main_res["launches"]["attn_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
@@ -1254,6 +1366,7 @@ def main() -> int:
         "launches_dit": {tag: r["launches"]["attn_fwd"] for tag, r in dit_res.items()},
         "ms_with_lse": lse_rows[0]["kernel_ms"],
         "ms_dit256": dit_rows[0]["kernel_ms"],
+        "mma_body_ms": main_row["mma_body_ms"],
         "dit_forward_rel_l2": dit_fwd,
         "shapes": rows,
     }, {
@@ -1272,7 +1385,8 @@ def main() -> int:
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+        "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:271",
         "replaces_also": "eo_diffusion_tpu/ops/attention.py:227",
         "launches": res512["launches"]["flash_fwd"],
@@ -1283,6 +1397,7 @@ def main() -> int:
         "bound_by": flash_rows[0]["bound_by"],
         "library_ms": flash_rows[0]["library_ms"],
         "launches_train_512": train512["launches"]["flash_fwd"],
+        "mma_body_ms": flash_rows[0]["mma_body_ms"],
         "shapes": flash_rows,
     }, {
         "name": "flash_attention_bwd",

@@ -7,9 +7,14 @@ in float32.
 
 * :func:`reference_attention` is the plain version (the counterpart of
   ``xla_attention``); CPU tensors always take it.
-* :func:`qkv_attention_cuda` launches the hand-written CUDA kernel
-  (``csrc/attention_fwd.cu``, the port of the TPU's fused-qkv kernel K1),
-  which reads q/k/v straight out of the ``[B, T, 3C]`` projection.
+* :func:`qkv_attention_cuda` launches the hand-written CUDA kernel (the
+  port of the TPU's fused-qkv kernel K1), which reads q/k/v straight out of
+  the ``[B, T, 3C]`` projection: bf16 takes the wgmma/TMA body
+  (``csrc/attention_fwd_sm90.cu``), float32 the FMA kernel of
+  ``csrc/attention_fwd.cu`` (:func:`fwd_route` holds the rules).
+  :func:`qkv_attention_mma_cuda` / :func:`flash_attention_mma_cuda` launch
+  the earlier mma.sync body of ``attention_fwd.cu``, which no model path
+  calls: the attention probes copy its loop and time it as their yardstick.
 * :func:`reference_attention_bwd` is the plain version of the backward,
   written out with the backward kernel's own recipe (where it rounds to the
   input dtype included); :func:`qkv_attention_bwd_cuda` launches that kernel
@@ -37,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -46,10 +51,16 @@ from eo_diffusion_torch.ops import _build
 __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "stack_qkv", "attention_from_qkv", "qkv_attention_cuda", "qkv_attention_bwd_cuda",
            "QKVAttention", "flash_attention_cuda", "flash_attention_bwd_cuda",
-           "FlashAttention", "flash_attention", "fused_attention"]
+           "FlashAttention", "flash_attention", "fused_attention", "fwd_route",
+           "qkv_attention_mma_cuda", "flash_attention_mma_cuda"]
 
 _KERNEL = "attention_fwd"
+_KERNEL_SM90 = "attention_fwd_sm90"
 _KERNEL_BWD = "attention_bwd"
+# head dims the kernels take: the wgmma body (bf16) up to wgmma's N, the FMA
+# kernel (float32), the mma.sync body and the backward up to 128
+_MAX_D_SM90 = 256
+_MAX_D = 128
 # the JAX package's fused-qkv kernel takes T up to this (its _MAX_RESIDENT_KV)
 _MAX_QKV_T = 4096
 
@@ -57,9 +68,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # argument types of the C entry points (every pointer and the stream as
 # c_void_p, so none is cut to 32 bits)
+_QKV_FWD = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _I, _P]
+_FLASH_FWD = [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _ARGTYPES = {
-    "eo_qkv_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _I, _P],
-    "eo_attention_fwd": [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "eo_qkv_attention_fwd": _QKV_FWD, "eo_qkv_attention_fwd_mma": _QKV_FWD,
+    "eo_attention_fwd": _FLASH_FWD, "eo_attention_fwd_mma": _FLASH_FWD,
     "eo_qkv_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _F,
                              _I, _P],
     "eo_attention_bwd": [_P] * 6 + [_STRIDES] + [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
@@ -174,17 +187,42 @@ def _entry(kernel: str, name: str):
     return fn
 
 
-def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
-                       return_lse: bool = False):
-    """Launch the fused-qkv attention kernel on a CUDA tensor.
+def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
+              ptrs: Sequence[int] = (), fused: bool = False) -> str:
+    """Which kernel takes a forward launch, from what the kernels accept.
 
-    ``qkv`` is ``[B, T, 3C]`` bf16 or float32 with unit stride along channels;
-    returns ``o`` ``[B, T, C]`` (channel ``h*D + d``) and, with
-    ``return_lse``, ``lse`` ``[B*H, T]`` float32. Raises on anything the
-    kernel does not take and on a failed launch; never falls back.
+    ``"sm90"``: bf16, the wgmma/TMA body (``csrc/attention_fwd_sm90.cu``), any
+    head dim that is a multiple of 8 up to 256 on the separate-tensor entry
+    and up to 128 on the fused-qkv one (the JAX package's gate, d <= 128);
+    ``"fma"``: float32, the FMA kernel of ``csrc/attention_fwd.cu``, up to
+    128. ``strides`` are the element strides and ``ptrs`` the base addresses
+    of what the kernel is handed (TMA reads rows of 16 bytes: strides that
+    are multiples of 8 elements, 16-byte-aligned bases). Raises ValueError on
+    anything no forward kernel takes.
     """
-    b, t, c, d = _check_qkv(qkv, heads, "qkv_attention_cuda")
-    fn = _entry(_KERNEL, "eo_qkv_attention_fwd")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported dtype {dtype}")
+    if d < 8 or d % 8:
+        raise ValueError(f"head dim {d}: the kernels take multiples of 8")
+    if fused and d > _MAX_D:
+        raise ValueError(f"head dim {d} > {_MAX_D}: the fused-qkv entry keeps the JAX "
+                         f"package's gate (d <= {_MAX_D})")
+    limit = _MAX_D_SM90 if dtype == torch.bfloat16 else _MAX_D
+    if d > limit:
+        raise ValueError(f"head dim {d} > {limit} in {dtype}: not ported yet (the remaining "
+                         f"part of K2/K3, ROADMAP queue 2, item 1)")
+    if any(st % 8 for st in strides) or any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the kernels need strides that are multiples of 8 elements and "
+                         "16-byte-aligned bases")
+    return "sm90" if dtype == torch.bfloat16 else "fma"
+
+
+def _qkv_fwd(qkv: torch.Tensor, heads: int, new_order: bool, return_lse: bool, kernel: str,
+             name: str, dims: Tuple[int, int, int, int]):
+    """One launch of a fused-qkv forward entry on a checked ``qkv`` of
+    ``dims`` (b, t, c, d); (out, lse or None)."""
+    b, t, c, d = dims
+    fn = _entry(kernel, name)
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b * heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
@@ -195,12 +233,46 @@ def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
             qkv.stride(1), int(new_order), scale, qkv.device.index,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"attention_fwd launch failed: error {rc}")
+        raise RuntimeError(f"{kernel} launch failed: error {rc}")
+    return out, lse
+
+
+def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
+                       return_lse: bool = False):
+    """Launch the fused-qkv attention kernel on a CUDA tensor.
+
+    ``qkv`` is ``[B, T, 3C]`` bf16 or float32 with unit stride along channels;
+    returns ``o`` ``[B, T, C]`` (channel ``h*D + d``) and, with
+    ``return_lse``, ``lse`` ``[B*H, T]`` float32. bf16 launches the wgmma/TMA
+    body, float32 the FMA kernel (:func:`fwd_route`); ``.launches`` counts
+    both. Raises on anything the kernel does not take and on a failed launch;
+    never falls back.
+    """
+    b, t, c, d = _check_qkv(qkv, heads, "qkv_attention_cuda")
+    route = fwd_route(qkv.dtype, d, qkv.stride()[:2], (qkv.data_ptr(),), fused=True)
+    kernel, name = ((_KERNEL_SM90, "eo_qkv_attention_fwd") if route == "sm90"
+                    else (_KERNEL, "eo_qkv_attention_fwd_mma"))
+    out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, kernel, name, (b, t, c, d))
     qkv_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
 
 qkv_attention_cuda.launches = 0
+
+
+def qkv_attention_mma_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
+                           return_lse: bool = False):
+    """:func:`qkv_attention_cuda` through the earlier mma.sync body (bf16) of
+    ``attention_fwd.cu``: the body the attention probes copy, kept as their
+    yardstick. No model path calls it; ``.launches`` counts its launches."""
+    dims = _check_qkv(qkv, heads, "qkv_attention_mma_cuda")
+    out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, _KERNEL,
+                        "eo_qkv_attention_fwd_mma", dims)
+    qkv_attention_mma_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+qkv_attention_mma_cuda.launches = 0
 
 
 def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
@@ -287,9 +359,10 @@ class QKVAttention(torch.autograd.Function):
         return stack_qkv(*grads, new_order=new_order), None, None
 
 
-def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
-    """Raise on q, k, v the separate-tensor kernels do not take; returns
-    (b, t, h, d)."""
+def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str,
+                  max_d: int = _MAX_D):
+    """Raise on q, k, v the separate-tensor kernels do not take (head dims up
+    to ``max_d``); returns (b, t, h, d)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{who} needs CUDA tensors")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -300,11 +373,11 @@ def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
     if {k.dtype, v.dtype} != {q.dtype} or {k.device, v.device} != {q.device}:
         raise ValueError("q, k, v must share one dtype and device")
     b, t, h, d = q.shape
-    if d > 128:
-        raise ValueError(f"head dim {d} > 128: not ported yet (the remaining part of "
-                         f"K2/K3, ROADMAP queue 2)")
+    if d > max_d:
+        raise ValueError(f"head dim {d} > {max_d}: {who} does not take it yet (ROADMAP "
+                         f"queue 2, item 1)")
     if d < 8 or d % 8:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up to 128")
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up to {max_d}")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the launch grid")
     return b, t, h, d
@@ -312,10 +385,11 @@ def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
     """x itself where every ``[B, T, H, D]`` row starts on 16 bytes (unit
-    stride along D, strides multiples of 8, aligned base), else a contiguous
-    copy."""
+    stride along D, positive strides that are multiples of 8, aligned base),
+    else a contiguous copy."""
     s = x.stride()
-    if s[3] == 1 and not (s[0] % 8 or s[1] % 8 or s[2] % 8 or x.data_ptr() % 16):
+    if s[3] == 1 and min(s[:3]) > 0 and not (s[0] % 8 or s[1] % 8 or s[2] % 8
+                                             or x.data_ptr() % 16):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -333,23 +407,12 @@ def _strides(*xs: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         return_lse: bool = False):
-    """Launch the attention forward kernel on three CUDA tensors.
-
-    ``q``, ``k``, ``v`` are ``[B, T, H, D]`` bf16 or float32, any strides
-    with unit stride along D (the :func:`split_qkv` views and contiguous
-    tensors need no copy; others, and k, v of different token strides, are
-    copied); returns ``o`` ``[B, T, H, D]`` contiguous and, with
-    ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T; D a multiple of 8 up
-    to 128. Raises on anything the kernel does not take and on a failed
-    launch; never falls back.
-    """
-    b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda")
-    q, k, v = _rows16(q), _rows16(k), _rows16(v)
-    if k.stride(1) != v.stride(1):  # the kernel reads K and V rows at one token stride
-        k, v = k.contiguous(), v.contiguous()
-    fn = _entry(_KERNEL, "eo_attention_fwd")
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool,
+               kernel: str, name: str):
+    """One launch of a separate-tensor forward entry on checked, 16-byte-row
+    planes; (out, lse or None)."""
+    b, t, h, d = q.shape
+    fn = _entry(kernel, name)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -358,12 +421,57 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             d, float(torch.tensor(_scale(d), dtype=q.dtype)), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"attention_fwd launch failed: error {rc}")
+        raise RuntimeError(f"{kernel} launch failed: error {rc}")
+    return out, lse
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         return_lse: bool = False):
+    """Launch the attention forward kernel on three CUDA tensors.
+
+    ``q``, ``k``, ``v`` are ``[B, T, H, D]`` bf16 or float32, any strides
+    with unit stride along D (the :func:`split_qkv` views and contiguous
+    tensors need no copy; others are copied); returns ``o`` ``[B, T, H, D]``
+    contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T;
+    D a multiple of 8, up to 256 in bf16 (the wgmma/TMA body) and 128 in
+    float32 (the FMA kernel; :func:`fwd_route`). ``.launches`` counts both.
+    Raises on anything the kernel does not take and on a failed launch;
+    never falls back.
+    """
+    b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda", _MAX_D_SM90)
+    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    route = fwd_route(q.dtype, d, [st for x in (q, k, v) for st in x.stride()[:3]],
+                      [x.data_ptr() for x in (q, k, v)])
+    if route == "sm90":
+        kernel, name = _KERNEL_SM90, "eo_attention_fwd"
+    else:
+        kernel, name = _KERNEL, "eo_attention_fwd_mma"
+        if k.stride(1) != v.stride(1):  # that kernel reads K and V rows at one token stride
+            k, v = k.contiguous(), v.contiguous()
+    out, lse = _flash_fwd(q, k, v, return_lse, kernel, name)
     flash_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             return_lse: bool = False):
+    """:func:`flash_attention_cuda` through the earlier mma.sync body (bf16,
+    D up to 128) of ``attention_fwd.cu``: the body the attention probes copy,
+    kept as their yardstick. No model path calls it; ``.launches`` counts
+    its launches."""
+    _check_planes(q, k, v, "flash_attention_mma_cuda")
+    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    if k.stride(1) != v.stride(1):  # the body reads K and V rows at one token stride
+        k, v = k.contiguous(), v.contiguous()
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL, "eo_attention_fwd_mma")
+    flash_attention_mma_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention_mma_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,12 @@
-// Self-attention forward for Hopper (sm_90a), bound through ctypes.
+// Self-attention forward for Hopper (sm_90a) on mma.sync, bound through
+// ctypes: the port's first attention body, and its float32 kernel.
+//
+// Since the wgmma/TMA body (attention_fwd_sm90.cu) took every bf16 launch of
+// the model paths, this file's entries carry the suffix _mma: through them
+// bf16 runs the mma.sync body below, which no model path calls and which the
+// attention probes (attn_variants.cu, attn_probes.cu) copy and time as their
+// yardstick, and float32 runs the FMA kernel, which the wrappers still route
+// every float32 forward to (ops/attention.py, fwd_route).
 //
 // Replaces three TPU kernels, which compute one function on three layouts:
 //   * `_qkv_layout_kernel_tpv` / `_qkv_layout_kernel` (K1,
@@ -54,7 +62,7 @@
 //     clouds head dim needs no padding;
 //   * the softmax runs in base 2 (one FFMA and one ex2 per score);
 //   * the ragged tail of T is masked (keys to -inf, rows not stored).
-// Not done yet: wgmma, TMA and warp specialisation.
+// wgmma, TMA and warp specialisation are attention_fwd_sm90.cu's.
 //
 // The float32 path (--no_bf16) is a plain FMA kernel in the same file: one
 // thread per query row, K/V tiles in shared memory, an online softmax that
@@ -522,10 +530,10 @@ int run(Params& p, int B, int T, int H, int D, float scale, int is_f32, int devi
 
 // q, k and v straight out of the fused projection qkv [B, T, 3C], strided
 // along batch and token, channels (q|k|v)-major (new_order) or head-major
-extern "C" int eo_qkv_attention_fwd(const void* qkv, void* out, float* lse, int is_f32,
-                                    int B, int T, int H, int D, long long stride_b,
-                                    long long stride_t, int new_order, float scale,
-                                    int device, void* stream) {
+extern "C" int eo_qkv_attention_fwd_mma(const void* qkv, void* out, float* lse, int is_f32,
+                                        int B, int T, int H, int D, long long stride_b,
+                                        long long stride_t, int new_order, float scale,
+                                        int device, void* stream) {
   const long long C = (long long)H * D;
   const size_t esize = is_f32 ? 4 : 2;
   Params p;
@@ -543,10 +551,10 @@ extern "C" int eo_qkv_attention_fwd(const void* qkv, void* out, float* lse, int 
 
 // q, k and v as three [B, T, H, D] tensors or views; strides holds their
 // (batch, token, head) strides in elements, q's three first
-extern "C" int eo_attention_fwd(const void* q, const void* k, const void* v,
-                                const long long* strides, void* out, float* lse, int is_f32,
-                                int B, int T, int H, int D, float scale, int device,
-                                void* stream) {
+extern "C" int eo_attention_fwd_mma(const void* q, const void* k, const void* v,
+                                    const long long* strides, void* out, float* lse,
+                                    int is_f32, int B, int T, int H, int D, float scale,
+                                    int device, void* stream) {
   Params p;
   const void* ptrs[3] = {q, k, v};
   Plane* planes[3] = {&p.q, &p.k, &p.v};

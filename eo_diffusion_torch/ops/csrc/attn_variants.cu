@@ -24,12 +24,13 @@
 // cannot know l in one pass, so it sweeps K twice (statistics, then PV on
 // the normalised p): 1.5 times the function's products.
 //
-// Design: K1's body (csrc/attention_fwd.cu) with the variant and the tile as
-// parameters, so the probes time K1's loop with one piece changed. It is a
-// copy of K1's loop, not K1's code: a change to K1's loop is ported here by
-// hand and B re-timed against K1 at K1's tile (tools/profile_attn_variants.py,
-// `vs_shipped`) before a "B against K1" number is read (ROADMAP queue 2,
-// item 3a). A block
+// Design: the mma.sync body of csrc/attention_fwd.cu (K1-K3's body until the
+// wgmma/TMA body of attention_fwd_sm90.cu replaced it) with the variant and
+// the tile as parameters, so the probes time that loop with one piece
+// changed. It is a copy of that loop, not its code: a change to it is ported
+// here by hand and B re-timed against it at its tile
+// (tools/profile_attn_variants.py, `vs_mma_body`) before a "B against the
+// mma.sync body" number is read (ROADMAP queue 2, item 3a). A block
 // of WARPS warps owns 32 WARPS query rows (32 a warp, two m16 tiles whose q
 // fragments stay in registers; WARPS 4 is K1's 128 rows, 8 and 16 share each
 // K/V load between 2x and 4x as many rows: the TPU's bq question on this

@@ -1,12 +1,13 @@
 """Time the attention kernels on the GPU.
 
-    git show <commit>:eo_diffusion_torch/ops/csrc/attention_fwd.cu > old.cu
+    git show <commit>:eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu > old.cu
     python -m eo_diffusion_torch.tools.bench_attention --against old.cu
     python -m eo_diffusion_torch.tools.bench_attention --kernel bwd --against old_bwd.cu
     python -m eo_diffusion_torch.tools.bench_attention --kernel flash
 
 ``--kernel fwd`` / ``bwd``: builds this checkout's kernel (the fused-qkv
-forward, or the backward) and the other source (same ``nvcc`` flags), checks
+forward's bf16 body ``attention_fwd_sm90.cu``, or the backward) and the
+other source (same ``nvcc`` flags, ``csrc/`` on the include path), checks
 both against the plain version and whether they give the same bits, and
 times them at the clouds UNet's 256 px
 shapes (batch 8, bf16) in alternating order (this, other, other, this, ...)
@@ -50,8 +51,8 @@ def _build_other(src: Path) -> ctypes.CDLL:
     lib = _build.BUILD_DIR / f"libother_{digest.hexdigest()[:16]}.so"
     if not lib.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                       check=True, capture_output=True, text=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC),
+                        "-o", str(lib), str(src)], check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -126,7 +127,7 @@ def main(argv=None) -> dict:
         return flash(args.reps)
     if args.against is None:
         ap.error("--kernel fwd/bwd needs --against")
-    kernel = f"attention_{args.kernel}"
+    kernel = {"fwd": "attention_fwd_sm90", "bwd": "attention_bwd"}[args.kernel]
     libs = {"this": _build.load(kernel), "other": _build_other(Path(args.against))}
 
     def use(name):  # route the wrapper's launches to one library

@@ -1,11 +1,12 @@
-"""What exp, the row max and deferred normalisation cost inside K1's loop, on the GPU.
+"""What exp, the max and deferred normalisation cost in the mma.sync attention loop, on the GPU.
 
     python -m eo_diffusion_torch.tools.profile_attn_variants [--out results/attn_variants.json]
 
 The port of the JAX package's experiment (``tools/profile_attn_variants.py``)
 at its shape, the 256 px headline's ds-4 attention: q, k, v ``[8, 4096, 8,
-48]`` bf16, unit normal. Each variant is K1's loop with one piece changed
-(``ops.attn_variants.attention_variant``):
+48]`` bf16, unit normal. Each variant is the loop of the mma.sync body
+(``attention_fwd.cu``, K1-K3's body before the wgmma/TMA one) with one piece
+changed (``ops.attn_variants.attention_variant``):
 
 * A: the statistics first (a sweep of K), then PV on ``round(p / l)`` (a
   second sweep of K and V): the TPU's shipped form, 1.5 times the products;
@@ -18,9 +19,10 @@ twice the rows a block (the JAX tool's ``B defer-normalize bq1024``; its q
 tiles of 512 and 1024 rows do not fit a block here). Measured on the card
 (CUDA events): each variant's time, its error against its plain version,
 the plain version's time, SDPA on the same planes where it computes the same
-function (A and B; none for C and D), K1's body through the port's
-separate-tensor entry on the same tensors (``flash_attention_cuda``, what
-the port ships for B's function) and the card's bound.
+function (A and B; none for C and D), the body the variants copy on the
+same tensors (the mma.sync body of ``attention_fwd.cu`` through
+``flash_attention_mma_cuda``: K1-K3's body until the wgmma/TMA body
+replaced it; ``mma_body_ms``, ``vs_mma_body``) and the card's bound.
 
 :func:`measure` holds the kernel against the plain version at any shape and
 tile. Prints one JSON line with the card's name and power limit; writes it
@@ -53,12 +55,12 @@ PRODUCTS = {"A": 1.5, "B": 1.0, "C": 1.0, "D": 1.0}
 STAGE = 64
 
 
-def without_a_stage(x: torch.Tensor) -> torch.Tensor:
-    """Keys or values ``[B, T, H, D]`` with the middle stage of :data:`STAGE`
+def without_a_stage(x: torch.Tensor, stage: int = STAGE) -> torch.Tensor:
+    """Keys or values ``[B, T, H, D]`` with the middle stage of ``stage``
     keys left out: the plain version on them is what a kernel that skipped
     one stage would compute."""
-    t0 = STAGE * (x.shape[1] // 2 // STAGE)
-    return torch.cat([x[:, :t0], x[:, t0 + STAGE:]], dim=1)
+    t0 = stage * (x.shape[1] // 2 // stage)
+    return torch.cat([x[:, :t0], x[:, t0 + stage:]], dim=1)
 
 
 def measure(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variants=tuple(AV.VARIANTS),
@@ -66,8 +68,8 @@ def measure(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variants=tuple(AV
     """Each variant at each tile against its plain version on CUDA tensors
     ``[B, T, H, D]`` bf16: errors (``probe_packed_pv.attention_errors``; at
     the first tile also what they read for two planted faults), kernel,
-    plain, SDPA and shipped times and the bound; ``{"rows": [...],
-    "shipped_ms", ...}``."""
+    plain, SDPA and mma.sync-body times and the bound; ``{"rows": [...],
+    "mma_body_ms", ...}``."""
     b, t, h, d = q.shape
     bound, by = attention_bound_ms(b, t, h, d, q.dtype)
     q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, T, D] views
@@ -76,7 +78,8 @@ def measure(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variants=tuple(AV
     res = {"shape": f"B{b} T{t} H{h} D{d}", "dtype": str(q.dtype).split(".")[-1],
            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
            "library_call": "F.scaled_dot_product_attention on the [B, H, T, D] views",
-           "shipped_ms": cuda_ms(lambda: A.flash_attention_cuda(q, k, v), reps), "rows": []}
+           "mma_body_ms": cuda_ms(lambda: A.flash_attention_mma_cuda(q, k, v), reps),
+           "rows": []}
     for variant in variants:
         ref = AV.attention_variant_reference(q, k, v, variant)
         plain_ms = cuda_ms(lambda: AV.attention_variant_reference(q, k, v, variant), 2, warmup=1)
@@ -109,7 +112,7 @@ def run(seed: int = 0, variants=tuple(AV.VARIANTS), tiles=TILES) -> dict:
             if r["variant"] == "B" and (r["warps"], r["block_k"]) == AV.K1_TILE]
     for row in res["rows"]:
         row["vs_b_at_k1_tile"] = row["kernel_ms"] / base[0] if base else None
-        row["vs_shipped"] = row["kernel_ms"] / res["shipped_ms"]
+        row["vs_mma_body"] = row["kernel_ms"] / res["mma_body_ms"]
     return res
 
 

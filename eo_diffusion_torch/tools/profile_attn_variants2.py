@@ -14,7 +14,8 @@ TPU's q tiles of 512-4096 rows do not exist here: a block's registers hold
 
 Measured on the card (CUDA events), with :func:`profile_attn_variants.measure`:
 each tile's time and error against the plain version, SDPA on the same
-planes, K1's body through the port's separate-tensor entry and the bound.
+planes, the mma.sync body the variants copy (``flash_attention_mma_cuda``)
+and the bound.
 Prints one JSON line with the card's name and power limit; writes it to
 ``--out`` only when given. Needs a CUDA device.
 """

@@ -8,7 +8,10 @@ from pathlib import Path
 
 import pytest
 
+import shutil
+
 from eo_diffusion_torch.ops import _build
+from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
 from eo_diffusion_torch.ops import attn_variants as AV
 from eo_diffusion_torch.ops import softmax_probes as SP
@@ -98,9 +101,29 @@ def test_every_kernel_has_its_source():
     ("softmax_probes", "eo_transpose_accumulate", SP._ARGTYPES["eo_transpose_accumulate"]),
     ("attn_variants", "eo_attention_variant", AV._ARGTYPES),
     ("attn_probes", "eo_attention_hybrid", AP._ARGTYPES["eo_attention_hybrid"]),
+    ("attention_fwd_sm90", "eo_qkv_attention_fwd", A._ARGTYPES["eo_qkv_attention_fwd"]),
+    ("attention_fwd_sm90", "eo_attention_fwd", A._ARGTYPES["eo_attention_fwd"]),
+    ("attention_fwd", "eo_qkv_attention_fwd_mma", A._ARGTYPES["eo_qkv_attention_fwd_mma"]),
+    ("attention_fwd", "eo_attention_fwd_mma", A._ARGTYPES["eo_attention_fwd_mma"]),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_the_probe_wrappers_declare_their_c_entries(kernel, entry, argtypes):
     """The ctypes declarations of the probe kernels' wrappers match the C
     entries in number (a missing argument would shift every one after it)."""
     entries = _c_entries(_build.KERNELS[kernel])
     assert entries[entry] == len(argtypes)
+
+
+def test_the_wgmma_forward_is_listed_and_its_header_hashed(tmp_path, monkeypatch):
+    """The wgmma/TMA forward is a kernel of its own (built by build_all, so by
+    chip_smoke.py), and an edit of its warpgroup header rebuilds it."""
+    csrc = Path(_build.__file__).parent / "csrc"
+    assert _build.KERNELS["attention_fwd_sm90"] == "attention_fwd_sm90.cu"
+    assert A._KERNEL_SM90 == "attention_fwd_sm90"
+    assert '#include "wgmma_tile.cuh"' in (csrc / "attention_fwd_sm90.cu").read_text()
+    copy = tmp_path / "csrc"
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_build, "_CSRC", copy)
+    first = _build.library_path("attention_fwd_sm90")
+    header = copy / "wgmma_tile.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.library_path("attention_fwd_sm90") != first

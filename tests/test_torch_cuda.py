@@ -80,8 +80,10 @@ def test_launch_counter_and_refusals(dev):
     assert A.qkv_attention_cuda.launches == before + 1
     with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
         A.attention_from_qkv(_qkv(1, 16, 2, 12, torch.bfloat16, seed=1), 2)
-    with pytest.raises(ValueError):  # head dim 136 > 128
-        A.attention_from_qkv(_qkv(1, 16, 1, 136, torch.bfloat16, seed=1), 1)
+    with pytest.raises(ValueError):  # head dim 136 > 128: the fused-qkv entry keeps JAX's gate
+        A.qkv_attention_cuda(_qkv(1, 16, 1, 136, torch.bfloat16, seed=1), 1)
+    with pytest.raises(ValueError):  # head dim 264 > 256 (through the separate-tensor route)
+        A.attention_from_qkv(_qkv(1, 16, 1, 264, torch.bfloat16, seed=1), 1)
     with pytest.raises(ValueError):
         A.attention_from_qkv(qkv.half(), 2)
     assert A.qkv_attention_cuda.launches == before + 1
@@ -443,11 +445,14 @@ def test_flash_is_reproducible_and_refuses(dev):
     b = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits
     f0, b0 = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
-    big = [torch.zeros(1, 16, 1, 136, device="cuda", dtype=torch.bfloat16)] * 3
-    with pytest.raises(ValueError, match="K2/K3, ROADMAP queue 2"):  # head dim 136 > 128
+    big = [torch.zeros(1, 16, 1, 264, device="cuda", dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # head dim 264 > 256
         A.flash_attention_cuda(*big)
-    with pytest.raises(ValueError, match="K2/K3"):
+    with pytest.raises(ValueError, match="K2/K3"):  # float32 takes head dims up to 128
         A.attention_from_qkv(torch.zeros(1, 20, 3 * 136, device="cuda"), 1)
+    d136 = [x[..., :136] for x in big]
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # no backward above 128
+        A.flash_attention_bwd_cuda(*d136, d136[0], torch.zeros(1, 16, device="cuda"), d136[0])
     with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
         A.flash_attention_cuda(*[x[..., :12] for x in (q, k, v)])
     with pytest.raises(ValueError):
@@ -457,6 +462,93 @@ def test_flash_is_reproducible_and_refuses(dev):
     with pytest.raises(ValueError):
         A.flash_attention_bwd_cuda(q, k, v, out, lse[:, :-1], dout)
     assert (A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches) == (f0, b0)
+
+
+# -- the wgmma/TMA body beside the mma.sync body it replaced ----------------------
+
+# the probes' limits (chip_smoke.py, probe_packed_pv.attention_errors) at
+# unit-normal inputs: TOL of max(rms, |plain|) elementwise, relative L2
+TOL_L2 = 5e-3
+
+
+def _strict(out, ref):
+    from eo_diffusion_torch.tools.probe_packed_pv import attention_errors
+
+    e = attention_errors(out, ref)
+    assert e["max_rms_scaled_err"] <= TOL[torch.bfloat16] and e["rel_l2_err"] <= TOL_L2, e
+
+
+# chip_smoke.py phase 3's K1-K3 shapes (B, T, H, D, entry, new order); T 16384
+# at batch 1, where the plain version's scores take 8.6 GB a sample
+PHASE3 = [(8, 4096, 8, 48, "fused", False), (8, 4096, 8, 48, "fused", True),
+          (8, 1024, 8, 64, "fused", False), (8, 1024, 8, 64, "fused", True),
+          (8, 256, 8, 48, "fused", False), (8, 64, 8, 64, "fused", False),
+          (8, 4096, 8, 64, "fused", False), (3, 1000, 4, 48, "fused", True),
+          (8, 1024, 12, 64, "fused", True), (32, 256, 12, 64, "fused", True),
+          (8, 256, 6, 64, "fused", True), (1, 16384, 8, 48, "flash", False),
+          (2, 9216, 8, 48, "flash", True), (8, 2304, 8, 64, "flash", False),
+          (2, 2309, 4, 48, "flash", True), (2, 2309, 4, 160, "flash", False),
+          (2, 2309, 4, 256, "flash", True)]
+
+
+@pytest.mark.parametrize("b,t,h,d,entry,new_order", PHASE3)
+def test_sm90_body_matches_plain_at_phase3_shapes(dev, b, t, h, d, entry, new_order):
+    qkv = _qkv(b, t, h, d, torch.bfloat16, seed=t + d).float().div_(2.0).to(torch.bfloat16)
+    planes = A.split_qkv(qkv, h, new_order)
+    counter = A.qkv_attention_cuda if entry == "fused" else A.flash_attention_cuda
+    before = (counter.launches, A.qkv_attention_mma_cuda.launches,
+              A.flash_attention_mma_cuda.launches)
+    if entry == "fused":
+        out, lse = A.qkv_attention_cuda(qkv, h, new_order, return_lse=True)
+        out = out.reshape(b, t, h, d)
+    else:
+        out, lse = A.flash_attention_cuda(*planes, return_lse=True)
+    assert (counter.launches, A.qkv_attention_mma_cuda.launches,
+            A.flash_attention_mma_cuda.launches) == (before[0] + 1, *before[1:])
+    for i in range(b):  # a sample at a time: the plain scores of T 16384
+        ref, ref_lse = A.reference_attention(*(x[i:i + 1] for x in planes), return_lse=True)
+        _strict(out[i:i + 1], ref)
+        assert (lse[i * h:(i + 1) * h] - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d", list(range(136, 257, 8)))
+def test_flash_head_dims_above_128_bf16(dev, d):
+    _check_flash(*_planes(1, 129, 2, d, torch.bfloat16, seed=d, layout="legacy"))
+
+
+def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
+    q, k, v = (x.clone().requires_grad_() for x in
+               _planes(2, 300, 2, 256, torch.bfloat16, seed=4, layout="contiguous"))
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v)
+    _strict(out, A.reference_attention(q, k, v))
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
+        A.flash_attention(q, k, v).float().sum().backward()
+
+
+@pytest.mark.parametrize("t", [1, 77, 1000])
+@pytest.mark.parametrize("new_order", [False, True])
+def test_mma_body_entries_match_plain_and_count_apart(dev, t, new_order):
+    """The mma.sync body (the probes' yardstick) through its own entries."""
+    qkv = _qkv(2, t, 2, 48, torch.bfloat16, seed=t)
+    counts = lambda: (A.qkv_attention_cuda.launches, A.flash_attention_cuda.launches,
+                      A.qkv_attention_mma_cuda.launches, A.flash_attention_mma_cuda.launches)
+    before = counts()
+    fused, lse = A.qkv_attention_mma_cuda(qkv, 2, new_order, return_lse=True)
+    flash = A.flash_attention_mma_cuda(*A.split_qkv(qkv, 2, new_order))
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    ref, ref_lse = A.attention_from_qkv(qkv, 2, new_order, impl="plain", return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(flash.reshape(fused.shape), fused)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    err = ((fused.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[torch.bfloat16], err
+
+
+def test_mma_body_refuses_above_128(dev):
+    big = [torch.zeros(1, 16, 1, 136, device="cuda", dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError):
+        A.flash_attention_mma_cuda(*big)
 
 
 @pytest.mark.parametrize("new_order", [False, True])

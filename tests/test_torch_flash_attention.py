@@ -74,6 +74,54 @@ def test_forward_and_gradients_match_pallas(regime, t, bq, bk):
         assert _rel(a, b) <= REL_TOL, name
 
 
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dims_above_128_match_pallas(regime, d):
+    """D 160 and 256, which the wgmma/TMA body takes on the card: the JAX
+    forward pads D to a multiple of 128 (K2 or K3), its gradients are K4 or
+    the XLA recompute; the port runs FlashAttention's plain versions."""
+    q, k, v = _bthd(1, 40, 2, d, seed=d)
+    g = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a, b, c: JA.flash_attention(a, b, c, 16, 16),
+                       *map(jnp.asarray, (q, k, v)))
+    ref_grads = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = TA.flash_attention(qt, kt, vt)
+    assert out.shape == (1, 40, 2, d) and _rel(out, ref) <= REL_TOL
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
+    for name, a, b in zip("qkv", grads, ref_grads):
+        assert _rel(a, b) <= REL_TOL, name
+
+
+# (dtype, d, fused, strides, ptrs): the kernel fwd_route picks, or None for a refusal
+ROUTES = [
+    (torch.bfloat16, 48, False, (), (), "sm90"),
+    (torch.bfloat16, 256, False, (), (), "sm90"),    # D <= 256 on the separate entry
+    (torch.bfloat16, 160, False, (), (), "sm90"),
+    (torch.bfloat16, 264, False, (), (), None),      # above wgmma's N
+    (torch.bfloat16, 128, True, (), (), "sm90"),     # D <= 128 on the fused entry
+    (torch.bfloat16, 136, True, (), (), None),       # the JAX package's gate
+    (torch.float32, 64, False, (), (), "fma"),       # float32: the FMA kernel
+    (torch.float32, 128, True, (), (), "fma"),
+    (torch.float32, 136, False, (), (), None),
+    (torch.float16, 64, False, (), (), None),
+    (torch.bfloat16, 44, False, (), (), None),       # not a multiple of 8
+    (torch.bfloat16, 64, False, (3 * 64 * 8, 3 * 64, 64), (0,), "sm90"),
+    (torch.bfloat16, 64, False, (1004, 3 * 64, 64), (0,), None),   # strides: 16-byte rows
+    (torch.bfloat16, 64, True, (6148, 196), (0,), None),
+    (torch.bfloat16, 64, False, (4096, 512, 64), (8,), None),      # base not on 16 bytes
+    (torch.float32, 64, False, (4096, 512, 68), (0,), None),
+]
+
+
+@pytest.mark.parametrize("dtype,d,fused,strides,ptrs,kernel", ROUTES)
+def test_fwd_route(dtype, d, fused, strides, ptrs, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError):
+            TA.fwd_route(dtype, d, strides, ptrs, fused=fused)
+    else:
+        assert TA.fwd_route(dtype, d, strides, ptrs, fused=fused) == kernel
+
+
 def test_bf16_forward_matches_pallas(regime):
     """q*s and k*s round in bf16 on both sides (ragged T)."""
     q, k, v = _bthd(1, 40, 2, 16, seed=1)
