@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel name -> its CUDA source under csrc/
 KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_fwd_sm90": "attention_fwd_sm90.cu",
-           "attention_bwd": "attention_bwd.cu",
+           "attention_bwd": "attention_bwd.cu", "attention_bwd_sm90": "attention_bwd_sm90.cu",
            "group_norm": "group_norm.cu", "int8_attention": "int8_attention.cu",
            "conv_wgrad": "conv_wgrad.cu", "attn_probes": "attn_probes.cu",
            "softmax_probes": "softmax_probes.cu", "attn_variants": "attn_variants.cu"}

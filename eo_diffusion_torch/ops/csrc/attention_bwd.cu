@@ -1,4 +1,12 @@
-// Self-attention backward for Hopper (sm_90a), bound through ctypes.
+// Self-attention backward for Hopper (sm_90a) on mma.sync, bound through
+// ctypes: the port's first backward body, and its float32 kernel.
+//
+// Since the wgmma/TMA body (attention_bwd_sm90.cu) took every bf16 launch of
+// the model paths, this file's entries carry the suffix _mma: through them
+// bf16 runs the mma.sync body below, which no model path calls and which
+// chip_smoke.py times beside the new body as its yardstick, and float32 runs
+// the FMA kernel, which the wrappers still route every float32 backward to
+// (ops/attention.py, bwd_route).
 //
 // Replaces the TPU kernels `_resident_bwd_kernel_tpv` / `_resident_bwd_kernel`
 // (eo_diffusion_tpu/ops/attention.py:502 / :429, launched by `_flash_bwd_impl`
@@ -20,10 +28,10 @@
 //
 // dQ, dK and dV accumulate in f32 and round once. q, k, v and the three
 // gradients are strided planes, element (b, t, h, d) at ptr + b*sb + t*st +
-// h*sh + d (as in attention_fwd.cu): entry `eo_qkv_attention_bwd` reads q,
+// h*sh + d (as in attention_fwd.cu): entry `eo_qkv_attention_bwd_mma` reads q,
 // k, v straight out of the projection qkv [B, T, 3C] and writes the
 // gradients straight into dqkv [B, T, 3C] in the projection's head order;
-// `eo_attention_bwd` takes three [B, T, H, D] tensors or views each way.
+// `eo_attention_bwd_mma` takes three [B, T, H, D] tensors or views each way.
 // One kernel body serves both, so no slice, transpose or stack surrounds
 // it. O and dO are [B, T, H, D] contiguous ([B, T, C] at channel h*D + d).
 // lse is the forward's [B*H, T] f32 natural-log row statistic; the
@@ -56,7 +64,7 @@
 // delta is a small kernel of its own before the two passes. All products are
 // mma.sync m16n8k16 bf16 with f32 accumulators; D = 48 is three k16 slices.
 // For D > 64 the streamed tile shrinks from 64 to 32 rows to hold the
-// accumulators in registers. Not done yet: wgmma, TMA, warp specialisation.
+// accumulators in registers. attention_bwd_sm90.cu is its wgmma/TMA redesign.
 //
 // The float32 path (--no_bf16) is a plain FMA kernel of the same two passes:
 // one thread per owned row, streamed tiles in shared memory.
@@ -641,7 +649,7 @@ int run(Params& p, int B, int T, int H, int D, float scale_in, float scale_out, 
 // q, k, v read from the fused projection qkv [B, T, 3C] (strided along batch
 // and token, either head order); dq, dk, dv written into dqkv [B, T, 3C],
 // contiguous, in the same head order
-extern "C" int eo_qkv_attention_bwd(const void* qkv, const void* out, const void* dout,
+extern "C" int eo_qkv_attention_bwd_mma(const void* qkv, const void* out, const void* dout,
                                     const float* lse, float* delta, void* dqkv, int is_f32,
                                     int B, int T, int H, int D, long long stride_b,
                                     long long stride_t, int new_order, float scale_in,
@@ -666,7 +674,7 @@ extern "C" int eo_qkv_attention_bwd(const void* qkv, const void* out, const void
 
 // q, k, v and dq, dk, dv as six [B, T, H, D] tensors or views; strides holds
 // their (batch, token, head) strides in elements in that order, 18 values
-extern "C" int eo_attention_bwd(const void* q, const void* k, const void* v, void* dq,
+extern "C" int eo_attention_bwd_mma(const void* q, const void* k, const void* v, void* dq,
                                 void* dk, void* dv, const long long* strides, const void* out,
                                 const void* dout, const float* lse, float* delta, int is_f32,
                                 int B, int T, int H, int D, float scale_in, float scale_out,

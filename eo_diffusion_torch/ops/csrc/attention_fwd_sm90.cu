@@ -126,40 +126,6 @@ struct Bars {
   uint64_t kv_full[kMaxStages], kv_ready[kMaxStages], kv_empty[kMaxStages];
 };
 
-__device__ __forceinline__ void scale8(uint4& v, __nv_bfloat162 s2) {
-  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) e[k] = __hmul2(e[k], s2);
-}
-
-// x * s rounded to bf16 over `chunks` 16-byte pieces of a tile, piece i by
-// thread i % n, four pieces in flight a thread
-__device__ __forceinline__ void scale_tile(bf16* tile, int chunks, int i, int n,
-                                           __nv_bfloat162 s2) {
-  constexpr int U = 4;
-  uint4* p = reinterpret_cast<uint4*>(tile);
-  for (; i + (U - 1) * n < chunks; i += U * n) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) v[u] = p[i + u * n];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      scale8(v[u], s2);
-      p[i + u * n] = v[u];
-    }
-  }
-  for (; i < chunks; i += n) {
-    uint4 v = p[i];
-    scale8(v, s2);
-    p[i] = v;
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -431,63 +397,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         p.lse[(long long)bh * p.T + row] = l[r] == 0.f ? kFullyMaskedLse : m[r] + logf(l[r]);
     }
   }
-}
-
-// element (b, t, h, d) of a [B, T, H, D] operand at ptr + b*sb + t*st + h*sh + d
-struct Plane {
-  const void* ptr;
-  long long sb, st, sh;
-};
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime's entry-point
-// query (no link against libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (D, T, H, B) view of a plane, boxes of AW columns x `rows` tokens,
-// swizzled over AW * 2 bytes. A stride of an axis of extent 1 is never
-// stepped; it only has to be valid.
-bool encode_plane(CUtensorMap* map, const Plane& pl, int B, int T, int H, int D, int aw,
-                  int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const long long st[3] = {pl.st, pl.sh, pl.sb};
-  const int ext[3] = {T, H, B};
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    if (st[i] < 0 || st[i] % 8 != 0) return false;
-    strides[i] = (cuuint64_t)(ext[i] == 1 && st[i] == 0 ? 8 : st[i]) * 2;
-  }
-  cuuint32_t box[4] = {(cuuint32_t)aw, (cuuint32_t)rows, 1, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = aw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : aw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(pl.ptr), dims, strides,
-             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <int DP, int AW>

@@ -1,8 +1,9 @@
 // Warpgroup primitives for Hopper (sm_90a) kernels: mbarriers, TMA tile loads,
 // named barriers, register reallocation, and wgmma with its shared-memory
-// descriptors and f32 accumulators. The attention forward
-// (attention_fwd_sm90.cu) is built on them; the backward's redesign is meant
-// to reuse them.
+// descriptors and f32 accumulators, the scaling of a tile in shared memory,
+// and on the host the 4-D tensor map of a strided [B, T, H, D] plane. The
+// attention forward (attention_fwd_sm90.cu) and backward
+// (attention_bwd_sm90.cu) are built on them.
 //
 // Operand tiles in shared memory. Every tile is stored the way a TMA load with
 // a swizzle of AW * 2 bytes (AW = 64, 32 or 16 bf16: CU_TENSOR_MAP_SWIZZLE_
@@ -182,6 +183,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[16] (+)= A (64 x 16, K-major in shared memory) * B (16 x 32, K-major)
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : EO_ACC8(0), EO_ACC8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64] (+)= A (64 x 16, K-major in shared memory) * B (16 x 128, K-major)
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint64_t db,
                                                     int accumulate) {
@@ -212,6 +225,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float* d, const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d[32] (+)= A (64 x 16 bf16 in registers, a[4]) * B (16 x 64, K-major in
+// shared memory)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : EO_ACC8(0), EO_ACC8(8), EO_ACC8(16), EO_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d[24] (+)= A (64 x 16 bf16 in registers, a[4]) * B (16 x 48, MN-major in
 // shared memory)
 __device__ __forceinline__ void wgmma_m64n48k16_rs_mn(float* d, const uint32_t (&a)[4],
@@ -227,5 +254,100 @@ __device__ __forceinline__ void wgmma_m64n48k16_rs_mn(float* d, const uint32_t (
 }
 
 #undef EO_ACC8
+
+// ---- tiles in shared memory ----------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void scale8(uint4& v, __nv_bfloat162 s2) {
+  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) e[k] = __hmul2(e[k], s2);
+}
+
+// x * s rounded to bf16 over `chunks` 16-byte pieces of a tile, piece i by
+// thread i % n, four pieces in flight a thread
+__device__ __forceinline__ void scale_tile(__nv_bfloat16* tile, int chunks, int i, int n,
+                                           __nv_bfloat162 s2) {
+  constexpr int U = 4;
+  uint4* p = reinterpret_cast<uint4*>(tile);
+  for (; i + (U - 1) * n < chunks; i += U * n) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = p[i + u * n];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      scale8(v[u], s2);
+      p[i + u * n] = v[u];
+    }
+  }
+  for (; i < chunks; i += n) {
+    uint4 v = p[i];
+    scale8(v, s2);
+    p[i] = v;
+  }
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// element (b, t, h, d) of a [B, T, H, D] operand at ptr + b*sb + t*st + h*sh + d
+struct Plane {
+  const void* ptr;
+  long long sb, st, sh;
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, through the runtime's entry-point
+// query (no link against libcuda)
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (D, T, H, B) view of a bf16 plane, boxes of AW columns x `rows` tokens,
+// swizzled over AW * 2 bytes; columns past D and rows past T read as zeros.
+// A stride of an axis of extent 1 is never stepped; it only has to be valid.
+inline bool encode_plane(CUtensorMap* map, const Plane& pl, int B, int T, int H, int D, int aw,
+                         int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const long long st[3] = {pl.st, pl.sh, pl.sb};
+  const int ext[3] = {T, H, B};
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    if (st[i] < 0 || st[i] % 8 != 0) return false;
+    strides[i] = (cuuint64_t)(ext[i] == 1 && st[i] == 0 ? 8 : st[i]) * 2;
+  }
+  cuuint32_t box[4] = {(cuuint32_t)aw, (cuuint32_t)rows, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = aw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : aw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(pl.ptr), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
 
 }  // namespace eo_wg

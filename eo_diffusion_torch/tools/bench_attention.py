@@ -1,12 +1,13 @@
 """Time the attention kernels on the GPU.
 
     git show <commit>:eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu > old.cu
+    git show <commit>:eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu > old_bwd.cu
     python -m eo_diffusion_torch.tools.bench_attention --against old.cu
     python -m eo_diffusion_torch.tools.bench_attention --kernel bwd --against old_bwd.cu
     python -m eo_diffusion_torch.tools.bench_attention --kernel flash
 
 ``--kernel fwd`` / ``bwd``: builds this checkout's kernel (the fused-qkv
-forward's bf16 body ``attention_fwd_sm90.cu``, or the backward) and the
+entries' bf16 bodies ``attention_fwd_sm90.cu`` or ``attention_bwd_sm90.cu``) and the
 other source (same ``nvcc`` flags, ``csrc/`` on the include path), checks
 both against the plain version and whether they give the same bits, and
 times them at the clouds UNet's 256 px
@@ -127,7 +128,7 @@ def main(argv=None) -> dict:
         return flash(args.reps)
     if args.against is None:
         ap.error("--kernel fwd/bwd needs --against")
-    kernel = {"fwd": "attention_fwd_sm90", "bwd": "attention_bwd"}[args.kernel]
+    kernel = {"fwd": "attention_fwd_sm90", "bwd": "attention_bwd_sm90"}[args.kernel]
     libs = {"this": _build.load(kernel), "other": _build_other(Path(args.against))}
 
     def use(name):  # route the wrapper's launches to one library

@@ -77,12 +77,13 @@ def variant_source(name: str) -> str:
     return out
 
 
-def build_variants(names, workdir: Path) -> dict:
-    """One ``nvcc`` a variant, all started together; name -> loaded library."""
+def build_variants(sources: dict, workdir: Path) -> dict:
+    """One ``nvcc`` a variant (name -> its source text), all started
+    together; name -> loaded library."""
     procs = {}
-    for name in names:
+    for name, text in sources.items():
         src = workdir / f"{name}.cu"
-        src.write_text(variant_source(name))
+        src.write_text(text)
         lib = workdir / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o", str(lib),
@@ -100,7 +101,8 @@ def run(seed: int = 0, variants=tuple(VARIANTS), shapes=SHAPES, rounds: int = 4)
     if not torch.cuda.is_available():
         raise SystemExit("profile_attn_fwd_sm90: needs a CUDA device")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"body": _build.load(KERNEL), **build_variants(variants, Path(tmp))}
+        libs = {"body": _build.load(KERNEL),
+                **build_variants({n: variant_source(n) for n in variants}, Path(tmp))}
 
         def use(name):  # route the wrapper's bf16 launches to one library
             _build._loaded[KERNEL] = libs[name]

@@ -30,6 +30,24 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 100, warmup: int = 3) -> float:
+    """Device milliseconds a call of ``fn`` when the host is not what waits:
+    the timed calls are queued behind a spin of about a quarter second on the
+    card, so their launch rate cannot starve it (``cuda_ms`` at a short
+    kernel measures the host's launch rate as well)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e8))  # clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(ops: float, peak: float, nbytes: float):
     """The card's least time for ``ops`` operations at ``peak`` per second and
     ``nbytes`` moved once at the memory rate: (ms, "operations" or "bytes")."""

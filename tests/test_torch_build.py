@@ -105,6 +105,10 @@ def test_every_kernel_has_its_source():
     ("attention_fwd_sm90", "eo_attention_fwd", A._ARGTYPES["eo_attention_fwd"]),
     ("attention_fwd", "eo_qkv_attention_fwd_mma", A._ARGTYPES["eo_qkv_attention_fwd_mma"]),
     ("attention_fwd", "eo_attention_fwd_mma", A._ARGTYPES["eo_attention_fwd_mma"]),
+    ("attention_bwd_sm90", "eo_qkv_attention_bwd", A._ARGTYPES["eo_qkv_attention_bwd"]),
+    ("attention_bwd_sm90", "eo_attention_bwd", A._ARGTYPES["eo_attention_bwd"]),
+    ("attention_bwd", "eo_qkv_attention_bwd_mma", A._ARGTYPES["eo_qkv_attention_bwd_mma"]),
+    ("attention_bwd", "eo_attention_bwd_mma", A._ARGTYPES["eo_attention_bwd_mma"]),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_the_probe_wrappers_declare_their_c_entries(kernel, entry, argtypes):
     """The ctypes declarations of the probe kernels' wrappers match the C
@@ -127,3 +131,22 @@ def test_the_wgmma_forward_is_listed_and_its_header_hashed(tmp_path, monkeypatch
     header = copy / "wgmma_tile.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert _build.library_path("attention_fwd_sm90") != first
+
+
+def test_the_wgmma_backward_is_listed_and_its_header_hashed(tmp_path, monkeypatch):
+    """The wgmma/TMA backward is a kernel of its own beside the mma.sync body
+    (built by build_all, so by chip_smoke.py), on the forward's warpgroup
+    header: an edit of the header rebuilds both bodies, not the old one."""
+    csrc = Path(_build.__file__).parent / "csrc"
+    assert _build.KERNELS["attention_bwd_sm90"] == "attention_bwd_sm90.cu"
+    assert A._KERNEL_BWD_SM90 == "attention_bwd_sm90"
+    assert '#include "wgmma_tile.cuh"' in (csrc / "attention_bwd_sm90.cu").read_text()
+    assert "wgmma_tile.cuh" not in (csrc / "attention_bwd.cu").read_text()
+    copy = tmp_path / "csrc"
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_build, "_CSRC", copy)
+    names = ("attention_bwd_sm90", "attention_fwd_sm90")
+    first = {n: _build.library_path(n) for n in names}
+    header = copy / "wgmma_tile.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert all(_build.library_path(n) != first[n] for n in names)

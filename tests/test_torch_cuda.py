@@ -450,8 +450,8 @@ def test_flash_is_reproducible_and_refuses(dev):
         A.flash_attention_cuda(*big)
     with pytest.raises(ValueError, match="K2/K3"):  # float32 takes head dims up to 128
         A.attention_from_qkv(torch.zeros(1, 20, 3 * 136, device="cuda"), 1)
-    d136 = [x[..., :136] for x in big]
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # no backward above 128
+    d136 = [x[..., :136].float() for x in big]
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # no f32 backward above 128
         A.flash_attention_bwd_cuda(*d136, d136[0], torch.zeros(1, 16, device="cuda"), d136[0])
     with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
         A.flash_attention_cuda(*[x[..., :12] for x in (q, k, v)])
@@ -517,13 +517,22 @@ def test_flash_head_dims_above_128_bf16(dev, d):
 
 
 def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
-    q, k, v = (x.clone().requires_grad_() for x in
-               _planes(2, 300, 2, 256, torch.bfloat16, seed=4, layout="contiguous"))
+    """D 256 runs both wgmma/TMA bodies through autograd; what the backward
+    still refuses (float32 above 128, bf16 above 256) names ROADMAP queue 2,
+    item 1."""
+    q, k, v, out, lse, dout = _unit_bwd_inputs(2, 300, 2, 256, seed=4, layout="contiguous")
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
     with torch.no_grad():
-        out = A.flash_attention(q, k, v)
-    _strict(out, A.reference_attention(q, k, v))
+        _strict(A.flash_attention(q, k, v), A.reference_attention(q, k, v))
+    b0 = A.flash_attention_bwd_cuda.launches
+    got = torch.autograd.grad(A.flash_attention(q, k, v), (q, k, v), dout)
+    assert A.flash_attention_bwd_cuda.launches == b0 + 1
+    # plain from the kernel forward's out and lse, as the backward reads them
+    _strict_bwd(got, A.reference_attention_bwd(q, k, v, out, lse, dout))
+    f32 = [x.detach()[..., :136].float().requires_grad_() for x in (q, k, v)]
     with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        A.flash_attention(q, k, v).float().sum().backward()
+        A.flash_attention(*f32).sum().backward()
+    assert A.flash_attention_bwd_cuda.launches == b0 + 1
 
 
 @pytest.mark.parametrize("t", [1, 77, 1000])
@@ -569,6 +578,136 @@ def test_gradient_reaches_qkv_through_the_flash_route(dev, new_order):
                                   qkv, dout)
     assert got.abs().max().item() > 0
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+# -- the wgmma/TMA backward beside the mma.sync body it replaced -------------------
+
+# the backward's limits at unit-normal inputs (chip_smoke.py): TOL_BWD of
+# max(rms, |plain|) elementwise and a relative L2 of TOL_BWD_L2, both over dq,
+# dk and dv together. Kernel and plain follow one recipe, so they differ
+# where an f32 value straddles a bf16 rounding (p, ds, the outputs), far
+# below the 1e-2 that a gradient 1 % off reads
+TOL_BWD_L2 = 5e-3
+
+
+def _strict_bwd(got, want):
+    from eo_diffusion_torch.tools.probe_packed_pv import attention_errors
+
+    for a in got:
+        assert torch.isfinite(a.float()).all()
+    e = attention_errors(torch.cat([a.flatten() for a in got]),
+                         torch.cat([w.flatten() for w in want]))
+    assert e["max_rms_scaled_err"] <= TOL_BWD[torch.bfloat16], e
+    assert e["rel_l2_err"] <= TOL_BWD_L2, e
+
+
+def _unit_bwd_inputs(b, t, h, d, seed, layout):
+    """Unit-normal bf16 q, k, v in ``layout``, the forward's out and lse, and
+    a unit-normal dout."""
+    q, k, v = _planes(b, t, h, d, torch.float32, seed, layout)
+    q, k, v = (x.float().div(2.0).to(torch.bfloat16) for x in (q, k, v))
+    if layout != "contiguous":  # keep the split_qkv views' strides
+        qkv = A.stack_qkv(q, k, v, layout == "new")
+        q, k, v = A.split_qkv(qkv, h, layout == "new")
+    out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_sm90_bwd_every_head_dim(dev, d):
+    """The separate-tensor entry at every head dim it takes, a ragged T, the
+    split_qkv views of either head order: held at unit-normal inputs."""
+    q, k, v, out, lse, dout = _unit_bwd_inputs(2, 133, 2, d, seed=d,
+                                               layout="new" if d % 16 else "legacy")
+    counts = (A.flash_attention_bwd_cuda.launches, A.flash_attention_bwd_mma_cuda.launches)
+    got = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bwd_cuda.launches,
+            A.flash_attention_bwd_mma_cuda.launches) == (counts[0] + 1, counts[1])
+    _strict_bwd(got, A.reference_attention_bwd(q, k, v, out, lse, dout))
+
+
+@pytest.mark.parametrize("t", [1, 31, 64, 127, 128, 129, 700])
+@pytest.mark.parametrize("new_order", [False, True])
+def test_sm90_bwd_fused_entry_ragged_t(dev, t, new_order):
+    """The fused-qkv entry over ragged T in both head orders, D 48 (three
+    16-column chunks) and 64, from a strided qkv view."""
+    d = 48 if t % 2 else 64
+    qkv = (_qkv(2, t, 3, d, torch.bfloat16, seed=t, pad=8).float() / 2).to(torch.bfloat16)
+    out, lse = A.qkv_attention_cuda(qkv, 3, new_order, return_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(t)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    b0 = A.qkv_attention_bwd_cuda.launches
+    dqkv = A.qkv_attention_bwd_cuda(qkv, out, lse, dout, 3, new_order)
+    assert A.qkv_attention_bwd_cuda.launches == b0 + 1
+    shape = (2, t, 3, d)
+    ref = A.reference_attention_bwd(*A.split_qkv(qkv, 3, new_order), out.reshape(shape), lse,
+                                    dout.reshape(shape))
+    _strict_bwd(A.split_qkv(dqkv, 3, new_order), ref)
+
+
+@pytest.mark.parametrize("d", [48, 64, 128, 160, 256])
+def test_sm90_bwd_same_bits_every_run(dev, d):
+    """No atomics: repeats give the same bits, and the fused entry the
+    separate one's on the split_qkv views (D <= 128)."""
+    q, k, v, out, lse, dout = _unit_bwd_inputs(2, 300, 2, d, seed=d, layout="new")
+    a = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    for _ in range(3):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(a, A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)))
+    if d <= 128:
+        qkv = A.stack_qkv(q, k, v, new_order=True)
+        dqkv = A.qkv_attention_bwd_cuda(qkv, out.reshape(2, 300, -1), lse,
+                                        dout.reshape(2, 300, -1), 2, new_order=True)
+        assert all(torch.equal(x, y) for x, y in zip(A.split_qkv(dqkv, 2, True), a))
+
+
+@pytest.mark.parametrize("t", [77, 1000])
+@pytest.mark.parametrize("new_order", [False, True])
+def test_mma_bwd_entries_match_plain_and_count_apart(dev, t, new_order):
+    """The mma.sync backward (the new body's yardstick) through its own
+    entries and counters."""
+    qkv = (_qkv(2, t, 2, 48, torch.bfloat16, seed=t).float() / 2).to(torch.bfloat16)
+    out, lse = A.qkv_attention_cuda(qkv, 2, new_order, return_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(t)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    counters = (A.qkv_attention_bwd_cuda, A.flash_attention_bwd_cuda,
+                A.qkv_attention_bwd_mma_cuda, A.flash_attention_bwd_mma_cuda)
+    before = [c.launches for c in counters]
+    dqkv = A.qkv_attention_bwd_mma_cuda(qkv, out, lse, dout, 2, new_order)
+    planes = A.split_qkv(qkv, 2, new_order)
+    shape = (2, t, 2, 48)
+    flash = A.flash_attention_bwd_mma_cuda(*planes, out.reshape(shape), lse,
+                                           dout.reshape(shape))
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1, 1]
+    assert all(torch.equal(x, y) for x, y in zip(A.split_qkv(dqkv, 2, new_order), flash))
+    _strict_bwd(flash, A.reference_attention_bwd(*planes, out.reshape(shape), lse,
+                                                 dout.reshape(shape)))
+
+
+def test_sm90_bwd_refuses(dev):
+    q, k, v, out, lse, dout = _unit_bwd_inputs(1, 40, 1, 64, seed=1, layout="contiguous")
+    before = (A.flash_attention_bwd_cuda.launches, A.qkv_attention_bwd_cuda.launches,
+              A.flash_attention_bwd_mma_cuda.launches)
+    big = torch.zeros(1, 16, 1, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # above wgmma's N
+        A.flash_attention_bwd_cuda(big, big, big, big, torch.zeros(1, 16, device="cuda"), big)
+    o136 = big[..., :136].reshape(1, 16, 136)
+    qkv136 = torch.zeros(1, 16, 3 * 136, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the fused entry keeps the JAX package's gate
+        A.qkv_attention_bwd_cuda(qkv136, o136, torch.zeros(1, 16, device="cuda"), o136, 1)
+    with pytest.raises(ValueError):  # the mma.sync body stops at 128
+        d136 = big[..., :136]
+        A.flash_attention_bwd_mma_cuda(d136, d136, d136, d136,
+                                       torch.zeros(1, 16, device="cuda"), d136)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd_cuda(q, k, v, out, lse[:, :-1], dout)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd_cuda(q, k, v, out.float(), lse, dout)
+    assert (A.flash_attention_bwd_cuda.launches, A.qkv_attention_bwd_cuda.launches,
+            A.flash_attention_bwd_mma_cuda.launches) == before
 
 
 # the clouds UNet's attention launches a forward: (flash, fused-qkv)

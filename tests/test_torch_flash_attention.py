@@ -122,6 +122,39 @@ def test_fwd_route(dtype, d, fused, strides, ptrs, kernel):
         assert TA.fwd_route(dtype, d, strides, ptrs, fused=fused) == kernel
 
 
+# (dtype, d, fused, strides, ptrs): the kernel bwd_route picks, or None for a
+# refusal: bf16 the wgmma/TMA body up to 256 (128 on the fused entry), float32
+# the FMA kernel up to 128, q/k/v rows of 16 bytes
+BWD_ROUTES = [
+    *[(torch.bfloat16, d, fused, (), (), "sm90" if d <= (128 if fused else 256) else None)
+      for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
+    *[(torch.float32, d, fused, (), (), "fma" if d <= 128 else None)
+      for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
+    (torch.float16, 64, False, (), (), None),
+    (torch.bfloat16, 40, False, (), (), "sm90"),     # padded to 64 inside
+    (torch.bfloat16, 44, True, (), (), None),        # not a multiple of 8
+    (torch.bfloat16, 48, True, (3 * 3 * 48 * 16, 3 * 3 * 48), (64,), "sm90"),  # fused qkv
+    (torch.bfloat16, 48, True, (3 * 3 * 48 * 16, 3 * 3 * 48 + 4), (0,), None),
+    (torch.bfloat16, 160, False, (4096, 512, 160, 4096, 512, 160, 4096, 512, 160),
+     (0, 32, 1024), "sm90"),
+    (torch.bfloat16, 160, False, (4096, 516, 160), (0,), None),       # token stride
+    (torch.bfloat16, 64, False, (4096, 512, 64), (0, 8, 0), None),    # k's base
+    (torch.float32, 64, False, (4096, 512, 64), (0, 0, 24), None),    # v's base
+    (torch.float32, 64, True, (3 * 64 * 8, 3 * 64), (16,), "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,fused,strides,ptrs,kernel", BWD_ROUTES)
+def test_bwd_route(dtype, d, fused, strides, ptrs, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError) as err:
+            TA.bwd_route(dtype, d, strides, ptrs, fused=fused)
+        if not fused and d > {torch.bfloat16: 256, torch.float32: 128}.get(dtype, d):
+            assert "ROADMAP queue 2, item 1" in str(err.value)
+    else:
+        assert TA.bwd_route(dtype, d, strides, ptrs, fused=fused) == kernel
+
+
 def test_bf16_forward_matches_pallas(regime):
     """q*s and k*s round in bf16 on both sides (ragged T)."""
     q, k, v = _bthd(1, 40, 2, 16, seed=1)
