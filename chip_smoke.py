@@ -21,7 +21,12 @@ Phases, in order; the first failure exits non-zero:
    bf16 backward is the wgmma/TMA body too, held the same way at every
    backward shape (TOL_BWD of max(rms, |plain|), TOL_BWD_L2; the faults: its
    gradients 1 % off, one streamed query tile of the KV pass dropped), with
-   the mma.sync backward timed beside it, head dims 160 and 256 included;
+   the mma.sync backward timed beside it, head dims 160 and 256 included.
+   GroupNorm runs the one-launch body (group_norm_sm90.cu) at the clouds
+   UNet's level shapes: its statistics are held against float64
+   (TOL_GN_STATS), a chunk of rows lost from the combine is planted at three
+   shapes and asserted caught by that check, a repeat must give the same
+   bits, and the old three-launch body (group_norm.cu) is timed beside it;
 4. one clouds-UNet forward at 256 px, kernels against the all-plain model
    (plain attention and plain norms), then one loss and backward, kernels
    against plain: every parameter gets a finite gradient, the attention's
@@ -162,6 +167,16 @@ GN_PER_FORWARD = 56
 # f32 sums over HW in another order, TOL_GN_PARAMS of max(rms, |plain|)
 TOL_GN = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 TOL_GN_PARAMS = 1e-3
+# the kernel's statistics against float64: the mean in units of the group's
+# std and rstd relative, both <= TOL_GN_STATS. The kernel sums in f32 about
+# a shift and combines chunks with Chan's formula: readings about 1e-7 at
+# unit inputs and 1.5e-5 at the mean-100 case (two ulps of 100). A chunk of
+# rows lost from the combine (fraction f of the M values of a group) moves
+# them by about sqrt(f / M) times a unit normal, and the largest over the
+# N * G groups by about 2.5 times that: 6e-4 at level 0 (f = 1/66, M =
+# 262144), 3e-3 at level 2 and 5e-3 at level 3, where the planted fault is
+# asserted caught
+TOL_GN_STATS = 1e-4
 # f32 operations an element (not on the tensor cores): forward statistics
 # and affine 5, SiLU 4 more; backward 11, SiLU's derivative 8 more
 GN_OPS = {("fwd", "none"): 5, ("fwd", "silu"): 9, ("bwd", "none"): 11, ("bwd", "silu"): 19}
@@ -595,6 +610,7 @@ def reset_counts():
     A.qkv_attention_mma_cuda.launches = A.flash_attention_mma_cuda.launches = 0
     A.qkv_attention_bwd_mma_cuda.launches = A.flash_attention_bwd_mma_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
+    G.group_norm_fwd_legacy_cuda.launches = G.group_norm_bwd_legacy_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
     CW.conv_wgrad_cuda.launches = AP.matmul_probe_cuda.launches = 0
     AP.transposed_attention_cuda.launches = AP.hybrid_attention_cuda.launches = 0
@@ -612,6 +628,8 @@ def counts():
             "attn_bwd_mma": A.qkv_attention_bwd_mma_cuda.launches,
             "flash_bwd_mma": A.flash_attention_bwd_mma_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
+            "gn_fwd_legacy": G.group_norm_fwd_legacy_cuda.launches,
+            "gn_bwd_legacy": G.group_norm_bwd_legacy_cuda.launches,
             "int8": I8.int8_attention_cuda.launches, "wgrad": CW.conv_wgrad_cuda.launches,
             "mm_probe": AP.matmul_probe_cuda.launches,
             "attn_t": AP.transposed_attention_cuda.launches,
@@ -629,7 +647,7 @@ def expected(size, forwards, backwards=0):
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "attn_fwd_mma": 0, "flash_fwd_mma": 0, "attn_bwd_mma": 0, "flash_bwd_mma": 0,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
-            "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
+            "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
             "transpose": 0, "variant": 0}
 
 
@@ -653,10 +671,32 @@ def gn_bound_ms(direction, act, n, hw, c, groups, esize):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
+def gn_stats_errors(x, groups, mean, rstd, drop=None):
+    """The statistics against float64: (the largest |mean - mean64| in units
+    of the group's std, the largest |rstd - rstd64| / rstd64). ``drop`` =
+    (r0, r1) computes them instead for float64 statistics with rows [r0, r1)
+    of every sample left out, as a combine that lost one chunk would."""
+    n, hw, c = x.shape
+    xg = x.double().reshape(n, hw, groups, c // groups)
+    var64, mean64 = torch.var_mean(xg, dim=(1, 3), unbiased=False)
+    if drop is not None:
+        keep = torch.cat([xg[:, :drop[0]], xg[:, drop[1]:]], dim=1)
+        var, mean = torch.var_mean(keep, dim=(1, 3), unbiased=False)
+        rstd = torch.rsqrt(var + 1e-5)
+        del keep
+    rstd64 = torch.rsqrt(var64 + 1e-5)
+    mean_err = ((mean.double() - mean64).abs() / var64.sqrt()).max().item()
+    rstd_err = ((rstd.double() - rstd64).abs() / rstd64).max().item()
+    del xg
+    return mean_err, rstd_err
+
+
+def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0, fault=False):
     """GroupNorm kernels (forward, then backward from the kernel's mean and
-    rstd) vs their plain versions on one shape, with timings; returns the
-    forward and backward result rows."""
+    rstd) vs their plain versions on one shape, with timings, the old body
+    (group_norm.cu) timed on the same tensors; the statistics against
+    float64, and with ``fault`` a planted lost chunk asserted caught by the
+    same check. Returns the forward and backward result rows."""
     x = (loc + torch.randn(n, hw, c, generator=gen, device="cuda")).to(dtype)
     dy = torch.randn(n, hw, c, generator=gen, device="cuda").to(dtype)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
@@ -673,36 +713,58 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
     rdx, rdgamma, rdbeta = G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
                                                            groups, act)
     torch.cuda.synchronize()
-    # the statistics against float64, and the sum-of-squares recipe of the TPU
-    # kernel (E[x^2] - E[x]^2 in f32) beside them
-    xg = x.double().reshape(n, hw, groups, c // groups)
-    var64 = xg.var(dim=(1, 3), unbiased=False)
+    plans = {d: G._card_plan(d, x, n, hw, c, groups)[0] for d in ("fwd", "bwd")}
+    label = f"N{n} HW{hw} C{c} G{groups} {act}{' film' if film else ''}{' mean100' if loc else ''}"
+    # the statistics against float64, the sum-of-squares recipe of the TPU
+    # kernel (E[x^2] - E[x]^2 in f32) beside them, and a lost chunk
+    stats_err = gn_stats_errors(x, groups, mean, rstd)
+    var64 = x.double().reshape(n, hw, groups, c // groups).var(dim=(1, 3), unbiased=False)
     var_err = ((1 / rstd.double() ** 2 - 1e-5 - var64).abs() / var64).max().item()
     xf = x.float().reshape(n, hw, groups, c // groups)
     naive = xf.pow(2).mean(dim=(1, 3)) - xf.mean(dim=(1, 3)).pow(2)
     naive_var_err = ((naive.double() - var64).abs() / var64).max().item()
+    del xf, naive, var64
+    assert max(stats_err) <= TOL_GN_STATS and var_err <= 1e-4, (
+        f"group norm statistics vs float64 at {label} {dtype}: {stats_err} > {TOL_GN_STATS} "
+        f"(variance rel err {var_err})")
+    fault_err = None
+    if fault:  # the forward's plan: its middle chunk of rows left out
+        p = plans["fwd"]
+        r0 = p.blocks // 2 * p.chunk_rows
+        fault_err = gn_stats_errors(x, groups, mean, rstd, (r0, min(r0 + p.chunk_rows, hw)))
+        assert max(fault_err) > TOL_GN_STATS, (
+            f"a lost chunk at {label} reads {fault_err}, inside {TOL_GN_STATS}")
 
     def scaled(got, want, floor):
         diff = (got.float() - want.float()).abs()
         return diff.max().item(), (diff / want.float().abs().clamp(min=floor)).max().item()
 
     err, sc = scaled(y, ref, 1.0)
-    label = f"N{n} HW{hw} C{c} G{groups} {act}{' film' if film else ''}{' mean100' if loc else ''}"
-    assert math.isfinite(err) and sc <= TOL_GN[dtype] and var_err <= 1e-4, (
-        f"group norm forward vs plain at {label} {dtype}: {sc} > {TOL_GN[dtype]} "
-        f"(variance rel err {var_err})")
+    assert math.isfinite(err) and sc <= TOL_GN[dtype], (
+        f"group norm forward vs plain at {label} {dtype}: {sc} > {TOL_GN[dtype]}")
     dx_err, dx_sc = scaled(dx, rdx, rdx.float().pow(2).mean().sqrt().item())
     p_sc = max(scaled(got, want, want.pow(2).mean().sqrt().item())[1]
                for got, want in ((dgamma, rdgamma), (dbeta, rdbeta)))
     assert math.isfinite(dx_err) and dx_sc <= TOL_GN[dtype] and p_sc <= TOL_GN_PARAMS, (
         f"group norm backward vs plain at {label} {dtype}: dx {dx_sc}, params {p_sc}")
-    del ref, rdx
+    # the same bits on a repeat (no atomics in the results)
+    y2, mean2, rstd2 = G.group_norm_fwd_cuda(x, gamma, beta, groups, 1e-5, act)
+    dx2, dgamma2, dbeta2 = G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, groups, act)
+    same_bits = all(torch.equal(u, v) for u, v in ((y, y2), (mean, mean2), (rstd, rstd2),
+                                                    (dx, dx2), (dgamma, dgamma2),
+                                                    (dbeta, dbeta2)))
+    assert same_bits, f"group norm at {label} {dtype}: a repeat gave other bits"
+    del ref, rdx, y2, dx2
 
     big = n * hw * c >= 2**24
     reps, preps = (20, 3) if big else (100, 20)
     fwd_ms = cuda_ms(lambda: G.group_norm_fwd_cuda(x, gamma, beta, groups, 1e-5, act), reps)
     bwd_ms = cuda_ms(lambda: G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, groups,
                                                    act), reps)
+    old_fwd = cuda_ms(lambda: G.group_norm_fwd_legacy_cuda(x, gamma, beta, groups, 1e-5, act),
+                      reps)
+    old_bwd = cuda_ms(lambda: G.group_norm_bwd_legacy_cuda(x, gamma, beta, mean, rstd, dy,
+                                                           groups, act), reps)
     fwd_plain = cuda_ms(lambda: G.group_norm_reference(x, gamma, beta, groups, act=act), preps,
                         warmup=1)
     bwd_plain = cuda_ms(lambda: G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
@@ -720,14 +782,24 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0):
     del xl, yl, dyl
     esize = x.element_size()
     rows = []
-    for direction, kms, pms, lms, e, s in (("fwd", fwd_ms, fwd_plain, lib_fwd, err, sc),
-                                           ("bwd", bwd_ms, bwd_plain, lib_bwd, dx_err, dx_sc)):
+    for direction, kms, oms, pms, lms, e, s in (
+            ("fwd", fwd_ms, old_fwd, fwd_plain, lib_fwd, err, sc),
+            ("bwd", bwd_ms, old_bwd, bwd_plain, lib_bwd, dx_err, dx_sc)):
         bound, by = gn_bound_ms(direction, act, n, hw, c, groups, esize)
+        p = plans[direction]
         row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": e,
-               "max_scaled_err": s, "kernel_ms": kms, "plain_ms": pms, "library_ms": lms,
-               "bound_ms": bound, "bound_by": by}
+               "max_scaled_err": s, "kernel_ms": kms, "old_body_ms": oms, "plain_ms": pms,
+               "library_ms": lms, "bound_ms": bound, "bound_by": by,
+               "plan": {"mode": p.mode, "teams": p.teams, "blocks": p.blocks,
+                        "chunk_rows": p.chunk_rows, "held_rows": p.held_rows,
+                        "threads": p.threads, "smem_bytes": p.smem_bytes}}
         if direction == "fwd":
-            row.update(var_rel_err=var_err, naive_var_rel_err=naive_var_err)
+            row.update(mean_err_std_units=stats_err[0], rstd_rel_err=stats_err[1],
+                       var_rel_err=var_err, naive_var_rel_err=naive_var_err,
+                       same_bits=same_bits)
+            if fault_err is not None:
+                row["lost_chunk_reading"] = {"mean_err_std_units": fault_err[0],
+                                             "rstd_rel_err": fault_err[1]}
         else:
             row["params_max_scaled_err"] = p_sc
         print(f"group_norm_{direction} " + json.dumps(row), flush=True)
@@ -1287,18 +1359,19 @@ def main() -> int:
     # 896 channels are groups of 28), then FiLM, a narrow width, f32 and the
     # mean-100 case where E[x^2] - E[x]^2 in f32 cancels
     gn_rows = []
-    for n, hw, c, groups, act, dtype, film, loc in (
-            (8, 65536, 128, 32, "silu", torch.bfloat16, False, 0.0),
-            (8, 16384, 256, 32, "silu", torch.bfloat16, False, 0.0),
-            (8, 4096, 384, 32, "none", torch.bfloat16, False, 0.0),
-            (8, 1024, 512, 32, "silu", torch.bfloat16, False, 0.0),
-            (8, 4096, 896, 32, "silu", torch.bfloat16, False, 0.0),
-            (8, 4096, 384, 32, "silu", torch.bfloat16, True, 0.0),
-            (8, 4096, 24, 24, "silu", torch.bfloat16, False, 0.0),
-            (2, 16384, 256, 32, "silu", torch.float32, False, 0.0),
-            (2, 65536, 128, 32, "silu", torch.float32, False, 100.0),
-            (8, 262144, 128, 32, "silu", torch.bfloat16, False, 0.0)):  # 512 px, level 0
-        gn_rows.append(gn_case(n, hw, c, groups, act, dtype, gen, film=film, loc=loc))
+    for n, hw, c, groups, act, dtype, film, loc, fault in (
+            (8, 65536, 128, 32, "silu", torch.bfloat16, False, 0.0, True),
+            (8, 16384, 256, 32, "silu", torch.bfloat16, False, 0.0, False),
+            (8, 4096, 384, 32, "none", torch.bfloat16, False, 0.0, True),
+            (8, 1024, 512, 32, "silu", torch.bfloat16, False, 0.0, True),
+            (8, 4096, 896, 32, "silu", torch.bfloat16, False, 0.0, False),
+            (8, 4096, 384, 32, "silu", torch.bfloat16, True, 0.0, False),
+            (8, 4096, 24, 24, "silu", torch.bfloat16, False, 0.0, False),
+            (2, 16384, 256, 32, "silu", torch.float32, False, 0.0, False),
+            (2, 65536, 128, 32, "silu", torch.float32, False, 100.0, False),
+            (8, 262144, 128, 32, "silu", torch.bfloat16, False, 0.0, False)):  # 512 px, level 0
+        gn_rows.append(gn_case(n, hw, c, groups, act, dtype, gen, film=film, loc=loc,
+                               fault=fault))
     torch.cuda.empty_cache()
 
     # 4. UNet forward and backward at 256 px, batch 2, and (4b) at 384 px,
@@ -1586,7 +1659,7 @@ def main() -> int:
     }] + [{
         "name": f"group_norm_{direction}",
         "route": "cuda",
-        "source": "eo_diffusion_torch/ops/csrc/group_norm.cu",
+        "source": "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in gn if r["dtype"] == "bfloat16"),
@@ -1595,12 +1668,24 @@ def main() -> int:
         "bound_ms": gn[0]["bound_ms"],
         "bound_by": gn[0]["bound_by"],
         "library_ms": gn[0]["library_ms"],
+        "old_body_ms": gn[0]["old_body_ms"],
+        "old_body_source": "eo_diffusion_torch/ops/csrc/group_norm.cu",
+        "old_body_launches_on_model_paths": sum(
+            r["launches"][f"gn_{direction}_legacy"]
+            for r in (main_res, res512, res64, train_res, train512, tiled, *dit_res.values())),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
         ("fwd", "eo_diffusion_tpu/ops/group_norm.py:48", main_res["launches"]["gn_fwd"],
          gn_fwd_rows, {"launches_clouds64": res64["launches"]["gn_fwd"],
-                       "launches_train": train_res["launches"]["gn_fwd"]}),
+                       "launches_train": train_res["launches"]["gn_fwd"],
+                       "stats_max": {"mean_err_std_units": max(r["mean_err_std_units"]
+                                                               for r in gn_fwd_rows),
+                                     "rstd_rel_err": max(r["rstd_rel_err"]
+                                                         for r in gn_fwd_rows)},
+                       "lost_chunk_min_reading": min(max(r["lost_chunk_reading"].values())
+                                                     for r in gn_fwd_rows
+                                                     if "lost_chunk_reading" in r)}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {}))]
     qk = mm["variants"][0]  # QK^T as shipped, one launch

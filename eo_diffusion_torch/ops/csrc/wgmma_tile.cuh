@@ -3,7 +3,9 @@
 // descriptors and f32 accumulators, the scaling of a tile in shared memory,
 // and on the host the 4-D tensor map of a strided [B, T, H, D] plane. The
 // attention forward (attention_fwd_sm90.cu) and backward
-// (attention_bwd_sm90.cu) are built on them.
+// (attention_bwd_sm90.cu) are built on them; the GroupNorm kernels
+// (group_norm_sm90.cu) use the mbarriers, the 1-D bulk copies and the L2
+// eviction policies.
 //
 // Operand tiles in shared memory. Every tile is stored the way a TMA load with
 // a swizzle of AW * 2 bytes (AW = 64, 32 or 16 bf16: CU_TENSOR_MAP_SWIZZLE_
@@ -86,6 +88,68 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory (both 16-byte
+// aligned, `bytes` a multiple of 16); completes `bytes` on `bar`. No tensor
+// map: a range of whole rows of a channels-last tensor is one such copy
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the same with an L2 eviction policy (createpolicy), e.g. evict-first for
+// bytes read once
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 16, 8 or 4 bytes of global memory under an L2 eviction policy
+__device__ __forceinline__ uint4 ld_global_hint(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ uint2 ld_global_hint(const uint2* p, uint64_t policy) {
+  uint2 v;
+  asm volatile("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ unsigned int ld_global_hint(const unsigned int* p, uint64_t policy) {
+  unsigned int v;
+  asm volatile("ld.global.L2::cache_hint.u32 %0, [%1], %2;\n" : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ unsigned short ld_global_hint(const unsigned short* p,
+                                                         uint64_t policy) {
+  unsigned short v;
+  asm volatile("ld.global.L2::cache_hint.u16 %0, [%1], %2;\n" : "=h"(v) : "l"(p), "l"(policy));
+  return v;
 }
 
 // orders this thread's generic-proxy shared-memory writes before later

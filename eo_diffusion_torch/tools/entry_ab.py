@@ -8,6 +8,8 @@ process of its own with that checkout first on ``sys.path``, in the order
 A B B A (``--rounds`` such rounds), so two versions are compared on one card
 within one call:
 
+* phase 5, the sampling entry point at 256 px: ``sen12mscr256`` DDIM-50,
+  batch 8 (``run_cli``), img/s of the second batch;
 * phase 7 and 7b, the training entry point at 256 px, batch 8, and at
   512 px, batch 4 (``run_train``, ``run_train_512``): steps/s after the
   first two steps, as ``chip_smoke.py`` prints them;
@@ -35,6 +37,11 @@ from eo_diffusion_torch.cli.presets import get_preset
 
 res = {"card": C.card_line()}
 with tempfile.TemporaryDirectory() as tmp:
+    r = C.run_cli(["--preset", "sen12mscr256", "--dataset", "synthetic", "--sampler", "ddim",
+                   "--sampler_steps", "50", "--batch_size", "8", "--n_iter", "1",
+                   "--device", "cuda"], get_preset("sen12mscr256").unet_config(cond_channels=3),
+                  2, tmp)
+    res["sample_256px_b8_img_per_s"] = 8 / r["batch_seconds"][1]
     for name, fn, seed in (("train_256px_b8", C.run_train, 4),
                            ("train_512px_b4", C.run_train_512, 5)):
         steady = fn(tmp, seed=seed)["step_seconds"][2:]

@@ -47,7 +47,7 @@ from eo_diffusion_torch.weights import randomize_parameters
 # kernel name -> class, first match wins
 _CLASSES = (
     ("attention", re.compile(r"attn_fwd")),
-    ("group_norm", re.compile(r"gn_(stats|finalize|apply)")),
+    ("group_norm", re.compile(r"gn_sm90_fwd|gn_(stats|finalize|apply)")),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
     ("layer_norm", re.compile(r"layer_?norm", re.I)),

@@ -42,8 +42,8 @@ from eo_diffusion_torch.weights import randomize_parameters
 _CLASSES = (
     ("attention_fwd_lse", re.compile(r"attn_fwd")),
     ("attention_bwd", re.compile(r"attn_bwd")),
-    ("group_norm_fwd", re.compile(r"gn_(stats|finalize|apply)")),
-    ("group_norm_bwd", re.compile(r"gn_(bwd|dx)")),
+    ("group_norm_fwd", re.compile(r"gn_sm90_fwd|gn_(stats|finalize|apply)")),
+    ("group_norm_bwd", re.compile(r"gn_sm90_bwd|gn_(bwd|dx)")),
     ("optimizer_ema", re.compile(r"multi_tensor|foreach|adam", re.I)),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),

@@ -14,6 +14,7 @@ from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
 from eo_diffusion_torch.ops import attn_variants as AV
+from eo_diffusion_torch.ops import group_norm as GN
 from eo_diffusion_torch.ops import softmax_probes as SP
 
 FAKE_NVCC = """#!/bin/sh
@@ -109,6 +110,11 @@ def test_every_kernel_has_its_source():
     ("attention_bwd_sm90", "eo_attention_bwd", A._ARGTYPES["eo_attention_bwd"]),
     ("attention_bwd", "eo_qkv_attention_bwd_mma", A._ARGTYPES["eo_qkv_attention_bwd_mma"]),
     ("attention_bwd", "eo_attention_bwd_mma", A._ARGTYPES["eo_attention_bwd_mma"]),
+    ("group_norm_sm90", "eo_gn_sm90_fwd", GN._ARGTYPES["eo_gn_sm90_fwd"]),
+    ("group_norm_sm90", "eo_gn_sm90_bwd", GN._ARGTYPES["eo_gn_sm90_bwd"]),
+    ("group_norm_sm90", "eo_gn_sm90_blocks_per_sm", GN._ARGTYPES["eo_gn_sm90_blocks_per_sm"]),
+    ("group_norm", "eo_group_norm_fwd", GN._ARGTYPES["eo_group_norm_fwd"]),
+    ("group_norm", "eo_group_norm_bwd", GN._ARGTYPES["eo_group_norm_bwd"]),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_the_probe_wrappers_declare_their_c_entries(kernel, entry, argtypes):
     """The ctypes declarations of the probe kernels' wrappers match the C
@@ -150,3 +156,38 @@ def test_the_wgmma_backward_is_listed_and_its_header_hashed(tmp_path, monkeypatc
     header = copy / "wgmma_tile.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert all(_build.library_path(n) != first[n] for n in names)
+
+
+def test_the_one_launch_group_norm_is_listed_and_its_header_hashed(tmp_path, monkeypatch):
+    """The one-launch GroupNorm body is a kernel of its own beside the old
+    body (built by build_all, so by chip_smoke.py), on the warpgroup header's
+    mbarrier and bulk-copy helpers: an edit of the header rebuilds it."""
+    csrc = Path(_build.__file__).parent / "csrc"
+    assert _build.KERNELS["group_norm_sm90"] == "group_norm_sm90.cu"
+    assert _build.KERNELS["group_norm"] == "group_norm.cu"
+    assert GN._KERNEL_SM90 == "group_norm_sm90" and GN._KERNEL == "group_norm"
+    src = (csrc / "group_norm_sm90.cu").read_text()
+    assert '#include "wgmma_tile.cuh"' in src and "cudaLaunchCooperativeKernel" in src
+    assert "wgmma_tile.cuh" not in (csrc / "group_norm.cu").read_text()
+    copy = tmp_path / "csrc"
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_build, "_CSRC", copy)
+    first = _build.library_path("group_norm_sm90")
+    header = copy / "wgmma_tile.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.library_path("group_norm_sm90") != first
+
+
+def test_the_planner_and_the_kernel_share_their_limits():
+    """The planner's constants are the CUDA source's: the shared memory a
+    block, the pieces, the teams' counters and the blocks a combine takes."""
+    src = (Path(_build.__file__).parent / "csrc" / "group_norm_sm90.cu").read_text()
+    consts = {m.group(1): int(m.group(2))
+              for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kMaxSmem"] == GN.SMEM_PER_BLOCK
+    assert consts["kMaxPieces"] == GN.MAX_PIECES
+    assert consts["kMaxTeams"] == GN.MAX_TEAMS
+    assert consts["kMaxThreads"] == GN.MAX_THREADS
+    assert consts["kMaxThreadsFwd"] == GN.WIDE_THREADS
+    assert 32 * consts["kMaxPerLane"] == GN.MAX_BLOCKS
+    assert "1024 / C" in src and GN.stage_slots(128) == 8 and GN.stage_slots(4096) == 1

@@ -364,6 +364,116 @@ def test_unet_norms_go_through_the_kernels(dev):
         assert ((got - want).norm() / want.norm().clamp(min=floor)).item() <= 1e-3, name
 
 
+# the one-launch body (group_norm_sm90.cu): each mode its planner picks, the
+# edges of its chunking, and its refusals
+
+@pytest.mark.parametrize("n,hw,c,groups,dtype,mode", [
+    (2, 1024, 128, 32, torch.bfloat16, "resident"),
+    (8, 16384, 256, 32, torch.bfloat16, "l2"),
+    (8, 262144, 128, 32, torch.bfloat16, "hbm"),
+])
+def test_group_norm_sm90_each_mode_matches_plain(dev, n, hw, c, groups, dtype, mode):
+    x, gamma, beta, dy = _gn_inputs(n, hw, c, dtype, seed=7)
+    assert G._card_plan("fwd", x, n, hw, c, groups)[0].mode == mode
+    _check_gn(x, gamma, beta, dy, groups, "silu")
+
+
+@pytest.mark.parametrize("n,hw,c,groups", [(3, 1000, 128, 32), (2, 4097, 64, 32),
+                                           (5, 3, 128, 32), (7, 1, 32, 8), (64, 5, 96, 32)])
+def test_group_norm_sm90_ragged_and_fewer_rows_than_blocks(dev, n, hw, c, groups):
+    """Ragged HW (a short last chunk), and HW smaller than the blocks a team
+    would take (a team of HW one-row chunks)."""
+    x, gamma, beta, dy = _gn_inputs(n, hw, c, torch.bfloat16, seed=hw)
+    p = G._card_plan("fwd", x, n, hw, c, groups)[0]
+    assert p.blocks <= hw and (p.blocks - 1) * p.chunk_rows < hw <= p.blocks * p.chunk_rows
+    _check_gn(x, gamma, beta, dy, groups, "silu")
+
+
+@pytest.mark.parametrize("n,hw,c,groups,dtype,loc", [
+    (8, 4096, 24, 24, torch.bfloat16, 0.0), (8, 4096, 896, 32, torch.bfloat16, 0.0),
+    (2, 16384, 256, 32, torch.float32, 0.0), (2, 65536, 128, 32, torch.float32, 100.0),
+    (2, 65536, 256, 32, torch.float32, 0.0)])
+def test_group_norm_sm90_widths_f32_and_mean_100(dev, n, hw, c, groups, dtype, loc):
+    _check_gn(*_gn_inputs(n, hw, c, dtype, seed=c, loc=loc), groups, "silu")
+
+
+def test_group_norm_sm90_leaves_its_counters_at_zero(dev):
+    """No memset precedes a launch: every launch leaves the teams' counters at
+    zero for the next, over plans of other team counts and block counts."""
+    for n, hw, c in ((8, 1024, 512), (2, 65536, 128), (3, 17, 64)):
+        x, gamma, beta, dy = _gn_inputs(n, hw, c, torch.bfloat16, seed=1)
+        y, mean, rstd = G.group_norm_fwd_cuda(x, gamma, beta, 32, act="silu")
+        G.group_norm_bwd_cuda(x, gamma, beta, mean, rstd, dy, 32, "silu")
+        torch.cuda.synchronize()
+        work = G._scratch[(x.device.index, torch.cuda.current_stream().cuda_stream)]
+        assert not work[:2 * G.MAX_TEAMS].view(torch.int32).any()
+
+
+def test_group_norm_sm90_grid_too_large_raises(dev):
+    """A plan whose grid the card cannot hold at once is a launch error the
+    wrapper raises (the cooperative launch refuses it), never a hang, and the
+    next launch runs."""
+    import ctypes
+    import dataclasses
+
+    n, hw, c = 4, 8 * 132, 128
+    x, gamma, beta, dy = _gn_inputs(n, hw, c, torch.bfloat16, seed=2)
+    key = ("fwd", n, hw, c, 32, x.dtype, x.device.index)
+    good = G._card_plan("fwd", x, n, hw, c, 32)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bad = dataclasses.replace(good[0], teams=4, blocks=sms, chunk_rows=-(-hw // sms),
+                              held_rows=0, pieces=0, smem_bytes=200_000,
+                              scratch_floats=2 * G.MAX_TEAMS + 4 * 4 * sms * 32)
+    G._plans[key] = (bad, (ctypes.c_int * 12)(*bad.ints()))
+    f0 = G.group_norm_fwd_cuda.launches
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            G.group_norm_fwd_cuda(x, gamma, beta, 32, act="silu")
+    finally:
+        G._plans[key] = good
+    assert G.group_norm_fwd_cuda.launches == f0
+    _check_gn(x, gamma, beta, dy, 32, "silu")
+
+
+@pytest.mark.parametrize("hw,c,groups,dtype", [(1024, 128, 32, torch.bfloat16),
+                                               (17, 36, 12, torch.float32)])
+def test_group_norm_old_body_entries_match_plain_and_count_apart(dev, hw, c, groups, dtype):
+    """The old three-launch body (group_norm.cu), the new one's yardstick,
+    behind its own wrappers and counters."""
+    x, gamma, beta, dy = _gn_inputs(2, hw, c, dtype, seed=3)
+    counts = lambda: (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches,
+                      G.group_norm_fwd_legacy_cuda.launches,
+                      G.group_norm_bwd_legacy_cuda.launches)
+    c0 = counts()
+    y, mean, rstd = G.group_norm_fwd_legacy_cuda(x, gamma, beta, groups, 1e-5, "silu")
+    dx, dgamma, dbeta = G.group_norm_bwd_legacy_cuda(x, gamma, beta, mean, rstd, dy, groups,
+                                                     "silu")
+    torch.cuda.synchronize()
+    assert counts() == (c0[0], c0[1], c0[2] + 1, c0[3] + 1)
+    assert _scaled_err(y, G.group_norm_reference(x, gamma, beta, groups, act="silu"),
+                       1.0) <= TOL_GN[dtype]
+    rdx, rdgamma, rdbeta = G.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy,
+                                                           groups, "silu")
+    assert _scaled_err(dx, rdx, rdx.float().pow(2).mean().sqrt().item()) <= TOL_GN[dtype]
+    assert _scaled_err(dgamma, rdgamma, rdgamma.pow(2).mean().sqrt().item()) <= TOL_GN_PARAMS
+
+
+def test_unet_norms_never_launch_the_old_body(dev):
+    """A UNet forward and backward on the card takes the one-launch body for
+    every GroupNorm: the old body's counters do not move."""
+    cfg = TU.UNetConfig(image_size=16, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=2, use_scale_shift_norm=True)
+    model = randomize_parameters(TU.UNet(cfg), seed=0).to(dev)
+    x = torch.randn(2, 16, 16, 3, device="cuda")
+    f0, b0 = G.group_norm_fwd_legacy_cuda.launches, G.group_norm_bwd_legacy_cuda.launches
+    n0 = G.group_norm_fwd_cuda.launches
+    model(x, torch.tensor([3, 700], device="cuda")).square().mean().backward()
+    assert G.group_norm_fwd_cuda.launches > n0
+    assert (G.group_norm_fwd_legacy_cuda.launches, G.group_norm_bwd_legacy_cuda.launches) == (
+        f0, b0)
+
+
 # -- the separate-tensor entries (K2/K3 forward, K4 behind them) -----------------
 
 
