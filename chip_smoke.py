@@ -49,19 +49,24 @@ Phases, in order; the first failure exits non-zero:
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
-   and the GroupNorm counters by 56; the checkpoint restores and the
-   sampling entry point samples from it; 7b. the same entry point at
-   ``--image_size 512``, batch 4 (attention forward and backward 5 + 6 a
-   step);
+   and the GroupNorm counters by 56, the ``wgmma`` conv weight-gradient
+   counter by the stride-1 3x3 convs ``wgrad_route`` gives it (every
+   backward of phases 4, 7 and 7b; 0 on every sampling path); the
+   checkpoint restores and the sampling entry point samples from it; 7b. the
+   same entry point at ``--image_size 512``, batch 4 (attention forward and
+   backward 5 + 6 a step);
 8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
    once: the int8 core's error, its time beside the bf16 kernels' and the
    Amdahl share of a DiT-B/4 call at the latent256 shape;
-8b. the 3x3 conv weight-gradient kernel against its plain version (the JAX
-   tool's B8 256 x 256 C128 -> 128, the UNet's input conv C 6 -> 128 and
-   output conv 128 -> 3, a ragged shape, a small f32 one), then its tool
-   (``eo_diffusion_torch.tools.prototype_wgrad_kernel --sites unet256``)
-   once: the kernel against cuDNN's conv weight ``.grad`` at all 49 stride-1
-   3x3 sites of a 256 px training backward; the transposed-output attention
+8b. the 3x3 conv weight-gradient kernels against their plain version: the
+   ``mma.sync`` body at the JAX tool's B8 256 x 256 C128 -> 128, the UNet's
+   input conv C 6 -> 128 and output conv 128 -> 3, a ragged shape and a small
+   f32 one, the ``wgmma``/TMA body at its five shapes (WGRAD_SM90_CASES: the
+   same bits on a repeat) and its nine taps held apart by delta inputs
+   (exact); then their tool (``eo_diffusion_torch.tools.prototype_wgrad_kernel
+   --sites unet256``) once: both bodies against cuDNN's conv weight ``.grad``
+   at all 49 stride-1 3x3 sites of a 256 px training backward, with
+   cuDNN's time and the route's pick at each; the transposed-output attention
    kernel against its plain version (B8 T4096 H8 D48 bf16, a ragged f32
    case); the two attention-probe tools (``probe_attn_matmuls``, which holds
    the matmul probe kernel against its plain version in the probe's seven
@@ -87,6 +92,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -223,6 +229,13 @@ TOL_STATS = 1e-5
 TOL_ATTN_L2 = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 # stride-1 3x3 convs of the clouds UNet (sen12mscr256): 49 sites
 WGRAD_SITES = 49
+# the wgmma weight-gradient body against plain: the JAX tool's shape, sites
+# of levels 0-2 of a 256 px step, a ragged shape
+WGRAD_SM90_CASES = [(8, 256, 256, 128, 128), (8, 256, 256, 256, 128), (8, 128, 128, 256, 256),
+                    (8, 64, 64, 384, 384), (3, 20, 27, 40, 24)]
+# its nine taps held apart (prototype_wgrad_kernel.delta_check): exact
+WGRAD_DELTA_CASES = [(2, 20, 37, 64, 64), (2, 16, 16, 128, 64), (1, 9, 33, 64, 24),
+                     (3, 24, 40, 72, 136)]
 TRAIN_STEPS = 8
 TRAIN_STEPS_512 = 6
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
@@ -612,7 +625,8 @@ def reset_counts():
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     G.group_norm_fwd_legacy_cuda.launches = G.group_norm_bwd_legacy_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
-    CW.conv_wgrad_cuda.launches = AP.matmul_probe_cuda.launches = 0
+    CW.conv_wgrad_cuda.launches = CW.conv_wgrad_sm90_cuda.launches = 0
+    AP.matmul_probe_cuda.launches = 0
     AP.transposed_attention_cuda.launches = AP.hybrid_attention_cuda.launches = 0
     SP.softmax_stats_cuda.launches = SP.transpose_accumulate_cuda.launches = 0
     AV.attention_variant_cuda.launches = 0
@@ -631,6 +645,7 @@ def counts():
             "gn_fwd_legacy": G.group_norm_fwd_legacy_cuda.launches,
             "gn_bwd_legacy": G.group_norm_bwd_legacy_cuda.launches,
             "int8": I8.int8_attention_cuda.launches, "wgrad": CW.conv_wgrad_cuda.launches,
+            "wgrad_sm90": CW.conv_wgrad_sm90_cuda.launches,
             "mm_probe": AP.matmul_probe_cuda.launches,
             "attn_t": AP.transposed_attention_cuda.launches,
             "hybrid": AP.hybrid_attention_cuda.launches,
@@ -639,15 +654,28 @@ def counts():
             "variant": AV.attention_variant_cuda.launches}
 
 
-def expected(size, forwards, backwards=0):
+@functools.lru_cache(maxsize=None)
+def wgrad_routes(cfg, size, batch):
+    """How many stride-1 3x3 convs of ``cfg``'s UNet at ``size`` px and
+    ``batch`` ``CW.wgrad_route`` gives each body: {"sm90": n, "mma": n}."""
+    routes = [CW.wgrad_route(*shape, cfg.dtype)
+              for _, *shape in prototype_wgrad_kernel.site_shapes(size, batch, cfg)]
+    assert len(routes) == WGRAD_SITES, len(routes)
+    return {k: routes.count(k) for k in ("sm90", "mma")}
+
+
+def expected(size, forwards, backwards=0, cfg=None, batch=None):
     """The launch counts of ``forwards`` UNet forwards and ``backwards``
-    backwards at ``size`` px."""
+    backwards at ``size`` px (a backward: of ``cfg``'s UNet at ``batch``,
+    whose routed 3x3 convs launch a weight-gradient kernel each)."""
     qkv, flash = ROUTES[size]
+    wg = wgrad_routes(cfg, size, batch) if backwards else {"sm90": 0, "mma": 0}
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "attn_fwd_mma": 0, "flash_fwd_mma": 0, "attn_bwd_mma": 0, "flash_bwd_mma": 0,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
-            "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": 0, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
+            "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": wg["mma"] * backwards,
+            "wgrad_sm90": wg["sm90"] * backwards, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
             "transpose": 0, "variant": 0}
 
 
@@ -855,6 +883,12 @@ def wgrad_case(b, h, w, c, co, dtype, gen):
     assert math.isfinite(row["max_rel_err"]) and row["max_rel_err"] <= TOL_WGRAD[dtype], (
         f"conv_wgrad vs plain at {row['shape']} {dtype}: {row['max_rel_err']} > "
         f"{TOL_WGRAD[dtype]}")
+    if "sm90_ms" in row:  # the wgmma body takes the shape
+        err = row["sm90_max_rel_err"]
+        assert math.isfinite(err) and err <= TOL_WGRAD[dtype], (
+            f"conv_wgrad_sm90 vs plain at {row['shape']}: {err} > {TOL_WGRAD[dtype]}")
+        first = CW.conv_wgrad_sm90_cuda(x, dy)
+        assert torch.equal(CW.conv_wgrad_sm90_cuda(x, dy), first), "sm90: other bits on repeat"
     print("conv_wgrad " + json.dumps(row), flush=True)
     return row
 
@@ -881,6 +915,12 @@ def phase_8b(gen, card):
                   wgrad_case(8, 256, 256, 128, 3, torch.bfloat16, gen),    # the output conv
                   wgrad_case(3, 20, 27, 40, 24, torch.bfloat16, gen),      # ragged tiles
                   wgrad_case(2, 20, 24, 16, 24, torch.float32, gen)]       # f32, TF32 off
+    # the wgmma body's five shapes: the tool's and the ragged one above, and
+    # a site of each of levels 0-2 of the 256 px step (WGRAD_SM90_CASES)
+    wgrad_rows += [wgrad_case(*shape, torch.bfloat16, gen) for shape in WGRAD_SM90_CASES[1:4]]
+    deltas = [prototype_wgrad_kernel.delta_check(*shape, gen) for shape in WGRAD_DELTA_CASES]
+    print("conv_wgrad_sm90 delta " + json.dumps(deltas), flush=True)
+    assert all(d["exact"] and d["deltas"] >= 9 for d in deltas), deltas
     attn_t_rows = [transposed_case(8, 4096, 8, 48, torch.bfloat16, gen),  # the probe's shape
                    transposed_case(2, 1000, 3, 40, torch.float32, gen)]   # ragged f32
     torch.cuda.empty_cache()
@@ -893,6 +933,8 @@ def phase_8b(gen, card):
         launched = counts()
         assert launched[name] > 0, (name, launched)
         res["launches"] = launched[name]
+        if name == "wgrad":
+            res["launches_sm90"] = launched["wgrad_sm90"]
         tools[name] = res
         torch.cuda.empty_cache()
     sweep = tools["wgrad"]
@@ -900,6 +942,9 @@ def phase_8b(gen, card):
     assert sweep["sites"] == WGRAD_SITES, sweep["sites"]
     assert sweep["max_cudnn_rel_err"] <= TOL_WGRAD_CUDNN, sweep["max_cudnn_rel_err"]
     assert sweep["max_rel_err"] <= TOL_WGRAD[torch.bfloat16], sweep["max_rel_err"]
+    assert sweep["max_sm90_rel_err"] <= TOL_WGRAD[torch.bfloat16], sweep["max_sm90_rel_err"]
+    assert sweep["max_sm90_cudnn_rel_err"] <= TOL_WGRAD_CUDNN, sweep["max_sm90_cudnn_rel_err"]
+    assert sweep["launches_sm90"] > 0 and sweep["sites_sm90_takes"] == WGRAD_SITES - 2
     print("conv_wgrad over the 49 stride-1 3x3 sites of a sen12mscr256 step, b8: "
           + json.dumps(sweep["sums"]) + f"; {card}", flush=True)
     mm = tools["mm_probe"]
@@ -909,7 +954,7 @@ def phase_8b(gen, card):
     packed = tools["attn_t"]
     print("probe_packed_pv " + json.dumps(packed), flush=True)
     check_attention(packed, torch.bfloat16, "probe_packed_pv")
-    return wgrad_rows, attn_t_rows, sweep, mm, packed
+    return wgrad_rows, deltas, attn_t_rows, sweep, mm, packed
 
 
 def check_attention(row, dtype, what):
@@ -1057,7 +1102,7 @@ def unet_backward_check(model, size, batch, gen):
     model_fn = lambda x, t, c, y: model(x, t)
     grads, losses, launched = {}, {}, None
     for impl in ("auto", "plain"):
-        model.set_impl(attn=impl, norm=impl).zero_grad(set_to_none=True)
+        model.set_impl(attn=impl, norm=impl, conv=impl).zero_grad(set_to_none=True)
         reset_counts()
         loss = diffusion.train_loss(model_fn, x0, t=ts, noise=noise)
         loss.backward()
@@ -1083,7 +1128,7 @@ def unet_backward_check(model, size, batch, gen):
           f"kernel vs plain {rel:.3e} (tol {TOL_UNET_GRAD_REL}), launches {launched}",
           flush=True)
     assert rel <= TOL_UNET_GRAD_REL, rel
-    assert launched == expected(size, 1, 1), launched
+    assert launched == expected(size, 1, 1, model.config, batch), launched
 
 
 def run_train(tmp, seed):
@@ -1101,7 +1146,9 @@ def run_train(tmp, seed):
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     assert res["steps"] == TRAIN_STEPS and len(res["losses"]) == TRAIN_STEPS, res["steps"]
     assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
-    assert res["launches"] == expected(256, TRAIN_STEPS, TRAIN_STEPS), res["launches"]
+    cfg = get_preset("sen12mscr256").unet_config(cond_channels=3)
+    want = expected(256, TRAIN_STEPS, TRAIN_STEPS, cfg, 8)
+    assert res["launches"] == want and want["wgrad_sm90"] > 0, (res["launches"], want)
 
     # parameters and EMA moved away from the seeded initial weights
     state = res["state"]
@@ -1147,7 +1194,9 @@ def run_train_512(tmp, seed):
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     assert res["steps"] == TRAIN_STEPS_512, res["steps"]
     assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
-    assert res["launches"] == expected(512, TRAIN_STEPS_512, TRAIN_STEPS_512), res["launches"]
+    cfg = get_preset("sen12mscr256").unet_config(cond_channels=3)
+    want = expected(512, TRAIN_STEPS_512, TRAIN_STEPS_512, cfg, 4)
+    assert res["launches"] == want and want["wgrad_sm90"] > 0, (res["launches"], want)
     del res["state"]
     return res
 
@@ -1501,7 +1550,7 @@ def main() -> int:
     print("probe_int8_attn " + json.dumps(probe), flush=True)
 
     # 8b. the conv weight-gradient kernel and the attention-matmul probes
-    wgrad_rows, attn_t_rows, sweep, mm, packed = phase_8b(gen, card)
+    wgrad_rows, wgrad_deltas, attn_t_rows, sweep, mm, packed = phase_8b(gen, card)
 
     # 8c. the softmax-orientation probes and the attention variants
     small, probes = phase_8c(gen)
@@ -1689,6 +1738,7 @@ def main() -> int:
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {}))]
     qk = mm["variants"][0]  # QK^T as shipped, one launch
+    sm90_rows = [r for r in wgrad_rows if "sm90_ms" in r]
     kernels += [{
         "name": "conv_wgrad",
         "route": "cuda",
@@ -1705,7 +1755,27 @@ def main() -> int:
         "sites": sweep["sites"],
         "sites_sums": sweep["sums"],
         "sites_max_cudnn_rel_err": sweep["max_cudnn_rel_err"],
-        "shapes": wgrad_rows,
+        "shapes": wgrad_rows[:5],
+    }, {
+        "name": "conv_wgrad_sm90",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/conv_wgrad_sm90.cu",
+        "replaces": "tools/prototype_wgrad_kernel.py:40",
+        "launches": train_res["launches"]["wgrad_sm90"],
+        "max_abs_err": max(r["sm90_max_abs_err"] for r in sm90_rows),
+        "ms": wgrad_rows[0]["sm90_ms"],
+        "was_ms": wgrad_rows[0]["kernel_ms"],
+        "plain_ms": wgrad_rows[0]["plain_ms"],
+        "bound_ms": wgrad_rows[0]["bound_ms"],
+        "bound_by": wgrad_rows[0]["bound_by"],
+        "library_ms": wgrad_rows[0]["library_ms"],
+        "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
+        "delta_checks": wgrad_deltas,
+        "sites": sweep["sites"],
+        "sites_routes": sweep["routes"],
+        "sites_sums": sweep["sums"],
+        "sites_max_cudnn_rel_err": sweep["max_sm90_cudnn_rel_err"],
+        "shapes": sm90_rows,
     }, {
         "name": "attn_matmul_probe",
         "route": "cuda",

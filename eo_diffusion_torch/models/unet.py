@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from eo_diffusion_torch.nn.primitives import (
     Conv,
@@ -72,6 +73,7 @@ class UNetConfig:
     channel_mult: Tuple[int, ...] = (1, 2, 4, 8)
     conv_resample: bool = True
     num_classes: Optional[int] = None
+    use_checkpoint: bool = False  # recompute each ResBlock's forward in the backward
     num_heads: int = 1
     num_head_channels: int = -1
     num_heads_upsample: int = -1
@@ -202,14 +204,18 @@ class ResBlock(nn.Module):
     branches between the first norm and conv. Each norm runs with its SiLU
     (and the FiLM scale-shift) folded in; the ``nn.SiLU`` entries stay in
     the ``Sequential`` modules so the state-dict names keep the reference's
-    indices.
+    indices. With ``use_checkpoint`` the block keeps only its inputs for the
+    backward and runs its forward again there (the JAX package's
+    ``nn.remat``); the RNG state is restored, so dropout draws the same mask.
     """
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, dropout: float = 0.0,
                  use_scale_shift_norm: bool = False, up: bool = False,
-                 down: bool = False, dtype: torch.dtype = torch.float32):
+                 down: bool = False, dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.use_checkpoint = use_checkpoint
         self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(),
                                        Conv(in_ch, out_ch, 3, dtype=dtype))
         emb_width = 2 * out_ch if use_scale_shift_norm else out_ch
@@ -220,6 +226,11 @@ class ResBlock(nn.Module):
                                 else Conv(in_ch, out_ch, 1, dtype=dtype))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, emb, use_reentrant=False)
+        return self._forward(x, emb)
+
+    def _forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_layers[0](x, act="silu")
         if self.up:
             h, x = nearest_upsample_2d(h), nearest_upsample_2d(x)
@@ -299,7 +310,7 @@ def _make_layer(cfg: UNetConfig, spec: LayerSpec) -> nn.Module:
     if spec.kind == "res":
         return ResBlock(spec.in_ch, spec.out_ch, cfg.time_embed_dim, dropout=cfg.dropout,
                         use_scale_shift_norm=cfg.use_scale_shift_norm, up=spec.up,
-                        down=spec.down, dtype=cfg.dtype)
+                        down=spec.down, dtype=cfg.dtype, use_checkpoint=cfg.use_checkpoint)
     if spec.kind == "attn":
         return AttentionBlock(spec.out_ch, spec.num_heads, cfg.use_new_attention_order,
                               dtype=cfg.dtype, attn_impl=cfg.attn_impl)
@@ -342,11 +353,14 @@ class UNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(plan.out_ch), nn.SiLU(),
                                  ZeroConv(plan.out_ch, cfg.out_channels, 3, dtype=dt))
 
-    def set_impl(self, attn: Optional[str] = None, norm: Optional[str] = None) -> "UNet":
-        """Put every attention block (``attn``) and/or every GroupNorm
-        (``norm``) on its kernel (``"auto"``) or its plain version
-        (``"plain"``); ``None`` leaves that kind as it is."""
-        for impl in (attn, norm):
+    def set_impl(self, attn: Optional[str] = None, norm: Optional[str] = None,
+                 conv: Optional[str] = None) -> "UNet":
+        """Put every attention block (``attn``), every GroupNorm (``norm``)
+        and/or every 3x3 stride-1 conv's weight gradient (``conv``: through
+        ``wgrad_route``) on its kernel (``"auto"``) or its plain version
+        (``"plain"``: cuDNN's autograd); ``None`` leaves that kind as it
+        is."""
+        for impl in (attn, norm, conv):
             if impl not in (None, "auto", "plain"):
                 raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         for m in self.modules():
@@ -354,6 +368,8 @@ class UNet(nn.Module):
                 m.attn_impl = attn
             if norm is not None and isinstance(m, GroupNorm32):
                 m.impl = norm
+            if conv is not None and isinstance(m, Conv):
+                m.impl = conv
         return self
 
     @staticmethod

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eo_diffusion_torch.ops.conv_wgrad import conv3x3
 from eo_diffusion_torch.ops.group_norm import fused_group_norm
 
 __all__ = [
@@ -97,16 +98,26 @@ class GroupNorm32(nn.Module):
 
 class Conv(nn.Conv2d):
     """2D conv on NHWC tensors with torch-style padding ``(k-1)//2``,
-    computed in ``dtype``."""
+    computed in ``dtype``.
+
+    A 3x3 stride-1 conv goes through
+    :func:`~eo_diffusion_torch.ops.conv_wgrad.conv3x3`: on the card, while
+    ``impl`` is ``"auto"``, its weight gradient is the hand-written kernel
+    wherever ``wgrad_route`` gives the shape one; ``"plain"``
+    (``UNet.set_impl(conv=)``) keeps cuDNN's autograd. Other convs always
+    take cuDNN's."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
                          padding=(kernel - 1) // 2)
         self.compute_dtype = dtype
+        self.impl = "auto"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.kernel_size == (3, 3) and self.stride == (1, 1):
+            return conv3x3(x, self.weight, self.bias, dt, self.impl)
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
                      self.bias.to(dt), self.stride, self.padding)
         return y.permute(0, 2, 3, 1)

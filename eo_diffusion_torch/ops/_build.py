@@ -32,7 +32,8 @@ KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_fwd_sm90": "attention
            "attention_bwd": "attention_bwd.cu", "attention_bwd_sm90": "attention_bwd_sm90.cu",
            "group_norm": "group_norm.cu", "group_norm_sm90": "group_norm_sm90.cu",
            "int8_attention": "int8_attention.cu",
-           "conv_wgrad": "conv_wgrad.cu", "attn_probes": "attn_probes.cu",
+           "conv_wgrad": "conv_wgrad.cu", "conv_wgrad_sm90": "conv_wgrad_sm90.cu",
+           "attn_probes": "attn_probes.cu",
            "softmax_probes": "softmax_probes.cu", "attn_variants": "attn_variants.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,9 +10,10 @@ step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class, from ``torch.profiler`` over ``--steps``
-  steps, with the attention forward (with lse), the attention backward and
-  the GroupNorm kernel's forward and backward as classes of their own, and
-  the device's idle share (1 - device time / step time);
+  steps, with the attention forward (with lse), the attention backward, the
+  GroupNorm kernel's forward and backward and the conv weight gradients
+  (cuDNN's wgrad kernels and the port's 2a with its partial sums) as classes
+  of their own, and the device's idle share (1 - device time / step time);
 * the kernels' launches per step and the peak device memory.
 
 Prints one JSON line and writes it to ``--out`` as well.
@@ -34,6 +35,7 @@ import torch
 from eo_diffusion_torch.cli.presets import build_process, get_preset
 from eo_diffusion_torch.models.unet import UNet
 from eo_diffusion_torch.ops import attention as A
+from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as G
 from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
 from eo_diffusion_torch.weights import randomize_parameters
@@ -45,6 +47,7 @@ _CLASSES = (
     ("group_norm_fwd", re.compile(r"gn_sm90_fwd|gn_(stats|finalize|apply)")),
     ("group_norm_bwd", re.compile(r"gn_sm90_bwd|gn_(bwd|dx)")),
     ("optimizer_ema", re.compile(r"multi_tensor|foreach|adam", re.I)),
+    ("conv_wgrad", re.compile(r"wgrad|sum_splits", re.I)),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
     ("norm_reduce", re.compile(r"reduce|norm|var_mean|welford", re.I)),
@@ -107,6 +110,7 @@ def main(argv=None) -> dict:
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
+    CW.conv_wgrad_sm90_cuda.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         steps(args.steps)
     fwd_launches, bwd_launches = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
@@ -143,6 +147,7 @@ def main(argv=None) -> dict:
         "flash_attention_bwd_launches_per_step": flash_launches[1] / args.steps,
         "group_norm_fwd_launches_per_step": gn_launches[0] / args.steps,
         "group_norm_bwd_launches_per_step": gn_launches[1] / args.steps,
+        "conv_wgrad_sm90_launches_per_step": CW.conv_wgrad_sm90_cuda.launches / args.steps,
         "peak_mem_gib": peak_gib,
     }
     line = json.dumps(res)

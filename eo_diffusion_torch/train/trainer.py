@@ -80,16 +80,22 @@ class TrainerConfig:
     preview_sampler: str = "ddpm"  # "ddpm" | "ddim"
     preview_steps: int = 50
     optimizer: str = "adamw"
-    # later slices of the port; the Trainer raises when they are set
+    # later slices of the port, with the JAX defaults; the Trainer raises when
+    # one leaves its default
     fsdp: bool = False
+    fsdp_min_size: int = 2**16
     tp: bool = False
     sp: bool = False
     ep: bool = False
     pp_micro: int = 0
     pp_virtual: int = 1
+    moe_aux_weight: float = 0.01
+    muon_lr_mult: float = 1.0
 
 
-_LATER = {"fsdp": 16, "tp": 16, "sp": 16, "ep": 16, "pp_micro": 16, "pp_virtual": 16}
+# option -> the ROADMAP queue that ports it
+_LATER = {"fsdp": 16, "fsdp_min_size": 16, "tp": 16, "sp": 16, "ep": 16, "pp_micro": 16,
+          "pp_virtual": 16, "moe_aux_weight": 13, "muon_lr_mult": 14}
 
 
 class TrainState:

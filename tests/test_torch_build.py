@@ -14,6 +14,7 @@ from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
 from eo_diffusion_torch.ops import attn_variants as AV
+from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as GN
 from eo_diffusion_torch.ops import softmax_probes as SP
 
@@ -115,6 +116,8 @@ def test_every_kernel_has_its_source():
     ("group_norm_sm90", "eo_gn_sm90_blocks_per_sm", GN._ARGTYPES["eo_gn_sm90_blocks_per_sm"]),
     ("group_norm", "eo_group_norm_fwd", GN._ARGTYPES["eo_group_norm_fwd"]),
     ("group_norm", "eo_group_norm_bwd", GN._ARGTYPES["eo_group_norm_bwd"]),
+    ("conv_wgrad", "eo_conv_wgrad", CW._ARGTYPES),
+    ("conv_wgrad_sm90", "eo_conv_wgrad_sm90", CW._ARGTYPES_SM90),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_the_probe_wrappers_declare_their_c_entries(kernel, entry, argtypes):
     """The ctypes declarations of the probe kernels' wrappers match the C
@@ -191,3 +194,16 @@ def test_the_planner_and_the_kernel_share_their_limits():
     assert consts["kMaxThreadsFwd"] == GN.WIDE_THREADS
     assert 32 * consts["kMaxPerLane"] == GN.MAX_BLOCKS
     assert "1024 / C" in src and GN.stage_slots(128) == 8 and GN.stage_slots(4096) == 1
+
+
+@pytest.mark.parametrize("source", ["conv_wgrad.cu", "conv_wgrad_sm90.cu"])
+def test_the_wgrad_bodies_share_the_wrappers_tiles(source):
+    """Both weight-gradient bodies tile dy as the wrappers' split planners
+    assume (kTH x kTW pixels, kCT channels), and the wgmma body is a kernel
+    of its own on the warpgroup header."""
+    src = (Path(_build.__file__).parent / "csrc" / source).read_text()
+    consts = {name: int(value) for decl in re.findall(r"constexpr int ([^;]+);", src)
+              for name, value in re.findall(r"(k\w+) = (\d+)\b(?![^,]*[*/+(])", decl)}
+    assert (consts["kTH"], consts["kTW"], consts["kCT"]) == (CW.TILE_H, CW.TILE_W, CW.TILE_C)
+    assert _build.KERNELS[CW._KERNEL_SM90] == "conv_wgrad_sm90.cu"
+    assert ('#include "wgmma_tile.cuh"' in src) == (source == "conv_wgrad_sm90.cu")

@@ -938,16 +938,16 @@ def test_wgrad_kernel_matches_plain(dev, b, h, w, c, co, dtype):
 
     x, dy = _wgrad_inputs(b, h, w, c, co, dtype, seed=c + co)
     before = CW.conv_wgrad_cuda.launches
-    got = CW.conv_wgrad(x, dy)
+    got = CW.conv_wgrad_cuda(x, dy)  # the mma.sync body (conv_wgrad follows the route)
     ref = CW.conv_wgrad_reference(x, dy)
     torch.cuda.synchronize()
     assert CW.conv_wgrad_cuda.launches == before + 1
     assert got.shape == (3, 3, c, co) and got.dtype == torch.float32
     err = (got - ref).abs().max().item() / ref.abs().max().item()
     assert err <= WGRAD_TOL[dtype], err
-    assert torch.equal(CW.conv_wgrad(x, dy), got)  # a fixed order of sums: the same bits
+    assert torch.equal(CW.conv_wgrad_cuda(x, dy), got)  # a fixed order of sums: the same bits
     xt = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # strided: copied
-    assert torch.equal(CW.conv_wgrad(xt, dy), got)
+    assert torch.equal(CW.conv_wgrad_cuda(xt, dy), got)
 
 
 def test_wgrad_kernel_matches_cudnns_conv_weight_gradient(dev):
@@ -955,6 +955,7 @@ def test_wgrad_kernel_matches_cudnns_conv_weight_gradient(dev):
     from eo_diffusion_torch.ops import conv_wgrad as CW
 
     conv = Conv(48, 40, dtype=torch.bfloat16).to(dev)
+    conv.impl = "plain"  # cuDNN's weight gradient in .grad
     x = _wgrad_inputs(2, 24, 20, 48, 1, torch.bfloat16, seed=5)[0]
     saved = {}
     y = conv(x)
@@ -977,6 +978,115 @@ def test_wgrad_kernel_refuses_what_it_does_not_take(dev):
             CW.conv_wgrad_cuda(*bad)
     CW.conv_wgrad_reference(x, dy)
     assert CW.conv_wgrad_cuda.launches == before
+
+
+# the wgmma/TMA body: chip_smoke.py phase 8b's five shapes (WGRAD_SM90_CASES
+# there), C 256 -> 256, C 1024 -> 512 at 32 x 32 and a ragged C 64 shape
+WGRAD_SM90_SHAPES = [(8, 256, 256, 128, 128), (8, 256, 256, 256, 128), (8, 128, 128, 256, 256),
+                     (8, 64, 64, 384, 384), (3, 20, 27, 40, 24), (2, 64, 64, 256, 256),
+                     (8, 32, 32, 1024, 512), (1, 13, 29, 64, 72)]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", WGRAD_SM90_SHAPES)
+def test_wgrad_sm90_matches_plain(dev, b, h, w, c, co):
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    x, dy = _wgrad_inputs(b, h, w, c, co, torch.bfloat16, seed=c + co + h)
+    before = CW.conv_wgrad_sm90_cuda.launches
+    got = CW.conv_wgrad(x, dy)  # the route's pick at every such shape
+    ref = CW.conv_wgrad_reference(x, dy)
+    torch.cuda.synchronize()
+    assert CW.conv_wgrad_sm90_cuda.launches == before + 1
+    assert got.shape == (3, 3, c, co) and got.dtype == torch.float32
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= WGRAD_TOL[torch.bfloat16], err
+    assert torch.equal(CW.conv_wgrad_sm90_cuda(x, dy), got)  # a fixed order: the same bits
+    xt = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # strided: copied
+    assert torch.equal(CW.conv_wgrad_sm90_cuda(xt, dy), got)
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 20, 37, 64, 64), (2, 16, 16, 128, 64),
+                                        (1, 9, 33, 64, 24), (3, 24, 40, 72, 136)])
+def test_wgrad_sm90_holds_each_tap_apart(dev, b, h, w, c, co):
+    """dy a 1 at a few pixels (one output channel each): every tap's slice of
+    dW is exactly the x pixel at its offset, or the padding's zero."""
+    from eo_diffusion_torch.tools.prototype_wgrad_kernel import delta_check
+
+    res = delta_check(b, h, w, c, co, torch.Generator(device="cuda").manual_seed(c))
+    assert res["exact"] and res["deltas"] >= 9, res
+
+
+def test_wgrad_sm90_refuses_what_it_does_not_take(dev):
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    x, dy = _wgrad_inputs(1, 8, 8, 16, 16, torch.bfloat16, seed=0)
+    before = CW.conv_wgrad_sm90_cuda.launches
+    for bad in ((x.cpu(), dy.cpu()), (x.float(), dy.float()), (x.half(), dy.half()),
+                (x, dy.float()), (x[..., :6], dy), (x, dy[..., :3]), (x[0], dy[0])):
+        with pytest.raises(ValueError):
+            CW.conv_wgrad_sm90_cuda(*bad)
+    with pytest.raises(ValueError):  # the route gives C 6 to cuDNN: the entry has no kernel
+        CW.conv_wgrad(x[..., :6].contiguous(), dy)
+    assert CW.conv_wgrad_sm90_cuda.launches == before
+
+
+@pytest.mark.parametrize("c,co", [(48, 40), (64, 128), (6, 32)])
+def test_routed_conv_gradients_match_cudnns(dev, c, co):
+    """A bf16 3x3 Conv through the route (Conv3x3Fn: the kernel's dW, cuDNN's
+    dx, an f32 db) against cuDNN's autograd: dW and db differ by the one
+    bf16 rounding of cuDNN's (2^-9 relative) and the order of sums."""
+    from eo_diffusion_torch.nn.primitives import Conv
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    conv = Conv(c, co, dtype=torch.bfloat16).to(dev)
+    x = _wgrad_inputs(2, 24, 20, c, 1, torch.bfloat16, seed=c)[0].float()
+    dy = torch.randn(2, 24, 20, co, device="cuda")
+    grads, launched = {}, {}
+    for impl in ("auto", "plain"):
+        conv.impl = impl
+        conv.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        before = CW.conv_wgrad_sm90_cuda.launches
+        (conv(xi).float() * dy).sum().backward()
+        launched[impl] = CW.conv_wgrad_sm90_cuda.launches - before
+        grads[impl] = (conv.weight.grad, conv.bias.grad, xi.grad)
+    assert launched == {"auto": int(c % 8 == 0), "plain": 0}
+    for got, want in zip(grads["auto"], grads["plain"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= 1e-2, err
+
+
+def test_unet_backward_with_checkpoint_through_the_kernels(dev):
+    """use_checkpoint: every ResBlock recomputed in the backward, through the
+    attention, GroupNorm and conv-wgrad Functions. The kernels are
+    deterministic, so the gradients are those of the kernels without it, bit
+    for bit; against the all-plain model without it they differ by the bf16
+    roundings that part the kernels from the plain versions (rel L2 over all
+    gradients; at this tiny width, 32 channels, about 1.2e-2, where the 256
+    px model in chip_smoke.py reads under its 1e-2)."""
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    cfg = TU.UNetConfig(image_size=16, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=2, dtype=torch.bfloat16)
+    runs = {"checkpoint": (True, "auto"), "kernels": (False, "auto"), "plain": (False, "plain")}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2, 16, 16, 3, generator=g, device="cuda")
+    t = torch.tensor([3, 700], device="cuda")
+    grads = {}
+    for name, (ck, impl) in runs.items():
+        model = randomize_parameters(TU.UNet(dataclasses.replace(cfg, use_checkpoint=ck)),
+                                     seed=0).to(dev).set_impl(attn=impl, norm=impl, conv=impl)
+        before = CW.conv_wgrad_sm90_cuda.launches
+        model(x, t).float().square().mean().backward()
+        grads[name] = [p.grad.float() for p in model.parameters()]
+        assert (CW.conv_wgrad_sm90_cuda.launches > before) == (impl == "auto")
+    assert all(torch.isfinite(a).all() for a in grads["checkpoint"])
+    assert all(torch.equal(a, b) for a, b in zip(grads["checkpoint"], grads["kernels"]))
+    num = sum((a - b).pow(2).sum().item() for a, b in zip(grads["checkpoint"], grads["plain"]))
+    den = sum(b.pow(2).sum().item() for b in grads["plain"])
+    assert (num / den) ** 0.5 <= 3e-2, (num / den) ** 0.5
 
 
 # -- the attention-matmul probes ---------------------------------------------------

@@ -275,8 +275,21 @@ def test_label_dropout_draws_from_the_explicit_generator():
 
 @pytest.mark.parametrize("field,queue", [("fsdp", 16), ("tp", 16), ("sp", 16), ("ep", 16),
                                          ("pp_micro", 16), ("optimizer", 14),
-                                         ("preview_sampler", 11)])
+                                         ("preview_sampler", 11), ("fsdp_min_size", 16),
+                                         ("moe_aux_weight", 13), ("muon_lr_mult", 14)])
 def test_unported_layouts_raise_with_their_queue(field, queue):
-    value = {"pp_micro": 2, "optimizer": "muon", "preview_sampler": "dpm"}.get(field, True)
+    value = {"pp_micro": 2, "optimizer": "muon", "preview_sampler": "dpm", "fsdp_min_size": 1024,
+             "moe_aux_weight": 0.1, "muon_lr_mult": 2.0}.get(field, True)
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         _port_trainer(**{field: value})
+
+
+def test_later_fields_carry_the_jax_defaults():
+    """fsdp_min_size, moe_aux_weight and muon_lr_mult exist with the JAX
+    trainer's defaults, which a trainer accepts (moe_aux_weight counts only
+    with experts, which the trainer refuses on their own)."""
+    fields = ("fsdp_min_size", "moe_aux_weight", "muon_lr_mult")
+    jax_defaults = {f: getattr(JConfig(), f) for f in fields}
+    assert {f: getattr(TConfig(), f) for f in fields} == jax_defaults == {
+        "fsdp_min_size": 65536, "moe_aux_weight": 0.01, "muon_lr_mult": 1.0}
+    _port_trainer(**jax_defaults)

@@ -6,7 +6,6 @@ Every leaf is randomized because ZeroConv/ZeroDense make the fresh output
 conv, each ResBlock's out_layers.3 and each attention proj_out exactly zero:
 on fresh params the eps prediction would compare as 0 = 0."""
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +33,8 @@ def one_torch_thread():
 def configs(**kw):
     """The same UNet config for the JAX package (f32) and the port (f32)."""
     jcfg = JU.UNetConfig(**kw)
-    fields = {f.name for f in dataclasses.fields(TU.UNetConfig)} - {"dtype", "attn_impl"}
-    tcfg = TU.UNetConfig(**{k: v for k, v in kw.items() if k in fields})
+    own = {"dtype", "attn_impl"}  # each package's own values; any other field must exist in both
+    tcfg = TU.UNetConfig(**{k: v for k, v in kw.items() if k not in own})
     return jcfg, tcfg
 
 
