@@ -54,7 +54,18 @@ Phases, in order; the first failure exits non-zero:
    backward of phases 4, 7 and 7b; 0 on every sampling path); the
    checkpoint restores and the sampling entry point samples from it; 7b. the
    same entry point at ``--image_size 512``, batch 4 (attention forward and
-   backward 5 + 6 a step);
+   backward 5 + 6 a step); 7c. the SEN12MS-CR feed at full width: a tree
+   of GeoTIFFs written by the script's own writer (4 scenes x 16 patches at
+   256 px; s1 2 bands float32 and s2 13 bands uint16 uncompressed,
+   s2_cloudy deflate with the predictor), decoded by the port's native
+   library (asserted to be its own build in ``_build/``, bit for bit against
+   the written rasters); the train loader alone over one epoch (ms a batch
+   of 8 at num_workers 0 and 8); ``cli.train --dataset sen12mscr
+   --data_root`` at batch 8 for two epochs (12 steps; the first batch on the
+   card equal to the loader's, the launches as in phase 7), its steady
+   steps/s, step alone and with the feed, beside phase 7's; ``cli.inference``
+   DDIM-4 from its checkpoint on the test split's cloudy views; the device
+   cache's gather on the card against numpy;
 8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
    once: the int8 core's error, its time beside the bf16 kernels' and the
    Amdahl share of a DiT-B/4 call at the latent256 shape;
@@ -96,11 +107,14 @@ import functools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -239,6 +253,11 @@ WGRAD_DELTA_CASES = [(2, 20, 37, 64, 64), (2, 16, 16, 128, 64), (1, 9, 33, 64, 2
 TRAIN_STEPS = 8
 TRAIN_STEPS_512 = 6
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
+# phase 7c: a SEN12MS-CR tree of SEN12_SCENES x SEN12_PATCHES triplets at
+# 256 px (s1: 2 bands float32; s2, s2_cloudy: 13 bands uint16), 54 of them in
+# the train split (batches of 8: 6 a epoch), 10 in the test split
+SEN12_SCENES, SEN12_PATCHES, SEN12_SIZE = 4, 16, 256
+SEN12_EPOCHS = 2
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -1201,6 +1220,237 @@ def run_train_512(tmp, seed):
     return res
 
 
+def write_geotiff(path, arr, deflate=False, rows_per_strip=16):
+    """A baseline TIFF of the [H, W, S] uint16 or float32 array ``arr``:
+    little endian, chunky, strips of ``rows_per_strip`` rows; uncompressed,
+    or deflate with the horizontal predictor (uint16 only)."""
+    h, w, s = arr.shape
+    bits, fmt = (16, 1) if arr.dtype == np.uint16 else (32, 3)
+    segs = []
+    for r0 in range(0, h, rows_per_strip):
+        seg = arr[r0:r0 + rows_per_strip]
+        if deflate:  # each sample minus its left neighbour, in uint16 arithmetic
+            seg = np.concatenate([seg[:, :1], np.diff(seg, axis=1)], axis=1)
+            segs.append(zlib.compress(np.ascontiguousarray(seg).tobytes()))
+        else:
+            segs.append(np.ascontiguousarray(seg).tobytes())
+    segs = [seg + b"\0" * (len(seg) & 1) for seg in segs]  # word-aligned offsets
+    offsets = list(np.cumsum([8] + [len(seg) for seg in segs[:-1]]))
+    end = 8 + sum(len(seg) for seg in segs)
+    extra = bytearray()
+
+    def entry(tag, typ, values):  # typ 3: SHORT, 4: LONG
+        packed = struct.pack(f"<{len(values)}{'H' if typ == 3 else 'I'}", *values)
+        if len(packed) <= 4:
+            return struct.pack("<HHI", tag, typ, len(values)) + packed.ljust(4, b"\0")
+        off = end + len(extra)
+        extra.extend(packed)
+        return struct.pack("<HHII", tag, typ, len(values), off)
+
+    tags = [entry(256, 4, [w]), entry(257, 4, [h]), entry(258, 3, [bits] * s),
+            entry(259, 3, [8 if deflate else 1]), entry(262, 3, [1]),
+            entry(273, 4, [int(o) for o in offsets]), entry(277, 3, [s]),
+            entry(278, 4, [rows_per_strip]), entry(279, 4, [len(seg) for seg in segs]),
+            entry(284, 3, [1])] + ([entry(317, 3, [2])] if deflate else []) + [
+            entry(339, 3, [fmt] * s)]
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, end + len(extra)))
+        f.write(b"".join(segs) + bytes(extra))
+        f.write(struct.pack("<H", len(tags)) + b"".join(tags) + struct.pack("<I", 0))
+
+
+def write_sen12_tree(root, seed):
+    """A SEN12MS-CR tree (``ROIs1868_summer/{s1,s2,s2_cloudy}_<scene>/
+    ROIs1868_summer_<sensor>_<scene>_p<patch>.tif``): terrain of smooth
+    reflectances plus noise in the clear view, a bright cloud over part of
+    it in the cloudy view. s1 and s2 are written uncompressed, s2_cloudy
+    with deflate and the predictor. Returns the written arrays of one
+    triplet by sensor and the tree's size in bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(seed)
+    season, n, cells = "ROIs1868_summer", SEN12_SIZE, SEN12_SIZE // 16
+    one, jobs = None, []
+    with ThreadPoolExecutor(max_workers=8) as pool:  # zlib releases the GIL
+        for scene in range(1, SEN12_SCENES + 1):
+            terrain = rng.integers(300, 4000, (cells, cells, 13)).repeat(16, 0).repeat(16, 1)
+            for sensor in ("s1", "s2", "s2_cloudy"):
+                os.makedirs(os.path.join(root, season, f"{sensor}_{scene}"), exist_ok=True)
+            for patch in range(SEN12_PATCHES):
+                clear = terrain + rng.integers(0, 400, (n, n, 13))
+                cloud = np.clip(rng.normal(0, 1, (cells, cells)).repeat(16, 0).repeat(16, 1)
+                                + rng.uniform(-1, 1), 0, 1)[..., None]
+                arrays = {"s1": rng.normal(-12, 4, (n, n, 2)).astype(np.float32),
+                          "s2": clear.astype(np.uint16),
+                          "s2_cloudy": np.minimum(clear + 7000 * cloud, 10000).astype(np.uint16)}
+                paths = {sensor: os.path.join(root, season, f"{sensor}_{scene}",
+                                              f"{season}_{sensor}_{scene}_p{patch}.tif")
+                         for sensor in arrays}
+                for sensor, arr in arrays.items():
+                    jobs.append(pool.submit(write_geotiff, paths[sensor], arr,
+                                            deflate=sensor == "s2_cloudy"))
+                if one is None:
+                    one = {sensor: (paths[sensor], arr) for sensor, arr in arrays.items()}
+        for job in jobs:
+            job.result()
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(root) for f in files)
+    return one, nbytes
+
+
+class FirstCall:
+    """Records the arguments of the first call of ``owner.name`` (tensors
+    copied to the host) while it is installed; the call itself goes on."""
+
+    def __init__(self, owner, name, pick):
+        self.owner, self.name, self.pick, self.seen = owner, name, pick, None
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kwargs):
+            if self.seen is None:
+                self.seen = {k: (v.device.type, v.detach().cpu())
+                             for k, v in self.pick(*args, **kwargs).items()}
+            return real(*args, **kwargs)
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def phase_7c(tmp, card, synthetic):
+    """The SEN12MS-CR feed at full width: a GeoTIFF tree on disk, decoded by
+    the port's native library, through the loader and device_prefetch into
+    sen12mscr256 training at batch 8, sampling from its checkpoint on the
+    test split's cloudy views, and the device cache. ``synthetic`` is phase
+    7's result, whose steady steps/s it is printed beside."""
+    import importlib.util
+
+    import eo_diffusion_torch
+    from eo_diffusion_torch.data import native
+    from eo_diffusion_torch.data.device_cache import DeviceDataCache, gather_core
+    from eo_diffusion_torch.data.factories import create_sen12mscr_dataloaders
+    from eo_diffusion_torch.data.sen12ms_cr import S1Bands, S2Bands, _default_reader
+    from eo_diffusion_torch.train import trainer as TR
+
+    # (a) the tree
+    root = os.path.join(tmp, "SEN12MS_CR")
+    t0 = time.perf_counter()
+    one, nbytes = write_sen12_tree(root, seed=7)
+    write_s = time.perf_counter() - t0
+
+    # (b) the decoder: the port's own build, bit for bit against the rasters
+    lib = native.loaded_path()
+    build_dir = os.path.join(os.path.dirname(eo_diffusion_torch.__file__), "_build")
+    assert lib == str(native.library_path()) and os.path.dirname(lib) == build_dir, lib
+    assert importlib.util.find_spec("rasterio") is None  # the reader's first choice is absent
+    decode_ms = {}
+    for sensor, (path, arr) in one.items():
+        np.testing.assert_array_equal(native.read_tiff(path), arr.astype(np.float32))
+        bands = list(S1Bands.ALL.value if sensor == "s1" else S2Bands.RGB.value)
+        np.testing.assert_array_equal(_default_reader(path, bands),
+                                      arr.astype(np.float32)[:, :, [b - 1 for b in bands]])
+        t0 = time.perf_counter()
+        for _ in range(10):
+            native.read_tiff(path)
+        decode_ms[sensor] = (time.perf_counter() - t0) * 100
+    print(f"sen12mscr tree: {SEN12_SCENES * SEN12_PATCHES} triplets, {nbytes / 1e6:.1f} MB "
+          f"written in {write_s:.2f} s; native decoder {os.path.basename(lib)} (built from "
+          f"eo_diffusion_torch/data/csrc) bit-exact on s1, s2, s2_cloudy (deflate + "
+          f"predictor); read_tiff ms a file {json.dumps(decode_ms)}", flush=True)
+
+    # (c) the host feed alone: one epoch of the train loader at the factory's
+    # defaults (num_workers 0, prefetch 2), then with 8 worker threads
+    feed = {}
+    for workers in (0, 8):
+        loader = create_sen12mscr_dataloaders(8, root=root, num_workers=workers)[0]
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        feed[workers] = (time.perf_counter() - t0) * 1e3 / n
+    assert n == 6, n
+    print(f"sen12mscr host feed b8 (24 GeoTIFF decodes a batch), no model: "
+          f"{feed[0]:.3f} ms a batch at num_workers 0, {feed[8]:.3f} ms at num_workers 8; "
+          f"{card}", flush=True)
+
+    # (d) training at full width from the tree: the first batch on the card is
+    # the loader's, bit for bit
+    steps = SEN12_EPOCHS * 6
+    argv = ["--preset", "sen12mscr256", "--dataset", "sen12mscr", "--data_root", root,
+            "--batch_size", "8", "--epochs", str(SEN12_EPOCHS), "--sample_every", "0",
+            "--save_every", "0", "--model_ema_steps", "2", "--log_freq", "6", "--seed", "8",
+            "--device", "cuda", "--dir", "results/train_sen12mscr"]
+    reset_counts()
+    with contextlib.chdir(tmp), FirstCall(TR.Trainer, "step",
+                                          lambda self, state, batch: batch) as first:
+        res = cli_train.main(cli_train.parse_args(argv))
+    launched = counts()
+    assert res["steps"] == steps and all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    cfg = get_preset("sen12mscr256").unet_config(cond_channels=3)
+    assert launched == expected(256, steps, steps, cfg, 8), launched
+    want = next(iter(create_sen12mscr_dataloaders(8, root=root)[0]))
+    assert sorted(first.seen) == ["cond", "image"], sorted(first.seen)
+    for key, ref in (("image", "image"), ("cond", "cond_image")):
+        dev, got = first.seen[key]
+        assert dev == "cuda" and got.dtype == torch.float32, (dev, got.dtype)
+        np.testing.assert_array_equal(got.numpy(), want[ref])
+
+    def steady(r):  # steps/s after cuDNN's plan search: steps alone, and with the feed
+        st, wt = r["step_seconds"][2:], r["wait_seconds"][2:]
+        return len(st) / sum(st), len(st) / (sum(st) + sum(wt)), 1e3 * sum(wt) / len(wt)
+
+    sps, sps_fed, wait_ms = steady(res)
+    syn_sps, syn_fed, syn_wait = steady(synthetic)
+    print(f"training path sen12mscr256 b8 bf16 from GeoTIFFs: {steps} steps, loss "
+          f"{res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; steady {sps:.4f} steps/s "
+          f"(step alone), {sps_fed:.4f} steps/s with the feed ({wait_ms:.3f} ms a step "
+          f"waiting for the batch); phase 7 synthetic: {syn_sps:.4f} and {syn_fed:.4f} "
+          f"steps/s ({syn_wait:.3f} ms); launches {launched}; {card}", flush=True)
+
+    # (e) sampling from its checkpoint, conditioned on the test split's cloudy views
+    args = cli.parse_args(["--preset", "sen12mscr256", "--dataset", "sen12mscr", "--data_root",
+                           root, "--ckpt", res["checkpoint"], "--sampler", "ddim",
+                           "--sampler_steps", "4", "--batch_size", "8", "--n_iter", "0",
+                           "--device", "cuda", "--seed", "8",
+                           "--outdir", os.path.join(tmp, "out_sen12mscr")])
+    reset_counts()
+    with FirstCall(GaussianDiffusion, "ddim_sample",
+                   lambda self, *a, **kw: {"cond": kw["cond"]}) as cond:
+        sampled = cli.main(args)
+    x = torch.as_tensor(sampled["samples"])
+    assert x.shape == (8, 256, 256, 3) and bool(torch.isfinite(x).all()), x.shape
+    assert counts() == expected(256, 4), counts()
+    test_batch = next(iter(create_sen12mscr_dataloaders(8, root=root, test=True)[1]))
+    dev, got = cond.seen["cond"]
+    assert dev == "cuda"
+    np.testing.assert_array_equal(got.numpy(), test_batch["cond_image"])
+
+    # (f) the device cache: gathered on the card, equal to numpy's gather
+    items = [create_sen12mscr_dataloaders(8, root=root, return_dataset=True)[0][i]
+             for i in range(16)]
+    data = {k: np.stack([it[k] for it in items]) for k in ("image", "cond_image")}
+    cache = DeviceDataCache(data, "cuda")
+    idx = np.array([5, 0, 15, 5, 9, 3, 12, 1])
+    do_h = np.array([1, 0, 1, 0, 1, 0, 0, 1], bool)
+    do_v = np.array([0, 0, 1, 1, 1, 0, 1, 0], bool)
+    out = gather_core(cache.tensors, *(torch.from_numpy(a).cuda() for a in (idx, do_h, do_v)))
+    for k, v in data.items():
+        ref = v[idx]
+        ref = np.where(do_h[:, None, None, None], ref[:, :, ::-1], ref)
+        ref = np.where(do_v[:, None, None, None], ref[:, ::-1], ref)
+        np.testing.assert_array_equal(out[k].cpu().numpy(), ref)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    gather_ms = cuda_ms(lambda: cache.sample_batch(g, 8), reps=20)
+    print(f"device cache: 16 triplets, {cache.nbytes() / 2**20:.1f} MiB on the card; "
+          f"gather_core bit-exact against numpy; gather_batch b8 {gather_ms:.4f} ms; "
+          f"sampling from the checkpoint on the test split's cloudy views: DDIM-4 b8 "
+          f"{sampled['sample_seconds']:.3f} s, launches {counts()}; {card}", flush=True)
+    return {"feed_ms": feed, "decode_ms": decode_ms, "sps": sps, "sps_fed": sps_fed,
+            "synthetic_sps": syn_sps, "synthetic_sps_fed": syn_fed, "gather_ms": gather_ms}
+
+
 def run_tiled(cfg, seed, gen, n, steps):
     """tiled_ddim_sample of n 512 x 512 scenes with the 256 px denoiser
     (3 x 3 tiles at overlap 0.5, one model call a step over all tiles),
@@ -1541,6 +1791,9 @@ def main() -> int:
               f"{4 * sps512:.4f} img/s; loss {train512['losses'][0]:.5f} -> "
               f"{train512['losses'][-1]:.5f}; launches {train512['launches']}; peak memory "
               f"{train512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+
+        # 7c. the SEN12MS-CR feed at full width: GeoTIFFs on disk to the card
+        phase_7c(tmp, card, train_res)
 
     # 8. the W8A8 attention probe, once
     reset_counts()

@@ -1,13 +1,16 @@
 """Sampling CLI of the port (the main-path flags of ``eo_diffusion_tpu.cli.inference``).
 
 ``python -m eo_diffusion_torch.cli.inference --preset sen12mscr256
---dataset synthetic --sampler ddim --sampler_steps 50 --batch_size 8 --save``
+--dataset sen12mscr --data_root /data/SEN12MS_CR --ckpt logs/run/best
+--sampler ddim --sampler_steps 50 --batch_size 8 --save``
 
 ``python -m eo_diffusion_torch.cli.inference --preset dit256 --sampler flow
 --flow_method heun --sampler_steps 8 --batch_size 8``
 
 Runs on the GPU (``--device cuda``, the default) and raises when there is
-none; the CPU is used only with ``--device cpu``. It writes the same
+none; the CPU is used only with ``--device cpu``. It conditions on the
+test split of any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
+``--data_root``). It writes the same
 ``samples/`` PNG grids as the JAX CLI. UNet and DiT presets sample with
 DDPM/DDIM; flow-process presets (``dit256``, ``flow64``, ``tiny-flow``) with
 ``--sampler flow``, which they force. Flags of the JAX CLI that later slices
@@ -28,7 +31,7 @@ import torch
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--data_root": 7, "--metrics": 9, "--samples_fid": 9, "--wandb": 9, "--ae_ckpt": 10,
+    "--metrics": 9, "--samples_fid": 9, "--wandb": 9, "--ae_ckpt": 10,
     "--guidance_scale": 11, "--guidance_rescale": 11, "--guidance_interval": 11,
     "--dynamic_threshold": 11, "--dpm_spacing": 11, "--sigma_data": 11, "--cd_points": 11,
     "--deepcache": 11, "--sdedit_strength": 11, "--pag_scale": 11, "--autoguide_": 11,
@@ -53,6 +56,8 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="EO diffusion inference (PyTorch/CUDA)")
     parser.add_argument("--preset", type=str, default="inria64")
     parser.add_argument("--dataset", type=str, default=None)
+    parser.add_argument("--data_root", type=str, default=None,
+                        help="the dataset's root directory (the factory's root=)")
     parser.add_argument("--image_size", type=int, default=None)
     parser.add_argument("--timesteps", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=4)
@@ -133,9 +138,7 @@ def main(args):
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
     dataset = args.dataset or preset.dataset
-    if dataset not in DATASET_FACTORIES:
-        raise NotImplementedError(f"--dataset {dataset}: only 'synthetic' is ported "
-                                  "so far (ROADMAP queue 7)")
+    factory = DATASET_FACTORIES[dataset]
     image_size = args.image_size or preset.image_size
     preset.image_size = image_size
     timesteps = args.timesteps or preset.timesteps
@@ -148,9 +151,16 @@ def main(args):
         raise SystemExit(f"--sampler flow requires a flow-process preset; {preset.name} "
                          f"trained the {preset.process} chain (use ddpm/ddim)")
 
-    _, test_loader = DATASET_FACTORIES[dataset](
-        batch_size=args.batch_size, image_size=image_size, channels=preset.in_channels,
-        with_cond_image=cond_type == "concat")
+    fkw = dict(batch_size=args.batch_size, test=True)
+    if args.data_root:
+        fkw["root"] = args.data_root
+    if dataset == "synthetic":
+        fkw["image_size"] = image_size
+        fkw["channels"] = preset.in_channels
+        if cond_type == "concat":
+            fkw["with_cond_image"] = True  # synthetic cloudy view as cond
+        fkw.pop("test")
+    _, test_loader = factory(**fkw)
     data_range = test_loader.dataset.data_range
     peek = {k: np.asarray(v)[None] for k, v in test_loader.dataset[0].items()}
     peek_cond, _ = _build_cond(peek, cond_type)

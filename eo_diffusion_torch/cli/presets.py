@@ -99,6 +99,9 @@ PRESETS = {
     "sen12mscr256": Preset("sen12mscr256", "sen12mscr", 256, 3, 128, (1, 2, 3, 4),
                            (4, 8), 2, 8, cond_type="concat", batch_size=16),
     "synthetic64": Preset("synthetic64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4),
+    # MNIST digits at 28 px, one channel (reference data.py:24-40)
+    "mnist": Preset("mnist", "mnist", 28, 1, 32, (1, 2, 2), (), 1, 1,
+                    timesteps=1000, batch_size=128),
     # tiny smoke configs for CPU runs; tiny-cr is sen12mscr256 in miniature
     "tiny": Preset("tiny", "synthetic", 8, 3, 32, (1, 2), (), 1, 1,
                    timesteps=50, batch_size=16),
@@ -123,7 +126,6 @@ PRESETS = {
 
 # presets of the JAX package that later slices port, by ROADMAP queue
 _LATER = {
-    "mnist": 7,
     "vpred64": 11, "tiny-vpred": 11, "edm64": 11, "tiny-edm": 11,
     "bridge64": 11, "tiny-bridge": 11, "cddpm64": 11, "tiny-cddpm": 11,
     "latent64": 10, "tiny-latent": 10, "latent256": 10, "latent256-cr": 10,

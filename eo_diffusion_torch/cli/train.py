@@ -1,15 +1,17 @@
 """Training CLI of the port (the main-path flags of ``eo_diffusion_tpu.cli.train``).
 
 ``python -m eo_diffusion_torch.cli.train --preset sen12mscr256 --dataset
-synthetic --batch_size 8 --epochs 100``
+sen12mscr --data_root /data/SEN12MS_CR --batch_size 8 --epochs 100``
 
 Runs on the GPU (``--device cuda``, the default) and exits non-zero when
 there is none; the CPU is used only with ``--device cpu``. Flags mirror
 reference ``train.py:22-42`` plus the preset/dataset selectors. Like the JAX
-CLI it writes periodic EMA previews as PNG grids (train.py:148-154), a
-``best`` checkpoint whenever the loss improves on the bar (from 0.9 down,
-train.py:100,133-155) and periodic ``steps_<n>`` checkpoints under
-``logs/<basename of --dir>``; ``--resume`` continues the step counter, the
+CLI it reads any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
+``--data_root``), feeding the batches to the device through
+``device_prefetch``, and writes periodic EMA previews as PNG grids
+(train.py:148-154), a ``best`` checkpoint whenever the loss improves on
+the bar (from 0.9 down, train.py:100,133-155) and periodic ``steps_<n>``
+checkpoints under ``logs/<basename of --dir>``; ``--resume`` continues the step counter, the
 LR schedule and the EMA cadence; SIGTERM finishes the step in flight,
 checkpoints and exits. Flags of the JAX CLI that later slices of the port
 bring are rejected by name with their ROADMAP queue.
@@ -18,6 +20,7 @@ bring are rejected by name with their ROADMAP queue.
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import os
 import signal
@@ -28,7 +31,7 @@ import torch
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--data_root": 7, "--wandb": 9, "--ae_ckpt": 10, "--ae_steps": 10, "--ae_lr": 10,
+    "--wandb": 9, "--ae_ckpt": 10, "--ae_steps": 10, "--ae_lr": 10,
     "--posthoc_ema": 11, "--posthoc_gammas": 11, "--model_base_dim": 11,
     "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
     "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
@@ -71,6 +74,8 @@ def parse_args(argv=None):
                              "instead of poisoning the run")
     parser.add_argument("--preset", type=str, default="eurosat64")
     parser.add_argument("--dataset", type=str, default=None, help="override preset dataset")
+    parser.add_argument("--data_root", type=str, default=None,
+                        help="the dataset's root directory (the factory's root=)")
     parser.add_argument("--image_size", type=int, default=None)
     parser.add_argument("--steps_per_epoch", type=int, default=None,
                         help="cap steps per epoch (smoke runs)")
@@ -126,10 +131,12 @@ def _to_model_batch(batch, cond_type):
 def main(args):
     """Train for ``args.epochs`` epochs. Returns a summary dict: the steps
     taken, every step's loss and host-clock seconds (each ends in a fetch of
-    the loss), the seconds of the timed loop, the path of the last checkpoint
-    and the final train state."""
+    the loss), the host-clock seconds each step waited for its batch from the
+    feed before it, the seconds of the timed loop, the path of the last
+    checkpoint and the final train state."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
+    from eo_diffusion_torch.data.loader import device_prefetch
     from eo_diffusion_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                                      save_checkpoint)
     from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
@@ -142,9 +149,7 @@ def main(args):
                                   f"backbone with the {preset.process} process is not "
                                   "ported yet (ROADMAP queue 10)")
     dataset = args.dataset or preset.dataset
-    if dataset not in DATASET_FACTORIES:
-        raise NotImplementedError(f"--dataset {dataset}: only 'synthetic' is ported "
-                                  "so far (ROADMAP queue 7)")
+    factory = DATASET_FACTORIES[dataset]
     image_size = args.image_size or preset.image_size
     preset.image_size = image_size
     timesteps = args.timesteps or preset.timesteps
@@ -157,9 +162,15 @@ def main(args):
     num_classes = args.num_classes if args.num_classes > 0 else None
     ckpt_dir = os.path.join("logs", os.path.split(args.dir)[1])
 
-    train_loader, _ = DATASET_FACTORIES[dataset](
-        batch_size=args.batch_size, image_size=image_size, channels=preset.in_channels,
-        with_cond_image=cond_type == "concat")
+    fkw = dict(batch_size=args.batch_size)
+    if args.data_root:
+        fkw["root"] = args.data_root
+    if dataset == "synthetic":
+        fkw["image_size"] = image_size
+        fkw["channels"] = preset.in_channels
+        if cond_type == "concat":
+            fkw["with_cond_image"] = True  # synthetic cloudy view as cond
+    train_loader, _ = factory(**fkw)
     steps_per_epoch = len(train_loader)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
@@ -219,17 +230,20 @@ def main(args):
 
     old_term = signal.signal(signal.SIGTERM, _graceful)
 
-    losses, step_seconds = [], []
+    losses, step_seconds, wait_seconds = [], [], []
     t_start = time.time()
     start_epoch = min(global_steps // steps_per_epoch, args.epochs)
     for epoch in range(start_epoch, args.epochs):
         if preempt["sig"] is not None:
             break
-        for j, batch in enumerate(train_loader):
-            if j >= steps_per_epoch or preempt["sig"] is not None:
+        feed = device_prefetch((_to_model_batch(b, cond_type) for b in
+                                itertools.islice(train_loader, steps_per_epoch)), device)
+        t_wait = time.perf_counter()
+        for j, mb in enumerate(feed):
+            if preempt["sig"] is not None:
                 break
-            mb = _to_model_batch(batch, cond_type)
             t_step = time.perf_counter()
+            wait_seconds.append(t_step - t_wait)  # the feed's share of the step
             state, metrics = trainer.step(state, mb)
             global_steps += 1
             loss = float(metrics["loss"])  # host fetch: the step really ran
@@ -261,11 +275,12 @@ def main(args):
                 print(f"saving in {img_path}, epoch {epoch}")
                 if cond is not None:
                     save_image_grid(
-                        np.asarray(cond[..., :3]),
+                        cond[..., :3].float().cpu().numpy(),
                         os.path.join(args.dir, f"steps_{global_steps:08d}_cond.png"),
                         nrow=nrow, data_range=data_range)
             if args.save_every and global_steps % args.save_every == 0:
                 save_checkpoint(tcfg.ckpt_dir, state.state_dict(), step=global_steps)
+            t_wait = time.perf_counter()
 
     signal.signal(signal.SIGTERM, old_term)
     if device.type == "cuda":
@@ -273,7 +288,7 @@ def main(args):
     dt = time.time() - t_start
     last_ckpt = save_checkpoint(tcfg.ckpt_dir, state.state_dict(), step=global_steps)
     result = {"steps": global_steps, "losses": losses, "seconds": dt,
-              "step_seconds": step_seconds,
+              "step_seconds": step_seconds, "wait_seconds": wait_seconds,
               "checkpoint": last_ckpt, "state": state, "preempted": preempt["sig"]}
     if preempt["sig"] is not None:
         print(f"preempted (signal {preempt['sig']}): checkpoint saved at "

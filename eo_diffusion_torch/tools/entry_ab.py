@@ -11,8 +11,11 @@ within one call:
 * phase 5, the sampling entry point at 256 px: ``sen12mscr256`` DDIM-50,
   batch 8 (``run_cli``), img/s of the second batch;
 * phase 7 and 7b, the training entry point at 256 px, batch 8, and at
-  512 px, batch 4 (``run_train``, ``run_train_512``): steps/s after the
-  first two steps, as ``chip_smoke.py`` prints them;
+  512 px, batch 4 (``run_train``, ``run_train_512``, here 20 and 12
+  steps): steps/s after the first two steps, the steps alone as
+  ``chip_smoke.py`` prints them, and start to start (``Trainer.step``'s
+  calls, so the feed's share counts too); ``best`` checkpoint saves are
+  skipped, so no 1 GB write falls between two steps;
 * phase 6 and 5d's ``dit64``, the host-bound 64 px sampling paths
   (``clouds64-attn`` RePaint DDPM-100, one batch of 8; ``dit64`` DDIM-50,
   img/s over the second and third batch of 8).
@@ -31,10 +34,22 @@ import sys
 
 # run in the checkout's own process: its chip_smoke.py and its package
 _PHASES = r"""
-import json, tempfile
+import json, tempfile, time
 import chip_smoke as C
 from eo_diffusion_torch.cli.presets import get_preset
+from eo_diffusion_torch.train import checkpoint as CK, trainer as TR
 
+C.TRAIN_STEPS, C.TRAIN_STEPS_512 = 20, 12
+_save, _step, starts = CK.save_checkpoint, TR.Trainer.step, []
+
+def save(d, s, step=None, name=None):
+    return None if name == "best" else _save(d, s, step=step, name=name)
+
+def step(self, state, batch):
+    starts.append(time.perf_counter())
+    return _step(self, state, batch)
+
+CK.save_checkpoint, TR.Trainer.step = save, step
 res = {"card": C.card_line()}
 with tempfile.TemporaryDirectory() as tmp:
     r = C.run_cli(["--preset", "sen12mscr256", "--dataset", "synthetic", "--sampler", "ddim",
@@ -44,8 +59,11 @@ with tempfile.TemporaryDirectory() as tmp:
     res["sample_256px_b8_img_per_s"] = 8 / r["batch_seconds"][1]
     for name, fn, seed in (("train_256px_b8", C.run_train, 4),
                            ("train_512px_b4", C.run_train_512, 5)):
+        starts.clear()
         steady = fn(tmp, seed=seed)["step_seconds"][2:]
         res[name + "_steps_per_s"] = len(steady) / sum(steady)
+        periods = [b - a for a, b in zip(starts[2:], starts[3:])]
+        res[name + "_wall_steps_per_s"] = len(periods) / sum(periods)
     r = C.run_cli(["--preset", "clouds64-attn", "--dataset", "synthetic", "--sampler", "ddpm",
                    "--timesteps", "100", "--batch_size", "8", "--n_iter", "1",
                    "--device", "cuda"], get_preset("clouds64-attn").unet_config(), 3, tmp)

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -59,7 +60,9 @@ def test_no_gpu_without_device_cpu_fails_clearly(tmp_path):
     assert not (tmp_path / "samples").exists()
 
 
-def test_unported_presets_and_datasets_raise():
+def test_unported_presets_and_datasets_raise(tmp_path):
+    from PIL import Image
+
     from eo_diffusion_torch.cli import inference
     from eo_diffusion_torch.cli.presets import get_preset
 
@@ -67,9 +70,22 @@ def test_unported_presets_and_datasets_raise():
         get_preset("latent256")
     with pytest.raises(ValueError):
         get_preset("no-such-preset")
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        inference.main(inference.parse_args(["--preset", "tiny", "--dataset", "eurosat",
-                                             "--device", "cpu"]))
+    # every dataset of the JAX package's factories is ported: a tiny EuroSAT
+    # tree (--data_root) feeds the sampler; an unknown name fails as in JAX
+    rng = np.random.default_rng(0)
+    for cls in ("Forest", "River"):
+        os.makedirs(tmp_path / "eurosat" / cls)
+        for j in range(7):
+            Image.fromarray(rng.integers(0, 255, (8, 8, 3), np.uint8)).save(
+                tmp_path / "eurosat" / cls / f"{cls}_{j}.jpg")
+    res = inference.main(inference.parse_args([
+        "--preset", "tiny", "--dataset", "eurosat", "--data_root", str(tmp_path / "eurosat"),
+        "--device", "cpu", "--sampler", "ddim", "--sampler_steps", "2", "--batch_size", "2",
+        "--n_iter", "0", "--outdir", str(tmp_path / "out")]))
+    assert res["batches"] == 1 and res["samples"].shape == (2, 8, 8, 3)
+    with pytest.raises(KeyError, match="no-such-dataset"):
+        inference.main(inference.parse_args(["--preset", "tiny", "--dataset",
+                                             "no-such-dataset", "--device", "cpu"]))
 
 
 def test_tiny_dit_ddim_runs_in_process(tmp_path):

@@ -1339,3 +1339,65 @@ def test_fused_layout_route_goes_through_k1(dev, b, t, h, d):
     assert A.qkv_attention_cuda.launches == before + 1
     assert got.shape == (b, t, h, d) and got.dtype == torch.bfloat16
     _assert_attention_close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the data feed's device side (no kernel of its own: copies and torch ops)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_device_prefetch_yields_the_loader_batches_bit_for_bit(dev, size):
+    """Pinned host memory, a side stream, the consumer waiting on the copy:
+    every batch reaches the card unchanged, in order, while the consuming
+    stream keeps busy with work that reuses the freed memory."""
+    import numpy as np
+
+    from eo_diffusion_torch.data.datasets import SyntheticEO
+    from eo_diffusion_torch.data.factories import _FLIPS
+    from eo_diffusion_torch.data.loader import DataLoader, device_prefetch
+
+    ds = SyntheticEO(size=64, length=40, with_cond_image=True)
+    want = list(DataLoader(ds, 4, transforms=_FLIPS, seed=3))
+    got = []
+    for batch in device_prefetch(DataLoader(ds, 4, transforms=_FLIPS, seed=3), dev, size=size):
+        assert all(v.device.type == "cuda" for v in batch.values())
+        torch.cuda._sleep(1_000_000)  # the consumer is busy when the next copies land
+        scratch = [torch.empty_like(v).fill_(-1) for v in batch.values()]
+        got.append({k: v.cpu().numpy() for k, v in batch.items()})
+        del scratch
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_device_data_cache_gathers_on_the_card(dev):
+    import numpy as np
+
+    from eo_diffusion_torch.data.device_cache import DeviceDataCache, gather_core
+
+    rng = np.random.default_rng(0)
+    data = {"image": rng.normal(size=(12, 32, 32, 3)).astype(np.float32),
+            "mask": (rng.uniform(size=(12, 32, 32)) > 0.5).astype(np.float32),
+            "label": np.arange(12, dtype=np.int32)}
+    cache = DeviceDataCache(data, dev)
+    assert all(v.device.type == "cuda" for v in cache.tensors.values())
+    idx = np.array([3, 0, 11, 3, 7, 5])
+    do_h = np.array([True, False, True, False, True, False])
+    do_v = np.array([False, False, True, True, True, False])
+    out = gather_core(cache.tensors, torch.from_numpy(idx).to(dev),
+                      torch.from_numpy(do_h).to(dev), torch.from_numpy(do_v).to(dev))
+    for k, v in data.items():
+        want = v[idx].copy()
+        for i in range(len(idx)):
+            if want.ndim >= 3 and do_h[i]:
+                want[i] = want[i][:, ::-1]
+            if want.ndim >= 3 and do_v[i]:
+                want[i] = want[i][::-1]
+        np.testing.assert_array_equal(out[k].cpu().numpy(), want)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = cache.sample_batch(g, 8, compute_dtype=torch.bfloat16)
+    assert batch["image"].shape == (8, 32, 32, 3) and batch["image"].dtype == torch.bfloat16
+    assert batch["label"].dtype == torch.int32

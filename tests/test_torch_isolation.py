@@ -1,9 +1,11 @@
 """The port stands alone: neither eo_diffusion_torch nor chip_smoke.py imports
-JAX, its libraries or the JAX package, and the package imports with JAX
-made unimportable."""
+JAX, its libraries or the JAX package, no source of it (C++ and CUDA
+included) names a path under the JAX package or native/ for its code to
+open, and the package imports with JAX made unimportable."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -45,6 +47,61 @@ def test_the_probe_modules_are_checked():
                 "tools/probe_softmax_orient.py", "tools/profile_attn_variants.py",
                 "tools/profile_attn_variants2.py", "tools/profile_attn_fusedlayout.py"):
         assert f"eo_diffusion_torch/{mod}" in names, mod
+
+
+# a path component naming the JAX package or its native/ library directory
+_JAX_PATH = re.compile(r"(^|[/\\])(native|eo_diffusion_tpu)([/\\]|$)")
+# the "file:line" of the TPU kernel a kernel replaces (a label, not a path to open)
+_KERNEL_LABEL = re.compile(r"(eo_diffusion_tpu|tools)/[\w/]+\.py:\d+")
+
+
+def _all_sources():
+    pkg = ROOT / "eo_diffusion_torch"
+    native = [p for ext in ("*.cc", "*.cu", "*.cuh", "*.h") for p in pkg.rglob(ext)]
+    return _sources() + sorted(native)
+
+
+def _code_strings(path: Path):
+    """The string constants of a Python file that are not docstrings, or the
+    text of a C++/CUDA file with its comments taken out."""
+    text = path.read_text()
+    if path.suffix != ".py":
+        yield re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+        return
+    tree = ast.parse(text, filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+@pytest.mark.parametrize("path", _all_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_package_or_native(path):
+    """The port keeps its own copy of what it needs: its code names no file
+    under eo_diffusion_tpu/ or native/ to read, build or load at run time."""
+    bad = [s for s in _code_strings(path)
+           if (_JAX_PATH.search(s) if path.suffix == ".py" else
+               re.search(r"native/|eo_diffusion_tpu", s))
+           and not _KERNEL_LABEL.fullmatch(s)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad[:3]}"
+
+
+def test_the_data_feed_sources_are_checked():
+    """The data feed's modules, its C++ sources and the patch exporter are
+    among the sources the path check reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in _all_sources()}
+    for mod in ("datasets.py", "transforms.py", "patches.py", "native.py", "tile_cache.py",
+                "sen12ms_cr.py", "loader.py", "device_cache.py", "factories.py",
+                "csrc/tiff_reader.cc", "csrc/patch_sampler.cc"):
+        assert f"eo_diffusion_torch/data/{mod}" in names, mod
+    assert "eo_diffusion_torch/tools/export_patches.py" in names
 
 
 def test_package_imports_without_jax():

@@ -4,6 +4,7 @@ the tiny concat preset, synthetic data, one short epoch."""
 import os
 import signal
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,7 +96,7 @@ def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, c
 
 
 @pytest.mark.parametrize("flag,queue", [("--fsdp", 16), ("--optimizer=muon", 14),
-                                        ("--posthoc_ema", 11), ("--data_root", 7),
+                                        ("--posthoc_ema", 11), ("--wandb", 9),
                                         ("--tome_ratio", 13), ("--ae_ckpt", 10)])
 def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -105,10 +106,25 @@ def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
 
 
 def test_unported_presets_and_datasets_raise(workdir):
+    from PIL import Image
+
     with pytest.raises(NotImplementedError, match="queue 10"):
         train.main(train.parse_args(["--preset", "latent256", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        train.main(train.parse_args(["--preset", "tiny", "--dataset", "eurosat",
+    # every dataset of the JAX package's factories is ported: a tiny EuroSAT
+    # tree (--data_root) trains; an unknown name fails as in JAX
+    rng = np.random.default_rng(0)
+    for cls in ("Forest", "River"):
+        os.makedirs(workdir / "eurosat" / cls)
+        for j in range(5):
+            Image.fromarray(rng.integers(0, 255, (8, 8, 3), np.uint8)).save(
+                workdir / "eurosat" / cls / f"{cls}_{j}.jpg")
+    res = train.main(train.parse_args([
+        "--preset", "tiny", "--dataset", "eurosat", "--data_root", str(workdir / "eurosat"),
+        "--device", "cpu", "--batch_size", "4", "--epochs", "1", "--sample_every", "0",
+        "--save_every", "0", "--dir", "results/e"]))
+    assert res["steps"] == 2 and all(np.isfinite(res["losses"]))  # 8 of 10 train, b4
+    with pytest.raises(KeyError, match="no-such-dataset"):
+        train.main(train.parse_args(["--preset", "tiny", "--dataset", "no-such-dataset",
                                      "--device", "cpu"]))
 
 
