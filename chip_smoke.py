@@ -31,7 +31,10 @@ Phases, in order; the first failure exits non-zero:
    (plain attention and plain norms), then one loss and backward, kernels
    against plain: every parameter gets a finite gradient, the attention's
    qkv weights a non-zero one; 4b. the same at 384 px, batch 1, where every
-   attention takes the separate-tensor route;
+   attention takes the separate-tensor route; 4d. a ``dit256`` (DiT-B/8)
+   flow-matching loss and backward at 256 px, batch 16, kernels against the
+   all-plain model, the same limits: K1 with the lse and K4 once a block in
+   the new head order, every gradient finite;
 5. the sampling path through the entry point: ``eo_diffusion_torch.cli.inference``
    with ``sen12mscr256`` (concat cloud removal), DDIM-50, batch 8, seeded
    random weights; the attention counter (the wgmma/TMA body) must rise by
@@ -65,7 +68,17 @@ Phases, in order; the first failure exits non-zero:
    card equal to the loader's, the launches as in phase 7), its steady
    steps/s, step alone and with the feed, beside phase 7's; ``cli.inference``
    DDIM-4 from its checkpoint on the test split's cloudy views; the device
-   cache's gather on the card against numpy;
+   cache's gather on the card against numpy; 7d. ``cli.train --preset
+   dit256`` at full width and depth, batch 16, bf16, 8 steps (K1 with lse
+   and K4 12 a step each, nothing else), its checkpoint restored and sampled
+   by ``cli.inference --sampler flow`` (Heun-8), then ``flow64`` and
+   ``dit64`` for 4 steps each, the launches as their forwards give them;
+   7e. evaluation: ``cli.inference --metrics --samples_fid`` on 7c's
+   checkpoint and test split, ``metrics.txt`` against SSIM/PSNR recomputed
+   on the CPU from the same samples; ``cli.evaluate --extractor offline``
+   over the ground truth's and the samples' PNGs; the FeatureCNN of
+   ``gallery/eval_extractor256.npz``, the random projection and InceptionV3
+   at 299 px, batch 8, seeded weights, each on the card against the CPU;
 8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
    once: the int8 core's error, its time beside the bf16 kernels' and the
    Amdahl share of a DiT-B/4 call at the latent256 shape;
@@ -103,6 +116,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -124,6 +138,8 @@ from eo_diffusion_torch.cli.presets import build_denoiser, get_preset
 from eo_diffusion_torch.models.dit import DiT, DiTConfig, dit_b
 from eo_diffusion_torch.models.unet import UNet, unet_clouds
 from eo_diffusion_torch.ops import _build
+from eo_diffusion_torch.cli import evaluate as cli_evaluate
+from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
 from eo_diffusion_torch.ops import attention as A
@@ -252,6 +268,17 @@ WGRAD_DELTA_CASES = [(2, 20, 37, 64, 64), (2, 16, 16, 128, 64), (1, 9, 33, 64, 2
                      (3, 24, 40, 72, 136)]
 TRAIN_STEPS = 8
 TRAIN_STEPS_512 = 6
+# phase 7d: dit256 training at batch 16 for TRAIN_STEPS steps, then flow64
+# and dit64 through the same entry point for SHORT_STEPS steps at batch 16
+DIT_TRAIN_BATCH = 16
+SHORT_STEPS = 4
+# phase 7e: the card's metrics against the CPU's. SSIM/PSNR of the sampling
+# CLI against the port's functions on the CPU from the same samples: f32
+# sums in another order; the extractors (FeatureCNN, InceptionV3, the
+# random projection) card against CPU with TF32 off: |card - cpu| <=
+# TOL_EVAL * max|cpu|
+TOL_METRICS = 1e-5
+TOL_EVAL = 1e-4
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
 # phase 7c: a SEN12MS-CR tree of SEN12_SCENES x SEN12_PATCHES triplets at
 # 256 px (s1: 2 bands float32; s2, s2_cloudy: 13 bands uint16), 54 of them in
@@ -674,12 +701,13 @@ def counts():
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_routes(cfg, size, batch):
+def wgrad_routes(cfg, size, batch, sites=WGRAD_SITES):
     """How many stride-1 3x3 convs of ``cfg``'s UNet at ``size`` px and
-    ``batch`` ``CW.wgrad_route`` gives each body: {"sm90": n, "mma": n}."""
+    ``batch`` ``CW.wgrad_route`` gives each body: {"sm90": n, "mma": n}
+    (``sites``: the number of convs there must be, None for any)."""
     routes = [CW.wgrad_route(*shape, cfg.dtype)
               for _, *shape in prototype_wgrad_kernel.site_shapes(size, batch, cfg)]
-    assert len(routes) == WGRAD_SITES, len(routes)
+    assert sites is None or len(routes) == sites, len(routes)
     return {k: routes.count(k) for k in ("sm90", "mma")}
 
 
@@ -698,10 +726,32 @@ def expected(size, forwards, backwards=0, cfg=None, batch=None):
             "transpose": 0, "variant": 0}
 
 
-def dit_expected(forwards):
-    """The launch counts of ``forwards`` DiT forwards: the fused-qkv kernel
-    once a block, nothing else."""
-    return {**{k: 0 for k in counts()}, "attn_fwd": DIT_DEPTH * forwards}
+def dit_expected(forwards, backwards=0):
+    """The launch counts of ``forwards`` DiT forwards and ``backwards``
+    backwards: the fused-qkv kernel (with the lse in training) and its
+    backward once a block each, nothing else."""
+    return {**{k: 0 for k in counts()}, "attn_fwd": DIT_DEPTH * forwards,
+            "attn_bwd": DIT_DEPTH * backwards}
+
+
+def unet_train_expected(cfg, size, batch, steps):
+    """The launch counts of ``steps`` training steps of ``cfg``'s UNet at
+    ``size`` px and ``batch``: the attention and GroupNorm launches one
+    forward gives on the card (read with the counters), forward and backward
+    each step, and the routed 3x3 convs' weight gradients."""
+    model = UNet(dataclasses.replace(cfg, image_size=size)).cuda().eval()
+    x = torch.zeros(1, size, size, cfg.in_channels, device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        model(x, torch.zeros(1, dtype=torch.long, device="cuda"))
+        per = counts()
+    del model
+    wg = wgrad_routes(cfg, size, batch, sites=None)
+    return {**{k: 0 for k in per},
+            **{k: per[k] * steps for k in ("attn_fwd", "flash_fwd", "gn_fwd")},
+            "attn_bwd": per["attn_fwd"] * steps, "flash_bwd": per["flash_fwd"] * steps,
+            "gn_bwd": per["gn_fwd"] * steps, "wgrad": wg["mma"] * steps,
+            "wgrad_sm90": wg["sm90"] * steps}
 
 
 def gn_bound_ms(direction, act, n, hw, c, groups, esize):
@@ -1220,6 +1270,257 @@ def run_train_512(tmp, seed):
     return res
 
 
+def dit_train_check(cfg, batch, gen, label):
+    """One flow-matching loss and backward of the DiT with the kernels
+    against the all-plain model (``DiT.set_impl("plain")``): same weights,
+    batch, times and noise. The forward's velocity and the gradients by
+    their relative L2 difference (phase 4's limits); every parameter gets a
+    finite gradient, the qkv weights a non-zero one; K1 with the lse and K4
+    once a block, nothing else."""
+    model = randomize_parameters(DiT(cfg), seed=1).cuda().train()
+    s = cfg.image_size
+    flow = FlowMatching.create(image_size=s, in_channels=cfg.out_channels)
+    x0 = torch.randn(batch, s, s, cfg.in_channels, generator=gen, device="cuda")
+    noise = torch.randn(batch, s, s, cfg.in_channels, generator=gen, device="cuda")
+    t = torch.linspace(0.02, 0.98, batch, device="cuda")
+    preds, losses, grads, launched = {}, {}, {}, {}
+    for impl in ("auto", "plain"):
+        model.set_impl(impl).zero_grad(set_to_none=True)
+
+        def model_fn(x, tt, c, y, impl=impl):
+            out = model(x, tt)
+            preds[impl] = out.detach().float()
+            return out
+
+        reset_counts()
+        loss = flow.train_loss(model_fn, x0, t=t, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched[impl] = counts()
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    del model
+    assert launched["auto"] == dit_expected(1, 1), launched["auto"]
+    assert not any(launched["plain"].values()), launched["plain"]
+    fwd_rel = ((preds["auto"] - preds["plain"]).norm() / preds["plain"].norm()).item()
+    num = den = 0.0
+    for name, gk in grads["auto"].items():
+        gp = grads["plain"][name]
+        assert torch.isfinite(gk).all(), f"non-finite gradient of {name}"
+        if name.endswith("qkv.weight"):
+            assert gk.abs().max().item() > 0, f"{name} got no gradient"
+        num += (gk - gp).pow(2).sum().item()
+        den += gp.pow(2).sum().item()
+    grad_rel = math.sqrt(num / den)
+    print(f"{label} flow loss+backward b{batch}: loss {losses['auto']:.6f} (plain "
+          f"{losses['plain']:.6f}); velocity rel L2 kernels vs plain {fwd_rel:.3e} (tol "
+          f"{TOL_UNET_REL}); {len(grads['auto'])} parameter gradients finite, rel L2 "
+          f"{grad_rel:.3e} (tol {TOL_UNET_GRAD_REL}); launches {launched['auto']}", flush=True)
+    assert fwd_rel <= TOL_UNET_REL and grad_rel <= TOL_UNET_GRAD_REL, (fwd_rel, grad_rel)
+    return {"loss": losses["auto"], "loss_plain": losses["plain"], "forward_rel_l2": fwd_rel,
+            "grad_rel_l2": grad_rel, "launches": launched["auto"]}
+
+
+def train_argv(preset, batch, steps, seed, tag):
+    return ["--preset", preset, "--dataset", "synthetic", "--batch_size", str(batch),
+            "--epochs", "1", "--steps_per_epoch", str(steps), "--sample_every", "0",
+            "--save_every", "0", "--model_ema_steps", "2", "--log_freq", "1",
+            "--seed", str(seed), "--device", "cuda", "--dir", f"results/{tag}"]
+
+
+def steady_sps(res):
+    """Steps/s of the step alone after the first two (cuBLAS's and cuDNN's
+    first calls)."""
+    st = res["step_seconds"][2:]
+    return len(st) / sum(st)
+
+
+def run_train_dit(tmp, seed, card):
+    """The training entry point with ``dit256`` at full width and depth,
+    batch 16: K1 with the lse and K4 twelve times a step each, nothing
+    else; its checkpoint restores and the sampling entry point integrates
+    the flow from it (Heun-8). Then ``flow64`` and ``dit64`` a few steps
+    each, with the launches their forwards give."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.chdir(tmp):
+        res = cli_train.main(cli_train.parse_args(
+            train_argv("dit256", DIT_TRAIN_BATCH, TRAIN_STEPS, seed, "train_dit256")))
+    res["launches"] = counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    assert res["steps"] == TRAIN_STEPS and all(math.isfinite(x) for x in res["losses"]), (
+        res["losses"])
+    assert res["launches"] == dit_expected(TRAIN_STEPS, TRAIN_STEPS), res["launches"]
+    state = res.pop("state")
+    torch.manual_seed(seed)
+    init = DiT(state.model.config).to("cuda")
+    res["param_delta"] = math.sqrt(sum((p.detach() - q.detach()).pow(2).sum().item()
+                                       for p, q in zip(state.model.parameters(),
+                                                       init.parameters())))
+    assert res["param_delta"] > 0, res["param_delta"]
+    raw = restore_checkpoint(res["checkpoint"])
+    assert raw["step"] == TRAIN_STEPS and set(raw) >= {"model", "model_ema", "opt_state"}
+    for name, v in state.ema_model.state_dict().items():
+        assert torch.equal(raw["model_ema"][name], v.cpu()), name
+    del state, init, raw
+    res["sps"] = steady_sps(res)
+    print(f"training path dit256 (DiT-B/8, flow) b{DIT_TRAIN_BATCH} bf16: {res['steps']} steps "
+          f"in {res['seconds']:.3f} s; steady {res['sps']:.4f} steps/s (step alone) = "
+          f"{DIT_TRAIN_BATCH * res['sps']:.4f} img/s; loss {res['losses'][0]:.5f} -> "
+          f"{res['losses'][-1]:.5f}; launches {res['launches']}; |d params| "
+          f"{res['param_delta']:.4e}; peak memory {res['peak_mem_gb']:.2f} GiB; {card}",
+          flush=True)
+
+    args = cli.parse_args(["--preset", "dit256", "--dataset", "synthetic", "--sampler", "flow",
+                           "--flow_method", "heun", "--sampler_steps", "8", "--batch_size", "8",
+                           "--n_iter", "0", "--device", "cuda", "--ckpt", res["checkpoint"],
+                           "--seed", str(seed), "--outdir", os.path.join(tmp, "out_dit")])
+    reset_counts()
+    x = torch.as_tensor(cli.main(args)["samples"])
+    assert x.shape == (8, 256, 256, 3) and bool(torch.isfinite(x).all()), x.shape
+    assert counts() == dit_expected(15), counts()
+    res["sample_launches"] = counts()
+
+    res["short"] = {}
+    for preset in ("flow64", "dit64"):
+        p = get_preset(preset)
+        if p.backbone == "dit":
+            want = dit_expected(SHORT_STEPS, SHORT_STEPS)
+        else:
+            want = unet_train_expected(p.model_config(), p.image_size, DIT_TRAIN_BATCH,
+                                       SHORT_STEPS)
+        reset_counts()
+        with contextlib.chdir(tmp):
+            r = cli_train.main(cli_train.parse_args(
+                train_argv(preset, DIT_TRAIN_BATCH, SHORT_STEPS, seed, f"train_{preset}")))
+        got = counts()
+        assert r["steps"] == SHORT_STEPS and all(math.isfinite(x) for x in r["losses"]), r
+        assert got == want, (preset, got, want)
+        res["short"][preset] = {"losses": r["losses"], "launches": got, "sps": steady_sps(r)}
+        print(f"training path {preset} ({p.backbone}, {p.process}) b{DIT_TRAIN_BATCH} bf16: "
+              f"{SHORT_STEPS} steps, loss {r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}; "
+              f"{res['short'][preset]['sps']:.4f} steps/s over the last {SHORT_STEPS - 2}; "
+              f"launches {got}; {card}", flush=True)
+        del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def seeded_inception(seed):
+    """InceptionV3 under torchvision's names with seeded weights: He-scaled
+    kernels, BatchNorm near the identity with positive variances."""
+    from eo_diffusion_torch.models.inception import InceptionV3
+
+    model = InceptionV3()
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = v
+            continue
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean"):
+            a = 0.1 * rng.normal(size=shape)
+        elif k.endswith("bn.weight"):
+            a = 1 + 0.05 * rng.normal(size=shape)
+        elif len(shape) > 1:
+            a = rng.normal(size=shape) * np.sqrt(2 / np.prod(shape[1:]))
+        else:
+            a = 0.05 * rng.normal(size=shape)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
+def rel_max(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_7e(tmp, card, sen):
+    """Evaluation on the card. ``sen`` is phase 7c's result: its SEN12MS-CR
+    tree and checkpoint."""
+    from eo_diffusion_torch.data.factories import create_sen12mscr_dataloaders
+    from eo_diffusion_torch.models import feature_cnn as FC
+    from eo_diffusion_torch.models.inception import inception_feature_extractor, preprocess
+    from eo_diffusion_torch.utils import metrics as M
+    from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
+
+    # (a) SSIM/PSNR in the sampling CLI, against the CPU on the same samples
+    out = os.path.join(tmp, "out_metrics")
+    args = cli.parse_args(["--preset", "sen12mscr256", "--dataset", "sen12mscr", "--data_root",
+                           sen["root"], "--ckpt", sen["checkpoint"], "--sampler", "ddim",
+                           "--sampler_steps", "4", "--batch_size", "8", "--n_iter", "0",
+                           "--metrics", "--samples_fid", "--device", "cuda", "--seed", "9",
+                           "--outdir", out])
+    reset_counts()
+    res = cli.main(args)
+    assert counts() == expected(256, 4), counts()
+    with open(os.path.join(out, "metrics.txt")) as f:
+        written = {k: float(v) for k, v in (line.split(": ") for line in f.read().splitlines())}
+    test_loader = create_sen12mscr_dataloaders(8, root=sen["root"], test=True)[1]
+    data_range = test_loader.dataset.data_range
+    gt01 = rescale_to_unit(np.asarray(next(iter(test_loader))["image"], np.float32), data_range)
+    s01 = rescale_to_unit(res["samples"], data_range)
+    cpu = {"ssim": float(M.ssim(s01, gt01)), "psnr": float(M.psnr(s01, gt01))}
+    metrics_err = {k: abs(written[k] - v) / max(1.0, abs(v)) for k, v in cpu.items()}
+    print(f"cli.inference --metrics --samples_fid on phase 7c's checkpoint (DDIM-4 b8, test "
+          f"split): metrics.txt {written}; the CPU from the same samples {cpu}; scaled "
+          f"errors {metrics_err} (tol {TOL_METRICS})", flush=True)
+    assert written["length"] == 1 and max(metrics_err.values()) <= TOL_METRICS, metrics_err
+    fid_dir = os.path.join(out, "samples_fid")
+    assert sorted(os.listdir(fid_dir)) == sorted(f"sample_0-{i}.png" for i in range(8))
+
+    # (b) cli.evaluate over two PNG directories, the offline extractor
+    real_dir = os.path.join(tmp, "real_png")
+    for i, im in enumerate(gt01):
+        save_image_grid(im, os.path.join(real_dir, f"gt_{i}.png"))
+    t0 = time.perf_counter()
+    ev = cli_evaluate.main(cli_evaluate.parse_args([
+        "--real", real_dir, "--fake", fid_dir, "--extractor", "offline", "--device", "cuda",
+        "--out", os.path.join(tmp, "eval.json")]))
+    eval_s = time.perf_counter() - t0
+    assert ev["n_real"] == ev["n_fake"] == 8 and all(math.isfinite(v) for v in ev.values()), ev
+    imgs = cli_evaluate.load_image_dir(fid_dir)
+    proj = {d: M.tiny_feature_extractor(device=d)(imgs) for d in ("cuda", "cpu")}
+    proj_err = rel_max(proj["cuda"], proj["cpu"])
+
+    # (c) the FeatureCNN of eval_extractor256.npz (64 px tiles), card vs CPU
+    params, meta = FC.load_params(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "gallery", "eval_extractor256.npz"))
+    tile = int(meta["tile"])
+    tiles = np.random.default_rng(10).uniform(size=(16, tile, tile, 3)).astype(np.float32)
+    feats = {d: FC.make_extractor(params, device=d)(tiles) for d in ("cuda", "cpu")}
+    fcnn_err = rel_max(feats["cuda"], feats["cpu"])
+
+    # (d) InceptionV3 at 299 px, batch 8, seeded weights, card vs CPU
+    model = seeded_inception(11)
+    x = np.random.default_rng(12).uniform(size=(8, 256, 256, 3)).astype(np.float32)
+    with torch.no_grad():
+        ref = model(preprocess(x))
+    inc = inception_feature_extractor(model.cuda(), batch_size=8, with_logits=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool3, probs = inc(x)
+    inc_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        logits = model(preprocess(torch.from_numpy(x).cuda()))["logits"].cpu()
+    inc_err = {"pool3": rel_max(pool3, ref["pool3"]), "logits": rel_max(logits, ref["logits"])}
+    print(f"cli.evaluate --extractor offline (card), 8 real vs 8 samples: {json.dumps(ev)} in "
+          f"{eval_s:.3f} s; the random projection card vs CPU {proj_err:.3e}, the FeatureCNN "
+          f"of eval_extractor256.npz on {tile} px tiles b16 {fcnn_err:.3e}, InceptionV3 299 px "
+          f"b8 {json.dumps(inc_err)} (tol {TOL_EVAL}; host {inc_ms:.3f} ms a batch with the "
+          f"copies); {card}", flush=True)
+    assert max(proj_err, fcnn_err, *inc_err.values()) <= TOL_EVAL, (proj_err, fcnn_err, inc_err)
+    assert np.allclose(probs.sum(-1), 1.0, atol=1e-5)
+    del model, inc
+    torch.cuda.empty_cache()
+    return {"metrics_txt": written, "metrics_cpu": cpu, "evaluate": ev,
+            "projection_err": proj_err, "feature_cnn_err": fcnn_err, "inception_err": inc_err}
+
+
 def write_geotiff(path, arr, deflate=False, rows_per_strip=16):
     """A baseline TIFF of the [H, W, S] uint16 or float32 array ``arr``:
     little endian, chunky, strips of ``rows_per_strip`` rows; uncompressed,
@@ -1448,7 +1749,8 @@ def phase_7c(tmp, card, synthetic):
           f"sampling from the checkpoint on the test split's cloudy views: DDIM-4 b8 "
           f"{sampled['sample_seconds']:.3f} s, launches {counts()}; {card}", flush=True)
     return {"feed_ms": feed, "decode_ms": decode_ms, "sps": sps, "sps_fed": sps_fed,
-            "synthetic_sps": syn_sps, "synthetic_sps_fed": syn_fed, "gather_ms": gather_ms}
+            "synthetic_sps": syn_sps, "synthetic_sps_fed": syn_fed, "gather_ms": gather_ms,
+            "root": root, "checkpoint": res["checkpoint"]}
 
 
 def run_tiled(cfg, seed, gen, n, steps):
@@ -1609,6 +1911,12 @@ def main() -> int:
     lse_rows = [attention_case(8, 4096, 8, 48, torch.bfloat16, False, gen, with_lse=True),
                 attention_case(8, 1024, 8, 64, torch.bfloat16, False, gen, with_lse=True)]
     rows += lse_rows
+    # the forward as a dit256 training step runs it: b16, new head order, lse.
+    # The DiT training checks (here, the backward's row, phase 4d) draw from
+    # a generator of their own, so every other check keeps its draws
+    dgen = torch.Generator(device="cuda").manual_seed(13)
+    dit_lse_row = attention_case(16, 1024, 12, 64, torch.bfloat16, True, dgen, with_lse=True)
+    rows.append(dit_lse_row)
 
     # the unit-normal checks of the backward draw apart, so the draws of the
     # checks at doubled q and k stay those of the runs before them
@@ -1622,6 +1930,8 @@ def main() -> int:
     bwd_rows.append(attention_bwd_case(8, 64, 8, 64, bf16, False, gen, ugen))   # 64 px
     bwd_rows.append(attention_bwd_case(2, 1024, 8, 64, f32, False, gen, ugen))  # --no_bf16
     bwd_rows.append(attention_bwd_case(3, 1000, 4, 48, bf16, True, gen, ugen))  # ragged T
+    dit_bwd_row = attention_bwd_case(16, 1024, 12, 64, bf16, True, dgen, dgen)  # dit256 b16
+    bwd_rows.append(dit_bwd_row)
     torch.cuda.empty_cache()
 
     # the separate-tensor entries (K2/K3's forward, K4 behind it): the clouds
@@ -1693,6 +2003,12 @@ def main() -> int:
                       hidden_size=768, depth=DIT_DEPTH, num_heads=12, dtype=torch.bfloat16),
             32, gen, "DiT-B/4 latent256"),
     }
+    torch.cuda.empty_cache()
+
+    # 4d. a dit256 (DiT-B/8) flow-matching loss and backward at 256 px, batch
+    # 16: K1 with the lse and K4 in the new head order inside a model
+    dit_grad = dit_train_check(dit_b(256, dtype=torch.bfloat16), DIT_TRAIN_BATCH, dgen,
+                               "DiT-B/8 256 px")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1793,7 +2109,13 @@ def main() -> int:
               f"{train512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
         # 7c. the SEN12MS-CR feed at full width: GeoTIFFs on disk to the card
-        phase_7c(tmp, card, train_res)
+        sen = phase_7c(tmp, card, train_res)
+
+        # 7d. DiT and flow training through the entry point
+        dit_train = run_train_dit(tmp, seed=10, card=card)
+
+        # 7e. evaluation: SSIM/PSNR in the sampling CLI, cli.evaluate, the extractors
+        evaluation = phase_7e(tmp, card, sen)
 
     # 8. the W8A8 attention probe, once
     reset_counts()
@@ -1861,6 +2183,10 @@ def main() -> int:
         "launches_dit": {tag: r["launches"]["attn_fwd"] for tag, r in dit_res.items()},
         "ms_with_lse": lse_rows[0]["kernel_ms"],
         "ms_dit256": dit_rows[0]["kernel_ms"],
+        "dit256_train": {k: dit_lse_row[k] for k in ("shape", "kernel_ms", "library_ms",
+                                                     "bound_ms", "plain_ms", "max_abs_err")},
+        "launches_dit256_train": dit_train["launches"]["attn_fwd"],
+        "dit256_train_grad_check": dit_grad,
         "mma_body_ms": main_row["mma_body_ms"],
         "dit_forward_rel_l2": dit_fwd,
         "shapes": rows,
@@ -1906,6 +2232,11 @@ def main() -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
         "mma_body_ms": bwd_row["mma_body_ms"],
+        "dit256_train": {k: dit_bwd_row[k] for k in ("shape", "kernel_ms", "library_ms",
+                                                     "bound_ms", "plain_ms", "max_abs_err")},
+        "launches_dit256_train": dit_train["launches"]["attn_bwd"],
+        "launches_short_train": {k: v["launches"]["attn_bwd"]
+                                 for k, v in dit_train["short"].items()},
         "shapes": bwd_rows,
     }, {
         "name": "flash_attention_fwd",

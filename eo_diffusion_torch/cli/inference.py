@@ -13,9 +13,14 @@ test split of any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
 ``--data_root``). It writes the same
 ``samples/`` PNG grids as the JAX CLI. UNet and DiT presets sample with
 DDPM/DDIM; flow-process presets (``dit256``, ``flow64``, ``tiny-flow``) with
-``--sampler flow``, which they force. Flags of the JAX CLI that later slices
-bring (SSIM/PSNR ``--metrics``, guidance, DeepCache, other samplers, latent
-presets, ...) exit naming their ROADMAP queue.
+``--sampler flow``, which they force. ``--metrics`` scores each conditioned
+batch's samples against the ground truth (SSIM and PSNR on the device, in
+[0, 1]), prints the running means and writes them to ``<outdir>/metrics.txt``;
+``--samples_fid`` writes every sample as its own PNG under
+``<outdir>/samples_fid/`` for ``cli.evaluate``; ``--wandb`` is parsed and, as
+in the JAX CLI, does nothing here. Flags of the JAX CLI that later slices
+bring (guidance, DeepCache, other samplers, latent presets, ...) exit naming
+their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--metrics": 9, "--samples_fid": 9, "--wandb": 9, "--ae_ckpt": 10,
+    "--ae_ckpt": 10,
     "--guidance_scale": 11, "--guidance_rescale": 11, "--guidance_interval": 11,
     "--dynamic_threshold": 11, "--dpm_spacing": 11, "--sigma_data": 11, "--cd_points": 11,
     "--deepcache": 11, "--sdedit_strength": 11, "--pag_scale": 11, "--autoguide_": 11,
@@ -85,7 +90,12 @@ def parse_args(argv=None):
                         help="stop after batch index n_iter (0 = one batch)")
     parser.add_argument("--no_bf16", action="store_true")
     parser.add_argument("--outdir", type=str, default="results/run")
+    parser.add_argument("--metrics", action="store_true",
+                        help="SSIM/PSNR of the samples against the ground truth")
+    parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--save", action="store_true")
+    parser.add_argument("--samples_fid", action="store_true",
+                        help="write each sample as a PNG under <outdir>/samples_fid")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; never falls back silently")
     for arg in (argv if argv is not None else __import__("sys").argv[1:]):
@@ -129,9 +139,10 @@ def main(args):
     """Sample ``args.n_iter + 1`` batches. Returns a summary dict with the
     last batch's samples (``[N, H, W, C]`` float32 numpy), the batch and
     image counts and the seconds spent inside the samplers, in all and by
-    batch."""
+    batch; with ``--metrics`` also the mean ``ssim`` and ``psnr``."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
+    from eo_diffusion_torch.utils import metrics as M
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
     from eo_diffusion_torch.weights import load_reference_checkpoint
 
@@ -179,13 +190,16 @@ def main(args):
     model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
 
     dir_samples = os.path.join(args.outdir, "samples")
+    dir_fid = os.path.join(args.outdir, "samples_fid")
     os.makedirs(dir_samples, exist_ok=True)
+    os.makedirs(dir_fid, exist_ok=True)
     offset = len(os.listdir(dir_samples)) // (1 if cond_type is None else 3)
 
     print("start inference")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     to_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
     samples, n_images, batch_seconds, n = None, 0, [], 0
+    ssim_sum, psnr_sum = 0.0, 0.0
     with torch.inference_mode():
         for j, batch in enumerate(test_loader):
             print(f"data {j}")
@@ -220,21 +234,39 @@ def main(args):
             samples01 = rescale_to_unit(samples, data_range)
             idx = j + offset
             nrow = int(math.sqrt(bsz)) or 1
-            if args.save:
-                if cond is not None:
+            if cond is not None:
+                gt01 = rescale_to_unit(image, data_range)
+                if args.metrics:  # on the device, from the [0, 1] samples
+                    s01, g01 = (torch.as_tensor(a, device=device) for a in (samples01, gt01))
+                    ssim_sum += float(M.ssim(s01, g01))
+                    psnr_sum += float(M.psnr(s01, g01))
+                if args.save:
                     cond_vis = (image * np.clip(mask + 0.7, 0, 1) if mask is not None
                                 else cond[..., :image.shape[-1]])
-                    save_image_grid(rescale_to_unit(image, data_range),
-                                    os.path.join(dir_samples, f"sample_{idx}_gt.png"), nrow=nrow)
+                    save_image_grid(gt01, os.path.join(dir_samples, f"sample_{idx}_gt.png"),
+                                    nrow=nrow)
                     save_image_grid(rescale_to_unit(cond_vis, data_range),
                                     os.path.join(dir_samples, f"sample_{idx}_cond.png"), nrow=nrow)
+            if args.samples_fid:  # no class labels in the port's sampling: "sample"
+                for i in range(bsz):
+                    save_image_grid(samples01[i], os.path.join(dir_fid, f"sample_{idx}-{i}.png"))
+            if args.save:
                 save_image_grid(samples01, os.path.join(dir_samples, f"sample_{idx}.png"),
                                 nrow=nrow)
             n += 1
+            if args.metrics:
+                print("metrics: ", ssim_sum / n, psnr_sum / n)
+                with open(os.path.join(args.outdir, "metrics.txt"), "w") as f:
+                    f.write(f"ssim: {ssim_sum / n}\n")
+                    f.write(f"psnr: {psnr_sum / n}\n")
+                    f.write(f"length: {n}\n")
             if args.n_iter is not None and j >= args.n_iter:
                 break
-    return {"samples": samples, "batches": n, "images": n_images,
-            "sample_seconds": sum(batch_seconds), "batch_seconds": batch_seconds}
+    res = {"samples": samples, "batches": n, "images": n_images,
+           "sample_seconds": sum(batch_seconds), "batch_seconds": batch_seconds}
+    if args.metrics and n:
+        res.update(ssim=ssim_sum / n, psnr=psnr_sum / n)
+    return res
 
 
 if __name__ == "__main__":

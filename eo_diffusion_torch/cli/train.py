@@ -13,8 +13,13 @@ CLI it reads any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
 the bar (from 0.9 down, train.py:100,133-155) and periodic ``steps_<n>``
 checkpoints under ``logs/<basename of --dir>``; ``--resume`` continues the step counter, the
 LR schedule and the EMA cadence; SIGTERM finishes the step in flight,
-checkpoints and exits. Flags of the JAX CLI that later slices of the port
-bring are rejected by name with their ROADMAP queue.
+checkpoints and exits. Every UNet and DiT preset of the port trains, with the
+DDPM chain or rectified flow (``dit256``, ``flow64``, ``tiny-dit``,
+``tiny-flow``, ...); a flow preset previews with ``--preview_sampler flow``,
+which it forces. ``--wandb`` logs the loss, the LR and the previews to
+Weights & Biases when the package is installed, and prints a line and logs
+to stdout only when it is not. Flags of the JAX CLI that later slices of the
+port bring are rejected by name with their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--wandb": 9, "--ae_ckpt": 10, "--ae_steps": 10, "--ae_lr": 10,
+    "--ae_ckpt": 10, "--ae_steps": 10, "--ae_lr": 10,
     "--posthoc_ema": 11, "--posthoc_gammas": 11, "--model_base_dim": 11,
     "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
     "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
@@ -56,6 +61,7 @@ def parse_args(argv=None):
     parser.add_argument("--model_ema_decay", type=float, default=0.995)
     parser.add_argument("--log_freq", type=int, default=10)
     parser.add_argument("--no_clip", action="store_true")
+    parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--num_classes", type=int, default=0)
     parser.add_argument("--class_dropout", type=float, default=0.0,
                         help="CFG label-dropout probability (reserves the "
@@ -84,9 +90,10 @@ def parse_args(argv=None):
     parser.add_argument("--sample_every", type=int, default=1000)
     parser.add_argument("--save_every", type=int, default=1000)
     parser.add_argument("--preview_sampler", type=str, default="ddpm",
-                        choices=["ddpm", "ddim"],
+                        choices=["ddpm", "ddim", "flow"],
                         help="sampler for the periodic training previews "
-                             "(ddpm = reference parity, full T-step chain)")
+                             "(ddpm = reference parity, full T-step chain; "
+                             "flow = the ODE of flow-process presets, which force it)")
     parser.add_argument("--preview_steps", type=int, default=50,
                         help="steps for ddim previews")
     parser.add_argument("--device", type=str, default="cuda",
@@ -144,10 +151,12 @@ def main(args):
 
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
-    if preset.backbone != "unet" or preset.process != "ddpm":
-        raise NotImplementedError(f"preset {preset.name!r}: training the {preset.backbone} "
-                                  f"backbone with the {preset.process} process is not "
-                                  "ported yet (ROADMAP queue 10)")
+    # flow presets preview by ODE integration; the DDPM chain has no ODE
+    # integrator, so fail before the first preview hours in
+    if args.preview_sampler == "flow" and preset.process != "flow":
+        raise SystemExit(f"--preview_sampler flow requires a flow-process preset; "
+                         f"{preset.name} trains the DDPM chain (use ddpm/ddim)")
+    preview_sampler = "flow" if preset.process == "flow" else args.preview_sampler
     dataset = args.dataset or preset.dataset
     factory = DATASET_FACTORIES[dataset]
     image_size = args.image_size or preset.image_size
@@ -183,7 +192,7 @@ def main(args):
     has_cond = cond_type == "concat" and "cond" in batch0
     cond_channels = batch0["cond"].shape[-1] if has_cond else 0
     torch.manual_seed(args.seed)  # the model's initial weights
-    model = build_denoiser(preset.unet_config(
+    model = build_denoiser(preset.model_config(
         bf16=not args.no_bf16, cond_channels=cond_channels, num_classes=num_classes,
         class_dropout_prob=args.class_dropout))
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
@@ -195,7 +204,7 @@ def main(args):
         num_classes=args.num_classes, cond_type=cond_type, ckpt_dir=ckpt_dir,
         sample_dir=args.dir, seed=args.seed, grad_accum=args.grad_accum,
         grad_clip=args.grad_clip, skip_nonfinite=args.skip_nonfinite,
-        preview_sampler=args.preview_sampler, preview_steps=args.preview_steps)
+        preview_sampler=preview_sampler, preview_steps=args.preview_steps)
     trainer = Trainer(tcfg, model, diffusion, steps_per_epoch, device=device)
     state = trainer.init()
     n_params = sum(p.numel() for p in state.params)
@@ -211,6 +220,15 @@ def main(args):
         print("Loading checkpoint...")
         state = restore_checkpoint(ckpt_path, state)
         print(f"loaded! resuming from step {state.step}")
+
+    run = None
+    if args.wandb:
+        try:
+            import wandb
+
+            run = wandb.init(project="EO-minimal-diffusion")
+        except Exception as e:  # offline env: degrade to prints
+            print(f"wandb unavailable ({e}); logging to stdout only")
 
     os.makedirs(args.dir, exist_ok=True)
     os.makedirs(tcfg.ckpt_dir, exist_ok=True)
@@ -253,6 +271,8 @@ def main(args):
             if args.log_freq and j % args.log_freq == 0:
                 print("Epoch[{}/{}],Step[{}/{}],loss:{:.5f},lr:{:.5f}".format(
                     epoch + 1, args.epochs, j, steps_per_epoch, loss, lr))
+            if run is not None:
+                run.log({"loss": loss, "lr": lr})
 
             if loss < best_loss:
                 best_loss = loss
@@ -273,6 +293,11 @@ def main(args):
                 save_image_grid(samples.float().cpu().numpy(), img_path, nrow=nrow,
                                 data_range=data_range)
                 print(f"saving in {img_path}, epoch {epoch}")
+                if run is not None:
+                    # wandb sample galleries (reference ddpm.py:502-539 log_images)
+                    import wandb
+
+                    run.log({"samples": wandb.Image(img_path)})
                 if cond is not None:
                     save_image_grid(
                         cond[..., :3].float().cpu().numpy(),

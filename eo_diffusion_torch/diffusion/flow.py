@@ -1,4 +1,4 @@
-"""Flow matching / rectified flow: the sampler, in PyTorch.
+"""Flow matching / rectified flow: the training loss and the sampler, in PyTorch.
 
 Counterpart of ``eo_diffusion_tpu/diffusion/flow.py`` (Lipman et al.,
 arXiv:2210.02747; Liu et al., arXiv:2209.03003): the straight path ``x_t =
@@ -8,11 +8,15 @@ velocity ``eps - x0``. Sampling integrates ``dx/dt = v(x, t)`` from t = 1
 sees ``t * time_scale``, so the sinusoidal timestep embedding works in the
 range the backbones were built for.
 
+Training draws t (uniform, or SD3's logit-normal) and eps and regresses
+``eps - x0`` at ``x_t`` with an f32 MSE (:meth:`FlowMatching.train_loss`);
+``noise=`` pins the endpoint pairing (ReFlow couplings) and ``t=`` the draw
+of t, so tests can feed the JAX package's draws.
+
 x is carried in float32 and only the model input is cast to ``dtype``. Random
 draws come from an explicit ``torch.Generator``; ``noise_fn(i, "mask")``
 replaces the inpainting draw of step ``i``, so tests can feed the JAX
-package's draws. All tensors are NHWC. The training loss comes with the
-training slice of this family (ROADMAP queue 10).
+package's draws. All tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -37,11 +41,56 @@ class FlowMatching:
     in_channels: int
     cond_type: Optional[str] = None  # None | "concat" (cond passed to the model) | "sum"
     time_scale: float = 1000.0  # the model sees t * time_scale
+    # SD3-style logit-normal time sampling concentrates training mid-path;
+    # "uniform" is the plain flow-matching objective
+    time_sampling: str = "uniform"  # "uniform" | "logit_normal"
+    logit_norm_scale: float = 1.0
 
     @classmethod
     def create(cls, image_size: int = 64, in_channels: int = 3,
                cond_type: Optional[str] = None, **kw) -> "FlowMatching":
         return cls(image_size=image_size, in_channels=in_channels, cond_type=cond_type, **kw)
+
+    # -- training ------------------------------------------------------------
+
+    def _sample_t(self, n: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        """``n`` times in [0, 1] (float32): uniform, or the sigmoid of a
+        normal draw scaled by ``logit_norm_scale``."""
+        if self.time_sampling == "logit_normal":
+            z = torch.randn(n, generator=generator, device=device) * self.logit_norm_scale
+            return torch.sigmoid(z)
+        assert self.time_sampling == "uniform", self.time_sampling
+        return torch.rand(n, generator=generator, device=device)
+
+    def training_tuple(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       t: Optional[torch.Tensor] = None):
+        """One training instance ``(x_t, t_model, target)`` with ``loss =
+        mean((model(x_t, t_model) - target)^2)``: x_t in x0's dtype,
+        ``t_model = t * time_scale`` and the target ``eps - x0`` in float32.
+        t is drawn before eps; ``t`` (in [0, 1]) and ``noise`` replace the
+        draws."""
+        n = x0.shape[0]
+        if t is None:
+            t = self._sample_t(n, generator, x0.device)
+        t = t.to(device=x0.device, dtype=torch.float32)
+        eps = (noise.to(device=x0.device, dtype=torch.float32) if noise is not None
+               else torch.randn(x0.shape, generator=generator, device=x0.device))
+        x0f = x0.float()
+        tb = t[:, None, None, None]
+        x_t = (1.0 - tb) * x0f + tb * eps
+        return x_t.to(x0.dtype), t * self.time_scale, eps - x0f
+
+    def train_loss(self, model_fn: DenoiseFn, x0: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   cond: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Conditional flow-matching MSE ``||model(x_t, t) - (eps - x0)||^2``
+        in float32 (JAX ``FlowMatching.train_loss``, ``diffusion/flow.py:93``)."""
+        x_t, t_model, target = self.training_tuple(x0, generator, noise, t)
+        pred = model_fn(x_t, t_model, cond, y)
+        return ((pred.float() - target) ** 2).mean()
 
     def sample(self, model_fn: DenoiseFn, n_samples: int, *, device,
                generator: Optional[torch.Generator] = None, num_steps: int = 32,

@@ -1,12 +1,15 @@
-"""Where a training step's time goes on the GPU: the clouds UNet at 256 px.
+"""Where a training step's time goes on the GPU: the clouds UNet at 256 px,
+or any preset's backbone and process.
 
     python -m eo_diffusion_torch.tools.profile_train [--batch_size 8] [--steps 3]
     python -m eo_diffusion_torch.tools.profile_train --image_size 512 --batch_size 4
+    python -m eo_diffusion_torch.tools.profile_train --preset dit256 --batch_size 16
 
-Builds the ``sen12mscr256`` trainer (concat cloud removal, bf16 activations,
-float32 parameters, AdamW + EMA) with seeded random weights and takes
-training steps on synthetic batches of the main path's shape. Reports, per
-step:
+Builds the preset's trainer (by default ``sen12mscr256``: concat cloud
+removal; ``dit256``: DiT-B/8 with rectified flow; bf16 activations, float32
+parameters, AdamW + EMA) with seeded random weights and takes training steps
+on synthetic batches of the preset's shape (a cond view of the image's shape
+where the preset conditions by concat). Reports, per step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class, from ``torch.profiler`` over ``--steps``
@@ -32,8 +35,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from eo_diffusion_torch.cli.presets import build_process, get_preset
-from eo_diffusion_torch.models.unet import UNet
+from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as G
@@ -50,6 +52,7 @@ _CLASSES = (
     ("conv_wgrad", re.compile(r"wgrad|sum_splits", re.I)),
     ("conv_gemm", re.compile(r"conv|gemm|xmma|cutlass|nvjet|implicit|wgrad|dgrad|fprop|sm90_",
                              re.I)),
+    ("layer_norm", re.compile(r"layer_norm", re.I)),
     ("norm_reduce", re.compile(r"reduce|norm|var_mean|welford", re.I)),
     ("copy_cat", re.compile(r"copy|cat|transpose|permute|nchw|nhwc|pad", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
@@ -65,8 +68,10 @@ def _classify(name: str) -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="sen12mscr256")
     ap.add_argument("--batch_size", type=int, default=8)
-    ap.add_argument("--image_size", type=int, default=256)
+    ap.add_argument("--image_size", type=int, default=None,
+                    help="the preset's own size by default")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/profile_train.json")
@@ -77,20 +82,23 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    preset = get_preset("sen12mscr256")
-    preset.image_size = args.image_size
-    cfg = preset.unet_config(cond_channels=preset.in_channels)
-    model = randomize_parameters(UNet(cfg), args.seed)
+    preset = get_preset(args.preset)
+    preset.image_size = args.image_size or preset.image_size
+    concat = preset.cond_type == "concat"
+    cfg = preset.model_config(cond_channels=preset.in_channels if concat else 0)
+    model = randomize_parameters(build_denoiser(cfg), args.seed)
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
                               cond_type=preset.cond_type)
     n, s, c = args.batch_size, preset.image_size, preset.in_channels
-    tcfg = TrainerConfig(lr=1e-4, batch_size=n, epochs=1, cond_type="concat",
-                         model_ema_steps=1, seed=args.seed)
+    tcfg = TrainerConfig(lr=1e-4, batch_size=n, epochs=1, cond_type=preset.cond_type,
+                         model_ema_steps=1, seed=args.seed,
+                         preview_sampler="flow" if preset.process == "flow" else "ddpm")
     trainer = Trainer(tcfg, model, diffusion, steps_per_epoch=1000, device=dev)
     state = trainer.init()
     rng = np.random.default_rng(args.seed)
-    batch = {"image": rng.uniform(-1, 1, (n, s, s, c)).astype(np.float32),
-             "cond": rng.uniform(-1, 1, (n, s, s, c)).astype(np.float32)}
+    batch = {"image": rng.uniform(-1, 1, (n, s, s, c)).astype(np.float32)}
+    if concat:
+        batch["cond"] = rng.uniform(-1, 1, (n, s, s, c)).astype(np.float32)
 
     def steps(k):
         nonlocal state
@@ -133,7 +141,8 @@ def main(argv=None) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]
     res = {
         "card": card.strip(),
-        "config": f"sen12mscr256 training step at {s} px, bf16, AdamW + EMA every step",
+        "config": f"{preset.name} training step ({preset.backbone}, {preset.process}) at {s} "
+                  "px, bf16, AdamW + EMA every step",
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
         "steps_per_s": 1e3 / step_ms, "img_per_s": n * 1e3 / step_ms,
         "loss": float(metrics["loss"]),

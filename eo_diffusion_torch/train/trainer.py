@@ -21,23 +21,27 @@ optimizer and the EMA update, in that order. What it keeps of the JAX trainer:
   ``n = step // ema_every``, applied when ``step % ema_every == 0`` on the
   step before it is incremented.
 
-Checkpoints carry ``{"model", "model_ema", "opt_state", "step", ...}``
+The process is the DDPM chain (:class:`GaussianDiffusion`) or rectified flow
+(:class:`FlowMatching`), the backbone a UNet or a DiT: the loss goes through
+the process's ``train_loss`` as in JAX's ``loss_fn``. Checkpoints carry
+``{"model", "model_ema", "opt_state", "step", ...}``
 (:mod:`eo_diffusion_torch.train.checkpoint`). The sharded and pipelined
 layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon optimizer, MoE
-backbones and the latent and flow processes belong to later slices of the
-port; the constructor raises for them and names the ROADMAP queue.
+backbones and the latent processes belong to later slices of the port; the
+constructor raises for them and names the ROADMAP queue.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.train.ema import adjusted_decay, ema_update_every, warmed_decay
 from eo_diffusion_torch.train.lr_schedules import set_lr, warmup_cos_exp
@@ -76,8 +80,9 @@ class TrainerConfig:
     # global-norm gradient clipping (0 = off, reference parity)
     grad_clip: float = 0.0
     # periodic-preview sampler (Trainer.sample): the reference previews with
-    # the full DDPM chain; "ddim" with ~50 steps is far cheaper at 256 px
-    preview_sampler: str = "ddpm"  # "ddpm" | "ddim"
+    # the full DDPM chain; "ddim" with ~50 steps is far cheaper at 256 px;
+    # "flow" integrates a FlowMatching process's ODE
+    preview_sampler: str = "ddpm"  # "ddpm" | "ddim" | "flow"
     preview_steps: int = 50
     optimizer: str = "adamw"
     # later slices of the port, with the JAX defaults; the Trainer raises when
@@ -161,7 +166,8 @@ class Trainer:
     the device, which :meth:`init` seeds from ``cfg.seed`` too.
     """
 
-    def __init__(self, cfg: TrainerConfig, model: nn.Module, diffusion: GaussianDiffusion,
+    def __init__(self, cfg: TrainerConfig, model: nn.Module,
+                 diffusion: Union[GaussianDiffusion, FlowMatching],
                  steps_per_epoch: int, device=None):
         for name, queue in _LATER.items():
             if getattr(cfg, name) != getattr(TrainerConfig, name):
@@ -172,13 +178,17 @@ class Trainer:
                 f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP queue 14)")
         if getattr(getattr(model, "config", None), "num_experts", 0):
             raise NotImplementedError("MoE backbones are not ported yet (ROADMAP queue 13)")
-        if not isinstance(diffusion, GaussianDiffusion):
+        if not isinstance(diffusion, (GaussianDiffusion, FlowMatching)):
             raise NotImplementedError(
-                "latent and flow processes are not ported yet (ROADMAP queue 10)")
-        if cfg.preview_sampler not in ("ddpm", "ddim"):
+                "latent processes are not ported yet (ROADMAP queue 10)")
+        if cfg.preview_sampler not in ("ddpm", "ddim", "flow"):
             raise NotImplementedError(
-                f"preview_sampler {cfg.preview_sampler!r} is not ported yet "
-                f"(ROADMAP queue {10 if cfg.preview_sampler == 'flow' else 11})")
+                f"preview_sampler {cfg.preview_sampler!r} is not ported yet (ROADMAP queue 11)")
+        self.is_flow = isinstance(diffusion, FlowMatching)
+        if self.is_flow != (cfg.preview_sampler == "flow"):
+            # FlowMatching has no DDPM/DDIM chain, the DDPM process no ODE
+            raise ValueError(f"preview_sampler {cfg.preview_sampler!r} does not sample a "
+                             f"{type(diffusion).__name__} process (flow needs flow)")
         self.cfg, self.model, self.diffusion = cfg, model, diffusion
         self.device = torch.device(device) if device is not None else (
             next(model.parameters()).device)
@@ -229,8 +239,9 @@ class Trainer:
 
     def loss(self, state: TrainState, batch: dict) -> torch.Tensor:
         """The training loss of one batch: a dict with "image" [N,H,W,C] and
-        optionally "cond", "label", a fixed "noise" and fixed timesteps "t"
-        (numpy arrays or tensors)."""
+        optionally "cond", "label", a fixed "noise" (the paired eps of a
+        ReFlow batch too) and fixed timesteps "t" (integer steps of the DDPM
+        chain, or flow times in [0, 1]; numpy arrays or tensors)."""
         cfg = self.cfg
         cond = self._to_device(batch.get("cond")) if self.use_cond else None
         y = (self._to_device(batch.get("label"), torch.long)
@@ -244,7 +255,7 @@ class Trainer:
         return self.diffusion.train_loss(
             model_fn, self._to_device(batch["image"]), generator=self._gen, cond=cond, y=y,
             noise=self._to_device(batch.get("noise")),
-            t=self._to_device(batch.get("t"), torch.long))
+            t=self._to_device(batch.get("t"), torch.float32 if self.is_flow else torch.long))
 
     def step(self, state: TrainState, batch: dict):
         """One micro-step: loss, backward, (clipped, accumulated, finite-
@@ -331,10 +342,13 @@ class Trainer:
                                               cond=cond, y=y, clip=not cfg.no_clip).x
         kw = dict(cond=cond, y=y)
         if cond is not None and self.diffusion.cond_type == "sum":
-            # ddpm_sample splits the (gt|mask) concat itself; the DDIM
-            # RePaint path takes mask/x0 explicitly
+            # ddpm_sample splits the (gt|mask) concat itself; the DDIM and
+            # flow RePaint paths take mask/x0 explicitly
             ci = self.diffusion.in_channels
             kw = dict(cond=None, y=y, x0=cond[..., :ci], mask=cond[..., ci:ci + 1])
+        if cfg.preview_sampler == "flow":
+            return self.diffusion.sample(model_fn, n, device=self.device, generator=gen,
+                                         num_steps=cfg.preview_steps, **kw).x
         return self.diffusion.ddim_sample(model_fn, n, device=self.device, generator=gen,
                                           num_steps=cfg.preview_steps, clip=not cfg.no_clip,
                                           **kw).x

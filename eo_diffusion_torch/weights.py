@@ -23,7 +23,7 @@ included, with seeded values.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -171,21 +171,25 @@ def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str,
 
 
 @torch.no_grad()
-def load_jax_train_state(state, cfg: UNetConfig, params: Mapping, ema_params: Mapping,
+def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig], params: Mapping,
+                         ema_params: Mapping,
                          mu: Mapping = None, nu: Mapping = None, step: int = 0,
                          opt_step: int = None):
     """Fill the port's train state (``train.trainer.TrainState``) from a JAX
     ``TrainState`` given as numpy arrays: ``params`` and ``ema_params`` (flax
     trees), Adam's first and second moments ``mu`` / ``nu`` (same trees; None
     leaves the optimizer fresh), the micro-step counter ``step`` and the
-    number of optimizer updates ``opt_step`` (default ``step``). Both
-    trainers can then start from the same state, mid-run too."""
-    state.model.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)
-    state.ema_model.load_state_dict(state_dict_from_jax_params(ema_params, cfg), strict=True)
+    number of optimizer updates ``opt_step`` (default ``step``). ``cfg`` is
+    the backbone's config, a UNet's or a DiT's. Both trainers can then start
+    from the same state, mid-run too."""
+    convert = (dit_state_dict_from_jax_params if isinstance(cfg, DiTConfig)
+               else state_dict_from_jax_params)
+    state.model.load_state_dict(convert(params, cfg), strict=True)
+    state.ema_model.load_state_dict(convert(ema_params, cfg), strict=True)
     state.step = int(step)
     state.opt_step = int(step if opt_step is None else opt_step)
     if mu is not None:
-        mu_sd, nu_sd = (state_dict_from_jax_params(m, cfg) for m in (mu, nu))
+        mu_sd, nu_sd = (convert(m, cfg) for m in (mu, nu))
         for name, prm in state.model.named_parameters():
             state.optimizer.state[prm] = {
                 "step": torch.tensor(float(state.opt_step)),

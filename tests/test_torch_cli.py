@@ -149,3 +149,41 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
     for name, queue in (("latent256", 10), ("tiny-dit-edm", 11), ("moe-dit64", 13)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             get_preset(name)
+
+
+def test_metrics_and_samples_fid_on_tiny_cr(tmp_path, capsys, counted_model):
+    """``--metrics --samples_fid`` (``--wandb`` parsed): metrics.txt holds the
+    JAX package's SSIM and PSNR of the same samples against the ground truth
+    (the test split's first batch) within 1e-5 relative, and every sample is
+    a PNG of its own under samples_fid/."""
+    import jax.numpy as jnp
+    from PIL import Image
+
+    from eo_diffusion_torch.cli import inference
+    from eo_diffusion_torch.data.factories import DATASET_FACTORIES
+    from eo_diffusion_torch.utils.images import rescale_to_unit, to_uint8
+    from eo_diffusion_tpu.utils import metrics as JM
+
+    args = inference.parse_args(["--preset", "tiny-cr", "--dataset", "synthetic", "--device",
+                                 "cpu", "--sampler", "ddim", "--sampler_steps", "2",
+                                 "--batch_size", "4", "--n_iter", "0", "--metrics",
+                                 "--samples_fid", "--wandb", "--outdir", str(tmp_path)])
+    res = inference.main(args)
+    loader = DATASET_FACTORIES["synthetic"](batch_size=4, image_size=8, channels=3,
+                                            with_cond_image=True)[1]
+    data_range = loader.dataset.data_range
+    gt01 = rescale_to_unit(np.asarray(next(iter(loader))["image"], np.float32), data_range)
+    s01 = rescale_to_unit(res["samples"], data_range)
+    want = {"ssim": float(JM.ssim(jnp.asarray(s01), jnp.asarray(gt01))),
+            "psnr": float(JM.psnr(jnp.asarray(s01), jnp.asarray(gt01)))}
+    lines = (tmp_path / "metrics.txt").read_text().splitlines()
+    got = dict(line.split(": ") for line in lines)
+    assert got["length"] == "1" and "metrics: " in capsys.readouterr().out
+    for k, v in want.items():
+        assert abs(float(got[k]) - v) <= 1e-5 * abs(v), (k, got[k], v)
+        assert float(got[k]) == res[k]
+    fid = sorted(os.listdir(tmp_path / "samples_fid"))
+    assert fid == [f"sample_0-{i}.png" for i in range(4)]
+    for i, name in enumerate(fid):  # one image, in a 2 px frame as the grids have
+        png = np.asarray(Image.open(tmp_path / "samples_fid" / name))
+        np.testing.assert_array_equal(png[2:-2, 2:-2], to_uint8(s01[i]))

@@ -912,6 +912,45 @@ def test_dit_forward_kernel_matches_plain_and_launches_k1_a_block(dev, dtype):
     assert rel <= (1e-4 if dtype == torch.float32 else 3e-2), rel
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dit_flow_training_step_kernels_match_plain(dev, dtype):
+    """One flow-matching loss and backward of a small DiT (T 256, D 64, new
+    head order): K1 with the lse forward and K4 backward once a block, against
+    the all-plain model on the same weights, times and noise; every
+    parameter's gradient finite, the qkv weights' non-zero."""
+    from eo_diffusion_torch.diffusion.flow import FlowMatching
+    from eo_diffusion_torch.models import dit as TD
+
+    cfg = TD.DiTConfig(image_size=64, in_channels=3, out_channels=3, patch_size=4,
+                       hidden_size=256, depth=3, num_heads=4, dtype=dtype)
+    model = randomize_parameters(TD.DiT(cfg), seed=1).to(dev).train()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x0 = torch.randn(2, 64, 64, 3, generator=g, device="cuda")
+    noise = torch.randn(2, 64, 64, 3, generator=g, device="cuda")
+    t = torch.tensor([0.9, 0.2], device="cuda")
+    flow = FlowMatching.create(image_size=64)
+    losses, grads = {}, {}
+    for impl in ("auto", "plain"):
+        model.set_impl(impl).zero_grad(set_to_none=True)
+        q0, b0 = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+        loss = flow.train_loss(lambda a, tt, c, y: model(a, tt), x0, t=t, noise=noise)
+        loss.backward()
+        launched = (A.qkv_attention_cuda.launches - q0, A.qkv_attention_bwd_cuda.launches - b0)
+        assert launched == ((cfg.depth, cfg.depth) if impl == "auto" else (0, 0)), launched
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert abs(losses["auto"] - losses["plain"]) <= tol * abs(losses["plain"])
+    num = den = 0.0
+    for name, gk in grads["auto"].items():
+        assert torch.isfinite(gk).all(), name
+        if name.endswith("qkv.weight"):
+            assert gk.abs().max() > 0, name
+        num += (gk - grads["plain"][name]).pow(2).sum().item()
+        den += grads["plain"][name].pow(2).sum().item()
+    assert (num / den) ** 0.5 <= tol
+
+
 # -- the 3x3 conv weight-gradient kernel -----------------------------------------
 
 # |kernel - plain| / max|plain|: both sum exact products of the inputs in f32

@@ -101,3 +101,30 @@ def rel_err(out, ref):
     out = out.detach().numpy() if torch.is_tensor(out) else np.asarray(out)
     ref = np.asarray(ref)
     return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+def trainer_steps(jtr, jstate, ttr, tstate, batches, seed, draw_t):
+    """Both trainers take one micro-step per batch from their loaded states.
+    The JAX step draws its randomness from ``PRNGKey(seed)``: each step
+    takes ``split(_rng)[1]`` (trainer.py:534) and the loss splits once more
+    for dropout (:97); ``draw_t(loss_rng)`` recovers the process's t from
+    the loss key, which the port takes as ``batch["t"]`` (the noise rides
+    the batch on both sides). Returns both trainers' per-step metrics and
+    final states (the JAX one as numpy)."""
+    key = jax.random.PRNGKey(seed)
+    jout, tout = [], []
+    for b in batches:
+        key, step_rng = jax.random.split(key)
+        t = np.asarray(draw_t(jax.random.split(step_rng)[0]))
+        jstate, m = jtr.step(jstate, b)
+        jout.append({k: float(v) for k, v in m.items()})
+        tstate, m = ttr.step(tstate, dict(b, t=t))
+        tout.append({k: float(v) for k, v in m.items()})
+    return jout, tout, jax.tree.map(np.asarray, jstate), tstate
+
+
+def rel_l2(tensors, refs):
+    """Global relative L2 of torch ``tensors`` against numpy ``refs``."""
+    num = sum(float(((a.detach().numpy() - np.asarray(b)) ** 2).sum())
+              for a, b in zip(tensors, refs))
+    return (num / sum(float((np.asarray(b) ** 2).sum()) for b in refs)) ** 0.5
