@@ -34,7 +34,14 @@ Phases, in order; the first failure exits non-zero:
    attention takes the separate-tensor route; 4d. a ``dit256`` (DiT-B/8)
    flow-matching loss and backward at 256 px, batch 16, kernels against the
    all-plain model, the same limits: K1 with the lse and K4 once a block in
-   the new head order, every gradient finite;
+   the new head order, every gradient finite; 4e. ``latent256-cr`` at batch
+   32: its float32 f4 first stage (base 128, seeded) encode -> decode and one
+   reconstruction loss and backward against the all-plain AE (TOL_AE_REL;
+   6 GroupNorm launches a direction, no weight-gradient kernel), then one
+   DiT-B/4 flow loss and backward on the encoded x0 and cloudy view against
+   the all-plain DiT and AE (phase 4d's limits): K1 with the lse and K4 once
+   a block, the first stage forward only (6 GroupNorm launches, none
+   backward, no gradient on its weights);
 5. the sampling path through the entry point: ``eo_diffusion_torch.cli.inference``
    with ``sen12mscr256`` (concat cloud removal), DDIM-50, batch 8, seeded
    random weights; the attention counter (the wgmma/TMA body) must rise by
@@ -48,7 +55,9 @@ Phases, in order; the first failure exits non-zero:
    blocks, hidden 768, 12 heads, patch 8) with rectified flow, Heun-8 (15
    model calls, 180 fused-qkv attention launches a batch) and Euler-32 (384),
    and ``dit64`` (DiT-S/4) with DDIM-50 (600), batch 8, three batches each,
-   no separate-tensor or GroupNorm launch;
+   no separate-tensor or GroupNorm launch; 5e. ``tiled_flow_sample`` of
+   512 x 512 scenes with the ``dit256`` denoiser (3 x 3 tiles at overlap
+   0.5, Heun-8: 15 stitched calls, 180 K1 launches), finite;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -79,6 +88,15 @@ Phases, in order; the first failure exits non-zero:
    over the ground truth's and the samples' PNGs; the FeatureCNN of
    ``gallery/eval_extractor256.npz``, the random projection and InceptionV3
    at 299 px, batch 8, seeded weights, each on the card against the CPU;
+   7f. ``cli.train --preset latent256-cr`` at full width and depth, batch
+   32: the float32 first stage trains LATENT_AE_STEPS steps (6 GroupNorm
+   launches each way a step, nothing else) and is saved under ``ae/``, then
+   DiT-B/4 trains LATENT_DIT_STEPS steps on its latents (K1 with the lse 12,
+   K4 12, GroupNorm forward 6, GroupNorm backward and weight-gradient
+   kernels 0 a step), ms a step of each stage; the checkpoint and ``ae/``
+   restore, and ``cli.inference --sampler flow`` (Heun-8, ``--metrics``)
+   samples two batches of 8 of the test split's cloudy views and decodes
+   them (180 K1 and 6 GroupNorm launches a batch), img/s;
 8. the W8A8 attention probe (``eo_diffusion_torch.tools.probe_int8_attn``)
    once: the int8 core's error, its time beside the bf16 kernels' and the
    Amdahl share of a DiT-B/4 call at the latent256 shape;
@@ -107,7 +125,12 @@ Phases, in order; the first failure exits non-zero:
 
 Phase 3 also holds the int8 attention kernel against its plain version (B32
 H12 T256 D64 bf16, the probe's shape, and a smaller f32 one) and times the
-fused-qkv kernel at the DiT's shapes; phase 4c holds a DiT-B/8 forward at 256
+fused-qkv kernel at the DiT's shapes; since the latent stack, K1 with the
+lse and K4 at B32 T256 H12 D64 (a DiT-B/4 training step at batch 32), K1
+at B8 (phase 7f's sampling batch), and the GroupNorm kernels in float32
+with SiLU at the first stage's three site shapes (HW 65536 C128, HW 16384
+C256, HW 4096 C512) at N32 (training) and N8 (sampling), timed beside
+``F.group_norm`` and beside ``F.silu(F.group_norm(...))``; phase 4c holds a DiT-B/8 forward at 256
 px and a DiT-B/4 call at the latent256 shape against the all-plain model.
 
 Imports nothing of JAX or of the JAX package.
@@ -141,7 +164,8 @@ from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.cli import evaluate as cli_evaluate
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
-from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample
+from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample, tiled_flow_sample
+from eo_diffusion_torch.models.autoencoder import ConvAutoencoder
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
 from eo_diffusion_torch.ops import attn_variants as AV
@@ -156,6 +180,7 @@ from eo_diffusion_torch.tools import (probe_attn_matmuls, probe_int8_attn, probe
 from eo_diffusion_torch.tools.probe_packed_pv import attention_errors, planted_faults
 from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
                                              card_line, cuda_ms, queued_ms)
+from eo_diffusion_torch.train import ae_trainer as AET
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -285,6 +310,28 @@ STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
 # the train split (batches of 8: 6 a epoch), 10 in the test split
 SEN12_SCENES, SEN12_PATCHES, SEN12_SIZE = 4, 16, 256
 SEN12_EPOCHS = 2
+# latent256-cr, the production LDM recipe (phases 3, 4e, 5e, 7f): a float32
+# f4 first stage at 256 px (base 128: GroupNorm + SiLU sites at HW 65536 /
+# 16384 / 4096 with C 128 / 256 / 512, each once in the encoder and once in
+# the decoder) and DiT-B/4 on the 64 x 64 x 4 latent grid (T 256, D 64, 12
+# heads), batch 32
+LATENT_BATCH = 32
+LATENT_SAMPLE_BATCH = 8  # phase 7f's cli.inference batch: encode, DiT, decode at N8
+AE_GN_SITES = ((65536, 128), (16384, 256), (4096, 512))
+AE_NORMS = 6  # GroupNorm launches of one encode + decode (3 + 3)
+# phase 7f: first-stage steps, then denoiser steps, through cli.train
+LATENT_AE_STEPS = 8
+LATENT_DIT_STEPS = 6
+# the first stage, kernels vs the all-plain AE (phase 4e), float32 end to end
+# with TF32 off: the GroupNorm kernel's statistics part from plain's in the
+# order of their sums only (about 1e-7 of the std, phase 3), and the convs
+# are cuDNN's on both sides, so the decoded output, the loss and the
+# parameter gradients part by little more than f32 rounding: relative L2
+# <= TOL_AE_REL
+TOL_AE_REL = 1e-4
+# phase 5e: tiled_flow_sample of TILED_FLOW_SCENES 512 x 512 scenes with the
+# dit256 denoiser (3 x 3 tiles at overlap 0.5), Heun-8: 15 stitched calls
+TILED_FLOW_SCENES = 2
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -788,12 +835,15 @@ def gn_stats_errors(x, groups, mean, rstd, drop=None):
     return mean_err, rstd_err
 
 
-def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0, fault=False):
+def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0, fault=False,
+            library_silu=False):
     """GroupNorm kernels (forward, then backward from the kernel's mean and
     rstd) vs their plain versions on one shape, with timings, the old body
     (group_norm.cu) timed on the same tensors; the statistics against
     float64, and with ``fault`` a planted lost chunk asserted caught by the
-    same check. Returns the forward and backward result rows."""
+    same check. ``library_silu``: also time ``F.silu(F.group_norm(...))``
+    and its backward (``library_silu_ms``), the library's whole function at
+    a SiLU site. Returns the forward and backward result rows."""
     x = (loc + torch.randn(n, hw, c, generator=gen, device="cuda")).to(dtype)
     dy = torch.randn(n, hw, c, generator=gen, device="cuda").to(dtype)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
@@ -876,12 +926,20 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0, fault=False)
                                            1e-5), reps)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl, retain_graph=True),
                       reps)
+    lib_silu = (None, None)
+    if library_silu:
+        del yl
+        yl = F.silu(F.group_norm(xl, groups, wl, bl, 1e-5))
+        lib_silu = (cuda_ms(lambda: F.silu(F.group_norm(xl.detach(), groups, wl.detach(),
+                                                        bl.detach(), 1e-5)), reps),
+                    cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl,
+                                                        retain_graph=True), reps))
     del xl, yl, dyl
     esize = x.element_size()
     rows = []
-    for direction, kms, oms, pms, lms, e, s in (
-            ("fwd", fwd_ms, old_fwd, fwd_plain, lib_fwd, err, sc),
-            ("bwd", bwd_ms, old_bwd, bwd_plain, lib_bwd, dx_err, dx_sc)):
+    for direction, kms, oms, pms, lms, lsm, e, s in (
+            ("fwd", fwd_ms, old_fwd, fwd_plain, lib_fwd, lib_silu[0], err, sc),
+            ("bwd", bwd_ms, old_bwd, bwd_plain, lib_bwd, lib_silu[1], dx_err, dx_sc)):
         bound, by = gn_bound_ms(direction, act, n, hw, c, groups, esize)
         p = plans[direction]
         row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": e,
@@ -890,6 +948,8 @@ def gn_case(n, hw, c, groups, act, dtype, gen, film=False, loc=0.0, fault=False)
                "plan": {"mode": p.mode, "teams": p.teams, "blocks": p.blocks,
                         "chunk_rows": p.chunk_rows, "held_rows": p.held_rows,
                         "threads": p.threads, "smem_bytes": p.smem_bytes}}
+        if lsm is not None:
+            row["library_silu_ms"] = lsm
         if direction == "fwd":
             row.update(mean_err_std_units=stats_err[0], rstd_rel_err=stats_err[1],
                        var_rel_err=var_err, naive_var_rel_err=naive_var_err,
@@ -1270,48 +1330,55 @@ def run_train_512(tmp, seed):
     return res
 
 
-def dit_train_check(cfg, batch, gen, label):
-    """One flow-matching loss and backward of the DiT with the kernels
-    against the all-plain model (``DiT.set_impl("plain")``): same weights,
-    batch, times and noise. The forward's velocity and the gradients by
-    their relative L2 difference (phase 4's limits); every parameter gets a
-    finite gradient, the qkv weights a non-zero one; K1 with the lse and K4
-    once a block, nothing else."""
-    model = randomize_parameters(DiT(cfg), seed=1).cuda().train()
-    s = cfg.image_size
-    flow = FlowMatching.create(image_size=s, in_channels=cfg.out_channels)
-    x0 = torch.randn(batch, s, s, cfg.in_channels, generator=gen, device="cuda")
-    noise = torch.randn(batch, s, s, cfg.in_channels, generator=gen, device="cuda")
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def grads_rel_l2(got, want):
+    """Relative L2 difference of two {name: gradient} sets, all together."""
+    num = sum((g - want[n]).pow(2).sum().item() for n, g in got.items())
+    return math.sqrt(num / sum(w.pow(2).sum().item() for w in want.values()))
+
+
+def dit_train_check(model, process, x0, gen, label, cond=None, want=None, set_impl=None):
+    """One flow-matching loss and backward of the DiT ``model`` through
+    ``process`` (FlowMatching, or LatentDiffusion over it) on ``x0`` with the
+    kernels against the all-plain model (``DiT.set_impl("plain")``, and
+    ``set_impl("plain")`` for the rest of the path): same weights, batch,
+    times and noise. The forward's velocity and the gradients by their
+    relative L2 difference (phase 4's limits); every parameter gets a finite
+    gradient, the qkv weights a non-zero one; the launches are ``want``
+    (default K1 with the lse and K4 once a block, nothing else)."""
+    batch, s, ch = x0.shape[0], process.image_size, process.in_channels
+    noise = torch.randn(batch, s, s, ch, generator=gen, device="cuda")
     t = torch.linspace(0.02, 0.98, batch, device="cuda")
     preds, losses, grads, launched = {}, {}, {}, {}
     for impl in ("auto", "plain"):
-        model.set_impl(impl).zero_grad(set_to_none=True)
+        model.set_impl(impl).train().zero_grad(set_to_none=True)
+        if set_impl is not None:
+            set_impl(impl)
 
         def model_fn(x, tt, c, y, impl=impl):
-            out = model(x, tt)
+            out = model(x, tt, cond=c)
             preds[impl] = out.detach().float()
             return out
 
         reset_counts()
-        loss = flow.train_loss(model_fn, x0, t=t, noise=noise)
+        loss = process.train_loss(model_fn, x0, cond=cond, t=t, noise=noise)
         loss.backward()
         torch.cuda.synchronize()
         launched[impl] = counts()
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
-    del model
-    assert launched["auto"] == dit_expected(1, 1), launched["auto"]
+    want = dit_expected(1, 1) if want is None else want
+    assert launched["auto"] == want, (launched["auto"], want)
     assert not any(launched["plain"].values()), launched["plain"]
-    fwd_rel = ((preds["auto"] - preds["plain"]).norm() / preds["plain"].norm()).item()
-    num = den = 0.0
     for name, gk in grads["auto"].items():
-        gp = grads["plain"][name]
         assert torch.isfinite(gk).all(), f"non-finite gradient of {name}"
         if name.endswith("qkv.weight"):
             assert gk.abs().max().item() > 0, f"{name} got no gradient"
-        num += (gk - gp).pow(2).sum().item()
-        den += gp.pow(2).sum().item()
-    grad_rel = math.sqrt(num / den)
+    fwd_rel = rel_l2(preds["auto"], preds["plain"])
+    grad_rel = grads_rel_l2(grads["auto"], grads["plain"])
     print(f"{label} flow loss+backward b{batch}: loss {losses['auto']:.6f} (plain "
           f"{losses['plain']:.6f}); velocity rel L2 kernels vs plain {fwd_rel:.3e} (tol "
           f"{TOL_UNET_REL}); {len(grads['auto'])} parameter gradients finite, rel L2 "
@@ -1402,6 +1469,197 @@ def run_train_dit(tmp, seed, card):
               f"{res['short'][preset]['sps']:.4f} steps/s over the last {SHORT_STEPS - 2}; "
               f"launches {got}; {card}", flush=True)
         del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def latent_expected(dit_forwards=0, dit_backwards=0, norms=0, norms_bwd=0):
+    """The launch counts of a latent path: the DiT's fused-qkv kernel and its
+    backward once a block, and ``norms`` / ``norms_bwd`` GroupNorm launches
+    of the first stage (float32: its convs' weight gradients are cuDNN's)."""
+    return {**dit_expected(dit_forwards, dit_backwards), "gn_fwd": norms, "gn_bwd": norms_bwd}
+
+
+def latent_train_check(gen):
+    """Phase 4e: the latent256-cr stack at full width, batch 32. The float32
+    first stage (seeded weights): encode -> decode and one reconstruction
+    loss and backward, the GroupNorm kernels against the all-plain AE. Then
+    one conditional DiT-B/4 flow loss and backward on the encoded x0 and
+    cloudy view, the kernels against the all-plain DiT and AE (phase 4d's
+    limits), with K1 (lse) and K4 once a block, the first stage forward only
+    (6 GroupNorm launches, no backward, no gradient on its weights)."""
+    preset = get_preset("latent256-cr")
+    ae = randomize_parameters(ConvAutoencoder(preset.ae_config()), seed=7).cuda()
+    b, s, ls = LATENT_BATCH, preset.image_size, preset.latent_size
+    x0 = torch.rand(b, s, s, 3, generator=gen, device="cuda") * 2 - 1
+    cond = torch.rand(b, s, s, 3, generator=gen, device="cuda") * 2 - 1
+    outs, losses, grads, launched = {}, {}, {}, {}
+    for impl in ("auto", "plain"):
+        ae.set_impl(norm=impl, conv=impl).zero_grad(set_to_none=True)
+        reset_counts()
+        with torch.no_grad():
+            outs[impl] = ae(x0)
+        loss, _ = AET.ae_loss(ae, x0)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched[impl] = counts()
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.clone() for n, p in ae.named_parameters()}
+        ae.zero_grad(set_to_none=True)
+    assert launched["auto"] == latent_expected(norms=2 * AE_NORMS, norms_bwd=AE_NORMS), (
+        launched["auto"])
+    assert not any(launched["plain"].values()), launched["plain"]
+    res = {"ae_out_rel_l2": rel_l2(outs["auto"], outs["plain"]),
+           "ae_loss": losses["auto"], "ae_loss_plain": losses["plain"],
+           "ae_grad_rel_l2": grads_rel_l2(grads["auto"], grads["plain"]),
+           "ae_launches": launched["auto"]}
+    del outs, grads
+    assert all(torch.isfinite(p).all() for p in ae.parameters())
+    print(f"latent256-cr first stage (f32, base 128) b{b}: encode -> decode rel L2 kernels vs "
+          f"plain {res['ae_out_rel_l2']:.3e}; loss {res['ae_loss']:.6f} (plain "
+          f"{res['ae_loss_plain']:.6f}); gradients rel L2 {res['ae_grad_rel_l2']:.3e} (tol "
+          f"{TOL_AE_REL}); launches {res['ae_launches']}", flush=True)
+    assert res["ae_out_rel_l2"] <= TOL_AE_REL and res["ae_grad_rel_l2"] <= TOL_AE_REL, res
+    assert abs(losses["auto"] - losses["plain"]) <= TOL_AE_REL * abs(losses["plain"]), losses
+
+    ae.set_impl()
+    with torch.no_grad():
+        scale = 1.0 / ae.encode(x0).float().std(correction=0).item()
+    ld = AET.latent_process(FlowMatching.create(image_size=ls, in_channels=4,
+                                                cond_type="concat"), ae, scale)
+    model = randomize_parameters(DiT(preset.model_config(cond_channels=4)), seed=8).cuda()
+    res["scale_factor"] = scale
+    res["dit"] = dit_train_check(
+        model, ld, x0, gen, f"latent256-cr DiT-B/4 on encoded latents (scale_factor {scale:.5f})",
+        cond=cond, want=latent_expected(1, 1, norms=AE_NORMS),
+        set_impl=lambda impl: ae.set_impl(norm=impl))
+    ae.set_impl()
+    assert all(p.grad is None for p in ae.parameters())
+    del model, ae
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tiled_flow(seed, gen, n, steps, card):
+    """Phase 5e: tiled_flow_sample of n 512 x 512 scenes with the dit256
+    denoiser (256 px tiles, 3 x 3 at overlap 0.5, Heun: 2 * steps - 1
+    stitched calls over all tiles at once), seeded weights."""
+    model = randomize_parameters(DiT(get_preset("dit256").model_config()), seed).cuda().eval()
+    flow = FlowMatching.create(image_size=256)
+    model_fn = lambda x, t, c, y: model(x, t)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        x = tiled_flow_sample(flow, model_fn, n, 512, 512, device="cuda", generator=gen,
+                              num_steps=steps, method="heun").x.float().cpu()
+        seconds = time.perf_counter() - t0
+    launched = counts()
+    calls = 2 * steps - 1
+    assert x.shape == (n, 512, 512, 3) and bool(torch.isfinite(x).all()), x.shape
+    assert launched == dit_expected(calls), launched
+    res = {"seconds": seconds, "images": n, "model_calls": calls, "launches": launched,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"tiled_flow_sample 512x512 dit256 tile 256 overlap 0.5 Heun-{steps} b{n}: "
+          f"{calls} stitched calls over 9 tiles a scene, {n} scenes in {seconds:.3f} s = "
+          f"{n / seconds:.4f} img/s; kernel launches {launched}; peak memory "
+          f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_train_latent(tmp, seed, card):
+    """Phase 7f: ``cli.train --preset latent256-cr`` at full width and depth,
+    batch 32: the float32 first stage trains LATENT_AE_STEPS steps (6
+    GroupNorm launches each way a step, nothing else; 3 more forward for the
+    scale factor) and is saved under ``ae/``, then DiT-B/4 trains
+    LATENT_DIT_STEPS steps on the encoded grid (K1 with the lse and K4 12 a
+    step, the first stage 6 forward, no GroupNorm backward, no weight-
+    gradient kernel). The counters are read when the first stage is saved,
+    between the two stages. The checkpoint and ``ae/`` restore, and
+    ``cli.inference --sampler flow`` (Heun-8) samples a batch of 8 of the
+    test split's cloudy views from them and decodes (180 K1 launches and 6
+    GroupNorm launches a batch)."""
+    argv = train_argv("latent256-cr", LATENT_BATCH, LATENT_DIT_STEPS, seed, "train_latent")
+    argv += ["--ae_steps", str(LATENT_AE_STEPS)]
+    at_save = {}
+    real_save = AET.save_ae
+
+    def save_and_count(*a, **kw):
+        torch.cuda.synchronize()
+        at_save.update(counts())
+        return real_save(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    AET.save_ae = save_and_count
+    try:
+        with contextlib.chdir(tmp):
+            res = cli_train.main(cli_train.parse_args(argv))
+    finally:
+        AET.save_ae = real_save
+    total = counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    ae = res["ae"]
+    assert ae["trained"] and ae["steps"] == LATENT_AE_STEPS, ae
+    res["ae_launches"] = dict(at_save)
+    res["launches"] = {k: v - at_save[k] for k, v in total.items()}
+    assert res["ae_launches"] == latent_expected(
+        norms=AE_NORMS * LATENT_AE_STEPS + AE_NORMS // 2,
+        norms_bwd=AE_NORMS * LATENT_AE_STEPS), res["ae_launches"]
+    assert res["launches"] == latent_expected(LATENT_DIT_STEPS, LATENT_DIT_STEPS,
+                                              norms=AE_NORMS * LATENT_DIT_STEPS), res["launches"]
+    assert res["steps"] == LATENT_DIT_STEPS and all(math.isfinite(x) for x in res["losses"]), (
+        res["losses"])
+    ae_st = ae["step_seconds"][2:]  # after cuDNN's first calls
+    res["ae_ms_per_step"] = 1e3 * sum(ae_st) / len(ae_st)
+    res["sps"] = steady_sps(res)
+    res["dit_ms_per_step"] = 1e3 / res["sps"]
+    state = res.pop("state")
+    ae_dir = os.path.join(tmp, ae["dir"])
+    ae_model, scale = AET.load_ae(ae_dir)
+    torch.manual_seed(seed)
+    init = ConvAutoencoder(get_preset("latent256-cr").ae_config())
+    res["ae_param_delta"] = math.sqrt(sum((p - q).pow(2).sum().item() for p, q in
+                                          zip(ae_model.parameters(), init.parameters())))
+    assert scale == ae["scale_factor"] and res["ae_param_delta"] > 0, (scale, res)
+    raw = restore_checkpoint(os.path.join(tmp, res["checkpoint"]))
+    assert raw["step"] == LATENT_DIT_STEPS and set(raw) >= {"model", "model_ema", "opt_state"}
+    for name, v in state.ema_model.state_dict().items():
+        assert torch.equal(raw["model_ema"][name], v.cpu()), name
+    del state, raw, ae_model, init
+    print(f"training path latent256-cr (f32 f4 first stage, base 128; DiT-B/4 flow) "
+          f"b{LATENT_BATCH}: first stage {LATENT_AE_STEPS} steps, steady "
+          f"{res['ae_ms_per_step']:.3f} ms a step = {1e3 / res['ae_ms_per_step']:.4f} steps/s, "
+          f"scale_factor {scale:.5f}, launches {res['ae_launches']}; DiT {res['steps']} steps, "
+          f"steady {res['sps']:.4f} steps/s (step alone, {res['dit_ms_per_step']:.3f} ms) = "
+          f"{LATENT_BATCH * res['sps']:.4f} img/s, loss {res['losses'][0]:.5f} -> "
+          f"{res['losses'][-1]:.5f}, launches {res['launches']}; peak memory "
+          f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+
+    args = cli.parse_args(["--preset", "latent256-cr", "--dataset", "synthetic", "--sampler",
+                           "flow", "--flow_method", "heun", "--sampler_steps", "8",
+                           "--batch_size", str(LATENT_SAMPLE_BATCH), "--n_iter", "1",
+                           "--metrics", "--device", "cuda",
+                           "--ckpt", os.path.join(tmp, res["checkpoint"]), "--seed", str(seed),
+                           "--outdir", os.path.join(tmp, "out_latent")])
+    reset_counts()
+    sampled = cli.main(args)
+    x = torch.as_tensor(sampled["samples"])
+    assert x.shape == (LATENT_SAMPLE_BATCH, 256, 256, 3) and bool(torch.isfinite(x).all())
+    want = latent_expected(15 * sampled["batches"], norms=AE_NORMS * sampled["batches"])
+    assert counts() == want, (counts(), want)
+    res["sample_launches"] = counts()
+    res["sample_img_s"] = LATENT_SAMPLE_BATCH / sampled["batch_seconds"][-1]
+    res["sample_metrics"] = {k: sampled[k] for k in ("ssim", "psnr")}
+    print(f"cli.inference latent256-cr Heun-8 b{LATENT_SAMPLE_BATCH} from phase 7f's "
+          f"checkpoint and ae/: "
+          f"{sampled['batches']} batches of the test split's cloudy views, batch seconds "
+          f"{[round(v, 4) for v in sampled['batch_seconds']]}, {res['sample_img_s']:.4f} img/s "
+          f"(the second); launches {res['sample_launches']}; ssim {sampled['ssim']:.4f} psnr "
+          f"{sampled['psnr']:.3f} (seeded first stage, {LATENT_DIT_STEPS} DiT steps); {card}",
+          flush=True)
     torch.cuda.empty_cache()
     return res
 
@@ -1983,6 +2241,25 @@ def main() -> int:
                                fault=fault))
     torch.cuda.empty_cache()
 
+    # latent256-cr at batch 32: K1 with the lse and K4 as a DiT-B/4 training
+    # step runs them (T 256, D 64, 12 heads, new order), and the GroupNorm +
+    # SiLU kernels in float32 at the first stage's three site shapes; then
+    # the shapes phase 7f's sampling gives them at batch 8 (K1 without the
+    # lse; the first stage's forward, whose plans may differ with N). These
+    # draw from a generator of their own (lgen), as phases 4e and 5e do, so
+    # every earlier check keeps its draws
+    lgen = torch.Generator(device="cuda").manual_seed(14)
+    latent_lse_row = attention_case(LATENT_BATCH, 256, 12, 64, torch.bfloat16, True, lgen,
+                                    with_lse=True)
+    rows.append(latent_lse_row)
+    latent_bwd_row = attention_bwd_case(LATENT_BATCH, 256, 12, 64, bf16, True, lgen, lgen)
+    bwd_rows.append(latent_bwd_row)
+    rows.append(attention_case(LATENT_SAMPLE_BATCH, 256, 12, 64, torch.bfloat16, True, lgen))
+    ae_gn_rows = [gn_case(n, hw, c, 32, "silu", torch.float32, lgen, library_silu=True)
+                  for n in (LATENT_BATCH, LATENT_SAMPLE_BATCH) for hw, c in AE_GN_SITES]
+    gn_rows += ae_gn_rows
+    torch.cuda.empty_cache()
+
     # 4. UNet forward and backward at 256 px, batch 2, and (4b) at 384 px,
     # batch 1: the kernels against the all-plain model (plain attention and
     # plain norms), same weights. At 384 px every attention takes the
@@ -2007,9 +2284,17 @@ def main() -> int:
 
     # 4d. a dit256 (DiT-B/8) flow-matching loss and backward at 256 px, batch
     # 16: K1 with the lse and K4 in the new head order inside a model
-    dit_grad = dit_train_check(dit_b(256, dtype=torch.bfloat16), DIT_TRAIN_BATCH, dgen,
-                               "DiT-B/8 256 px")
+    cfg = dit_b(256, dtype=torch.bfloat16)
+    model = randomize_parameters(DiT(cfg), seed=1).cuda()
+    x0 = torch.randn(DIT_TRAIN_BATCH, 256, 256, cfg.in_channels, generator=dgen, device="cuda")
+    dit_grad = dit_train_check(model, FlowMatching.create(image_size=256, in_channels=3), x0,
+                               dgen, "DiT-B/8 256 px")
+    del model, x0
     torch.cuda.empty_cache()
+
+    # 4e. latent256-cr: the f32 first stage and a DiT-B/4 flow step on its
+    # latents, batch 32, kernels against the all-plain models
+    latent_grad = latent_train_check(lgen)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. the main path through the entry point
@@ -2087,6 +2372,9 @@ def main() -> int:
             del res["samples"]
             dit_res[tag] = res
 
+        # 5e. tiled_flow_sample of 512 x 512 scenes with the dit256 denoiser
+        tiled_flow = run_tiled_flow(seed=12, gen=lgen, n=TILED_FLOW_SCENES, steps=8, card=card)
+
         # 7. the training path through the entry point
         train_res = run_train(tmp, seed=4)
         steady = train_res["step_seconds"][2:]  # after cuDNN's plan search
@@ -2117,6 +2405,10 @@ def main() -> int:
         # 7e. evaluation: SSIM/PSNR in the sampling CLI, cli.evaluate, the extractors
         evaluation = phase_7e(tmp, card, sen)
 
+        # 7f. latent256-cr through the entry points: the first stage, then
+        # DiT-B/4 on its latents, then sampling and decoding from both
+        latent_train = run_train_latent(tmp, seed=15, card=card)
+
     # 8. the W8A8 attention probe, once
     reset_counts()
     probe = probe_int8_attn.run(seed=0)
@@ -2131,6 +2423,12 @@ def main() -> int:
     small, probes = phase_8c(gen)
 
     # 9. the result lines
+    latent_runs = ({"launches": latent_train["ae_launches"]},
+                   {"launches": latent_train["launches"]},
+                   {"launches": latent_train["sample_launches"]})
+    latent_row = lambda r: {k: r[k] for k in ("shape", "kernel_ms", "library_ms",
+                                              "library_silu_ms", "bound_ms", "bound_by",
+                                              "plain_ms", "max_abs_err") if k in r}
     main_row = rows[0]
     bwd_row = bwd_rows[0]
     gn_fwd_rows, gn_bwd_rows = [r[0] for r in gn_rows], [r[1] for r in gn_rows]
@@ -2157,7 +2455,7 @@ def main() -> int:
         + train512["launches"]["flash_fwd"],
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
-                                       *dit_res.values())
+                                       tiled_flow, *dit_res.values(), *latent_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
@@ -2187,6 +2485,11 @@ def main() -> int:
                                                      "bound_ms", "plain_ms", "max_abs_err")},
         "launches_dit256_train": dit_train["launches"]["attn_fwd"],
         "dit256_train_grad_check": dit_grad,
+        "latent256_train": latent_row(latent_lse_row),
+        "launches_latent256_train": latent_train["launches"]["attn_fwd"],
+        "launches_latent256_sample": latent_train["sample_launches"]["attn_fwd"],
+        "launches_tiled_flow": tiled_flow["launches"]["attn_fwd"],
+        "latent256_train_check": latent_grad,
         "mma_body_ms": main_row["mma_body_ms"],
         "dit_forward_rel_l2": dit_fwd,
         "shapes": rows,
@@ -2208,7 +2511,7 @@ def main() -> int:
         + train512["launches"]["flash_bwd"],
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
-                                       *dit_res.values())
+                                       tiled_flow, *dit_res.values(), *latent_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -2235,6 +2538,8 @@ def main() -> int:
         "dit256_train": {k: dit_bwd_row[k] for k in ("shape", "kernel_ms", "library_ms",
                                                      "bound_ms", "plain_ms", "max_abs_err")},
         "launches_dit256_train": dit_train["launches"]["attn_bwd"],
+        "latent256_train": latent_row(latent_bwd_row),
+        "launches_latent256_train": latent_train["launches"]["attn_bwd"],
         "launches_short_train": {k: v["launches"]["attn_bwd"]
                                  for k, v in dit_train["short"].items()},
         "shapes": bwd_rows,
@@ -2305,7 +2610,8 @@ def main() -> int:
         "old_body_source": "eo_diffusion_torch/ops/csrc/group_norm.cu",
         "old_body_launches_on_model_paths": sum(
             r["launches"][f"gn_{direction}_legacy"]
-            for r in (main_res, res512, res64, train_res, train512, tiled, *dit_res.values())),
+            for r in (main_res, res512, res64, train_res, train512, tiled, tiled_flow,
+                      *dit_res.values(), *latent_runs)),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
@@ -2318,9 +2624,17 @@ def main() -> int:
                                                          for r in gn_fwd_rows)},
                        "lost_chunk_min_reading": min(max(r["lost_chunk_reading"].values())
                                                      for r in gn_fwd_rows
-                                                     if "lost_chunk_reading" in r)}),
+                                                     if "lost_chunk_reading" in r),
+                       "latent256_ae_f32": [latent_row(r[0]) for r in ae_gn_rows],
+                       "launches_latent256": {
+                           "ae_train": latent_train["ae_launches"]["gn_fwd"],
+                           "dit_train": latent_train["launches"]["gn_fwd"],
+                           "sample": latent_train["sample_launches"]["gn_fwd"]}}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
-         gn_bwd_rows, {}))]
+         gn_bwd_rows, {"latent256_ae_f32": [latent_row(r[1]) for r in ae_gn_rows],
+                       "launches_latent256": {
+                           "ae_train": latent_train["ae_launches"]["gn_bwd"],
+                           "dit_train": latent_train["launches"]["gn_bwd"]}}))]
     qk = mm["variants"][0]  # QK^T as shipped, one launch
     sm90_rows = [r for r in wgrad_rows if "sm90_ms" in r]
     kernels += [{

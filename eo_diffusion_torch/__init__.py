@@ -1,8 +1,10 @@
 """eo_diffusion_torch: the PyTorch/CUDA port of eo_diffusion_tpu for one NVIDIA H100.
 
 So far: the clouds UNet samples (DDPM with RePaint, DDIM, tiled DDIM) and
-trains, and the DiT samples with DDPM/DDIM or rectified flow, driven by
-``python -m eo_diffusion_torch.cli.inference`` and ``...cli.train``. Their
+trains, the DiT samples and trains with DDPM/DDIM or rectified flow (tiled
+too), and the latent presets train a first-stage autoencoder and diffuse
+on its latents, driven by ``python -m eo_diffusion_torch.cli.inference``
+and ``...cli.train``. Their
 attention and GroupNorms, and the W8A8 attention probe, run through
 hand-written CUDA kernels (``ops/csrc/*.cu``), built with ``nvcc`` on first
 use.

@@ -18,9 +18,12 @@ batch's samples against the ground truth (SSIM and PSNR on the device, in
 [0, 1]), prints the running means and writes them to ``<outdir>/metrics.txt``;
 ``--samples_fid`` writes every sample as its own PNG under
 ``<outdir>/samples_fid/`` for ``cli.evaluate``; ``--wandb`` is parsed and, as
-in the JAX CLI, does nothing here. Flags of the JAX CLI that later slices
-bring (guidance, DeepCache, other samplers, latent presets, ...) exit naming
-their ROADMAP queue.
+in the JAX CLI, does nothing here. A latent preset (``latent256-cr``, ...)
+loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
+samples on the latent grid with the cloudy view encoded, and decodes: the
+metrics and PNGs are of the decoded pixels. Flags of the JAX CLI that later
+slices bring (guidance, DeepCache, other samplers, ...) exit naming their
+ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ import torch
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--ae_ckpt": 10,
     "--guidance_scale": 11, "--guidance_rescale": 11, "--guidance_interval": 11,
     "--dynamic_threshold": 11, "--dpm_spacing": 11, "--sigma_data": 11, "--cd_points": 11,
     "--deepcache": 11, "--sdedit_strength": 11, "--pag_scale": 11, "--autoguide_": 11,
@@ -98,6 +100,9 @@ def parse_args(argv=None):
                         help="write each sample as a PNG under <outdir>/samples_fid")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; never falls back silently")
+    parser.add_argument("--ae_ckpt", type=str, default=None,
+                        help="latent presets: trained first-stage directory "
+                             "(default: 'ae' beside --ckpt)")
     for arg in (argv if argv is not None else __import__("sys").argv[1:]):
         hit = _unported_flag(arg)
         if hit:
@@ -175,7 +180,8 @@ def main(args):
     data_range = test_loader.dataset.data_range
     peek = {k: np.asarray(v)[None] for k, v in test_loader.dataset[0].items()}
     peek_cond, _ = _build_cond(peek, cond_type)
-    cond_channels = peek_cond.shape[-1] if cond_type == "concat" and peek_cond is not None else 0
+    cond_channels = (preset.cond_channels(peek_cond.shape[-1])
+                     if cond_type == "concat" and peek_cond is not None else 0)
 
     ucfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels)
     model = build_denoiser(ucfg)
@@ -185,6 +191,15 @@ def main(args):
         print("loaded!")
     model = model.to(device).eval()
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
+    if preset.is_latent:
+        from eo_diffusion_torch.train import ae_trainer as AET
+
+        ae_dir = args.ae_ckpt or os.path.join(os.path.dirname(args.ckpt), "ae")
+        if not AET.ae_exists(ae_dir):
+            raise FileNotFoundError(
+                f"latent preset {preset.name} needs a trained first stage; none at "
+                f"{ae_dir} (train one with cli.train, or pass --ae_ckpt)")
+        diffusion = AET.latent_process(diffusion, *AET.load_ae(ae_dir, device=device))
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Diffusion with {n_params / 1e6} M params on {device}")
     model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)

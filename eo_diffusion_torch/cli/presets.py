@@ -1,9 +1,13 @@
-"""Named experiment presets for the port (the pixel-space UNet and DiT
-presets, DDPM and rectified flow, of ``eo_diffusion_tpu/cli/presets.py``).
+"""Named experiment presets for the port (the UNet and DiT presets, DDPM and
+rectified flow, in pixels or behind a first stage, of
+``eo_diffusion_tpu/cli/presets.py``).
 
 Each recipe is selectable with ``--preset``; presets of the other families
-(latent, EDM, bridge, MeanFlow, MoE, SPADE, ...) raise and name the ROADMAP
-queue that ports them.
+(EDM, bridge, MeanFlow, MoE, SPADE, ...) raise and name the ROADMAP queue
+that ports them. A latent preset (``latent_downs > 0``) is a two-stage
+recipe: a :class:`ConvAutoencoder` first stage with ``2**latent_downs``
+spatial reduction, then the backbone and the process on the
+``latent_size``-square, ``latent_channels``-deep latent grid.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from torch import nn
 
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
 from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.models.unet import UNet, UNetConfig
 
@@ -38,6 +43,14 @@ class Preset:
     timesteps: int = 1000
     batch_size: int = 128
     objective: str = "eps"
+    # latent diffusion (the CompVis LatentDiffusion slot, reference
+    # diffusion/ddpm.py:628-692): latent_downs > 0 trains a ConvAutoencoder
+    # first stage with 2**latent_downs spatial reduction, then diffuses the
+    # [size/2**d]^2 x latent_channels grid and decodes samples to pixels
+    latent_downs: int = 0
+    latent_channels: int = 4
+    ae_base_dim: int = 64
+    ae_steps: int = 2000  # default first-stage training budget (cli/train.py)
     # backbone "dit" selects models/dit.DiT (base_dim is the hidden size,
     # depth the block count, patch_size the patchify stride); process "flow"
     # samples with diffusion/flow.FlowMatching instead of the DDPM chain
@@ -45,6 +58,25 @@ class Preset:
     patch_size: int = 4
     depth: int = 12
     process: str = "ddpm"  # "ddpm" | "flow"
+
+    @property
+    def is_latent(self) -> bool:
+        return self.latent_downs > 0
+
+    @property
+    def latent_size(self) -> int:
+        return self.image_size // (2 ** self.latent_downs)
+
+    def _grid(self) -> Tuple[int, int]:
+        """The model-facing grid (size, channels): pixels, or the latent grid."""
+        if self.is_latent:
+            return self.latent_size, self.latent_channels
+        return self.image_size, self.in_channels
+
+    def cond_channels(self, pixel_channels: int) -> int:
+        """The backbone's channels of a concat cond of ``pixel_channels``: a
+        latent preset encodes its cond, which then has latent_channels."""
+        return self.latent_channels if self.is_latent else pixel_channels
 
     def model_config(self, bf16: bool = True, cond_channels: int = 0,
                      num_classes: Optional[int] = None,
@@ -54,10 +86,11 @@ class Preset:
         if self.backbone == "unet":
             return self.unet_config(bf16, cond_channels, num_classes, class_dropout_prob)
         assert self.backbone == "dit", self.backbone
+        size, chans = self._grid()
         return DiTConfig(
-            image_size=self.image_size,
-            in_channels=self.in_channels + cond_channels,
-            out_channels=self.in_channels,
+            image_size=size,
+            in_channels=chans + cond_channels,
+            out_channels=chans,
             patch_size=self.patch_size,
             hidden_size=self.base_dim,
             depth=self.depth,
@@ -70,17 +103,31 @@ class Preset:
     def unet_config(self, bf16: bool = True, cond_channels: int = 0,
                     num_classes: Optional[int] = None,
                     class_dropout_prob: float = 0.0) -> UNetConfig:
+        """The UNet sized to the model-facing grid: pixels, or the latent grid
+        of a latent preset (in and out channels become latent_channels)."""
+        size, chans = self._grid()
         return UNetConfig(
-            image_size=self.image_size,
-            in_channels=self.in_channels + cond_channels,
+            image_size=size,
+            in_channels=chans + cond_channels,
             model_channels=self.base_dim,
-            out_channels=self.in_channels,
+            out_channels=chans,
             num_res_blocks=self.num_res_blocks,
             attention_resolutions=self.attention_resolutions,
             channel_mult=self.dim_mults,
             num_heads=self.num_heads,
             num_classes=num_classes or self.num_classes or None,
             class_dropout_prob=class_dropout_prob,
+            dtype=torch.bfloat16 if bf16 else torch.float32,
+        )
+
+    def ae_config(self, bf16: bool = False) -> AutoencoderConfig:
+        """The first stage's config; float32 unless asked, as the CLIs use it."""
+        assert self.is_latent, f"preset {self.name} is not a latent recipe"
+        return AutoencoderConfig(
+            in_channels=self.in_channels,
+            latent_channels=self.latent_channels,
+            base_channels=self.ae_base_dim,
+            num_down=self.latent_downs,
             dtype=torch.bfloat16 if bf16 else torch.float32,
         )
 
@@ -122,15 +169,47 @@ PRESETS = {
                         batch_size=16, backbone="dit", patch_size=4, depth=4),
     "tiny-flow": Preset("tiny-flow", "synthetic", 8, 3, 32, (1, 2), (), 1, 1, batch_size=16,
                         process="flow"),
+    # latent diffusion: 64 px images diffused as 16x16x4 latents behind a
+    # trained ConvAutoencoder first stage
+    "latent64": Preset("latent64", "synthetic", 64, 3, 64, (1, 2, 3), (2, 4), 2, 4,
+                       timesteps=1000, batch_size=64, latent_downs=2, latent_channels=4,
+                       ae_base_dim=64, ae_steps=3000),
+    # tiny latent smoke config (CPU): 16 px pixels -> 8x8x4 latents
+    "tiny-latent": Preset("tiny-latent", "synthetic", 16, 3, 32, (1, 2), (), 1, 1,
+                          timesteps=50, batch_size=16, latent_downs=1, latent_channels=4,
+                          ae_base_dim=16, ae_steps=60),
+    # the production LDM configuration: an f4 ConvAE first stage at 256 px,
+    # DiT-B/4 + rectified flow on the 64x64x4 latent grid (T 256, D 64)
+    "latent256": Preset("latent256", "synthetic_hard", 256, 3, 768, (), (), 0, 12,
+                        batch_size=32, backbone="dit", patch_size=4, depth=12,
+                        process="flow", latent_downs=2, latent_channels=4, ae_base_dim=128,
+                        ae_steps=6000),
+    # cloud removal at the latent256 configuration: the cloudy view is
+    # first-stage-encoded and channel-concatenated to the noisy latent
+    "latent256-cr": Preset("latent256-cr", "synthetic_hard", 256, 3, 768, (), (), 0, 12,
+                           cond_type="concat", batch_size=32, backbone="dit", patch_size=4,
+                           depth=12, process="flow", latent_downs=2, latent_channels=4,
+                           ae_base_dim=128, ae_steps=6000),
+    "tiny-latent-cr": Preset("tiny-latent-cr", "synthetic", 16, 3, 64, (), (), 0, 4,
+                             cond_type="concat", timesteps=50, batch_size=16, backbone="dit",
+                             patch_size=2, depth=2, process="flow", latent_downs=2,
+                             latent_channels=4, ae_base_dim=16, ae_steps=16),
+    "tiny-latent-dit": Preset("tiny-latent-dit", "synthetic", 16, 3, 64, (), (), 0, 4,
+                              timesteps=50, batch_size=16, backbone="dit", patch_size=2,
+                              depth=2, process="flow", latent_downs=2, latent_channels=4,
+                              ae_base_dim=16, ae_steps=16),
+    # latent rectified flow (FlowMatching inside LatentDiffusion): 16 px
+    # pixels -> 8x8x4 latents, ODE sampling in latent space
+    "tiny-latent-flow": Preset("tiny-latent-flow", "synthetic", 16, 3, 32, (1, 2), (), 1, 1,
+                               batch_size=16, process="flow", latent_downs=1,
+                               latent_channels=4, ae_base_dim=16, ae_steps=60),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
 _LATER = {
     "vpred64": 11, "tiny-vpred": 11, "edm64": 11, "tiny-edm": 11,
     "bridge64": 11, "tiny-bridge": 11, "cddpm64": 11, "tiny-cddpm": 11,
-    "latent64": 10, "tiny-latent": 10, "latent256": 10, "latent256-cr": 10,
-    "tiny-latent-cr": 10, "tiny-latent-dit": 10, "tiny-latent-flow": 10,
-    "tiny-latent-bridge": 10,
+    "tiny-latent-bridge": 11,
     "cflow64": 11, "tiny-cflow": 11, "tiny-dit-edm": 11,
     "meanflow64": 12, "tiny-meanflow": 12, "cmeanflow64": 12, "tiny-cmeanflow": 12,
     "tiny-dit-meanflow": 12,
@@ -158,13 +237,14 @@ def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig]) -> nn.Module:
 
 def build_process(preset: Preset, timesteps: int, image_size: int,
                   cond_type: Optional[str] = None) -> Union[GaussianDiffusion, FlowMatching]:
-    """The preset's process at ``image_size``: the DDPM chain, or rectified
-    flow for ``process="flow"`` (where "sum" stays sampling-time
-    inpainting and "concat" conditions the model)."""
+    """The preset's process on the model-facing grid (``image_size`` px, or
+    the latent grid of a latent preset, which a caller wraps in
+    ``LatentDiffusion``): the DDPM chain, or rectified flow for
+    ``process="flow"`` (where "sum" stays sampling-time inpainting and
+    "concat" conditions the model)."""
+    size, chans = preset._grid() if preset.is_latent else (image_size, preset.in_channels)
     if preset.process == "flow":
-        return FlowMatching.create(image_size=image_size, in_channels=preset.in_channels,
-                                   cond_type=cond_type)
+        return FlowMatching.create(image_size=size, in_channels=chans, cond_type=cond_type)
     assert preset.process == "ddpm", preset.process
-    return GaussianDiffusion.create(timesteps=timesteps, image_size=image_size,
-                                    in_channels=preset.in_channels, cond_type=cond_type,
-                                    objective=preset.objective)
+    return GaussianDiffusion.create(timesteps=timesteps, image_size=size, in_channels=chans,
+                                    cond_type=cond_type, objective=preset.objective)

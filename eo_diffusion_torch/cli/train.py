@@ -16,9 +16,13 @@ LR schedule and the EMA cadence; SIGTERM finishes the step in flight,
 checkpoints and exits. Every UNet and DiT preset of the port trains, with the
 DDPM chain or rectified flow (``dit256``, ``flow64``, ``tiny-dit``,
 ``tiny-flow``, ...); a flow preset previews with ``--preview_sampler flow``,
-which it forces. ``--wandb`` logs the loss, the LR and the previews to
-Weights & Biases when the package is installed, and prints a line and logs
-to stdout only when it is not. Flags of the JAX CLI that later slices of the
+which it forces. A latent preset (``latent256-cr``, ``tiny-latent``, ...)
+first loads its float32 first stage from ``<ckpt dir>/ae`` or ``--ae_ckpt``,
+or trains it for ``--ae_steps`` on the train split's images and saves it
+there, then trains the denoiser on the encoded grid (the concat cond
+encoded too); its previews decode to pixels. ``--wandb`` logs the loss, the
+LR and the previews to Weights & Biases when the package is installed, and
+prints a line and logs to stdout only when it is not. Flags of the JAX CLI that later slices of the
 port bring are rejected by name with their ROADMAP queue.
 """
 
@@ -36,7 +40,6 @@ import torch
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--ae_ckpt": 10, "--ae_steps": 10, "--ae_lr": 10,
     "--posthoc_ema": 11, "--posthoc_gammas": 11, "--model_base_dim": 11,
     "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
     "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
@@ -98,6 +101,14 @@ def parse_args(argv=None):
                         help="steps for ddim previews")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; never falls back silently")
+    parser.add_argument("--ae_ckpt", type=str, default=None,
+                        help="latent presets: directory of a trained first stage "
+                             "(train/ae_trainer.save_ae layout); default <ckpt dir>/ae, "
+                             "trained there when missing")
+    parser.add_argument("--ae_steps", type=int, default=None,
+                        help="latent presets: first-stage training steps when no saved "
+                             "first stage exists (default: preset.ae_steps)")
+    parser.add_argument("--ae_lr", type=float, default=2e-3)
     for arg in (argv if argv is not None else __import__("sys").argv[1:]):
         flag = arg.split("=")[0]
         if flag in UNPORTED_FLAGS:
@@ -135,12 +146,55 @@ def _to_model_batch(batch, cond_type):
     return out
 
 
+class _ImageBatches:
+    """Re-iterable image-batch view of a loader (the AE trainer cycles it)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for b in self.loader:
+            yield np.asarray(b["image"], np.float32)
+
+
+def _latent_first_stage(args, preset, inner, train_loader, ckpt_dir, cond_type, device):
+    """Acquire the first stage (load it, or train and save it) and wrap the
+    inner process: ``(LatentDiffusion, info)``. The reference receives its
+    first stage pre-trained (ddpm.py:628-645); with none available, a latent
+    preset trains a small ConvAutoencoder on the target dataset once and keeps
+    it under ``<ckpt_dir>/ae``. ``info``: the directory, and for a trained
+    one its steps, host seconds a step and scale factor."""
+    from eo_diffusion_torch.models.autoencoder import ConvAutoencoder
+    from eo_diffusion_torch.train import ae_trainer as AET
+
+    ae_dir = args.ae_ckpt or os.path.join(ckpt_dir, "ae")
+    info = {"dir": ae_dir, "trained": False}
+    if AET.ae_exists(ae_dir):
+        print(f"loading first stage from {ae_dir}")
+        ae_model, ae_scale = AET.load_ae(ae_dir, device=device)
+    else:
+        steps = args.ae_steps or preset.ae_steps
+        print(f"training first stage: {steps} steps -> {ae_dir}")
+        acfg = preset.ae_config()
+        torch.manual_seed(args.seed)  # the first stage's initial weights
+        step_seconds = []
+        ae_model, ae_scale, _ = AET.train_autoencoder(
+            ConvAutoencoder(acfg), _ImageBatches(train_loader), steps, lr=args.ae_lr,
+            log_every=max(steps // 10, 1), device=device, step_seconds=step_seconds)
+        AET.save_ae(ae_dir, acfg, ae_model, ae_scale)
+        print(f"first stage saved (scale_factor {ae_scale:.4f})")
+        info.update(trained=True, steps=steps, step_seconds=step_seconds)
+    info["scale_factor"] = ae_scale
+    return AET.latent_process(inner, ae_model, ae_scale), info
+
+
 def main(args):
     """Train for ``args.epochs`` epochs. Returns a summary dict: the steps
     taken, every step's loss and host-clock seconds (each ends in a fetch of
     the loss), the host-clock seconds each step waited for its batch from the
     feed before it, the seconds of the timed loop, the path of the last
-    checkpoint and the final train state."""
+    checkpoint and the final train state; for a latent preset also ``ae``,
+    the first stage's (:func:`_latent_first_stage`)."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
     from eo_diffusion_torch.data.loader import device_prefetch
@@ -190,12 +244,16 @@ def main(args):
     peek = {k: np.asarray(v)[None] for k, v in train_loader.dataset[0].items()}
     batch0 = _to_model_batch(peek, cond_type)
     has_cond = cond_type == "concat" and "cond" in batch0
-    cond_channels = batch0["cond"].shape[-1] if has_cond else 0
+    cond_channels = preset.cond_channels(batch0["cond"].shape[-1]) if has_cond else 0
     torch.manual_seed(args.seed)  # the model's initial weights
     model = build_denoiser(preset.model_config(
         bf16=not args.no_bf16, cond_channels=cond_channels, num_classes=num_classes,
         class_dropout_prob=args.class_dropout))
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
+    ae_info = None
+    if preset.is_latent:
+        diffusion, ae_info = _latent_first_stage(args, preset, diffusion, train_loader,
+                                                 ckpt_dir, cond_type, device)
 
     tcfg = TrainerConfig(
         lr=args.lr, batch_size=args.batch_size, epochs=args.epochs, timesteps=timesteps,
@@ -315,6 +373,8 @@ def main(args):
     result = {"steps": global_steps, "losses": losses, "seconds": dt,
               "step_seconds": step_seconds, "wait_seconds": wait_seconds,
               "checkpoint": last_ckpt, "state": state, "preempted": preempt["sig"]}
+    if ae_info is not None:
+        result["ae"] = ae_info
     if preempt["sig"] is not None:
         print(f"preempted (signal {preempt['sig']}): checkpoint saved at "
               f"step {global_steps}; rerun with --resume to continue")

@@ -1,12 +1,15 @@
-"""Tiled (fold/unfold) DDIM sampling for EO scenes larger than the training patch.
+"""Tiled (fold/unfold) DDIM and flow sampling for EO scenes larger than the
+training patch.
 
-Counterpart of the DDPM part of ``eo_diffusion_tpu/diffusion/tiled.py``
-(l.39-310), a re-design of the CompVis LatentDiffusion sliding-window
+Counterpart of the DDPM and flow parts of ``eo_diffusion_tpu/diffusion/tiled.py``
+(l.39-395), a re-design of the CompVis LatentDiffusion sliding-window
 ``apply_model`` (reference ``diffusion/ddpm.py:727-777, 1020-1121``): the
 denoiser trained on ``tile`` x ``tile`` patches runs over an overlapping
 tile grid of a larger scene, and the per-tile predictions are blended with
 smooth border-distance weights before every reverse step, so the
-full-scene trajectory stays coherent across seams.
+full-scene trajectory stays coherent across seams. :func:`tiled_flow_sample`
+stitches a rectified-flow model's velocities the same way and integrates them
+with Euler or Heun steps.
 
 The tile grid is one flat index of the scene's pixels: :func:`unfold` is
 one gather along it and :func:`fold` one scatter-add (``index_add_``), each
@@ -18,8 +21,8 @@ to ``dtype``, like the port's ``ddim_sample``.
 
 Not ported yet, and raising when asked for: classifier-free guidance
 (``guidance_scale``, ``guidance_rescale``, ``uncond``, ``y_uncond``) and
-stateful denoisers (``model_state``, DeepCache), ROADMAP queue 11;
-``tiled_flow_sample`` (queue 10) and ``tiled_bridge_sample`` (queue 11).
+stateful denoisers (``model_state``, DeepCache), ROADMAP queue 11; and
+``tiled_bridge_sample`` (queue 11).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.core.schedules import make_ddim_schedule
+from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import (
     DenoiseFn,
     DiffusionOutput,
@@ -141,6 +145,8 @@ def make_tiled_denoiser(model_fn: DenoiseFn, grid: TileGrid, tile: int, n_sample
     C']``, which runs ``model_fn(x, t, cond, y)`` over the flat batch of
     ``N*nT`` tiles, or over chunks of ``tile_batch`` tiles to bound memory.
     The full-scene ``cond`` is unfolded once here, ``y`` repeated per tile.
+    ``t`` is the DDPM chain's integer step (a ``torch.long`` batch) or the
+    flow ODE's 0-dim time tensor (expanded as it is).
     """
     _unported(guidance_scale, guidance_rescale, uncond, y_uncond, model_state)
     cond_flat = unfold(cond, grid).flatten(0, 1) if cond is not None else None
@@ -149,10 +155,13 @@ def make_tiled_denoiser(model_fn: DenoiseFn, grid: TileGrid, tile: int, n_sample
     step = n_flat if tile_batch is None else tile_batch
     part = lambda a, s: None if a is None else a[s:s + step]
 
-    def denoise_tiles(x_tiles: torch.Tensor, t_scalar: int) -> torch.Tensor:
+    def denoise_tiles(x_tiles: torch.Tensor, t_scalar) -> torch.Tensor:
         n, nt = x_tiles.shape[:2]
         flat = x_tiles.reshape(n * nt, tile, tile, x_tiles.shape[-1])
-        ts = torch.full((n * nt,), int(t_scalar), dtype=torch.long, device=flat.device)
+        if torch.is_tensor(t_scalar):
+            ts = t_scalar.to(flat.device).expand(n * nt)
+        else:
+            ts = torch.full((n * nt,), int(t_scalar), dtype=torch.long, device=flat.device)
         outs = [model_fn(flat[s:s + step], ts[s:s + step], part(cond_flat, s), part(y_flat, s))
                 for s in range(0, n * nt, step)]
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -212,9 +221,62 @@ def tiled_ddim_sample(diffusion: GaussianDiffusion, model_fn: DenoiseFn, n_sampl
     return DiffusionOutput(x=x)
 
 
-def tiled_flow_sample(*args, **kwargs):
-    """Tiled sampling of a flow-matching model: not ported yet."""
-    raise NotImplementedError("tiled_flow_sample: not ported yet (ROADMAP queue 10)")
+def tiled_flow_sample(flow: FlowMatching, model_fn: DenoiseFn, n_samples: int, height: int,
+                      width: int, *, device, generator: Optional[torch.Generator] = None,
+                      num_steps: int = 16, method: str = "heun", overlap: float = 0.5,
+                      tile_batch: Optional[int] = None, cond: Optional[torch.Tensor] = None,
+                      y: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                      x0: Optional[torch.Tensor] = None, x_T: Optional[torch.Tensor] = None,
+                      dtype: torch.dtype = torch.float32, noise_fn: Optional[NoiseFn] = None,
+                      guidance_scale: float = 1.0, guidance_rescale: float = 0.0,
+                      uncond=None, y_uncond=None, model_state=None) -> DiffusionOutput:
+    """Rectified-flow sampling of a ``height`` x ``width`` scene with a model
+    trained on ``flow.image_size`` tiles (JAX ``tiled_flow_sample``,
+    ``diffusion/tiled.py:313-395``).
+
+    The tiles' velocities are stitched like :func:`tiled_ddim_sample`'s
+    predictions (velocities are linear, so the weighted mean of the tiles'
+    is the stitched field's) and integrated from t = 1 to 0 over
+    ``linspace(1, 0, num_steps + 1)``: Euler, or Heun with two stitched
+    evaluations a step except the last, which is an Euler step. The model
+    sees ``t * flow.time_scale``. ``mask``/``x0``: before each step the
+    known region is put back on the straight path at the current time with a
+    fresh eps (``noise_fn(i, "mask")``), and x0 is pasted in at the end.
+    ``x_T`` is the starting noise; x is carried in float32 and cast to
+    ``dtype`` for the model.
+    """
+    _unported(guidance_scale, guidance_rescale, uncond, y_uncond, model_state)
+    if method not in ("euler", "heun"):
+        raise ValueError(f"method must be 'euler' or 'heun', got {method!r}")
+    if mask is not None:
+        assert x0 is not None, "flow inpainting requires x0 (known image)"
+        mask, x0 = mask.float(), x0.float()
+    tile = flow.image_size
+    grid = make_tile_grid(height, width, tile, overlap)
+    shape = (n_samples, height, width, flow.in_channels)
+    x = (x_T.to(device=device, dtype=torch.float32) if x_T is not None
+         else torch.randn(shape, generator=generator, device=device))
+    denoise_tiles = make_tiled_denoiser(model_fn, grid, tile, n_samples, cond=cond, y=y,
+                                        tile_batch=tile_batch)
+    ts = torch.as_tensor(np.linspace(1.0, 0.0, num_steps + 1), dtype=torch.float32,
+                         device=device)
+
+    def velocity(xx: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return fold(denoise_tiles(unfold(xx.to(dtype), grid), t * flow.time_scale), grid)
+
+    for i in range(num_steps):
+        t_i, t_next = ts[i], ts[i + 1]
+        dt = t_next - t_i  # negative: toward the data
+        if mask is not None:
+            eps = _draw(noise_fn, generator, i, "mask", shape, device)
+            x = mask * ((1.0 - t_i) * x0 + t_i * eps) + (1.0 - mask) * x
+        v = velocity(x, t_i)
+        if method == "heun" and i < num_steps - 1:
+            v = 0.5 * (v + velocity(x + dt * v, t_next))
+        x = x + dt * v
+    if mask is not None:
+        x = mask * x0 + (1.0 - mask) * x
+    return DiffusionOutput(x=x)
 
 
 def tiled_bridge_sample(*args, **kwargs):

@@ -19,6 +19,11 @@ with channel-concat ``cond`` and class labels ``y``.
   projections) stays float32, where the JAX package puts each cast.
 * ``ada_mod``, ``final_mod`` and ``final_proj`` start at zero (adaLN-Zero), so
   a fresh DiT outputs zeros; tests randomise every parameter.
+* ``context_dim > 0`` gives every block a cross-attention over ``context``
+  tokens ``[N, L, context_dim]`` (:class:`CrossAttentionTokens`, JAX
+  ``models/dit.py:127-154``) between its self-attention and its MLP. The JAX
+  side is an einsum with no Pallas kernel behind it, so the port's is plain
+  PyTorch too.
 
 Submodule names follow the flax modules (``block_{i}.qkv``, ``t_embed_0``,
 ...), so :func:`eo_diffusion_torch.weights.dit_state_dict_from_jax_params`
@@ -37,8 +42,8 @@ from torch import nn
 from eo_diffusion_torch.nn.primitives import Dense, ZeroDense, timestep_embedding
 from eo_diffusion_torch.ops.attention import attention_from_qkv
 
-__all__ = ["DiTConfig", "DiT", "DiTBlock", "posemb_sincos_2d", "modulated_ln",
-           "patchify", "unpatchify", "dit_s", "dit_b"]
+__all__ = ["DiTConfig", "DiT", "DiTBlock", "CrossAttentionTokens", "posemb_sincos_2d",
+           "modulated_ln", "patchify", "unpatchify", "dit_s", "dit_b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +63,9 @@ class DiTConfig:
     class_dropout_prob: float = 0.0
     dtype: torch.dtype = torch.float32  # compute dtype (params stay float32)
     attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
-    # later slices of the port; the constructor raises when one leaves its JAX default
+    # > 0: every block cross-attends to context tokens of this width
     context_dim: int = 0
+    # later slices of the port; the constructor raises when one leaves its JAX default
     num_experts: int = 0
     moe_top_k: int = 1
     moe_every: int = 2
@@ -85,7 +91,7 @@ class DiTConfig:
 
 
 # option -> (the ROADMAP queue that ports it, the JAX default it must keep)
-_LATER = {"context_dim": (10, 0), "num_experts": (13, 0), "moe_top_k": (13, 1),
+_LATER = {"num_experts": (13, 0), "moe_top_k": (13, 1),
           "moe_every": (13, 2), "moe_capacity": (13, 1.25), "tome_ratio": (13, 0.0),
           "tome_mlp": (13, False), "dual_time": (12, False)}
 
@@ -124,30 +130,70 @@ def unpatchify(tok: torch.Tensor, p: int, grid: int) -> torch.Tensor:
     return out.reshape(n, grid * p, grid * p, c)
 
 
+class CrossAttentionTokens(nn.Module):
+    """Cross-attention from tokens ``[N, T, hidden]`` to context tokens
+    ``[N, L, context_dim]`` (JAX ``CrossAttentionTokens``,
+    ``models/dit.py:127``): a plain LayerNorm (f32 statistics, eps 1e-6),
+    ``to_q`` and ``to_kv``, q and k each scaled by ``1/sqrt(sqrt(ch))``, an
+    f32 softmax, and a zero-initialised ``proj_out``, so a fresh module adds
+    exactly zero."""
+
+    def __init__(self, hidden: int, heads: int, context_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.heads = heads
+        self.to_q = Dense(hidden, hidden, dtype=dtype)
+        self.to_kv = Dense(context_dim, 2 * hidden, dtype=dtype)
+        self.proj_out = ZeroDense(hidden, hidden, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        heads = self.heads
+        ch = d // heads
+        zeros = torch.zeros(b, d, dtype=torch.float32, device=x.device)
+        h = modulated_ln(x, zeros, zeros)
+        q = self.to_q(h).reshape(b, t, heads, ch)
+        kv = self.to_kv(context.to(h.dtype)).reshape(b, context.shape[1], 2, heads, ch)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        # 1 / ch**0.25 with the root rounded to the compute dtype, as in JAX
+        scale = 1.0 / torch.tensor(float(ch)).sqrt().sqrt().to(q.dtype)
+        w = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
+        w = torch.softmax(w.float(), dim=-1).to(v.dtype)
+        a = torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, d)
+        return self.proj_out(a)
+
+
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning (JAX
     ``DiTBlock``, ``models/dit.py:157``): six modulation vectors from
     ``ada_mod``; attention ``qkv`` -> ``attention_from_qkv(new_order=True)``
-    -> ``proj_out``, gated; MLP ``mlp_in`` -> tanh GELU -> ``mlp_out``,
-    gated."""
+    -> ``proj_out``, gated; with ``context_dim`` the ungated cross-attention
+    ``cross``; MLP ``mlp_in`` -> tanh GELU -> ``mlp_out``, gated."""
 
     def __init__(self, hidden: int, heads: int, mlp_ratio: float,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 context_dim: int = 0):
         super().__init__()
         self.heads, self.attn_impl = heads, attn_impl
         mlp = int(hidden * mlp_ratio)
         self.ada_mod = ZeroDense(hidden, 6 * hidden)
         self.qkv = Dense(hidden, 3 * hidden, dtype=dtype)
         self.proj_out = Dense(hidden, hidden, dtype=dtype)
+        self.cross = (CrossAttentionTokens(hidden, heads, context_dim, dtype)
+                      if context_dim else None)
         self.mlp_in = Dense(hidden, mlp, dtype=dtype)
         self.mlp_out = Dense(mlp, hidden, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         mod = self.ada_mod(F.silu(c.float()))
         shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = mod.chunk(6, dim=-1)
         h = modulated_ln(x, shift_a, scale_a)
         a = attention_from_qkv(self.qkv(h), self.heads, new_order=True, impl=self.attn_impl)
         x = x + gate_a[:, None, :].to(x.dtype) * self.proj_out(a)
+        if self.cross is not None:
+            assert context is not None, "context_dim > 0 requires context"
+            x = x + self.cross(x, context)
         h = modulated_ln(x, shift_m, scale_m)
         h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
         return x + gate_m[:, None, :].to(x.dtype) * h
@@ -156,8 +202,9 @@ class DiTBlock(nn.Module):
 class DiT(nn.Module):
     """Diffusion transformer denoiser (JAX ``DiT``, ``models/dit.py:233``):
     ``embed`` -> ``block_i`` x depth -> ``final``. ``forward(x, t, cond=None,
-    y=None)`` takes x ``[N, H, W, C]``, timesteps ``[N]`` (integer or
-    fractional), concat ``cond`` ``[N, H, W, Cc]`` and labels ``y`` ``[N]``;
+    y=None, context=None)`` takes x ``[N, H, W, C]``, timesteps ``[N]``
+    (integer or fractional), concat ``cond`` ``[N, H, W, Cc]``, labels ``y``
+    ``[N]`` and, with ``context_dim``, context tokens ``[N, L, context_dim]``;
     returns ``[N, H, W, out_channels]`` in the compute dtype."""
 
     def __init__(self, config: DiTConfig):
@@ -175,7 +222,8 @@ class DiT(nn.Module):
             self.label_embed = nn.Embedding(cfg.label_vocab, d)
         self.blocks = []
         for i in range(cfg.depth):
-            block = DiTBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.dtype, cfg.attn_impl)
+            block = DiTBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.dtype, cfg.attn_impl,
+                             cfg.context_dim)
             self.add_module(f"block_{i}", block)  # the flax names
             self.blocks.append(block)
         self.final_mod = ZeroDense(d, 2 * d)
@@ -222,11 +270,12 @@ class DiT(nn.Module):
         return unpatchify(out, self.config.patch_size, self.config.grid)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.embed(x, cond)
         c = self.condition(t, y)
         for block in self.blocks:
-            h = block(h, c)
+            h = block(h, c, context)
         return self.final(h, c)
 
 

@@ -3,13 +3,18 @@
     python -m eo_diffusion_torch.tools.profile_sample [--preset sen12mscr256] [--batch_size 8] [--steps 5]
     python -m eo_diffusion_torch.tools.profile_sample --image_size 512
     python -m eo_diffusion_torch.tools.profile_sample --preset dit256 --flow_method heun --steps 8
+    python -m eo_diffusion_torch.tools.profile_sample --preset latent256-cr --flow_method heun --steps 8
 
 Builds the preset's denoiser (by default ``sen12mscr256``, concat cloud
 removal; ``clouds64-attn`` is the reference's 64 px UNet; ``dit256`` and
 ``dit64`` the DiT) in bf16 with seeded random weights and runs sampler steps
 on synthetic inputs of its shape (with a concat condition where the preset
 has one): DDIM, or for a flow-process preset the flow sampler, whose Heun
-step makes two model calls (one on the last interval). Reports, per step:
+step makes two model calls (one on the last interval). A latent preset
+samples on its latent grid behind a seeded float32 first stage, which
+encodes the cond view and decodes the result once a batch, as
+``cli.inference`` does; its encode and decode are timed apart
+(``first_stage_ms``). Reports, per step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class (attention kernel, GroupNorm kernel,
@@ -39,9 +44,11 @@ from collections import defaultdict
 import torch
 
 from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+from eo_diffusion_torch.models.autoencoder import ConvAutoencoder
 from eo_diffusion_torch.models.dit import DiT
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import group_norm as G
+from eo_diffusion_torch.train.ae_trainer import latent_process
 from eo_diffusion_torch.weights import randomize_parameters
 
 # kernel name -> class, first match wins
@@ -96,13 +103,18 @@ def main(argv=None) -> dict:
     preset.image_size = args.image_size or preset.image_size
     sampler = "flow" if preset.process == "flow" else "ddim"
     concat = preset.cond_type == "concat"
-    cfg = preset.model_config(cond_channels=preset.in_channels if concat else 0)
+    cond_ch = preset.cond_channels(preset.in_channels) if concat else 0
+    cfg = preset.model_config(cond_channels=cond_ch)
     model = randomize_parameters(build_denoiser(cfg), args.seed).to(dev).eval()
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
                               cond_type=preset.cond_type if concat else None)
+    if preset.is_latent:
+        ae = randomize_parameters(ConvAutoencoder(preset.ae_config()), args.seed + 1).to(dev)
+        diffusion = latent_process(diffusion, ae)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     n, s, c = args.batch_size, preset.image_size, preset.in_channels
-    x_T = torch.randn(n, s, s, c, generator=g, device=dev)
+    gs, gc = (preset.latent_size, preset.latent_channels) if preset.is_latent else (s, c)
+    x_T = torch.randn(n, gs, gs, gc, generator=g, device=dev)
     cond = torch.rand(n, s, s, c, generator=g, device=dev) if concat else None
     calls = [0]
 
@@ -147,14 +159,21 @@ def main(argv=None) -> dict:
 
         xin = x_T.to(cfg.dtype)
         t = torch.full((n,), 500, device=dev, dtype=torch.long)
-        fwd_kernel_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 5)
+        first_stage_ms = None
+        mcond = cond
+        if preset.is_latent:
+            pixels = cond if concat else torch.rand(n, s, s, c, generator=g, device=dev)
+            first_stage_ms = {"encode": _cuda_ms(lambda: diffusion.encode(pixels), 3),
+                              "decode": _cuda_ms(lambda: diffusion.decode(x_T), 3)}
+            mcond = diffusion.encode(cond) if concat else None
+        fwd_kernel_ms = _cuda_ms(lambda: model(xin, t, cond=mcond), 5)
         fwd_plain_ms = None
         if s <= 256:
             if isinstance(model, DiT):
                 model.set_impl(attn="plain")
             else:
                 model.set_impl(attn="plain", norm="plain")
-            fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=cond), 3)
+            fwd_plain_ms = _cuda_ms(lambda: model(xin, t, cond=mcond), 3)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -171,6 +190,7 @@ def main(argv=None) -> dict:
         "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[k[:90], v] for k, v in top],
+        "first_stage_ms": first_stage_ms,
         "forward_ms_kernels": fwd_kernel_ms,
         "forward_ms_plain": fwd_plain_ms,
         "attention_launches_per_step": launches / args.steps,

@@ -4,12 +4,16 @@ or any preset's backbone and process.
     python -m eo_diffusion_torch.tools.profile_train [--batch_size 8] [--steps 3]
     python -m eo_diffusion_torch.tools.profile_train --image_size 512 --batch_size 4
     python -m eo_diffusion_torch.tools.profile_train --preset dit256 --batch_size 16
+    python -m eo_diffusion_torch.tools.profile_train --preset latent256-cr --batch_size 32
 
 Builds the preset's trainer (by default ``sen12mscr256``: concat cloud
 removal; ``dit256``: DiT-B/8 with rectified flow; bf16 activations, float32
 parameters, AdamW + EMA) with seeded random weights and takes training steps
 on synthetic batches of the preset's shape (a cond view of the image's shape
-where the preset conditions by concat). Reports, per step:
+where the preset conditions by concat). A latent preset's trainer encodes
+the batch with a seeded float32 first stage, as ``cli.train`` does after
+training it; its first stage's own training step (reconstruction loss,
+backward, Adam) is profiled too, under ``first_stage``. Reports, per step:
 
 * the host-clock step time (ends in ``torch.cuda.synchronize()``);
 * the device time by kernel class, from ``torch.profiler`` over ``--steps``
@@ -36,9 +40,11 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+from eo_diffusion_torch.models.autoencoder import ConvAutoencoder
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import conv_wgrad as CW
 from eo_diffusion_torch.ops import group_norm as G
+from eo_diffusion_torch.train import ae_trainer as AET
 from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -66,6 +72,49 @@ def _classify(name: str) -> str:
     return "other"
 
 
+def _device_ms(run, steps: int):
+    """Device ms a step by kernel class and by kernel, from torch.profiler
+    over ``run()``, which takes ``steps`` steps."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    by_class, by_kernel = defaultdict(float), defaultdict(float)
+    for e in prof.key_averages():
+        # kernels only: a profiler annotation such as "Optimizer.step#AdamW.step"
+        # also carries device time, that of the kernels inside it
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")):
+            continue
+        ms = e.self_device_time_total / 1e3 / steps
+        by_class[_classify(e.key)] += ms
+        by_kernel[e.key] += ms
+    return by_class, by_kernel
+
+
+def _first_stage(preset, x: torch.Tensor, steps: int, seed: int) -> dict:
+    """A latent preset's first-stage training step (``ae_loss``, backward,
+    Adam) on ``x``: host ms a step, device ms by class, idle share."""
+    ae = randomize_parameters(ConvAutoencoder(preset.ae_config()), seed).to(x.device).train()
+    opt = torch.optim.Adam(ae.parameters(), lr=2e-3)
+
+    def run(k=steps):
+        for _ in range(k):
+            opt.zero_grad(set_to_none=True)
+            AET.ae_loss(ae, x)[0].backward()
+            opt.step()
+        torch.cuda.synchronize()
+
+    run(2)
+    t0 = time.perf_counter()
+    run()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_class, _ = _device_ms(run, steps)
+    device_ms = sum(by_class.values())
+    return {"step_ms": step_ms, "device_ms_per_step": device_ms,
+            "idle_share": 1.0 - device_ms / step_ms,
+            "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="sen12mscr256")
@@ -85,10 +134,14 @@ def main(argv=None) -> dict:
     preset = get_preset(args.preset)
     preset.image_size = args.image_size or preset.image_size
     concat = preset.cond_type == "concat"
-    cfg = preset.model_config(cond_channels=preset.in_channels if concat else 0)
+    cond_ch = preset.cond_channels(preset.in_channels) if concat else 0
+    cfg = preset.model_config(cond_channels=cond_ch)
     model = randomize_parameters(build_denoiser(cfg), args.seed)
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
                               cond_type=preset.cond_type)
+    if preset.is_latent:
+        ae = randomize_parameters(ConvAutoencoder(preset.ae_config()), args.seed + 1).to(dev)
+        diffusion = AET.latent_process(diffusion, ae)
     n, s, c = args.batch_size, preset.image_size, preset.in_channels
     tcfg = TrainerConfig(lr=1e-4, batch_size=n, epochs=1, cond_type=preset.cond_type,
                          model_ema_steps=1, seed=args.seed,
@@ -114,26 +167,14 @@ def main(argv=None) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     A.qkv_attention_cuda.launches = A.qkv_attention_bwd_cuda.launches = 0
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     CW.conv_wgrad_sm90_cuda.launches = 0
-    with torch.profiler.profile(activities=acts) as prof:
-        steps(args.steps)
+    by_class, by_kernel = _device_ms(lambda: steps(args.steps), args.steps)
     fwd_launches, bwd_launches = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
     flash_launches = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
     gn_launches = G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches
-    by_class, by_kernel = defaultdict(float), defaultdict(float)
-    for e in prof.key_averages():
-        # kernels only: a profiler annotation such as "Optimizer.step#AdamW.step"
-        # also carries device time, that of the kernels inside it
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")):
-            continue
-        ms = e.self_device_time_total / 1e3 / args.steps
-        by_class[_classify(e.key)] += ms
-        by_kernel[e.key] += ms
     device_ms = sum(by_class.values())
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -159,6 +200,10 @@ def main(argv=None) -> dict:
         "conv_wgrad_sm90_launches_per_step": CW.conv_wgrad_sm90_cuda.launches / args.steps,
         "peak_mem_gib": peak_gib,
     }
+    if preset.is_latent:
+        del state, trainer, model
+        res["first_stage"] = _first_stage(preset, torch.as_tensor(batch["image"], device=dev),
+                                          args.steps, args.seed + 1)
     line = json.dumps(res)
     print(line)
     if args.out:

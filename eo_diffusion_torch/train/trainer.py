@@ -22,12 +22,16 @@ optimizer and the EMA update, in that order. What it keeps of the JAX trainer:
   step before it is incremented.
 
 The process is the DDPM chain (:class:`GaussianDiffusion`) or rectified flow
-(:class:`FlowMatching`), the backbone a UNet or a DiT: the loss goes through
-the process's ``train_loss`` as in JAX's ``loss_fn``. Checkpoints carry
-``{"model", "model_ema", "opt_state", "step", ...}``
-(:mod:`eo_diffusion_torch.train.checkpoint`). The sharded and pipelined
-layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon optimizer, MoE
-backbones and the latent processes belong to later slices of the port; the
+(:class:`FlowMatching`), either one in pixels or wrapped in
+:class:`LatentDiffusion` (a frozen first stage encodes the batch, previews
+decode), the backbone a UNet or a DiT: the loss goes through the process's
+``train_loss`` as in JAX's ``loss_fn``. The backbone is built from its config
+for the grid it sees (the latent grid for a latent process), so :meth:`init`
+encodes nothing. Checkpoints carry ``{"model", "model_ema", "opt_state",
+"step", ...}`` (:mod:`eo_diffusion_torch.train.checkpoint`); a first stage
+is saved apart (:mod:`eo_diffusion_torch.train.ae_trainer`). The sharded and
+pipelined layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon
+optimizer and MoE backbones belong to later slices of the port; the
 constructor raises for them and names the ROADMAP queue.
 """
 
@@ -43,6 +47,7 @@ from torch import nn
 
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+from eo_diffusion_torch.diffusion.latent import LatentDiffusion
 from eo_diffusion_torch.train.ema import adjusted_decay, ema_update_every, warmed_decay
 from eo_diffusion_torch.train.lr_schedules import set_lr, warmup_cos_exp
 
@@ -167,7 +172,7 @@ class Trainer:
     """
 
     def __init__(self, cfg: TrainerConfig, model: nn.Module,
-                 diffusion: Union[GaussianDiffusion, FlowMatching],
+                 diffusion: Union[GaussianDiffusion, FlowMatching, LatentDiffusion],
                  steps_per_epoch: int, device=None):
         for name, queue in _LATER.items():
             if getattr(cfg, name) != getattr(TrainerConfig, name):
@@ -178,17 +183,19 @@ class Trainer:
                 f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP queue 14)")
         if getattr(getattr(model, "config", None), "num_experts", 0):
             raise NotImplementedError("MoE backbones are not ported yet (ROADMAP queue 13)")
-        if not isinstance(diffusion, (GaussianDiffusion, FlowMatching)):
-            raise NotImplementedError(
-                "latent processes are not ported yet (ROADMAP queue 10)")
+        inner = diffusion.diffusion if isinstance(diffusion, LatentDiffusion) else diffusion
+        if not isinstance(inner, (GaussianDiffusion, FlowMatching)):
+            raise NotImplementedError(f"{type(inner).__name__} processes are not ported yet "
+                                      "(ROADMAP queue 11)")
         if cfg.preview_sampler not in ("ddpm", "ddim", "flow"):
             raise NotImplementedError(
                 f"preview_sampler {cfg.preview_sampler!r} is not ported yet (ROADMAP queue 11)")
-        self.is_flow = isinstance(diffusion, FlowMatching)
+        # a latent flow is a flow: its loss takes float times, its previews the ODE
+        self.is_flow = isinstance(inner, FlowMatching)
         if self.is_flow != (cfg.preview_sampler == "flow"):
             # FlowMatching has no DDPM/DDIM chain, the DDPM process no ODE
             raise ValueError(f"preview_sampler {cfg.preview_sampler!r} does not sample a "
-                             f"{type(diffusion).__name__} process (flow needs flow)")
+                             f"{type(inner).__name__} process (flow needs flow)")
         self.cfg, self.model, self.diffusion = cfg, model, diffusion
         self.device = torch.device(device) if device is not None else (
             next(model.parameters()).device)
@@ -329,7 +336,8 @@ class Trainer:
     def sample(self, state: TrainState, seed: int, n: Optional[int] = None,
                cond=None, y=None, use_ema: bool = True) -> torch.Tensor:
         """``n`` samples ``[n, H, W, C]`` float32 from the EMA (or raw)
-        weights with ``cfg.preview_sampler``, seeded by ``seed``."""
+        weights with ``cfg.preview_sampler``, seeded by ``seed``; a latent
+        process's come out decoded, in pixels."""
         cfg = self.cfg
         n = n or cfg.n_samples
         model = (state.ema_model if use_ema else state.model).eval()

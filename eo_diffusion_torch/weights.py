@@ -15,7 +15,12 @@ the reference's torch state-dict names and layouts, so:
   -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``;
 * a flax DiT tree maps by module name (:func:`dit_state_dict_from_jax_params`):
   ``block_{i}.qkv.kernel [I, O]`` -> ``block_{i}.qkv.weight [O, I]``, the
-  label table's ``embedding`` -> ``label_embed.weight``.
+  label table's ``embedding`` -> ``label_embed.weight``, and with
+  ``context_dim`` each block's ``cross.to_q`` / ``cross.to_kv`` /
+  ``cross.proj_out``;
+* a flax ``ConvAutoencoder`` tree maps by module name too
+  (:func:`ae_state_dict_from_jax_params`): conv HWIO -> OIHW, each
+  ``enc_norm{i}`` / ``dec_norm{i}`` GroupNorm's ``scale`` -> ``weight``.
 
 :func:`randomize_parameters` fills any of the port's modules, the DiT
 included, with seeded values.
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
 from eo_diffusion_torch.models.dit import DiTConfig
 from eo_diffusion_torch.models.unet import LayerSpec, UNetConfig, build_unet_plan
 
@@ -36,6 +42,7 @@ __all__ = [
     "fix_legacy_dict",
     "state_dict_from_jax_params",
     "dit_state_dict_from_jax_params",
+    "ae_state_dict_from_jax_params",
     "load_reference_checkpoint",
     "load_jax_train_state",
     "randomize_parameters",
@@ -141,10 +148,16 @@ def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, to
             for k, v in sd.items()}
 
 
+def _leaves(d: Mapping) -> int:
+    return sum(_leaves(v) if isinstance(v, Mapping) else 1 for v in d.values())
+
+
 def _dit_linears(cfg: DiTConfig):
     """The DiT's linear layers by name."""
-    blocks = [f"block_{i}.{m}" for i in range(cfg.depth)
-              for m in ("ada_mod", "qkv", "proj_out", "mlp_in", "mlp_out")]
+    mods = ("ada_mod", "qkv", "proj_out", "mlp_in", "mlp_out")
+    if cfg.context_dim:
+        mods += ("cross.to_q", "cross.to_kv", "cross.proj_out")
+    blocks = [f"block_{i}.{m}" for i in range(cfg.depth) for m in mods]
     return ["patch_embed", "t_embed_0", "t_embed_1", *blocks, "final_mod", "final_proj"]
 
 
@@ -163,10 +176,31 @@ def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str,
         sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(d["kernel"]).T, d["bias"]
     if cfg.num_classes is not None:
         sd["label_embed.weight"] = p["label_embed"]["embedding"]
-    leaves = lambda d: sum(leaves(v) if isinstance(v, Mapping) else 1 for v in d.values())
-    n_leaves = leaves(p)
-    if n_leaves != len(sd):
-        raise KeyError(f"the flax tree has {n_leaves} leaves, the DiT {len(sd)} parameters")
+    if _leaves(p) != len(sd):
+        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the DiT {len(sd)} parameters")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """Flax ``ConvAutoencoder`` params (numpy arrays; with or without the
+    ``"params"`` level) -> the port's AE state dict. Every leaf of the tree
+    is mapped, and every parameter of ``ConvAutoencoder(cfg)`` filled;
+    anything else raises."""
+    p = params["params"] if "params" in params else params
+    convs = ["enc_stem", *(f"enc_down{i}" for i in range(cfg.num_down)), "enc_out",
+             "dec_stem", *(f"dec_up{i}" for i in range(cfg.num_down)), "dec_out"]
+    norms = [*(f"enc_norm{i}" for i in range(cfg.num_down)), "enc_norm_out",
+             *(f"dec_norm{i}" for i in range(cfg.num_down)), "dec_norm_out"]
+    sd: Dict[str, np.ndarray] = {}
+    for name in convs:
+        sd[f"{name}.weight"] = np.asarray(p[name]["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"{name}.bias"] = p[name]["bias"]
+    for name in norms:
+        gn = p[name]["GroupNorm_0"]
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = gn["scale"], gn["bias"]
+    if _leaves(p) != len(sd):
+        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the AE {len(sd)} parameters")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 

@@ -1440,3 +1440,101 @@ def test_device_data_cache_gathers_on_the_card(dev):
     batch = cache.sample_batch(g, 8, compute_dtype=torch.bfloat16)
     assert batch["image"].shape == (8, 32, 32, 3) and batch["image"].dtype == torch.bfloat16
     assert batch["label"].dtype == torch.int32
+
+
+# -- the latent stack: the first stage's GroupNorm sites and a latent DiT step ---
+
+# (N, HW, C): latent256-cr's six norm sites (three shapes, each in the encoder
+# and the decoder) at N 2, float32 with SiLU and no FiLM, as the first stage
+# runs them
+@pytest.mark.parametrize("hw,c", [(65536, 128), (16384, 256), (4096, 512)])
+def test_group_norm_f32_at_the_autoencoder_sites(dev, hw, c):
+    _check_gn(*_gn_inputs(2, hw, c, torch.float32, seed=hw + c), 32, "silu")
+
+
+def _launch_counts():
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    return {"gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
+            "attn_fwd": A.qkv_attention_cuda.launches,
+            "attn_bwd": A.qkv_attention_bwd_cuda.launches,
+            "wgrad": CW.conv_wgrad_cuda.launches + CW.conv_wgrad_sm90_cuda.launches}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def test_autoencoder_on_the_card_matches_plain(dev):
+    """A float32 first stage (base 32, f4) at 64 px: encode -> decode and one
+    ``ae_loss`` backward with the GroupNorm kernels against the all-plain
+    model, same weights. One kernel launch a norm each way (3 + 3), no
+    attention, no weight-gradient kernel (f32 convs take cuDNN's)."""
+    from eo_diffusion_torch.models.autoencoder import AutoencoderConfig, ConvAutoencoder
+    from eo_diffusion_torch.train.ae_trainer import ae_loss
+
+    cfg = AutoencoderConfig(in_channels=3, latent_channels=4, base_channels=32, num_down=2)
+    model = randomize_parameters(ConvAutoencoder(cfg), seed=2).to(dev)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(2, 64, 64, 3, generator=g, device="cuda") * 2 - 1
+    outs, losses, grads, launched = {}, {}, {}, {}
+    for impl in ("auto", "plain"):
+        model.set_impl(norm=impl, conv=impl).zero_grad(set_to_none=True)
+        before = _launch_counts()
+        with torch.no_grad():
+            outs[impl] = model(x)
+        loss, _ = ae_loss(model, x)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched[impl] = _delta(before)
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert launched["auto"] == {"gn_fwd": 12, "gn_bwd": 6, "attn_fwd": 0, "attn_bwd": 0,
+                                "wgrad": 0}, launched["auto"]
+    assert not any(launched["plain"].values()), launched["plain"]
+    assert outs["auto"].shape == x.shape and outs["auto"].dtype == torch.float32
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    assert rel(outs["auto"], outs["plain"]) <= 1e-5
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])
+    num = sum((grads["auto"][n] - v).pow(2).sum().item() for n, v in grads["plain"].items())
+    den = sum(v.pow(2).sum().item() for v in grads["plain"].values())
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+def test_latent_dit_step_runs_the_first_stage_forward_only(dev):
+    """One trainer step of a latent flow DiT (T 256, D 64, bf16) with the
+    cloudy view encoded: K1 (with the lse) and K4 once a block, the first
+    stage's three GroupNorms forward for x0 and three for the cond, and no
+    GroupNorm backward, no weight-gradient kernel, no gradient on the first
+    stage."""
+    from eo_diffusion_torch.diffusion.flow import FlowMatching
+    from eo_diffusion_torch.diffusion.latent import LatentDiffusion
+    from eo_diffusion_torch.models import dit as TD
+    from eo_diffusion_torch.models.autoencoder import AutoencoderConfig, ConvAutoencoder
+    from eo_diffusion_torch.train.ae_trainer import make_codec
+    from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
+
+    ae = randomize_parameters(ConvAutoencoder(AutoencoderConfig(base_channels=32)), 5).to(dev)
+    enc, dec = make_codec(ae)
+    ld = LatentDiffusion(FlowMatching.create(image_size=16, in_channels=4, cond_type="concat"),
+                         enc, dec, scale_factor=0.8, cond_via_encoder=True)
+    cfg = TD.DiTConfig(image_size=16, in_channels=8, out_channels=4, patch_size=1,
+                       hidden_size=256, depth=3, num_heads=4, dtype=torch.bfloat16)
+    trainer = Trainer(TrainerConfig(cond_type="concat", preview_sampler="flow", epochs=1,
+                                    preview_steps=2),
+                      TD.DiT(cfg), ld, steps_per_epoch=1, device=dev)
+    assert trainer.is_flow
+    state = trainer.init()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"image": torch.rand(4, 64, 64, 3, generator=g, device="cuda") * 2 - 1,
+             "cond": torch.rand(4, 64, 64, 3, generator=g, device="cuda") * 2 - 1}
+    before = _launch_counts()
+    state, metrics = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"gn_fwd": 6, "gn_bwd": 0, "attn_fwd": 3, "attn_bwd": 3,
+                              "wgrad": 0}
+    assert torch.isfinite(metrics["loss"]) and all(p.grad is None for p in ae.parameters())
+    before = _launch_counts()
+    x = trainer.sample(state, seed=1, n=2, cond=batch["cond"][:2])
+    assert x.shape == (2, 64, 64, 3) and x.dtype == torch.float32
+    assert _delta(before)["gn_fwd"] == 6  # cond encode + the decode

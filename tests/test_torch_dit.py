@@ -112,10 +112,10 @@ def test_randomize_leaves_no_zero_layer():
         assert p.abs().max() > 0 and torch.equal(p, q), name
 
 
-@pytest.mark.parametrize("option,queue", [("context_dim", 10), ("num_experts", 13),
-                                          ("tome_ratio", 13), ("dual_time", 12)])
+@pytest.mark.parametrize("option,queue", [("num_experts", 13), ("tome_ratio", 13),
+                                          ("dual_time", 12)])
 def test_unported_options_raise(option, queue):
-    value = {"context_dim": 8, "num_experts": 2, "tome_ratio": 0.5, "dual_time": True}[option]
+    value = {"num_experts": 2, "tome_ratio": 0.5, "dual_time": True}[option]
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         TD.DiT(TD.DiTConfig(**KW, **{option: value}))
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from eo_diffusion_torch.diffusion import tiled as TT
+from eo_diffusion_torch.diffusion.flow import FlowMatching as TFM
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion as TGD
 from eo_diffusion_tpu.diffusion import tiled as JT
 from eo_diffusion_tpu.diffusion.gaussian import GaussianDiffusion as JGD
@@ -119,7 +120,8 @@ def test_tile_batch_chunks_and_refusals(models):
                        (dict(model_state={}), 11)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             TT.tiled_ddim_sample(td, tfn, N, H, W, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        TT.tiled_flow_sample(None, tfn, None, N, H, W)
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        TT.tiled_flow_sample(TFM.create(image_size=TILE), tfn, N, H, W, device="cpu",
+                             cond=cond, guidance_scale=2.0)
     with pytest.raises(NotImplementedError, match="queue 11"):
         TT.tiled_bridge_sample(None, tfn, None, N, H, W)

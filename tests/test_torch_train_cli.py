@@ -98,7 +98,7 @@ def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, c
 
 @pytest.mark.parametrize("flag,queue", [("--fsdp", 16), ("--optimizer=muon", 14),
                                         ("--posthoc_ema", 11),
-                                        ("--tome_ratio", 13), ("--ae_ckpt", 10)])
+                                        ("--tome_ratio", 13), ("--profile_dir", 17)])
 def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
     with pytest.raises(SystemExit) as exc:
         train.parse_args(["--preset", "tiny", flag])
@@ -109,8 +109,8 @@ def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
 def test_unported_presets_and_datasets_raise(workdir):
     from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        train.main(train.parse_args(["--preset", "latent256", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        train.main(train.parse_args(["--preset", "tiny-latent-bridge", "--device", "cpu"]))
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
     # tree (--data_root) trains; an unknown name fails as in JAX
     rng = np.random.default_rng(0)
@@ -131,12 +131,23 @@ def test_unported_presets_and_datasets_raise(workdir):
 
 @pytest.mark.parametrize("preset", ["tiny-dit", "tiny-flow", "dit256"])
 def test_dit_and_flow_training_raises_until_ported(workdir, preset):
-    """The DiT and flow presets train now (the tests below); what still
-    raises naming ROADMAP queue 10 is each one's latent counterpart."""
-    latent = {"tiny-dit": "tiny-latent-dit", "tiny-flow": "tiny-latent-flow",
-              "dit256": "latent256"}[preset]
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        train.main(train.parse_args(["--preset", latent, "--device", "cpu"]))
+    """The DiT and flow presets train now (the tests below), and so does each
+    one's latent counterpart (tests/test_torch_latent_cli.py): the same
+    backbone and a flow, both on the latent grid behind a first stage. What
+    still raises is the latent bridge, naming ROADMAP queue 11."""
+    from eo_diffusion_torch.cli.presets import build_process, get_preset
+
+    latent = get_preset({"tiny-dit": "tiny-latent-dit", "tiny-flow": "tiny-latent-flow",
+                         "dit256": "latent256"}[preset])
+    pixel = get_preset(preset)
+    grid = (latent.latent_size, latent.latent_size, latent.latent_channels)
+    cfg = latent.model_config()
+    assert (cfg.image_size, cfg.image_size, cfg.in_channels) == grid
+    assert type(cfg) is type(pixel.model_config()) and latent.process == "flow"
+    proc = build_process(latent, latent.timesteps, latent.image_size)
+    assert (proc.image_size, proc.image_size, proc.in_channels) == grid
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        train.main(train.parse_args(["--preset", "tiny-latent-bridge", "--device", "cpu"]))
 
 
 DIT_FLOW = ["--dataset", "synthetic", "--device", "cpu", "--batch_size", "4",
