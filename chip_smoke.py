@@ -57,7 +57,27 @@ Phases, in order; the first failure exits non-zero:
    and ``dit64`` (DiT-S/4) with DDIM-50 (600), batch 8, three batches each,
    no separate-tensor or GroupNorm launch; 5e. ``tiled_flow_sample`` of
    512 x 512 scenes with the ``dit256`` denoiser (3 x 3 tiles at overlap
-   0.5, Heun-8: 15 stitched calls, 180 K1 launches), finite;
+   0.5, Heun-8: 15 stitched calls, 180 K1 launches), finite; 5f. the
+   sampling CLI's solvers and guidance on ``sen12mscr256`` (batch 8, two
+   batches a run, img/s over the second): DDIM-50, DPM-Solver++-20
+   (uniform-lambda and Karras grids), UniPC-10, image-CFG at scale 3 with
+   the rescale and the interval (K1 at B16), dynamic thresholding,
+   DeepCache-3 on DDIM-50 (17 full calls, 33 shallow ones that launch no
+   attention), PAG (a perturbed call a step: no K1, one identity hit an
+   attention block), SDEdit 0.5 from the cloudy view, then a short
+   ``cli.train --posthoc_ema`` run whose snapshots feed
+   ``--phema_sigma_rel`` and ``--autoguide_sigma_rel``; ``cddpm64`` with
+   label-CFG on DDIM and DPM, ``cflow64`` Heun-8 with CFG and ``vpred64``
+   with DPM, at their own widths; ``tiled_ddim_sample`` of a 512 px scene
+   with CFG and DeepCache (one state a chunk of tiles). Every run's
+   launches are asserted against the counts ``build_unet_plan`` and the
+   sampler give. DPM-20 and UniPC-10 are held against the all-plain model
+   from the same x_T (SOLVER_NOISE_FACTOR times the trajectory's noise
+   floor, read in the same run from the forward's own kernel-vs-plain
+   reading, which is first held to TOL_UNET_REL), the cost of a
+   ``PowerEMA.update`` is timed beside the ``--posthoc_ema`` step, and a DeepCache partial call on a
+   fresh cache against the full call (TOL_UNET_REL; whether the bits are
+   the same is printed);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -130,8 +150,11 @@ lse and K4 at B32 T256 H12 D64 (a DiT-B/4 training step at batch 32), K1
 at B8 (phase 7f's sampling batch), and the GroupNorm kernels in float32
 with SiLU at the first stage's three site shapes (HW 65536 C128, HW 16384
 C256, HW 4096 C512) at N32 (training) and N8 (sampling), timed beside
-``F.group_norm`` and beside ``F.silu(F.group_norm(...))``; phase 4c holds a DiT-B/8 forward at 256
-px and a DiT-B/4 call at the latent256 shape against the all-plain model.
+``F.group_norm`` and beside ``F.silu(F.group_norm(...))``; and K1 at B16
+T4096 H8 D48 and B16 T1024 H8 D64 and K5 at N16 at the clouds UNet's level
+shapes (phase 5f's CFG-doubled batch). Phase 4c holds a
+DiT-B/8 forward at 256 px and a DiT-B/4 call at the latent256 shape against
+the all-plain model.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -159,9 +182,12 @@ from eo_diffusion_torch.cli import inference as cli
 from eo_diffusion_torch.cli import train as cli_train
 from eo_diffusion_torch.cli.presets import build_denoiser, get_preset
 from eo_diffusion_torch.models.dit import DiT, DiTConfig, dit_b
-from eo_diffusion_torch.models.unet import UNet, unet_clouds
+from eo_diffusion_torch.models.unet import UNet, build_unet_plan, unet_clouds
 from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.cli import evaluate as cli_evaluate
+from eo_diffusion_torch.core.schedules import make_ddim_schedule
+from eo_diffusion_torch.diffusion.deepcache import deepcache_model_fn
+from eo_diffusion_torch.diffusion.edit import sdedit_plan
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample, tiled_flow_sample
@@ -182,6 +208,7 @@ from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F
                                              card_line, cuda_ms, queued_ms)
 from eo_diffusion_torch.train import ae_trainer as AET
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
+from eo_diffusion_torch.train.posthoc_ema import PowerEMA
 from eo_diffusion_torch.weights import randomize_parameters
 
 PEAK_FLOPS = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_F32}
@@ -332,6 +359,24 @@ TOL_AE_REL = 1e-4
 # phase 5e: tiled_flow_sample of TILED_FLOW_SCENES 512 x 512 scenes with the
 # dit256 denoiser (3 x 3 tiles at overlap 0.5), Heun-8: 15 stitched calls
 TILED_FLOW_SCENES = 2
+# phase 5f: DPM-Solver++-20 and UniPC-10 at 256 px b8, kernels against the
+# all-plain model from the same x_T: the relative L2 of the final samples.
+# With random weights the UNet carries a small change of x far along a
+# trajectory (on an H100 at 700 W UniPC-10 read 5.2e-2 and DPM-20 1.8e-2,
+# one forward 1.0e-2), so the limit is measured
+# in the same run: the plain model's trajectory against itself with every
+# model output given random relative noise of the size one kernel forward
+# parts from plain, that reading first held to TOL_UNET_REL (so the limit is
+# bounded by a fixed tolerance, not by the error under test). Kernels that
+# round differently from plain move the trajectory by about that floor; the
+# factor leaves room for their differences being structured rather than
+# random
+SOLVER_NOISE_FACTOR = 3
+PHEMA_STEPS = 4  # phase 5f: cli.train --posthoc_ema steps (snapshots at 2 and 4)
+# the clouds UNet's GroupNorm level shapes at 256 px (the attention norm at
+# level 2 without SiLU), phase 3's N16 rows
+CFG_GN_SITES = ((65536, 128, "silu"), (16384, 256, "silu"), (4096, 384, "none"),
+                (1024, 512, "silu"))
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -2033,21 +2078,253 @@ def run_tiled(cfg, seed, gen, n, steps):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def run_cli(argv, cfg, seed, tmp):
+def run_cli(argv, cfg, seed, tmp, ckpt=None):
     """Run the inference entry point in-process with seeded random weights
-    (saved as a state dict and passed with --ckpt)."""
-    ckpt = os.path.join(tmp, f"weights_{seed}.pt")
-    torch.save(randomize_parameters(build_denoiser(cfg), seed).state_dict(), ckpt)
+    (saved as a state dict and passed with --ckpt), or from ``ckpt``."""
+    if ckpt is None:
+        ckpt = os.path.join(tmp, f"weights_{cfg.__class__.__name__}_{hash(cfg)}_{seed}.pt")
+        if not os.path.exists(ckpt):  # one save a config and seed
+            torch.save(randomize_parameters(build_denoiser(cfg), seed).state_dict(), ckpt)
     args = cli.parse_args(argv + ["--ckpt", ckpt, "--outdir", os.path.join(tmp, "out"),
                                   "--seed", str(seed)])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    hits = A.identity_attention_hits()
     res = cli.main(args)
     res["launches"] = counts()
+    res["identity_hits"] = A.identity_attention_hits() - hits
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     x = res["samples"]
     assert x is not None and bool(torch.isfinite(torch.as_tensor(x)).all()), "non-finite samples"
     return res
+
+
+def unet_expected(cfg, full=0, partial=0, perturbed=0):
+    """The launch counts of ``full`` UNet forwards, ``partial`` DeepCache
+    calls (the shallow blocks of the default depth) and ``perturbed`` PAG
+    calls (every norm, no attention) of ``cfg``'s UNet at a size where every
+    attention takes the fused-qkv entry (64 and 256 px)."""
+    plan = build_unet_plan(cfg)
+    attn, norms = plan.sites()
+    _, shallow = plan.sites(1 + cfg.num_res_blocks)
+    return {**{k: 0 for k in counts()}, "attn_fwd": attn * full,
+            "gn_fwd": norms * (full + perturbed) + shallow * partial}
+
+
+def solver_plain_check(cfg, gen, card):
+    """DPM-Solver++(2M)-20 and UniPC-10 on the clouds UNet at 256 px, batch 8,
+    the kernels against the all-plain model (``UNet.set_impl``) from the same
+    x_T and cloudy view, by the relative L2 of the final samples, held to
+    SOLVER_NOISE_FACTOR times the noise floor of the same trajectory: the
+    plain model's trajectory against itself with every model output given
+    relative noise of the size one kernel forward parts from plain (read
+    here at t 500, and held to TOL_UNET_REL before the floor is built).
+    Also one DeepCache partial call on a fresh cache against the full call,
+    to TOL_UNET_REL, and whether it gives the same bits."""
+    size = cfg.image_size
+    model = randomize_parameters(UNet(cfg), seed=2).to("cuda").eval()
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size, cond_type="concat")
+    cond = torch.randn(8, size, size, 3, generator=gen, device="cuda").clamp(-1, 1)
+    x = torch.randn(8, size, size, 3, generator=gen, device="cuda")
+    t = torch.full((8,), 500, device="cuda")
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    out, failed = {}, []
+    with torch.inference_mode():
+        fwd_k = model(x, t, cond=cond)
+        fwd_p = model.set_impl(attn="plain", norm="plain")(x, t, cond=cond)
+        model.set_impl(attn="auto", norm="auto")
+        out["forward_rel_l2"] = d_fwd = rel(fwd_k, fwd_p)
+        # the floor is built from this reading, so it is first held to the
+        # fixed forward limit: a wrong kernel cannot widen its own limit
+        assert d_fwd <= TOL_UNET_REL, (d_fwd, TOL_UNET_REL)
+        for name, steps, calls in (("dpm", 20, 20), ("unipc", 10, 11)):
+            sample = getattr(diffusion, f"{name}_sample")
+            noise = torch.Generator(device="cuda").manual_seed(7)
+            noisy = lambda x, t, c, y: (lambda o: o * (1 + d_fwd * torch.randn(
+                o.shape, generator=noise, device="cuda", dtype=o.dtype)))(model(x, t, cond=c))
+            run = lambda fn: sample(fn, 8, device="cuda", num_steps=steps, cond=cond,
+                                    generator=torch.Generator(device="cuda").manual_seed(5)).x
+            reset_counts()
+            x_k = run(lambda x, t, c, y: model(x, t, cond=c))
+            launched = counts()
+            model.set_impl(attn="plain", norm="plain")
+            x_p, x_n = run(lambda x, t, c, y: model(x, t, cond=c)), run(noisy)
+            model.set_impl(attn="auto", norm="auto")
+            assert counts() == launched == unet_expected(cfg, full=calls), (name, launched)
+            reading, floor = rel(x_k, x_p), rel(x_n, x_p)
+            ok = bool(torch.isfinite(x_k).all()) and reading <= SOLVER_NOISE_FACTOR * floor
+            print(f"5f {name}-{steps} b8 kernels vs all-plain: final samples rel L2 {reading:.3e}; "
+                  f"the trajectory's noise floor {floor:.3e} (plain with every output given "
+                  f"rel noise {d_fwd:.3e}, the forward's reading); limit "
+                  f"{SOLVER_NOISE_FACTOR} x floor = {SOLVER_NOISE_FACTOR * floor:.3e}: "
+                  f"{'held' if ok else 'FAILED'}; {card}", flush=True)
+            out[f"{name}{steps}_rel_l2"], out[f"{name}{steps}_noise_floor"] = reading, floor
+            if not ok:
+                failed.append((name, reading, floor))
+        full, deep = model(x, t, cond=cond, return_deep=True)
+        reset_counts()
+        part = model(x, t, cond=cond, deep_cache=deep)
+        assert counts() == unet_expected(cfg, partial=1), counts()
+    r = rel(part, full)
+    out.update(deepcache_partial_rel_l2=r, deepcache_partial_bit_exact=bool(torch.equal(part, full)))
+    print(f"5f DeepCache partial call on a fresh cache vs the full call: rel L2 {r:.3e} "
+          f"(tol {TOL_UNET_REL}), same bits: {out['deepcache_partial_bit_exact']}", flush=True)
+    assert torch.isfinite(part).all() and r <= TOL_UNET_REL, r
+    assert not failed, failed
+    return out
+
+
+def run_train_posthoc(tmp, seed, card):
+    """``cli.train --preset sen12mscr256 --posthoc_ema`` at batch 8 for
+    PHEMA_STEPS steps, snapshots at every second step: the tracks for 5f's
+    ``--phema_sigma_rel`` and ``--autoguide_sigma_rel`` runs."""
+    argv = ["--preset", "sen12mscr256", "--dataset", "synthetic", "--batch_size", "8",
+            "--epochs", "1", "--steps_per_epoch", str(PHEMA_STEPS), "--sample_every", "0",
+            "--save_every", "2", "--model_ema_steps", "1", "--log_freq", "1", "--posthoc_ema",
+            "--seed", str(seed), "--device", "cuda", "--dir", "results/phema_smoke"]
+    reset_counts()
+    with contextlib.chdir(tmp):
+        res = cli_train.main(cli_train.parse_args(argv))
+    cfg = get_preset("sen12mscr256").unet_config(cond_channels=3)
+    want = expected(256, PHEMA_STEPS, PHEMA_STEPS, cfg, 8)
+    assert counts() == want, (counts(), want)
+    phema_dir = os.path.join(os.path.dirname(res["checkpoint"]), "phema")
+    snaps = sorted(os.listdir(phema_dir))
+    assert len(snaps) == 2 * (PHEMA_STEPS // 2), snaps
+    # the tracks' update, inside every --posthoc_ema step: its cost beside
+    # the step's (steady steps, after the first two)
+    params = dict(res["state"].model.named_parameters())
+    ema = PowerEMA()
+    tracks = ema.init(params)
+    update_ms = cuda_ms(lambda: ema.update(tracks, params, 10), reps=20)
+    step_ms = 1e3 * sum(res["step_seconds"][2:]) / len(res["step_seconds"][2:])
+    print(f"5f PowerEMA.update ({len(ema.gammas)} tracks of {len(params)} tensors, "
+          f"{sum(p.numel() for p in params.values())} parameters): {update_ms:.4f} ms, "
+          f"the --posthoc_ema train step {step_ms:.4f} ms (mean of steps 3-{PHEMA_STEPS}); "
+          f"{card}", flush=True)
+    del res["state"]
+    return res["checkpoint"], snaps, {"update_ms": update_ms, "step_ms": step_ms}
+
+
+def phase_5f(tmp, card, gen, main_img_s):
+    """The sampling CLI's solvers and guidance on ``sen12mscr256`` (the
+    clouds UNet at full width and depth, concat cloud removal, 256 px, batch
+    8, two batches a run, seeded weights), then the class-conditional and
+    v-prediction presets at their own widths, and tiled sampling with CFG and
+    DeepCache. Each run's launches are asserted against the counts derived
+    from ``build_unet_plan`` and the sampler; img/s over the second batch."""
+    sen = get_preset("sen12mscr256")
+    cfg = sen.unet_config(cond_channels=3)
+    sites = build_unet_plan(cfg).sites()
+    assert sites == (ROUTES[256][0], GN_PER_FORWARD), sites
+    base = ["--preset", "sen12mscr256", "--dataset", "synthetic", "--batch_size", "8",
+            "--n_iter", "1", "--device", "cuda"]
+    out, runs = {"plain_checks": solver_plain_check(cfg, gen, card)}, {}
+
+    def drive(tag, argv, want, model_cfg=cfg, ckpt=None, hits=0):
+        res = run_cli(argv, model_cfg, seed=2, tmp=tmp, ckpt=ckpt)
+        assert res["launches"] == want, (tag, res["launches"], want)
+        assert res["identity_hits"] == hits, (tag, res["identity_hits"], hits)
+        assert res["batches"] == 2, res["batches"]
+        res["img_s"] = 8 / res["batch_seconds"][1]
+        print(f"5f {tag} b8: batch seconds {[round(x, 4) for x in res['batch_seconds']]}, "
+              f"{res['img_s']:.4f} img/s (second batch), launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }, identity hits "
+              f"{res['identity_hits']}, peak memory {res['peak_mem_gb']:.2f} GiB; {card}",
+              flush=True)
+        del res["samples"]
+        runs[tag] = res
+
+    for tag, flags, full in (
+            ("ddim50", ["--sampler", "ddim", "--sampler_steps", "50"], 50),
+            ("dpm20-uniform_lambda", ["--sampler", "dpm", "--sampler_steps", "20"], 20),
+            ("dpm20-karras", ["--sampler", "dpm", "--sampler_steps", "20", "--dpm_spacing",
+                              "karras"], 20),
+            ("unipc10", ["--sampler", "unipc", "--sampler_steps", "10"], 11),
+            # image-CFG against the zero cloudy view: K1 at B16, 11 a step
+            ("cfg3-rescale0.7-interval-ddim20", ["--sampler", "ddim", "--sampler_steps", "20",
+                                                 "--guidance_scale", "3", "--guidance_rescale",
+                                                 "0.7", "--guidance_interval", "0.2,0.8"], 20),
+            ("dynamic-threshold-ddim20", ["--sampler", "ddim", "--sampler_steps", "20",
+                                          "--dynamic_threshold", "0.995"], 20)):
+        drive(tag, base + flags, unet_expected(cfg, full=2 * full))
+    # DeepCache k=3 on DDIM-50, the protocol of bench.py's deepcache_k3 rider:
+    # the deep branch at steps 0, 3, ..., 48 (17), the shallow blocks at the 33 others
+    full = sum(i % 3 == 0 for i in range(50))
+    drive("deepcache3-ddim50", base + ["--sampler", "ddim", "--sampler_steps", "50",
+                                       "--deepcache", "3"],
+          unet_expected(cfg, full=2 * full, partial=2 * (50 - full)))
+    print(f"5f DeepCache-3 DDIM-50 b8 {runs['deepcache3-ddim50']['img_s']:.4f} img/s against "
+          f"DDIM-50 {runs['ddim50']['img_s']:.4f} (5f, second batch) and phase 5's "
+          f"{main_img_s:.4f} (one batch); {card}", flush=True)
+    # PAG: each step one call through the kernels, one perturbed (no K1)
+    drive("pag2-ddim10", base + ["--sampler", "ddim", "--sampler_steps", "10", "--pag_scale",
+                                 "2"],
+          unet_expected(cfg, full=2 * 10, perturbed=2 * 10),
+          hits=2 * 10 * sites[0])
+    k = sdedit_plan(make_ddim_schedule(GaussianDiffusion.create(timesteps=1000).schedule, 20,
+                                       0.0).num_steps, 0.5)
+    drive("sdedit0.5-ddim20", base + ["--sampler", "ddim", "--sampler_steps", "20",
+                                      "--sdedit_strength", "0.5"], unet_expected(cfg, full=2 * k))
+    out["sdedit_calls"] = k
+    # post-hoc EMA: a short training run of its own writes the snapshots
+    ckpt, snaps, out["phema_update"] = run_train_posthoc(tmp, seed=16, card=card)
+    out["phema_snapshots"] = snaps
+    drive("phema0.1-ddim10", base + ["--sampler", "ddim", "--sampler_steps", "10",
+                                     "--phema_sigma_rel", "0.1"],
+          unet_expected(cfg, full=2 * 10), ckpt=ckpt)
+    drive("autoguide2-sigma0.05-ddim10", base + ["--sampler", "ddim", "--sampler_steps", "10",
+                                                 "--autoguide_scale", "2",
+                                                 "--autoguide_sigma_rel", "0.05"],
+          unet_expected(cfg, full=2 * 2 * 10), ckpt=ckpt)
+    # class-conditional (label-CFG against the null row) and v-prediction
+    # presets at their own widths, 64 px
+    for preset, flags, calls in (
+            ("cddpm64", ["--sampler", "ddim", "--sampler_steps", "20", "--guidance_scale", "4"],
+             20),
+            ("cddpm64", ["--sampler", "dpm", "--sampler_steps", "20", "--guidance_scale", "4"],
+             20),
+            ("cflow64", ["--flow_method", "heun", "--sampler_steps", "8", "--guidance_scale",
+                         "3"], 15),
+            ("vpred64", ["--sampler", "dpm", "--sampler_steps", "20"], 20)):
+        pcfg = get_preset(preset).model_config(
+            class_dropout_prob=get_preset(preset).class_dropout)
+        drive(f"{preset} {' '.join(flags)}",
+              ["--preset", preset, "--dataset", "synthetic", "--batch_size", "8",
+               "--n_iter", "1", "--device", "cuda", *flags],
+              unet_expected(pcfg, full=2 * calls), model_cfg=pcfg)
+    out["runs"] = runs
+    out["tiled"] = run_tiled_guided(cfg, gen, card)
+    return out
+
+
+def run_tiled_guided(cfg, gen, card, steps=20, refresh=3, tile_batch=6):
+    """tiled_ddim_sample of one 512 x 512 scene (3 x 3 tiles of 256 at
+    overlap 0.5) with image-CFG and DeepCache: the tiles in chunks of
+    ``tile_batch``, one DeepCache state a chunk, each chunk doubled by CFG."""
+    size = cfg.image_size
+    model = randomize_parameters(UNet(cfg), seed=2).to("cuda").eval()
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size, cond_type="concat")
+    cond = torch.randn(1, 2 * size, 2 * size, 3, generator=gen, device="cuda").clamp(-1, 1)
+    fn, state0 = deepcache_model_fn(model, refresh_every=refresh)
+    n_chunks = -(-9 // tile_batch)
+    full = sum(i % refresh == 0 for i in range(steps))
+    reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        x = tiled_ddim_sample(diffusion, fn, 1, 2 * size, 2 * size, device="cuda", generator=gen,
+                              num_steps=steps, cond=cond, uncond=torch.zeros_like(cond),
+                              guidance_scale=3.0, tile_batch=tile_batch,
+                              model_state=state0).x.float().cpu()
+        seconds = time.perf_counter() - t0
+    launched = counts()
+    want = unet_expected(cfg, full=n_chunks * full, partial=n_chunks * (steps - full))
+    assert x.shape == (1, 2 * size, 2 * size, 3) and bool(torch.isfinite(x).all()), x.shape
+    assert launched == want, (launched, want)
+    print(f"5f tiled_ddim_sample 512x512 CFG 3 + DeepCache {refresh}, DDIM-{steps}, tile batch "
+          f"{tile_batch} ({n_chunks} chunks, one state each): {seconds:.3f} s, launches "
+          f"{ {k: v for k, v in launched.items() if v} }; {card}", flush=True)
+    return {"seconds": seconds, "launches": launched}
 
 
 def attention_maxima(rows):
@@ -2260,6 +2537,18 @@ def main() -> int:
     gn_rows += ae_gn_rows
     torch.cuda.empty_cache()
 
+    # classifier-free guidance doubles phase 5f's 256 px batch: K1 at B16 at
+    # the clouds UNet's two attention shapes and K5 at N16 at its level
+    # shapes, drawn from a generator of their own (cgen), as 5f's are
+    cgen = torch.Generator(device="cuda").manual_seed(15)
+    cfg_rows = [attention_case(16, 4096, 8, 48, torch.bfloat16, False, cgen),
+                attention_case(16, 1024, 8, 64, torch.bfloat16, False, cgen)]
+    rows += cfg_rows
+    cfg_gn_rows = [gn_case(16, hw, c, 32, act, torch.bfloat16, cgen)
+                   for hw, c, act in CFG_GN_SITES]
+    gn_rows += cfg_gn_rows
+    torch.cuda.empty_cache()
+
     # 4. UNet forward and backward at 256 px, batch 2, and (4b) at 384 px,
     # batch 1: the kernels against the all-plain model (plain attention and
     # plain norms), same weights. At 384 px every attention takes the
@@ -2375,6 +2664,10 @@ def main() -> int:
         # 5e. tiled_flow_sample of 512 x 512 scenes with the dit256 denoiser
         tiled_flow = run_tiled_flow(seed=12, gen=lgen, n=TILED_FLOW_SCENES, steps=8, card=card)
 
+        # 5f. the sampling CLI's solvers and guidance
+        guided = phase_5f(tmp, card, cgen, main_res["images"] / main_res["sample_seconds"])
+        guided_runs = (*guided["runs"].values(), guided["tiled"])
+
         # 7. the training path through the entry point
         train_res = run_train(tmp, seed=4)
         steady = train_res["step_seconds"][2:]  # after cuDNN's plan search
@@ -2455,7 +2748,8 @@ def main() -> int:
         + train512["launches"]["flash_fwd"],
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
-                                       tiled_flow, *dit_res.values(), *latent_runs)
+                                       tiled_flow, *dit_res.values(), *latent_runs,
+                                       *guided_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
@@ -2489,6 +2783,12 @@ def main() -> int:
         "launches_latent256_train": latent_train["launches"]["attn_fwd"],
         "launches_latent256_sample": latent_train["sample_launches"]["attn_fwd"],
         "launches_tiled_flow": tiled_flow["launches"]["attn_fwd"],
+        "cfg_b16": [latent_row(r) for r in cfg_rows],
+        "launches_guidance": {tag: r["launches"]["attn_fwd"]
+                              for tag, r in guided["runs"].items()},
+        "launches_guidance_tiled": guided["tiled"]["launches"]["attn_fwd"],
+        "pag_identity_hits": guided["runs"]["pag2-ddim10"]["identity_hits"],
+        "guidance_checks": guided["plain_checks"],
         "latent256_train_check": latent_grad,
         "mma_body_ms": main_row["mma_body_ms"],
         "dit_forward_rel_l2": dit_fwd,
@@ -2511,7 +2811,8 @@ def main() -> int:
         + train512["launches"]["flash_bwd"],
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
-                                       tiled_flow, *dit_res.values(), *latent_runs)
+                                       tiled_flow, *dit_res.values(), *latent_runs,
+                                       *guided_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -2611,7 +2912,7 @@ def main() -> int:
         "old_body_launches_on_model_paths": sum(
             r["launches"][f"gn_{direction}_legacy"]
             for r in (main_res, res512, res64, train_res, train512, tiled, tiled_flow,
-                      *dit_res.values(), *latent_runs)),
+                      *dit_res.values(), *latent_runs, *guided_runs)),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
@@ -2629,9 +2930,14 @@ def main() -> int:
                        "launches_latent256": {
                            "ae_train": latent_train["ae_launches"]["gn_fwd"],
                            "dit_train": latent_train["launches"]["gn_fwd"],
-                           "sample": latent_train["sample_launches"]["gn_fwd"]}}),
+                           "sample": latent_train["sample_launches"]["gn_fwd"]},
+                       "cfg_n16": [latent_row(r[0]) for r in cfg_gn_rows],
+                       "launches_guidance": {tag: r["launches"]["gn_fwd"]
+                                             for tag, r in guided["runs"].items()},
+                       "launches_guidance_tiled": guided["tiled"]["launches"]["gn_fwd"]}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {"latent256_ae_f32": [latent_row(r[1]) for r in ae_gn_rows],
+                       "cfg_n16": [latent_row(r[1]) for r in cfg_gn_rows],
                        "launches_latent256": {
                            "ae_train": latent_train["ae_launches"]["gn_bwd"],
                            "dit_train": latent_train["launches"]["gn_bwd"]}}))]

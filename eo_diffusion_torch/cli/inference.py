@@ -1,4 +1,5 @@
-"""Sampling CLI of the port (the main-path flags of ``eo_diffusion_tpu.cli.inference``).
+"""Sampling CLI of the port (the flags of ``eo_diffusion_tpu.cli.inference``
+that the port has ported).
 
 ``python -m eo_diffusion_torch.cli.inference --preset sen12mscr256
 --dataset sen12mscr --data_root /data/SEN12MS_CR --ckpt logs/run/best
@@ -12,18 +13,29 @@ none; the CPU is used only with ``--device cpu``. It conditions on the
 test split of any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
 ``--data_root``). It writes the same
 ``samples/`` PNG grids as the JAX CLI. UNet and DiT presets sample with
-DDPM/DDIM; flow-process presets (``dit256``, ``flow64``, ``tiny-flow``) with
-``--sampler flow``, which they force. ``--metrics`` scores each conditioned
+DDPM, DDIM, DPM-Solver++ (``--sampler dpm``, ``--dpm_spacing``) or UniPC
+(``--sampler unipc``); flow-process presets (``dit256``, ``flow64``,
+``cflow64``, ...) with ``--sampler flow``, which they force. Guidance:
+classifier-free (``--guidance_scale`` against the learned null class of a
+class-conditional preset, else against a zero cloudy view;
+``--guidance_rescale``, ``--guidance_interval``), perturbed-attention
+(``--pag_scale``) and autoguidance (``--autoguide_scale`` with a worse model
+from ``--autoguide_ckpt`` or a short post-hoc EMA, ``--autoguide_sigma_rel``);
+``--dynamic_threshold``, DeepCache (``--deepcache K``), SDEdit from the
+cloudy view (``--sdedit_strength``) and post-hoc EMA weights
+(``--phema_sigma_rel``, from ``cli.train --posthoc_ema``'s snapshots). The
+JAX CLI's compatibility checks hold. ``--metrics`` scores each conditioned
 batch's samples against the ground truth (SSIM and PSNR on the device, in
 [0, 1]), prints the running means and writes them to ``<outdir>/metrics.txt``;
 ``--samples_fid`` writes every sample as its own PNG under
-``<outdir>/samples_fid/`` for ``cli.evaluate``; ``--wandb`` is parsed and, as
-in the JAX CLI, does nothing here. A latent preset (``latent256-cr``, ...)
+``<outdir>/samples_fid/`` for ``cli.evaluate``, named by class when the model
+is class-conditional; ``--wandb`` is parsed and, as in the JAX CLI, does
+nothing here. A latent preset (``latent256-cr``, ...)
 loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
 samples on the latent grid with the cloudy view encoded, and decodes: the
 metrics and PNGs are of the decoded pixels. Flags of the JAX CLI that later
-slices bring (guidance, DeepCache, other samplers, ...) exit naming their
-ROADMAP queue.
+slices bring (classifier guidance, the distilled samplers, FreeU, ...) exit
+naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -39,16 +51,12 @@ import torch
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--guidance_scale": 11, "--guidance_rescale": 11, "--guidance_interval": 11,
-    "--dynamic_threshold": 11, "--dpm_spacing": 11, "--sigma_data": 11, "--cd_points": 11,
-    "--deepcache": 11, "--sdedit_strength": 11, "--pag_scale": 11, "--autoguide_": 11,
-    "--classifier_": 11, "--phema_": 11, "--random_label": 11, "--num_classes": 11,
-    "--class_dropout": 11, "--cond_type": 11, "--model_base_dim": 11,
+    "--classifier_": 11, "--sigma_data": 12, "--cd_points": 12,
     "--freeu": 13, "--tome_ratio": 13, "--tome_mlp": 13, "--controlnet": 13,
     "--lora": 14, "--int8_compute": 15,
 }
 # samplers of the JAX CLI that are not ported yet -> ROADMAP queue
-UNPORTED_SAMPLERS = {"dpm": 11, "unipc": 11, "cm": 12, "pd": 12}
+UNPORTED_SAMPLERS = {"cm": 12, "pd": 12}
 
 
 def _unported_flag(arg: str):
@@ -69,8 +77,57 @@ def parse_args(argv=None):
     parser.add_argument("--timesteps", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--sampler", type=str, default="ddpm",
-                        choices=["ddpm", "ddim", "flow", *UNPORTED_SAMPLERS],
-                        help="flow = the ODE sampler of flow-process presets, which force it")
+                        choices=["ddpm", "ddim", "dpm", "unipc", "flow", *UNPORTED_SAMPLERS],
+                        help="dpm = DPM-Solver++(2M); unipc = UniPC-3 (num_steps + 1 model "
+                             "calls); flow = the ODE sampler of flow-process presets, which "
+                             "force it")
+    parser.add_argument("--dpm_spacing", type=str, default="uniform_lambda",
+                        choices=["uniform_lambda", "uniform_t", "karras"],
+                        help="DPM-Solver grid: uniform half-log-SNR, DDIM-style t stride, or "
+                             "the Karras rho-7 curve")
+    parser.add_argument("--dynamic_threshold", type=float, default=None, metavar="P",
+                        help="Imagen dynamic thresholding percentile (e.g. 0.995) in place "
+                             "of the static x0 clamp; ddpm/ddim/dpm/unipc")
+    parser.add_argument("--guidance_scale", type=float, default=1.0,
+                        help="classifier-free guidance scale (>1 enables): against the "
+                             "learned null class of a class-conditional model, else against "
+                             "a zero conditioning image")
+    parser.add_argument("--guidance_rescale", type=float, default=0.0,
+                        help="CFG-rescale phi (arXiv:2305.08891 §3.4; ~0.7)")
+    parser.add_argument("--guidance_interval", type=str, default=None, metavar="LO,HI",
+                        help="apply CFG only while the normalized noise level is in "
+                             "[LO, HI] (arXiv:2404.07724), e.g. 0.2,0.8")
+    parser.add_argument("--pag_scale", type=float, default=0.0,
+                        help="perturbed-attention guidance weight (arXiv:2403.17377; >0 "
+                             "enables)")
+    parser.add_argument("--autoguide_scale", type=float, default=1.0,
+                        help="autoguidance weight (arXiv:2406.02507; >1 enables)")
+    parser.add_argument("--autoguide_ckpt", type=str, default=None,
+                        help="the worse model's checkpoint (e.g. an early steps_* file)")
+    parser.add_argument("--autoguide_sigma_rel", type=float, default=0.0,
+                        help="the worse model as a short post-hoc EMA of this sigma_rel")
+    parser.add_argument("--phema_sigma_rel", type=float, default=0.0,
+                        help="sample with the post-hoc EMA of this sigma_rel, synthesized "
+                             "from cli.train --posthoc_ema's snapshots")
+    parser.add_argument("--phema_dir", type=str, default=None,
+                        help="snapshot directory (default: phema beside --ckpt)")
+    parser.add_argument("--deepcache", type=int, default=1, metavar="K",
+                        help="DeepCache (arXiv:2312.00858): run the deep UNet branch only "
+                             "every K steps (K>1 enables; UNet presets)")
+    parser.add_argument("--sdedit_strength", type=float, default=0.0,
+                        help="SDEdit (arXiv:2108.01073): noise the source (the cloudy "
+                             "view, else the image) this fraction of the chain and denoise "
+                             "back (0 = off)")
+    parser.add_argument("--num_classes", type=int, default=0,
+                        help="class-conditional models (default: the preset's)")
+    parser.add_argument("--class_dropout", type=float, default=0.0,
+                        help="must match training: builds the null-class row label-CFG "
+                             "needs (default: the preset's)")
+    parser.add_argument("--random_label", action="store_true",
+                        help="cond_type sum: a random rectangle as the mask")
+    parser.add_argument("--cond_type", type=str, default=None,
+                        help="override the preset's conditioning (sum | concat)")
+    parser.add_argument("--model_base_dim", type=int, default=None)
     parser.add_argument("--flow_method", type=str, default="euler", choices=["euler", "heun"],
                         help="flow sampler integrator (heun: 2nd order, 2 model calls a step)")
     parser.add_argument("--sampler_steps", type=int, default=250)
@@ -122,10 +179,11 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _build_cond(batch, cond_type):
+def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None):
     """(cond, mask) for one batch (reference inference.py:98-109): a paired
     "cond_image" view is the concat conditioning; otherwise (image | mask)
-    with the mask inverted for ``cond_type="sum"`` (known = non-cloud)."""
+    with the mask inverted for ``cond_type="sum"`` (known = non-cloud), or a
+    random rectangle a sample with ``random_label``."""
     if cond_type is None:
         return None, None
     image = np.asarray(batch["image"], np.float32)
@@ -133,11 +191,23 @@ def _build_cond(batch, cond_type):
         return np.asarray(batch["cond_image"], np.float32), None
     mask = (np.asarray(batch["segmentation"], np.float32)
             if "segmentation" in batch else None)
+    if cond_type == "sum" and mask is not None:
+        mask = 1.0 - mask
+    if random_label and cond_type == "sum":
+        from eo_diffusion_torch.data.transforms import random_rect_mask
+
+        mask = np.stack([random_rect_mask((image_size, image_size), 10, 10, 40, 40, mask_rng)
+                         for _ in range(image.shape[0])])
     if mask is None:
         return None, None
-    if cond_type == "sum":
-        mask = 1.0 - mask
     return np.concatenate([image, mask], axis=-1), mask
+
+
+def _load_params(model, tree) -> None:
+    """Copy a parameter state dict (name -> tensor) into ``model``."""
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            prm.copy_(tree[name])
 
 
 def main(args):
@@ -146,6 +216,8 @@ def main(args):
     image counts and the seconds spent inside the samplers, in all and by
     batch; with ``--metrics`` also the mean ``ssim`` and ``psnr``."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+    from eo_diffusion_torch.diffusion.gaussian import noise_level
+    from eo_diffusion_torch.data.datasets import class_names
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
     from eo_diffusion_torch.utils import metrics as M
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
@@ -158,14 +230,55 @@ def main(args):
     image_size = args.image_size or preset.image_size
     preset.image_size = image_size
     timesteps = args.timesteps or preset.timesteps
-    cond_type = preset.cond_type
+    if args.model_base_dim:
+        preset.base_dim = args.model_base_dim
+    cond_type = args.cond_type or preset.cond_type
+    if cond_type not in (None, "sum", "concat"):
+        raise NotImplementedError(f"--cond_type {cond_type} is not ported yet "
+                                  "(ROADMAP queue 13)")
+    # class-conditional presets sample conditional, with their null row,
+    # unless the flags say otherwise (the training CLI's defaults)
+    num_classes = args.num_classes or preset.num_classes or None
+    class_dropout = args.class_dropout or preset.class_dropout
     if preset.process == "flow" and args.sampler != "flow":
         print(f"preset {preset.name} is a flow process; using --sampler flow "
               "(its native sampler)")
         args.sampler = "flow"
     if args.sampler == "flow" and preset.process != "flow":
         raise SystemExit(f"--sampler flow requires a flow-process preset; {preset.name} "
-                         f"trained the {preset.process} chain (use ddpm/ddim)")
+                         f"trained the {preset.process} chain (use ddpm/ddim/dpm/unipc)")
+    # the JAX CLI's compatibility checks (eo_diffusion_tpu/cli/inference.py:330-700)
+    if args.sdedit_strength:
+        assert cond_type != "sum", (
+            "SDEdit starts FROM the source image; RePaint 'sum' masking is a different "
+            "mechanism (drop --sdedit_strength or use cond_type concat/None)")
+        if args.sampler in ("ddpm", "dpm", "unipc"):
+            print("note: SDEdit runs the DDIM tail; using --sampler ddim")
+            args.sampler = "ddim"
+    assert args.dynamic_threshold is None or args.sampler in ("ddpm", "ddim", "dpm", "unipc"), (
+        f"--dynamic_threshold rescales the DDPM-family pred-x0 clamp (ddpm/ddim/dpm/unipc); "
+        f"the {args.sampler} sampler has no such site")
+    assert args.deepcache <= 1 or preset.backbone == "unet", (
+        "DeepCache caches the UNet's deep/shallow split; the DiT backbone has no "
+        "resolution ladder to split")
+    if args.autoguide_scale > 1.0:
+        assert args.guidance_scale == 1.0, (
+            "autoguidance and classifier-free guidance both own the guided combine; pick "
+            "one (--autoguide_scale xor --guidance_scale)")
+        assert args.deepcache <= 1, (
+            "DeepCache's stateful fn wraps the model directly and would bypass the "
+            "autoguided combine; drop one of the two")
+        assert args.autoguide_ckpt or args.autoguide_sigma_rel, (
+            "--autoguide_scale needs a degraded model: pass --autoguide_ckpt or "
+            "--autoguide_sigma_rel")
+    if args.pag_scale > 0.0:
+        assert args.deepcache <= 1, (
+            "DeepCache's stateful fn wraps the model directly and would bypass the PAG "
+            "combine; drop one of the two")
+    if preset.is_latent:
+        assert cond_type != "sum", (
+            "latent presets do not support RePaint-'sum' conditioning (pixel-space mask "
+            "composite); use cond_type='concat'")
 
     fkw = dict(batch_size=args.batch_size, test=True)
     if args.data_root:
@@ -183,13 +296,24 @@ def main(args):
     cond_channels = (preset.cond_channels(peek_cond.shape[-1])
                      if cond_type == "concat" and peek_cond is not None else 0)
 
-    ucfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels)
+    ucfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels,
+                               num_classes=num_classes, class_dropout_prob=class_dropout)
     model = build_denoiser(ucfg)
     if args.ckpt:
         print("loading checkpoint...")
         model.load_state_dict(load_reference_checkpoint(args.ckpt, ucfg), strict=True)
         print("loaded!")
     model = model.to(device).eval()
+    phema_dir = args.phema_dir or os.path.join(os.path.dirname(os.path.abspath(args.ckpt)),
+                                               "phema")
+    if args.phema_sigma_rel:
+        # post-hoc EMA: the EMA of the requested length, synthesized from the
+        # power-EMA snapshots, in place of the checkpoint's EMA for this run
+        from eo_diffusion_torch.train.posthoc_ema import synthesize_from_dir
+
+        _load_params(model, synthesize_from_dir(phema_dir, dict(model.named_parameters()),
+                                                args.phema_sigma_rel, cfg=ucfg))
+        print(f"posthoc-ema: synthesized sigma_rel={args.phema_sigma_rel} from {phema_dir}")
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
     if preset.is_latent:
         from eo_diffusion_torch.train import ae_trainer as AET
@@ -204,6 +328,40 @@ def main(args):
     print(f"Diffusion with {n_params / 1e6} M params on {device}")
     model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
 
+    if args.autoguide_scale > 1.0:
+        # autoguidance: extrapolate away from a worse variant of the same model,
+        # an earlier checkpoint or a short post-hoc EMA
+        from eo_diffusion_torch.diffusion.autoguide import autoguided_model_fn
+
+        bad = build_denoiser(ucfg)
+        if args.autoguide_ckpt:
+            bad.load_state_dict(load_reference_checkpoint(args.autoguide_ckpt, ucfg),
+                                strict=True)
+            bad = bad.to(device).eval()
+        else:
+            from eo_diffusion_torch.train.posthoc_ema import synthesize_from_dir
+
+            bad = bad.to(device).eval()
+            _load_params(bad, synthesize_from_dir(phema_dir, dict(model.named_parameters()),
+                                                  args.autoguide_sigma_rel, cfg=ucfg))
+            print(f"autoguide: bad model = sigma_rel={args.autoguide_sigma_rel} from "
+                  f"{phema_dir}")
+        # the interval gate sees the model's t: on the flow ODE t * time_scale
+        inner = diffusion.diffusion if preset.is_latent else diffusion
+        nf = ((lambda t: noise_level(t.reshape(t.shape[0], -1)[0, 0], inner.time_scale))
+              if preset.process == "flow" else None)
+        model_fn = autoguided_model_fn(
+            model_fn, lambda x, t, c, y: bad(x, t, cond=c, y=y), args.autoguide_scale,
+            guidance_rescale=args.guidance_rescale,
+            guidance_interval=_interval(args.guidance_interval), timesteps=timesteps,
+            noise_frac_fn=nf)
+    if args.pag_scale > 0.0:
+        from eo_diffusion_torch.diffusion.pag import pag_model_fn
+
+        model_fn = pag_model_fn(model_fn, args.pag_scale)
+        print(f"PAG enabled: scale={args.pag_scale}")
+
+    classes = class_names(dataset, num_classes or 0)
     dir_samples = os.path.join(args.outdir, "samples")
     dir_fid = os.path.join(args.outdir, "samples_fid")
     os.makedirs(dir_samples, exist_ok=True)
@@ -212,6 +370,7 @@ def main(args):
 
     print("start inference")
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    mask_rng = np.random.default_rng(args.seed)
     to_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
     samples, n_images, batch_seconds, n = None, 0, [], 0
     ssim_sum, psnr_sum = 0.0, 0.0
@@ -220,28 +379,56 @@ def main(args):
             print(f"data {j}")
             image = np.asarray(batch["image"], np.float32)
             bsz = image.shape[0]
-            cond, mask = _build_cond(batch, cond_type)
+            cond, mask = _build_cond(batch, cond_type, image_size, args.random_label, mask_rng)
+            # class rotation like the reference's inference.py:110
+            y = (np.full((bsz,), min(j % max(num_classes - 1, 1), num_classes - 1))
+                 if num_classes else None)
+            catg = classes[int(y[0])] if y is not None else "sample"
+            gkw = _guidance_kwargs(args, ucfg, num_classes, cond_type, cond, bsz)
+            fn_j, st0 = model_fn, None
+            if args.deepcache > 1:
+                from eo_diffusion_torch.diffusion.deepcache import deepcache_model_fn
+
+                # under CFG the doubled batch flows through the stateful fn,
+                # so the cached feature is the doubled batch's
+                fn_j, st0 = deepcache_model_fn(model, refresh_every=args.deepcache)
+            c_j = to_dev(cond) if cond_type == "concat" else None
+            y_j = None if y is None else torch.as_tensor(y, dtype=torch.long, device=device)
+            gkw = {k: (to_dev(v) if isinstance(v, np.ndarray) else v) for k, v in gkw.items()}
+            mask_j = to_dev(mask) if cond_type == "sum" else None
+            x0_j = to_dev(image) if mask_j is not None else None
+            skw = dict(device=device, generator=generator, y=y_j, model_state=st0, **gkw)
             t0 = time.perf_counter()
-            if args.sampler == "flow":
-                mask_j = to_dev(mask) if cond_type == "sum" else None
-                out = diffusion.sample(
-                    model_fn, bsz, device=device, generator=generator,
-                    num_steps=args.sampler_steps, method=args.flow_method,
-                    cond=to_dev(cond) if cond_type == "concat" else None,
-                    mask=mask_j, x0=to_dev(image) if mask_j is not None else None)
+            if args.sdedit_strength:
+                from eo_diffusion_torch.diffusion.edit import sdedit_sample
+
+                # the source is the paired view (the cloudy scene), else the image
+                source = batch["cond_image"] if "cond_image" in batch else image
+                out = sdedit_sample(
+                    diffusion, fn_j, torch.as_tensor(np.asarray(source, np.float32)),
+                    args.sdedit_strength, num_steps=args.sampler_steps, eta=args.eta,
+                    method=args.flow_method if args.sampler == "flow" else args.ddim_spacing,
+                    cond=c_j, **skw)
+            elif args.sampler == "flow":
+                out = diffusion.sample(fn_j, bsz, num_steps=args.sampler_steps,
+                                       method=args.flow_method, cond=c_j, mask=mask_j,
+                                       x0=x0_j, **skw)
             elif args.sampler == "ddpm":
                 out = diffusion.ddpm_sample(
-                    model_fn, bsz, device=device, generator=generator,
-                    cond=to_dev(cond), clip=not args.no_clip,
-                    jump_len=args.jump_len, jump_n=args.jump_n)
+                    fn_j, bsz, cond=to_dev(cond), clip=not args.no_clip,
+                    dynamic_threshold=args.dynamic_threshold,
+                    jump_len=args.jump_len, jump_n=args.jump_n, **skw)
+            elif args.sampler in ("dpm", "unipc"):
+                extra = dict(time_spacing=args.dpm_spacing) if args.sampler == "dpm" else {}
+                sampler = getattr(diffusion, f"{args.sampler}_sample")
+                out = sampler(fn_j, bsz, num_steps=args.sampler_steps, cond=c_j, mask=mask_j,
+                              x0=x0_j, dynamic_threshold=args.dynamic_threshold, **extra,
+                              **skw)
             else:
-                mask_j = to_dev(mask) if cond_type == "sum" else None
                 out = diffusion.ddim_sample(
-                    model_fn, bsz, device=device, generator=generator,
-                    num_steps=args.sampler_steps, eta=args.eta, method=args.ddim_spacing,
-                    cond=to_dev(cond) if cond_type == "concat" else None,
-                    mask=mask_j, x0=to_dev(image) if mask_j is not None else None,
-                    clip=args.ddim_clip)
+                    fn_j, bsz, num_steps=args.sampler_steps, eta=args.eta,
+                    method=args.ddim_spacing, cond=c_j, mask=mask_j, x0=x0_j,
+                    clip=args.ddim_clip, dynamic_threshold=args.dynamic_threshold, **skw)
             samples = out.x.float().cpu().numpy()  # waits for the device
             batch_seconds.append(time.perf_counter() - t0)
             n_images += bsz
@@ -262,9 +449,9 @@ def main(args):
                                     nrow=nrow)
                     save_image_grid(rescale_to_unit(cond_vis, data_range),
                                     os.path.join(dir_samples, f"sample_{idx}_cond.png"), nrow=nrow)
-            if args.samples_fid:  # no class labels in the port's sampling: "sample"
+            if args.samples_fid:
                 for i in range(bsz):
-                    save_image_grid(samples01[i], os.path.join(dir_fid, f"sample_{idx}-{i}.png"))
+                    save_image_grid(samples01[i], os.path.join(dir_fid, f"{catg}_{idx}-{i}.png"))
             if args.save:
                 save_image_grid(samples01, os.path.join(dir_samples, f"sample_{idx}.png"),
                                 nrow=nrow)
@@ -282,6 +469,45 @@ def main(args):
     if args.metrics and n:
         res.update(ssim=ssim_sum / n, psnr=psnr_sum / n)
     return res
+
+
+def _interval(text):
+    """``"LO,HI"`` -> ``(lo, hi)`` with 0 <= LO < HI <= 1, or None."""
+    if not text:
+        return None
+    lo, hi = (float(v) for v in text.split(","))
+    assert 0.0 <= lo < hi <= 1.0, (
+        f"--guidance_interval {text}: need 0 <= LO < HI <= 1 (normalized noise level)")
+    return lo, hi
+
+
+def _guidance_kwargs(args, ucfg, num_classes, cond_type, cond, bsz) -> dict:
+    """The samplers' classifier-free guidance keywords for one batch (the JAX
+    CLI's ``gkw``): label-CFG against the learned null class when the model
+    is class-conditional and has that row, else image-CFG against a zero
+    conditioning view; empty when guidance is off or cannot apply."""
+    if args.guidance_scale == 1.0:
+        return {}
+    gkw = {"guidance_scale": args.guidance_scale}
+    if args.guidance_rescale:
+        gkw["guidance_rescale"] = args.guidance_rescale
+    if args.guidance_interval:
+        gkw["guidance_interval"] = _interval(args.guidance_interval)
+    if num_classes:
+        if (ucfg.label_vocab or 0) <= num_classes:
+            print("note: label-CFG needs a null-class row (train with --class_dropout > 0); "
+                  "guidance ignored")
+            return {}
+        gkw["y_uncond"] = np.full((bsz,), num_classes, np.int64)
+    elif cond_type == "concat" and cond is not None:
+        if args.sampler == "ddpm":
+            print("note: ddpm has no image-CFG path; guidance ignored")
+            return {}
+        gkw["uncond"] = np.zeros_like(cond)
+    else:
+        print("note: --guidance_scale needs class- or concat-conditioning; ignored")
+        return {}
+    return gkw
 
 
 if __name__ == "__main__":

@@ -43,6 +43,12 @@ class Preset:
     timesteps: int = 1000
     batch_size: int = 128
     objective: str = "eps"
+    # Lin et al. 2023 (arXiv:2305.08891): rescale the schedule to SNR(T) = 0
+    # (needs objective "v"); sample with --ddim_spacing trailing or dpm
+    zero_terminal_snr: bool = False
+    # default CFG label dropout of a class-conditional preset (allocates the
+    # null embedding row; the CLIs' --class_dropout overrides)
+    class_dropout: float = 0.0
     # latent diffusion (the CompVis LatentDiffusion slot, reference
     # diffusion/ddpm.py:628-692): latent_downs > 0 trains a ConvAutoencoder
     # first stage with 2**latent_downs spatial reduction, then diffuses the
@@ -203,14 +209,28 @@ PRESETS = {
     "tiny-latent-flow": Preset("tiny-latent-flow", "synthetic", 16, 3, 32, (1, 2), (), 1, 1,
                                batch_size=16, process="flow", latent_downs=1,
                                latent_channels=4, ae_base_dim=16, ae_steps=60),
+    # v-prediction on a zero-terminal-SNR schedule (arXiv:2305.08891)
+    "vpred64": Preset("vpred64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                      objective="v", zero_terminal_snr=True),
+    "tiny-vpred": Preset("tiny-vpred", "synthetic", 8, 3, 32, (1, 2), (), 1, 1, timesteps=50,
+                         batch_size=16, objective="v", zero_terminal_snr=True),
+    # class-conditional rectified flow and DDPM on the hard fixture, trained
+    # with CFG label dropout and sampled with --guidance_scale
+    "cflow64": Preset("cflow64", "synthetic_hard", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                      batch_size=64, process="flow", num_classes=5, class_dropout=0.15),
+    "tiny-cflow": Preset("tiny-cflow", "synthetic_hard", 8, 3, 32, (1, 2), (), 1, 1,
+                         timesteps=50, batch_size=16, process="flow", num_classes=5,
+                         class_dropout=0.15),
+    "cddpm64": Preset("cddpm64", "synthetic_hard", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                      batch_size=64, num_classes=5, class_dropout=0.15),
+    "tiny-cddpm": Preset("tiny-cddpm", "synthetic_hard", 8, 3, 32, (1, 2), (), 1, 1,
+                         timesteps=50, batch_size=16, num_classes=5, class_dropout=0.15),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
 _LATER = {
-    "vpred64": 11, "tiny-vpred": 11, "edm64": 11, "tiny-edm": 11,
-    "bridge64": 11, "tiny-bridge": 11, "cddpm64": 11, "tiny-cddpm": 11,
-    "tiny-latent-bridge": 11,
-    "cflow64": 11, "tiny-cflow": 11, "tiny-dit-edm": 11,
+    "edm64": 11, "tiny-edm": 11, "bridge64": 11, "tiny-bridge": 11,
+    "tiny-latent-bridge": 11, "tiny-dit-edm": 11,
     "meanflow64": 12, "tiny-meanflow": 12, "cmeanflow64": 12, "tiny-cmeanflow": 12,
     "tiny-dit-meanflow": 12,
     "spade64": 13, "tiny-spade": 13, "moe-dit64": 13, "tiny-moe": 13,
@@ -247,4 +267,5 @@ def build_process(preset: Preset, timesteps: int, image_size: int,
         return FlowMatching.create(image_size=size, in_channels=chans, cond_type=cond_type)
     assert preset.process == "ddpm", preset.process
     return GaussianDiffusion.create(timesteps=timesteps, image_size=size, in_channels=chans,
-                                    cond_type=cond_type, objective=preset.objective)
+                                    cond_type=cond_type, objective=preset.objective,
+                                    zero_terminal_snr=preset.zero_terminal_snr)

@@ -22,8 +22,12 @@ or trains it for ``--ae_steps`` on the train split's images and saves it
 there, then trains the denoiser on the encoded grid (the concat cond
 encoded too); its previews decode to pixels. ``--wandb`` logs the loss, the
 LR and the previews to Weights & Biases when the package is installed, and
-prints a line and logs to stdout only when it is not. Flags of the JAX CLI that later slices of the
-port bring are rejected by name with their ROADMAP queue.
+prints a line and logs to stdout only when it is not. ``--posthoc_ema`` keeps
+power-function EMA tracks beside the EMA and snapshots them under
+``<ckpt dir>/phema`` at every ``--save_every`` and at the end, for the
+sampling CLI's ``--phema_sigma_rel`` and ``--autoguide_sigma_rel``. Flags of
+the JAX CLI that later slices of the port bring are rejected by name with
+their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ import torch
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--posthoc_ema": 11, "--posthoc_gammas": 11, "--model_base_dim": 11,
     "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
     "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
     "--model_parallel": 16, "--pp_micro": 16, "--pp_virtual": 16,
@@ -59,6 +62,8 @@ def parse_args(argv=None):
                         help="auto-resume from the latest checkpoint in the run's "
                              "log dir if one exists (restart-safe training)")
     parser.add_argument("--n_samples", type=int, default=16)
+    parser.add_argument("--model_base_dim", type=int, default=None,
+                        help="the backbone's base width (UNet channels, DiT hidden size)")
     parser.add_argument("--timesteps", type=int, default=None)
     parser.add_argument("--model_ema_steps", type=int, default=10)
     parser.add_argument("--model_ema_decay", type=float, default=0.995)
@@ -93,10 +98,19 @@ def parse_args(argv=None):
     parser.add_argument("--sample_every", type=int, default=1000)
     parser.add_argument("--save_every", type=int, default=1000)
     parser.add_argument("--preview_sampler", type=str, default="ddpm",
-                        choices=["ddpm", "ddim", "flow"],
+                        choices=["ddpm", "ddim", "dpm", "flow"],
                         help="sampler for the periodic training previews "
-                             "(ddpm = reference parity, full T-step chain; "
-                             "flow = the ODE of flow-process presets, which force it)")
+                             "(ddpm = reference parity, full T-step chain; ddim/dpm "
+                             "--preview_steps steps; flow = the ODE of flow-process "
+                             "presets, which force it)")
+    parser.add_argument("--posthoc_ema", action="store_true",
+                        help="keep power-function EMA tracks (arXiv:2312.02696) beside "
+                             "the EMA and snapshot them at every --save_every under "
+                             "<ckpt dir>/phema; the sampling CLI synthesizes any EMA "
+                             "length from them (--phema_sigma_rel)")
+    parser.add_argument("--posthoc_gammas", type=str, default="16.97,6.94",
+                        help="comma-separated power-EMA exponents (the defaults are "
+                             "sigma_rel 0.05 and 0.10)")
     parser.add_argument("--preview_steps", type=int, default=50,
                         help="steps for ddim previews")
     parser.add_argument("--device", type=str, default="cuda",
@@ -216,12 +230,18 @@ def main(args):
     image_size = args.image_size or preset.image_size
     preset.image_size = image_size
     timesteps = args.timesteps or preset.timesteps
+    if args.model_base_dim:
+        preset.base_dim = args.model_base_dim
     cond_type = args.cond_type or preset.cond_type
     if cond_type not in (None, "sum", "concat"):
         raise NotImplementedError(f"--cond_type {cond_type} is not ported yet "
                                   "(ROADMAP queue 13)")
     if args.num_classes == 0 and preset.num_classes:
         args.num_classes = preset.num_classes
+    if args.class_dropout == 0.0 and preset.class_dropout:
+        # class-conditional presets train with CFG label dropout by default
+        # (the null embedding row must exist for guidance)
+        args.class_dropout = preset.class_dropout
     num_classes = args.num_classes if args.num_classes > 0 else None
     ckpt_dir = os.path.join("logs", os.path.split(args.dir)[1])
 
@@ -279,6 +299,19 @@ def main(args):
         state = restore_checkpoint(ckpt_path, state)
         print(f"loaded! resuming from step {state.step}")
 
+    # post-hoc EMA tracks: updated after every step, snapshotted at the
+    # --save_every cadence and at the end; a resume restores the newest pair
+    phema = tracks = None
+    if args.posthoc_ema:
+        from eo_diffusion_torch.train.posthoc_ema import PowerEMA
+
+        phema = PowerEMA(tuple(float(g) for g in args.posthoc_gammas.split(",")))
+        phema_dir = os.path.join(tcfg.ckpt_dir, "phema")
+        tracks, snap_step = phema.restore_latest(
+            phema_dir, dict(state.model.named_parameters()), cfg=model.config)
+        if snap_step >= 0:
+            print(f"posthoc-ema: tracks restored from snapshot step {snap_step}")
+
     run = None
     if args.wandb:
         try:
@@ -322,6 +355,8 @@ def main(args):
             wait_seconds.append(t_step - t_wait)  # the feed's share of the step
             state, metrics = trainer.step(state, mb)
             global_steps += 1
+            if tracks is not None:
+                phema.update(tracks, dict(state.model.named_parameters()), global_steps - 1)
             loss = float(metrics["loss"])  # host fetch: the step really ran
             step_seconds.append(time.perf_counter() - t_step)
             losses.append(loss)
@@ -363,6 +398,8 @@ def main(args):
                         nrow=nrow, data_range=data_range)
             if args.save_every and global_steps % args.save_every == 0:
                 save_checkpoint(tcfg.ckpt_dir, state.state_dict(), step=global_steps)
+                if tracks is not None:
+                    phema.save_snapshots(phema_dir, tracks, global_steps - 1)
             t_wait = time.perf_counter()
 
     signal.signal(signal.SIGTERM, old_term)
@@ -370,6 +407,8 @@ def main(args):
         torch.cuda.synchronize(device)
     dt = time.time() - t_start
     last_ckpt = save_checkpoint(tcfg.ckpt_dir, state.state_dict(), step=global_steps)
+    if tracks is not None and global_steps > 0:
+        phema.save_snapshots(phema_dir, tracks, global_steps - 1)
     result = {"steps": global_steps, "losses": losses, "seconds": dt,
               "step_seconds": step_seconds, "wait_seconds": wait_seconds,
               "checkpoint": last_ckpt, "state": state, "preempted": preempt["sig"]}

@@ -16,7 +16,11 @@ of t, so tests can feed the JAX package's draws.
 x is carried in float32 and only the model input is cast to ``dtype``. Random
 draws come from an explicit ``torch.Generator``; ``noise_fn(i, "mask")``
 replaces the inpainting draw of step ``i``, so tests can feed the JAX
-package's draws. All tensors are NHWC.
+package's draws. The sampler takes classifier-free guidance (image and
+label, rescale, the interval at the ODE time t) and stateful denoisers
+(``model_state``) through the guidance points of ``diffusion/gaussian.py``;
+``log_every`` frames are not ported yet (ROADMAP queue 11). All tensors are
+NHWC.
 """
 
 from __future__ import annotations
@@ -28,9 +32,21 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.diffusion.gaussian import (DenoiseFn, DiffusionOutput, NoiseFn, _draw,
-                                                   _unported)
+                                                   _unported, call_guided)
 
-__all__ = ["FlowMatching"]
+__all__ = ["FlowMatching", "time_grid"]
+
+
+def time_grid(start: float, num: int) -> np.ndarray:
+    """``num`` float32 times from ``start`` down to 0, the JAX package's
+    ``jnp.linspace(start, 0, num)`` to the bit: ``start * (1 - k * (1 /
+    (num - 1)))`` in float32 (XLA multiplies by the reciprocal of the
+    divisor), then exactly 0. A float64 ``np.linspace`` rounded to float32
+    parts from it in the last bit at some times, which moves the guidance
+    interval's gate where a time lies on its edge."""
+    a, div = np.float32(start), num - 1
+    step = np.arange(div, dtype=np.float32) * (np.float32(1.0) / np.float32(div))
+    return np.concatenate([a * (np.float32(1.0) - step), np.zeros(1, np.float32)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +120,8 @@ class FlowMatching:
         """Integrate the velocity ODE from t = 1 to t = 0 (JAX
         ``FlowMatching.sample``, ``diffusion/flow.py:116-231``).
 
-        * The grid is ``linspace(start / num_steps, 0, start + 1)``;
+        * The grid is ``linspace(start / num_steps, 0, start + 1)``
+          (:func:`time_grid`);
           ``start_index=k`` runs only its last k intervals (start = k).
         * ``method="heun"``: the second-order step, two model calls an
           interval, except the last interval (t_next = 0), which is an Euler
@@ -113,10 +130,14 @@ class FlowMatching:
           back on the straight path at the current time, ``(1 - t) * x0 + t *
           eps`` with a fresh eps (``noise_fn(i, "mask")``), and after the
           last step x0 is pasted in.
+        * ``guidance_scale`` with ``uncond`` (image-CFG) or ``y_uncond``
+          (label-CFG), ``guidance_rescale`` and ``guidance_interval`` (the
+          noise level is t itself): the batch-doubled combine of
+          :func:`~eo_diffusion_torch.diffusion.gaussian.call_guided`.
+        * ``model_state``: a stateful denoiser ``fn(x, t, cond, y, state, i)
+          -> (out, state)``; both Heun calls of step ``i`` pass ``i``.
         """
-        _unported(guidance_scale=guidance_scale, guidance_rescale=guidance_rescale or None,
-                  guidance_interval=guidance_interval, uncond=uncond, y_uncond=y_uncond,
-                  log_every=log_every or None, model_state=model_state)
+        _unported(log_every=log_every or None)
         if method not in ("euler", "heun"):
             raise ValueError(f"method must be 'euler' or 'heun', got {method!r}")
         if mask is not None:
@@ -128,12 +149,19 @@ class FlowMatching:
         start = num_steps if start_index is None else int(start_index)
         assert 1 <= start <= num_steps, (
             f"start_index {start_index} outside the {num_steps}-interval grid")
-        ts = torch.as_tensor(np.linspace(start / num_steps, 0.0, start + 1), dtype=torch.float32,
-                             device=device)
+        grid = time_grid(start / num_steps, start + 1)
+        ts = torch.as_tensor(grid, device=device)
+        state = model_state
 
-        def call(xx, t):
-            tt = (t * self.time_scale).expand(n_samples)
-            return model_fn(xx.to(dtype), tt, cond, y).float()
+        def call(xx, k, i):
+            nonlocal state
+            tt = (ts[k] * self.time_scale).expand(n_samples)
+            out, state = call_guided(
+                model_fn, xx.to(dtype), tt, cond, y, uncond=uncond, y_uncond=y_uncond,
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                guidance_interval=guidance_interval, noise_frac=float(grid[k]),
+                state=state, i=i)
+            return out.float()
 
         for i in range(start):
             t_i, t_next = ts[i], ts[i + 1]
@@ -141,9 +169,9 @@ class FlowMatching:
             if mask is not None:
                 eps = _draw(noise_fn, generator, i, "mask", shape, device)
                 x = mask * ((1.0 - t_i) * x0 + t_i * eps) + (1.0 - mask) * x
-            v = call(x, t_i)
+            v = call(x, i, i)
             if method == "heun" and i < start - 1:
-                v = 0.5 * (v + call(x + dt * v, t_next))
+                v = 0.5 * (v + call(x + dt * v, i + 1, i))
             x = x + dt * v
         if mask is not None:
             x = mask * x0 + (1.0 - mask) * x

@@ -12,19 +12,30 @@ Counterpart of ``eo_diffusion_tpu/diffusion/gaussian.py``:
   masked conditioning (``model.py:58-60``), plus RePaint jumps
   (arXiv:2201.09865);
 * ``DDIMSampler`` (reference ``diffusion/ddim.py:11-207``): strided
-  deterministic / eta-stochastic sampling with mask inpainting.
+  deterministic / eta-stochastic sampling with mask inpainting;
+* the guidance points every sampler shares: classifier-free guidance by
+  batch doubling (:func:`cfg_double_inputs`, :func:`cfg_combine` with the
+  CFG-rescale of arXiv:2305.08891), limited-interval guidance
+  (:func:`interval_scale`, arXiv:2404.07724) and Imagen dynamic
+  thresholding (:func:`apply_dynamic_threshold`, arXiv:2205.11487);
+* stateful denoisers ``fn(x, t, cond, y, state, i) -> (out, state)``
+  (``model_state=``, DeepCache), and DPM-Solver++ / UniPC as methods
+  (``diffusion/dpm_solver.py``, ``diffusion/unipc.py``).
 
 The reverse loops are plain Python loops over the steps. x_t is carried in
 float32 and only the model input is cast to ``dtype`` (per-step bf16
 rounding accumulates over the chain). Random draws come from an explicit
 ``torch.Generator``; ``noise_fn(i, role)`` replaces them in the samplers and
 ``t=`` / ``noise=`` in ``train_loss``, so tests can feed the JAX package's
-draws. All tensors are NHWC.
+draws. All tensors are NHWC. Not ported yet, and raising when asked for:
+self-conditioning, ``x0_proj`` (DDNM) and ``log_every`` frames (ROADMAP
+queue 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -37,7 +48,9 @@ from eo_diffusion_torch.core.schedules import (
     make_schedule,
 )
 
-__all__ = ["GaussianDiffusion", "DiffusionOutput", "repaint_op_sequence"]
+__all__ = ["GaussianDiffusion", "DiffusionOutput", "repaint_op_sequence", "cfg_double_inputs",
+           "guided_combine", "cfg_combine", "interval_scale", "noise_level",
+           "apply_dynamic_threshold"]
 
 # A denoiser: (x_t [N,H,W,C], t [N], cond, y) -> model output [N,H,W,C].
 DenoiseFn = Callable[..., torch.Tensor]
@@ -73,6 +86,129 @@ def repaint_op_sequence(timesteps: int, jump_len: int, jump_n: int):
             t_ops.append(b)
             is_rev.append(0)
     return np.asarray(t_ops, np.int32), np.asarray(is_rev, np.int32)
+
+
+def cfg_double_inputs(x, t, cond, y, uncond=None, y_uncond=None, guidance_scale: float = 1.0):
+    """Classifier-free-guidance batch doubling, the one policy point of every
+    sampler (JAX ``gaussian.cfg_double_inputs``): ``[uncond, cond]`` order.
+
+    Image-CFG (``uncond``, reference ddim.py:177-181) takes precedence over
+    label-CFG (``y_uncond``, the null-class labels) when both are given.
+    Returns ``(x_in, t_in, c_in, y_in, doubled)``; when ``doubled`` is False
+    the inputs pass through untouched and no combine is needed.
+    """
+    use_c = uncond is not None and guidance_scale != 1.0
+    use_y = (not use_c) and y_uncond is not None and guidance_scale != 1.0
+    if not (use_c or use_y):
+        return x, t, cond, y, False
+    x_in, t_in = torch.cat([x, x]), torch.cat([t, t])
+    if use_c:
+        c_in = torch.cat([uncond.to(cond.dtype), cond])
+        y_in = None if y is None else torch.cat([y, y])
+    else:
+        c_in = None if cond is None else torch.cat([cond, cond])
+        y_in = torch.cat([y_uncond.to(y.dtype), y])
+    return x_in, t_in, c_in, y_in, True
+
+
+def guided_combine(e_u: torch.Tensor, e_c: torch.Tensor, guidance_scale,
+                   guidance_rescale: float = 0.0) -> torch.Tensor:
+    """``e_u + s * (e_c - e_u)`` (reference ddim.py:180), the combine of CFG
+    and of autoguidance (``e_u`` the bad model's prediction there).
+    ``guidance_rescale`` (phi of arXiv:2305.08891 §3.4) mixes the guided
+    prediction back toward ``e_c``'s per-sample std: ``phi * guided * std_c /
+    std_g + (1 - phi) * guided``, with the population std (``correction=0``,
+    as ``jnp.std``)."""
+    guided = e_u + guidance_scale * (e_c - e_u)
+    if guidance_rescale:
+        dims = tuple(range(1, guided.ndim))
+        std_c = torch.std(e_c, dim=dims, keepdim=True, correction=0)
+        std_g = torch.std(guided, dim=dims, keepdim=True, correction=0)
+        fixed = guided * (std_c / torch.clamp(std_g, min=1e-8))
+        guided = guidance_rescale * fixed + (1.0 - guidance_rescale) * guided
+    return guided
+
+
+def cfg_combine(out: torch.Tensor, guidance_scale, guidance_rescale: float = 0.0) -> torch.Tensor:
+    """Guided combine of a batch-doubled ``[uncond, cond]`` model output
+    (:func:`guided_combine`)."""
+    e_u, e_c = out.chunk(2, dim=0)
+    return guided_combine(e_u, e_c, guidance_scale, guidance_rescale)
+
+
+def interval_scale(guidance_scale: float, noise_frac, interval):
+    """Limited-interval guidance (Kynkäänniemi et al., arXiv:2404.07724): the
+    scale while the normalized noise level ``noise_frac`` (1 = pure noise:
+    t/(T-1) on DDPM chains, t on the flow ODE) lies in ``interval = (lo,
+    hi)``, 1 (the plain cond branch) outside. The level is compared in
+    float32, as the JAX package does. A Python ``noise_frac`` (the samplers
+    know their step on the host) gives a Python float; a tensor (a wrapper
+    that sees only the model's ``t``) gives a 0-dim float32 tensor, so the
+    decision stays on the device."""
+    if interval is None:
+        return guidance_scale
+    lo, hi = (float(np.float32(v)) for v in interval)
+    if torch.is_tensor(noise_frac):
+        frac = noise_frac.to(torch.float32)
+        inside = (frac >= lo) & (frac <= hi)
+        return torch.where(inside, torch.tensor(guidance_scale, dtype=torch.float32,
+                                                device=frac.device),
+                           torch.tensor(1.0, dtype=torch.float32, device=frac.device))
+    frac = float(np.float32(noise_frac))
+    return guidance_scale if lo <= frac <= hi else 1.0
+
+
+def noise_level(t, denom):
+    """``t / denom`` in float32 as the JAX package's compiled samplers compute
+    it: ``t`` times the float32 reciprocal of the constant ``denom`` (XLA's
+    rewrite of a division by a constant; the correctly rounded quotient parts
+    from it in the last bit at about one t in six, which moves
+    :func:`interval_scale`'s gate where a level lies on its edge). A tensor
+    ``t`` gives a float32 tensor, anything else a Python float."""
+    recip = np.float32(1.0) / np.float32(denom)
+    if torch.is_tensor(t):
+        return t.float() * float(recip)
+    return float(np.float32(t) * recip)
+
+
+def apply_dynamic_threshold(x0: torch.Tensor, percentile: float) -> torch.Tensor:
+    """Imagen dynamic thresholding (arXiv:2205.11487 §2.3): per sample
+    ``s = max(quantile_p(|x0|), 1)``, then x0 clipped to ``[-s, s]`` and
+    divided by ``s``. The quantile is ``jnp.quantile``'s "linear" one (the
+    order statistics at ``floor`` and ``ceil`` of ``p * (n - 1)``, linearly
+    interpolated), taken with ``torch.kthvalue``: ``torch.quantile`` refuses
+    rows above 2^24 elements."""
+    assert 0.5 < percentile <= 1.0, percentile
+    flat = x0.reshape(x0.shape[0], -1).float().abs()
+    n = flat.shape[1]
+    pos = np.float32(percentile) * np.float32(n - 1)  # in float32, as jnp.quantile
+    lo, hi = min(int(math.floor(pos)), n - 1), min(int(math.ceil(pos)), n - 1)
+    w = float(pos - np.float32(lo))
+    v_lo = torch.kthvalue(flat, lo + 1, dim=1).values
+    v_hi = torch.kthvalue(flat, hi + 1, dim=1).values if hi != lo else v_lo
+    s = v_lo * float(np.float32(1.0) - np.float32(w)) + v_hi * w
+    s = torch.clamp(s, min=1.0).reshape((-1,) + (1,) * (x0.ndim - 1))
+    x0 = x0.float()
+    return torch.maximum(torch.minimum(x0, s), -s) / s
+
+
+def call_guided(model_fn, x, t, cond, y, *, uncond=None, y_uncond=None,
+                guidance_scale: float = 1.0, guidance_rescale: float = 0.0,
+                guidance_interval=None, noise_frac=0.0, state=None, i: int = 0):
+    """One model evaluation through the shared guidance points: the CFG
+    doubling, the (stateful when ``state`` is not None) call
+    ``model_fn(x, t, cond, y[, state, i])`` and the combine at the interval's
+    scale. Returns ``(out, state)``."""
+    x_in, t_in, c_in, y_in, doubled = cfg_double_inputs(x, t, cond, y, uncond, y_uncond,
+                                                        guidance_scale)
+    if state is None:
+        out = model_fn(x_in, t_in, c_in, y_in)
+    else:
+        out, state = model_fn(x_in, t_in, c_in, y_in, state, i)
+    if doubled:
+        out = cfg_combine(out, interval_scale(guidance_scale, noise_frac, guidance_interval),
+                          guidance_rescale)
+    return out, state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,21 +426,24 @@ class GaussianDiffusion:
 
     # -- reverse process (DDPM) --------------------------------------------
 
-    def _reverse_step(self, model_fn: DenoiseFn, x_t: torch.Tensor, t: torch.Tensor,
-                      noise: torch.Tensor, cond, y, clip: bool):
-        """One ancestral reverse step. ``clip=False``: posterior mean from the
-        predicted noise (reference model.py:101-122); ``clip=True``: clamp
-        the predicted x0 to [-1, 1] and use the q-posterior mean
-        (model.py:125-150). Returns ``(x_{t-1}, x0_pred)``."""
-        pred = model_fn(x_t, t, cond, y).float()
-        eps, x0_pred = self._to_eps_x0(pred, x_t, t)
+    def _reverse_step(self, pred: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor,
+                      noise: torch.Tensor, clip: bool, dynamic_threshold=None):
+        """One ancestral reverse step from the model output ``pred``.
+        ``clip=False``: posterior mean from the predicted noise (reference
+        model.py:101-122); ``clip=True``: clamp the predicted x0 to [-1, 1]
+        and use the q-posterior mean (model.py:125-150);
+        ``dynamic_threshold`` swaps the clamp for
+        :func:`apply_dynamic_threshold` on the same path. Returns
+        ``(x_{t-1}, x0_pred)``."""
+        eps, x0_pred = self._to_eps_x0(pred.float(), x_t, t)
         x_t = x_t.float()
         alpha_t = self._bcast("alphas", t)
         acp_t = self._bcast("alphas_cumprod", t)
         acp_prev = self._bcast("alphas_cumprod_prev", t)
         beta_t = self._bcast("betas", t)
-        if clip:
-            x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
+        if clip or dynamic_threshold is not None:
+            x0_pred = (apply_dynamic_threshold(x0_pred, dynamic_threshold)
+                       if dynamic_threshold is not None else torch.clamp(x0_pred, -1.0, 1.0))
             mean = (beta_t * torch.sqrt(acp_prev) / (1.0 - acp_t) * x0_pred
                     + (1.0 - acp_prev) * torch.sqrt(alpha_t) / (1.0 - acp_t) * x_t)
         else:
@@ -322,6 +461,7 @@ class GaussianDiffusion:
                     x_T: Optional[torch.Tensor] = None,
                     noise_fn: Optional[NoiseFn] = None,
                     dynamic_threshold=None, guidance_scale: float = 1.0,
+                    guidance_rescale: float = 0.0, guidance_interval=None,
                     y_uncond=None, log_every=None, model_state=None) -> DiffusionOutput:
         """Ancestral DDPM sampling (reference ``EODiffusion.sampling``, model.py:47-75).
 
@@ -331,9 +471,14 @@ class GaussianDiffusion:
         (model.py:58-60). ``jump_len``/``jump_n`` add RePaint resampling.
         ``noise_fn(i, "step")`` supplies op ``i``'s noise (default: drawn
         from ``generator``); ``x_T`` the starting noise.
+
+        Guidance is label-CFG only (``y_uncond``, the null-class labels), as
+        in the JAX package: its DDPM chain has no image-CFG path.
+        ``model_state``: a stateful denoiser ``fn(x, t, cond, y, state, i)
+        -> (out, state)`` (DeepCache); ``i`` counts ops, RePaint's forward
+        ops included.
         """
-        _unported(dynamic_threshold=dynamic_threshold, guidance_scale=guidance_scale,
-                  y_uncond=y_uncond, log_every=log_every, model_state=model_state)
+        _unported(log_every=log_every)
         assert clip or float(self.schedule.alphas[-1]) > 1e-8, (
             "clip=False diverges at a zero-terminal-SNR schedule's last step")
         shape = (n_samples, self.image_size, self.image_size, self.in_channels)
@@ -349,15 +494,21 @@ class GaussianDiffusion:
         else:
             t_ops = np.arange(self.timesteps - 1, -1, -1)
             rev_ops = np.ones_like(t_ops)
+        t_denom = max(self.timesteps - 1, 1)
+        state = model_state
         for i, (t_scalar, is_rev) in enumerate(zip(t_ops.tolist(), rev_ops.tolist())):
             noise = _draw(noise_fn, generator, i, "step", shape, device)
             t = torch.full((n_samples,), t_scalar, dtype=torch.long, device=device)
             if is_rev:
                 if gt is not None:
                     x = mask * self.q_sample(gt, t, noise) + (1.0 - mask) * x
-                x_in = x.to(dtype)
-                x, _ = self._reverse_step(lambda *_a: model_fn(x_in, t, cond, y),
-                                          x, t, noise, cond, y, clip)
+                pred, state = call_guided(
+                    model_fn, x.to(dtype), t, cond, y, y_uncond=y_uncond,
+                    guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                    guidance_interval=guidance_interval,
+                    noise_frac=noise_level(t_scalar, t_denom),
+                    state=state, i=i)
+                x, _ = self._reverse_step(pred, x, t, noise, clip, dynamic_threshold)
             else:  # RePaint forward op: one q-step up to level t (eq. 9)
                 beta_t = self._bcast("betas", t)
                 x = torch.sqrt(1.0 - beta_t) * x + torch.sqrt(beta_t) * noise
@@ -374,7 +525,8 @@ class GaussianDiffusion:
                     clip: bool = False, dtype: torch.dtype = torch.float32,
                     start_index: Optional[int] = None,
                     noise_fn: Optional[NoiseFn] = None,
-                    guidance_scale: float = 1.0, uncond=None, y_uncond=None,
+                    guidance_scale: float = 1.0, guidance_rescale: float = 0.0,
+                    guidance_interval=None, uncond=None, y_uncond=None,
                     dynamic_threshold=None, log_every=None, model_state=None,
                     x0_proj=None) -> DiffusionOutput:
         """DDIM sampling (reference ``DDIMSampler``, ddim.py:57-207).
@@ -383,13 +535,20 @@ class GaussianDiffusion:
           ancestral variance on the subsequence (arXiv:2010.02502 eq. 16).
         * ``mask``/``x0``: before each step the known region of x0 is
           re-noised to the current level and composited (ddim.py:145-148).
-        * ``clip`` clamps pred_x0 to [-1, 1] and re-derives eps from it.
+        * ``clip`` clamps pred_x0 to [-1, 1] and re-derives eps from it;
+          ``dynamic_threshold`` (a percentile) does the same with
+          :func:`apply_dynamic_threshold` in place of the clamp.
+        * ``guidance_scale`` with ``uncond`` (image-CFG on the concat cond)
+          or ``y_uncond`` (label-CFG), ``guidance_rescale`` and
+          ``guidance_interval``: :func:`call_guided`, the noise level being
+          t / (T - 1).
+        * ``model_state``: a stateful denoiser ``fn(x, t, cond, y, state, i)
+          -> (out, state)`` (DeepCache); ``i`` counts the steps run. Under
+          CFG the doubled batch flows through it.
         * ``start_index``: run only the last ``start_index`` steps.
         * ``noise_fn(i, "mask" | "eta")`` supplies step ``i``'s draws.
         """
-        _unported(guidance_scale=guidance_scale, uncond=uncond, y_uncond=y_uncond,
-                  dynamic_threshold=dynamic_threshold, log_every=log_every,
-                  model_state=model_state, x0_proj=x0_proj)
+        _unported(log_every=log_every, x0_proj=x0_proj)
         dd: DDIMSchedule = make_ddim_schedule(self.schedule, num_steps, eta, method)
         shape = (n_samples, self.image_size, self.image_size, self.in_channels)
         x = (x_T.to(device=device, dtype=torch.float32) if x_T is not None
@@ -402,18 +561,27 @@ class GaussianDiffusion:
         if mask is not None:
             assert x0 is not None, "DDIM inpainting requires x0"
             mask, x0 = mask.float(), x0.float()
+        t_denom = max(self.timesteps - 1, 1)
+        state = model_state
         for i, idx in enumerate(range(start - 1, -1, -1)):
-            t = torch.full((n_samples,), int(dd.timesteps[idx]), dtype=torch.long,
-                           device=device)
+            t_scalar = int(dd.timesteps[idx])
+            t = torch.full((n_samples,), t_scalar, dtype=torch.long, device=device)
             if mask is not None:
                 img_orig = self.q_sample(x0, t, _draw(noise_fn, generator, i, "mask",
                                                       shape, device))
                 x = img_orig * mask + (1.0 - mask) * x
-            raw = model_fn(x.to(dtype), t, cond, y)
+            raw, state = call_guided(
+                model_fn, x.to(dtype), t, cond, y, uncond=uncond, y_uncond=y_uncond,
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                guidance_interval=guidance_interval,
+                noise_frac=noise_level(t_scalar, t_denom),
+                state=state, i=i)
             xf = x.float()
             e_t, pred_x0 = self._to_eps_x0(raw, xf, t)
-            if clip:
-                pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+            if clip or dynamic_threshold is not None:
+                pred_x0 = (apply_dynamic_threshold(pred_x0, dynamic_threshold)
+                           if dynamic_threshold is not None
+                           else torch.clamp(pred_x0, -1.0, 1.0))
                 a = self._bcast("sqrt_alphas_cumprod", t)
                 s = self._bcast("sqrt_one_minus_alphas_cumprod", t)
                 e_t = (xf - a * pred_x0) / torch.clamp(s, min=1e-8)
@@ -424,3 +592,17 @@ class GaussianDiffusion:
                 x = x + sigma_t * _draw(noise_fn, generator, i, "eta", shape,
                                         device) * temperature
         return DiffusionOutput(x=x)
+
+    def dpm_sample(self, model_fn: DenoiseFn, n_samples: int, **kw) -> DiffusionOutput:
+        """DPM-Solver++ (:func:`~eo_diffusion_torch.diffusion.dpm_solver.dpm_solver_sample`)
+        as a method, so every sampler shares the call surface and
+        ``LatentDiffusion`` routes uniformly."""
+        from eo_diffusion_torch.diffusion.dpm_solver import dpm_solver_sample
+
+        return dpm_solver_sample(self, model_fn, n_samples, **kw)
+
+    def unipc_sample(self, model_fn: DenoiseFn, n_samples: int, **kw) -> DiffusionOutput:
+        """UniPC (:func:`~eo_diffusion_torch.diffusion.unipc.unipc_sample`) as a method."""
+        from eo_diffusion_torch.diffusion.unipc import unipc_sample
+
+        return unipc_sample(self, model_fn, n_samples, **kw)

@@ -10,7 +10,7 @@ Conditioning images ride the same encoder.
 :class:`LatentDiffusion` offers the surface of the process it wraps that the
 :class:`~eo_diffusion_torch.train.trainer.Trainer` and the CLIs touch
 (``train_loss`` with its ``noise=`` / ``t=`` hooks, ``ddpm_sample``,
-``ddim_sample``, ``sample``, ``cond_type``, ``in_channels``,
+``ddim_sample``, ``dpm_sample``, ``unipc_sample``, ``sample``, ``cond_type``, ``in_channels``,
 ``image_size``), so a trainer over it trains in latent space and its
 previews come out in pixels.
 
@@ -111,12 +111,20 @@ class LatentDiffusion:
         return self._decode_out(self.diffusion.ddim_sample(model_fn, n_samples, cond=c, y=y,
                                                            uncond=u, **kw))
 
-    def dpm_sample(self, *args, **kwargs):
-        raise NotImplementedError("LatentDiffusion.dpm_sample: not ported yet (ROADMAP queue 11)")
+    def dpm_sample(self, model_fn: DenoiseFn, n_samples: int, *, cond=None, y=None,
+                   encode_cond: Optional[bool] = None, uncond=None, **kw) -> DiffusionOutput:
+        """The inner chain's DPM-Solver++ in latent space, decoded; the CFG
+        ``uncond`` image rides the first stage like ``cond``."""
+        c, u = self._cond(cond, encode_cond), self._cond(uncond, encode_cond)
+        return self._decode_out(self.diffusion.dpm_sample(model_fn, n_samples, cond=c, y=y,
+                                                          uncond=u, **kw))
 
-    def unipc_sample(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LatentDiffusion.unipc_sample: not ported yet (ROADMAP queue 11)")
+    def unipc_sample(self, model_fn: DenoiseFn, n_samples: int, *, cond=None, y=None,
+                     encode_cond: Optional[bool] = None, uncond=None, **kw) -> DiffusionOutput:
+        """The inner chain's UniPC in latent space, decoded."""
+        c, u = self._cond(cond, encode_cond), self._cond(uncond, encode_cond)
+        return self._decode_out(self.diffusion.unipc_sample(model_fn, n_samples, cond=c, y=y,
+                                                            uncond=u, **kw))
 
     def sample(self, model_fn: DenoiseFn, n_samples: int, *, cond=None, y=None,
                encode_cond: Optional[bool] = None, uncond=None, **kw) -> DiffusionOutput:

@@ -19,10 +19,12 @@ at overlap 0.5) f32 terms of a pixel may change from run to run. The
 reverse loop is a Python loop, x carried in float32, the model input cast
 to ``dtype``, like the port's ``ddim_sample``.
 
-Not ported yet, and raising when asked for: classifier-free guidance
-(``guidance_scale``, ``guidance_rescale``, ``uncond``, ``y_uncond``) and
-stateful denoisers (``model_state``, DeepCache), ROADMAP queue 11; and
-``tiled_bridge_sample`` (queue 11).
+Classifier-free guidance (``guidance_scale``, ``guidance_rescale``,
+``uncond``, ``y_uncond``) doubles each chunk of tiles through the shared
+guidance points of ``diffusion/gaussian.py``; a stateful denoiser
+(``model_state``, DeepCache) keeps one state per chunk of ``tile_batch``
+tiles, each chunk a fixed subset of the tiles. Not ported yet, and raising
+when asked for: ``tiled_bridge_sample`` (ROADMAP queue 11).
 """
 
 from __future__ import annotations
@@ -35,13 +37,14 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.core.schedules import make_ddim_schedule
-from eo_diffusion_torch.diffusion.flow import FlowMatching
+from eo_diffusion_torch.diffusion.flow import FlowMatching, time_grid
 from eo_diffusion_torch.diffusion.gaussian import (
     DenoiseFn,
     DiffusionOutput,
     GaussianDiffusion,
     NoiseFn,
     _draw,
+    call_guided,
 )
 
 __all__ = ["TileGrid", "make_tile_grid", "unfold", "fold", "make_tiled_denoiser",
@@ -123,47 +126,56 @@ def fold(tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     return (out / norm).reshape(n, grid.height, grid.width, c)
 
 
-def _unported(guidance_scale=1.0, guidance_rescale=0.0, uncond=None, y_uncond=None,
-              model_state=None) -> None:
-    if guidance_scale != 1.0 or guidance_rescale != 0.0 or uncond is not None \
-            or y_uncond is not None:
-        raise NotImplementedError("classifier-free guidance (guidance_scale, "
-                                  "guidance_rescale, uncond, y_uncond): not ported yet "
-                                  "(ROADMAP queue 11)")
-    if model_state is not None:
-        raise NotImplementedError("model_state (DeepCache): not ported yet (ROADMAP queue 11)")
-
-
 def make_tiled_denoiser(model_fn: DenoiseFn, grid: TileGrid, tile: int, n_samples: int,
                         cond: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
                         tile_batch: Optional[int] = None, guidance_scale: float = 1.0,
                         guidance_rescale: float = 0.0, uncond=None, y_uncond=None,
-                        model_state=None) -> Callable[[torch.Tensor, int], torch.Tensor]:
-    """The per-step tile denoiser of the tiled samplers.
+                        model_state=None) -> Callable[..., torch.Tensor]:
+    """The per-step tile denoiser of the tiled samplers (JAX
+    ``make_tiled_denoiser``).
 
-    Returns ``denoise_tiles(x_tiles [N, nT, t, t, C], t) -> [N, nT, t, t,
-    C']``, which runs ``model_fn(x, t, cond, y)`` over the flat batch of
+    Returns ``denoise_tiles(x_tiles [N, nT, t, t, C], t, i=0) -> [N, nT, t,
+    t, C']``, which runs ``model_fn(x, t, cond, y)`` over the flat batch of
     ``N*nT`` tiles, or over chunks of ``tile_batch`` tiles to bound memory.
-    The full-scene ``cond`` is unfolded once here, ``y`` repeated per tile.
-    ``t`` is the DDPM chain's integer step (a ``torch.long`` batch) or the
-    flow ODE's 0-dim time tensor (expanded as it is).
+    The full-scene ``cond`` and ``uncond`` are unfolded once here, ``y`` and
+    ``y_uncond`` repeated per tile. ``t`` is the DDPM chain's integer step
+    (a ``torch.long`` batch) or the flow ODE's 0-dim time tensor (expanded as
+    it is). CFG doubles each chunk and combines it at ``guidance_scale``
+    (the tiled samplers take no interval). With ``model_state``,
+    ``model_fn(x, t, cond, y, state, i) -> (out, state)`` and the state is
+    stacked once per chunk (one copy for each, carried across the steps),
+    ``i`` the sampler's step.
     """
-    _unported(guidance_scale, guidance_rescale, uncond, y_uncond, model_state)
-    cond_flat = unfold(cond, grid).flatten(0, 1) if cond is not None else None
+    unfold_flat = lambda a: unfold(a, grid).flatten(0, 1)
+    use_cfg = uncond is not None and guidance_scale != 1.0
+    cond_flat = unfold_flat(cond) if cond is not None else None
+    uncond_flat = unfold_flat(uncond) if use_cfg else None
     y_flat = y.repeat_interleave(grid.num_tiles, 0) if y is not None else None
+    yu_flat = (y_uncond.repeat_interleave(grid.num_tiles, 0)
+               if y_uncond is not None and guidance_scale != 1.0 else None)
     n_flat = n_samples * grid.num_tiles
     step = n_flat if tile_batch is None else tile_batch
+    n_chunks = -(-n_flat // step)
+    states = None if model_state is None else [model_state] * n_chunks
     part = lambda a, s: None if a is None else a[s:s + step]
 
-    def denoise_tiles(x_tiles: torch.Tensor, t_scalar) -> torch.Tensor:
+    def denoise_tiles(x_tiles: torch.Tensor, t_scalar, i: int = 0) -> torch.Tensor:
         n, nt = x_tiles.shape[:2]
         flat = x_tiles.reshape(n * nt, tile, tile, x_tiles.shape[-1])
         if torch.is_tensor(t_scalar):
             ts = t_scalar.to(flat.device).expand(n * nt)
         else:
             ts = torch.full((n * nt,), int(t_scalar), dtype=torch.long, device=flat.device)
-        outs = [model_fn(flat[s:s + step], ts[s:s + step], part(cond_flat, s), part(y_flat, s))
-                for s in range(0, n * nt, step)]
+        outs = []
+        for c, s in enumerate(range(0, n * nt, step)):
+            out, st = call_guided(
+                model_fn, flat[s:s + step], ts[s:s + step], part(cond_flat, s),
+                part(y_flat, s), uncond=part(uncond_flat, s), y_uncond=part(yu_flat, s),
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                state=None if states is None else states[c], i=i)
+            if states is not None:
+                states[c] = st
+            outs.append(out)
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         return out.reshape(n, nt, tile, tile, out.shape[-1])
 
@@ -190,8 +202,10 @@ def tiled_ddim_sample(diffusion: GaussianDiffusion, model_fn: DenoiseFn, n_sampl
     float32 and cast to ``dtype`` for the model. Draws come from
     ``generator``; ``x_T`` is the starting noise and ``noise_fn(i, "mask" |
     "eta")`` step ``i``'s draws, as in ``GaussianDiffusion.ddim_sample``.
+    ``guidance_scale`` with a full-scene ``uncond`` or the null labels
+    ``y_uncond``, and ``model_state`` (DeepCache: one state per chunk of
+    ``tile_batch`` tiles), as in :func:`make_tiled_denoiser`.
     """
-    _unported(guidance_scale, guidance_rescale, uncond, y_uncond, model_state)
     tile = diffusion.image_size
     grid = make_tile_grid(height, width, tile, overlap)
     dd = make_ddim_schedule(diffusion.schedule, num_steps, eta)
@@ -200,8 +214,10 @@ def tiled_ddim_sample(diffusion: GaussianDiffusion, model_fn: DenoiseFn, n_sampl
          else torch.randn(shape, generator=generator, device=device))
     alphas_prev = torch.as_tensor(dd.alphas_prev, device=device)
     sigmas = torch.as_tensor(dd.sigmas, device=device)
-    denoise_tiles = make_tiled_denoiser(model_fn, grid, tile, n_samples, cond=cond, y=y,
-                                        tile_batch=tile_batch)
+    denoise_tiles = make_tiled_denoiser(
+        model_fn, grid, tile, n_samples, cond=cond, y=y, tile_batch=tile_batch,
+        guidance_scale=guidance_scale, guidance_rescale=guidance_rescale, uncond=uncond,
+        y_uncond=y_uncond, model_state=model_state)
     if mask is not None:
         assert x0 is not None, "tiled inpainting requires x0"
         mask, x0 = mask.float(), x0.float()
@@ -211,7 +227,7 @@ def tiled_ddim_sample(diffusion: GaussianDiffusion, model_fn: DenoiseFn, n_sampl
         if mask is not None:
             noise = _draw(noise_fn, generator, i, "mask", shape, device)
             x = diffusion.q_sample(x0, t, noise) * mask + (1.0 - mask) * x
-        raw = fold(denoise_tiles(unfold(x.to(dtype), grid), t_scalar), grid)
+        raw = fold(denoise_tiles(unfold(x.to(dtype), grid), t_scalar, i), grid)
         e_t, pred_x0 = diffusion._to_eps_x0(raw, x.float(), t)
         a_prev, sigma_t = alphas_prev[idx], sigmas[idx]
         dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t**2, min=0.0)) * e_t
@@ -243,9 +259,10 @@ def tiled_flow_sample(flow: FlowMatching, model_fn: DenoiseFn, n_samples: int, h
     known region is put back on the straight path at the current time with a
     fresh eps (``noise_fn(i, "mask")``), and x0 is pasted in at the end.
     ``x_T`` is the starting noise; x is carried in float32 and cast to
-    ``dtype`` for the model.
+    ``dtype`` for the model. CFG and ``model_state`` as in
+    :func:`tiled_ddim_sample`; both Heun evaluations of step ``i`` pass
+    ``i``.
     """
-    _unported(guidance_scale, guidance_rescale, uncond, y_uncond, model_state)
     if method not in ("euler", "heun"):
         raise ValueError(f"method must be 'euler' or 'heun', got {method!r}")
     if mask is not None:
@@ -256,13 +273,14 @@ def tiled_flow_sample(flow: FlowMatching, model_fn: DenoiseFn, n_samples: int, h
     shape = (n_samples, height, width, flow.in_channels)
     x = (x_T.to(device=device, dtype=torch.float32) if x_T is not None
          else torch.randn(shape, generator=generator, device=device))
-    denoise_tiles = make_tiled_denoiser(model_fn, grid, tile, n_samples, cond=cond, y=y,
-                                        tile_batch=tile_batch)
-    ts = torch.as_tensor(np.linspace(1.0, 0.0, num_steps + 1), dtype=torch.float32,
-                         device=device)
+    denoise_tiles = make_tiled_denoiser(
+        model_fn, grid, tile, n_samples, cond=cond, y=y, tile_batch=tile_batch,
+        guidance_scale=guidance_scale, guidance_rescale=guidance_rescale, uncond=uncond,
+        y_uncond=y_uncond, model_state=model_state)
+    ts = torch.as_tensor(time_grid(1.0, num_steps + 1), device=device)
 
-    def velocity(xx: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return fold(denoise_tiles(unfold(xx.to(dtype), grid), t * flow.time_scale), grid)
+    def velocity(xx: torch.Tensor, t: torch.Tensor, i: int) -> torch.Tensor:
+        return fold(denoise_tiles(unfold(xx.to(dtype), grid), t * flow.time_scale, i), grid)
 
     for i in range(num_steps):
         t_i, t_next = ts[i], ts[i + 1]
@@ -270,9 +288,9 @@ def tiled_flow_sample(flow: FlowMatching, model_fn: DenoiseFn, n_samples: int, h
         if mask is not None:
             eps = _draw(noise_fn, generator, i, "mask", shape, device)
             x = mask * ((1.0 - t_i) * x0 + t_i * eps) + (1.0 - mask) * x
-        v = velocity(x, t_i)
+        v = velocity(x, t_i, i)
         if method == "heun" and i < num_steps - 1:
-            v = 0.5 * (v + velocity(x + dt * v, t_next))
+            v = 0.5 * (v + velocity(x + dt * v, t_next, i))
         x = x + dt * v
     if mask is not None:
         x = mask * x0 + (1.0 - mask) * x

@@ -124,6 +124,19 @@ class UNetPlan:
     output_blocks: Tuple[Tuple[LayerSpec, ...], ...]
     out_ch: int  # channels entering the output head
 
+    def sites(self, shallow_depth: Optional[int] = None) -> Tuple[int, int]:
+        """(attention blocks, GroupNorm sites) of one forward, or of the
+        ``shallow_depth`` outermost input and output blocks alone (a DeepCache
+        partial call): two norms a ResBlock, one an attention block, and the
+        output norm."""
+        if shallow_depth is None:
+            blocks = (*self.input_blocks, self.middle_block, *self.output_blocks)
+        else:
+            blocks = (*self.input_blocks[:shallow_depth], *self.output_blocks[-shallow_depth:])
+        specs = [sp for blk in blocks for sp in blk]
+        attn = sum(sp.kind == "attn" for sp in specs)
+        return attn, 2 * sum(sp.kind == "res" for sp in specs) + attn + 1
+
 
 def _attn_heads(cfg: UNetConfig, ch: int, upsample: bool) -> int:
     if cfg.num_head_channels == -1:
@@ -334,12 +347,12 @@ class UNet(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
-        for name, unset in (("context_dim", cfg.context_dim == 0),
-                            ("dual_time", not cfg.dual_time),
-                            ("freeu", cfg.freeu is None)):
+        for name, unset, queue in (("context_dim", cfg.context_dim == 0, 13),
+                                   ("dual_time", not cfg.dual_time, 12),
+                                   ("freeu", cfg.freeu is None, 13)):
             if not unset:
                 raise NotImplementedError(
-                    f"UNetConfig.{name} is not ported yet (ROADMAP queue 11/13)")
+                    f"UNetConfig.{name} is not ported yet (ROADMAP queue {queue})")
         plan = build_unet_plan(cfg)
         ted, dt = cfg.time_embed_dim, cfg.dtype
         self.time_embed = nn.Sequential(Dense(cfg.model_channels, ted, dtype=dt), nn.SiLU(),
@@ -380,7 +393,22 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 cond: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, *,
+                deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False,
+                cache_depth: Optional[int] = None):
+        """The denoiser, with the DeepCache split (Ma et al., arXiv:2312.00858;
+        JAX ``UNet.__call__``, ``models/unet.py:455-480``): the first
+        ``cache_depth`` input blocks (default ``1 + num_res_blocks``, the
+        full-resolution level) and the matching last output blocks are the
+        shallow path; the rest (the downsampled levels, the middle block and
+        every attention block of the clouds UNet) is the deep branch.
+
+        * ``return_deep=True`` returns ``(out, deep)``, ``deep`` the feature
+          entering the first shallow output block;
+        * ``deep_cache=deep`` skips the deep branch and splices ``deep`` in:
+          only the shallow blocks run, and ``partial(x, t, deep_cache=
+          full(x, t).deep)`` equals ``full(x, t)`` bit for bit.
+        """
         cfg = self.config
         if cond is not None:
             x = torch.cat([x, cond.to(x.dtype)], dim=-1)
@@ -392,17 +420,32 @@ class UNet(nn.Module):
         if cfg.num_classes is not None:
             emb = emb + self.label_emb(y).to(emb.dtype)
 
+        n_blocks = len(self.input_blocks)
+        cd = cache_depth if cache_depth is not None else 1 + cfg.num_res_blocks
+        use_cache = deep_cache is not None or return_deep
+        if use_cache:
+            assert 0 < cd < n_blocks, (cd, n_blocks)
         h = x.to(cfg.dtype)
         hs = []
-        for block in self.input_blocks:
+        for block in (self.input_blocks[:cd] if deep_cache is not None else self.input_blocks):
             h = self._run(block, h, emb)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb)
-        for block in self.output_blocks:
+        split = n_blocks - cd if use_cache else n_blocks
+        deep = None
+        if deep_cache is None:
+            h = self._run(self.middle_block, h, emb)
+            for block in self.output_blocks[:split]:
+                h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
+                h = self._run(block, h, emb)
+            deep = h
+        else:
+            h = deep_cache.to(cfg.dtype)
+        for block in self.output_blocks[split:]:
             h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
             h = self._run(block, h, emb)
         h = self.out[2](self.out[0](h, act="silu"))
-        return h.to(x.dtype)
+        out = h.to(x.dtype)
+        return (out, deep) if return_deep else out
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,9 @@ in float32.
   ``flash_attention`` forward (K2, the resident branch, and K3, the
   grid-tiled one) and of K4 behind it; :class:`FlashAttention` joins them,
   and :func:`flash_attention` / :func:`fused_attention` are the entries.
+* :func:`identity_attention` (PAG's perturbation, arXiv:2403.17377): inside
+  it every :func:`attention_from_qkv` returns v, launching no kernel, and
+  :func:`identity_attention_hits` counts the sites it perturbed.
 * :func:`attention_from_qkv` keeps the JAX package's routing: shapes its
   fused-qkv kernel takes (:func:`_qkv_kernel_takes`) go through
   :class:`QKVAttention`, the others through :class:`FlashAttention` on the
@@ -45,6 +48,7 @@ in float32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Sequence, Tuple, Union
@@ -58,7 +62,34 @@ __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "QKVAttention", "flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttention", "flash_attention", "fused_attention", "fwd_route",
            "bwd_route", "qkv_attention_mma_cuda", "flash_attention_mma_cuda",
-           "qkv_attention_bwd_mma_cuda", "flash_attention_bwd_mma_cuda"]
+           "qkv_attention_bwd_mma_cuda", "flash_attention_bwd_mma_cuda",
+           "identity_attention", "identity_attention_hits"]
+
+# PAG's perturbed branch (JAX ops/attention.py:61-90): inside
+# identity_attention() every self-attention map is the identity, so
+# attention_from_qkv returns v; _IDENTITY_HITS counts the sites it perturbed
+_IDENTITY = False
+_IDENTITY_HITS = 0
+
+
+def identity_attention_hits() -> int:
+    """How many self-attention sites were perturbed inside identity contexts."""
+    return _IDENTITY_HITS
+
+
+@contextlib.contextmanager
+def identity_attention():
+    """Replace self-attention with the identity map for the calls made
+    inside (PAG, arXiv:2403.17377 §3.1: softmax(QK^T) -> I, the output is v).
+    Only :func:`attention_from_qkv` is perturbed, so cross-attention paths
+    stay as they are, per the paper."""
+    global _IDENTITY
+    prev, _IDENTITY = _IDENTITY, True
+    try:
+        yield
+    finally:
+        _IDENTITY = prev
+
 
 _KERNEL = "attention_fwd"
 _KERNEL_SM90 = "attention_fwd_sm90"
@@ -684,10 +715,19 @@ def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
     ``impl="plain"``: the plain version on any device, under ordinary
     autograd. ``return_lse`` also returns the ``[B*H, T]`` row logsumexp and
     is for inspection only: that call carries no gradient on the auto path.
+    Inside :func:`identity_attention` it returns v, whatever ``impl``.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     b, t, c3 = qkv.shape
+    if _IDENTITY:
+        # PAG's perturbed branch: v in the block's channel layout, no kernel
+        global _IDENTITY_HITS
+        _IDENTITY_HITS += 1
+        d = c3 // 3 // heads
+        v = (qkv.reshape(b, t, 3, heads, d)[:, :, 2] if new_order
+             else qkv.reshape(b, t, heads, 3, d)[:, :, :, 2])
+        return v.reshape(b, t, c3 // 3)
     fused = _qkv_kernel_takes(t, c3 // 3 // heads)
     if impl == "auto" and not return_lse:
         if fused:

@@ -86,8 +86,8 @@ class TrainerConfig:
     grad_clip: float = 0.0
     # periodic-preview sampler (Trainer.sample): the reference previews with
     # the full DDPM chain; "ddim" with ~50 steps is far cheaper at 256 px;
-    # "flow" integrates a FlowMatching process's ODE
-    preview_sampler: str = "ddpm"  # "ddpm" | "ddim" | "flow"
+    # "dpm" is DPM-Solver++(2M); "flow" integrates a FlowMatching process's ODE
+    preview_sampler: str = "ddpm"  # "ddpm" | "ddim" | "dpm" | "flow"
     preview_steps: int = 50
     optimizer: str = "adamw"
     # later slices of the port, with the JAX defaults; the Trainer raises when
@@ -187,9 +187,8 @@ class Trainer:
         if not isinstance(inner, (GaussianDiffusion, FlowMatching)):
             raise NotImplementedError(f"{type(inner).__name__} processes are not ported yet "
                                       "(ROADMAP queue 11)")
-        if cfg.preview_sampler not in ("ddpm", "ddim", "flow"):
-            raise NotImplementedError(
-                f"preview_sampler {cfg.preview_sampler!r} is not ported yet (ROADMAP queue 11)")
+        if cfg.preview_sampler not in ("ddpm", "ddim", "dpm", "flow"):
+            raise ValueError(f"unknown preview_sampler {cfg.preview_sampler!r}")
         # a latent flow is a flow: its loss takes float times, its previews the ODE
         self.is_flow = isinstance(inner, FlowMatching)
         if self.is_flow != (cfg.preview_sampler == "flow"):
@@ -357,6 +356,10 @@ class Trainer:
         if cfg.preview_sampler == "flow":
             return self.diffusion.sample(model_fn, n, device=self.device, generator=gen,
                                          num_steps=cfg.preview_steps, **kw).x
+        if cfg.preview_sampler == "dpm":
+            return self.diffusion.dpm_sample(model_fn, n, device=self.device, generator=gen,
+                                             num_steps=cfg.preview_steps,
+                                             clip=not cfg.no_clip, **kw).x
         return self.diffusion.ddim_sample(model_fn, n, device=self.device, generator=gen,
                                           num_steps=cfg.preview_steps, clip=not cfg.no_clip,
                                           **kw).x

@@ -1538,3 +1538,65 @@ def test_latent_dit_step_runs_the_first_stage_forward_only(dev):
     x = trainer.sample(state, seed=1, n=2, cond=batch["cond"][:2])
     assert x.shape == (2, 64, 64, 3) and x.dtype == torch.float32
     assert _delta(before)["gn_fwd"] == 6  # cond encode + the decode
+
+
+# The sampling CLI's guidance on the card: classifier-free guidance doubles
+# the 256 px batch (B16 at the clouds UNet's two attention shapes, N16 at its
+# GroupNorm level shapes); PAG's perturbed call and DeepCache's partial calls
+# launch what the counters below say.
+@pytest.mark.parametrize("t,d", [(4096, 48), (1024, 64)])
+def test_cfg_doubled_attention_shapes_match_plain(dev, t, d):
+    _check(_qkv(16, t, 8, d, torch.bfloat16, seed=t + d), 8, new_order=False)
+
+
+@pytest.mark.parametrize("hw,c,act", [(65536, 128, "silu"), (16384, 256, "silu"),
+                                      (4096, 384, "none"), (1024, 512, "silu")])
+def test_cfg_doubled_group_norm_shapes_match_plain(dev, hw, c, act):
+    _check_gn(*_gn_inputs(16, hw, c, torch.bfloat16, seed=hw + c), 32, act)
+
+
+@torch.no_grad()
+def test_pag_perturbed_call_launches_no_attention_kernel(dev):
+    """A bf16 UNet under ``identity_attention``: no attention launch, one
+    identity hit an attention block, every GroupNorm still on its kernel;
+    the guided prediction is finite."""
+    from eo_diffusion_torch.diffusion.pag import pag_model_fn
+
+    cfg = TU.UNetConfig(image_size=32, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=1, attention_resolutions=(2, 4), channel_mult=(1, 2, 2),
+                        num_heads=2, dtype=torch.bfloat16)
+    model = randomize_parameters(TU.UNet(cfg), seed=3).to(dev).eval()
+    x = torch.randn(2, 32, 32, 3, device=dev)
+    t = torch.tensor([5, 500], device=dev)
+    attn, norms = TU.build_unet_plan(cfg).sites()
+    before, hits = _launch_counts(), A.identity_attention_hits()
+    with A.identity_attention():
+        out = model(x, t)
+    assert _delta(before) == {"gn_fwd": norms, "gn_bwd": 0, "attn_fwd": 0, "attn_bwd": 0,
+                              "wgrad": 0}
+    assert A.identity_attention_hits() - hits == attn > 0 and torch.isfinite(out).all()
+    before = _launch_counts()
+    guided = pag_model_fn(lambda x, t, c, y: model(x, t), 2.0)(x, t, None, None)
+    assert _delta(before)["attn_fwd"] == attn and _delta(before)["gn_fwd"] == 2 * norms
+    assert torch.isfinite(guided).all()
+
+
+@torch.no_grad()
+def test_deepcache_partial_call_on_the_card(dev):
+    """The partial forward on a fresh cache against the full forward (the
+    kernels' bf16 forward limit of chip_smoke.py phase 4), launching only the
+    shallow blocks' GroupNorms and no attention."""
+    cfg = TU.UNetConfig(image_size=32, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=2, attention_resolutions=(2, 4), channel_mult=(1, 2, 2),
+                        num_heads=2, dtype=torch.bfloat16)
+    model = randomize_parameters(TU.UNet(cfg), seed=4).to(dev).eval()
+    x = torch.randn(2, 32, 32, 3, device=dev)
+    t = torch.tensor([5, 500], device=dev)
+    full, deep = model(x, t, return_deep=True)
+    before = _launch_counts()
+    part = model(x, t, deep_cache=deep)
+    _, shallow_norms = TU.build_unet_plan(cfg).sites(shallow_depth=1 + cfg.num_res_blocks)
+    assert _delta(before) == {"gn_fwd": shallow_norms, "gn_bwd": 0, "attn_fwd": 0,
+                              "attn_bwd": 0, "wgrad": 0}
+    rel = ((part.float() - full.float()).norm() / full.float().norm()).item()
+    assert torch.isfinite(part).all() and rel <= 3e-2, rel

@@ -2,8 +2,9 @@
 against the JAX package's ``FlowMatching.sample``, f32 on the CPU, from a
 shared x_T: Euler and Heun on a closed-form velocity written in both
 frameworks (with ``start_index`` and mask/x0 inpainting, the per-step draws
-injected from the JAX package's), and one Heun trajectory through a tiny DiT
-with class labels."""
+injected from the JAX package's), the same integrators with image- and
+label-CFG (rescale, interval) and a stateful denoiser on a closed-form
+denoiser, and one Heun trajectory through a tiny DiT with class labels."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,8 @@ from eo_diffusion_torch.models import dit as TD
 from eo_diffusion_torch.weights import dit_state_dict_from_jax_params
 from eo_diffusion_tpu.diffusion.flow import FlowMatching as JFM
 from eo_diffusion_tpu.models import dit as JD
-from torch_parity import one_torch_thread, random_dit_params, rel_err  # noqa: F401
+from torch_parity import (cached_denoiser, closed_form_denoiser, one_torch_thread,  # noqa: F401
+                          random_dit_params, rel_err)
 
 # trajectory rel err max |torch - jax| / max |jax| (DESIGN.md:52-54)
 TRAJ_TOL = 5e-5
@@ -38,18 +40,41 @@ def _mask_noise(rng, steps, shape):
             for i in range(steps)]
 
 
-CASES = {  # method, num_steps, start_index, inpainting
-    "euler": ("euler", 8, None, False),
-    "heun": ("heun", 6, None, False),
-    "heun_start_index": ("heun", 8, 3, False),
-    "euler_mask": ("euler", 5, None, True),
-    "heun_start_index_mask": ("heun", 6, 4, True),
+CASES = {  # method, num_steps, start_index, inpainting, guidance, stateful
+    "euler": ("euler", 8, None, False, None, False),
+    "heun": ("heun", 6, None, False, None, False),
+    "heun_start_index": ("heun", 8, 3, False, None, False),
+    "euler_mask": ("euler", 5, None, True, None, False),
+    "heun_start_index_mask": ("heun", 6, 4, True, None, False),
+    # CFG on the closed-form denoiser of torch_parity: the interval is
+    # decided at each call's ODE time, the Heun second call's at t_next
+    "euler_image_cfg_rescale_interval": ("euler", 6, None, False, "image", False),
+    "heun_image_cfg_rescale_interval_state": ("heun", 5, None, False, "image", True),
+    "heun_label_cfg_interval_state_mask": ("heun", 4, None, True, "label", True),
 }
+# image-CFG against a zero cloudy view, label-CFG against the null class 4
+GUIDANCE = {
+    "image": dict(guidance_scale=3.0, guidance_rescale=0.7, guidance_interval=(0.2, 0.8)),
+    "label": dict(guidance_scale=2.0, guidance_rescale=0.5, guidance_interval=(0.3, 1.0)),
+}
+
+
+def _guidance(guide, rng, shape):
+    """The guidance keywords of a case, as numpy arrays, and the model's."""
+    if guide is None:
+        return {}
+    kw = dict(GUIDANCE[guide])
+    if guide == "image":
+        kw.update(cond=rng.uniform(-1, 1, size=shape).astype(np.float32),
+                  uncond=np.zeros(shape, np.float32))
+    else:
+        kw.update(y=np.array([0, 2], np.int32), y_uncond=np.array([4, 4], np.int32))
+    return kw
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_closed_form_trajectory_matches_jax(case):
-    method, steps, start, inpaint = CASES[case]
+    method, steps, start, inpaint, guide, stateful = CASES[case]
     rng = np.random.default_rng(len(case))
     shape = (N, SIZE, SIZE, CH)
     x_T = rng.normal(size=shape).astype(np.float32)
@@ -57,19 +82,30 @@ def test_closed_form_trajectory_matches_jax(case):
     if inpaint:
         mask = (rng.uniform(size=(N, SIZE, SIZE, 1)) > 0.5).astype(np.float32)
         x0 = rng.uniform(-1, 1, size=shape).astype(np.float32)
+    gkw = _guidance(guide, rng, shape)
+    fns = {jnp: velocity_jax, torch: velocity_torch}
+    if guide is not None:
+        fns = {lib: (cached_denoiser(lib) if stateful else closed_form_denoiser(lib))
+               for lib in (jnp, torch)}
+    if stateful:  # the state has the doubled batch's shape
+        gkw["model_state"] = np.zeros((2 * N,) + shape[1:], np.float32)
+    as_j = lambda a: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+    as_t = lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
     key = jax.random.PRNGKey(3)
     j = JFM.create(image_size=SIZE, in_channels=CH)
-    ref = j.sample(velocity_jax, key, N, num_steps=steps, method=method,
+    ref = j.sample(fns[jnp], key, N, num_steps=steps, method=method,
                    x_T=jnp.asarray(x_T), start_index=start,
                    mask=None if mask is None else jnp.asarray(mask),
-                   x0=None if x0 is None else jnp.asarray(x0)).x
+                   x0=None if x0 is None else jnp.asarray(x0),
+                   **{k: as_j(v) for k, v in gkw.items()}).x
     noise = _mask_noise(key, steps, shape) if inpaint else None
     t = TFM.create(image_size=SIZE, in_channels=CH)
-    out = t.sample(velocity_torch, N, device="cpu", num_steps=steps, method=method,
+    out = t.sample(fns[torch], N, device="cpu", num_steps=steps, method=method,
                    x_T=torch.from_numpy(x_T), start_index=start,
                    mask=None if mask is None else torch.from_numpy(mask),
                    x0=None if x0 is None else torch.from_numpy(x0),
-                   noise_fn=(lambda i, role: torch.from_numpy(noise[i])) if inpaint else None).x
+                   noise_fn=(lambda i, role: torch.from_numpy(noise[i])) if inpaint else None,
+                   **{k: as_t(v) for k, v in gkw.items()}).x
     assert out.dtype == torch.float32 and out.shape == shape
     assert rel_err(out, ref) <= TRAJ_TOL
     if inpaint:  # the final paste keeps the known pixels verbatim
@@ -106,9 +142,23 @@ def test_dit_heun_trajectory_matches_jax():
 
 
 def test_unported_options_raise():
+    """``log_every`` frames still raise naming ROADMAP queue 11; guidance
+    without an unconditional branch is the plain sample, and a stateful
+    velocity (``model_state``) sees every step's index, twice a Heun step."""
     t = TFM.create(image_size=SIZE, in_channels=CH)
-    for kw in (dict(guidance_scale=2.0), dict(log_every=1), dict(model_state=0)):
-        with pytest.raises(NotImplementedError, match="queue 11"):
-            t.sample(velocity_torch, 1, device="cpu", num_steps=2, **kw)
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        t.sample(velocity_torch, 1, device="cpu", num_steps=2, log_every=1)
+    x_T = torch.randn(1, SIZE, SIZE, CH, generator=torch.Generator().manual_seed(0))
+    plain = t.sample(velocity_torch, 1, device="cpu", num_steps=3, x_T=x_T).x
+    unguided = t.sample(velocity_torch, 1, device="cpu", num_steps=3, x_T=x_T,
+                        guidance_scale=2.0).x
+    torch.testing.assert_close(unguided, plain, rtol=0, atol=0)
+    seen = []
+    stateful = lambda x, tt, c, y, st, i: (seen.append(i) or velocity_torch(x, tt), st + 1)
+    out = t.sample(stateful, 1, device="cpu", num_steps=3, x_T=x_T, method="heun",
+                   model_state=0).x
+    assert seen == [0, 0, 1, 1, 2]
+    heun = t.sample(velocity_torch, 1, device="cpu", num_steps=3, x_T=x_T, method="heun").x
+    torch.testing.assert_close(out, heun, rtol=0, atol=0)
     with pytest.raises(ValueError):
         t.sample(velocity_torch, 1, device="cpu", num_steps=2, method="rk4")

@@ -2,7 +2,9 @@
 
 The two packages draw random numbers differently, so the JAX package's own
 draws (its per-step key splits) are replayed into the port through
-``noise_fn``; deterministic paths (DDIM eta = 0) share ``x_T``."""
+``noise_fn``; deterministic paths (DDIM eta = 0) share ``x_T``. Guidance
+and dynamic thresholding on the ancestral chain run on a closed-form
+denoiser."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +17,8 @@ from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion as TGD
 from eo_diffusion_torch.diffusion.gaussian import repaint_op_sequence
 from eo_diffusion_tpu.core import schedules as JS
 from eo_diffusion_tpu.diffusion.gaussian import GaussianDiffusion as JGD
-from torch_parity import configs, one_torch_thread, port_model, random_params, rel_err  # noqa: F401
+from torch_parity import (cached_denoiser, closed_form_denoiser, configs,  # noqa: F401
+                          one_torch_thread, port_model, random_params, rel_err)
 
 # whole-trajectory f32 sampler parity: max |port - jax| / max |jax|
 # (DESIGN.md:52-54: ~4e-5 over a 25-step DDIM trajectory)
@@ -143,12 +146,38 @@ def test_ddpm_repaint_jumps_match_jax_sampler(models):
     assert rel_err(out, ref) <= TRAJ_TOL
 
 
+@pytest.mark.parametrize("stateful", [False, True])
+def test_ddpm_label_cfg_threshold_matches_jax(stateful):
+    """Ancestral DDPM with label-CFG (the rescale, and the interval, whose
+    edges 0.2 and 0.8 are levels t / (T - 1) of this chain) and dynamic
+    thresholding on the closed-form denoiser of torch_parity, stateful or
+    not, the JAX sampler's draws replayed."""
+    T = 6
+    key = jax.random.PRNGKey(6)
+    x_T, draws = _jax_ddpm_draws(key, T)
+    kw = dict(y=np.array([0, 3], np.int32), y_uncond=np.array([4, 4], np.int32),
+              guidance_scale=2.5, guidance_rescale=0.5, guidance_interval=(0.2, 0.8),
+              dynamic_threshold=0.9)
+    if stateful:  # the doubled batch flows through the stateful denoiser
+        kw["model_state"] = np.zeros((2 * SHAPE[0],) + SHAPE[1:], np.float32)
+    lib_fn = cached_denoiser if stateful else closed_form_denoiser
+    jd = JGD.create(timesteps=T, image_size=8, in_channels=3)
+    ref = jd.ddpm_sample(lib_fn(jnp), key, 2, **{
+        k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}).x
+    td = TGD.create(timesteps=T, image_size=8, in_channels=3)
+    out = td.ddpm_sample(lib_fn(torch), 2, device="cpu", x_T=torch.from_numpy(x_T),
+                         noise_fn=lambda i, role: torch.from_numpy(draws[i]), **{
+                             k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                             for k, v in kw.items()}).x
+    assert out.dtype == torch.float32 and rel_err(out, ref) <= TRAJ_TOL
+
+
 def test_unported_sampler_options_raise(models):
     _, tfn = models
     td = TGD.create(timesteps=4, image_size=8, in_channels=3)
-    with pytest.raises(NotImplementedError):
-        td.ddim_sample(tfn, 1, device="cpu", num_steps=2, guidance_scale=3.0)
-    with pytest.raises(NotImplementedError):
-        td.ddpm_sample(tfn, 1, device="cpu", dynamic_threshold=0.995)
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        td.ddim_sample(tfn, 1, device="cpu", num_steps=2, x0_proj=lambda x: x)
+    with pytest.raises(NotImplementedError, match="queue 11"):
+        td.ddpm_sample(tfn, 1, device="cpu", log_every=1)
     with pytest.raises(NotImplementedError):
         TGD.create(timesteps=4, self_condition=True)

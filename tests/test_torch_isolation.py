@@ -49,6 +49,17 @@ def test_the_probe_modules_are_checked():
         assert f"eo_diffusion_torch/{mod}" in names, mod
 
 
+def test_the_guidance_modules_are_checked():
+    """The samplers, the guidance wrappers and the post-hoc EMA are among the
+    sources checked (and imported without JAX by
+    test_package_imports_without_jax)."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("diffusion/dpm_solver.py", "diffusion/unipc.py", "diffusion/deepcache.py",
+                "diffusion/pag.py", "diffusion/autoguide.py", "diffusion/edit.py",
+                "train/posthoc_ema.py"):
+        assert f"eo_diffusion_torch/{mod}" in names, mod
+
+
 # a path component naming the JAX package or its native/ library directory
 _JAX_PATH = re.compile(r"(^|[/\\])(native|eo_diffusion_tpu)([/\\]|$)")
 # the "file:line" of the TPU kernel a kernel replaces (a label, not a path to open)

@@ -161,6 +161,12 @@ def test_surface_and_refusals(twin):
     ld.ddim_sample(spy, N, device="cpu", generator=g, num_steps=2, cond=d["cond"],
                    encode_cond=True)
     assert seen[0] == (N, LAT, LAT, ZC)
+    # DPM-Solver++ and UniPC run on the latent grid and decode; a CFG uncond
+    # image rides the first stage like cond
+    seen.clear()
     for name in ("dpm_sample", "unipc_sample"):
-        with pytest.raises(NotImplementedError, match="queue 11"):
-            getattr(ld, name)(zeros, N, device="cpu")
+        out = getattr(ld, name)(spy, N, device="cpu", generator=g, num_steps=2, cond=d["cond"],
+                                uncond=torch.zeros_like(d["cond"]), guidance_scale=2.0,
+                                encode_cond=True)
+        assert out.x.shape == (N, SIZE, SIZE, 3) and torch.isfinite(out.x).all()
+    assert seen == [(2 * N, LAT, LAT, ZC)] * 5  # two DPM calls, three UniPC

@@ -112,6 +112,8 @@ def test_tiled_flow_sample_matches_jax(twin, case):
 
 
 def test_tiled_flow_tile_batch_and_refusals(twin):
+    """Chunks of tiles give the whole batch's trajectory, with CFG and a
+    stateful denoiser too; an unknown integrator raises."""
     tdit, _, d, draws, _ = twin
     fn = lambda x, t, c, y: tdit(x, t, cond=c, y=y)
     flow = TFM.create(image_size=TILE, in_channels=C, cond_type="concat")
@@ -120,9 +122,18 @@ def test_tiled_flow_tile_batch_and_refusals(twin):
         whole = TT.tiled_flow_sample(flow, fn, N, H, W, **kw).x
         chunked = TT.tiled_flow_sample(flow, fn, N, H, W, tile_batch=5, **kw).x
     torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-5)
-    for bad in (dict(guidance_scale=2.0), dict(uncond=d["cond"]), dict(model_state={})):
-        with pytest.raises(NotImplementedError, match="queue 11"):
-            TT.tiled_flow_sample(flow, fn, N, H, W, **kw, **bad)
+    # CFG and a stateful denoiser: chunks give the whole batch's result, each
+    # chunk with its own state; both Heun calls of a step see its index
+    gkw = dict(guidance_scale=2.0, uncond=torch.zeros_like(d["cond"]))
+    with torch.no_grad():
+        whole = TT.tiled_flow_sample(flow, fn, N, H, W, method="heun", **kw, **gkw).x
+        steps = []
+        stateful = lambda x, t, c, y, st, i: (steps.append((st, i)) or fn(x, t, c, y), st + 1)
+        chunked = TT.tiled_flow_sample(flow, stateful, N, H, W, method="heun", tile_batch=5,
+                                       model_state=0, **kw, **gkw).x
+    torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-5)
+    chunks = -(-N * TT.make_tile_grid(H, W, TILE).num_tiles // 5)
+    assert steps == [(k, i) for k, i in ((0, 0), (1, 0), (2, 1)) for _ in range(chunks)]
     with pytest.raises(ValueError, match="euler"):
         TT.tiled_flow_sample(flow, fn, N, H, W, method="rk4", **kw)
 

@@ -1,8 +1,10 @@
 """The port's tiled DDIM sampling (eo_diffusion_torch.diffusion.tiled) against
 the JAX package's (f32, CPU): the tile grid, unfold/fold, and whole
 trajectories of a tiny concat-conditioned UNet over a scene larger than its
-tile. The JAX sampler's own draws are replayed into the port (x_T from its
-key split, the RePaint mask noise through ``noise_fn``)."""
+tile, and both tiled samplers (DDIM and the flow ODE) with CFG and a
+stateful denoiser over a closed-form one. The JAX sampler's own draws are
+replayed into the port (x_T from its key split, the RePaint mask noise
+through ``noise_fn``)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +16,10 @@ from eo_diffusion_torch.diffusion import tiled as TT
 from eo_diffusion_torch.diffusion.flow import FlowMatching as TFM
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion as TGD
 from eo_diffusion_tpu.diffusion import tiled as JT
+from eo_diffusion_tpu.diffusion.flow import FlowMatching as JFM
 from eo_diffusion_tpu.diffusion.gaussian import GaussianDiffusion as JGD
-from torch_parity import configs, one_torch_thread, port_model, random_params, rel_err  # noqa: F401
+from torch_parity import (cached_denoiser, configs, one_torch_thread,  # noqa: F401
+                          port_model, random_params, rel_err)
 
 # whole-trajectory f32 sampler parity: max |port - jax| / max |jax|
 TRAJ_TOL = 5e-5
@@ -99,9 +103,62 @@ def test_tiled_ddim_eta0_matches_jax(models, inpaint):
     assert rel_err(out.x, ref) <= TRAJ_TOL
 
 
+# the tiled samplers with CFG and a DeepCache-shaped stateful denoiser on the
+# closed-form denoiser of torch_parity, tiles in chunks of 5 (one state a
+# chunk): DDIM with image-CFG and the rescale, Heun on the flow ODE with
+# label-CFG; (sampler, steps, guidance)
+GUIDED = {"ddim-image-cfg-rescale": ("ddim", STEPS, dict(guidance_scale=3.0,
+                                                          guidance_rescale=0.7)),
+          "flow-heun-label-cfg-rescale": ("flow", 4, dict(guidance_scale=2.0,
+                                                           guidance_rescale=0.5))}
+
+
+@pytest.mark.parametrize("case", sorted(GUIDED))
+def test_tiled_guided_stateful_matches_jax(case):
+    sampler, steps, gkw = GUIDED[case]
+    rng = np.random.default_rng(11)
+    shape = (N, H, W, 3)
+    cond = rng.uniform(-1, 1, size=shape).astype(np.float32)
+    kw = dict(gkw, cond=cond, tile_batch=5,
+              model_state=np.zeros((2 * 5, TILE, TILE, 3), np.float32))
+    if sampler == "ddim":
+        kw.update(uncond=np.zeros_like(cond))
+    else:
+        kw.update(y=np.array([1, 3], np.int32), y_uncond=np.array([4, 4], np.int32),
+                  method="heun")
+    as_j = lambda a: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+    as_t = lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    key = jax.random.PRNGKey(8)
+    jkw = {k: as_j(v) for k, v in kw.items()}
+    tkw = {k: as_t(v) for k, v in kw.items()}
+    if sampler == "ddim":
+        ref = JT.tiled_ddim_sample(JGD.create(timesteps=50, image_size=TILE, in_channels=3),
+                                   cached_denoiser(jnp), key, N, H, W, num_steps=steps,
+                                   **jkw).x
+        init_key = jax.random.split(key)[0]  # x_T, the first key of the split
+        out = TT.tiled_ddim_sample(TGD.create(timesteps=50, image_size=TILE, in_channels=3),
+                                   cached_denoiser(torch), N, H, W, device="cpu",
+                                   num_steps=steps, x_T=_normal(init_key, shape), **tkw).x
+    else:
+        flow = dict(image_size=TILE, in_channels=3, cond_type="concat")
+        ref = JT.tiled_flow_sample(JFM.create(**flow), cached_denoiser(jnp), key, N, H, W,
+                                   num_steps=steps, **jkw).x
+        init_key = jax.random.split(jax.random.fold_in(key, 3))[0]
+        out = TT.tiled_flow_sample(TFM.create(**flow), cached_denoiser(torch), N, H, W,
+                                   device="cpu", num_steps=steps,
+                                   x_T=_normal(init_key, shape), **tkw).x
+    assert out.shape == shape and out.dtype == torch.float32
+    assert rel_err(out, ref) <= TRAJ_TOL
+
+
+def _normal(key, shape):
+    return torch.from_numpy(np.array(jax.random.normal(key, shape, jnp.float32)))
+
+
 def test_tile_batch_chunks_and_refusals(models):
-    """Chunks of tile_batch tiles give the flat batch's model outputs; the
-    options of later slices raise and name their ROADMAP queue."""
+    """Chunks of tile_batch tiles give the flat batch's model outputs, with
+    CFG too; a stateful denoiser keeps one state a chunk; the tiled bridge
+    still raises naming ROADMAP queue 11."""
     _, tfn = models
     td = TGD.create(timesteps=50, image_size=TILE, in_channels=3)
     g = torch.Generator().manual_seed(0)
@@ -115,13 +172,22 @@ def test_tile_batch_chunks_and_refusals(models):
     kw = dict(device="cpu", num_steps=3, cond=cond, eta=0.5)
     out = TT.tiled_ddim_sample(td, tfn, N, H, W, tile_batch=5, generator=g, **kw).x
     assert out.shape == (N, H, W, 3) and torch.isfinite(out).all()
-    for bad, queue in ((dict(guidance_scale=2.0), 11), (dict(uncond=cond), 11),
-                       (dict(y_uncond=torch.zeros(N, dtype=torch.long)), 11),
-                       (dict(model_state={}), 11)):
-        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-            TT.tiled_ddim_sample(td, tfn, N, H, W, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        TT.tiled_flow_sample(TFM.create(image_size=TILE), tfn, N, H, W, device="cpu",
-                             cond=cond, guidance_scale=2.0)
+    gkw = dict(cond=cond, guidance_scale=3.0, guidance_rescale=0.5, uncond=torch.zeros_like(cond))
+    flat = TT.make_tiled_denoiser(tfn, grid, TILE, N, **gkw)(x_tiles, 30)
+    chunked = TT.make_tiled_denoiser(tfn, grid, TILE, N, tile_batch=5, **gkw)(x_tiles, 30)
+    torch.testing.assert_close(chunked, flat, rtol=1e-5, atol=1e-5)
+    seen = []
+
+    def stateful(x, t, c, y, st, i):
+        seen.append((x.shape[0], st, i))
+        return tfn(x, t, c, y), st + 1
+
+    denoise = TT.make_tiled_denoiser(stateful, grid, TILE, N, cond=cond, tile_batch=5,
+                                     model_state=0)
+    for i in range(2):
+        denoise(x_tiles, 30, i)
+    n_flat = N * grid.num_tiles  # 12 tiles: chunks of 5, 5 and 2
+    assert seen == [(5, 0, 0), (5, 0, 0), (n_flat - 10, 0, 0), (5, 1, 1), (5, 1, 1),
+                    (n_flat - 10, 1, 1)]
     with pytest.raises(NotImplementedError, match="queue 11"):
         TT.tiled_bridge_sample(None, tfn, None, N, H, W)

@@ -97,7 +97,7 @@ def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, c
 
 
 @pytest.mark.parametrize("flag,queue", [("--fsdp", 16), ("--optimizer=muon", 14),
-                                        ("--posthoc_ema", 11),
+                                        ("--config", 14),
                                         ("--tome_ratio", 13), ("--profile_dir", 17)])
 def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -275,13 +275,24 @@ def test_label_dropout_draws_from_the_explicit_generator():
 
 @pytest.mark.parametrize("field,queue", [("fsdp", 16), ("tp", 16), ("sp", 16), ("ep", 16),
                                          ("pp_micro", 16), ("optimizer", 14),
-                                         ("preview_sampler", 11), ("fsdp_min_size", 16),
+                                         ("fsdp_min_size", 16),
                                          ("moe_aux_weight", 13), ("muon_lr_mult", 14)])
 def test_unported_layouts_raise_with_their_queue(field, queue):
-    value = {"pp_micro": 2, "optimizer": "muon", "preview_sampler": "dpm", "fsdp_min_size": 1024,
+    value = {"pp_micro": 2, "optimizer": "muon", "fsdp_min_size": 1024,
              "moe_aux_weight": 0.1, "muon_lr_mult": 2.0}.get(field, True)
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         _port_trainer(**{field: value})
+
+
+def test_dpm_preview_sampler():
+    """``preview_sampler="dpm"`` previews with DPM-Solver++(2M) from the EMA
+    weights: finite samples of the image shape, the same for the same seed;
+    an unknown name raises."""
+    tr, state, _ = _port_trainer(preview_sampler="dpm", preview_steps=3)
+    a, b = (tr.sample(state, 5, n=2) for _ in range(2))
+    assert a.shape == (2, 8, 8, 3) and torch.isfinite(a).all() and torch.equal(a, b)
+    with pytest.raises(ValueError, match="preview_sampler"):
+        _port_trainer(preview_sampler="rk4")
 
 
 def test_later_fields_carry_the_jax_defaults():

@@ -128,3 +128,38 @@ def rel_l2(tensors, refs):
     num = sum(float(((a.detach().numpy() - np.asarray(b)) ** 2).sum())
               for a, b in zip(tensors, refs))
     return (num / sum(float((np.asarray(b) ** 2).sum()) for b in refs)) ** 0.5
+
+
+def closed_form_denoiser(lib):
+    """A denoiser ``(x, t, cond, y) -> out`` in closed form, written once for
+    jnp and once for torch (``lib``), so that sampler trajectories compile no
+    network: smooth in x, varying with t, and moved by the condition and the
+    label, so that guidance has two different branches to combine."""
+    def fn(x, t, c=None, y=None):
+        tt = (t.astype(jnp.float32) if lib is jnp else t.float()) / 1000.0
+        out = 0.6 * x + lib.sin(x) * tt[:, None, None, None] - 0.05
+        if c is not None:
+            out = out + 0.2 * c
+        if y is not None:
+            yy = y.astype(jnp.float32) if lib is jnp else y.float()
+            # a label term that scales with x, so that it moves the std
+            out = out + 0.1 * yy[:, None, None, None] * (1.0 + 0.5 * x)
+        return out
+    return fn
+
+
+def cached_denoiser(lib, refresh=2):
+    """A stateful denoiser in DeepCache's shape, ``(x, t, cond, y, state, i)
+    -> (out, state)`` over :func:`closed_form_denoiser`: at every
+    ``refresh``-th state index it computes a feature of x and keeps it as the
+    state, at the others it reuses the kept one (the state has x's shape,
+    doubled under CFG)."""
+    base = closed_form_denoiser(lib)
+
+    def fn(x, t, c, y, state, i):
+        if lib is jnp:
+            feat = jnp.where(i % refresh == 0, jnp.tanh(x), state)
+        else:
+            feat = torch.tanh(x) if i % refresh == 0 else state
+        return base(x, t, c, y) + 0.3 * feat, feat
+    return fn
