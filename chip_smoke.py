@@ -77,7 +77,20 @@ Phases, in order; the first failure exits non-zero:
    reading, which is first held to TOL_UNET_REL), the cost of a
    ``PowerEMA.update`` is timed beside the ``--posthoc_ema`` step, and a DeepCache partial call on a
    fresh cache against the full call (TOL_UNET_REL; whether the bits are
-   the same is printed);
+   the same is printed); 5g. EDM and the Brownian bridge at full width:
+   K1 (B8 T256 H4 D48, B8 T64 H4 D64) and K5 at the 64 px UNet's level
+   shapes (N8 and N64) against their plain versions; ``cli.train --preset
+   edm64`` and ``--preset bridge64`` (base 64, mults 1/2/3/4, attention at
+   ds 4 and 8, 4 heads) for EDM_BRIDGE_STEPS steps at batch 64, the K1, K4,
+   K5 and weight-gradient launches as ``unet_train_expected`` gives them;
+   ``cli.inference`` from each checkpoint, EDM Heun-18 (35 model calls) and
+   the bridge's 50 strided steps at ``--eta 0``, two batches of 8, img/s
+   over the second; from seeded weights and one start, EDM Heun-18, the
+   bridge's 50 steps and ``tiled_bridge_sample`` of a 128 x 256 scene (21
+   tiles of 64) through the kernels against the all-plain model
+   (TOL_SOLVER_REL, the final samples' relative L2); the change-pair and
+   inpainting demos of ``examples/torch`` at ``unet_clouds(64)``, DDIM-5 on
+   the card, their files written;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -164,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -190,7 +204,10 @@ from eo_diffusion_torch.diffusion.deepcache import deepcache_model_fn
 from eo_diffusion_torch.diffusion.edit import sdedit_plan
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
-from eo_diffusion_torch.diffusion.tiled import tiled_ddim_sample, tiled_flow_sample
+from eo_diffusion_torch.diffusion.bridge import BrownianBridge
+from eo_diffusion_torch.diffusion.edm import EDMProcess
+from eo_diffusion_torch.diffusion.tiled import (tiled_bridge_sample, tiled_ddim_sample,
+                                                tiled_flow_sample)
 from eo_diffusion_torch.models.autoencoder import ConvAutoencoder
 from eo_diffusion_torch.ops import attention as A
 from eo_diffusion_torch.ops import attn_probes as AP
@@ -377,6 +394,29 @@ PHEMA_STEPS = 4  # phase 5f: cli.train --posthoc_ema steps (snapshots at 2 and 4
 # level 2 without SiLU), phase 3's N16 rows
 CFG_GN_SITES = ((65536, 128, "silu"), (16384, 256, "silu"), (4096, 384, "none"),
                 (1024, 512, "silu"))
+
+# phase 5g: EDM and the Brownian bridge on the 64 px UNet of edm64 and
+# bridge64 (base 64, mults 1/2/3/4, attention at ds 4 and 8, 4 heads: K1 at
+# T256 D48 and T64 D64), trained through cli.train at the presets' batch
+# and sampled through cli.inference at b8: EDM Heun-18 (35 model calls, the
+# last step Euler), the bridge's 50 strided posterior steps at eta 0
+EDM_BRIDGE_BATCH = 64
+EDM_BRIDGE_STEPS = 4
+EDM_HEUN_STEPS, EDM_HEUN_CALLS = 18, 35
+BRIDGE_STEPS = 50
+# kernels against the all-plain model from the same weights and start: the
+# relative L2 of the final samples (phase 5f's original solver limit, one
+# forward's limit TOL_UNET_REL carried to the end of a trajectory)
+TOL_SOLVER_REL = 3e-2
+# tiled_bridge_sample: one 128 x 256 scene in 3 x 7 tiles of 64 at overlap
+# 0.5, one model call a step over the 21 tiles
+TILED_BRIDGE_SCENE = (128, 256)
+TILED_BRIDGE_STEPS = 20
+# the 64 px UNet's GroupNorm level shapes (the attention norm at level 2
+# without SiLU), phase 5g's rows at N8 (sampling) and N64 (training)
+EDM64_GN_SITES = ((4096, 64, "silu"), (1024, 128, "silu"), (256, 192, "none"), (64, 256, "silu"))
+# the demos at their full-width 64 px config (unet_clouds(64)), DDIM steps
+DEMO_DDIM_STEPS = 5
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -2327,6 +2367,157 @@ def run_tiled_guided(cfg, gen, card, steps=20, refresh=3, tile_batch=6):
     return {"seconds": seconds, "launches": launched}
 
 
+def plain_trajectory_check(model, cfg, run, calls, tag, card):
+    """``run(model_fn)`` (a sampler from fixed weights and a fixed start)
+    through the kernels, then through the all-plain model: the launches of
+    the kernel run are ``calls`` UNet forwards, the plain run launches
+    nothing, and the final samples agree within TOL_SOLVER_REL (relative
+    L2). Returns the reading and the kernel run's seconds and launches."""
+    fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    with torch.inference_mode():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_k = run(fn)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        model.set_impl(attn="plain", norm="plain")
+        x_p = run(fn)
+        model.set_impl(attn="auto", norm="auto")
+    assert counts() == launched == unet_expected(cfg, full=calls), (tag, launched)
+    reading = rel(x_k, x_p)
+    ok = bool(torch.isfinite(x_k).all()) and reading <= TOL_SOLVER_REL
+    print(f"5g {tag} kernels vs all-plain: final samples rel L2 {reading:.3e} (limit "
+          f"{TOL_SOLVER_REL}): {'held' if ok else 'FAILED'}; {calls} model calls, "
+          f"{seconds:.4f} s; {card}", flush=True)
+    assert ok, (tag, reading)
+    return {"rel_l2": reading, "seconds": seconds, "launches": launched}
+
+
+def run_demo(name, argv, cfg, calls, tmp, card):
+    """One of examples/torch's demos in process on the card, with the
+    launches its UNet gives for ``calls`` forwards; its files written and
+    its output finite."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch", name)
+    spec = importlib.util.spec_from_file_location(f"_demo_{name[:-3]}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = os.path.join(tmp, f"demo_{name[:-3]}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mod.main(["--synthetic", "--out", out, "--device", "cuda", *argv])
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    assert np.isfinite(res).all(), name
+    assert launched == unet_expected(cfg, full=calls), (name, launched)
+    files = sorted(os.listdir(out))
+    assert files and all(os.path.getsize(os.path.join(out, f)) > 0 for f in files), files
+    print(f"5g {name} {' '.join(argv)} (unet_clouds(64)) on the card: {files}, {seconds:.3f} s "
+          f"with the model's build, launches {launched['attn_fwd']} K1 / {launched['gn_fwd']} "
+          f"K5; {card}", flush=True)
+    return {"files": files, "seconds": seconds, "launches": launched}
+
+
+def phase_5g(tmp, card):
+    """EDM and the Brownian bridge at full width: ``edm64`` and ``bridge64``
+    through ``cli.train`` (EDM_BRIDGE_STEPS steps at batch 64) and
+    ``cli.inference`` from the trained checkpoint (EDM Heun-18, the bridge's
+    50 steps at eta 0, two batches of 8, img/s over the second), the
+    launches of each asserted; the two processes and ``tiled_bridge_sample``
+    with seeded weights against the all-plain model from the same start;
+    the change-pair and inpainting demos on the card. K1 and K5 at the 64 px
+    UNet's shapes against their plain versions first. Draws from a
+    generator of its own, so every earlier check keeps its inputs."""
+    bf16 = torch.bfloat16
+    egen = torch.Generator(device="cuda").manual_seed(16)
+    out = {"attn_rows": [attention_case(8, 256, 4, 48, bf16, False, egen),
+                         attention_case(8, 64, 4, 64, bf16, False, egen)],
+           "gn_rows": [gn_case(n, hw, c, 32, act, bf16, egen)
+                       for n in (8, EDM_BRIDGE_BATCH) for hw, c, act in EDM64_GN_SITES],
+           "runs": {}}
+    torch.cuda.empty_cache()
+    for preset, flags, calls in (
+            ("edm64", ["--flow_method", "heun", "--sampler_steps", str(EDM_HEUN_STEPS)],
+             EDM_HEUN_CALLS),
+            ("bridge64", ["--sampler_steps", str(BRIDGE_STEPS), "--eta", "0"], BRIDGE_STEPS)):
+        pre = get_preset(preset)
+        cfg = pre.model_config(cond_channels=3 if pre.cond_type == "concat" else 0)
+        assert build_unet_plan(cfg).sites() == (7, 36), build_unet_plan(cfg).sites()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with contextlib.chdir(tmp):
+            tr = cli_train.main(cli_train.parse_args(
+                train_argv(preset, EDM_BRIDGE_BATCH, EDM_BRIDGE_STEPS, 17, f"train_{preset}")))
+        got = counts()
+        want = unet_train_expected(cfg, 64, EDM_BRIDGE_BATCH, EDM_BRIDGE_STEPS)
+        assert tr["steps"] == EDM_BRIDGE_STEPS and all(math.isfinite(x) for x in tr["losses"])
+        assert got == want and want["attn_bwd"] and want["gn_bwd"] and want["wgrad_sm90"], (
+            preset, got, want)
+        step_ms = 1e3 * sum(tr["step_seconds"][2:]) / len(tr["step_seconds"][2:])
+        print(f"5g cli.train {preset} b{EDM_BRIDGE_BATCH} bf16: {tr['steps']} steps, loss "
+              f"{tr['losses'][0]:.5f} -> {tr['losses'][-1]:.5f}; {step_ms:.4f} ms a step (mean "
+              f"of steps 3-{EDM_BRIDGE_STEPS}); launches { {k: v for k, v in got.items() if v} }; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+              flush=True)
+        args = cli.parse_args(["--preset", preset, "--dataset", "synthetic", *flags,
+                               "--batch_size", "8", "--n_iter", "1", "--device", "cuda",
+                               "--ckpt", tr["checkpoint"], "--seed", "17",
+                               "--outdir", os.path.join(tmp, f"out_{preset}")])
+        reset_counts()
+        smp = cli.main(args)
+        sampled = counts()
+        x = torch.as_tensor(smp["samples"])
+        assert x.shape == (8, 64, 64, 3) and bool(torch.isfinite(x).all()), x.shape
+        assert smp["batches"] == 2 and sampled == unet_expected(cfg, full=2 * calls), (
+            preset, sampled)
+        img_s = 8 / smp["batch_seconds"][1]
+        print(f"5g cli.inference {preset} {' '.join(flags)} b8 from the trained checkpoint: "
+              f"batch seconds {[round(v, 4) for v in smp['batch_seconds']]}, {img_s:.4f} img/s "
+              f"(second batch), {calls} model calls a batch, launches "
+              f"{ {k: v for k, v in sampled.items() if v} }; {card}", flush=True)
+        out["runs"][preset] = {"train_launches": got, "sample_launches": sampled,
+                               "train_step_ms": step_ms, "losses": tr["losses"],
+                               "img_s": img_s, "batch_seconds": smp["batch_seconds"]}
+
+        # the kernels against the all-plain model, seeded weights, one start
+        model = randomize_parameters(UNet(cfg), seed=18).cuda().eval()
+        if preset == "edm64":
+            proc = EDMProcess.create(image_size=64)
+            x_T = 80.0 * torch.randn(8, 64, 64, 3, generator=egen, device="cuda")
+            run = lambda fn: proc.sample(fn, 8, device="cuda", num_steps=EDM_HEUN_STEPS,
+                                         method="heun", x_T=x_T).x
+            out["runs"][preset]["plain"] = plain_trajectory_check(
+                model, cfg, run, calls, f"edm64 Heun-{EDM_HEUN_STEPS} b8", card)
+            continue
+        proc = BrownianBridge.create(image_size=64, timesteps=pre.timesteps)
+        y = torch.randn(8, 64, 64, 3, generator=egen, device="cuda").clamp(-1, 1)
+        run = lambda fn: proc.sample(fn, 8, device="cuda", num_steps=BRIDGE_STEPS, cond=y,
+                                     eta=0.0).x
+        out["runs"][preset]["plain"] = plain_trajectory_check(
+            model, cfg, run, calls, f"bridge64 {BRIDGE_STEPS} steps eta 0 b8", card)
+        h, w = TILED_BRIDGE_SCENE
+        scene = torch.randn(1, h, w, 3, generator=egen, device="cuda").clamp(-1, 1)
+        run = lambda fn: tiled_bridge_sample(proc, fn, 1, h, w, device="cuda",
+                                             num_steps=TILED_BRIDGE_STEPS, cond=scene).x
+        out["tiled"] = plain_trajectory_check(
+            model, cfg, run, TILED_BRIDGE_STEPS,
+            f"tiled_bridge_sample {h}x{w} (21 tiles of 64) {TILED_BRIDGE_STEPS} steps", card)
+        del model
+    torch.cuda.empty_cache()
+
+    calls = make_ddim_schedule(GaussianDiffusion.create(timesteps=1000).schedule,
+                               DEMO_DDIM_STEPS, 0.0).num_steps
+    out["demos"] = {
+        "change_pair": run_demo("change_pair_demo.py", ["--ddim", str(DEMO_DDIM_STEPS)],
+                                unet_clouds(64, in_channels=6, dtype=bf16), calls, tmp, card),
+        "inpainting": run_demo("inpainting_demo.py", ["--sampler", "ddim", "--ddim_steps",
+                                                      str(DEMO_DDIM_STEPS)],
+                               unet_clouds(64, dtype=bf16), calls, tmp, card)}
+    return out
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -2668,6 +2859,21 @@ def main() -> int:
         guided = phase_5f(tmp, card, cgen, main_res["images"] / main_res["sample_seconds"])
         guided_runs = (*guided["runs"].values(), guided["tiled"])
 
+        # 5g. EDM and the Brownian bridge: training, sampling, the tiled
+        # bridge and the demos
+        edm_bridge = phase_5g(tmp, card)
+        edm_runs = [{"launches": r[k]} for r in edm_bridge["runs"].values()
+                    for k in ("train_launches", "sample_launches")]
+        edm_runs += [r["plain"] for r in edm_bridge["runs"].values()]
+        edm_runs += [edm_bridge["tiled"], *edm_bridge["demos"].values()]
+        rows += edm_bridge["attn_rows"]
+        gn_rows += edm_bridge["gn_rows"]
+        edm_launches = lambda key: {
+            **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
+               for k in ("train", "sample")},
+            "tiled_bridge": edm_bridge["tiled"]["launches"][key],
+            **{f"demo_{d}": r["launches"][key] for d, r in edm_bridge["demos"].items()}}
+
         # 7. the training path through the entry point
         train_res = run_train(tmp, seed=4)
         steady = train_res["step_seconds"][2:]  # after cuDNN's plan search
@@ -2749,10 +2955,11 @@ def main() -> int:
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs)
+                                       *guided_runs, *edm_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
+        "launches_edm_bridge": edm_launches("attn_fwd"),
         "sass": sass["attention_fwd_sm90"],
         "shapes": [{k: r[k] for k in ("shape", "kernel_ms", "mma_body_ms", "library_ms",
                                       "bound_ms", "plain_ms", "max_abs_err")}
@@ -2809,10 +3016,11 @@ def main() -> int:
         "mma_body_ms": bwd_row["mma_body_ms"],
         "launches_train_512": train512["launches"]["attn_bwd"]
         + train512["launches"]["flash_bwd"],
+        "launches_edm_bridge": edm_launches("attn_bwd"),
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs)
+                                       *guided_runs, *edm_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -2912,7 +3120,7 @@ def main() -> int:
         "old_body_launches_on_model_paths": sum(
             r["launches"][f"gn_{direction}_legacy"]
             for r in (main_res, res512, res64, train_res, train512, tiled, tiled_flow,
-                      *dit_res.values(), *latent_runs, *guided_runs)),
+                      *dit_res.values(), *latent_runs, *guided_runs, *edm_runs)),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
@@ -2934,10 +3142,12 @@ def main() -> int:
                        "cfg_n16": [latent_row(r[0]) for r in cfg_gn_rows],
                        "launches_guidance": {tag: r["launches"]["gn_fwd"]
                                              for tag, r in guided["runs"].items()},
-                       "launches_guidance_tiled": guided["tiled"]["launches"]["gn_fwd"]}),
+                       "launches_guidance_tiled": guided["tiled"]["launches"]["gn_fwd"],
+                       "launches_edm_bridge": edm_launches("gn_fwd")}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {"latent256_ae_f32": [latent_row(r[1]) for r in ae_gn_rows],
                        "cfg_n16": [latent_row(r[1]) for r in cfg_gn_rows],
+                       "launches_edm_bridge": edm_launches("gn_bwd"),
                        "launches_latent256": {
                            "ae_train": latent_train["ae_launches"]["gn_bwd"],
                            "dit_train": latent_train["launches"]["gn_bwd"]}}))]
@@ -2975,6 +3185,7 @@ def main() -> int:
         "library_ms": wgrad_rows[0]["library_ms"],
         "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
         "delta_checks": wgrad_deltas,
+        "launches_edm_bridge": edm_launches("wgrad_sm90"),
         "sites": sweep["sites"],
         "sites_routes": sweep["routes"],
         "sites_sums": sweep["sums"],

@@ -15,7 +15,10 @@ test split of any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
 ``samples/`` PNG grids as the JAX CLI. UNet and DiT presets sample with
 DDPM, DDIM, DPM-Solver++ (``--sampler dpm``, ``--dpm_spacing``) or UniPC
 (``--sampler unipc``); flow-process presets (``dit256``, ``flow64``,
-``cflow64``, ...) with ``--sampler flow``, which they force. Guidance:
+``cflow64``, ...), EDM presets (``edm64``, ...: Heun or Euler on the Karras
+grid, ``--flow_method``) and bridge presets (``bridge64``, ...: the strided
+posterior walk from the cloudy view, ``--eta``, no CFG) with their native
+sampler, ``--sampler flow``, which they force. Guidance:
 classifier-free (``--guidance_scale`` against the learned null class of a
 class-conditional preset, else against a zero cloudy view;
 ``--guidance_rescale``, ``--guidance_interval``), perturbed-attention
@@ -129,7 +132,7 @@ def parse_args(argv=None):
                         help="override the preset's conditioning (sum | concat)")
     parser.add_argument("--model_base_dim", type=int, default=None)
     parser.add_argument("--flow_method", type=str, default="euler", choices=["euler", "heun"],
-                        help="flow sampler integrator (heun: 2nd order, 2 model calls a step)")
+                        help="flow and EDM integrator (heun: 2nd order, 2 model calls a step)")
     parser.add_argument("--sampler_steps", type=int, default=250)
     parser.add_argument("--eta", type=float, default=0.0)
     parser.add_argument("--ddim_spacing", type=str, default="uniform",
@@ -240,15 +243,25 @@ def main(args):
     # unless the flags say otherwise (the training CLI's defaults)
     num_classes = args.num_classes or preset.num_classes or None
     class_dropout = args.class_dropout or preset.class_dropout
-    if preset.process == "flow" and args.sampler != "flow":
-        print(f"preset {preset.name} is a flow process; using --sampler flow "
+    # "flow" means the process's native sampler: the flow ODE, EDM's Heun on
+    # the Karras grid, or the bridge's posterior walk (one .sample surface)
+    if preset.process in ("flow", "edm", "bridge") and args.sampler != "flow":
+        print(f"preset {preset.name} is a {preset.process} process; using --sampler flow "
               "(its native sampler)")
         args.sampler = "flow"
-    if args.sampler == "flow" and preset.process != "flow":
-        raise SystemExit(f"--sampler flow requires a flow-process preset; {preset.name} "
-                         f"trained the {preset.process} chain (use ddpm/ddim/dpm/unipc)")
+    if preset.process == "bridge" and args.guidance_scale != 1.0:
+        print("note: the bridge is endpoint-conditional; no CFG combine — ignoring "
+              "--guidance_scale")
+        args.guidance_scale = 1.0
+    if args.sampler == "flow" and preset.process == "ddpm":
+        raise SystemExit(f"--sampler flow requires a flow-process preset (a flow, EDM or "
+                         f"bridge process); {preset.name} trained the {preset.process} chain "
+                         f"(use ddpm/ddim/dpm/unipc)")
     # the JAX CLI's compatibility checks (eo_diffusion_tpu/cli/inference.py:330-700)
     if args.sdedit_strength:
+        assert preset.process in ("ddpm", "flow"), (
+            f"SDEdit is wired for DDPM-chain and flow presets; {preset.name} trains "
+            f"{preset.process}")
         assert cond_type != "sum", (
             "SDEdit starts FROM the source image; RePaint 'sum' masking is a different "
             "mechanism (drop --sdedit_strength or use cond_type concat/None)")
@@ -346,10 +359,17 @@ def main(args):
                                                   args.autoguide_sigma_rel, cfg=ucfg))
             print(f"autoguide: bad model = sigma_rel={args.autoguide_sigma_rel} from "
                   f"{phema_dir}")
-        # the interval gate sees the model's t: on the flow ODE t * time_scale
+        # the interval gate sees the model's t; invert it to the process's
+        # normalized noise level: on the flow ODE t * time_scale, under EDM
+        # ln(sigma) / 4 * time_scale -> sigma / sigma_max (edm.py's own gate),
+        # in float32
         inner = diffusion.diffusion if preset.is_latent else diffusion
-        nf = ((lambda t: noise_level(t.reshape(t.shape[0], -1)[0, 0], inner.time_scale))
-              if preset.process == "flow" else None)
+        nf = None
+        if preset.process == "flow":
+            nf = lambda t: noise_level(t.reshape(t.shape[0], -1)[0, 0], inner.time_scale)
+        elif preset.process == "edm":
+            nf = lambda t: noise_level(torch.exp(4.0 * t[0].float() / inner.time_scale),
+                                       inner.sigma_max)
         model_fn = autoguided_model_fn(
             model_fn, lambda x, t, c, y: bad(x, t, cond=c, y=y), args.autoguide_scale,
             guidance_rescale=args.guidance_rescale,
@@ -409,6 +429,14 @@ def main(args):
                     args.sdedit_strength, num_steps=args.sampler_steps, eta=args.eta,
                     method=args.flow_method if args.sampler == "flow" else args.ddim_spacing,
                     cond=c_j, **skw)
+            elif args.sampler == "flow" and preset.process == "bridge":
+                # paired translation: the source view is the bridge's endpoint;
+                # --eta scales the posterior noise as DDIM's does
+                assert c_j is not None, (
+                    "bridge sampling needs the source image (a dataset with cond_image and "
+                    "cond_type='concat')")
+                out = diffusion.sample(fn_j, bsz, num_steps=args.sampler_steps, cond=c_j,
+                                       clip=not args.no_clip, eta=args.eta, **skw)
             elif args.sampler == "flow":
                 out = diffusion.sample(fn_j, bsz, num_steps=args.sampler_steps,
                                        method=args.flow_method, cond=c_j, mask=mask_j,

@@ -1,9 +1,9 @@
-"""Named experiment presets for the port (the UNet and DiT presets, DDPM and
-rectified flow, in pixels or behind a first stage, of
-``eo_diffusion_tpu/cli/presets.py``).
+"""Named experiment presets for the port (the UNet and DiT presets, DDPM,
+rectified flow, EDM and the Brownian bridge, in pixels or behind a first
+stage, of ``eo_diffusion_tpu/cli/presets.py``).
 
 Each recipe is selectable with ``--preset``; presets of the other families
-(EDM, bridge, MeanFlow, MoE, SPADE, ...) raise and name the ROADMAP queue
+(MeanFlow, MoE, SPADE, super-resolution) raise and name the ROADMAP queue
 that ports them. A latent preset (``latent_downs > 0``) is a two-stage
 recipe: a :class:`ConvAutoencoder` first stage with ``2**latent_downs``
 spatial reduction, then the backbone and the process on the
@@ -18,6 +18,8 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from eo_diffusion_torch.diffusion.bridge import BrownianBridge
+from eo_diffusion_torch.diffusion.edm import EDMProcess
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
@@ -42,13 +44,6 @@ class Preset:
     num_classes: int = 0
     timesteps: int = 1000
     batch_size: int = 128
-    objective: str = "eps"
-    # Lin et al. 2023 (arXiv:2305.08891): rescale the schedule to SNR(T) = 0
-    # (needs objective "v"); sample with --ddim_spacing trailing or dpm
-    zero_terminal_snr: bool = False
-    # default CFG label dropout of a class-conditional preset (allocates the
-    # null embedding row; the CLIs' --class_dropout overrides)
-    class_dropout: float = 0.0
     # latent diffusion (the CompVis LatentDiffusion slot, reference
     # diffusion/ddpm.py:628-692): latent_downs > 0 trains a ConvAutoencoder
     # first stage with 2**latent_downs spatial reduction, then diffuses the
@@ -59,11 +54,20 @@ class Preset:
     ae_steps: int = 2000  # default first-stage training budget (cli/train.py)
     # backbone "dit" selects models/dit.DiT (base_dim is the hidden size,
     # depth the block count, patch_size the patchify stride); process "flow"
-    # samples with diffusion/flow.FlowMatching instead of the DDPM chain
+    # trains and samples diffusion/flow.FlowMatching, "edm"
+    # diffusion/edm.EDMProcess and "bridge" diffusion/bridge.BrownianBridge
+    # instead of the DDPM chain
     backbone: str = "unet"  # "unet" | "dit"
     patch_size: int = 4
     depth: int = 12
-    process: str = "ddpm"  # "ddpm" | "flow"
+    process: str = "ddpm"  # "ddpm" | "flow" | "edm" | "bridge"
+    # default CFG label dropout of a class-conditional preset (allocates the
+    # null embedding row; the CLIs' --class_dropout overrides)
+    class_dropout: float = 0.0
+    objective: str = "eps"
+    # Lin et al. 2023 (arXiv:2305.08891): rescale the schedule to SNR(T) = 0
+    # (needs objective "v"); sample with --ddim_spacing trailing or dpm
+    zero_terminal_snr: bool = False
 
     @property
     def is_latent(self) -> bool:
@@ -225,12 +229,32 @@ PRESETS = {
                       batch_size=64, num_classes=5, class_dropout=0.15),
     "tiny-cddpm": Preset("tiny-cddpm", "synthetic_hard", 8, 3, 32, (1, 2), (), 1, 1,
                          timesteps=50, batch_size=16, num_classes=5, class_dropout=0.15),
+    # EDM (Karras et al., arXiv:2206.00364): the sigma-space preconditioned
+    # denoiser, sampled with Heun on the Karras grid (+ churn)
+    "edm64": Preset("edm64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                    batch_size=64, process="edm"),
+    "tiny-edm": Preset("tiny-edm", "synthetic", 8, 3, 32, (1, 2), (), 1, 1, batch_size=16,
+                       process="edm"),
+    # the DiT under the EDM objective and sampler
+    "tiny-dit-edm": Preset("tiny-dit-edm", "synthetic", 16, 3, 64, (), (), 0, 4,
+                           batch_size=16, backbone="dit", patch_size=4, depth=2,
+                           process="edm"),
+    # Brownian-bridge paired translation (BBDM, arXiv:2205.07680): sampling
+    # starts at the cloudy source and walks the bridge posterior to the
+    # clear target, the image-to-image form of the cloud-removal use case
+    "bridge64": Preset("bridge64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                       cond_type="concat", batch_size=64, process="bridge"),
+    "tiny-bridge": Preset("tiny-bridge", "synthetic", 8, 3, 32, (1, 2), (), 1, 1,
+                          cond_type="concat", timesteps=50, batch_size=16, process="bridge"),
+    # the bridge between the encoded endpoints, decoded (BBDM's LBBDM)
+    "tiny-latent-bridge": Preset("tiny-latent-bridge", "synthetic", 16, 3, 32, (1, 2), (), 1,
+                                 1, cond_type="concat", timesteps=50, batch_size=16,
+                                 process="bridge", latent_downs=1, latent_channels=4,
+                                 ae_base_dim=16, ae_steps=60),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
 _LATER = {
-    "edm64": 11, "tiny-edm": 11, "bridge64": 11, "tiny-bridge": 11,
-    "tiny-latent-bridge": 11, "tiny-dit-edm": 11,
     "meanflow64": 12, "tiny-meanflow": 12, "cmeanflow64": 12, "tiny-cmeanflow": 12,
     "tiny-dit-meanflow": 12,
     "spade64": 13, "tiny-spade": 13, "moe-dit64": 13, "tiny-moe": 13,
@@ -256,15 +280,26 @@ def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig]) -> nn.Module:
 
 
 def build_process(preset: Preset, timesteps: int, image_size: int,
-                  cond_type: Optional[str] = None) -> Union[GaussianDiffusion, FlowMatching]:
+                  cond_type: Optional[str] = None
+                  ) -> Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge]:
     """The preset's process on the model-facing grid (``image_size`` px, or
     the latent grid of a latent preset, which a caller wraps in
-    ``LatentDiffusion``): the DDPM chain, or rectified flow for
-    ``process="flow"`` (where "sum" stays sampling-time inpainting and
-    "concat" conditions the model)."""
+    ``LatentDiffusion``): the DDPM chain, rectified flow for ``process="flow"``
+    or EDM for ``"edm"`` (where "sum" stays sampling-time inpainting and
+    "concat" conditions the model), or the Brownian bridge for ``"bridge"``,
+    whose cond must be "concat": the source image is the bridge's endpoint
+    and the model's input."""
     size, chans = preset._grid() if preset.is_latent else (image_size, preset.in_channels)
     if preset.process == "flow":
         return FlowMatching.create(image_size=size, in_channels=chans, cond_type=cond_type)
+    if preset.process == "edm":
+        return EDMProcess.create(image_size=size, in_channels=chans, cond_type=cond_type)
+    if preset.process == "bridge":
+        assert cond_type == "concat", (
+            f"bridge presets are paired translation: cond_type must be 'concat' (the source "
+            f"image), got {cond_type!r}")
+        return BrownianBridge.create(image_size=size, in_channels=chans, timesteps=timesteps,
+                                     cond_type=cond_type)
     assert preset.process == "ddpm", preset.process
     return GaussianDiffusion.create(timesteps=timesteps, image_size=size, in_channels=chans,
                                     cond_type=cond_type, objective=preset.objective,

@@ -14,9 +14,12 @@ the bar (from 0.9 down, train.py:100,133-155) and periodic ``steps_<n>``
 checkpoints under ``logs/<basename of --dir>``; ``--resume`` continues the step counter, the
 LR schedule and the EMA cadence; SIGTERM finishes the step in flight,
 checkpoints and exits. Every UNet and DiT preset of the port trains, with the
-DDPM chain or rectified flow (``dit256``, ``flow64``, ``tiny-dit``,
-``tiny-flow``, ...); a flow preset previews with ``--preview_sampler flow``,
-which it forces. A latent preset (``latent256-cr``, ``tiny-latent``, ...)
+DDPM chain, rectified flow (``dit256``, ``flow64``, ``tiny-dit``,
+``tiny-flow``, ...), EDM (``edm64``, ``tiny-edm``, ``tiny-dit-edm``) or the
+Brownian bridge (``bridge64``, ``tiny-bridge``, ``tiny-latent-bridge``, on
+paired data: the concat cond is the bridge's source); a flow, EDM or bridge
+preset previews with its process's own sampler (``--preview_sampler flow``,
+which it forces). A latent preset (``latent256-cr``, ``tiny-latent``, ...)
 first loads its float32 first stage from ``<ckpt dir>/ae`` or ``--ae_ckpt``,
 or trains it for ``--ae_steps`` on the train split's images and saves it
 there, then trains the denoiser on the encoded grid (the concat cond
@@ -219,12 +222,14 @@ def main(args):
 
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
-    # flow presets preview by ODE integration; the DDPM chain has no ODE
-    # integrator, so fail before the first preview hours in
-    if args.preview_sampler == "flow" and preset.process != "flow":
-        raise SystemExit(f"--preview_sampler flow requires a flow-process preset; "
-                         f"{preset.name} trains the DDPM chain (use ddpm/ddim)")
-    preview_sampler = "flow" if preset.process == "flow" else args.preview_sampler
+    # flow, EDM and bridge presets preview with their process's own .sample;
+    # the DDPM chain has none, so fail before the first preview hours in
+    native = preset.process in ("flow", "edm", "bridge")
+    if args.preview_sampler == "flow" and not native:
+        raise SystemExit(f"--preview_sampler flow requires a flow-process preset (a flow, "
+                         f"EDM or bridge process); {preset.name} trains the DDPM chain "
+                         f"(use ddpm/ddim)")
+    preview_sampler = "flow" if native else args.preview_sampler
     dataset = args.dataset or preset.dataset
     factory = DATASET_FACTORIES[dataset]
     image_size = args.image_size or preset.image_size

@@ -3,9 +3,10 @@
 Counterpart of ``eo_diffusion_tpu/diffusion/latent.py`` (the CompVis
 ``LatentDiffusion`` capability, reference ``diffusion/ddpm.py:628-692, 954,
 834``): images are encoded by a frozen first stage, the inner process
-(:class:`GaussianDiffusion` or :class:`FlowMatching`, sized to the latent
-grid) trains and samples in latent space, and samples decode back to pixels.
-Conditioning images ride the same encoder.
+(:class:`GaussianDiffusion`, :class:`FlowMatching`, :class:`EDMProcess` or
+:class:`BrownianBridge`, sized to the latent grid) trains and samples in
+latent space, and samples decode back to pixels. Conditioning images ride
+the same encoder; the latent bridge's endpoint is the encoded source.
 
 :class:`LatentDiffusion` offers the surface of the process it wraps that the
 :class:`~eo_diffusion_torch.train.trainer.Trainer` and the CLIs touch
@@ -29,6 +30,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from eo_diffusion_torch.diffusion.bridge import BrownianBridge
+from eo_diffusion_torch.diffusion.edm import EDMProcess
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import DenoiseFn, DiffusionOutput, GaussianDiffusion
 
@@ -50,7 +53,7 @@ class LatentDiffusion:
         cond-stage-is-first-stage mode, ddpm.py:954), as the latent CLIs do.
     """
 
-    diffusion: Union[GaussianDiffusion, FlowMatching]
+    diffusion: Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge]
     encode_fn: Callable[[torch.Tensor], torch.Tensor]
     decode_fn: Callable[[torch.Tensor], torch.Tensor]
     scale_factor: float = 1.0
@@ -128,8 +131,10 @@ class LatentDiffusion:
 
     def sample(self, model_fn: DenoiseFn, n_samples: int, *, cond=None, y=None,
                encode_cond: Optional[bool] = None, uncond=None, **kw) -> DiffusionOutput:
-        """The inner process's own sampler (the rectified-flow ODE), in latent
-        space, decoded."""
+        """The inner process's own sampler (the rectified-flow ODE, EDM's
+        Heun, the bridge's posterior walk from the encoded source), in latent
+        space, decoded. An ``uncond`` is encoded and passed on only when
+        given: the bridge takes none."""
         c = self._cond(cond, encode_cond)
         if uncond is not None:
             kw["uncond"] = self._cond(uncond, encode_cond)

@@ -1,15 +1,16 @@
-"""Tiled (fold/unfold) DDIM and flow sampling for EO scenes larger than the
-training patch.
+"""Tiled (fold/unfold) DDIM, flow and bridge sampling for EO scenes larger
+than the training patch.
 
-Counterpart of the DDPM and flow parts of ``eo_diffusion_tpu/diffusion/tiled.py``
-(l.39-395), a re-design of the CompVis LatentDiffusion sliding-window
-``apply_model`` (reference ``diffusion/ddpm.py:727-777, 1020-1121``): the
-denoiser trained on ``tile`` x ``tile`` patches runs over an overlapping
-tile grid of a larger scene, and the per-tile predictions are blended with
-smooth border-distance weights before every reverse step, so the
-full-scene trajectory stays coherent across seams. :func:`tiled_flow_sample`
+Counterpart of ``eo_diffusion_tpu/diffusion/tiled.py``, a re-design of the
+CompVis LatentDiffusion sliding-window ``apply_model`` (reference
+``diffusion/ddpm.py:727-777, 1020-1121``): the denoiser trained on ``tile`` x
+``tile`` patches runs over an overlapping tile grid of a larger scene, and
+the per-tile predictions are blended with smooth border-distance weights
+before every reverse step, so the full-scene trajectory stays coherent
+across seams. :func:`tiled_flow_sample`
 stitches a rectified-flow model's velocities the same way and integrates them
-with Euler or Heun steps.
+with Euler or Heun steps, and :func:`tiled_bridge_sample` a Brownian-bridge
+model's residuals, walking the bridge posterior from the source scene.
 
 The tile grid is one flat index of the scene's pixels: :func:`unfold` is
 one gather along it and :func:`fold` one scatter-add (``index_add_``), each
@@ -23,8 +24,7 @@ Classifier-free guidance (``guidance_scale``, ``guidance_rescale``,
 ``uncond``, ``y_uncond``) doubles each chunk of tiles through the shared
 guidance points of ``diffusion/gaussian.py``; a stateful denoiser
 (``model_state``, DeepCache) keeps one state per chunk of ``tile_batch``
-tiles, each chunk a fixed subset of the tiles. Not ported yet, and raising
-when asked for: ``tiled_bridge_sample`` (ROADMAP queue 11).
+tiles, each chunk a fixed subset of the tiles.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.core.schedules import make_ddim_schedule
+from eo_diffusion_torch.diffusion.bridge import BrownianBridge
 from eo_diffusion_torch.diffusion.flow import FlowMatching, time_grid
 from eo_diffusion_torch.diffusion.gaussian import (
     DenoiseFn,
@@ -297,6 +298,48 @@ def tiled_flow_sample(flow: FlowMatching, model_fn: DenoiseFn, n_samples: int, h
     return DiffusionOutput(x=x)
 
 
-def tiled_bridge_sample(*args, **kwargs):
-    """Tiled sampling of a diffusion bridge: not ported yet."""
-    raise NotImplementedError("tiled_bridge_sample: not ported yet (ROADMAP queue 11)")
+def tiled_bridge_sample(bridge: BrownianBridge, model_fn: DenoiseFn, n_samples: int,
+                        height: int, width: int, *, device,
+                        generator: Optional[torch.Generator] = None, num_steps: int = 25,
+                        overlap: float = 0.5, tile_batch: Optional[int] = None,
+                        cond: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                        eta: float = 0.0, clip: bool = True,
+                        dtype: torch.dtype = torch.float32, noise_fn: Optional[NoiseFn] = None,
+                        model_state=None) -> DiffusionOutput:
+    """Paired translation of a ``height`` x ``width`` scene on the Brownian
+    bridge with a model trained on ``bridge.image_size`` tiles (JAX
+    ``tiled_bridge_sample``, ``diffusion/tiled.py:398-464``).
+
+    ``cond`` is the required full-scene source (the cloudy scene): x starts
+    at it, each tile carries its slice of it into the model (the concat
+    cond of :func:`make_tiled_denoiser`), and the tiles' residual
+    predictions are stitched like :func:`tiled_flow_sample`'s velocities (a
+    residual is linear, so the weighted mean of the tiles' is the stitched
+    field's). The posterior step then runs once on the whole scene, with the
+    grid and the algebra of ``BrownianBridge.strided_grid`` and
+    ``posterior_step``. ``clip`` clamps x0_hat to [-1, 1]; ``eta`` scales
+    the posterior noise (``noise_fn(i, "eta")``; nothing is drawn at 0).
+    ``model_state`` as in :func:`tiled_ddim_sample`.
+    """
+    assert cond is not None, "bridge sampling requires the source scene (cond)"
+    tile = bridge.image_size
+    grid = make_tile_grid(height, width, tile, overlap)
+    shape = (n_samples, height, width, bridge.in_channels)
+    num_steps, t_seq, m_seq, d_seq = bridge.strided_grid(num_steps)
+    yf = cond.to(device=device, dtype=torch.float32).expand(shape)
+    denoise_tiles = make_tiled_denoiser(
+        model_fn, grid, tile, n_samples, cond=yf if bridge.cond_type == "concat" else None,
+        y=y, tile_batch=tile_batch, model_state=model_state)
+    x = yf.clone()  # x_{T-1} = y exactly; a copy, never a view of cond
+    for i in range(num_steps):
+        pred = fold(denoise_tiles(unfold(x.to(dtype), grid), int(t_seq[i]), i), grid)
+        x0_hat = x - pred
+        if clip:
+            x0_hat = torch.clamp(x0_hat, -1.0, 1.0)
+        mean, var = bridge.posterior_step(x, x0_hat, yf, m_seq[i], m_seq[i + 1], d_seq[i],
+                                          d_seq[i + 1])
+        if eta != 0.0:
+            noise = _draw(noise_fn, generator, i, "eta", shape, device)
+            mean = mean + float(np.float32(eta) * np.sqrt(var)) * noise
+        x = mean
+    return DiffusionOutput(x=x)

@@ -82,9 +82,10 @@ class UNetConfig:
     use_new_attention_order: bool = False
     dtype: torch.dtype = torch.float32  # compute dtype (params stay float32)
     attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
+    # a later slice of the port; the constructor raises when it is set
+    context_dim: int = 0
     class_dropout_prob: float = 0.0  # > 0 adds the CFG null-class row
     # later slices of the port; the constructor raises when they are set
-    context_dim: int = 0
     dual_time: bool = False
     freeu: Optional[Tuple[float, float, float, float]] = None
 

@@ -171,7 +171,8 @@ def load_ae(ae_dir: str, device=None) -> Tuple[ConvAutoencoder, float]:
     if not os.path.isfile(path) and os.path.isdir(os.path.join(ae_dir, "params")):
         raise NotImplementedError(
             f"{ae_dir} holds a first stage saved by the JAX package (orbax params/); "
-            "reading JAX checkpoints is not ported yet (ROADMAP queue 8b)")
+            "convert it with tools/jax_ckpt_to_torch.py (--preset with the denoiser's "
+            "checkpoint), which writes the port's params.pt and ae_meta.json")
     scale = meta.pop("scale_factor")
     model = ConvAutoencoder(AutoencoderConfig(**meta))
     model.load_state_dict(torch.load(path, map_location="cpu"), strict=True)

@@ -21,18 +21,21 @@ optimizer and the EMA update, in that order. What it keeps of the JAX trainer:
   ``n = step // ema_every``, applied when ``step % ema_every == 0`` on the
   step before it is incremented.
 
-The process is the DDPM chain (:class:`GaussianDiffusion`) or rectified flow
-(:class:`FlowMatching`), either one in pixels or wrapped in
-:class:`LatentDiffusion` (a frozen first stage encodes the batch, previews
-decode), the backbone a UNet or a DiT: the loss goes through the process's
-``train_loss`` as in JAX's ``loss_fn``. The backbone is built from its config
-for the grid it sees (the latent grid for a latent process), so :meth:`init`
-encodes nothing. Checkpoints carry ``{"model", "model_ema", "opt_state",
-"step", ...}`` (:mod:`eo_diffusion_torch.train.checkpoint`); a first stage
-is saved apart (:mod:`eo_diffusion_torch.train.ae_trainer`). The sharded and
-pipelined layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon
-optimizer and MoE backbones belong to later slices of the port; the
-constructor raises for them and names the ROADMAP queue.
+The process is the DDPM chain (:class:`GaussianDiffusion`), rectified flow
+(:class:`FlowMatching`), EDM (:class:`EDMProcess`) or the Brownian bridge
+(:class:`BrownianBridge`, whose concat cond is also its endpoint), in pixels
+or wrapped in :class:`LatentDiffusion` (a frozen first stage encodes the
+batch, previews decode), the backbone a UNet or a DiT: the loss goes through
+the process's ``train_loss`` as in JAX's ``loss_fn``. A flow, EDM or bridge
+process previews with its own ``.sample`` (``preview_sampler="flow"``). The
+backbone is built from its config for the grid it sees (the latent grid for a
+latent process), so :meth:`init` encodes nothing. Checkpoints carry
+``{"model", "model_ema", "opt_state", "step", ...}``
+(:mod:`eo_diffusion_torch.train.checkpoint`); a first stage is saved apart
+(:mod:`eo_diffusion_torch.train.ae_trainer`). The sharded and pipelined
+layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon optimizer and
+MoE backbones belong to later slices of the port; the constructor raises
+for them and names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from eo_diffusion_torch.diffusion.bridge import BrownianBridge
+from eo_diffusion_torch.diffusion.edm import EDMProcess
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.latent import LatentDiffusion
@@ -80,27 +85,29 @@ class TrainerConfig:
     # k micro-steps average into one optimizer update (reference lucidrains
     # trainer's gradient_accumulate_every)
     grad_accum: int = 1
+    # the sharded layouts, MoE and Muon: later slices of the port, with the
+    # JAX defaults; the Trainer raises when one leaves its default
+    fsdp: bool = False
+    fsdp_min_size: int = 2**16
+    tp: bool = False
+    ep: bool = False
+    sp: bool = False
+    moe_aux_weight: float = 0.01
+    optimizer: str = "adamw"
+    muon_lr_mult: float = 1.0
     # drop updates with a non-finite gradient instead of poisoning the run
     skip_nonfinite: bool = False
     # global-norm gradient clipping (0 = off, reference parity)
     grad_clip: float = 0.0
     # periodic-preview sampler (Trainer.sample): the reference previews with
     # the full DDPM chain; "ddim" with ~50 steps is far cheaper at 256 px;
-    # "dpm" is DPM-Solver++(2M); "flow" integrates a FlowMatching process's ODE
+    # "dpm" is DPM-Solver++(2M); "flow" is the native sampler of a flow, EDM
+    # or bridge process (its ``.sample``)
     preview_sampler: str = "ddpm"  # "ddpm" | "ddim" | "dpm" | "flow"
     preview_steps: int = 50
-    optimizer: str = "adamw"
-    # later slices of the port, with the JAX defaults; the Trainer raises when
-    # one leaves its default
-    fsdp: bool = False
-    fsdp_min_size: int = 2**16
-    tp: bool = False
-    sp: bool = False
-    ep: bool = False
+    # the pipeline schedule: a later slice of the port
     pp_micro: int = 0
     pp_virtual: int = 1
-    moe_aux_weight: float = 0.01
-    muon_lr_mult: float = 1.0
 
 
 # option -> the ROADMAP queue that ports it
@@ -172,7 +179,8 @@ class Trainer:
     """
 
     def __init__(self, cfg: TrainerConfig, model: nn.Module,
-                 diffusion: Union[GaussianDiffusion, FlowMatching, LatentDiffusion],
+                 diffusion: Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
+                                  LatentDiffusion],
                  steps_per_epoch: int, device=None):
         for name, queue in _LATER.items():
             if getattr(cfg, name) != getattr(TrainerConfig, name):
@@ -184,17 +192,20 @@ class Trainer:
         if getattr(getattr(model, "config", None), "num_experts", 0):
             raise NotImplementedError("MoE backbones are not ported yet (ROADMAP queue 13)")
         inner = diffusion.diffusion if isinstance(diffusion, LatentDiffusion) else diffusion
-        if not isinstance(inner, (GaussianDiffusion, FlowMatching)):
-            raise NotImplementedError(f"{type(inner).__name__} processes are not ported yet "
-                                      "(ROADMAP queue 11)")
+        if not isinstance(inner, (GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge)):
+            raise NotImplementedError(f"{type(inner).__name__} processes are not ported yet")
         if cfg.preview_sampler not in ("ddpm", "ddim", "dpm", "flow"):
             raise ValueError(f"unknown preview_sampler {cfg.preview_sampler!r}")
-        # a latent flow is a flow: its loss takes float times, its previews the ODE
-        self.is_flow = isinstance(inner, FlowMatching)
-        if self.is_flow != (cfg.preview_sampler == "flow"):
-            # FlowMatching has no DDPM/DDIM chain, the DDPM process no ODE
+        # a flow, EDM or bridge process samples with its own .sample (the
+        # "flow" preview), a latent one too; flow times and EDM sigmas are
+        # floats, the DDPM chain's and the bridge's steps integers
+        native = isinstance(inner, (FlowMatching, EDMProcess, BrownianBridge))
+        self.float_t = isinstance(inner, (FlowMatching, EDMProcess))
+        if native != (cfg.preview_sampler == "flow"):
+            # the native samplers have no DDPM/DDIM chain, the DDPM process no .sample
             raise ValueError(f"preview_sampler {cfg.preview_sampler!r} does not sample a "
-                             f"{type(inner).__name__} process (flow needs flow)")
+                             f"{type(inner).__name__} process (flow needs flow, and EDM "
+                             f"and the bridge preview with it too)")
         self.cfg, self.model, self.diffusion = cfg, model, diffusion
         self.device = torch.device(device) if device is not None else (
             next(model.parameters()).device)
@@ -247,7 +258,8 @@ class Trainer:
         """The training loss of one batch: a dict with "image" [N,H,W,C] and
         optionally "cond", "label", a fixed "noise" (the paired eps of a
         ReFlow batch too) and fixed timesteps "t" (integer steps of the DDPM
-        chain, or flow times in [0, 1]; numpy arrays or tensors)."""
+        chain or the bridge, flow times in [0, 1] or EDM sigmas; numpy
+        arrays or tensors)."""
         cfg = self.cfg
         cond = self._to_device(batch.get("cond")) if self.use_cond else None
         y = (self._to_device(batch.get("label"), torch.long)
@@ -261,7 +273,7 @@ class Trainer:
         return self.diffusion.train_loss(
             model_fn, self._to_device(batch["image"]), generator=self._gen, cond=cond, y=y,
             noise=self._to_device(batch.get("noise")),
-            t=self._to_device(batch.get("t"), torch.float32 if self.is_flow else torch.long))
+            t=self._to_device(batch.get("t"), torch.float32 if self.float_t else torch.long))
 
     def step(self, state: TrainState, batch: dict):
         """One micro-step: loss, backward, (clipped, accumulated, finite-

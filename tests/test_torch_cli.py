@@ -66,8 +66,8 @@ def test_unported_presets_and_datasets_raise(tmp_path):
     from eo_diffusion_torch.cli import inference
     from eo_diffusion_torch.cli.presets import get_preset
 
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        get_preset("tiny-latent-bridge")
+    with pytest.raises(NotImplementedError, match="queue 12"):
+        get_preset("tiny-meanflow")
     with pytest.raises(ValueError):
         get_preset("no-such-preset")
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
@@ -146,7 +146,7 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
         with pytest.raises(SystemExit) as exc:
             inference.parse_args(["--preset", "tiny", *argv])
         assert exc.value.code == 2 and f"queue {queue}" in capsys.readouterr().err
-    for name, queue in (("tiny-latent-bridge", 11), ("tiny-dit-edm", 11), ("moe-dit64", 13)):
+    for name, queue in (("tiny-meanflow", 12), ("tiny-dit-meanflow", 12), ("moe-dit64", 13)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             get_preset(name)
 

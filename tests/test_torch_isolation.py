@@ -1,7 +1,10 @@
-"""The port stands alone: neither eo_diffusion_torch nor chip_smoke.py imports
-JAX, its libraries or the JAX package, no source of it (C++ and CUDA
-included) names a path under the JAX package or native/ for its code to
-open, and the package imports with JAX made unimportable."""
+"""The port stands alone: neither eo_diffusion_torch nor chip_smoke.py, the
+root wrappers train_torch.py and inference_torch.py or the demos of
+examples/torch/ import JAX, its libraries or the JAX package, no source of
+it (C++ and CUDA included) names a path under the JAX package or native/ for
+its code to open, and the package imports with JAX made unimportable. The
+one stated exception is tools/jax_ckpt_to_torch.py, which bridges the two
+packages' checkpoints and which no module of the port imports."""
 
 import ast
 import os
@@ -16,8 +19,14 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "eo_diffusion_tpu")
 
 
+# the converter of JAX checkpoints: it imports both packages by design
+BRIDGE = ROOT / "tools" / "jax_ckpt_to_torch.py"
+
+
 def _sources():
-    return sorted((ROOT / "eo_diffusion_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "eo_diffusion_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + [ROOT / "train_torch.py", ROOT / "inference_torch.py"]
+            + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def _imported_roots(path: Path):
@@ -56,8 +65,24 @@ def test_the_guidance_modules_are_checked():
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for mod in ("diffusion/dpm_solver.py", "diffusion/unipc.py", "diffusion/deepcache.py",
                 "diffusion/pag.py", "diffusion/autoguide.py", "diffusion/edit.py",
-                "train/posthoc_ema.py"):
+                "train/posthoc_ema.py", "diffusion/edm.py", "diffusion/bridge.py"):
         assert f"eo_diffusion_torch/{mod}" in names, mod
+
+
+def test_the_entry_points_and_demos_are_checked():
+    """The root wrappers and the four demos are among the sources checked;
+    the JAX-checkpoint converter is the one file that imports both packages,
+    outside both, and nothing of the port imports it."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for f in ("train_torch.py", "inference_torch.py", *(
+            f"examples/torch/{d}_demo.py"
+            for d in ("cloud_removal", "change_pair", "inpainting", "modern_stack"))):
+        assert f in names, f
+    assert BRIDGE.relative_to(ROOT).as_posix() not in names
+    roots = set(_imported_roots(BRIDGE))
+    assert {"jax", "eo_diffusion_tpu"} <= roots and "eo_diffusion_torch" in roots
+    for path in _sources():
+        assert not {"tools", "jax_ckpt_to_torch"} & set(_imported_roots(path)), path
 
 
 # a path component naming the JAX package or its native/ library directory

@@ -197,7 +197,7 @@ def test_save_load_round_trip_and_orbax_refusal(tmp_path, twin):
     with open(jdir / "ae_meta.json", "w") as f:
         json.dump(meta, f)
     assert TAT.ae_exists(str(jdir))
-    with pytest.raises(NotImplementedError, match="queue 8b"):
+    with pytest.raises(NotImplementedError, match="tools/jax_ckpt_to_torch.py"):
         TAT.load_ae(str(jdir))
 
 

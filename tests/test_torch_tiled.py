@@ -158,7 +158,7 @@ def _normal(key, shape):
 def test_tile_batch_chunks_and_refusals(models):
     """Chunks of tile_batch tiles give the flat batch's model outputs, with
     CFG too; a stateful denoiser keeps one state a chunk; the tiled bridge
-    still raises naming ROADMAP queue 11."""
+    refuses to run without its source scene."""
     _, tfn = models
     td = TGD.create(timesteps=50, image_size=TILE, in_channels=3)
     g = torch.Generator().manual_seed(0)
@@ -189,5 +189,8 @@ def test_tile_batch_chunks_and_refusals(models):
     n_flat = N * grid.num_tiles  # 12 tiles: chunks of 5, 5 and 2
     assert seen == [(5, 0, 0), (5, 0, 0), (n_flat - 10, 0, 0), (5, 1, 1), (5, 1, 1),
                     (n_flat - 10, 1, 1)]
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        TT.tiled_bridge_sample(None, tfn, None, N, H, W)
+    from eo_diffusion_torch.diffusion.bridge import BrownianBridge
+
+    with pytest.raises(AssertionError, match="source scene"):
+        TT.tiled_bridge_sample(BrownianBridge.create(TILE, timesteps=50), tfn, N, H, W,
+                               device="cpu")

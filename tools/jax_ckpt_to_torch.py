@@ -1,0 +1,139 @@
+"""Convert a checkpoint the JAX package trained into one the PyTorch port reads.
+
+    python tools/jax_ckpt_to_torch.py --preset sen12mscr256 \\
+        --ckpt logs/run/steps_00010000 --out logs/run_torch/steps_00010000
+
+The JAX training CLI saves orbax directories (``logs/<run>/steps_<n>``,
+``best``); the port's ``--ckpt`` and ``train.checkpoint.restore_params``
+read one ``torch.save`` file. This script restores the JAX checkpoint's
+``params`` and ``ema_params`` with ``eo_diffusion_tpu.train.checkpoint.
+restore_params`` against a template built from the preset's JAX model (a
+checkpoint of another shape is refused), converts both with the port's
+``weights.state_dict_from_jax_params`` (UNet) or
+``dit_state_dict_from_jax_params`` (DiT), and writes ``{"model",
+"model_ema"}`` at ``--out``. The backbone is the preset's, as the CLIs build
+it: ``--num_classes``, ``--class_dropout``, ``--model_base_dim`` and
+``--image_size`` override the preset as there, and ``--cond_channels`` the
+concat cond's channels (by default the image's, as on the image datasets
+with a paired view). For a latent preset it
+also converts the first stage the JAX run saved (``--ae_ckpt``, default
+``ae`` beside ``--ckpt``: orbax ``params/`` and ``ae_meta.json``) with
+``ae_state_dict_from_jax_params`` into ``ae`` beside ``--out``, the
+``params.pt`` and ``ae_meta.json`` that ``ae_trainer.load_ae`` reads.
+
+It imports both packages and runs on the CPU; neither package imports it.
+"""
+
+import argparse
+import dataclasses
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+import numpy as np
+
+
+def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
+            class_dropout: float = 0.0, model_base_dim=None, image_size=None,
+            cond_channels=None, ae_ckpt=None) -> dict:
+    """Convert ``ckpt`` (a JAX orbax training checkpoint of ``preset_name``)
+    into the port's checkpoint file ``out``; returns ``{"out", "config",
+    "ae"}``: the file, the port's backbone config and the converted first
+    stage's directory (None for a pixel preset)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from eo_diffusion_torch.cli import presets as TP
+    from eo_diffusion_torch.models.dit import DiTConfig
+    from eo_diffusion_torch.weights import (dit_state_dict_from_jax_params,
+                                            state_dict_from_jax_params)
+    from eo_diffusion_tpu.cli import presets as JP
+    from eo_diffusion_tpu.train.checkpoint import restore_params
+
+    jpre, tpre = JP.get_preset(preset_name), TP.get_preset(preset_name)
+    for pre in (jpre, tpre):
+        pre.image_size = image_size or pre.image_size
+        pre.base_dim = model_base_dim or pre.base_dim
+    n_cls = num_classes or tpre.num_classes or None
+    drop = class_dropout or tpre.class_dropout
+    grid_ch = tpre.latent_channels if tpre.is_latent else tpre.in_channels
+    if cond_channels is None:  # a concat cond as the CLIs build it on the image datasets
+        cond_channels = grid_ch if tpre.cond_type == "concat" else 0
+    # the template: the preset's JAX model, as the JAX sampling CLI builds it
+    jcfg = jpre.model_config(num_classes=n_cls, bf16=False, cond_channels=cond_channels,
+                             class_dropout_prob=drop)
+    size = jcfg.image_size
+    kw = {"cond": jnp.zeros((1, size, size, cond_channels))} if cond_channels else {}
+    if n_cls:
+        kw["y"] = jnp.zeros((1,), jnp.int32)
+    template = jax.eval_shape(JP.build_denoiser(jcfg).init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, size, size, grid_ch)), jnp.zeros((1,)), **kw)
+    params, ema_params = restore_params(ckpt, template)
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
+    for tree in (params, ema_params):
+        if shapes(tree) != shapes(template):
+            raise SystemExit(f"{ckpt} does not hold {preset_name}'s model with "
+                             f"{cond_channels} cond channels and num_classes {n_cls} "
+                             "(check --cond_channels, --num_classes, --class_dropout, "
+                             "--model_base_dim, --image_size)")
+    tcfg = tpre.model_config(bf16=False, cond_channels=cond_channels, num_classes=n_cls,
+                             class_dropout_prob=drop)
+    to_sd = (dit_state_dict_from_jax_params if isinstance(tcfg, DiTConfig)
+             else state_dict_from_jax_params)
+    as_np = lambda tree: jax.tree.map(np.asarray, tree)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    torch.save({"model": to_sd(as_np(params), tcfg), "model_ema": to_sd(as_np(ema_params), tcfg)},
+               out)
+    ae_out = None
+    if tpre.is_latent:
+        ae_out = _convert_ae(ae_ckpt or os.path.join(os.path.dirname(os.path.abspath(ckpt)),
+                                                     "ae"),
+                             os.path.join(os.path.dirname(os.path.abspath(out)), "ae"))
+    return {"out": out, "config": tcfg, "ae": ae_out}
+
+
+def _convert_ae(src: str, dst: str) -> str:
+    """The JAX first stage at ``src`` into the port's layout at ``dst``."""
+    import jax
+
+    from eo_diffusion_torch.models.autoencoder import AutoencoderConfig, ConvAutoencoder
+    from eo_diffusion_torch.train import ae_trainer as TAT
+    from eo_diffusion_torch.weights import ae_state_dict_from_jax_params
+    from eo_diffusion_tpu.train import ae_trainer as JAT
+
+    jmodel, params, scale = JAT.load_ae(src)
+    meta = {k: v for k, v in dataclasses.asdict(jmodel.config).items() if k != "dtype"}
+    cfg = AutoencoderConfig(**meta)
+    model = ConvAutoencoder(cfg)
+    model.load_state_dict(ae_state_dict_from_jax_params(jax.tree.map(np.asarray, params), cfg),
+                          strict=True)
+    return TAT.save_ae(dst, cfg, model, scale)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", required=True, help="the preset the JAX run trained")
+    ap.add_argument("--ckpt", required=True, help="the JAX orbax checkpoint directory")
+    ap.add_argument("--out", required=True, help="the port's checkpoint file to write")
+    ap.add_argument("--num_classes", type=int, default=0)
+    ap.add_argument("--class_dropout", type=float, default=0.0)
+    ap.add_argument("--model_base_dim", type=int, default=None)
+    ap.add_argument("--image_size", type=int, default=None)
+    ap.add_argument("--cond_channels", type=int, default=None,
+                    help="the concat cond's channels (default: the image's, or the latent "
+                         "grid's, for a concat preset; 0 otherwise)")
+    ap.add_argument("--ae_ckpt", type=str, default=None,
+                    help="latent presets: the JAX first stage (default: 'ae' beside --ckpt)")
+    args = ap.parse_args(argv)
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    res = convert(args.preset, args.ckpt, args.out, args.num_classes, args.class_dropout,
+                  args.model_base_dim, args.image_size, args.cond_channels, args.ae_ckpt)
+    print(f"wrote {res['out']}"
+          + (f" and the first stage {res['ae']}" if res["ae"] else ""))
+    return res
+
+
+if __name__ == "__main__":
+    main()
