@@ -22,6 +22,10 @@ Phases, in order; the first failure exits non-zero:
    backward shape (TOL_BWD of max(rms, |plain|), TOL_BWD_L2; the faults: its
    gradients 1 % off, one streamed query tile of the KV pass dropped), with
    the mma.sync backward timed beside it, head dims 160 and 256 included.
+   The wide kernels (attention_wide.cu: head dims above 256 in bf16 and 128
+   in float32, T up to 1024) are held the same way through the same entries
+   at inria64's middle attention (B8 forward, B16 backward, T 64, one head of
+   D 1024, bf16) and at a ragged float32 shape (T 130, D 136).
    GroupNorm runs the one-launch body (group_norm_sm90.cu) at the clouds
    UNet's level shapes: its statistics are held against float64
    (TOL_GN_STATS), a chunk of rows lost from the combine is planted at three
@@ -90,7 +94,24 @@ Phases, in order; the first failure exits non-zero:
    tiles of 64) through the kernels against the all-plain model
    (TOL_SOLVER_REL, the final samples' relative L2); the change-pair and
    inpainting demos of ``examples/torch`` at ``unet_clouds(64)``, DDIM-5 on
-   the card, their files written;
+   the card, their files written; 5h. classifier guidance and DDNM
+   restoration at ``synthetic64``'s width: K1 with the lse, K4 and K5 at the
+   float32 classifier's shapes (B8 T256 H4 D48, B8 T64 H4 D64, its level
+   shapes at N8) against their plain versions; ``cli.train_classifier
+   --class_correlated`` at the preset's batch (128), 6 steps (2 K1, 2 K4, 15
+   K5 each way a step); the classifier's input gradient at b8 inside
+   ``torch.inference_mode()`` against the all-plain classifier (rel L2 <=
+   TOL_UNET_GRAD_REL); guided DDIM-50 at b8 through ``cli.inference
+   --classifier_ckpt --classifier_scale`` beside the unguided run (img/s of
+   the second batch; a guided step 7 + 2 K1, 2 K4, 36 + 15 K5 forward, 15
+   backward), and the guided sampler against the all-plain denoiser and
+   classifier from one start (TOL_SOLVER_REL, 5g's: DDIM eta 0 on the same
+   64 px UNet, so the same carried error, and a float32 gradient that parts
+   from plain's by about 1e-7); ``cli.restore`` sr4, inpaint and colorize on
+   ``synthetic64`` and inpaint on ``inria64`` (whose one attention, T 64 D
+   1024, launches the wide kernel), DDNM-50 at b8, each with
+   ``||A(x) - y|| / ||y|| <= TOL_DDNM_RANGE`` and against the all-plain model
+   from one start and the same draws (TOL_SOLVER_REL);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -113,8 +134,9 @@ Phases, in order; the first failure exits non-zero:
    cache's gather on the card against numpy; 7d. ``cli.train --preset
    dit256`` at full width and depth, batch 16, bf16, 8 steps (K1 with lse
    and K4 12 a step each, nothing else), its checkpoint restored and sampled
-   by ``cli.inference --sampler flow`` (Heun-8), then ``flow64`` and
-   ``dit64`` for 4 steps each, the launches as their forwards give them;
+   by ``cli.inference --sampler flow`` (Heun-8), then ``flow64``, ``dit64``
+   and ``inria64`` (the wide kernels both ways) for 4 steps each, the
+   launches as their forwards give them;
    7e. evaluation: ``cli.inference --metrics --samples_fid`` on 7c's
    checkpoint and test split, ``metrics.txt`` against SSIM/PSNR recomputed
    on the CPU from the same samples; ``cli.evaluate --extractor offline``
@@ -262,6 +284,18 @@ TOL_UNET_GRAD_REL = 1e-2
 # ds 4 / ds 8 give T 256 / 64 at 64 px and 4096 / 1024 at 256 px (all
 # fused-qkv), 9216 / 2304 at 384 (neither), 16384 / 4096 at 512 (ds 8 only)
 ROUTES = {64: (11, 0), 256: (11, 0), 384: (0, 11), 512: (6, 5)}
+# a forward's attention launches by kernel for each UNet the script drives,
+# by (image size, base width, channel mults, attention resolutions). The
+# (T, D) of its blocks (UNetPlan.attention_shapes) and the kernels' ranges
+# give them: the fused-qkv entry K1 takes D <= 128 at these T; the wide
+# kernel takes D above 256 (bf16) at T <= 1024, so inria64's one attention
+# (the middle block, T 64, one head of D 1024) launches it
+UNET_ATTN = {
+    (64, 64, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 7},      # synthetic64, flow64, edm64, ...
+    (64, 128, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 11},    # unet_clouds(64)
+    (256, 128, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 11},   # sen12mscr256
+    (64, 128, (1, 2, 4, 8), ()): {"wide_fwd": 1},         # inria64
+}
 # clouds UNet: 22 ResBlocks x 2 norms, 11 attention norms, the output norm
 GN_PER_FORWARD = 56
 # GroupNorm kernel vs plain (both f32 from the same inputs, one rounding):
@@ -417,6 +451,23 @@ TILED_BRIDGE_STEPS = 20
 EDM64_GN_SITES = ((4096, 64, "silu"), (1024, 128, "silu"), (256, 192, "none"), (64, 256, "silu"))
 # the demos at their full-width 64 px config (unet_clouds(64)), DDIM steps
 DEMO_DDIM_STEPS = 5
+
+# phase 5h: classifier guidance and DDNM restoration on synthetic64 (base 64,
+# mults 1/2/3/4, attention at ds 4 and 8, 4 heads). The EncoderUNet
+# classifier computes in float32, as the JAX package's does: K1 (with the
+# lse) and K4 take their float32 bodies at B8 T256 H4 D48 and B8 T64 H4 D64,
+# and its 3x3 convs keep cuDNN's weight gradient (wgrad_route is bf16 only).
+# One classifier forward: 2 K1 and 15 K5 (six ResBlocks with two norms, two
+# attention norms, out_norm); its input gradient mirrors them (2 K4, 15 K5)
+CLF_PRESET = "synthetic64"
+CLF_TRAIN_STEPS = 6  # at the preset's own batch (128)
+CLF_EVAL_N = 256  # cli.train_classifier's default held-out set, one forward a level
+CLF_ATTN, CLF_NORMS = 2, 15
+CLF_SCALE = 2.0
+GUIDED_STEPS = 50  # DDIM-50 at b8, eta 0, two batches, img/s over the second
+RESTORE_STEPS = 50  # DDNM's DDIM steps at b8, eta 0.85
+# DDNM's final projection makes A(x) = y up to float32 rounding
+TOL_DDNM_RANGE = 1e-5
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -667,9 +718,10 @@ def strict_bwd_check(bwd, q, k, v, hchunk, what, gen):
     return row
 
 
-def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
+def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None, tag="flash_fwd"):
     """The separate-tensor forward entry vs plain (with the lse) on one
-    shape, timed without the lse as sampling runs it; returns a result row."""
+    shape, timed without the lse as sampling runs it; returns a result row
+    (printed after ``tag``)."""
     q, k, v = make_planes(b, t, heads, d, dtype, layout, gen)
     chunk = chunk or b
     out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
@@ -685,7 +737,7 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
     del out, lse, ref, ref_lse, diff
     torch.cuda.empty_cache()
     strict = None
-    if dtype == torch.bfloat16:  # the wgmma/TMA body at unit-normal inputs
+    if dtype == torch.bfloat16:  # the bf16 body at unit-normal inputs
         uq, uk, uv = make_planes(b, t, heads, d, dtype, layout, gen, sharpen=False)
         strict = strict_check(lambda: A.flash_attention_cuda(uq, uk, uv), uq, uk, uv, chunk,
                               f"separate-tensor entry at {label}")
@@ -713,7 +765,7 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None):
            "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
-    print("flash_fwd " + json.dumps(row), flush=True)
+    print(f"{tag} " + json.dumps(row), flush=True)
     return row
 
 
@@ -723,11 +775,11 @@ def max_scaled_bwd_err(got, ref, rms):
                for a, w in zip(got, ref))
 
 
-def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk):
+def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk, tag="flash_bwd"):
     """The separate-tensor backward entry vs plain on one shape (o and lse
     from the forward entry), and the mma.sync body on the same tensors (D up
     to 128); the unit-normal check draws from ``ugen``. Returns a result
-    row."""
+    row (printed after ``tag``)."""
     q, k, v = make_planes(b, t, heads, d, dtype, layout, gen)
     dout = torch.randn(b, t, heads, d, generator=gen, device="cuda").to(dtype)
     out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
@@ -750,7 +802,7 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk):
     del got, ref, diff
     torch.cuda.empty_cache()
     strict = None
-    if dtype == torch.bfloat16:  # the wgmma/TMA body at unit-normal inputs
+    if dtype == torch.bfloat16:  # the bf16 body at unit-normal inputs
         uq, uk, uv = make_planes(b, t, heads, d, dtype, layout, ugen, sharpen=False)
         strict = strict_bwd_check(
             lambda o, l, g: A.flash_attention_bwd_cuda(uq, uk, uv, o, l, g), uq, uk, uv,
@@ -781,7 +833,7 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk):
            "plain_heads_a_chunk": hchunk, "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
-    print("flash_bwd " + json.dumps(row), flush=True)
+    print(f"{tag} " + json.dumps(row), flush=True)
     return row
 
 
@@ -800,6 +852,7 @@ def reset_counts():
     A.flash_attention_cuda.launches = A.flash_attention_bwd_cuda.launches = 0
     A.qkv_attention_mma_cuda.launches = A.flash_attention_mma_cuda.launches = 0
     A.qkv_attention_bwd_mma_cuda.launches = A.flash_attention_bwd_mma_cuda.launches = 0
+    A.wide_attention_cuda.launches = A.wide_attention_bwd_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     G.group_norm_fwd_legacy_cuda.launches = G.group_norm_bwd_legacy_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
@@ -819,6 +872,8 @@ def counts():
             "flash_fwd_mma": A.flash_attention_mma_cuda.launches,
             "attn_bwd_mma": A.qkv_attention_bwd_mma_cuda.launches,
             "flash_bwd_mma": A.flash_attention_bwd_mma_cuda.launches,
+            "wide_fwd": A.wide_attention_cuda.launches,
+            "wide_bwd": A.wide_attention_bwd_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
             "gn_fwd_legacy": G.group_norm_fwd_legacy_cuda.launches,
             "gn_bwd_legacy": G.group_norm_bwd_legacy_cuda.launches,
@@ -852,7 +907,7 @@ def expected(size, forwards, backwards=0, cfg=None, batch=None):
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "attn_fwd_mma": 0, "flash_fwd_mma": 0, "attn_bwd_mma": 0, "flash_bwd_mma": 0,
-            "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
+            "wide_fwd": 0, "wide_bwd": 0, "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
             "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": wg["mma"] * backwards,
             "wgrad_sm90": wg["sm90"] * backwards, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
             "transpose": 0, "variant": 0}
@@ -868,20 +923,13 @@ def dit_expected(forwards, backwards=0):
 
 def unet_train_expected(cfg, size, batch, steps):
     """The launch counts of ``steps`` training steps of ``cfg``'s UNet at
-    ``size`` px and ``batch``: the attention and GroupNorm launches one
-    forward gives on the card (read with the counters), forward and backward
-    each step, and the routed 3x3 convs' weight gradients."""
-    model = UNet(dataclasses.replace(cfg, image_size=size)).cuda().eval()
-    x = torch.zeros(1, size, size, cfg.in_channels, device="cuda")
-    with torch.inference_mode():
-        reset_counts()
-        model(x, torch.zeros(1, dtype=torch.long, device="cuda"))
-        per = counts()
-    del model
+    ``size`` px and ``batch``: one forward's attention and GroupNorm
+    launches (:func:`unet_expected`) forward and backward each step, and the
+    routed 3x3 convs' weight gradients."""
+    per = unet_expected(dataclasses.replace(cfg, image_size=size), full=1)
     wg = wgrad_routes(cfg, size, batch, sites=None)
-    return {**{k: 0 for k in per},
-            **{k: per[k] * steps for k in ("attn_fwd", "flash_fwd", "gn_fwd")},
-            "attn_bwd": per["attn_fwd"] * steps, "flash_bwd": per["flash_fwd"] * steps,
+    return {**{k: v * steps for k, v in per.items()},
+            "attn_bwd": per["attn_fwd"] * steps, "wide_bwd": per["wide_fwd"] * steps,
             "gn_bwd": per["gn_fwd"] * steps, "wgrad": wg["mma"] * steps,
             "wgrad_sm90": wg["sm90"] * steps}
 
@@ -1492,7 +1540,8 @@ def run_train_dit(tmp, seed, card):
     batch 16: K1 with the lse and K4 twelve times a step each, nothing
     else; its checkpoint restores and the sampling entry point integrates
     the flow from it (Heun-8). Then ``flow64`` and ``dit64`` a few steps
-    each, with the launches their forwards give."""
+    each, and ``inria64`` (whose middle attention, one head of D 1024, takes
+    the wide kernels both ways), with the launches their forwards give."""
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with contextlib.chdir(tmp):
@@ -1534,7 +1583,7 @@ def run_train_dit(tmp, seed, card):
     res["sample_launches"] = counts()
 
     res["short"] = {}
-    for preset in ("flow64", "dit64"):
+    for preset in ("flow64", "dit64", "inria64"):
         p = get_preset(preset)
         if p.backbone == "dit":
             want = dit_expected(SHORT_STEPS, SHORT_STEPS)
@@ -2142,12 +2191,17 @@ def run_cli(argv, cfg, seed, tmp, ckpt=None):
 def unet_expected(cfg, full=0, partial=0, perturbed=0):
     """The launch counts of ``full`` UNet forwards, ``partial`` DeepCache
     calls (the shallow blocks of the default depth) and ``perturbed`` PAG
-    calls (every norm, no attention) of ``cfg``'s UNet at a size where every
-    attention takes the fused-qkv entry (64 and 256 px)."""
+    calls (every norm, no attention) of ``cfg``'s UNet: the attention
+    launches of a forward from UNET_ATTN (written out, not read from the
+    router), which must cover every attention block of the plan."""
     plan = build_unet_plan(cfg)
     attn, norms = plan.sites()
+    key = (cfg.image_size, cfg.model_channels, tuple(cfg.channel_mult),
+           tuple(cfg.attention_resolutions))
+    per = UNET_ATTN[key]
+    assert sum(per.values()) == attn, (key, per, plan.attention_shapes(cfg.image_size))
     _, shallow = plan.sites(1 + cfg.num_res_blocks)
-    return {**{k: 0 for k in counts()}, "attn_fwd": attn * full,
+    return {**{k: 0 for k in counts()}, **{k: n * full for k, n in per.items()},
             "gn_fwd": norms * (full + perturbed) + shallow * partial}
 
 
@@ -2518,6 +2572,185 @@ def phase_5g(tmp, card):
     return out
 
 
+def clf_expected(forwards=0, grads=0, train_steps=0):
+    """The launch counts of ``forwards`` classifier forwards without
+    autograd, ``grads`` input gradients (a forward with the lse and its
+    backward) and ``train_steps`` training steps (the same kernels as an
+    input gradient; no weight-gradient kernel: the convs are float32)."""
+    with_grad = grads + train_steps
+    return {**{k: 0 for k in counts()}, "attn_fwd": CLF_ATTN * (forwards + with_grad),
+            "attn_bwd": CLF_ATTN * with_grad, "gn_fwd": CLF_NORMS * (forwards + with_grad),
+            "gn_bwd": CLF_NORMS * with_grad}
+
+
+def add_counts(*parts):
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def phase_5h(tmp, card):
+    """Classifier guidance and DDNM restoration at full width: K1 with the
+    lse, K4 and K5 at the float32 classifier's shapes against their plain
+    versions; ``cli.train_classifier --preset synthetic64 --class_correlated``
+    at the preset's batch; the classifier's input gradient at b8 through the
+    kernels against the all-plain classifier; guided DDIM-50 through
+    ``cli.inference --classifier_ckpt --classifier_scale`` beside the
+    unguided run, and the guided sampler against the all-plain denoiser and
+    classifier from one start; ``cli.restore`` for sr4, inpaint and colorize
+    on synthetic64 and inpaint on inria64, each against the all-plain model
+    from one start and draw. Draws from a generator of its own."""
+    from eo_diffusion_torch.cli import restore as cli_restore
+    from eo_diffusion_torch.cli import train_classifier as cli_clf
+    from eo_diffusion_torch.diffusion import inverse as INV
+    from eo_diffusion_torch.diffusion.classifier_guidance import classifier_guided, log_prob_grad
+
+    f32 = torch.float32
+    hgen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"attn_rows": [attention_case(8, 256, 4, 48, f32, False, hgen, with_lse=True),
+                         attention_case(8, 64, 4, 64, f32, False, hgen, with_lse=True)],
+           "bwd_rows": [attention_bwd_case(8, 256, 4, 48, f32, False, hgen, hgen),
+                        attention_bwd_case(8, 64, 4, 64, f32, False, hgen, hgen)],
+           "gn_rows": [gn_case(8, hw, c, 32, act, f32, hgen) for hw, c, act in EDM64_GN_SITES],
+           "runs": {}}
+    torch.cuda.empty_cache()
+
+    # training through the entry point, at the preset's batch
+    pre = get_preset(CLF_PRESET)
+    cdir = os.path.join(tmp, "classifier")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    meta = cli_clf.main(cli_clf.parse_args([
+        "--preset", CLF_PRESET, "--class_correlated", "--steps", str(CLF_TRAIN_STEPS),
+        "--eval_n", str(CLF_EVAL_N), "--dir", cdir, "--device", "cuda"]))
+    got = counts()
+    want = clf_expected(forwards=3, train_steps=CLF_TRAIN_STEPS)
+    assert got == want, (got, want)
+    assert math.isfinite(meta["final_loss"]), meta
+    print(f"5h cli.train_classifier {CLF_PRESET} b{pre.batch_size} f32: {CLF_TRAIN_STEPS} steps "
+          f"at {meta['steps_per_s']:.4f} steps/s after the first, final loss "
+          f"{meta['final_loss']:.5f}, eval accuracy {json.dumps(meta['eval_acc'])}; launches "
+          f"{ {k: v for k, v in got.items() if v} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+    out["runs"]["train"] = {"launches": got, "meta": meta}
+
+    # the input gradient at b8: kernels against the all-plain classifier
+    clf, _ = cli_clf.load_classifier(cdir, "cuda")
+    x = torch.randn(8, 64, 64, 3, generator=hgen, device="cuda")
+    t = torch.randint(0, pre.timesteps, (8,), generator=hgen, device="cuda")
+    y = torch.arange(8, device="cuda") % 5
+    with torch.inference_mode():
+        reset_counts()
+        g_k = log_prob_grad(clf, x, t, y)
+        launched = counts()
+        clf.set_impl(attn="plain", norm="plain")
+        g_p = log_prob_grad(clf, x, t, y)
+        clf.set_impl(attn="auto", norm="auto")
+    assert counts() == launched == clf_expected(grads=1), launched
+    grad_rel = rel_l2(g_k, g_p)
+    assert bool(torch.isfinite(g_k).all()) and grad_rel <= TOL_UNET_GRAD_REL, grad_rel
+    print(f"5h classifier input gradient b8 (K1 with the lse, K4, K5 both ways): rel L2 "
+          f"{grad_rel:.3e} against the all-plain classifier (limit {TOL_UNET_GRAD_REL}); "
+          f"launches {CLF_ATTN} K1 / {CLF_ATTN} K4 / {CLF_NORMS} K5 fwd / {CLF_NORMS} K5 bwd "
+          f"a gradient: {launched}; {card}", flush=True)
+    out["grad"] = {"rel_l2": grad_rel, "launches": launched}
+
+    # guided sampling through the entry point, beside the unguided run
+    cfg = pre.model_config()
+    calls = make_ddim_schedule(GaussianDiffusion.create(timesteps=pre.timesteps).schedule,
+                               GUIDED_STEPS, 0.0).num_steps
+    argv = ["--preset", CLF_PRESET, "--dataset", "synthetic", "--sampler", "ddim",
+            "--sampler_steps", str(GUIDED_STEPS), "--batch_size", "8", "--n_iter", "1",
+            "--device", "cuda"]
+    for tag, extra, want in (
+            ("unguided", [], unet_expected(cfg, full=2 * calls)),
+            ("guided", ["--classifier_ckpt", cdir, "--classifier_scale", str(CLF_SCALE)],
+             add_counts(unet_expected(cfg, full=2 * calls), clf_expected(grads=2 * calls)))):
+        res = run_cli(argv + extra, cfg, seed=19, tmp=tmp)
+        assert res["samples"].shape == (8, 64, 64, 3) and res["launches"] == want, (
+            tag, res["launches"], want)
+        res["img_s"] = 8 / res["batch_seconds"][1]
+        print(f"5h cli.inference {CLF_PRESET} DDIM-{GUIDED_STEPS} b8 {tag}"
+              f"{' scale ' + str(CLF_SCALE) if extra else ''}: batch seconds "
+              f"{[round(v, 4) for v in res['batch_seconds']]}, {res['img_s']:.4f} img/s "
+              f"(second batch), launches { {k: v for k, v in res['launches'].items() if v} }, "
+              f"a step { {k: v / (2 * calls) for k, v in res['launches'].items() if v} }; "
+              f"{card}", flush=True)
+        out["runs"][tag] = {k: res[k] for k in ("launches", "img_s", "batch_seconds")}
+
+    # the guided sampler against the all-plain denoiser and classifier
+    model = randomize_parameters(UNet(cfg), seed=19).cuda().eval()
+    proc = GaussianDiffusion.create(timesteps=pre.timesteps, image_size=64)
+    x_T = torch.randn(8, 64, 64, 3, generator=hgen, device="cuda")
+    fn = lambda xx, tt, c, yy: model(xx, tt, cond=c, y=yy)
+    run = lambda: proc.ddim_sample(classifier_guided(proc, fn, clf, y, CLF_SCALE), 8,
+                                   device="cuda", num_steps=GUIDED_STEPS, x_T=x_T).x
+    with torch.inference_mode():
+        reset_counts()
+        x_k = run()
+        launched = counts()
+        model.set_impl(attn="plain", norm="plain")
+        clf.set_impl(attn="plain", norm="plain")
+        x_p = run()
+        model.set_impl(attn="auto", norm="auto")
+        clf.set_impl(attn="auto", norm="auto")
+    guided_rel = rel_l2(x_k, x_p)
+    assert counts() == launched, launched
+    assert bool(torch.isfinite(x_k).all()) and guided_rel <= TOL_SOLVER_REL, guided_rel
+    print(f"5h guided DDIM-{GUIDED_STEPS} b8 scale {CLF_SCALE} kernels vs all-plain (denoiser "
+          f"and classifier): final samples rel L2 {guided_rel:.3e} (limit {TOL_SOLVER_REL}, "
+          f"phase 5g's); {card}", flush=True)
+    out["guided_plain"] = {"rel_l2": guided_rel, "launches": launched}
+    del model
+    torch.cuda.empty_cache()
+
+    # DDNM restoration through the entry point, each against the all-plain model
+    out["restore"] = {}
+    for preset, task in ((CLF_PRESET, "sr4"), (CLF_PRESET, "inpaint"),
+                         (CLF_PRESET, "colorize"), ("inria64", "inpaint")):
+        rcfg = get_preset(preset).model_config()
+        ckpt = os.path.join(tmp, f"restore_{preset}.pt")
+        if not os.path.exists(ckpt):
+            torch.save(randomize_parameters(build_denoiser(rcfg), 20).state_dict(), ckpt)
+        reset_counts()
+        res = cli_restore.main(cli_restore.parse_args([
+            "--preset", preset, "--dataset", "synthetic", "--ckpt", ckpt, "--task", task,
+            "--sampler_steps", str(RESTORE_STEPS), "--batch_size", "8", "--n_iter", "1",
+            "--metrics", "--device", "cuda", "--outdir", os.path.join(tmp, f"restore_{task}")]))
+        got = counts()
+        calls = make_ddim_schedule(GaussianDiffusion.create(timesteps=1000).schedule,
+                                   RESTORE_STEPS, 0.85).num_steps
+        assert got == unet_expected(rcfg, full=2 * calls), (preset, task, got)
+        assert res["range_err"] <= TOL_DDNM_RANGE and np.isfinite(res["restored"]).all(), res
+        # kernels against the all-plain model: one start, the same draws
+        model = randomize_parameters(build_denoiser(rcfg), 20).cuda().eval()
+        gt = torch.as_tensor(res["gt"], device="cuda")
+        op = (INV.sr_operator(4) if task == "sr4" else INV.gray_operator(3)
+              if task == "colorize" else
+              INV.inpaint_operator((torch.rand(8, 64, 64, 1, generator=hgen, device="cuda")
+                                    > 0.3).float()))
+        yobs = op.forward(gt)
+        fn = lambda xx, tt, c, yy: model(xx, tt, cond=c, y=yy)
+        run = lambda: INV.ddnm_sample(
+            GaussianDiffusion.create(timesteps=1000, image_size=64), fn, yobs, op,
+            num_steps=RESTORE_STEPS, generator=torch.Generator(device="cuda").manual_seed(21)).x
+        with torch.inference_mode():
+            x_k = run()
+            model.set_impl(attn="plain", norm="plain")
+            x_p = run()
+        rel = rel_l2(x_k, x_p)
+        assert rel <= TOL_SOLVER_REL, (preset, task, rel)
+        img_s = 8 / (res["sample_seconds"] / 2)
+        print(f"5h cli.restore {preset} {task} DDNM-{RESTORE_STEPS} eta 0.85 b8: "
+              f"||A(x) - y|| / ||y|| {res['range_err']:.3e} (limit {TOL_DDNM_RANGE}); ssim "
+              f"{res['ssim']:.4f} (naive {res['ssim_naive']:.4f}); {img_s:.4f} img/s (mean of "
+              f"two batches); kernels vs all-plain rel L2 {rel:.3e} (limit {TOL_SOLVER_REL}); "
+              f"launches { {k: v for k, v in got.items() if v} }; {card}", flush=True)
+        out["restore"][f"{preset}_{task}"] = {"launches": got, "range_err": res["range_err"],
+                                              "rel_l2": rel, "img_s": img_s}
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -2687,6 +2920,18 @@ def main() -> int:
         flash_bwd_case(2, 2309, 4, 160, torch.bfloat16, "legacy", ugen, ugen, hchunk=4),
         flash_bwd_case(2, 2309, 4, 256, torch.bfloat16, "new", ugen, ugen, hchunk=4),
     ]
+    torch.cuda.empty_cache()
+    # the wide kernels (head dims above the bodies'), through the same entries:
+    # inria64's middle attention (T 64, one head of D 1024) at cli.restore's
+    # b8 and the short training's b16, and a ragged float32 case
+    wide_rows = [flash_case(8, 64, 1, 1024, torch.bfloat16, "legacy", gen, tag="wide_fwd"),
+                 flash_case(2, 130, 2, 136, torch.float32, "contiguous", gen, tag="wide_fwd")]
+    wide_bwd_rows = [
+        flash_bwd_case(DIT_TRAIN_BATCH, 64, 1, 1024, torch.bfloat16, "legacy", gen, ugen,
+                       hchunk=1, tag="wide_bwd"),
+        flash_bwd_case(2, 130, 2, 136, torch.float32, "new", gen, ugen, hchunk=2,
+                       tag="wide_bwd")]
+    assert counts()["wide_fwd"] and counts()["wide_bwd"], counts()  # not another body
     torch.cuda.empty_cache()
 
     # GroupNorm + FiLM + SiLU, forward and backward: the clouds UNet's norm
@@ -2868,6 +3113,17 @@ def main() -> int:
         edm_runs += [edm_bridge["tiled"], *edm_bridge["demos"].values()]
         rows += edm_bridge["attn_rows"]
         gn_rows += edm_bridge["gn_rows"]
+        # 5h. classifier guidance and DDNM restoration
+        clf_phase = phase_5h(tmp, card)
+        clf_runs = [*clf_phase["runs"].values(), clf_phase["grad"], clf_phase["guided_plain"],
+                    *clf_phase["restore"].values()]
+        rows += clf_phase["attn_rows"]
+        bwd_rows += clf_phase["bwd_rows"]
+        gn_rows += clf_phase["gn_rows"]
+        clf_launches = lambda key: {
+            **{tag: r["launches"][key] for tag, r in clf_phase["runs"].items()},
+            "input_grad_b8": clf_phase["grad"]["launches"][key],
+            **{f"restore_{k}": r["launches"][key] for k, r in clf_phase["restore"].items()}}
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -2955,7 +3211,7 @@ def main() -> int:
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs, *edm_runs)
+                                       *guided_runs, *edm_runs, *clf_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
@@ -2997,6 +3253,9 @@ def main() -> int:
         "pag_identity_hits": guided["runs"]["pag2-ddim10"]["identity_hits"],
         "guidance_checks": guided["plain_checks"],
         "latent256_train_check": latent_grad,
+        "classifier_f32_lse": [latent_row(r) for r in clf_phase["attn_rows"]],
+        "launches_classifier": clf_launches("attn_fwd"),
+        "classifier_checks": {k: clf_phase[k]["rel_l2"] for k in ("grad", "guided_plain")},
         "mma_body_ms": main_row["mma_body_ms"],
         "dit_forward_rel_l2": dit_fwd,
         "shapes": rows,
@@ -3020,7 +3279,7 @@ def main() -> int:
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs, *edm_runs)
+                                       *guided_runs, *edm_runs, *clf_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -3051,6 +3310,8 @@ def main() -> int:
         "launches_latent256_train": latent_train["launches"]["attn_bwd"],
         "launches_short_train": {k: v["launches"]["attn_bwd"]
                                  for k, v in dit_train["short"].items()},
+        "classifier_f32": [latent_row(r) for r in clf_phase["bwd_rows"]],
+        "launches_classifier": clf_launches("attn_bwd"),
         "shapes": bwd_rows,
     }, {
         "name": "flash_attention_fwd",
@@ -3088,6 +3349,35 @@ def main() -> int:
         "mma_body_ms": flash_bwd_rows[0]["mma_body_ms"],
         "shapes": flash_bwd_rows,
     }, {
+        "name": "wide_attention_fwd",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attention_wide.cu",
+        "replaces": "eo_diffusion_tpu/ops/attention.py:271",
+        "replaces_also": "eo_diffusion_tpu/ops/attention.py:227",
+        "launches": clf_phase["restore"]["inria64_inpaint"]["launches"]["wide_fwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in wide_rows),
+        "ms": wide_rows[0]["kernel_ms"],
+        "plain_ms": wide_rows[0]["plain_ms"],
+        "bound_ms": wide_rows[0]["bound_ms"],
+        "bound_by": wide_rows[0]["bound_by"],
+        "library_ms": wide_rows[0]["library_ms"],
+        "launches_short_train": dit_train["short"]["inria64"]["launches"]["wide_fwd"],
+        "shapes": wide_rows,
+    }, {
+        "name": "wide_attention_bwd",
+        "route": "cuda",
+        "source": "eo_diffusion_torch/ops/csrc/attention_wide.cu",
+        "replaces": "eo_diffusion_tpu/ops/attention.py:569",
+        "replaces_also": "eo_diffusion_tpu/ops/attention.py:502",
+        "launches": dit_train["short"]["inria64"]["launches"]["wide_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in wide_bwd_rows),
+        "ms": wide_bwd_rows[0]["kernel_ms"],
+        "plain_ms": wide_bwd_rows[0]["plain_ms"],
+        "bound_ms": wide_bwd_rows[0]["bound_ms"],
+        "bound_by": wide_bwd_rows[0]["bound_by"],
+        "library_ms": wide_bwd_rows[0]["library_ms"],
+        "shapes": wide_bwd_rows,
+    }, {
         "name": "int8_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/int8_attention.cu",
@@ -3120,7 +3410,7 @@ def main() -> int:
         "old_body_launches_on_model_paths": sum(
             r["launches"][f"gn_{direction}_legacy"]
             for r in (main_res, res512, res64, train_res, train512, tiled, tiled_flow,
-                      *dit_res.values(), *latent_runs, *guided_runs, *edm_runs)),
+                      *dit_res.values(), *latent_runs, *guided_runs, *edm_runs, *clf_runs)),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
@@ -3143,11 +3433,15 @@ def main() -> int:
                        "launches_guidance": {tag: r["launches"]["gn_fwd"]
                                              for tag, r in guided["runs"].items()},
                        "launches_guidance_tiled": guided["tiled"]["launches"]["gn_fwd"],
-                       "launches_edm_bridge": edm_launches("gn_fwd")}),
+                       "launches_edm_bridge": edm_launches("gn_fwd"),
+                       "classifier_f32_n8": [latent_row(r[0]) for r in clf_phase["gn_rows"]],
+                       "launches_classifier": clf_launches("gn_fwd")}),
         ("bwd", "eo_diffusion_tpu/ops/group_norm.py:104", train_res["launches"]["gn_bwd"],
          gn_bwd_rows, {"latent256_ae_f32": [latent_row(r[1]) for r in ae_gn_rows],
                        "cfg_n16": [latent_row(r[1]) for r in cfg_gn_rows],
                        "launches_edm_bridge": edm_launches("gn_bwd"),
+                       "classifier_f32_n8": [latent_row(r[1]) for r in clf_phase["gn_rows"]],
+                       "launches_classifier": clf_launches("gn_bwd"),
                        "launches_latent256": {
                            "ae_train": latent_train["ae_launches"]["gn_bwd"],
                            "dit_train": latent_train["launches"]["gn_bwd"]}}))]

@@ -28,7 +28,8 @@ import json
 import os
 
 import numpy as np
-import torch
+
+from eo_diffusion_torch.cli.common import resolve_device
 
 
 def load_image_dir(path: str, limit: int = 0) -> np.ndarray:
@@ -109,14 +110,6 @@ def compute_metrics(real: np.ndarray, fake: np.ndarray, extractor=None, batch: i
     return out
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("eo_diffusion_torch.cli.evaluate: no CUDA device is "
-                         "available; pass --device cpu to evaluate on the CPU")
-    return device
-
-
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="FID/KID/IS evaluation (PyTorch/CUDA)")
     ap.add_argument("--real", required=True, help="dir of real images (or dataset name)")
@@ -137,7 +130,7 @@ def parse_args(argv=None):
 
 
 def main(args) -> dict:
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "eo_diffusion_torch.cli.evaluate")
     extractor, with_logits = None, False
     if args.extractor == "inception":
         from eo_diffusion_torch.models.inception import (inception_feature_extractor,

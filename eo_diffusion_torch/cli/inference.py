@@ -33,12 +33,16 @@ batch's samples against the ground truth (SSIM and PSNR on the device, in
 ``--samples_fid`` writes every sample as its own PNG under
 ``<outdir>/samples_fid/`` for ``cli.evaluate``, named by class when the model
 is class-conditional; ``--wandb`` is parsed and, as in the JAX CLI, does
-nothing here. A latent preset (``latent256-cr``, ...)
-loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
+nothing here. Classifier guidance (``--classifier_ckpt`` from
+``cli.train_classifier``, ``--classifier_scale``) adds the noisy-image
+classifier's input gradient to eps at every step of ddpm/ddim/dpm/unipc
+(``diffusion/classifier_guidance.py``); its labels rotate through the
+classifier's classes for an unconditional denoiser. A latent preset
+(``latent256-cr``, ...) loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
 samples on the latent grid with the cloudy view encoded, and decodes: the
 metrics and PNGs are of the decoded pixels. Flags of the JAX CLI that later
-slices bring (classifier guidance, the distilled samplers, FreeU, ...) exit
-naming their ROADMAP queue.
+slices bring (the distilled samplers, FreeU, ...) exit naming their ROADMAP
+queue.
 """
 
 from __future__ import annotations
@@ -51,10 +55,12 @@ import time
 import numpy as np
 import torch
 
+from eo_diffusion_torch.cli.common import resolve_device
+
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--classifier_": 11, "--sigma_data": 12, "--cd_points": 12,
+    "--sigma_data": 12, "--cd_points": 12,
     "--freeu": 13, "--tome_ratio": 13, "--tome_mlp": 13, "--controlnet": 13,
     "--lora": 14, "--int8_compute": 15,
 }
@@ -160,6 +166,12 @@ def parse_args(argv=None):
                         help="write each sample as a PNG under <outdir>/samples_fid")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; never falls back silently")
+    parser.add_argument("--classifier_ckpt", type=str, default=None,
+                        help="classifier guidance (Dhariwal & Nichol 2021): directory written "
+                             "by cli.train_classifier (classifier + classifier.json)")
+    parser.add_argument("--classifier_scale", type=float, default=0.0,
+                        help="classifier-guidance gradient scale (>0 enables; needs "
+                             "--classifier_ckpt)")
     parser.add_argument("--ae_ckpt", type=str, default=None,
                         help="latent presets: trained first-stage directory "
                              "(default: 'ae' beside --ckpt)")
@@ -172,14 +184,6 @@ def parse_args(argv=None):
         parser.error(f"--sampler {args.sampler} is not ported yet "
                      f"(ROADMAP queue {UNPORTED_SAMPLERS[args.sampler]})")
     return args
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("eo_diffusion_torch.cli.inference: no CUDA device is "
-                         "available; pass --device cpu to sample on the CPU")
-    return device
 
 
 def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None):
@@ -226,7 +230,7 @@ def main(args):
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
     from eo_diffusion_torch.weights import load_reference_checkpoint
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "eo_diffusion_torch.cli.inference")
     preset = get_preset(args.preset)
     dataset = args.dataset or preset.dataset
     factory = DATASET_FACTORIES[dataset]
@@ -242,6 +246,8 @@ def main(args):
     # class-conditional presets sample conditional, with their null row,
     # unless the flags say otherwise (the training CLI's defaults)
     num_classes = args.num_classes or preset.num_classes or None
+    assert not (args.classifier_scale and not args.classifier_ckpt), (
+        "--classifier_scale needs --classifier_ckpt (train one with cli.train_classifier)")
     class_dropout = args.class_dropout or preset.class_dropout
     # "flow" means the process's native sampler: the flow ODE, EDM's Heun on
     # the Karras grid, or the bridge's posterior walk (one .sample surface)
@@ -288,6 +294,19 @@ def main(args):
         assert args.deepcache <= 1, (
             "DeepCache's stateful fn wraps the model directly and would bypass the PAG "
             "combine; drop one of the two")
+    if args.classifier_ckpt:
+        assert not preset.is_latent, (
+            "classifier guidance reads pixels; latent presets are not wired")
+        assert args.sampler in ("ddpm", "ddim", "dpm", "unipc"), (
+            "classifier guidance steers the DDPM chain via an eps-space gradient; "
+            f"--sampler {args.sampler} does not apply")
+        assert args.deepcache <= 1, (
+            "classifier guidance wraps the plain denoiser fn; it is not composed with "
+            "DeepCache's stateful fn")
+        assert args.guidance_scale == 1.0, (
+            "classifier guidance and classifier-FREE guidance are separate steering "
+            "mechanisms (CFG doubles the batch under the wrapper, breaking the classifier's "
+            "per-sample labels); pick one")
     if preset.is_latent:
         assert cond_type != "sum", (
             "latent presets do not support RePaint-'sum' conditioning (pixel-space mask "
@@ -380,6 +399,18 @@ def main(args):
 
         model_fn = pag_model_fn(model_fn, args.pag_scale)
         print(f"PAG enabled: scale={args.pag_scale}")
+    classifier, clf_classes = None, 0
+    if args.classifier_ckpt:
+        from eo_diffusion_torch.cli.train_classifier import load_classifier
+        from eo_diffusion_torch.diffusion.classifier_guidance import classifier_guided
+
+        classifier, cmeta = load_classifier(args.classifier_ckpt, device)
+        assert classifier.config.image_size == image_size, (
+            f"classifier was trained at {classifier.config.image_size}px (preset "
+            f"{cmeta['preset']}); sampling at {image_size}px")
+        clf_classes = int(cmeta["num_classes"])
+        print(f"classifier guidance: scale={args.classifier_scale}, {clf_classes} classes "
+              f"from {args.classifier_ckpt}")
 
     classes = class_names(dataset, num_classes or 0)
     dir_samples = os.path.join(args.outdir, "samples")
@@ -412,6 +443,15 @@ def main(args):
                 # under CFG the doubled batch flows through the stateful fn,
                 # so the cached feature is the doubled batch's
                 fn_j, st0 = deepcache_model_fn(model, refresh_every=args.deepcache)
+            if classifier is not None and args.classifier_scale:
+                # an unconditional denoiser still gets per-batch targets: the
+                # classifier's classes in rotation, like the y rotation
+                clf_y = y if y is not None else np.full((bsz,), j % clf_classes)
+                fn_j = classifier_guided(diffusion, fn_j, classifier,
+                                         torch.as_tensor(clf_y, dtype=torch.long, device=device),
+                                         scale=args.classifier_scale)
+                if y is None:
+                    catg = class_names(dataset, clf_classes)[int(clf_y[0])]
             c_j = to_dev(cond) if cond_type == "concat" else None
             y_j = None if y is None else torch.as_tensor(y, dtype=torch.long, device=device)
             gkw = {k: (to_dev(v) if isinstance(v, np.ndarray) else v) for k, v in gkw.items()}

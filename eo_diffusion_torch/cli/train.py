@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from eo_diffusion_torch.cli.common import resolve_device
+
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
     "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
@@ -133,14 +135,6 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("eo_diffusion_torch.cli.train: no CUDA device is "
-                         "available; pass --device cpu to train on the CPU")
-    return device
-
-
 def _to_model_batch(batch, cond_type):
     """Build the model batch dict.
 
@@ -220,7 +214,7 @@ def main(args):
     from eo_diffusion_torch.train.trainer import Trainer, TrainerConfig
     from eo_diffusion_torch.utils.images import save_image_grid
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "eo_diffusion_torch.cli.train")
     preset = get_preset(args.preset)
     # flow, EDM and bridge presets preview with their process's own .sample;
     # the DDPM chain has none, so fail before the first preview hours in

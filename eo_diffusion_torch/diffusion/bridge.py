@@ -21,8 +21,8 @@ tables float32, computed from them as the JAX package computes them
 (:meth:`BrownianBridge.strided_grid`); the posterior's scalars stay float32
 on the host. x is carried in float32 and only the model input is cast to
 ``dtype``. The posterior noise comes from an explicit ``torch.Generator``,
-or ``noise_fn(i, "eta")``; at ``eta == 0`` nothing is drawn. ``log_every``
-frames are not ported yet (ROADMAP queue 11). All tensors are NHWC.
+or ``noise_fn(i, "eta")``; at ``eta == 0`` nothing is drawn. ``log_every=k``
+keeps the x after every k-th step. All tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.diffusion.gaussian import (DenoiseFn, DiffusionOutput, NoiseFn, _draw,
-                                                   _unported)
+                                                   log_frames, stack_frames)
 
 __all__ = ["BrownianBridge"]
 
@@ -167,7 +167,6 @@ class BrownianBridge:
         ancestral bridge, 0 the deterministic mean path, which draws
         nothing). ``model_state``: a stateful denoiser ``fn(x, t, cond, y,
         state, i) -> (out, state)``."""
-        _unported(log_every=log_every or None)
         assert cond is not None, "BrownianBridge sampling requires the source image (cond)"
         shape = (n_samples, self.image_size, self.image_size, self.in_channels)
         num_steps, t_seq, m_seq, d_seq = self.strided_grid(num_steps)
@@ -175,6 +174,7 @@ class BrownianBridge:
         c_model = yf.to(dtype) if self.cond_type == "concat" else None
         x = yf.expand(shape).clone()  # x_{T-1} = y exactly; a copy, never a view of cond
         state = model_state
+        frames = []
         for i in range(num_steps):
             t_i = torch.full((n_samples,), int(t_seq[i]), dtype=torch.long, device=device)
             if state is None:
@@ -190,4 +190,5 @@ class BrownianBridge:
                 noise = _draw(noise_fn, generator, i, "eta", shape, device)
                 mean = mean + float(np.float32(eta) * np.sqrt(var)) * noise
             x = mean
-        return DiffusionOutput(x=x)
+            log_frames(frames, x, i, log_every, dtype)
+        return DiffusionOutput(x=x, intermediates=stack_frames(frames))

@@ -26,8 +26,7 @@ draws come from an explicit ``torch.Generator``; ``noise_fn(i, "mask" |
 the JAX package's. Classifier-free guidance (image and label, rescale, the
 interval at ``sigma / sigma_max``) and stateful denoisers (``model_state``,
 DeepCache) go through the guidance points of ``diffusion/gaussian.py``;
-``log_every`` frames are not ported yet (ROADMAP queue 11). All tensors are
-NHWC.
+``log_every=k`` keeps the x after every k-th step. All tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -39,7 +38,8 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.diffusion.gaussian import (DenoiseFn, DiffusionOutput, NoiseFn, _draw,
-                                                   _unported, call_guided, noise_level)
+                                                   call_guided, log_frames, noise_level,
+                                                   stack_frames)
 
 __all__ = ["EDMProcess", "karras_sigmas"]
 
@@ -169,7 +169,6 @@ class EDMProcess:
           -> (out, state)``; both Heun calls of step ``i`` pass ``i``.
         * ``x_T`` replaces the starting noise ``sigma_max * N(0, 1)``.
         """
-        _unported(log_every=log_every or None)
         if method not in ("euler", "heun"):
             raise ValueError(f"method must be 'euler' or 'heun', got {method!r}")
         if mask is not None:
@@ -195,6 +194,7 @@ class EDMProcess:
             return cb(c_skip) * xx + cb(c_out) * out.float()
 
         churn = np.float32(min(s_churn / num_steps, float(np.sqrt(np.float32(2.0))) - 1.0))
+        frames = []
         for i in range(num_steps):
             sig, sig_next = sigmas[i], sigmas[i + 1]
             if mask is not None:
@@ -216,6 +216,7 @@ class EDMProcess:
                 x = x + dt * 0.5 * (d1 + d2)
             else:
                 x = x_euler
+            log_frames(frames, x, i, log_every, dtype)
         if mask is not None:
             x = mask * x0 + (1.0 - mask) * x
-        return DiffusionOutput(x=x)
+        return DiffusionOutput(x=x, intermediates=stack_frames(frames))

@@ -19,8 +19,7 @@ replaces the inpainting draw of step ``i``, so tests can feed the JAX
 package's draws. The sampler takes classifier-free guidance (image and
 label, rescale, the interval at the ODE time t) and stateful denoisers
 (``model_state``) through the guidance points of ``diffusion/gaussian.py``;
-``log_every`` frames are not ported yet (ROADMAP queue 11). All tensors are
-NHWC.
+``log_every=k`` keeps the x after every k-th step. All tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ import numpy as np
 import torch
 
 from eo_diffusion_torch.diffusion.gaussian import (DenoiseFn, DiffusionOutput, NoiseFn, _draw,
-                                                   _unported, call_guided)
+                                                   call_guided, log_frames, stack_frames)
 
 __all__ = ["FlowMatching", "time_grid"]
 
@@ -137,7 +136,6 @@ class FlowMatching:
         * ``model_state``: a stateful denoiser ``fn(x, t, cond, y, state, i)
           -> (out, state)``; both Heun calls of step ``i`` pass ``i``.
         """
-        _unported(log_every=log_every or None)
         if method not in ("euler", "heun"):
             raise ValueError(f"method must be 'euler' or 'heun', got {method!r}")
         if mask is not None:
@@ -163,6 +161,7 @@ class FlowMatching:
                 state=state, i=i)
             return out.float()
 
+        frames = []
         for i in range(start):
             t_i, t_next = ts[i], ts[i + 1]
             dt = t_next - t_i  # negative: toward the data
@@ -173,6 +172,7 @@ class FlowMatching:
             if method == "heun" and i < start - 1:
                 v = 0.5 * (v + call(x + dt * v, i + 1, i))
             x = x + dt * v
+            log_frames(frames, x, i, log_every, dtype)
         if mask is not None:
             x = mask * x0 + (1.0 - mask) * x
-        return DiffusionOutput(x=x)
+        return DiffusionOutput(x=x, intermediates=stack_frames(frames))

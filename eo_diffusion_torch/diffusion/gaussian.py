@@ -27,9 +27,12 @@ float32 and only the model input is cast to ``dtype`` (per-step bf16
 rounding accumulates over the chain). Random draws come from an explicit
 ``torch.Generator``; ``noise_fn(i, role)`` replaces them in the samplers and
 ``t=`` / ``noise=`` in ``train_loss``, so tests can feed the JAX package's
-draws. All tensors are NHWC. Not ported yet, and raising when asked for:
-self-conditioning, ``x0_proj`` (DDNM) and ``log_every`` frames (ROADMAP
-queue 11).
+draws. All tensors are NHWC. Self-conditioning (``self_condition=True``,
+arXiv:2208.04202) appends the model's own clamped x0 estimate to the cond
+channels; ``log_every=k`` keeps every k-th intermediate x as
+``DiffusionOutput.intermediates`` (JAX ``_log_frame``); ``x0_proj`` is
+DDIM's per-step x0 projection (DDNM, ``diffusion/inverse.py``); and
+:meth:`GaussianDiffusion.interpolate` lerps two images in noise space.
 """
 
 from __future__ import annotations
@@ -213,16 +216,22 @@ def call_guided(model_fn, x, t, cond, y, *, uncond=None, y_uncond=None,
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionOutput:
+    """Sampling result: the final x and, with ``log_every``, the logged
+    frames ``[K, N, H, W, C]``."""
+
     x: torch.Tensor
+    intermediates: Optional[torch.Tensor] = None
 
 
-def _unported(**kw) -> None:
-    """Raise for sampler options that later slices of the port bring."""
-    given = [k for k, v in kw.items()
-             if not (v is None or v is False or (type(v) is float and v == 1.0))]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: not ported yet (ROADMAP queue 11)")
+def log_frames(frames: list, x: torch.Tensor, i: int, k: Optional[int], dtype) -> None:
+    """Keep x as frame ``i // k`` when ``i % k == 0`` (JAX ``_log_frame``):
+    ceil(steps / k) frames, each the x after that step, in ``dtype``."""
+    if k and i % k == 0:
+        frames.append(x.to(dtype))
+
+
+def stack_frames(frames: list) -> Optional[torch.Tensor]:
+    return torch.stack(frames) if frames else None
 
 
 def _draw(noise_fn: Optional[NoiseFn], generator: Optional[torch.Generator],
@@ -247,6 +256,10 @@ class GaussianDiffusion:
     p2_loss_weight_gamma: float = 0.0
     # min-SNR-gamma weighting (arXiv:2303.09556); 0 = off
     min_snr_gamma: float = 0.0
+    # self-conditioning (arXiv:2208.04202): the denoiser also sees its own x0
+    # estimate, appended as extra cond channels (the UNet's in_channels must
+    # budget for them)
+    self_condition: bool = False
     # CompVis-style VLB auxiliary loss: total = L_simple + elbo_weight *
     # E_t[lvlb_w(t) * err(t)]; 0 = off
     elbo_weight: float = 0.0
@@ -266,14 +279,20 @@ class GaussianDiffusion:
         assert not zero_terminal_snr or objective == "v", (
             "zero_terminal_snr requires objective='v' (at SNR=0 the eps/x0 "
             "parameterizations cannot recover x0; arXiv:2305.08891 §2.2)")
-        _unported(self_condition=self_condition)
         return cls(schedule=make_schedule(timesteps, schedule,
                                           zero_terminal_snr=zero_terminal_snr),
                    image_size=image_size, in_channels=in_channels,
                    cond_type=cond_type, objective=objective,
                    p2_loss_weight_k=p2_loss_weight_k,
                    p2_loss_weight_gamma=p2_loss_weight_gamma,
-                   elbo_weight=elbo_weight, min_snr_gamma=min_snr_gamma)
+                   min_snr_gamma=min_snr_gamma, self_condition=self_condition,
+                   elbo_weight=elbo_weight)
+
+    def _with_self_cond(self, cond, x_sc):
+        """Append the self-conditioning channels after any existing cond."""
+        if cond is None:
+            return x_sc
+        return torch.cat([cond.to(x_sc.dtype), x_sc], dim=-1)
 
     @property
     def timesteps(self) -> int:
@@ -361,6 +380,9 @@ class GaussianDiffusion:
         """Draw one training instance ``(x_t, t, target)`` such that
         ``mean(w * (model(x_t, t) - target)^2)`` with ``w`` from
         :meth:`training_weight` equals :meth:`train_loss`."""
+        assert not self.self_condition, (
+            "training_tuple is a plain-MSE decomposition; self-conditioning "
+            "needs the two-pass train_loss")
         t, noise = self._draw_t_noise(x0, generator, t, noise)
         x_t = self.q_sample(x0, t, noise)
         return x_t, t, self._target(x0.float(), t, noise.float())
@@ -382,7 +404,8 @@ class GaussianDiffusion:
                    generator: Optional[torch.Generator] = None,
                    cond: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
-                   t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   t: Optional[torch.Tensor] = None,
+                   self_cond_coin: Optional[bool] = None) -> torch.Tensor:
         """Objective-MSE training loss (a float32 scalar).
 
         The reference's active path is epsilon-MSE (model.py:38-44 +
@@ -392,9 +415,25 @@ class GaussianDiffusion:
         per sample of the reference's ``EODiffusion.forward``, ``t`` lets a
         test feed another framework's draw. The error and the target are
         float32 whatever the model computes in.
+
+        Self-conditioning: half the time (``self_cond_coin``, drawn from
+        ``generator`` unless given) the model sees its own x0 estimate from a
+        no-grad pass with zero self-cond channels, else zeros. The port runs
+        that first pass only when the coin says so; the JAX package always
+        runs it and masks its result, which gives the same loss.
         """
         t, noise = self._draw_t_noise(x0, generator, t, noise)
         x_t = self.q_sample(x0, t, noise).to(x0.dtype)
+        if self.self_condition:
+            if self_cond_coin is None:
+                self_cond_coin = bool(torch.rand((), generator=generator,
+                                                 device=x0.device) < 0.5)
+            x_sc = torch.zeros_like(x_t)
+            if self_cond_coin:
+                with torch.no_grad():
+                    pred0 = model_fn(x_t, t, self._with_self_cond(cond, x_sc), y)
+                    x_sc = self._to_eps_x0(pred0, x_t, t)[1].to(x_t.dtype)
+            cond = self._with_self_cond(cond, x_sc)
         pred = model_fn(x_t, t, cond, y)
         target = self._target(x0.float(), t, noise.float())
         err = (pred.float() - target) ** 2
@@ -476,9 +515,10 @@ class GaussianDiffusion:
         in the JAX package: its DDPM chain has no image-CFG path.
         ``model_state``: a stateful denoiser ``fn(x, t, cond, y, state, i)
         -> (out, state)`` (DeepCache); ``i`` counts ops, RePaint's forward
-        ops included.
+        ops included. ``log_every=k``: the x after every k-th op as
+        ``intermediates``. Self-conditioning carries the clamped x0 estimate
+        of each reverse step into the next.
         """
-        _unported(log_every=log_every)
         assert clip or float(self.schedule.alphas[-1]) > 1e-8, (
             "clip=False diverges at a zero-terminal-SNR schedule's last step")
         shape = (n_samples, self.image_size, self.image_size, self.in_channels)
@@ -496,23 +536,29 @@ class GaussianDiffusion:
             rev_ops = np.ones_like(t_ops)
         t_denom = max(self.timesteps - 1, 1)
         state = model_state
+        x_sc = torch.zeros(shape, dtype=dtype, device=device) if self.self_condition else None
+        frames = []
         for i, (t_scalar, is_rev) in enumerate(zip(t_ops.tolist(), rev_ops.tolist())):
             noise = _draw(noise_fn, generator, i, "step", shape, device)
             t = torch.full((n_samples,), t_scalar, dtype=torch.long, device=device)
             if is_rev:
                 if gt is not None:
                     x = mask * self.q_sample(gt, t, noise) + (1.0 - mask) * x
+                c = self._with_self_cond(cond, x_sc) if self.self_condition else cond
                 pred, state = call_guided(
-                    model_fn, x.to(dtype), t, cond, y, y_uncond=y_uncond,
+                    model_fn, x.to(dtype), t, c, y, y_uncond=y_uncond,
                     guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
                     guidance_interval=guidance_interval,
                     noise_frac=noise_level(t_scalar, t_denom),
                     state=state, i=i)
-                x, _ = self._reverse_step(pred, x, t, noise, clip, dynamic_threshold)
+                x, x0_pred = self._reverse_step(pred, x, t, noise, clip, dynamic_threshold)
+                if self.self_condition:  # the carried estimate is clamped
+                    x_sc = torch.clamp(x0_pred, -1.0, 1.0).to(dtype)
             else:  # RePaint forward op: one q-step up to level t (eq. 9)
                 beta_t = self._bcast("betas", t)
                 x = torch.sqrt(1.0 - beta_t) * x + torch.sqrt(beta_t) * noise
-        return DiffusionOutput(x=x)
+            log_frames(frames, x, i, log_every, dtype)
+        return DiffusionOutput(x=x, intermediates=stack_frames(frames))
 
     # -- reverse process (DDIM) --------------------------------------------
 
@@ -547,8 +593,11 @@ class GaussianDiffusion:
           CFG the doubled batch flows through it.
         * ``start_index``: run only the last ``start_index`` steps.
         * ``noise_fn(i, "mask" | "eta")`` supplies step ``i``'s draws.
+        * ``x0_proj``: a projection of pred_x0 applied after the clip and the
+          re-derived eps (DDNM's range-space replacement); the direction term
+          keeps that eps (arXiv:2212.00490 Alg. 1).
+        * ``log_every=k``: the x after every k-th step as ``intermediates``.
         """
-        _unported(log_every=log_every, x0_proj=x0_proj)
         dd: DDIMSchedule = make_ddim_schedule(self.schedule, num_steps, eta, method)
         shape = (n_samples, self.image_size, self.image_size, self.in_channels)
         x = (x_T.to(device=device, dtype=torch.float32) if x_T is not None
@@ -563,6 +612,8 @@ class GaussianDiffusion:
             mask, x0 = mask.float(), x0.float()
         t_denom = max(self.timesteps - 1, 1)
         state = model_state
+        x_sc = torch.zeros(shape, dtype=dtype, device=device) if self.self_condition else None
+        frames = []
         for i, idx in enumerate(range(start - 1, -1, -1)):
             t_scalar = int(dd.timesteps[idx])
             t = torch.full((n_samples,), t_scalar, dtype=torch.long, device=device)
@@ -570,8 +621,12 @@ class GaussianDiffusion:
                 img_orig = self.q_sample(x0, t, _draw(noise_fn, generator, i, "mask",
                                                       shape, device))
                 x = img_orig * mask + (1.0 - mask) * x
+            c, u = cond, uncond
+            if self.self_condition:
+                c = self._with_self_cond(cond, x_sc)
+                u = None if uncond is None else self._with_self_cond(uncond, x_sc)
             raw, state = call_guided(
-                model_fn, x.to(dtype), t, cond, y, uncond=uncond, y_uncond=y_uncond,
+                model_fn, x.to(dtype), t, c, y, uncond=u, y_uncond=y_uncond,
                 guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
                 guidance_interval=guidance_interval,
                 noise_frac=noise_level(t_scalar, t_denom),
@@ -585,13 +640,18 @@ class GaussianDiffusion:
                 a = self._bcast("sqrt_alphas_cumprod", t)
                 s = self._bcast("sqrt_one_minus_alphas_cumprod", t)
                 e_t = (xf - a * pred_x0) / torch.clamp(s, min=1e-8)
+            if x0_proj is not None:  # last, so that A(x0) = y holds exactly
+                pred_x0 = x0_proj(pred_x0)
             a_prev, sigma_t = alphas_prev[idx], sigmas[idx]
             dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t**2, min=0.0)) * e_t
             x = torch.sqrt(a_prev) * pred_x0 + dir_xt
             if eta != 0.0:
                 x = x + sigma_t * _draw(noise_fn, generator, i, "eta", shape,
                                         device) * temperature
-        return DiffusionOutput(x=x)
+            if self.self_condition:
+                x_sc = torch.clamp(pred_x0, -1.0, 1.0).to(dtype)
+            log_frames(frames, x, i, log_every, dtype)
+        return DiffusionOutput(x=x, intermediates=stack_frames(frames))
 
     def dpm_sample(self, model_fn: DenoiseFn, n_samples: int, **kw) -> DiffusionOutput:
         """DPM-Solver++ (:func:`~eo_diffusion_torch.diffusion.dpm_solver.dpm_solver_sample`)
@@ -606,3 +666,30 @@ class GaussianDiffusion:
         from eo_diffusion_torch.diffusion.unipc import unipc_sample
 
         return unipc_sample(self, model_fn, n_samples, **kw)
+
+    # -- interpolation ------------------------------------------------------
+
+    def interpolate(self, model_fn: DenoiseFn, x1: torch.Tensor, x2: torch.Tensor,
+                    lam: float = 0.5, t: Optional[int] = None, clip: bool = True,
+                    dtype: torch.dtype = torch.float32, *,
+                    generator: Optional[torch.Generator] = None,
+                    noise_fn: Optional[NoiseFn] = None) -> DiffusionOutput:
+        """Interpolate two images in noise space (JAX
+        ``GaussianDiffusion.interpolate``; lucidrains
+        denoising_diffusion_pytorch.py:638-651): q-sample both to level ``t``
+        (default T-1), lerp the two with ``lam`` and run the ancestral chain
+        down from t. ``noise_fn(0, "x1" | "x2")`` and ``noise_fn(i, "step")``
+        replace the draws."""
+        t = self.timesteps - 1 if t is None else int(t)
+        assert 0 < t < self.timesteps, t
+        assert x1.shape == x2.shape, (x1.shape, x2.shape)
+        shape, device = tuple(x1.shape), x1.device
+        tb = torch.full((shape[0],), t, dtype=torch.long, device=device)
+        xt1 = self.q_sample(x1.float(), tb, _draw(noise_fn, generator, 0, "x1", shape, device))
+        xt2 = self.q_sample(x2.float(), tb, _draw(noise_fn, generator, 0, "x2", shape, device))
+        x = (1.0 - lam) * xt1 + lam * xt2
+        for i, t_scalar in enumerate(range(t - 1, -1, -1)):
+            noise = _draw(noise_fn, generator, i, "step", shape, device)
+            tt = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
+            x, _ = self._reverse_step(model_fn(x.to(dtype), tt, None, None), x, tt, noise, clip)
+        return DiffusionOutput(x=x)

@@ -19,8 +19,8 @@ The first stage is frozen: :meth:`LatentDiffusion.encode` and
 :meth:`LatentDiffusion.decode` run under ``torch.no_grad()``, so a training
 step keeps no graph of the autoencoder and runs only its forward
 (:func:`eo_diffusion_torch.train.ae_trainer.make_codec` also turns off its
-parameters' gradients). The samplers decode only their final ``x``: the
-port's ``DiffusionOutput`` carries no intermediate frames yet.
+parameters' gradients). The samplers decode their final ``x`` and any
+``log_every`` frames, so a caller gets pixel-space intermediates.
 """
 
 from __future__ import annotations
@@ -98,7 +98,11 @@ class LatentDiffusion:
                                          noise=noise, t=t)
 
     def _decode_out(self, out: DiffusionOutput) -> DiffusionOutput:
-        return DiffusionOutput(x=self.decode(out.x))
+        inter = out.intermediates
+        if inter is not None:  # [K, N, h, w, zc] -> [K, N, H, W, C]
+            flat = self.decode(inter.reshape((-1,) + tuple(inter.shape[2:])))
+            inter = flat.reshape(tuple(inter.shape[:2]) + tuple(flat.shape[1:]))
+        return DiffusionOutput(x=self.decode(out.x), intermediates=inter)
 
     def ddpm_sample(self, model_fn: DenoiseFn, n_samples: int, *, cond=None, y=None,
                     encode_cond: Optional[bool] = None, **kw) -> DiffusionOutput:

@@ -205,8 +205,11 @@ def tiled_ddim_sample(diffusion: GaussianDiffusion, model_fn: DenoiseFn, n_sampl
     "eta")`` step ``i``'s draws, as in ``GaussianDiffusion.ddim_sample``.
     ``guidance_scale`` with a full-scene ``uncond`` or the null labels
     ``y_uncond``, and ``model_state`` (DeepCache: one state per chunk of
-    ``tile_batch`` tiles), as in :func:`make_tiled_denoiser`.
+    ``tile_batch`` tiles), as in :func:`make_tiled_denoiser`. A
+    self-conditioned process is refused: the per-tile x0 carry is not
+    threaded through the stitching.
     """
+    assert not diffusion.self_condition, "tiled sampling does not support self_condition"
     tile = diffusion.image_size
     grid = make_tile_grid(height, width, tile, overlap)
     dd = make_ddim_schedule(diffusion.schedule, num_steps, eta)

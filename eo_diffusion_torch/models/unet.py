@@ -114,6 +114,7 @@ class LayerSpec:
     num_heads: int = 0
     up: bool = False
     down: bool = False
+    ds: int = 1  # an attention block's downsample factor from the input
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,13 @@ class UNetPlan:
         attn = sum(sp.kind == "attn" for sp in specs)
         return attn, 2 * sum(sp.kind == "res" for sp in specs) + attn + 1
 
+    def attention_shapes(self, image_size: int) -> Tuple[Tuple[int, int], ...]:
+        """(tokens T, head dim D) of every attention block of one forward at
+        ``image_size`` px, in the forward's order."""
+        return tuple(((image_size // sp.ds) ** 2, sp.out_ch // sp.num_heads)
+                     for blk in (*self.input_blocks, self.middle_block, *self.output_blocks)
+                     for sp in blk if sp.kind == "attn")
+
 
 def _attn_heads(cfg: UNetConfig, ch: int, upsample: bool) -> int:
     if cfg.num_head_channels == -1:
@@ -160,7 +168,8 @@ def build_unet_plan(cfg: UNetConfig) -> UNetPlan:
             layers = [LayerSpec("res", ch, int(mult * cfg.model_channels))]
             ch = int(mult * cfg.model_channels)
             if ds in cfg.attention_resolutions:
-                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False)))
+                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False),
+                                        ds=ds))
             input_blocks.append(tuple(layers))
             input_block_chans.append(ch)
         if level != len(cfg.channel_mult) - 1:
@@ -175,7 +184,7 @@ def build_unet_plan(cfg: UNetConfig) -> UNetPlan:
 
     middle = (
         LayerSpec("res", ch, ch),
-        LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False)),
+        LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, False), ds=ds),
         LayerSpec("res", ch, ch),
     )
 
@@ -186,7 +195,8 @@ def build_unet_plan(cfg: UNetConfig) -> UNetPlan:
             layers = [LayerSpec("res", ch + ich, int(cfg.model_channels * mult))]
             ch = int(cfg.model_channels * mult)
             if ds in cfg.attention_resolutions:
-                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, True)))
+                layers.append(LayerSpec("attn", ch, ch, num_heads=_attn_heads(cfg, ch, True),
+                                        ds=ds))
             if level and i == cfg.num_res_blocks:
                 out_ch = ch
                 if cfg.resblock_updown:

@@ -30,6 +30,7 @@ BUILD_DIR = _PKG / "_build"
 #: kernel name -> its CUDA source under csrc/
 KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_fwd_sm90": "attention_fwd_sm90.cu",
            "attention_bwd": "attention_bwd.cu", "attention_bwd_sm90": "attention_bwd_sm90.cu",
+           "attention_wide": "attention_wide.cu",
            "group_norm": "group_norm.cu", "group_norm_sm90": "group_norm_sm90.cu",
            "int8_attention": "int8_attention.cu",
            "conv_wgrad": "conv_wgrad.cu", "conv_wgrad_sm90": "conv_wgrad_sm90.cu",

@@ -35,6 +35,13 @@ in float32.
   ``flash_attention`` forward (K2, the resident branch, and K3, the
   grid-tiled one) and of K4 behind it; :class:`FlashAttention` joins them,
   and :func:`flash_attention` / :func:`fused_attention` are the entries.
+* :func:`wide_attention_cuda` / :func:`wide_attention_bwd_cuda` launch the
+  kernels of ``csrc/attention_wide.cu``, which take the head dims above
+  those bodies' limits (256 in bf16, 128 in float32) at T up to 1024, e.g.
+  the single-head middle attention of ``inria64`` (D 1024) and
+  ``eurosat64`` (D 512); :func:`flash_attention_cuda` and
+  :func:`flash_attention_bwd_cuda` hand such shapes to them
+  (:func:`fwd_route` says ``"wide"``).
 * :func:`identity_attention` (PAG's perturbation, arXiv:2403.17377): inside
   it every :func:`attention_from_qkv` returns v, launching no kernel, and
   :func:`identity_attention_hits` counts the sites it perturbed.
@@ -51,7 +58,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -63,6 +70,7 @@ __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "FlashAttention", "flash_attention", "fused_attention", "fwd_route",
            "bwd_route", "qkv_attention_mma_cuda", "flash_attention_mma_cuda",
            "qkv_attention_bwd_mma_cuda", "flash_attention_bwd_mma_cuda",
+           "wide_attention_cuda", "wide_attention_bwd_cuda",
            "identity_attention", "identity_attention_hits"]
 
 # PAG's perturbed branch (JAX ops/attention.py:61-90): inside
@@ -95,10 +103,14 @@ _KERNEL = "attention_fwd"
 _KERNEL_SM90 = "attention_fwd_sm90"
 _KERNEL_BWD = "attention_bwd"
 _KERNEL_BWD_SM90 = "attention_bwd_sm90"
+_KERNEL_WIDE = "attention_wide"
 # head dims the kernels take: the wgmma bodies (bf16) up to wgmma's N, the
 # FMA kernels (float32) and the mma.sync bodies up to 128
 _MAX_D_SM90 = 256
 _MAX_D = 128
+# the wide kernels (head dims above those) hold a CTA's rows of T scores in
+# shared memory: T up to this
+_WIDE_MAX_T = 1024
 # the JAX package's fused-qkv kernel takes T up to this (its _MAX_RESIDENT_KV)
 _MAX_QKV_T = 4096
 
@@ -110,11 +122,13 @@ _QKV_FWD = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _I, _P]
 _FLASH_FWD = [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _QKV_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _F, _I, _P]
 _FLASH_BWD = [_P] * 6 + [_STRIDES] + [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
+_WIDE_BWD = [_P] * 3 + [_STRIDES] + [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]
 _ARGTYPES = {
     "eo_qkv_attention_fwd": _QKV_FWD, "eo_qkv_attention_fwd_mma": _QKV_FWD,
     "eo_attention_fwd": _FLASH_FWD, "eo_attention_fwd_mma": _FLASH_FWD,
     "eo_qkv_attention_bwd": _QKV_BWD, "eo_qkv_attention_bwd_mma": _QKV_BWD,
     "eo_attention_bwd": _FLASH_BWD, "eo_attention_bwd_mma": _FLASH_BWD,
+    "eo_attention_wide_fwd": _FLASH_FWD, "eo_attention_wide_bwd": _WIDE_BWD,
 }
 
 
@@ -227,10 +241,11 @@ def _entry(kernel: str, name: str):
 
 
 def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[int],
-           fused: bool, kernels: str) -> str:
-    """What the wgmma/TMA bodies (bf16) and the FMA kernels (float32) accept,
-    for :func:`fwd_route` and :func:`bwd_route`; ``kernels`` names the TPU
-    kernels in the refusal of a head dim not ported yet."""
+           fused: bool, kernels: str, t: Optional[int]) -> str:
+    """What the wgmma/TMA bodies (bf16), the FMA kernels (float32) and the
+    wide kernels accept, for :func:`fwd_route` and :func:`bwd_route`;
+    ``kernels`` names the TPU kernels in the refusal of a shape not ported
+    yet."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported dtype {dtype}")
     if d < 8 or d % 8:
@@ -240,8 +255,11 @@ def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[in
                          f"package's gate (d <= {_MAX_D})")
     limit = _MAX_D_SM90 if dtype == torch.bfloat16 else _MAX_D
     if d > limit:
-        raise ValueError(f"head dim {d} > {limit} in {dtype}: not ported yet (the remaining "
-                         f"part of {kernels}, ROADMAP queue 2, item 1)")
+        if t is not None and t <= _WIDE_MAX_T:
+            return "wide"
+        at = "" if t is None else f" at T {t} > {_WIDE_MAX_T}"
+        raise ValueError(f"head dim {d} > {limit} in {dtype}{at}: not ported yet (the "
+                         f"remaining part of {kernels}, ROADMAP queue 2, item 1)")
     if any(st % 8 for st in strides) or any(ptr % 16 for ptr in ptrs):
         raise ValueError("the kernels need strides that are multiples of 8 elements and "
                          "16-byte-aligned bases")
@@ -249,7 +267,7 @@ def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[in
 
 
 def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
-              ptrs: Sequence[int] = (), fused: bool = False) -> str:
+              ptrs: Sequence[int] = (), fused: bool = False, t: Optional[int] = None) -> str:
     """Which kernel takes a forward launch, from what the kernels accept.
 
     ``"sm90"``: bf16, the wgmma/TMA body (``csrc/attention_fwd_sm90.cu``), any
@@ -258,22 +276,26 @@ def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
     ``"fma"``: float32, the FMA kernel of ``csrc/attention_fwd.cu``, up to
     128. ``strides`` are the element strides and ``ptrs`` the base addresses
     of what the kernel is handed (TMA reads rows of 16 bytes: strides that
-    are multiples of 8 elements, 16-byte-aligned bases). Raises ValueError on
-    anything no forward kernel takes.
+    are multiples of 8 elements, 16-byte-aligned bases). ``"wide"``: a head
+    dim above those on the separate-tensor entry at ``t`` (the sequence
+    length) up to 1024, the kernel of ``csrc/attention_wide.cu``, which needs
+    only unit stride along D; without ``t`` only the other kernels are asked.
+    Raises ValueError on anything no forward kernel takes.
     """
-    return _route(dtype, d, strides, ptrs, fused, "K2/K3")
+    return _route(dtype, d, strides, ptrs, fused, "K2/K3", t)
 
 
 def bwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
-              ptrs: Sequence[int] = (), fused: bool = False) -> str:
+              ptrs: Sequence[int] = (), fused: bool = False, t: Optional[int] = None) -> str:
     """Which kernel takes a backward launch, from what the kernels accept:
     the rules of :func:`fwd_route`. ``"sm90"``: bf16, the wgmma/TMA body
     (``csrc/attention_bwd_sm90.cu``), D up to 256 on the separate-tensor
     entry and 128 on the fused-qkv one; ``"fma"``: float32, the FMA kernel of
-    ``csrc/attention_bwd.cu``, up to 128. ``strides`` and ``ptrs`` are those
+    ``csrc/attention_bwd.cu``, up to 128; ``"wide"``: above those at ``t`` up
+    to 1024, ``csrc/attention_wide.cu``. ``strides`` and ``ptrs`` are those
     of q, k and v. Raises ValueError on anything no backward kernel takes.
     """
-    return _route(dtype, d, strides, ptrs, fused, "K4")
+    return _route(dtype, d, strides, ptrs, fused, "K4", t)
 
 
 def _qkv_fwd(qkv: torch.Tensor, heads: int, new_order: bool, return_lse: bool, kernel: str,
@@ -445,9 +467,9 @@ class QKVAttention(torch.autograd.Function):
 
 
 def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str,
-                  max_d: int = _MAX_D):
+                  max_d: Optional[int] = _MAX_D):
     """Raise on q, k, v the separate-tensor kernels do not take (head dims up
-    to ``max_d``); returns (b, t, h, d)."""
+    to ``max_d``, None for the routes to say); returns (b, t, h, d)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{who} needs CUDA tensors")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -458,11 +480,11 @@ def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str,
     if {k.dtype, v.dtype} != {q.dtype} or {k.device, v.device} != {q.device}:
         raise ValueError("q, k, v must share one dtype and device")
     b, t, h, d = q.shape
-    if d > max_d:
+    if max_d is not None and d > max_d:
         raise ValueError(f"head dim {d} > {max_d}: {who} does not take it yet (ROADMAP "
                          f"queue 2, item 1)")
     if d < 8 or d % 8:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up to {max_d}")
+        raise ValueError(f"head dim {d}: the kernels take multiples of 8")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the launch grid")
     return b, t, h, d
@@ -520,13 +542,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T;
     D a multiple of 8, up to 256 in bf16 (the wgmma/TMA body) and 128 in
     float32 (the FMA kernel; :func:`fwd_route`). ``.launches`` counts both.
-    Raises on anything the kernel does not take and on a failed launch;
-    never falls back.
+    A wider head at T up to 1024 goes to :func:`wide_attention_cuda`, which
+    counts its own launches. Raises on anything no kernel takes and on a
+    failed launch; never falls back.
     """
-    b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda", _MAX_D_SM90)
+    b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     route = fwd_route(q.dtype, d, [st for x in (q, k, v) for st in x.stride()[:3]],
-                      [x.data_ptr() for x in (q, k, v)])
+                      [x.data_ptr() for x in (q, k, v)], t=t)
+    if route == "wide":
+        return wide_attention_cuda(q, k, v, return_lse)
     if route == "sm90":
         kernel, name = _KERNEL_SM90, "eo_attention_fwd"
     else:
@@ -559,19 +584,26 @@ def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_mma_cuda.launches = 0
 
 
-def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-               lse: torch.Tensor, dout: torch.Tensor, dims: Tuple[int, int, int, int],
-               kernel: str, name: str):
-    """One launch of a separate-tensor backward entry on checked q, k, v of
-    ``dims`` (b, t, h, d); (dq, dk, dv)."""
-    b, t, h, d = dims
+def _saved(q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """Raise on a forward's ``out`` / ``lse`` or a ``dout`` that do not fit
+    ``q`` ``[B, T, H, D]``; returns them dense on 16 bytes."""
+    b, t, h, d = q.shape
     for label, x, shape, dtype in (("out", out, (b, t, h, d), q.dtype),
                                    ("dout", dout, (b, t, h, d), q.dtype),
                                    ("lse", lse, (b * h, t), torch.float32)):
         if x.device != q.device or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{label}: expected {shape} {dtype} on {q.device}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    out, dout, lse = _dense16(out), _dense16(dout), _dense16(lse)
+    return _dense16(out), _dense16(dout), _dense16(lse)
+
+
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+               lse: torch.Tensor, dout: torch.Tensor, dims: Tuple[int, int, int, int],
+               kernel: str, name: str):
+    """One launch of a separate-tensor backward entry on checked q, k, v of
+    ``dims`` (b, t, h, d); (dq, dk, dv)."""
+    b, t, h, d = dims
+    out, dout, lse = _saved(q, out, lse, dout)
     fn = _entry(kernel, name)
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
@@ -596,13 +628,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Any T: beyond 4096, where the JAX package recomputes with XLA einsums,
     this kernel computes the same gradient. D a multiple of 8, up to 256 in
     bf16 (the wgmma/TMA body) and 128 in float32 (the FMA kernel;
-    :func:`bwd_route`); ``.launches`` counts both. Raises on anything the
-    kernel does not take and on a failed launch; never falls back.
+    :func:`bwd_route`); ``.launches`` counts both. A wider head at T up to
+    1024 goes to :func:`wide_attention_bwd_cuda`, which counts its own
+    launches. Raises on anything no kernel takes and on a failed launch;
+    never falls back.
     """
-    dims = _check_planes(q, k, v, "flash_attention_bwd_cuda", _MAX_D_SM90)
+    dims = _check_planes(q, k, v, "flash_attention_bwd_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     route = bwd_route(q.dtype, dims[3], [st for x in (q, k, v) for st in x.stride()[:3]],
-                      [x.data_ptr() for x in (q, k, v)])
+                      [x.data_ptr() for x in (q, k, v)], t=dims[1])
+    if route == "wide":
+        return wide_attention_bwd_cuda(q, k, v, out, lse, dout)
     kernel, name = ((_KERNEL_BWD_SM90, "eo_attention_bwd") if route == "sm90"
                     else (_KERNEL_BWD, "eo_attention_bwd_mma"))
     grads = _flash_bwd(q, k, v, out, lse, dout, dims, kernel, name)
@@ -626,6 +662,66 @@ def flash_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 
 
 flash_attention_bwd_mma_cuda.launches = 0
+
+
+def _check_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
+    """Raise on q, k, v the wide kernels do not take; returns them with unit
+    stride along D, and (b, t, h, d)."""
+    dims = _check_planes(q, k, v, who, None)
+    if dims[1] > _WIDE_MAX_T:
+        raise ValueError(f"T {dims[1]} > {_WIDE_MAX_T}: {who} holds a row block of scores "
+                         f"in shared memory (ROADMAP queue 2, item 1)")
+    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    return q, k, v, dims
+
+
+def wide_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        return_lse: bool = False):
+    """Launch the wide-head attention forward (``csrc/attention_wide.cu``) on
+    three CUDA tensors: ``[B, T, H, D]`` bf16 or float32 with unit stride
+    along D, any D that is a multiple of 8, T up to 1024. It computes
+    :func:`reference_attention`'s function; :func:`flash_attention_cuda`
+    sends it the head dims its bodies do not take. Returns ``o`` ``[B, T, H,
+    D]`` contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32;
+    ``.launches`` counts its launches. Raises on anything it does not take
+    and on a failed launch; never falls back."""
+    q, k, v, _ = _check_wide(q, k, v, "wide_attention_cuda")
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_WIDE, "eo_attention_wide_fwd")
+    wide_attention_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+wide_attention_cuda.launches = 0
+
+
+def wide_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """Launch the wide-head attention backward (``csrc/attention_wide.cu``, two
+    kernels in one call: p, ds and dq by query rows, then dk and dv by keys
+    through a ``[2, B*H, T, T]`` scratch in the input dtype) on the tensors of
+    :func:`wide_attention_cuda`, ``out`` and ``lse`` what it returned for
+    them and ``dout`` the gradient of ``out``. Returns ``(dq, dk, dv)``, each
+    ``[B, T, H, D]`` contiguous in q's dtype: :func:`reference_attention_bwd`'s
+    function. ``.launches`` counts its calls. Raises on anything it does not
+    take and on a failed launch; never falls back."""
+    q, k, v, (b, t, h, d) = _check_wide(q, k, v, "wide_attention_bwd_cuda")
+    out, dout, lse = _saved(q, out, lse, dout)
+    fn = _entry(_KERNEL_WIDE, "eo_attention_wide_bwd")
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    scratch = torch.empty((2, b * h, t, t), dtype=q.dtype, device=q.device)
+    sc = _scale(d)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), int(q.dtype == torch.float32), b, t,
+            h, d, float(torch.tensor(sc, dtype=q.dtype)), sc, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{_KERNEL_WIDE} launch failed: error {rc}")
+    wide_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+wide_attention_bwd_cuda.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -709,11 +805,14 @@ def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
     ``impl="auto"``: where the JAX package runs its fused-qkv kernel
     (:func:`_qkv_kernel_takes`: T <= 4096 in its aligned blocks, e.g. the
     clouds UNet at 256 px) through :class:`QKVAttention`, elsewhere (e.g. T
-    2304, 9216 and 16384 at 384 and 512 px) through :class:`FlashAttention`
-    on the :func:`split_qkv` views: the CUDA kernels for a CUDA tensor
-    (forward and backward), the plain versions for a CPU tensor.
+    2304, 9216 and 16384 at 384 and 512 px, or the head dim 1024 of
+    ``inria64``'s middle block, which the wide kernels take) through
+    :class:`FlashAttention` on the :func:`split_qkv` views: the CUDA kernels
+    for a CUDA tensor (forward and backward), the plain versions for a CPU
+    tensor.
     ``impl="plain"``: the plain version on any device, under ordinary
-    autograd. ``return_lse`` also returns the ``[B*H, T]`` row logsumexp and
+    autograd.
+    ``return_lse`` also returns the ``[B*H, T]`` row logsumexp and
     is for inspection only: that call carries no gradient on the auto path.
     Inside :func:`identity_attention` it returns v, whatever ``impl``.
     """

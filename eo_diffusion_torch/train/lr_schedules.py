@@ -18,6 +18,8 @@ optimizer step; that takes the place of the JAX package's ``as_optax``.
 ``warmup_cos_exp`` reproduces the exact composite schedule the reference
 builds in ``train.py:76-85`` (cos warmup from lr/100 to lr over
 ``10*steps_per_epoch`` steps, then exponential decay ``lr*exp(-3*frac)``).
+:func:`warmup_cosine_decay` is the table of optax's
+``warmup_cosine_decay_schedule`` (the classifier CLI's schedule).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Callable, Mapping, Sequence, Union
 
 import numpy as np
 
-__all__ = ["KeyframeSchedule", "warmup_cos_exp", "set_lr"]
+__all__ = ["KeyframeSchedule", "warmup_cos_exp", "warmup_cosine_decay", "set_lr"]
 
 Frame = Union[Mapping, Sequence, str, Callable]
 
@@ -219,3 +221,29 @@ def warmup_cos_exp(base_lr: float, steps_per_epoch: int, epochs: int,
         end=max_steps,
         units="steps",
     )
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float = 0.0,
+                        num_steps: int = None) -> np.ndarray:
+    """The float32 table of optax's ``warmup_cosine_decay_schedule`` over
+    ``num_steps`` steps (default ``decay_steps``), computed in float32 as
+    optax computes it (the cosine rounded from float64; XLA's float32 cos
+    parts from it in the last bit at about one step in a hundred): a linear ramp from ``init_value`` to ``peak_value``
+    over ``warmup_steps``, then ``peak * ((1 - a) * 0.5 * (1 + cos(pi * c /
+    D)) + a)`` with ``a = end / peak``, ``c`` the steps since the warmup
+    (capped at ``D = decay_steps - warmup_steps``). Step ``s`` is the lr of
+    the ``s``-th update (the first warmup update has lr ``init_value``)."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    decay = f32(decay_steps - warmup_steps)
+    out = np.empty(num_steps or decay_steps, np.float32)
+    for s in range(len(out)):
+        if s < warmup_steps:
+            frac = f32(1.0) - f32(s) / f32(warmup_steps)
+            out[s] = f32(init_value - peak_value) * frac + f32(peak_value)
+        else:
+            c = min(f32(s - warmup_steps), decay)
+            cosine = f32(0.5) * (f32(1.0) + f32(np.cos(np.float64(f32(np.pi) * c / decay))))
+            out[s] = f32(peak_value) * ((f32(1.0) - f32(alpha)) * cosine + f32(alpha))
+    return out

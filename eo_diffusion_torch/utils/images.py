@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["to_uint8", "make_grid", "save_image_grid", "rescale_to_unit"]
+__all__ = ["to_uint8", "make_grid", "save_image_grid", "adjust_brightness", "rescale_to_unit"]
 
 
 def rescale_to_unit(images: np.ndarray, data_range: Tuple[float, float]) -> np.ndarray:
@@ -25,6 +25,11 @@ def rescale_to_unit(images: np.ndarray, data_range: Tuple[float, float]) -> np.n
     if lo < 0:
         images = (images + 1.0) / 2.0
     return np.clip(images, 0.0, 1.0)
+
+
+def adjust_brightness(images: np.ndarray, factor: float) -> np.ndarray:
+    """Brightness scale like torchvision F.adjust_brightness (train.py:151)."""
+    return np.clip(images * factor, 0.0, 1.0)
 
 
 def to_uint8(images: np.ndarray) -> np.ndarray:

@@ -36,13 +36,15 @@ from torch import nn
 
 from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
 from eo_diffusion_torch.models.dit import DiTConfig
-from eo_diffusion_torch.models.unet import LayerSpec, UNetConfig, build_unet_plan
+from eo_diffusion_torch.models.encoder_unet import EncoderUNet, EncoderUNetConfig
+from eo_diffusion_torch.models.unet import UNetConfig, build_unet_plan
 
 __all__ = [
     "fix_legacy_dict",
     "state_dict_from_jax_params",
     "dit_state_dict_from_jax_params",
     "ae_state_dict_from_jax_params",
+    "encoder_unet_state_dict_from_jax_params",
     "load_reference_checkpoint",
     "load_jax_train_state",
     "randomize_parameters",
@@ -88,64 +90,101 @@ def load_reference_checkpoint(path: str, cfg: UNetConfig, use_ema: bool = True
             and not k.startswith("n_averaged")}
 
 
+def _put(sd, prefix, weight, bias):
+    sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = weight, np.asarray(bias)
+
+
+def _dense(sd, prefix, d):
+    _put(sd, prefix, np.asarray(d["kernel"]).T, d["bias"])
+
+
+def _conv(sd, prefix, d):
+    _put(sd, prefix, np.asarray(d["kernel"]).transpose(3, 2, 0, 1), d["bias"])
+
+
+def _conv1d(sd, prefix, d):
+    _put(sd, prefix, np.asarray(d["kernel"]).T[:, :, None], d["bias"])
+
+
+def _gn(sd, prefix, d):
+    _put(sd, prefix, np.asarray(d["GroupNorm_0"]["scale"]), d["GroupNorm_0"]["bias"])
+
+
+def _layer(sd, kind: str, d, prefix: str):
+    """One UNet layer of kind ``kind`` (a ``LayerSpec.kind``) from its flax
+    subtree ``d`` into ``sd`` under ``prefix``."""
+    if kind == "conv":
+        _conv(sd, prefix, d)
+    elif kind == "res":
+        _gn(sd, f"{prefix}.in_layers.0", d["in_norm"])
+        _conv(sd, f"{prefix}.in_layers.2", d["in_conv"])
+        _dense(sd, f"{prefix}.emb_layers.1", d["emb_proj"])
+        _gn(sd, f"{prefix}.out_layers.0", d["out_norm"])
+        _conv(sd, f"{prefix}.out_layers.3", d["out_conv"])
+        if "skip_conv" in d:
+            _conv(sd, f"{prefix}.skip_connection", d["skip_conv"])
+    elif kind == "attn":
+        _gn(sd, f"{prefix}.norm", d["norm"])
+        _conv1d(sd, f"{prefix}.qkv", d["qkv"])
+        _conv1d(sd, f"{prefix}.proj_out", d["proj_out"])
+    elif kind == "down":
+        _conv(sd, f"{prefix}.op", d["conv"])
+    elif kind == "up":
+        _conv(sd, f"{prefix}.conv", d["conv"])
+
+
+def _as_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
+            for k, v in sd.items()}
+
+
 def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """Flax ``UNet`` params (numpy arrays; with or without the ``"params"``
     level) -> the port's state dict."""
     p = params["params"] if "params" in params else params
     plan = build_unet_plan(cfg)
     sd: Dict[str, np.ndarray] = {}
-
-    def put(prefix, weight, bias):
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = weight, np.asarray(bias)
-
-    def dense(prefix, d):
-        put(prefix, np.asarray(d["kernel"]).T, d["bias"])
-
-    def conv(prefix, d):
-        put(prefix, np.asarray(d["kernel"]).transpose(3, 2, 0, 1), d["bias"])
-
-    def conv1d(prefix, d):
-        put(prefix, np.asarray(d["kernel"]).T[:, :, None], d["bias"])
-
-    def gn(prefix, d):
-        put(prefix, np.asarray(d["GroupNorm_0"]["scale"]), d["GroupNorm_0"]["bias"])
-
-    def layer(spec: LayerSpec, d, prefix):
-        if spec.kind == "conv":
-            conv(prefix, d)
-        elif spec.kind == "res":
-            gn(f"{prefix}.in_layers.0", d["in_norm"])
-            conv(f"{prefix}.in_layers.2", d["in_conv"])
-            dense(f"{prefix}.emb_layers.1", d["emb_proj"])
-            gn(f"{prefix}.out_layers.0", d["out_norm"])
-            conv(f"{prefix}.out_layers.3", d["out_conv"])
-            if "skip_conv" in d:
-                conv(f"{prefix}.skip_connection", d["skip_conv"])
-        elif spec.kind == "attn":
-            gn(f"{prefix}.norm", d["norm"])
-            conv1d(f"{prefix}.qkv", d["qkv"])
-            conv1d(f"{prefix}.proj_out", d["proj_out"])
-        elif spec.kind == "down":
-            conv(f"{prefix}.op", d["conv"])
-        elif spec.kind == "up":
-            conv(f"{prefix}.conv", d["conv"])
-
-    dense("time_embed.0", p["time_embed_0"])
-    dense("time_embed.2", p["time_embed_2"])
+    _dense(sd, "time_embed.0", p["time_embed_0"])
+    _dense(sd, "time_embed.2", p["time_embed_2"])
     if cfg.num_classes is not None:
         sd["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"])
     for bi, block in enumerate(plan.input_blocks):
         for li, spec in enumerate(block):
-            layer(spec, p[f"input_{bi}_{li}"], f"input_blocks.{bi}.{li}")
+            _layer(sd, spec.kind, p[f"input_{bi}_{li}"], f"input_blocks.{bi}.{li}")
     for li, spec in enumerate(plan.middle_block):
-        layer(spec, p[f"middle_{li}"], f"middle_block.{li}")
+        _layer(sd, spec.kind, p[f"middle_{li}"], f"middle_block.{li}")
     for bi, block in enumerate(plan.output_blocks):
         for li, spec in enumerate(block):
-            layer(spec, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
-    gn("out.0", p["out_norm"])
-    conv("out.2", p["out_conv"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
-            for k, v in sd.items()}
+            _layer(sd, spec.kind, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
+    _gn(sd, "out.0", p["out_norm"])
+    _conv(sd, "out.2", p["out_conv"])
+    return _as_tensors(sd)
+
+
+def encoder_unet_state_dict_from_jax_params(params: Mapping, cfg: EncoderUNetConfig
+                                            ) -> Dict[str, torch.Tensor]:
+    """Flax ``EncoderUNet`` params (numpy arrays; with or without the
+    ``"params"`` level) -> the port's classifier state dict, module by module
+    under the JAX names (``stem``, ``enc_{l}_{j}``, ``enc_attn_{l}_{j}``,
+    ``down_{l}``, ``mid_0``, ``mid_1``, ``out_norm``, ``pool``, ``head``,
+    ``time_embed_{0,2}``). Every leaf of the tree is mapped; anything else
+    raises."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    _dense(sd, "time_embed_0", p["time_embed_0"])
+    _dense(sd, "time_embed_2", p["time_embed_2"])
+    _conv(sd, "stem", p["stem"])
+    for kind, name in EncoderUNet(cfg).layers:
+        _layer(sd, kind, p[name], name)
+    _gn(sd, "out_norm", p["out_norm"])
+    sd["pool.positional_embedding"] = p["pool"]["positional_embedding"]
+    _dense(sd, "pool.qkv_proj", p["pool"]["qkv_proj"])
+    _dense(sd, "pool.c_proj", p["pool"]["c_proj"])
+    _dense(sd, "head", p["head"])
+    if _leaves(p) != len(sd):
+        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the classifier {len(sd)} "
+                       "parameters")
+    return _as_tensors(sd)
 
 
 def _leaves(d: Mapping) -> int:
@@ -178,7 +217,7 @@ def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str,
         sd["label_embed.weight"] = p["label_embed"]["embedding"]
     if _leaves(p) != len(sd):
         raise KeyError(f"the flax tree has {_leaves(p)} leaves, the DiT {len(sd)} parameters")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _as_tensors(sd)
 
 
 def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
@@ -201,7 +240,7 @@ def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
         sd[f"{name}.weight"], sd[f"{name}.bias"] = gn["scale"], gn["bias"]
     if _leaves(p) != len(sd):
         raise KeyError(f"the flax tree has {_leaves(p)} leaves, the AE {len(sd)} parameters")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _as_tensors(sd)
 
 
 @torch.no_grad()

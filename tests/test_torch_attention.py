@@ -3,6 +3,7 @@ package: its fused-qkv Pallas kernel K1 run in interpret mode, and its XLA
 reference for a ragged T. On the CPU the port runs its plain version; the
 CUDA kernel itself is checked on the card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,23 +41,46 @@ def _qkv5(qkv, heads, new_order):
     return qkv.reshape(b, t, heads, 3, d).transpose(0, 3, 2, 1, 4)
 
 
+K1_CASES = [(d, new_order) for d in (48, 128) for new_order in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def pallas_k1():
+    """K1's outputs (interpreted) for every case of the two tests below, from
+    one jitted function (one compile): the fused-qkv entry at D 48 and 128
+    in both head orders, and the lse of ``_qkv5_fwd_impl`` in both."""
+    old, JA._INTERPRET = JA._INTERPRET, True
+    try:
+        @jax.jit
+        def run(k1_in, lse_in):
+            k1 = [JA.attention_from_qkv(x, 2, new_order=o, impl="pallas", block_q=32,
+                                        block_k=32) for x, (_, o) in zip(k1_in, K1_CASES)]
+            return k1, [JA._qkv5_fwd_impl(x, 32, 32, return_lse=True) for x in lse_in]
+
+        qkv = _qkv(2, 64, 2, 48, seed=7)
+        k1, lse = run([jnp.asarray(_qkv(1, 64, 2, d, seed=d + o)) for d, o in K1_CASES],
+                      [jnp.asarray(_qkv5(qkv, 2, o)) for o in (False, True)])
+        return ({case: np.asarray(r) for case, r in zip(K1_CASES, k1)},
+                {o: jax.tree.map(np.asarray, r) for o, r in zip((False, True), lse)})
+    finally:
+        JA._INTERPRET = old
+
+
 # D 48 takes the transposed-PV body (_qkv_layout_kernel_tpv), D 128 the plain one
 @pytest.mark.parametrize("d", [48, 128])
 @pytest.mark.parametrize("new_order", [False, True])
-def test_matches_pallas_k1(d, new_order):
+def test_matches_pallas_k1(pallas_k1, d, new_order):
     qkv = _qkv(1, 64, 2, d, seed=d + new_order)
-    ref = JA.attention_from_qkv(jnp.asarray(qkv), 2, new_order=new_order, impl="pallas",
-                                block_q=32, block_k=32)
+    ref = pallas_k1[0][(d, new_order)]
     out = TA.attention_from_qkv(torch.from_numpy(qkv), 2, new_order=new_order)
     assert out.shape == (1, 64, 2 * d)
     assert _rel(out.numpy(), ref) <= REL_TOL
 
 
 @pytest.mark.parametrize("new_order", [False, True])
-def test_lse_matches_pallas_k1(new_order):
+def test_lse_matches_pallas_k1(pallas_k1, new_order):
     qkv = _qkv(2, 64, 2, 48, seed=7)
-    o_ref, lse_ref = JA._qkv5_fwd_impl(jnp.asarray(_qkv5(qkv, 2, new_order)), 32, 32,
-                                       return_lse=True)
+    o_ref, lse_ref = pallas_k1[1][new_order]
     out, lse = TA.attention_from_qkv(torch.from_numpy(qkv), 2, new_order=new_order,
                                      return_lse=True)
     assert lse.shape == (2 * 2, 64) and lse.dtype == torch.float32

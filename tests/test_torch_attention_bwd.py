@@ -25,17 +25,38 @@ def _inputs(b, t, c3, seed, c=None):
             rng.normal(size=(b, t, c or c3 // 3)).astype(np.float32))
 
 
+GRAD_CASES = [(d, new_order) for d in (48, 64) for new_order in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def pallas_grads():
+    """jax.grad through the Pallas forward and backward kernels (interpreted)
+    for every case of the test below, from one jitted function (one compile)."""
+    heads, t = 2, 128
+    old, JA._INTERPRET = JA._INTERPRET, True
+    try:
+        @jax.jit
+        def run(args):
+            return [jax.grad(lambda x, g=g, o=o: jnp.sum(JA.attention_from_qkv(
+                x, heads, new_order=o, impl="pallas", block_q=64, block_k=64, min_seq=0)
+                * g))(qkv) for (qkv, g), (_, o) in zip(args, GRAD_CASES)]
+
+        args = [tuple(map(jnp.asarray, _inputs(2, t, 3 * heads * d, seed=d + o)))
+                for d, o in GRAD_CASES]
+        return {case: np.asarray(r) for case, r in zip(GRAD_CASES, run(args))}
+    finally:
+        JA._INTERPRET = old
+
+
 @pytest.mark.parametrize("new_order", [False, True])
 @pytest.mark.parametrize("d", [48, 64])
-def test_function_gradient_matches_pallas_backward(new_order, d):
+def test_function_gradient_matches_pallas_backward(pallas_grads, new_order, d):
     """d(sum(attention * g))/d qkv: QKVAttention on the CPU (saved qkv/out/lse,
     plain backward, restack in the head order) against jax.grad through the
     Pallas forward and backward kernels. float32, rel-err <= 1e-5."""
     heads, t = 2, 128
     qkv, g = _inputs(2, t, 3 * heads * d, seed=d + new_order)
-    ref = jax.grad(lambda x: jnp.sum(JA.attention_from_qkv(
-        x, heads, new_order=new_order, impl="pallas", block_q=64, block_k=64, min_seq=0)
-        * g))(jnp.asarray(qkv))
+    ref = pallas_grads[(d, new_order)]
     x = torch.from_numpy(qkv).requires_grad_()
     (got,) = torch.autograd.grad(TA.attention_from_qkv(x, heads, new_order), x,
                                  torch.from_numpy(g))

@@ -230,5 +230,8 @@ def test_refusals():
         bb.train_loss(fn, torch.zeros(1, 8, 8, 3))
     with pytest.raises(AssertionError, match="source scene"):
         TT.tiled_bridge_sample(bb, fn, 1, H, W, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        bb.sample(fn, 1, device="cpu", num_steps=2, cond=torch.zeros(1, 8, 8, 3), log_every=1)
+    # log_every frames: one a step, the last the result
+    out = bb.sample(fn, 1, device="cpu", num_steps=2, cond=torch.zeros(1, 8, 8, 3), log_every=1,
+                    eta=0.0)
+    assert out.intermediates.shape == (2, 1, 8, 8, 3)
+    assert torch.equal(out.intermediates[-1], out.x)

@@ -140,8 +140,7 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
     with pytest.raises(SystemExit, match="flow-process preset"):
         inference.main(inference.parse_args(["--preset", "tiny-dit", "--sampler", "flow",
                                              "--device", "cpu", "--outdir", str(tmp_path)]))
-    for argv, queue in ((["--classifier_scale", "2"], 11), (["--classifier_ckpt=c"], 11),
-                        (["--sigma_data", "0.5"], 12), (["--sampler", "cm"], 12),
+    for argv, queue in ((["--sigma_data", "0.5"], 12), (["--sampler", "cm"], 12),
                         (["--int8_compute"], 15)):
         with pytest.raises(SystemExit) as exc:
             inference.parse_args(["--preset", "tiny", *argv])

@@ -82,8 +82,13 @@ def test_launch_counter_and_refusals(dev):
         A.attention_from_qkv(_qkv(1, 16, 2, 12, torch.bfloat16, seed=1), 2)
     with pytest.raises(ValueError):  # head dim 136 > 128: the fused-qkv entry keeps JAX's gate
         A.qkv_attention_cuda(_qkv(1, 16, 1, 136, torch.bfloat16, seed=1), 1)
-    with pytest.raises(ValueError):  # head dim 264 > 256 (through the separate-tensor route)
-        A.attention_from_qkv(_qkv(1, 16, 1, 264, torch.bfloat16, seed=1), 1)
+    # head dim 264 > 256 (through the separate-tensor route): the wide kernel
+    # up to T 1024, refused above
+    wide = A.wide_attention_cuda.launches
+    A.attention_from_qkv(_qkv(1, 16, 1, 264, torch.bfloat16, seed=1), 1)
+    assert A.wide_attention_cuda.launches == wide + 1
+    with pytest.raises(ValueError):
+        A.attention_from_qkv(_qkv(1, 1040, 1, 264, torch.bfloat16, seed=1), 1)
     with pytest.raises(ValueError):
         A.attention_from_qkv(qkv.half(), 2)
     assert A.qkv_attention_cuda.launches == before + 1
@@ -555,14 +560,16 @@ def test_flash_is_reproducible_and_refuses(dev):
     b = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits
     f0, b0 = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
-    big = [torch.zeros(1, 16, 1, 264, device="cuda", dtype=torch.bfloat16)] * 3
+    # head dims above the bodies' (256 bf16, 128 float32) take the wide
+    # kernels up to T 1024; above it they are refused
+    big = [torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)] * 3
     with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # head dim 264 > 256
         A.flash_attention_cuda(*big)
     with pytest.raises(ValueError, match="K2/K3"):  # float32 takes head dims up to 128
-        A.attention_from_qkv(torch.zeros(1, 20, 3 * 136, device="cuda"), 1)
+        A.attention_from_qkv(torch.zeros(1, 1040, 3 * 136, device="cuda"), 1)
     d136 = [x[..., :136].float() for x in big]
     with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # no f32 backward above 128
-        A.flash_attention_bwd_cuda(*d136, d136[0], torch.zeros(1, 16, device="cuda"), d136[0])
+        A.flash_attention_bwd_cuda(*d136, d136[0], torch.zeros(1, 1040, device="cuda"), d136[0])
     with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
         A.flash_attention_cuda(*[x[..., :12] for x in (q, k, v)])
     with pytest.raises(ValueError):
@@ -627,9 +634,9 @@ def test_flash_head_dims_above_128_bf16(dev, d):
 
 
 def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
-    """D 256 runs both wgmma/TMA bodies through autograd; what the backward
-    still refuses (float32 above 128, bf16 above 256) names ROADMAP queue 2,
-    item 1."""
+    """D 256 runs both wgmma/TMA bodies through autograd; float32 above 128
+    takes the wide kernels at T up to 1024, and what the backward still
+    refuses (those head dims above T 1024) names ROADMAP queue 2, item 1."""
     q, k, v, out, lse, dout = _unit_bwd_inputs(2, 300, 2, 256, seed=4, layout="contiguous")
     q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
     with torch.no_grad():
@@ -640,8 +647,12 @@ def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
     # plain from the kernel forward's out and lse, as the backward reads them
     _strict_bwd(got, A.reference_attention_bwd(q, k, v, out, lse, dout))
     f32 = [x.detach()[..., :136].float().requires_grad_() for x in (q, k, v)]
+    w0 = A.wide_attention_bwd_cuda.launches
+    A.flash_attention(*f32).sum().backward()
+    assert A.wide_attention_bwd_cuda.launches == w0 + 1
+    long = [torch.zeros(1, 1040, 1, 136, device="cuda", requires_grad=True) for _ in range(3)]
     with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        A.flash_attention(*f32).sum().backward()
+        A.flash_attention(*long).sum().backward()
     assert A.flash_attention_bwd_cuda.launches == b0 + 1
 
 
@@ -802,8 +813,11 @@ def test_sm90_bwd_refuses(dev):
     before = (A.flash_attention_bwd_cuda.launches, A.qkv_attention_bwd_cuda.launches,
               A.flash_attention_bwd_mma_cuda.launches)
     big = torch.zeros(1, 16, 1, 264, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # above wgmma's N
-        A.flash_attention_bwd_cuda(big, big, big, big, torch.zeros(1, 16, device="cuda"), big)
+    # above wgmma's N: the wide kernels take T up to 1024, longer is refused
+    wide = torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
+        A.flash_attention_bwd_cuda(wide, wide, wide, wide, torch.zeros(1, 1040, device="cuda"),
+                                   wide)
     o136 = big[..., :136].reshape(1, 16, 136)
     qkv136 = torch.zeros(1, 16, 3 * 136, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # the fused entry keeps the JAX package's gate
@@ -1600,3 +1614,99 @@ def test_deepcache_partial_call_on_the_card(dev):
                               "attn_bwd": 0, "wgrad": 0}
     rel = ((part.float() - full.float()).norm() / full.float().norm()).item()
     assert torch.isfinite(part).all() and rel <= 3e-2, rel
+
+
+def _counts():
+    from eo_diffusion_torch.ops import group_norm as G
+
+    return (A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches,
+            G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches)
+
+
+def test_classifier_input_gradient_through_the_kernels(dev):
+    """The EncoderUNet's input gradient inside ``torch.inference_mode()``, as
+    the guided samplers take it: K1 with the lse, K4 and K5 both ways (two
+    attention blocks, thirteen norms at this width), against the all-plain
+    classifier, and no gradient on the frozen weights."""
+    from eo_diffusion_torch.diffusion.classifier_guidance import log_prob_grad
+    from eo_diffusion_torch.models.encoder_unet import EncoderUNet, EncoderUNetConfig
+
+    cfg = EncoderUNetConfig(image_size=32, in_channels=3, model_channels=32, num_classes=4,
+                            num_res_blocks=1, attention_resolutions=(2, 4),
+                            channel_mult=(1, 2, 2), num_heads=2)
+    model = randomize_parameters(EncoderUNet(cfg), seed=3).to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(4, 32, 32, 3, generator=g, device="cuda")
+    t, y = torch.tensor([5, 300, 600, 999], device="cuda"), torch.tensor([0, 1, 2, 3],
+                                                                           device="cuda")
+    before = _counts()
+    with torch.inference_mode():
+        got = log_prob_grad(model, x, t, y)
+    launched = tuple(b - a for a, b in zip(before, _counts()))
+    assert launched == (2, 2, 13, 13), launched
+    model.set_impl(attn="plain", norm="plain")
+    with torch.inference_mode():
+        want = log_prob_grad(model, x, t, y)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert bool(torch.isfinite(got).all()) and rel <= 1e-3, rel
+    assert all(p.grad is None for p in model.parameters())
+
+
+@pytest.mark.parametrize("task", ["sr4", "inpaint", "colorize"])
+def test_ddnm_range_consistency_on_the_card(dev, task):
+    """DDNM through the UNet's kernels: A(x) = y to float32 rounding after the
+    final projection."""
+    from eo_diffusion_torch.diffusion import inverse as INV
+    from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+
+    cfg = TU.UNetConfig(image_size=32, in_channels=3, model_channels=32, out_channels=3,
+                        num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=2, dtype=torch.bfloat16)
+    model = randomize_parameters(TU.UNet(cfg), seed=5).to(dev).eval()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    gt = torch.rand(2, 32, 32, 3, generator=g, device="cuda") * 2 - 1
+    op = {"sr4": INV.sr_operator(4), "colorize": INV.gray_operator(3),
+          "inpaint": INV.inpaint_operator(
+              (torch.rand(2, 32, 32, 1, generator=g, device="cuda") > 0.5).float())}[task]
+    y = op.forward(gt)
+    before = A.qkv_attention_cuda.launches
+    with torch.inference_mode():
+        x = INV.ddnm_sample(GaussianDiffusion.create(timesteps=100, image_size=32),
+                            lambda xx, tt, c, yy: model(xx, tt, cond=c, y=yy), y, op,
+                            num_steps=10, generator=g).x
+    assert A.qkv_attention_cuda.launches > before
+    assert bool(torch.isfinite(x).all())
+    assert ((op.forward(x) - y).norm() / y.norm()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("t,h,d,dtype", [(64, 1, 1024, torch.bfloat16),   # inria64's middle
+                                         (64, 1, 512, torch.bfloat16),    # eurosat64's
+                                         (77, 2, 264, torch.bfloat16),
+                                         (130, 1, 136, torch.float32),
+                                         (1024, 1, 520, torch.float32)])
+def test_wide_head_dims_launch_the_wide_kernels(dev, t, h, d, dtype):
+    """Head dims above the attention bodies' take the kernels of
+    attention_wide.cu through the auto path, forward (with the lse) and
+    backward, against the plain versions on the same inputs; a ragged T and
+    the split_qkv views of both head orders."""
+    for new_order in (False, True):
+        qkv = _qkv(2, t, h, d, dtype, seed=t + d).requires_grad_()
+        g = torch.Generator(device="cuda").manual_seed(d)
+        dout = torch.randn(2, t, h * d, generator=g, device="cuda").to(dtype)
+        before = (A.wide_attention_cuda.launches, A.wide_attention_bwd_cuda.launches,
+                  A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches)
+        out = A.attention_from_qkv(qkv, h, new_order)
+        (dqkv,) = torch.autograd.grad(out, qkv, dout)
+        after = (A.wide_attention_cuda.launches, A.wide_attention_bwd_cuda.launches,
+                 A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+        q, k, v = A.split_qkv(qkv.detach(), h, new_order)
+        ref, ref_lse = A.reference_attention(q, k, v, return_lse=True)
+        _, lse = A.wide_attention_cuda(q, k, v, return_lse=True)
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        assert _scaled_err(out.reshape(ref.shape), ref, 1.0) <= TOL[dtype]
+        grads = A.reference_attention_bwd(q, k, v, ref, ref_lse, dout.reshape(ref.shape))
+        want = A.stack_qkv(*grads, new_order=new_order)
+        rms = want.float().pow(2).mean().sqrt().item()
+        err = ((dqkv.float() - want.float()).abs() / want.float().abs().clamp(min=rms)).max()
+        assert err.item() <= TOL_BWD[dtype], err.item()

@@ -199,5 +199,7 @@ def test_sampler_refusals():
         proc.sample(fn, 1, device="cpu", num_steps=2, method="rk4")
     with pytest.raises(AssertionError, match="x0"):
         proc.sample(fn, 1, device="cpu", num_steps=2, mask=torch.ones(1, 8, 8, 1))
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        proc.sample(fn, 1, device="cpu", num_steps=2, log_every=1)
+    # log_every frames: one a step, the last the result
+    out = proc.sample(fn, 1, device="cpu", num_steps=2, log_every=1)
+    assert out.intermediates.shape == (2, 1, 8, 8, 3)
+    assert torch.equal(out.intermediates[-1], out.x)

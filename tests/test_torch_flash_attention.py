@@ -52,18 +52,54 @@ def _rel(out, ref):
 
 # (T, block_q, block_k): aligned, and ragged (padded to the blocks in JAX)
 SHAPES = [(64, 32, 32), (40, 16, 16)]
+HEAD_DIMS = [160, 256]
+
+
+def _vjp_inputs(t, d, seed):
+    q, k, v = _bthd(1, t, 2, d, seed=seed)
+    return q, k, v, np.random.default_rng(seed).normal(size=q.shape).astype(np.float32)
+
+
+def _vjp_cases():
+    """(regime, T, block_q, block_k, D, seed) of the two tests below."""
+    return ([(r, t, bq, bk, 16, t) for r in ("resident", "grid") for t, bq, bk in SHAPES]
+            + [(r, 40, 16, 16, d, d) for r in ("resident", "grid") for d in HEAD_DIMS])
+
+
+@pytest.fixture(scope="module")
+def pallas_vjps():
+    """The JAX flash_attention's output and its vjp (K2 or K3 forward, K4 or
+    the XLA recompute backward, interpreted) for every case of the two tests
+    below, from one jitted function (one compile); K3's regime by the cap
+    lowered below T while its cases are traced."""
+    cases = _vjp_cases()
+    old = JA._INTERPRET, JA._MAX_RESIDENT_KV
+    JA._INTERPRET = True
+    try:
+        @jax.jit
+        def run(args):
+            outs = []
+            for (regime, _, bq, bk, _, _), (q, k, v, g) in zip(cases, args):
+                JA._MAX_RESIDENT_KV = 16 if regime == "grid" else old[1]
+                ref, vjp = jax.vjp(lambda a, b, c, bq=bq, bk=bk: JA.flash_attention(
+                    a, b, c, bq, bk), q, k, v)
+                outs.append((ref, vjp(g)))
+            return outs
+
+        args = [tuple(map(jnp.asarray, _vjp_inputs(t, d, seed)))
+                for _, t, _, _, d, seed in cases]
+        return {case[:5]: jax.tree.map(np.asarray, out) for case, out in zip(cases, run(args))}
+    finally:
+        JA._INTERPRET, JA._MAX_RESIDENT_KV = old
 
 
 @pytest.mark.parametrize("t,bq,bk", SHAPES)
-def test_forward_and_gradients_match_pallas(regime, t, bq, bk):
+def test_forward_and_gradients_match_pallas(pallas_vjps, regime, t, bq, bk):
     """Forward: K2 (with its lse, as training runs it) or K3. Gradients:
     in K2's regime the Pallas flash backward K4 in interpret mode, in K3's
     the XLA recompute. The port runs FlashAttention either way."""
-    q, k, v = _bthd(1, t, 2, 16, seed=t)
-    g = np.random.default_rng(t).normal(size=q.shape).astype(np.float32)
-    ref, vjp = jax.vjp(lambda a, b, c: JA.flash_attention(a, b, c, bq, bk),
-                       *map(jnp.asarray, (q, k, v)))
-    ref_grads = vjp(jnp.asarray(g))
+    q, k, v, g = _vjp_inputs(t, 16, t)
+    ref, ref_grads = pallas_vjps[(regime, t, bq, bk, 16)]
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = TA.flash_attention(qt, kt, vt)
     assert out.shape == (1, t, 2, 16) and out.dtype == torch.float32
@@ -74,16 +110,13 @@ def test_forward_and_gradients_match_pallas(regime, t, bq, bk):
         assert _rel(a, b) <= REL_TOL, name
 
 
-@pytest.mark.parametrize("d", [160, 256])
-def test_head_dims_above_128_match_pallas(regime, d):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_head_dims_above_128_match_pallas(pallas_vjps, regime, d):
     """D 160 and 256, which the wgmma/TMA body takes on the card: the JAX
     forward pads D to a multiple of 128 (K2 or K3), its gradients are K4 or
     the XLA recompute; the port runs FlashAttention's plain versions."""
-    q, k, v = _bthd(1, 40, 2, d, seed=d)
-    g = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
-    ref, vjp = jax.vjp(lambda a, b, c: JA.flash_attention(a, b, c, 16, 16),
-                       *map(jnp.asarray, (q, k, v)))
-    ref_grads = vjp(jnp.asarray(g))
+    q, k, v, g = _vjp_inputs(40, d, d)
+    ref, ref_grads = pallas_vjps[(regime, 40, 16, 16, d)]
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = TA.flash_attention(qt, kt, vt)
     assert out.shape == (1, 40, 2, d) and _rel(out, ref) <= REL_TOL
@@ -153,6 +186,46 @@ def test_bwd_route(dtype, d, fused, strides, ptrs, kernel):
             assert "ROADMAP queue 2, item 1" in str(err.value)
     else:
         assert TA.bwd_route(dtype, d, strides, ptrs, fused=fused) == kernel
+
+
+@pytest.mark.parametrize("t,d,dtype,kernel", [
+    (64, 1024, torch.bfloat16, "wide"),   # inria64's middle attention
+    (64, 512, torch.bfloat16, "wide"),    # eurosat64's
+    (1024, 264, torch.bfloat16, "wide"), (1040, 264, torch.bfloat16, None),
+    (64, 256, torch.bfloat16, "sm90"), (64, 136, torch.float32, "wide"),
+    (64, 128, torch.float32, "fma"), (2048, 1024, torch.bfloat16, None),
+])
+def test_wide_head_dims_route_to_the_wide_kernels(t, d, dtype, kernel):
+    """Head dims above the attention bodies' (256 in bf16, 128 in float32)
+    take the kernels of attention_wide.cu at T up to 1024, forward and
+    backward; longer sequences are refused, and the fused-qkv entry keeps
+    the JAX package's gate."""
+    for route in (TA.fwd_route, TA.bwd_route):
+        if kernel is None:
+            with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
+                route(dtype, d, t=t)
+        else:
+            assert route(dtype, d, t=t) == kernel
+        if d > 128:
+            with pytest.raises(ValueError, match="gate"):
+                route(dtype, d, fused=True, t=t)
+    assert not (kernel == "wide" and TA._qkv_kernel_takes(t, d))
+
+
+def test_wide_head_dim_matches_jax():
+    """inria64's middle attention at B 1 (T 64, one head of D 1024), float32:
+    the port's auto path (the plain versions on the CPU, the wide kernels on
+    the card) against the JAX package's attention_from_qkv (XLA's einsum
+    below T 512), forward and gradient."""
+    rng = np.random.default_rng(11)
+    qkv = rng.normal(size=(1, 64, 3 * 1024)).astype(np.float32)
+    g = rng.normal(size=(1, 64, 1024)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda x: JA.attention_from_qkv(x, 1), jnp.asarray(qkv))
+    (ref_grad,) = vjp(jnp.asarray(g))
+    x = torch.from_numpy(qkv).requires_grad_()
+    out = TA.attention_from_qkv(x, 1)
+    (grad,) = torch.autograd.grad(out, x, torch.from_numpy(g))
+    assert _rel(out, ref) <= REL_TOL and _rel(grad, ref_grad) <= REL_TOL
 
 
 def test_bf16_forward_matches_pallas(regime):

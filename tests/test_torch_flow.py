@@ -72,9 +72,10 @@ def _guidance(guide, rng, shape):
     return kw
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_closed_form_trajectory_matches_jax(case):
-    method, steps, start, inpaint, guide, stateful = CASES[case]
+def _case(case):
+    """A case's x_T, mask, x0 and guidance keywords (numpy) and its velocity
+    for each library."""
+    _, _, _, inpaint, guide, stateful = CASES[case]
     rng = np.random.default_rng(len(case))
     shape = (N, SIZE, SIZE, CH)
     x_T = rng.normal(size=shape).astype(np.float32)
@@ -89,15 +90,36 @@ def test_closed_form_trajectory_matches_jax(case):
                for lib in (jnp, torch)}
     if stateful:  # the state has the doubled batch's shape
         gkw["model_state"] = np.zeros((2 * N,) + shape[1:], np.float32)
+    return x_T, mask, x0, gkw, fns
+
+
+@pytest.fixture(scope="module")
+def jax_trajectories():
+    """Every case's JAX trajectory from one jitted function (one compile)."""
     as_j = lambda a: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+
+    @jax.jit
+    def run():
+        out = {}
+        for case, (method, steps, start, *_) in CASES.items():
+            x_T, mask, x0, gkw, fns = _case(case)
+            out[case] = JFM.create(image_size=SIZE, in_channels=CH).sample(
+                fns[jnp], jax.random.PRNGKey(3), N, num_steps=steps, method=method,
+                x_T=jnp.asarray(x_T), start_index=start, mask=as_j(mask), x0=as_j(x0),
+                **{k: as_j(v) for k, v in gkw.items()}).x
+        return out
+
+    return {k: np.asarray(v) for k, v in run().items()}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_closed_form_trajectory_matches_jax(jax_trajectories, case):
+    method, steps, start, inpaint, guide, stateful = CASES[case]
+    shape = (N, SIZE, SIZE, CH)
+    x_T, mask, x0, gkw, fns = _case(case)
     as_t = lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
     key = jax.random.PRNGKey(3)
-    j = JFM.create(image_size=SIZE, in_channels=CH)
-    ref = j.sample(fns[jnp], key, N, num_steps=steps, method=method,
-                   x_T=jnp.asarray(x_T), start_index=start,
-                   mask=None if mask is None else jnp.asarray(mask),
-                   x0=None if x0 is None else jnp.asarray(x0),
-                   **{k: as_j(v) for k, v in gkw.items()}).x
+    ref = jax_trajectories[case]
     noise = _mask_noise(key, steps, shape) if inpaint else None
     t = TFM.create(image_size=SIZE, in_channels=CH)
     out = t.sample(fns[torch], N, device="cpu", num_steps=steps, method=method,
@@ -142,12 +164,14 @@ def test_dit_heun_trajectory_matches_jax():
 
 
 def test_unported_options_raise():
-    """``log_every`` frames still raise naming ROADMAP queue 11; guidance
-    without an unconditional branch is the plain sample, and a stateful
-    velocity (``model_state``) sees every step's index, twice a Heun step."""
+    """``log_every`` frames come back (one a step, the last the result);
+    guidance without an unconditional branch is the plain sample, and a
+    stateful velocity (``model_state``) sees every step's index, twice a Heun
+    step."""
     t = TFM.create(image_size=SIZE, in_channels=CH)
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        t.sample(velocity_torch, 1, device="cpu", num_steps=2, log_every=1)
+    framed = t.sample(velocity_torch, 1, device="cpu", num_steps=2, log_every=1)
+    assert framed.intermediates.shape == (2, 1, SIZE, SIZE, CH)
+    assert torch.equal(framed.intermediates[-1], framed.x)
     x_T = torch.randn(1, SIZE, SIZE, CH, generator=torch.Generator().manual_seed(0))
     plain = t.sample(velocity_torch, 1, device="cpu", num_steps=3, x_T=x_T).x
     unguided = t.sample(velocity_torch, 1, device="cpu", num_steps=3, x_T=x_T,

@@ -69,16 +69,61 @@ def _x0_and_mask():
     return x0, mask
 
 
+JUMPS = dict(jump_len=2, jump_n=2)  # RePaint resampling over T = 6
+# label-CFG (the rescale, and the interval, whose edges 0.2 and 0.8 are
+# levels t / (T - 1) of a T = 6 chain) and dynamic thresholding
+LABEL_CFG = dict(y=np.array([0, 3], np.int32), y_uncond=np.array([4, 4], np.int32),
+                 guidance_scale=2.5, guidance_rescale=0.5, guidance_interval=(0.2, 0.8),
+                 dynamic_threshold=0.9)
+
+
+def _label_cfg_kw(stateful):
+    kw = dict(LABEL_CFG)
+    if stateful:  # the doubled batch flows through the stateful denoiser
+        kw["model_state"] = np.zeros((2 * SHAPE[0],) + SHAPE[1:], np.float32)
+    return kw
+
+
+@pytest.fixture(scope="module")
+def jax_refs(models):
+    """The JAX samplers' trajectories the tests below hold the port to, from
+    one jitted function (one compile): DDIM eta 0 over the UNet without and
+    with inpainting, RePaint jumps over the UNet, and ancestral DDPM with
+    label-CFG and thresholding over the closed-form denoiser, plain and
+    stateful."""
+    jfn, _ = models
+    x_T = np.random.default_rng(1).normal(size=SHAPE).astype(np.float32)
+    x0, mask = _x0_and_mask()
+    as_j = lambda kw: {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                       for k, v in kw.items()}
+
+    @jax.jit
+    def run(x_T, x0, mask):
+        jd = JGD.create(timesteps=50, image_size=8, in_channels=3)
+        out = {f"ddim_{inpaint}": jd.ddim_sample(
+            jfn, jax.random.PRNGKey(2), 2, num_steps=10, x_T=x_T,
+            mask=mask if inpaint else None, x0=x0 if inpaint else None).x
+            for inpaint in (False, True)}
+        jsum = JGD.create(timesteps=6, image_size=8, in_channels=3, cond_type="sum")
+        out["jumps"] = jsum.ddpm_sample(jfn, jax.random.PRNGKey(4), 2,
+                                        cond=jnp.concatenate([x0, mask], axis=-1), **JUMPS).x
+        jd6 = JGD.create(timesteps=6, image_size=8, in_channels=3)
+        for stateful in (False, True):
+            lib_fn = cached_denoiser if stateful else closed_form_denoiser
+            out[f"cfg_{stateful}"] = jd6.ddpm_sample(lib_fn(jnp), jax.random.PRNGKey(6), 2,
+                                                     **as_j(_label_cfg_kw(stateful))).x
+        return out
+
+    return {k: np.asarray(v) for k, v in run(*map(jnp.asarray, (x_T, x0, mask))).items()}
+
+
 @pytest.mark.parametrize("inpaint", [False, True])
-def test_ddim_eta0_trajectory(models, inpaint):
-    jfn, tfn = models
+def test_ddim_eta0_trajectory(models, jax_refs, inpaint):
+    _, tfn = models
     x_T = np.random.default_rng(1).normal(size=SHAPE).astype(np.float32)
     x0, mask = _x0_and_mask() if inpaint else (None, None)
-    jd = JGD.create(timesteps=50, image_size=8, in_channels=3)
     key = jax.random.PRNGKey(2)
-    ref = jd.ddim_sample(jfn, key, 2, num_steps=10, x_T=jnp.asarray(x_T),
-                         mask=None if mask is None else jnp.asarray(mask),
-                         x0=None if x0 is None else jnp.asarray(x0)).x
+    ref = jax_refs[f"ddim_{inpaint}"]
     # replay the JAX sampler's per-step mask-composite draws
     k = jax.random.split(key)[1]
     draws = []
@@ -126,15 +171,13 @@ def test_ddpm_repaint_steps_match_reverse_step(models):
     assert rel_err(out, x) <= TRAJ_TOL
 
 
-def test_ddpm_repaint_jumps_match_jax_sampler(models):
-    jfn, tfn = models
-    T, jump_len, jump_n = 6, 2, 2
+def test_ddpm_repaint_jumps_match_jax_sampler(models, jax_refs):
+    _, tfn = models
+    T, jump_len, jump_n = 6, JUMPS["jump_len"], JUMPS["jump_n"]
     gt, known = _x0_and_mask()
     cond = np.concatenate([gt, known], axis=-1)
     key = jax.random.PRNGKey(4)
-    jd = JGD.create(timesteps=T, image_size=8, in_channels=3, cond_type="sum")
-    ref = jd.ddpm_sample(jfn, key, 2, cond=jnp.asarray(cond), jump_len=jump_len,
-                         jump_n=jump_n).x
+    ref = jax_refs["jumps"]
     t_ops, _ = repaint_op_sequence(T, jump_len, jump_n)
     n_ops = len(t_ops)
     assert n_ops > T  # the jumps add forward ops
@@ -147,7 +190,7 @@ def test_ddpm_repaint_jumps_match_jax_sampler(models):
 
 
 @pytest.mark.parametrize("stateful", [False, True])
-def test_ddpm_label_cfg_threshold_matches_jax(stateful):
+def test_ddpm_label_cfg_threshold_matches_jax(jax_refs, stateful):
     """Ancestral DDPM with label-CFG (the rescale, and the interval, whose
     edges 0.2 and 0.8 are levels t / (T - 1) of this chain) and dynamic
     thresholding on the closed-form denoiser of torch_parity, stateful or
@@ -155,15 +198,9 @@ def test_ddpm_label_cfg_threshold_matches_jax(stateful):
     T = 6
     key = jax.random.PRNGKey(6)
     x_T, draws = _jax_ddpm_draws(key, T)
-    kw = dict(y=np.array([0, 3], np.int32), y_uncond=np.array([4, 4], np.int32),
-              guidance_scale=2.5, guidance_rescale=0.5, guidance_interval=(0.2, 0.8),
-              dynamic_threshold=0.9)
-    if stateful:  # the doubled batch flows through the stateful denoiser
-        kw["model_state"] = np.zeros((2 * SHAPE[0],) + SHAPE[1:], np.float32)
+    kw = _label_cfg_kw(stateful)
     lib_fn = cached_denoiser if stateful else closed_form_denoiser
-    jd = JGD.create(timesteps=T, image_size=8, in_channels=3)
-    ref = jd.ddpm_sample(lib_fn(jnp), key, 2, **{
-        k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}).x
+    ref = jax_refs[f"cfg_{stateful}"]
     td = TGD.create(timesteps=T, image_size=8, in_channels=3)
     out = td.ddpm_sample(lib_fn(torch), 2, device="cpu", x_T=torch.from_numpy(x_T),
                          noise_fn=lambda i, role: torch.from_numpy(draws[i]), **{
@@ -173,11 +210,15 @@ def test_ddpm_label_cfg_threshold_matches_jax(stateful):
 
 
 def test_unported_sampler_options_raise(models):
+    """These options work now: an identity ``x0_proj`` leaves DDIM as it
+    was, ``log_every`` returns the frames, ``self_condition`` is the
+    process's field (their parity is in test_torch_sampler_extras.py)."""
     _, tfn = models
     td = TGD.create(timesteps=4, image_size=8, in_channels=3)
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        td.ddim_sample(tfn, 1, device="cpu", num_steps=2, x0_proj=lambda x: x)
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        td.ddpm_sample(tfn, 1, device="cpu", log_every=1)
-    with pytest.raises(NotImplementedError):
-        TGD.create(timesteps=4, self_condition=True)
+    x_T = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 8, 8, 3)).astype(np.float32))
+    plain = td.ddim_sample(tfn, 1, device="cpu", num_steps=2, x_T=x_T).x
+    proj = td.ddim_sample(tfn, 1, device="cpu", num_steps=2, x_T=x_T, x0_proj=lambda x: x).x
+    assert torch.equal(plain, proj)
+    out = td.ddpm_sample(tfn, 1, device="cpu", log_every=1, x_T=x_T)
+    assert out.intermediates.shape == (4, 1, 8, 8, 3) and torch.equal(out.intermediates[-1], out.x)
+    assert TGD.create(timesteps=4, self_condition=True).self_condition

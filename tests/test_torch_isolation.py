@@ -69,6 +69,17 @@ def test_the_guidance_modules_are_checked():
         assert f"eo_diffusion_torch/{mod}" in names, mod
 
 
+def test_the_restoration_modules_are_checked():
+    """The classifier, classifier guidance, DDNM, their CLIs and the frame
+    helpers are among the sources checked (and imported without JAX by
+    test_package_imports_without_jax)."""
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for mod in ("models/encoder_unet.py", "diffusion/classifier_guidance.py",
+                "diffusion/inverse.py", "cli/train_classifier.py", "cli/restore.py",
+                "utils/viz.py", "utils/gif.py"):
+        assert f"eo_diffusion_torch/{mod}" in names, mod
+
+
 def test_the_entry_points_and_demos_are_checked():
     """The root wrappers and the four demos are among the sources checked;
     the JAX-checkpoint converter is the one file that imports both packages,

@@ -163,8 +163,7 @@ def test_the_jax_compatibility_checks_hold(tmp_path, argv, match):
         inference.main(args)
 
 
-@pytest.mark.parametrize("argv,item", [(["--classifier_scale", "2"], 11),
-                                       (["--classifier_ckpt=c"], 11), (["--sigma_data", "1"], 12),
+@pytest.mark.parametrize("argv,item", [(["--sigma_data", "1"], 12),
                                        (["--cd_points", "9"], 12), (["--sampler", "pd"], 12),
                                        (["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14)])
 def test_waiting_flags_exit_naming_their_item(capsys, argv, item):

@@ -75,11 +75,10 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_solver_trajectories_match_jax(case):
-    sampler, order, guide, inpaint, thresh, objective = CASES[case]
+def _case_kw(case):
+    """The sampler keywords of a CASES entry (numpy arrays)."""
+    _, order, guide, inpaint, thresh, _ = CASES[case]
     x_T, cond, x0, mask = _inputs()
-    key = jax.random.PRNGKey(4)
     kw = dict(num_steps=STEPS, order=order, dynamic_threshold=thresh, clip=thresh is None)
     if guide == "image":
         kw.update(cond=cond, uncond=np.zeros_like(cond), guidance_scale=3.0,
@@ -88,11 +87,35 @@ def test_solver_trajectories_match_jax(case):
         kw.update(y=np.array([0, 2]), y_uncond=np.array([4, 4]), guidance_scale=2.0)
     if inpaint:
         kw.update(mask=mask, x0=x0)
-    jd = JGD.create(timesteps=T, image_size=SIZE, in_channels=3, objective=objective)
-    jfn = JD.dpm_solver_sample if sampler == "dpm" else JU.unipc_sample
-    want = jfn(jd, _denoiser(jnp), key, N, x_T=jnp.asarray(x_T),
-               **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
-                  for k, v in kw.items()}).x
+    return kw
+
+
+@pytest.fixture(scope="module")
+def jax_trajectories():
+    """Every case's JAX trajectory from one jitted function (one compile)."""
+    x_T = _inputs()[0]
+
+    @jax.jit
+    def run(x_T):
+        out = {}
+        for case, (sampler, *_, objective) in CASES.items():
+            jd = JGD.create(timesteps=T, image_size=SIZE, in_channels=3, objective=objective)
+            jfn = JD.dpm_solver_sample if sampler == "dpm" else JU.unipc_sample
+            out[case] = jfn(jd, _denoiser(jnp), jax.random.PRNGKey(4), N, x_T=x_T, **{
+                k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                for k, v in _case_kw(case).items()}).x
+        return out
+
+    return {k: np.asarray(v) for k, v in run(jnp.asarray(x_T)).items()}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_solver_trajectories_match_jax(jax_trajectories, case):
+    sampler, _, _, inpaint, _, objective = CASES[case]
+    x_T, _, x0, mask = _inputs()
+    key = jax.random.PRNGKey(4)
+    kw = _case_kw(case)
+    want = jax_trajectories[case]
     # the composite draws: DPM's step keys; UniPC's node-0 key, then its step keys
     scan_rng = jax.random.split(key)[1]
     if sampler == "dpm":

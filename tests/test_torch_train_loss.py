@@ -100,5 +100,4 @@ def test_generator_draws_and_the_gradient_flows(twin):
 def test_create_keeps_the_jax_assertions():
     with pytest.raises(AssertionError, match="zero_terminal_snr"):
         TGD.create(timesteps=T, zero_terminal_snr=True, objective="eps")
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        TGD.create(timesteps=T, self_condition=True)
+    assert TGD.create(timesteps=T, self_condition=True).self_condition
