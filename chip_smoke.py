@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only wide   # phases 1, 2, phase 3's wide rows, 5i
 
 Phases, in order; the first failure exits non-zero:
 
@@ -23,9 +24,12 @@ Phases, in order; the first failure exits non-zero:
    gradients 1 % off, one streamed query tile of the KV pass dropped), with
    the mma.sync backward timed beside it, head dims 160 and 256 included.
    The wide kernels (attention_wide.cu: head dims above 256 in bf16 and 128
-   in float32, T up to 1024) are held the same way through the same entries
-   at inria64's middle attention (B8 forward, B16 backward, T 64, one head of
-   D 1024, bf16) and at a ragged float32 shape (T 130, D 136).
+   in float32, at any T, keys streamed, bf16 on the tensor cores; phase 2
+   counts its HMMA) are held the same way through the same entries at
+   inria64's middle attention (one head of D 1024, bf16: B8 forwards at T
+   64, 1024 and 4096, B16 and B4 backwards at T 64 and 4096) and at a ragged
+   float32 shape (T 130, D 136), with the first wide pair
+   (attention_wide_resident.cu, T up to 1024) timed beside them.
    GroupNorm runs the one-launch body (group_norm_sm90.cu) at the clouds
    UNet's level shapes: its statistics are held against float64
    (TOL_GN_STATS), a chunk of rows lost from the combine is planted at three
@@ -111,7 +115,15 @@ Phases, in order; the first failure exits non-zero:
    ``synthetic64`` and inpaint on ``inria64`` (whose one attention, T 64 D
    1024, launches the wide kernel), DDNM-50 at b8, each with
    ``||A(x) - y|| / ||y|| <= TOL_DDNM_RANGE`` and against the all-plain model
-   from one start and the same draws (TOL_SOLVER_REL);
+   from one start and the same draws (TOL_SOLVER_REL); 5i. inria64 and
+   eurosat64 at ``--image_size 512``, where their middle attention (one head
+   of D 1024 / 512) sees T 4096: ``cli.inference`` DDIM-WIDE_STEPS at b4
+   for both, ``cli.restore --task inpaint`` at b4 and ``cli.train``
+   WIDE_TRAIN_STEPS steps at b4 for inria64, one wide forward a UNet
+   forward and one wide backward a step asserted; each against the
+   all-plain model from the same seeded weights (a forward, TOL_UNET_REL;
+   the DDIM or DDNM trajectory from one start, TOL_SOLVER_REL; a loss's
+   gradients at b2, TOL_UNET_GRAD_REL);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -288,13 +300,16 @@ ROUTES = {64: (11, 0), 256: (11, 0), 384: (0, 11), 512: (6, 5)}
 # by (image size, base width, channel mults, attention resolutions). The
 # (T, D) of its blocks (UNetPlan.attention_shapes) and the kernels' ranges
 # give them: the fused-qkv entry K1 takes D <= 128 at these T; the wide
-# kernel takes D above 256 (bf16) at T <= 1024, so inria64's one attention
-# (the middle block, T 64, one head of D 1024) launches it
+# kernel takes D above 256 (bf16) at every T, so inria64's and eurosat64's
+# one attention (the middle block, one head of D 1024 / 512: T 64 at 64 px,
+# 4096 at 512 px) launches it
 UNET_ATTN = {
     (64, 64, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 7},      # synthetic64, flow64, edm64, ...
     (64, 128, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 11},    # unet_clouds(64)
     (256, 128, (1, 2, 3, 4), (4, 8)): {"attn_fwd": 11},   # sen12mscr256
     (64, 128, (1, 2, 4, 8), ()): {"wide_fwd": 1},         # inria64
+    (512, 128, (1, 2, 4, 8), ()): {"wide_fwd": 1},        # inria64 at 512 px (T 4096)
+    (512, 128, (1, 2, 3, 4), ()): {"wide_fwd": 1},        # eurosat64 at 512 px
 }
 # clouds UNet: 22 ResBlocks x 2 norms, 11 attention norms, the output norm
 GN_PER_FORWARD = 56
@@ -383,6 +398,13 @@ SHORT_STEPS = 4
 TOL_METRICS = 1e-5
 TOL_EVAL = 1e-4
 STEPS_512 = 20  # DDIM steps of the 512 px whole-scene and tiled runs
+# phase 5i: inria64 and eurosat64 at 512 px (the wide kernels at T 4096):
+# DDIM / DDNM steps and the batch of the CLIs' runs, training steps (steps/s
+# over the last two), the batch of the gradient check against all-plain
+WIDE_STEPS = 10
+WIDE_BATCH = 4
+WIDE_TRAIN_STEPS = 4
+WIDE_GRAD_BATCH = 2
 # phase 7c: a SEN12MS-CR tree of SEN12_SCENES x SEN12_PATCHES triplets at
 # 256 px (s1: 2 bands float32; s2, s2_cloudy: 13 bands uint16), 54 of them in
 # the train split (batches of 8: 6 a epoch), 10 in the test split
@@ -748,20 +770,31 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None, tag="flash_fwd"):
     kernel_ms = cuda_ms(lambda: A.flash_attention_cuda(q, k, v), reps)
     mma_ms = (cuda_ms(lambda: A.flash_attention_mma_cuda(q, k, v), reps)
               if d <= 128 else None)  # the mma.sync body takes D up to 128
+    # the first wide body (T up to 1024) on the same tensors, where it applies
+    old_ms = (cuda_ms(lambda: A.wide_attention_resident_cuda(q, k, v), reps)
+              if tag == "wide_fwd" and t <= A._RESIDENT_MAX_T else None)
     plain_ms = cuda_ms(lambda: plain_fwd(q, k, v, chunk, with_lse=False), 2 if big else 3,
                        warmup=1)
     torch.cuda.empty_cache()
     q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                                scale=1.0 / math.sqrt(d)), reps)
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0 / math.sqrt(d))
+    library_ms = cuda_ms(sdpa, reps)
+    # the wide kernels at short T: the device's time alone too (back to back
+    # the calls are host-bound)
+    device = None
+    if old_ms is not None:
+        device = {"kernel": queued_ms(lambda: A.flash_attention_cuda(q, k, v)),
+                  "old_body": queued_ms(lambda: A.wide_attention_resident_cuda(q, k, v)),
+                  "library": queued_ms(sdpa)}
     del q4, k4, v4
     flops = 4.0 * b * heads * t * t * d
     nbytes = q.element_size() * b * t * heads * d * 4  # q, k, v read, o written
     bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "max_scaled_err": scaled, "lse_max_abs_err": lse_err, "unit_normal": strict,
-           "kernel_ms": kernel_ms, "mma_body_ms": mma_ms,
-           "plain_ms": plain_ms, "plain_chunk": chunk, "library_ms": library_ms,
+           "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, "old_body_ms": old_ms,
+           "device_ms": device, "plain_ms": plain_ms, "plain_chunk": chunk,
+           "library_ms": library_ms,
            "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
@@ -814,13 +847,23 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk, tag="flash_
     kernel_ms = cuda_ms(lambda: A.flash_attention_bwd_cuda(q, k, v, out, lse, dout), reps)
     mma_ms = (cuda_ms(lambda: A.flash_attention_bwd_mma_cuda(q, k, v, out, lse, dout), reps)
               if d <= 128 else None)  # the mma.sync body takes D up to 128
+    old_ms = (cuda_ms(lambda: A.wide_attention_bwd_resident_cuda(q, k, v, out, lse, dout), reps)
+              if tag == "wide_bwd" and t <= A._RESIDENT_MAX_T else None)  # the first wide body
     plain_ms = cuda_ms(plain, 1 if big else 2, warmup=1)
     torch.cuda.empty_cache()
     q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0 / math.sqrt(d))
     g4 = dout.permute(0, 2, 1, 3).contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True),
-                         5 if big else 10)
+    sdpa_bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True)
+    library_ms = cuda_ms(sdpa_bwd, 5 if big else 10)
+    # the wide kernels at short T: the device's time alone too (back to back
+    # the calls are host-bound)
+    device = None
+    if old_ms is not None:
+        device = {"kernel": queued_ms(lambda: A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)),
+                  "old_body": queued_ms(
+                      lambda: A.wide_attention_bwd_resident_cuda(q, k, v, out, lse, dout)),
+                  "library": queued_ms(sdpa_bwd)}
     del q4, k4, v4, o4, g4
     flops = 10.0 * b * heads * t * t * d
     # q, k, v, o, do read and dq, dk, dv written once each, plus the lse
@@ -829,8 +872,9 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk, tag="flash_
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "grad_rms": rms,
            "max_abs_err": err, "max_scaled_err": scaled, "mma_body_max_scaled_err": mma_scaled,
            "unit_normal": strict,
-           "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, "plain_ms": plain_ms,
-           "plain_heads_a_chunk": hchunk, "library_ms": library_ms, "bound_ms": bound_ms,
+           "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, "old_body_ms": old_ms,
+           "device_ms": device, "plain_ms": plain_ms, "plain_heads_a_chunk": hchunk,
+           "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
     print(f"{tag} " + json.dumps(row), flush=True)
@@ -839,12 +883,12 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk, tag="flash_
 
 def sass_census(lib):
     """Instructions of a built library by kind (cuobjdump -sass): HGMMA is
-    wgmma.mma_async, UTMALDG a TMA tile load (cp.async.bulk.tensor), LDL/STL
-    register spills."""
+    wgmma.mma_async, HMMA mma.sync, UTMALDG a TMA tile load
+    (cp.async.bulk.tensor), LDL/STL register spills."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS", "LDL", "STL")}
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDL", "STL")}
 
 
 def reset_counts():
@@ -853,6 +897,7 @@ def reset_counts():
     A.qkv_attention_mma_cuda.launches = A.flash_attention_mma_cuda.launches = 0
     A.qkv_attention_bwd_mma_cuda.launches = A.flash_attention_bwd_mma_cuda.launches = 0
     A.wide_attention_cuda.launches = A.wide_attention_bwd_cuda.launches = 0
+    A.wide_attention_resident_cuda.launches = A.wide_attention_bwd_resident_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     G.group_norm_fwd_legacy_cuda.launches = G.group_norm_bwd_legacy_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
@@ -874,6 +919,8 @@ def counts():
             "flash_bwd_mma": A.flash_attention_bwd_mma_cuda.launches,
             "wide_fwd": A.wide_attention_cuda.launches,
             "wide_bwd": A.wide_attention_bwd_cuda.launches,
+            "wide_fwd_resident": A.wide_attention_resident_cuda.launches,
+            "wide_bwd_resident": A.wide_attention_bwd_resident_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
             "gn_fwd_legacy": G.group_norm_fwd_legacy_cuda.launches,
             "gn_bwd_legacy": G.group_norm_bwd_legacy_cuda.launches,
@@ -907,7 +954,8 @@ def expected(size, forwards, backwards=0, cfg=None, batch=None):
     return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
             "attn_fwd_mma": 0, "flash_fwd_mma": 0, "attn_bwd_mma": 0, "flash_bwd_mma": 0,
-            "wide_fwd": 0, "wide_bwd": 0, "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
+            "wide_fwd": 0, "wide_bwd": 0, "wide_fwd_resident": 0, "wide_bwd_resident": 0,
+            "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
             "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": wg["mma"] * backwards,
             "wgrad_sm90": wg["sm90"] * backwards, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
             "transpose": 0, "variant": 0}
@@ -2751,6 +2799,245 @@ def phase_5h(tmp, card):
     return out
 
 
+def wide_cases(gen, ugen):
+    """Phase 3's rows of the wide kernels (head dims above the bodies'),
+    through the separate-tensor entries: inria64's middle attention (one
+    head of D 1024) at T 64 (cli.restore's b8 forward, the short training's
+    b16 backward), a ragged float32 case, then T 1024 and T 4096 (256 and
+    512 px: B8 forwards, a B4 backward) drawn from a generator of their own,
+    so the draws of the checks before them stay. Each row times the first
+    wide body beside the kernel where that body takes the shape (T up to
+    1024). Returns (forward rows, backward rows)."""
+    reset_counts()
+    fwd = [flash_case(8, 64, 1, 1024, torch.bfloat16, "legacy", gen, tag="wide_fwd"),
+           flash_case(2, 130, 2, 136, torch.float32, "contiguous", gen, tag="wide_fwd")]
+    bwd = [flash_bwd_case(DIT_TRAIN_BATCH, 64, 1, 1024, torch.bfloat16, "legacy", gen, ugen,
+                          hchunk=1, tag="wide_bwd"),
+           flash_bwd_case(2, 130, 2, 136, torch.float32, "new", gen, ugen, hchunk=2,
+                          tag="wide_bwd")]
+    wgen = torch.Generator(device="cuda").manual_seed(18)
+    fwd += [flash_case(8, t, 1, 1024, torch.bfloat16, "legacy", wgen, tag="wide_fwd")
+            for t in (1024, 4096)]
+    bwd.append(flash_bwd_case(WIDE_BATCH, 4096, 1, 1024, torch.bfloat16, "legacy", wgen, wgen,
+                              hchunk=1, tag="wide_bwd"))
+    got = counts()
+    assert got["wide_fwd"] and got["wide_bwd"], got  # not another body
+    assert not (got["flash_fwd"] or got["flash_bwd"]), got
+    return fwd, bwd
+
+
+def wide_forward_check(model, cfg, batch, gen, label):
+    """One UNet forward at cfg.image_size px: the kernels against the
+    all-plain model (plain attention, norms and convs), same weights, the
+    forward's launches as UNET_ATTN gives them. Returns the rel L2."""
+    size = cfg.image_size
+    x = torch.randn(batch, size, size, cfg.in_channels, generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        out_k = model.set_impl(attn="auto", norm="auto")(x, ts).float()
+        launched = counts()
+        out_p = model.set_impl(attn="plain", norm="plain")(x, ts).float()
+        model.set_impl(attn="auto", norm="auto")
+    rel = rel_l2(out_k, out_p)
+    assert launched == unet_expected(cfg, full=1), (label, launched)
+    assert bool(torch.isfinite(out_k).all()) and rel <= TOL_UNET_REL, (label, rel)
+    return rel
+
+
+def wide_grad_check(model, cfg, batch, gen, label):
+    """One loss and backward at cfg.image_size px, the kernels against the
+    all-plain model (attention, norms and convs): rel L2 over every
+    parameter gradient, the step's launches as unet_train_expected gives
+    them. Returns the rel L2."""
+    size = cfg.image_size
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size)
+    x0 = torch.randn(batch, size, size, cfg.in_channels, generator=gen, device="cuda")
+    noise = torch.randn(batch, size, size, cfg.in_channels, generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    model_fn = lambda x, t, c, y: model(x, t)
+    grads, launched = {}, None
+    for impl in ("auto", "plain"):
+        model.set_impl(attn=impl, norm=impl, conv=impl).zero_grad(set_to_none=True)
+        reset_counts()
+        diffusion.train_loss(model_fn, x0, t=ts, noise=noise).backward()
+        torch.cuda.synchronize()
+        if impl == "auto":
+            launched = counts()
+        grads[impl] = {n: q.grad.float().clone() for n, q in model.named_parameters()}
+    model.set_impl(attn="auto", norm="auto", conv="auto").zero_grad(set_to_none=True)
+    assert launched == unet_train_expected(cfg, size, batch, 1), (label, launched)
+    for name, g in grads["auto"].items():
+        assert torch.isfinite(g).all(), f"{label}: non-finite gradient of {name}"
+    rel = grads_rel_l2(grads["auto"], grads["plain"])
+    assert rel <= TOL_UNET_GRAD_REL, (label, rel)
+    del grads
+    return rel
+
+
+def phase_5i(tmp, card):
+    """inria64 and eurosat64 at 512 px through the entry points, where their
+    middle attention (one head of D 1024 / 512) sees T 4096: cli.inference
+    DDIM-WIDE_STEPS at b4 for both, cli.restore inpaint at b4 and cli.train
+    WIDE_TRAIN_STEPS steps at b4 for inria64, the wide kernels' launches
+    asserted (one forward a UNet forward, one backward a step). Each path is
+    held against the all-plain model from the same seeded weights: a UNet
+    forward (TOL_UNET_REL) and a DDIM or DDNM trajectory from one start
+    (TOL_SOLVER_REL), and a training loss's gradients (TOL_UNET_GRAD_REL).
+    Draws from a generator of its own."""
+    from eo_diffusion_torch.cli import restore as cli_restore
+    from eo_diffusion_torch.diffusion import inverse as INV
+
+    igen = torch.Generator(device="cuda").manual_seed(19)
+    size, batch, steps = 512, WIDE_BATCH, WIDE_STEPS
+    proc = GaussianDiffusion.create(timesteps=1000, image_size=size)
+    ddim_calls = make_ddim_schedule(proc.schedule, steps, 0.0).num_steps
+    ddnm_calls = make_ddim_schedule(proc.schedule, steps, 0.85).num_steps
+    out = {}
+    for preset in ("inria64", "eurosat64"):
+        cfg = get_preset(preset).model_config()
+        cfg512 = dataclasses.replace(cfg, image_size=size)
+        res = run_cli(["--preset", preset, "--image_size", str(size), "--dataset", "synthetic",
+                       "--sampler", "ddim", "--sampler_steps", str(steps), "--batch_size",
+                       str(batch), "--n_iter", "0", "--device", "cuda"], cfg, seed=22, tmp=tmp)
+        assert res["samples"].shape == (batch, size, size, 3), res["samples"].shape
+        want = unet_expected(cfg512, full=ddim_calls * res["batches"])
+        assert res["launches"] == want, (preset, res["launches"], want)
+        img_s = res["images"] / res["sample_seconds"]
+        # the same weights against the all-plain model: a forward, then DDIM
+        model = randomize_parameters(build_denoiser(cfg), 22).cuda().eval()
+        fwd_rel = wide_forward_check(model, cfg512, batch, igen, preset)
+        x_T = torch.randn(batch, size, size, 3, generator=igen, device="cuda")
+        fn = lambda xx, tt, c, yy: model(xx, tt, cond=c, y=yy)
+        with torch.inference_mode():
+            x_k = proc.ddim_sample(fn, batch, device="cuda", num_steps=steps, x_T=x_T).x
+            model.set_impl(attn="plain", norm="plain")
+            x_p = proc.ddim_sample(fn, batch, device="cuda", num_steps=steps, x_T=x_T).x
+            model.set_impl(attn="auto", norm="auto")
+        ddim_rel = rel_l2(x_k, x_p)
+        assert torch.isfinite(x_k).all() and ddim_rel <= TOL_SOLVER_REL, (preset, ddim_rel)
+        print(f"5i cli.inference {preset} --image_size {size} DDIM-{steps} b{batch}: "
+              f"{img_s:.4f} img/s ({res['sample_seconds']:.3f} s), launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }; kernels vs all-plain: "
+              f"forward rel L2 {fwd_rel:.3e} (limit {TOL_UNET_REL}), DDIM-{steps} final "
+              f"samples {ddim_rel:.3e} (limit {TOL_SOLVER_REL}); peak memory "
+              f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+        out[f"{preset}_ddim"] = {"launches": res["launches"], "img_s": img_s,
+                                 "forward_rel_l2": fwd_rel, "ddim_rel_l2": ddim_rel}
+        if preset == "eurosat64":
+            del model
+            torch.cuda.empty_cache()
+            continue
+
+        # inpainting through cli.restore, then DDNM against the all-plain model
+        ckpt = os.path.join(tmp, f"weights_{cfg.__class__.__name__}_{hash(cfg)}_22.pt")
+        reset_counts()
+        res = cli_restore.main(cli_restore.parse_args([
+            "--preset", preset, "--image_size", str(size), "--dataset", "synthetic", "--ckpt",
+            ckpt, "--task", "inpaint", "--sampler_steps", str(steps), "--batch_size",
+            str(batch), "--n_iter", "0", "--device", "cuda", "--outdir",
+            os.path.join(tmp, "restore_512")]))
+        got = counts()
+        assert got == unet_expected(cfg512, full=ddnm_calls * res["batches"]), got
+        assert res["range_err"] <= TOL_DDNM_RANGE and np.isfinite(res["restored"]).all(), res
+        gt = torch.as_tensor(res["gt"], device="cuda")
+        op = INV.inpaint_operator((torch.rand(batch, size, size, 1, generator=igen,
+                                              device="cuda") > 0.3).float())
+        yobs = op.forward(gt)
+        run = lambda: INV.ddnm_sample(
+            proc, fn, yobs, op, num_steps=steps,
+            generator=torch.Generator(device="cuda").manual_seed(21)).x
+        with torch.inference_mode():
+            x_k = run()
+            model.set_impl(attn="plain", norm="plain")
+            x_p = run()
+            model.set_impl(attn="auto", norm="auto")
+        ddnm_rel = rel_l2(x_k, x_p)
+        assert ddnm_rel <= TOL_SOLVER_REL, ddnm_rel
+        restore_img_s = res["images"] / res["sample_seconds"]
+        print(f"5i cli.restore {preset} --image_size {size} inpaint DDNM-{steps} b{batch}: "
+              f"||A(x) - y|| / ||y|| {res['range_err']:.3e}; {restore_img_s:.4f} img/s; "
+              f"kernels vs all-plain rel L2 {ddnm_rel:.3e} (limit {TOL_SOLVER_REL}); launches "
+              f"{ {k: v for k, v in got.items() if v} }; {card}", flush=True)
+        out[f"{preset}_restore"] = {"launches": got, "img_s": restore_img_s,
+                                    "ddnm_rel_l2": ddnm_rel, "range_err": res["range_err"]}
+
+        # training: the gradients against the all-plain model, then the CLI
+        grad_rel = wide_grad_check(model.train(), cfg512, WIDE_GRAD_BATCH, igen, preset)
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with contextlib.chdir(tmp):
+            r = cli_train.main(cli_train.parse_args(
+                train_argv(preset, batch, WIDE_TRAIN_STEPS, 23, "train_inria64_512")
+                + ["--image_size", str(size)]))
+        got = counts()
+        want = unet_train_expected(cfg, size, batch, WIDE_TRAIN_STEPS)
+        assert r["steps"] == WIDE_TRAIN_STEPS and all(math.isfinite(x) for x in r["losses"]), r
+        assert got == want, (got, want)
+        sps = steady_sps(r)
+        print(f"5i cli.train {preset} --image_size {size} b{batch} bf16: {r['steps']} steps, "
+              f"loss {r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}; {sps:.4f} steps/s over "
+              f"the last {WIDE_TRAIN_STEPS - 2}; gradients vs all-plain (b{WIDE_GRAD_BATCH}) "
+              f"rel L2 {grad_rel:.3e} (limit {TOL_UNET_GRAD_REL}); launches "
+              f"{ {k: v for k, v in got.items() if v} }; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+        out[f"{preset}_train"] = {"launches": got, "sps": sps, "grad_rel_l2": grad_rel,
+                                  "losses": r["losses"]}
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_kernel_rows(wide_rows, wide_bwd_rows, wide512, extra_fwd=None, extra_bwd=None):
+    """The kernels-line entries of the wide pair: launches from phase 5i's
+    runs (inria64 at 512 px: DDIM sampling forward, training backward), the
+    times of the first row (inria64's middle attention at 64 px), every row
+    under "shapes", and the first wide body's time on the same tensors."""
+    src = "eo_diffusion_torch/ops/csrc/attention_wide.cu"
+    old_src = "eo_diffusion_torch/ops/csrc/attention_wide_resident.cu"
+
+    def entry(name, rows, replaces, also, launches, extra):
+        r = rows[0]
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "replaces_also": also, "launches": launches,
+                "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "old_body_ms": r["old_body_ms"],
+                "old_body_source": old_src, **(extra or {}), "shapes": rows}
+
+    runs = {k: v["launches"] for k, v in wide512.items()}
+    by_run = lambda key: {"launches_512": {k: v[key] for k, v in runs.items()}}
+    return [
+        entry("wide_attention_fwd", wide_rows, "eo_diffusion_tpu/ops/attention.py:271",
+              "eo_diffusion_tpu/ops/attention.py:227", runs["inria64_ddim"]["wide_fwd"],
+              {**by_run("wide_fwd"), **(extra_fwd or {})}),
+        entry("wide_attention_bwd", wide_bwd_rows, "eo_diffusion_tpu/ops/attention.py:569",
+              "eo_diffusion_tpu/ops/attention.py:502", runs["inria64_train"]["wide_bwd"],
+              {**by_run("wide_bwd"), **(extra_bwd or {})}),
+    ]
+
+
+def wide_only(card, sass):
+    """``--only wide``: phase 3's wide rows and phase 5i, then the wide
+    pair's kernels line, the card line and the last line."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ugen = torch.Generator(device="cuda").manual_seed(1)
+    wide_rows, wide_bwd_rows = wide_cases(gen, ugen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        wide512 = phase_5i(tmp, card)
+    census = {"sass": sass["attention_wide"]}
+    kernels = wide_kernel_rows(wide_rows, wide_bwd_rows, wide512, census, census)
+    print(json.dumps({"kernels": kernels, "phase_5i": wide512}))
+    print(card)
+    print(json.dumps({"ok": True, "only": "wide",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -2821,7 +3108,12 @@ def probe_kernel_rows(small, probes):
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--only", "wide"]):
+        print(f"chip_smoke: unknown arguments {args} (none, or --only wide)", file=sys.stderr)
+        return 2
+    only = args[1] if args else None
     # 1. the card
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a GPU",
@@ -2845,6 +3137,11 @@ def main() -> int:
         sass[name] = sass_census(builds[name]["path"])
         print(f"{name} SASS: {json.dumps(sass[name])}", flush=True)
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, sass  # wgmma, TMA
+    sass["attention_wide"] = sass_census(builds["attention_wide"]["path"])
+    print(f"attention_wide SASS: {json.dumps(sass['attention_wide'])}", flush=True)
+    assert sass["attention_wide"]["HMMA"] > 0, sass  # its bf16 products: mma.sync
+    if only == "wide":
+        return wide_only(card, sass)
 
     # 3. kernel vs plain at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2921,17 +3218,7 @@ def main() -> int:
         flash_bwd_case(2, 2309, 4, 256, torch.bfloat16, "new", ugen, ugen, hchunk=4),
     ]
     torch.cuda.empty_cache()
-    # the wide kernels (head dims above the bodies'), through the same entries:
-    # inria64's middle attention (T 64, one head of D 1024) at cli.restore's
-    # b8 and the short training's b16, and a ragged float32 case
-    wide_rows = [flash_case(8, 64, 1, 1024, torch.bfloat16, "legacy", gen, tag="wide_fwd"),
-                 flash_case(2, 130, 2, 136, torch.float32, "contiguous", gen, tag="wide_fwd")]
-    wide_bwd_rows = [
-        flash_bwd_case(DIT_TRAIN_BATCH, 64, 1, 1024, torch.bfloat16, "legacy", gen, ugen,
-                       hchunk=1, tag="wide_bwd"),
-        flash_bwd_case(2, 130, 2, 136, torch.float32, "new", gen, ugen, hchunk=2,
-                       tag="wide_bwd")]
-    assert counts()["wide_fwd"] and counts()["wide_bwd"], counts()  # not another body
+    wide_rows, wide_bwd_rows = wide_cases(gen, ugen)
     torch.cuda.empty_cache()
 
     # GroupNorm + FiLM + SiLU, forward and backward: the clouds UNet's norm
@@ -3124,6 +3411,9 @@ def main() -> int:
             **{tag: r["launches"][key] for tag, r in clf_phase["runs"].items()},
             "input_grad_b8": clf_phase["grad"]["launches"][key],
             **{f"restore_{k}": r["launches"][key] for k, r in clf_phase["restore"].items()}}
+        # 5i. inria64 and eurosat64 at 512 px: the wide kernels at T 4096
+        wide512 = phase_5i(tmp, card)
+        wide_runs = list(wide512.values())
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -3189,6 +3479,11 @@ def main() -> int:
     gn_fwd_rows, gn_bwd_rows = [r[0] for r in gn_rows], [r[1] for r in gn_rows]
     sm90_rows = [r for r in rows + flash_rows if r["dtype"] == "bfloat16"]
     sm90_bwd_rows = [r for r in bwd_rows + flash_bwd_rows if r["dtype"] == "bfloat16"]
+    old_wide_launches = lambda key: sum(
+        r["launches"][key] for r in (main_res, res512, res64, train_res, train512, tiled,
+                                     tiled_flow, *dit_res.values(), *latent_runs, *guided_runs,
+                                     *edm_runs, *clf_runs, *wide_runs))
+    assert not any(old_wide_launches(k) for k in ("wide_fwd_resident", "wide_bwd_resident"))
     kernels = [{
         "name": "attention_fwd_sm90",
         "route": "cuda",
@@ -3348,36 +3643,16 @@ def main() -> int:
         "launches_train_512": train512["launches"]["flash_bwd"],
         "mma_body_ms": flash_bwd_rows[0]["mma_body_ms"],
         "shapes": flash_bwd_rows,
-    }, {
-        "name": "wide_attention_fwd",
-        "route": "cuda",
-        "source": "eo_diffusion_torch/ops/csrc/attention_wide.cu",
-        "replaces": "eo_diffusion_tpu/ops/attention.py:271",
-        "replaces_also": "eo_diffusion_tpu/ops/attention.py:227",
-        "launches": clf_phase["restore"]["inria64_inpaint"]["launches"]["wide_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in wide_rows),
-        "ms": wide_rows[0]["kernel_ms"],
-        "plain_ms": wide_rows[0]["plain_ms"],
-        "bound_ms": wide_rows[0]["bound_ms"],
-        "bound_by": wide_rows[0]["bound_by"],
-        "library_ms": wide_rows[0]["library_ms"],
-        "launches_short_train": dit_train["short"]["inria64"]["launches"]["wide_fwd"],
-        "shapes": wide_rows,
-    }, {
-        "name": "wide_attention_bwd",
-        "route": "cuda",
-        "source": "eo_diffusion_torch/ops/csrc/attention_wide.cu",
-        "replaces": "eo_diffusion_tpu/ops/attention.py:569",
-        "replaces_also": "eo_diffusion_tpu/ops/attention.py:502",
-        "launches": dit_train["short"]["inria64"]["launches"]["wide_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in wide_bwd_rows),
-        "ms": wide_bwd_rows[0]["kernel_ms"],
-        "plain_ms": wide_bwd_rows[0]["plain_ms"],
-        "bound_ms": wide_bwd_rows[0]["bound_ms"],
-        "bound_by": wide_bwd_rows[0]["bound_by"],
-        "library_ms": wide_bwd_rows[0]["library_ms"],
-        "shapes": wide_bwd_rows,
-    }, {
+    }, *wide_kernel_rows(
+        wide_rows, wide_bwd_rows, wide512,
+        {"launches_64px_restore":
+         clf_phase["restore"]["inria64_inpaint"]["launches"]["wide_fwd"],
+         "launches_short_train": dit_train["short"]["inria64"]["launches"]["wide_fwd"],
+         "old_body_launches_on_model_paths": old_wide_launches("wide_fwd_resident"),
+         "sass": sass["attention_wide"]},
+        {"launches_short_train": dit_train["short"]["inria64"]["launches"]["wide_bwd"],
+         "old_body_launches_on_model_paths": old_wide_launches("wide_bwd_resident"),
+         "sass": sass["attention_wide"]}), {
         "name": "int8_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/int8_attention.cu",

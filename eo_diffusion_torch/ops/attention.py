@@ -37,11 +37,15 @@ in float32.
   and :func:`flash_attention` / :func:`fused_attention` are the entries.
 * :func:`wide_attention_cuda` / :func:`wide_attention_bwd_cuda` launch the
   kernels of ``csrc/attention_wide.cu``, which take the head dims above
-  those bodies' limits (256 in bf16, 128 in float32) at T up to 1024, e.g.
-  the single-head middle attention of ``inria64`` (D 1024) and
-  ``eurosat64`` (D 512); :func:`flash_attention_cuda` and
+  those bodies' limits (256 in bf16, 128 in float32) at any T, keys
+  streamed (bf16 on the tensor cores), e.g. the single-head middle
+  attention of ``inria64`` (D 1024) and ``eurosat64`` (D 512) at every
+  image size; :func:`flash_attention_cuda` and
   :func:`flash_attention_bwd_cuda` hand such shapes to them
-  (:func:`fwd_route` says ``"wide"``).
+  (:func:`fwd_route` says ``"wide"``). :func:`wide_attention_resident_cuda`
+  / :func:`wide_attention_bwd_resident_cuda` launch the first wide pair
+  (``csrc/attention_wide_resident.cu``, T up to 1024), which no model path
+  calls: ``chip_smoke.py`` times it beside the new one.
 * :func:`identity_attention` (PAG's perturbation, arXiv:2403.17377): inside
   it every :func:`attention_from_qkv` returns v, launching no kernel, and
   :func:`identity_attention_hits` counts the sites it perturbed.
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -70,7 +75,8 @@ __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "FlashAttention", "flash_attention", "fused_attention", "fwd_route",
            "bwd_route", "qkv_attention_mma_cuda", "flash_attention_mma_cuda",
            "qkv_attention_bwd_mma_cuda", "flash_attention_bwd_mma_cuda",
-           "wide_attention_cuda", "wide_attention_bwd_cuda",
+           "wide_attention_cuda", "wide_attention_bwd_cuda", "wide_attention_resident_cuda",
+           "wide_attention_bwd_resident_cuda",
            "identity_attention", "identity_attention_hits"]
 
 # PAG's perturbed branch (JAX ops/attention.py:61-90): inside
@@ -104,13 +110,14 @@ _KERNEL_SM90 = "attention_fwd_sm90"
 _KERNEL_BWD = "attention_bwd"
 _KERNEL_BWD_SM90 = "attention_bwd_sm90"
 _KERNEL_WIDE = "attention_wide"
+_KERNEL_WIDE_RESIDENT = "attention_wide_resident"
 # head dims the kernels take: the wgmma bodies (bf16) up to wgmma's N, the
 # FMA kernels (float32) and the mma.sync bodies up to 128
 _MAX_D_SM90 = 256
 _MAX_D = 128
-# the wide kernels (head dims above those) hold a CTA's rows of T scores in
-# shared memory: T up to this
-_WIDE_MAX_T = 1024
+# the first wide pair holds a CTA's rows of T scores in shared memory: T up
+# to this
+_RESIDENT_MAX_T = 1024
 # the JAX package's fused-qkv kernel takes T up to this (its _MAX_RESIDENT_KV)
 _MAX_QKV_T = 4096
 
@@ -122,18 +129,29 @@ _QKV_FWD = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _I, _P]
 _FLASH_FWD = [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _QKV_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _F, _F, _I, _P]
 _FLASH_BWD = [_P] * 6 + [_STRIDES] + [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
-_WIDE_BWD = [_P] * 3 + [_STRIDES] + [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]
+_WIDE_BWD = [_P] * 3 + [_STRIDES] + [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P]
+_RESIDENT_BWD = [_P] * 3 + [_STRIDES] + [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]
 _ARGTYPES = {
     "eo_qkv_attention_fwd": _QKV_FWD, "eo_qkv_attention_fwd_mma": _QKV_FWD,
     "eo_attention_fwd": _FLASH_FWD, "eo_attention_fwd_mma": _FLASH_FWD,
     "eo_qkv_attention_bwd": _QKV_BWD, "eo_qkv_attention_bwd_mma": _QKV_BWD,
     "eo_attention_bwd": _FLASH_BWD, "eo_attention_bwd_mma": _FLASH_BWD,
     "eo_attention_wide_fwd": _FLASH_FWD, "eo_attention_wide_bwd": _WIDE_BWD,
+    "eo_attention_wide_resident_fwd": _FLASH_FWD,
+    "eo_attention_wide_resident_bwd": _RESIDENT_BWD,
 }
 
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(math.sqrt(d))
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_in(d: int, dtype: torch.dtype) -> float:
+    """``D^-1/4`` rounded to ``dtype``: q*s and k*s round in the input dtype,
+    so the kernels are handed s in it (cached: a tensor a launch costs host
+    time at short shapes)."""
+    return float(torch.tensor(_scale(d), dtype=dtype))
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -241,11 +259,9 @@ def _entry(kernel: str, name: str):
 
 
 def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[int],
-           fused: bool, kernels: str, t: Optional[int]) -> str:
+           fused: bool) -> str:
     """What the wgmma/TMA bodies (bf16), the FMA kernels (float32) and the
-    wide kernels accept, for :func:`fwd_route` and :func:`bwd_route`;
-    ``kernels`` names the TPU kernels in the refusal of a shape not ported
-    yet."""
+    wide kernels accept, for :func:`fwd_route` and :func:`bwd_route`."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported dtype {dtype}")
     if d < 8 or d % 8:
@@ -253,13 +269,8 @@ def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[in
     if fused and d > _MAX_D:
         raise ValueError(f"head dim {d} > {_MAX_D}: the fused-qkv entry keeps the JAX "
                          f"package's gate (d <= {_MAX_D})")
-    limit = _MAX_D_SM90 if dtype == torch.bfloat16 else _MAX_D
-    if d > limit:
-        if t is not None and t <= _WIDE_MAX_T:
-            return "wide"
-        at = "" if t is None else f" at T {t} > {_WIDE_MAX_T}"
-        raise ValueError(f"head dim {d} > {limit} in {dtype}{at}: not ported yet (the "
-                         f"remaining part of {kernels}, ROADMAP queue 2, item 1)")
+    if d > (_MAX_D_SM90 if dtype == torch.bfloat16 else _MAX_D):
+        return "wide"  # its wrappers copy q, k, v to 16-byte rows where needed
     if any(st % 8 for st in strides) or any(ptr % 16 for ptr in ptrs):
         raise ValueError("the kernels need strides that are multiples of 8 elements and "
                          "16-byte-aligned bases")
@@ -267,7 +278,7 @@ def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[in
 
 
 def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
-              ptrs: Sequence[int] = (), fused: bool = False, t: Optional[int] = None) -> str:
+              ptrs: Sequence[int] = (), fused: bool = False) -> str:
     """Which kernel takes a forward launch, from what the kernels accept.
 
     ``"sm90"``: bf16, the wgmma/TMA body (``csrc/attention_fwd_sm90.cu``), any
@@ -277,25 +288,24 @@ def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
     128. ``strides`` are the element strides and ``ptrs`` the base addresses
     of what the kernel is handed (TMA reads rows of 16 bytes: strides that
     are multiples of 8 elements, 16-byte-aligned bases). ``"wide"``: a head
-    dim above those on the separate-tensor entry at ``t`` (the sequence
-    length) up to 1024, the kernel of ``csrc/attention_wide.cu``, which needs
-    only unit stride along D; without ``t`` only the other kernels are asked.
-    Raises ValueError on anything no forward kernel takes.
+    dim above those on the separate-tensor entry, at any T, the kernel of
+    ``csrc/attention_wide.cu``. Raises ValueError on anything no forward
+    kernel takes.
     """
-    return _route(dtype, d, strides, ptrs, fused, "K2/K3", t)
+    return _route(dtype, d, strides, ptrs, fused)
 
 
 def bwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
-              ptrs: Sequence[int] = (), fused: bool = False, t: Optional[int] = None) -> str:
+              ptrs: Sequence[int] = (), fused: bool = False) -> str:
     """Which kernel takes a backward launch, from what the kernels accept:
     the rules of :func:`fwd_route`. ``"sm90"``: bf16, the wgmma/TMA body
     (``csrc/attention_bwd_sm90.cu``), D up to 256 on the separate-tensor
     entry and 128 on the fused-qkv one; ``"fma"``: float32, the FMA kernel of
-    ``csrc/attention_bwd.cu``, up to 128; ``"wide"``: above those at ``t`` up
-    to 1024, ``csrc/attention_wide.cu``. ``strides`` and ``ptrs`` are those
-    of q, k and v. Raises ValueError on anything no backward kernel takes.
+    ``csrc/attention_bwd.cu``, up to 128; ``"wide"``: above those, at any
+    T, ``csrc/attention_wide.cu``. ``strides`` and ``ptrs`` are those of q,
+    k and v. Raises ValueError on anything no backward kernel takes.
     """
-    return _route(dtype, d, strides, ptrs, fused, "K4", t)
+    return _route(dtype, d, strides, ptrs, fused)
 
 
 def _qkv_fwd(qkv: torch.Tensor, heads: int, new_order: bool, return_lse: bool, kernel: str,
@@ -307,8 +317,7 @@ def _qkv_fwd(qkv: torch.Tensor, heads: int, new_order: bool, return_lse: bool, k
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b * heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
-    # q*s and k*s round in the input dtype: hand the kernel s in that dtype
-    scale = float(torch.tensor(_scale(d), dtype=qkv.dtype))
+    scale = _scale_in(d, qkv.dtype)
     rc = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
             int(qkv.dtype == torch.float32), b, t, heads, d, qkv.stride(0),
             qkv.stride(1), int(new_order), scale, qkv.device.index,
@@ -376,7 +385,7 @@ def _qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torc
     rc = fn(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dqkv.data_ptr(), int(qkv.dtype == torch.float32), b, t,
             heads, d, qkv.stride(0), qkv.stride(1), int(new_order),
-            float(torch.tensor(sc, dtype=qkv.dtype)), sc, qkv.device.index,
+            _scale_in(d, qkv.dtype), sc, qkv.device.index,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: error {rc}")
@@ -481,8 +490,7 @@ def _check_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str,
         raise ValueError("q, k, v must share one dtype and device")
     b, t, h, d = q.shape
     if max_d is not None and d > max_d:
-        raise ValueError(f"head dim {d} > {max_d}: {who} does not take it yet (ROADMAP "
-                         f"queue 2, item 1)")
+        raise ValueError(f"head dim {d} > {max_d}: {who} takes head dims up to {max_d}")
     if d < 8 or d % 8:
         raise ValueError(f"head dim {d}: the kernels take multiples of 8")
     if b * h > 65535:
@@ -525,7 +533,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bo
            if return_lse else None)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
             lse.data_ptr() if return_lse else None, int(q.dtype == torch.float32), b, t, h,
-            d, float(torch.tensor(_scale(d), dtype=q.dtype)), q.device.index,
+            d, _scale_in(d, q.dtype), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: error {rc}")
@@ -542,14 +550,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T;
     D a multiple of 8, up to 256 in bf16 (the wgmma/TMA body) and 128 in
     float32 (the FMA kernel; :func:`fwd_route`). ``.launches`` counts both.
-    A wider head at T up to 1024 goes to :func:`wide_attention_cuda`, which
-    counts its own launches. Raises on anything no kernel takes and on a
-    failed launch; never falls back.
+    A wider head goes to :func:`wide_attention_cuda`, which counts its own
+    launches. Raises on anything no kernel takes and on a failed launch;
+    never falls back.
     """
     b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     route = fwd_route(q.dtype, d, [st for x in (q, k, v) for st in x.stride()[:3]],
-                      [x.data_ptr() for x in (q, k, v)], t=t)
+                      [x.data_ptr() for x in (q, k, v)])
     if route == "wide":
         return wide_attention_cuda(q, k, v, return_lse)
     if route == "sm90":
@@ -611,7 +619,7 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, dq, dk, dv), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), int(q.dtype == torch.float32), b, t, h, d,
-            float(torch.tensor(sc, dtype=q.dtype)), sc, q.device.index,
+            _scale_in(d, q.dtype), sc, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: error {rc}")
@@ -628,15 +636,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Any T: beyond 4096, where the JAX package recomputes with XLA einsums,
     this kernel computes the same gradient. D a multiple of 8, up to 256 in
     bf16 (the wgmma/TMA body) and 128 in float32 (the FMA kernel;
-    :func:`bwd_route`); ``.launches`` counts both. A wider head at T up to
-    1024 goes to :func:`wide_attention_bwd_cuda`, which counts its own
-    launches. Raises on anything no kernel takes and on a failed launch;
-    never falls back.
+    :func:`bwd_route`); ``.launches`` counts both. A wider head goes to
+    :func:`wide_attention_bwd_cuda`, which counts its own launches. Raises
+    on anything no kernel takes and on a failed launch; never falls back.
     """
     dims = _check_planes(q, k, v, "flash_attention_bwd_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     route = bwd_route(q.dtype, dims[3], [st for x in (q, k, v) for st in x.stride()[:3]],
-                      [x.data_ptr() for x in (q, k, v)], t=dims[1])
+                      [x.data_ptr() for x in (q, k, v)])
     if route == "wide":
         return wide_attention_bwd_cuda(q, k, v, out, lse, dout)
     kernel, name = ((_KERNEL_BWD_SM90, "eo_attention_bwd") if route == "sm90"
@@ -664,27 +671,29 @@ def flash_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 flash_attention_bwd_mma_cuda.launches = 0
 
 
-def _check_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
-    """Raise on q, k, v the wide kernels do not take; returns them with unit
-    stride along D, and (b, t, h, d)."""
+def _check_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str,
+                max_t: Optional[int] = None):
+    """Raise on q, k, v the wide kernels do not take (T above ``max_t``,
+    None for any); returns them with 16-byte rows (copied where needed),
+    and (b, t, h, d)."""
     dims = _check_planes(q, k, v, who, None)
-    if dims[1] > _WIDE_MAX_T:
-        raise ValueError(f"T {dims[1]} > {_WIDE_MAX_T}: {who} holds a row block of scores "
-                         f"in shared memory (ROADMAP queue 2, item 1)")
-    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
-    return q, k, v, dims
+    if max_t is not None and dims[1] > max_t:
+        raise ValueError(f"T {dims[1]} > {max_t}: {who} holds a row block of scores in "
+                         f"shared memory")
+    return _rows16(q), _rows16(k), _rows16(v), dims
 
 
 def wide_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         return_lse: bool = False):
     """Launch the wide-head attention forward (``csrc/attention_wide.cu``) on
     three CUDA tensors: ``[B, T, H, D]`` bf16 or float32 with unit stride
-    along D, any D that is a multiple of 8, T up to 1024. It computes
-    :func:`reference_attention`'s function; :func:`flash_attention_cuda`
-    sends it the head dims its bodies do not take. Returns ``o`` ``[B, T, H,
-    D]`` contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32;
-    ``.launches`` counts its launches. Raises on anything it does not take
-    and on a failed launch; never falls back."""
+    along D (copied to 16-byte rows where needed), any D that is a multiple
+    of 8, any T; keys streamed with an online softmax, bf16 on the tensor
+    cores. It computes :func:`reference_attention`'s function;
+    :func:`flash_attention_cuda` sends it the head dims its bodies do not
+    take. Returns ``o`` ``[B, T, H, D]`` contiguous and, with ``return_lse``,
+    ``lse`` ``[B*H, T]`` float32; ``.launches`` counts its launches. Raises
+    on anything it does not take and on a failed launch; never falls back."""
     q, k, v, _ = _check_wide(q, k, v, "wide_attention_cuda")
     out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_WIDE, "eo_attention_wide_fwd")
     wide_attention_cuda.launches += 1
@@ -694,27 +703,52 @@ def wide_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 wide_attention_cuda.launches = 0
 
 
+def wide_attention_resident_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 return_lse: bool = False):
+    """:func:`wide_attention_cuda` through the first wide forward
+    (``csrc/attention_wide_resident.cu``: a CTA's 16 rows of scores whole in
+    shared memory, FMA, T up to 1024), kept as the new body's yardstick. No
+    model path calls it; ``.launches`` counts its launches."""
+    q, k, v, _ = _check_wide(q, k, v, "wide_attention_resident_cuda", _RESIDENT_MAX_T)
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_WIDE_RESIDENT,
+                          "eo_attention_wide_resident_fwd")
+    wide_attention_resident_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+wide_attention_resident_cuda.launches = 0
+
+
+def _wide_bwd(q, k, v, out, lse, dout, who, max_t=None):
+    """Checked, 16-byte-row q, k, v, the saved ``out``, ``dout``, ``lse``
+    dense, fresh ``dq, dk, dv`` and the head dim's scale pair."""
+    q, k, v, (b, t, h, d) = _check_wide(q, k, v, who, max_t)
+    out, dout, lse = _saved(q, out, lse, dout)
+    grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3)]
+    sc = _scale(d)
+    return q, k, v, out, dout, lse, grads, (_scale_in(d, q.dtype), sc)
+
+
 def wide_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
-    """Launch the wide-head attention backward (``csrc/attention_wide.cu``, two
-    kernels in one call: p, ds and dq by query rows, then dk and dv by keys
-    through a ``[2, B*H, T, T]`` scratch in the input dtype) on the tensors of
-    :func:`wide_attention_cuda`, ``out`` and ``lse`` what it returned for
-    them and ``dout`` the gradient of ``out``. Returns ``(dq, dk, dv)``, each
-    ``[B, T, H, D]`` contiguous in q's dtype: :func:`reference_attention_bwd`'s
-    function. ``.launches`` counts its calls. Raises on anything it does not
-    take and on a failed launch; never falls back."""
-    q, k, v, (b, t, h, d) = _check_wide(q, k, v, "wide_attention_bwd_cuda")
-    out, dout, lse = _saved(q, out, lse, dout)
-    fn = _entry(_KERNEL_WIDE, "eo_attention_wide_bwd")
-    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    scratch = torch.empty((2, b * h, t, t), dtype=q.dtype, device=q.device)
-    sc = _scale(d)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(), int(q.dtype == torch.float32), b, t,
-            h, d, float(torch.tensor(sc, dtype=q.dtype)), sc, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    """Launch the wide-head attention backward (``csrc/attention_wide.cu``: a
+    delta kernel, then the dq, dk and dv jobs, each recomputing p from the
+    saved lse, so no buffer of T x T elements; no atomics, the same bits on
+    every call) on the tensors of :func:`wide_attention_cuda`, ``out`` and
+    ``lse`` what it returned for them and ``dout`` the gradient of ``out``.
+    Returns ``(dq, dk, dv)``, each ``[B, T, H, D]`` contiguous in q's dtype:
+    :func:`reference_attention_bwd`'s function, at any T. ``.launches``
+    counts its calls. Raises on anything it does not take and on a failed
+    launch; never falls back."""
+    q, k, v, out, dout, lse, (dq, dk, dv), (s_in, sc) = _wide_bwd(
+        q, k, v, out, lse, dout, "wide_attention_bwd_cuda")
+    b, t, h, d = q.shape
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    rc = _entry(_KERNEL_WIDE, "eo_attention_wide_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), int(q.dtype == torch.float32), b, t, h, d, s_in, sc,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{_KERNEL_WIDE} launch failed: error {rc}")
     wide_attention_bwd_cuda.launches += 1
@@ -722,6 +756,31 @@ def wide_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wide_attention_bwd_cuda.launches = 0
+
+
+def wide_attention_bwd_resident_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     out: torch.Tensor, lse: torch.Tensor,
+                                     dout: torch.Tensor):
+    """:func:`wide_attention_bwd_cuda` through the first wide backward
+    (``csrc/attention_wide_resident.cu``: two FMA kernels through a ``[2,
+    B*H, T, T]`` scratch, T up to 1024), kept as the new body's yardstick. No
+    model path calls it; ``.launches`` counts its calls."""
+    q, k, v, out, dout, lse, (dq, dk, dv), (s_in, sc) = _wide_bwd(
+        q, k, v, out, lse, dout, "wide_attention_bwd_resident_cuda", _RESIDENT_MAX_T)
+    b, t, h, d = q.shape
+    scratch = torch.empty((2, b * h, t, t), dtype=q.dtype, device=q.device)
+    rc = _entry(_KERNEL_WIDE_RESIDENT, "eo_attention_wide_resident_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), int(q.dtype == torch.float32), b, t,
+        h, d, s_in, sc, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{_KERNEL_WIDE_RESIDENT} launch failed: error {rc}")
+    wide_attention_bwd_resident_cuda.launches += 1
+    return dq, dk, dv
+
+
+wide_attention_bwd_resident_cuda.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -806,7 +865,8 @@ def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
     (:func:`_qkv_kernel_takes`: T <= 4096 in its aligned blocks, e.g. the
     clouds UNet at 256 px) through :class:`QKVAttention`, elsewhere (e.g. T
     2304, 9216 and 16384 at 384 and 512 px, or the head dim 1024 of
-    ``inria64``'s middle block, which the wide kernels take) through
+    ``inria64``'s middle block at any image size, which the wide kernels
+    take) through
     :class:`FlashAttention` on the :func:`split_qkv` views: the CUDA kernels
     for a CUDA tensor (forward and backward), the plain versions for a CPU
     tensor.

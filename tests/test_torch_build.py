@@ -111,6 +111,12 @@ def test_every_kernel_has_its_source():
     ("attention_bwd_sm90", "eo_attention_bwd", A._ARGTYPES["eo_attention_bwd"]),
     ("attention_bwd", "eo_qkv_attention_bwd_mma", A._ARGTYPES["eo_qkv_attention_bwd_mma"]),
     ("attention_bwd", "eo_attention_bwd_mma", A._ARGTYPES["eo_attention_bwd_mma"]),
+    ("attention_wide", "eo_attention_wide_fwd", A._ARGTYPES["eo_attention_wide_fwd"]),
+    ("attention_wide", "eo_attention_wide_bwd", A._ARGTYPES["eo_attention_wide_bwd"]),
+    ("attention_wide_resident", "eo_attention_wide_resident_fwd",
+     A._ARGTYPES["eo_attention_wide_resident_fwd"]),
+    ("attention_wide_resident", "eo_attention_wide_resident_bwd",
+     A._ARGTYPES["eo_attention_wide_resident_bwd"]),
     ("group_norm_sm90", "eo_gn_sm90_fwd", GN._ARGTYPES["eo_gn_sm90_fwd"]),
     ("group_norm_sm90", "eo_gn_sm90_bwd", GN._ARGTYPES["eo_gn_sm90_bwd"]),
     ("group_norm_sm90", "eo_gn_sm90_blocks_per_sm", GN._ARGTYPES["eo_gn_sm90_blocks_per_sm"]),

@@ -82,13 +82,13 @@ def test_launch_counter_and_refusals(dev):
         A.attention_from_qkv(_qkv(1, 16, 2, 12, torch.bfloat16, seed=1), 2)
     with pytest.raises(ValueError):  # head dim 136 > 128: the fused-qkv entry keeps JAX's gate
         A.qkv_attention_cuda(_qkv(1, 16, 1, 136, torch.bfloat16, seed=1), 1)
-    # head dim 264 > 256 (through the separate-tensor route): the wide kernel
-    # up to T 1024, refused above
+    # head dim 264 > 256 (through the separate-tensor route): the wide kernel,
+    # at any T
     wide = A.wide_attention_cuda.launches
     A.attention_from_qkv(_qkv(1, 16, 1, 264, torch.bfloat16, seed=1), 1)
     assert A.wide_attention_cuda.launches == wide + 1
-    with pytest.raises(ValueError):
-        A.attention_from_qkv(_qkv(1, 1040, 1, 264, torch.bfloat16, seed=1), 1)
+    _check(_qkv(1, 1040, 1, 264, torch.bfloat16, seed=1), 1, new_order=False)
+    assert A.wide_attention_cuda.launches == wide + 2
     with pytest.raises(ValueError):
         A.attention_from_qkv(qkv.half(), 2)
     assert A.qkv_attention_cuda.launches == before + 1
@@ -561,15 +561,20 @@ def test_flash_is_reproducible_and_refuses(dev):
     assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits
     f0, b0 = A.flash_attention_cuda.launches, A.flash_attention_bwd_cuda.launches
     # head dims above the bodies' (256 bf16, 128 float32) take the wide
-    # kernels up to T 1024; above it they are refused
-    big = [torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)] * 3
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # head dim 264 > 256
-        A.flash_attention_cuda(*big)
-    with pytest.raises(ValueError, match="K2/K3"):  # float32 takes head dims up to 128
-        A.attention_from_qkv(torch.zeros(1, 1040, 3 * 136, device="cuda"), 1)
+    # kernels at any T, here above the first wide pair's 1024
+    w0 = (A.wide_attention_cuda.launches, A.wide_attention_bwd_cuda.launches)
+    big = _planes(1, 1040, 1, 264, torch.bfloat16, seed=5, layout="contiguous")
+    out = A.flash_attention_cuda(*big)
+    assert _scaled_err(out, A.reference_attention(*big), 1.0) <= TOL[torch.bfloat16]
+    _check(_qkv(1, 1040, 1, 136, torch.float32, seed=6), 1, new_order=False)
     d136 = [x[..., :136].float() for x in big]
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):  # no f32 backward above 128
-        A.flash_attention_bwd_cuda(*d136, d136[0], torch.zeros(1, 1040, device="cuda"), d136[0])
+    o136, l136 = A.flash_attention_cuda(*d136, return_lse=True)
+    grads = A.flash_attention_bwd_cuda(*d136, o136, l136, d136[0])
+    want = A.reference_attention_bwd(*d136, o136, l136, d136[0])
+    rms = torch.stack([w.float() for w in want]).pow(2).mean().sqrt().item()
+    assert max(_scaled_err(a, w, rms) for a, w in zip(grads, want)) <= TOL_BWD[torch.float32]
+    assert (A.wide_attention_cuda.launches, A.wide_attention_bwd_cuda.launches) == (
+        w0[0] + 3, w0[1] + 1)
     with pytest.raises(ValueError):  # head dim 12: not a multiple of 8
         A.flash_attention_cuda(*[x[..., :12] for x in (q, k, v)])
     with pytest.raises(ValueError):
@@ -635,8 +640,7 @@ def test_flash_head_dims_above_128_bf16(dev, d):
 
 def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
     """D 256 runs both wgmma/TMA bodies through autograd; float32 above 128
-    takes the wide kernels at T up to 1024, and what the backward still
-    refuses (those head dims above T 1024) names ROADMAP queue 2, item 1."""
+    takes the wide kernels at every T, T 1040 included, both ways."""
     q, k, v, out, lse, dout = _unit_bwd_inputs(2, 300, 2, 256, seed=4, layout="contiguous")
     q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
     with torch.no_grad():
@@ -650,9 +654,15 @@ def test_flash_attention_takes_d256_forward_and_refuses_its_backward(dev):
     w0 = A.wide_attention_bwd_cuda.launches
     A.flash_attention(*f32).sum().backward()
     assert A.wide_attention_bwd_cuda.launches == w0 + 1
-    long = [torch.zeros(1, 1040, 1, 136, device="cuda", requires_grad=True) for _ in range(3)]
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        A.flash_attention(*long).sum().backward()
+    long = [x.detach().requires_grad_() for x in _planes(1, 1040, 1, 136, torch.float32,
+                                                          seed=7, layout="contiguous")]
+    got = torch.autograd.grad(A.flash_attention(*long).sum(), long)
+    assert A.wide_attention_bwd_cuda.launches == w0 + 2
+    o, lse = A.reference_attention(*long, return_lse=True)
+    want = A.reference_attention_bwd(*(x.detach() for x in long), o.detach(), lse.detach(),
+                                     torch.ones_like(o))
+    rms = torch.stack([w.float() for w in want]).pow(2).mean().sqrt().item()
+    assert max(_scaled_err(a, w, rms) for a, w in zip(got, want)) <= TOL_BWD[torch.float32]
     assert A.flash_attention_bwd_cuda.launches == b0 + 1
 
 
@@ -813,11 +823,12 @@ def test_sm90_bwd_refuses(dev):
     before = (A.flash_attention_bwd_cuda.launches, A.qkv_attention_bwd_cuda.launches,
               A.flash_attention_bwd_mma_cuda.launches)
     big = torch.zeros(1, 16, 1, 264, device="cuda", dtype=torch.bfloat16)
-    # above wgmma's N: the wide kernels take T up to 1024, longer is refused
-    wide = torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        A.flash_attention_bwd_cuda(wide, wide, wide, wide, torch.zeros(1, 1040, device="cuda"),
-                                   wide)
+    # above wgmma's N: the wide kernels take every T, T 1040 included
+    w0 = A.wide_attention_bwd_cuda.launches
+    wq, wk, wv, wo, wl, wd = _unit_bwd_inputs(1, 1040, 1, 264, seed=2, layout="contiguous")
+    _strict_bwd(A.flash_attention_bwd_cuda(wq, wk, wv, wo, wl, wd),
+                A.reference_attention_bwd(wq, wk, wv, wo, wl, wd))
+    assert A.wide_attention_bwd_cuda.launches == w0 + 1
     o136 = big[..., :136].reshape(1, 16, 136)
     qkv136 = torch.zeros(1, 16, 3 * 136, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # the fused entry keeps the JAX package's gate
@@ -1683,7 +1694,16 @@ def test_ddnm_range_consistency_on_the_card(dev, task):
                                          (64, 1, 512, torch.bfloat16),    # eurosat64's
                                          (77, 2, 264, torch.bfloat16),
                                          (130, 1, 136, torch.float32),
-                                         (1024, 1, 520, torch.float32)])
+                                         (1024, 1, 520, torch.float32),
+                                         # beyond the first wide pair's T 1024: ragged,
+                                         # and inria64 / eurosat64 at 512 px
+                                         (1040, 1, 264, torch.bfloat16),
+                                         (1040, 1, 512, torch.bfloat16),
+                                         (1040, 1, 1024, torch.bfloat16),
+                                         (4096, 1, 264, torch.bfloat16),
+                                         (4096, 1, 512, torch.bfloat16),
+                                         (4096, 1, 1024, torch.bfloat16),
+                                         (1040, 1, 136, torch.float32)])
 def test_wide_head_dims_launch_the_wide_kernels(dev, t, h, d, dtype):
     """Head dims above the attention bodies' take the kernels of
     attention_wide.cu through the auto path, forward (with the lse) and
@@ -1710,3 +1730,45 @@ def test_wide_head_dims_launch_the_wide_kernels(dev, t, h, d, dtype):
         rms = want.float().pow(2).mean().sqrt().item()
         err = ((dqkv.float() - want.float()).abs() / want.float().abs().clamp(min=rms)).max()
         assert err.item() <= TOL_BWD[dtype], err.item()
+
+
+def test_wide_backward_holds_no_t_by_t_buffer_and_repeats_its_bits(dev):
+    """The streamed wide backward recomputes p from the saved lse: at T 4096
+    one call allocates less than one [T, T] buffer in the input dtype (its
+    dq, dk, dv and a [B*H, T] delta), and two calls on the same inputs give
+    the same bits (no atomics)."""
+    q, k, v, out, lse, dout = _unit_bwd_inputs(1, 4096, 1, 264, seed=8, layout="contiguous")
+    first = A.wide_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    second = A.wide_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4096 * 4096 * q.element_size()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _strict_bwd(first, A.reference_attention_bwd(q, k, v, out, lse, dout))
+
+
+def test_first_wide_pair_still_matches_plain(dev):
+    """The first wide pair (attention_wide_resident.cu), kept as the
+    streamed body's yardstick: forward with the lse and backward against
+    plain at inria64's middle shape, its own counters, and T above its 1024
+    refused."""
+    q, k, v = _planes(2, 64, 1, 1024, torch.bfloat16, seed=9, layout="contiguous")
+    before = (A.wide_attention_resident_cuda.launches,
+              A.wide_attention_bwd_resident_cuda.launches, A.wide_attention_cuda.launches)
+    out, lse = A.wide_attention_resident_cuda(q, k, v, return_lse=True)
+    ref, ref_lse = A.reference_attention(q, k, v, return_lse=True)
+    assert _scaled_err(out, ref, 1.0) <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    dout = torch.randn_like(out)
+    grads = A.wide_attention_bwd_resident_cuda(q, k, v, out, lse, dout)
+    want = A.reference_attention_bwd(q, k, v, out, lse, dout)
+    rms = torch.stack([w.float() for w in want]).pow(2).mean().sqrt().item()
+    assert max(_scaled_err(a, w, rms) for a, w in zip(grads, want)) <= TOL_BWD[torch.bfloat16]
+    assert (A.wide_attention_resident_cuda.launches,
+            A.wide_attention_bwd_resident_cuda.launches, A.wide_attention_cuda.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    long = torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1024"):
+        A.wide_attention_resident_cuda(long, long, long)

@@ -130,12 +130,12 @@ ROUTES = [
     (torch.bfloat16, 48, False, (), (), "sm90"),
     (torch.bfloat16, 256, False, (), (), "sm90"),    # D <= 256 on the separate entry
     (torch.bfloat16, 160, False, (), (), "sm90"),
-    (torch.bfloat16, 264, False, (), (), None),      # above wgmma's N
+    (torch.bfloat16, 264, False, (), (), "wide"),    # above wgmma's N: the wide kernel
     (torch.bfloat16, 128, True, (), (), "sm90"),     # D <= 128 on the fused entry
     (torch.bfloat16, 136, True, (), (), None),       # the JAX package's gate
     (torch.float32, 64, False, (), (), "fma"),       # float32: the FMA kernel
     (torch.float32, 128, True, (), (), "fma"),
-    (torch.float32, 136, False, (), (), None),
+    (torch.float32, 136, False, (), (), "wide"),     # above the FMA kernel's 128
     (torch.float16, 64, False, (), (), None),
     (torch.bfloat16, 44, False, (), (), None),       # not a multiple of 8
     (torch.bfloat16, 64, False, (3 * 64 * 8, 3 * 64, 64), (0,), "sm90"),
@@ -157,11 +157,13 @@ def test_fwd_route(dtype, d, fused, strides, ptrs, kernel):
 
 # (dtype, d, fused, strides, ptrs): the kernel bwd_route picks, or None for a
 # refusal: bf16 the wgmma/TMA body up to 256 (128 on the fused entry), float32
-# the FMA kernel up to 128, q/k/v rows of 16 bytes
+# the FMA kernel up to 128, q/k/v rows of 16 bytes; above those the wide
+# kernel on the separate-tensor entry, a refusal on the fused one (JAX's gate)
 BWD_ROUTES = [
-    *[(torch.bfloat16, d, fused, (), (), "sm90" if d <= (128 if fused else 256) else None)
+    *[(torch.bfloat16, d, fused, (), (),
+       "sm90" if d <= (128 if fused else 256) else None if fused else "wide")
       for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
-    *[(torch.float32, d, fused, (), (), "fma" if d <= 128 else None)
+    *[(torch.float32, d, fused, (), (), "fma" if d <= 128 else None if fused else "wide")
       for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
     (torch.float16, 64, False, (), (), None),
     (torch.bfloat16, 40, False, (), (), "sm90"),     # padded to 64 inside
@@ -182,8 +184,8 @@ def test_bwd_route(dtype, d, fused, strides, ptrs, kernel):
     if kernel is None:
         with pytest.raises(ValueError) as err:
             TA.bwd_route(dtype, d, strides, ptrs, fused=fused)
-        if not fused and d > {torch.bfloat16: 256, torch.float32: 128}.get(dtype, d):
-            assert "ROADMAP queue 2, item 1" in str(err.value)
+        if fused and d > 128 and d % 8 == 0 and dtype != torch.float16:
+            assert "gate" in str(err.value)
     else:
         assert TA.bwd_route(dtype, d, strides, ptrs, fused=fused) == kernel
 
@@ -191,25 +193,57 @@ def test_bwd_route(dtype, d, fused, strides, ptrs, kernel):
 @pytest.mark.parametrize("t,d,dtype,kernel", [
     (64, 1024, torch.bfloat16, "wide"),   # inria64's middle attention
     (64, 512, torch.bfloat16, "wide"),    # eurosat64's
-    (1024, 264, torch.bfloat16, "wide"), (1040, 264, torch.bfloat16, None),
+    (1024, 264, torch.bfloat16, "wide"), (1040, 264, torch.bfloat16, "wide"),
     (64, 256, torch.bfloat16, "sm90"), (64, 136, torch.float32, "wide"),
-    (64, 128, torch.float32, "fma"), (2048, 1024, torch.bfloat16, None),
+    (64, 128, torch.float32, "fma"), (2048, 1024, torch.bfloat16, "wide"),
+    (4096, 1024, torch.bfloat16, "wide"),  # inria64 at 512 px
+    (4096, 1024, torch.float32, "wide"),
+    (16384, 512, torch.bfloat16, "wide"),  # eurosat64 at 1024 px
 ])
 def test_wide_head_dims_route_to_the_wide_kernels(t, d, dtype, kernel):
     """Head dims above the attention bodies' (256 in bf16, 128 in float32)
-    take the kernels of attention_wide.cu at T up to 1024, forward and
-    backward; longer sequences are refused, and the fused-qkv entry keeps
-    the JAX package's gate."""
+    take the kernels of attention_wide.cu at every T, forward and backward;
+    the fused-qkv entry keeps the JAX package's gate."""
     for route in (TA.fwd_route, TA.bwd_route):
-        if kernel is None:
-            with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-                route(dtype, d, t=t)
-        else:
-            assert route(dtype, d, t=t) == kernel
+        assert route(dtype, d) == kernel
         if d > 128:
             with pytest.raises(ValueError, match="gate"):
-                route(dtype, d, fused=True, t=t)
+                route(dtype, d, fused=True)
     assert not (kernel == "wide" and TA._qkv_kernel_takes(t, d))
+
+
+@pytest.mark.parametrize("preset", ["inria64", "eurosat64"])
+def test_wide_presets_route_every_attention_at_512_px(preset):
+    """Every attention of inria64's and eurosat64's UNet at 512 px (the
+    middle block: T 4096 at D 1024 and 512) has a forward and a backward
+    kernel in both dtypes, on the route attention_from_qkv gives it."""
+    from eo_diffusion_torch.cli.presets import get_preset
+    from eo_diffusion_torch.models.unet import build_unet_plan
+
+    shapes = build_unet_plan(get_preset(preset).model_config()).attention_shapes(512)
+    assert shapes == ((4096, {"inria64": 1024, "eurosat64": 512}[preset]),)
+    for t, d in shapes:
+        fused = TA._qkv_kernel_takes(t, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert TA.fwd_route(dtype, d, fused=fused) == "wide"
+            assert TA.bwd_route(dtype, d, fused=fused) == "wide"
+
+
+def test_long_wide_head_matches_jax():
+    """A ragged T above the first wide pair's 1024 at a wide head (B1 T1040
+    H1 D264, float32): the port's auto path (plain on the CPU, the streamed
+    wide kernels on the card) against the JAX package's attention_from_qkv,
+    forward and gradient."""
+    rng = np.random.default_rng(12)
+    qkv = rng.normal(size=(1, 1040, 3 * 264)).astype(np.float32)
+    g = rng.normal(size=(1, 1040, 264)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda x: JA.attention_from_qkv(x, 1), jnp.asarray(qkv))
+    (ref_grad,) = vjp(jnp.asarray(g))
+    x = torch.from_numpy(qkv).requires_grad_()
+    out = TA.attention_from_qkv(x, 1)
+    assert "FlashAttentionBackward" in _graph_names(out)
+    (grad,) = torch.autograd.grad(out, x, torch.from_numpy(g))
+    assert _rel(out, ref) <= REL_TOL and _rel(grad, ref_grad) <= REL_TOL
 
 
 def test_wide_head_dim_matches_jax():
