@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only wide   # phases 1, 2, phase 3's wide rows, 5i
+    python3 chip_smoke.py --only f32    # phases 1, 2, 5j (its kernel rows and runs)
 
 Phases, in order; the first failure exits non-zero:
 
 1. require CUDA; print the card's name and power limit; TF32 off;
 2. build every CUDA kernel of the port from the sources in this checkout,
    and count the wgmma (HGMMA) and TMA (UTMALDG) instructions of the bf16
-   attention forward and backward;
+   attention forward and backward, the mma.sync HMMA of the wide kernels
+   and the TF32 mma.sync (HMMA.1688.F32.TF32) of the float32 kernel, and
+   print ptxas's registers and spills for each of its entry functions;
 3. hold each kernel (attention forward through its fused-qkv entry and
    through its separate-tensor entry, attention backward through both,
    GroupNorm + FiLM + SiLU forward and backward) against its plain PyTorch
@@ -123,7 +126,21 @@ Phases, in order; the first failure exits non-zero:
    forward and one wide backward a step asserted; each against the
    all-plain model from the same seeded weights (a forward, TOL_UNET_REL;
    the DDIM or DDNM trajectory from one start, TOL_SOLVER_REL; a loss's
-   gradients at b2, TOL_UNET_GRAD_REL);
+   gradients at b2, TOL_UNET_GRAD_REL); 5j. ``--no_bf16`` at 256 px: the
+   float32 kernel (attention_f32_sm90.cu, three-term TF32 on the tensor
+   cores) at B8 T4096 H8 D48 and B8 T1024 H8 D64 forward with the lse and
+   backward against plain, beside the FMA kernels it replaced and SDPA, at
+   unit-normal inputs held to TOL and TOL_ATTN_L2 in float32 (backward
+   TOL_BWD), a planted single-term TF32 variant caught by TOL_ATTN_L2, the
+   backward's bits the same on a repeat; then ``sen12mscr256`` at full width
+   and depth in float32, batch 8: ``cli.inference --no_bf16`` DDIM-F32_STEPS
+   (11 float32 forward launches a UNet forward, none of the FMA kernels) and
+   ``cli.train --no_bf16`` F32_TRAIN_STEPS steps (11 float32 backward
+   launches a step), each against the all-plain float32 model from the same
+   seeded weights (a forward, TOL_UNET_REL; the DDIM trajectory,
+   TOL_SOLVER_REL; a loss's gradients at b2, TOL_UNET_GRAD_REL); img/s,
+   steps/s and the device's ms a forward and a loss and backward (single
+   readings);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -215,6 +232,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -256,13 +274,21 @@ from eo_diffusion_torch.tools import (probe_attn_matmuls, probe_int8_attn, probe
                                       prototype_wgrad_kernel)
 from eo_diffusion_torch.tools.probe_packed_pv import attention_errors, planted_faults
 from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
-                                             card_line, cuda_ms, queued_ms)
+                                             PEAK_TF32X3, card_line, cuda_ms, queued_ms)
 from eo_diffusion_torch.train import ae_trainer as AET
 from eo_diffusion_torch.train.checkpoint import restore_checkpoint
 from eo_diffusion_torch.train.posthoc_ema import PowerEMA
 from eo_diffusion_torch.weights import randomize_parameters
 
 PEAK_FLOPS = {torch.bfloat16: PEAK_BF16, torch.float32: PEAK_F32}
+def attention_peak(dtype, d):
+    """The operations rate of an attention row's bound: the bf16 tensor
+    cores; in float32 the three-term TF32 rate up to D 128 (attention_f32_sm90.cu
+    runs every product as three TF32 products on the tensor cores) and the
+    FMA units above (the wide kernels' float32 path)."""
+    if dtype == torch.bfloat16:
+        return PEAK_BF16
+    return PEAK_TF32X3 if d <= 128 else PEAK_F32
 # kernel vs plain (plain computes in f32 from the same inputs, then rounds to
 # the input dtype): |kernel - plain| <= TOL * max(1, |plain|) elementwise.
 # bf16: both outputs round to bf16, so they may differ by one ulp (2^-7
@@ -311,6 +337,12 @@ UNET_ATTN = {
     (512, 128, (1, 2, 4, 8), ()): {"wide_fwd": 1},        # inria64 at 512 px (T 4096)
     (512, 128, (1, 2, 3, 4), ()): {"wide_fwd": 1},        # eurosat64 at 512 px
 }
+# a float32 UNet's attention launches go to the float32 kernel's counters
+# (attention_f32_sm90.cu, through either entry); the wide kernels keep theirs
+F32_KEYS = {"attn_fwd": "attn_fwd_f32", "flash_fwd": "flash_fwd_f32"}
+# a forward counter's backward counterpart (one backward launch a forward one)
+BWD_OF = {"attn_fwd": "attn_bwd", "flash_fwd": "flash_bwd", "wide_fwd": "wide_bwd",
+          "attn_fwd_f32": "attn_bwd_f32", "flash_fwd_f32": "flash_bwd_f32", "gn_fwd": "gn_bwd"}
 # clouds UNet: 22 ResBlocks x 2 norms, 11 attention norms, the output norm
 GN_PER_FORWARD = 56
 # GroupNorm kernel vs plain (both f32 from the same inputs, one rounding):
@@ -490,6 +522,14 @@ GUIDED_STEPS = 50  # DDIM-50 at b8, eta 0, two batches, img/s over the second
 RESTORE_STEPS = 50  # DDNM's DDIM steps at b8, eta 0.85
 # DDNM's final projection makes A(x) = y up to float32 rounding
 TOL_DDNM_RANGE = 1e-5
+# phase 5j: --no_bf16 at 256 px (sen12mscr256, b8, float32 end to end): DDIM
+# steps of cli.inference (two batches, img/s over the second), cli.train
+# steps, and the batch of the gradient check against the all-plain float32
+# model (its backward holds five blocks' [B, 8, 4096, 4096] float32
+# softmaxes)
+F32_STEPS = 10
+F32_TRAIN_STEPS = 4
+F32_GRAD_BATCH = 2
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -514,31 +554,42 @@ def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
         f"kernel vs plain at B{b} T{t} H{heads} D{d} {dtype}: {scaled} > {TOL[dtype]}")
 
     strict = None
+    what = f"fused-qkv entry at B{b} T{t} H{heads} D{d} new_order={new_order}"
     if dtype == torch.bfloat16 and not with_lse:  # the wgmma/TMA body, unit-normal inputs
         unit = torch.randn(b, t, 3 * c, generator=gen, device="cuda").to(dtype)
         strict = strict_check(lambda: A.qkv_attention_cuda(unit, heads, new_order).reshape(
-            b, t, heads, d), *A.split_qkv(unit, heads, new_order), chunk=b,
-            what=f"fused-qkv entry at B{b} T{t} H{heads} D{d} new_order={new_order}")
+            b, t, heads, d), *A.split_qkv(unit, heads, new_order), chunk=b, what=what)
         del unit
+    elif dtype == torch.float32:  # the three-term TF32 kernel, unit-normal inputs
+        strict = f32_strict_check(b, t, heads, d, new_order, what)
 
     reps = 20 if t >= 1024 else 100
     kernel_ms = cuda_ms(lambda: A.qkv_attention_cuda(qkv, heads, new_order,
                                                      return_lse=with_lse), reps)
     mma_ms = cuda_ms(lambda: A.qkv_attention_mma_cuda(qkv, heads, new_order,
                                                       return_lse=with_lse), reps)
+    queued = {}
+    if dtype == torch.float32 and t <= 256:  # back to back the calls time the host too
+        queued = {"queued_ms": queued_ms(lambda: A.qkv_attention_cuda(
+            qkv, heads, new_order, return_lse=with_lse)),
+                  "mma_body_queued_ms": queued_ms(lambda: A.qkv_attention_mma_cuda(
+                      qkv, heads, new_order, return_lse=with_lse))}
     plain_ms = cuda_ms(lambda: A.attention_from_qkv(qkv, heads, new_order, impl="plain"),
                        3 if t >= 1024 else 20, warmup=1)
     q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous() for x in A.split_qkv(qkv, heads, new_order))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                 scale=1.0 / math.sqrt(d)), reps)
+    if queued:
+        queued["library_queued_ms"] = queued_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0 / math.sqrt(d)))
     flops = 4.0 * b * heads * t * t * d
     nbytes = qkv.element_size() * b * t * 4 * c + (4 * b * heads * t if with_lse else 0)
-    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_ms = max(flops / attention_peak(dtype, d), nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": f"B{b} T{t} H{heads} D{d}", "dtype": str(dtype).split(".")[-1],
            "new_order": new_order, "max_abs_err": err, "max_scaled_err": scaled,
-           "unit_normal": strict, "kernel_ms": kernel_ms, "mma_body_ms": mma_ms,
+           "unit_normal": strict, "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, **queued,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           "bound_by": "operations" if flops / attention_peak(dtype, d) >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
     if with_lse:
         row["lse_max_abs_err"] = lse_err
@@ -579,6 +630,9 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen, ugen):
     del ref
 
     strict = None
+    if dtype == torch.float32:  # the three-term TF32 kernel, unit-normal inputs
+        strict = f32_strict_bwd_check(b, t, heads, d, new_order,
+                                      f"fused-qkv backward at B{b} T{t} H{heads} D{d}")
     if dtype == torch.bfloat16:  # the wgmma/TMA body, unit-normal inputs
         unit = torch.randn(b, t, 3 * c, generator=ugen, device="cuda").to(dtype)
         planes = A.split_qkv(unit, heads, new_order)
@@ -603,6 +657,9 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen, ugen):
             qkv, out, lse, dout, heads, new_order)),
                   "mma_body_queued_ms": queued_ms(lambda: A.qkv_attention_bwd_mma_cuda(
                       qkv, out, lse, dout, heads, new_order))}
+    if dtype == torch.float32:  # no atomics: the same bits on every call
+        again = A.qkv_attention_bwd_cuda(qkv, out, lse, dout, heads, new_order)
+        assert torch.equal(again, dqkv), "the float32 backward's bits moved between calls"
     # the library's yardstick: the backward of scaled_dot_product_attention alone
     q4, k4, v4 = (x.permute(0, 2, 1, 3).contiguous().requires_grad_()
                   for x in A.split_qkv(qkv, heads, new_order))
@@ -610,18 +667,74 @@ def attention_bwd_case(b, t, heads, d, dtype, new_order, gen, ugen):
     g4 = dout.reshape(shape).permute(0, 2, 1, 3).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True),
                          10 if big else 50)
+    if queued:
+        queued["library_queued_ms"] = queued_ms(
+            lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True))
     flops = 10.0 * b * heads * t * t * d
     # q, k, v, o, do read and dq, dk, dv written once each, plus the lse
     nbytes = qkv.element_size() * b * t * 8 * c + 4 * b * heads * t
-    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_ms = max(flops / attention_peak(dtype, d), nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": f"B{b} T{t} H{heads} D{d}", "dtype": str(dtype).split(".")[-1],
            "new_order": new_order, "grad_rms": rms, "max_abs_err": err,
            "max_scaled_err": scaled, "mma_body_max_scaled_err": mma_scaled,
            "unit_normal": strict, "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, **queued,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           "bound_by": "operations" if flops / attention_peak(dtype, d) >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
     print("attention_bwd " + json.dumps(row), flush=True)
+    return row
+
+
+def f32_strict_check(b, t, heads, d, new_order, what):
+    """The float32 kernel (three-term TF32) at unit-normal inputs through the
+    fused entry against plain with the probes' limits in float32
+    (check_attention: TOL of max(rms, |plain|), TOL_ATTN_L2 of relative L2),
+    and at D 48 and 64 the planted fault: the single-term variant (plain TF32)
+    on the same inputs must break TOL_ATTN_L2. Draws from a generator of its
+    own, so every check after it keeps its draws. Returns the errors."""
+    sgen = torch.Generator(device="cuda").manual_seed(1900 + t + d)
+    unit = torch.randn(b, t, 3 * heads * d, generator=sgen, device="cuda")
+    q, k, v = A.split_qkv(unit, heads, new_order)
+    got = A.qkv_attention_cuda(unit, heads, new_order).reshape(b, t, heads, d)
+    ref = plain_fwd(q, k, v, 1 if t >= 4096 else b, with_lse=False)
+    torch.cuda.synchronize()
+    row = attention_errors(got, ref)
+    check_attention(row, torch.float32, what)
+    if d in (48, 64):
+        row["one_term"] = attention_errors(A._attention_f32_one_term(q, k, v), ref)
+        assert row["one_term"]["rel_l2_err"] > TOL_ATTN_L2[torch.float32], (what, row)
+    del unit, got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def f32_strict_bwd_check(b, t, heads, d, new_order, what):
+    """The float32 backward at unit-normal inputs through the fused entry
+    against plain (dq, dk, dv together): TOL_BWD of max(rms, |plain|), its
+    relative L2 recorded beside TOL_ATTN_L2; at D 48 and 64 the single-term
+    variant (plain TF32) on the same inputs must break TOL_ATTN_L2. A
+    generator of its own. Returns the errors."""
+    sgen = torch.Generator(device="cuda").manual_seed(2900 + t + d)
+    unit = torch.randn(b, t, 3 * heads * d, generator=sgen, device="cuda")
+    planes = A.split_qkv(unit, heads, new_order)
+    c = heads * d
+    out, lse = A.qkv_attention_cuda(unit, heads, new_order, return_lse=True)
+    dout = torch.randn(b, t, c, generator=sgen, device="cuda")
+    shape = (b, t, heads, d)
+    flat = lambda xs: torch.cat([x.flatten() for x in xs])
+    got = flat(A.split_qkv(A.qkv_attention_bwd_cuda(unit, out, lse, dout, heads, new_order),
+                           heads, new_order))
+    want = flat(plain_bwd(*planes, out.reshape(shape), lse, dout.reshape(shape), heads))
+    torch.cuda.synchronize()
+    row = attention_errors(got, want)
+    assert row["max_rms_scaled_err"] <= TOL_BWD[torch.float32], (what, row)
+    if d in (48, 64):
+        one = flat(A._attention_bwd_f32_one_term(*planes, out.reshape(shape), lse,
+                                                 dout.reshape(shape)))
+        row["one_term"] = attention_errors(one, want)
+        assert row["one_term"]["rel_l2_err"] > TOL_ATTN_L2[torch.float32], (what, row)
+    del unit, planes, got, want
+    torch.cuda.empty_cache()
     return row
 
 
@@ -789,14 +902,14 @@ def flash_case(b, t, heads, d, dtype, layout, gen, chunk=None, tag="flash_fwd"):
     del q4, k4, v4
     flops = 4.0 * b * heads * t * t * d
     nbytes = q.element_size() * b * t * heads * d * 4  # q, k, v read, o written
-    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_ms = max(flops / attention_peak(dtype, d), nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "max_scaled_err": scaled, "lse_max_abs_err": lse_err, "unit_normal": strict,
            "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, "old_body_ms": old_ms,
            "device_ms": device, "plain_ms": plain_ms, "plain_chunk": chunk,
            "library_ms": library_ms,
            "bound_ms": bound_ms,
-           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           "bound_by": "operations" if flops / attention_peak(dtype, d) >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
     print(f"{tag} " + json.dumps(row), flush=True)
     return row
@@ -868,14 +981,14 @@ def flash_bwd_case(b, t, heads, d, dtype, layout, gen, ugen, hchunk, tag="flash_
     flops = 10.0 * b * heads * t * t * d
     # q, k, v, o, do read and dq, dk, dv written once each, plus the lse
     nbytes = q.element_size() * b * t * heads * d * 8 + 4 * b * heads * t
-    bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_ms = max(flops / attention_peak(dtype, d), nbytes / PEAK_BYTES_PER_S) * 1e3
     row = {"shape": label, "dtype": str(dtype).split(".")[-1], "grad_rms": rms,
            "max_abs_err": err, "max_scaled_err": scaled, "mma_body_max_scaled_err": mma_scaled,
            "unit_normal": strict,
            "kernel_ms": kernel_ms, "mma_body_ms": mma_ms, "old_body_ms": old_ms,
            "device_ms": device, "plain_ms": plain_ms, "plain_heads_a_chunk": hchunk,
            "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES_PER_S
+           "bound_by": "operations" if flops / attention_peak(dtype, d) >= nbytes / PEAK_BYTES_PER_S
            else "bytes"}
     print(f"{tag} " + json.dumps(row), flush=True)
     return row
@@ -888,7 +1001,26 @@ def sass_census(lib):
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDL", "STL")}
+    census = {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDL", "STL")}
+    census["HMMA_TF32"] = sass.count("HMMA.1688.F32.TF32")  # mma.sync m16n8k8 tf32
+    return census
+
+
+def ptxas_report(log):
+    """Registers and spills of each entry function in a build's ptxas log:
+    {function: {"registers", "spill_stores", "spill_loads"}}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+        elif fn and "bytes spill stores" in line:
+            parts = [p.strip().split() for p in line.split(",")]
+            out[fn]["spill_stores"] = int(parts[1][0])
+            out[fn]["spill_loads"] = int(parts[2][0])
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def reset_counts():
@@ -898,6 +1030,8 @@ def reset_counts():
     A.qkv_attention_bwd_mma_cuda.launches = A.flash_attention_bwd_mma_cuda.launches = 0
     A.wide_attention_cuda.launches = A.wide_attention_bwd_cuda.launches = 0
     A.wide_attention_resident_cuda.launches = A.wide_attention_bwd_resident_cuda.launches = 0
+    A.qkv_attention_f32_cuda.launches = A.qkv_attention_bwd_f32_cuda.launches = 0
+    A.flash_attention_f32_cuda.launches = A.flash_attention_bwd_f32_cuda.launches = 0
     G.group_norm_fwd_cuda.launches = G.group_norm_bwd_cuda.launches = 0
     G.group_norm_fwd_legacy_cuda.launches = G.group_norm_bwd_legacy_cuda.launches = 0
     I8.int8_attention_cuda.launches = 0
@@ -921,6 +1055,10 @@ def counts():
             "wide_bwd": A.wide_attention_bwd_cuda.launches,
             "wide_fwd_resident": A.wide_attention_resident_cuda.launches,
             "wide_bwd_resident": A.wide_attention_bwd_resident_cuda.launches,
+            "attn_fwd_f32": A.qkv_attention_f32_cuda.launches,
+            "attn_bwd_f32": A.qkv_attention_bwd_f32_cuda.launches,
+            "flash_fwd_f32": A.flash_attention_f32_cuda.launches,
+            "flash_bwd_f32": A.flash_attention_bwd_f32_cuda.launches,
             "gn_fwd": G.group_norm_fwd_cuda.launches, "gn_bwd": G.group_norm_bwd_cuda.launches,
             "gn_fwd_legacy": G.group_norm_fwd_legacy_cuda.launches,
             "gn_bwd_legacy": G.group_norm_bwd_legacy_cuda.launches,
@@ -951,14 +1089,11 @@ def expected(size, forwards, backwards=0, cfg=None, batch=None):
     whose routed 3x3 convs launch a weight-gradient kernel each)."""
     qkv, flash = ROUTES[size]
     wg = wgrad_routes(cfg, size, batch) if backwards else {"sm90": 0, "mma": 0}
-    return {"attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
+    return {**{k: 0 for k in counts()},
+            "attn_fwd": qkv * forwards, "attn_bwd": qkv * backwards,
             "flash_fwd": flash * forwards, "flash_bwd": flash * backwards,
-            "attn_fwd_mma": 0, "flash_fwd_mma": 0, "attn_bwd_mma": 0, "flash_bwd_mma": 0,
-            "wide_fwd": 0, "wide_bwd": 0, "wide_fwd_resident": 0, "wide_bwd_resident": 0,
             "gn_fwd": GN_PER_FORWARD * forwards, "gn_bwd": GN_PER_FORWARD * backwards,
-            "gn_fwd_legacy": 0, "gn_bwd_legacy": 0, "int8": 0, "wgrad": wg["mma"] * backwards,
-            "wgrad_sm90": wg["sm90"] * backwards, "mm_probe": 0, "attn_t": 0, "hybrid": 0, "stats": 0,
-            "transpose": 0, "variant": 0}
+            "wgrad": wg["mma"] * backwards, "wgrad_sm90": wg["sm90"] * backwards}
 
 
 def dit_expected(forwards, backwards=0):
@@ -977,9 +1112,8 @@ def unet_train_expected(cfg, size, batch, steps):
     per = unet_expected(dataclasses.replace(cfg, image_size=size), full=1)
     wg = wgrad_routes(cfg, size, batch, sites=None)
     return {**{k: v * steps for k, v in per.items()},
-            "attn_bwd": per["attn_fwd"] * steps, "wide_bwd": per["wide_fwd"] * steps,
-            "gn_bwd": per["gn_fwd"] * steps, "wgrad": wg["mma"] * steps,
-            "wgrad_sm90": wg["sm90"] * steps}
+            **{BWD_OF[k]: v * steps for k, v in per.items() if k in BWD_OF},
+            "wgrad": wg["mma"] * steps, "wgrad_sm90": wg["sm90"] * steps}
 
 
 def gn_bound_ms(direction, act, n, hw, c, groups, esize):
@@ -2247,6 +2381,8 @@ def unet_expected(cfg, full=0, partial=0, perturbed=0):
     key = (cfg.image_size, cfg.model_channels, tuple(cfg.channel_mult),
            tuple(cfg.attention_resolutions))
     per = UNET_ATTN[key]
+    if cfg.dtype == torch.float32:  # K1-K3 in float32: the tensor-core float32 kernel
+        per = {F32_KEYS.get(k, k): n for k, n in per.items()}
     assert sum(per.values()) == attn, (key, per, plan.attention_shapes(cfg.image_size))
     _, shallow = plan.sites(1 + cfg.num_res_blocks)
     return {**{k: 0 for k in counts()}, **{k: n * full for k, n in per.items()},
@@ -2626,8 +2762,8 @@ def clf_expected(forwards=0, grads=0, train_steps=0):
     backward) and ``train_steps`` training steps (the same kernels as an
     input gradient; no weight-gradient kernel: the convs are float32)."""
     with_grad = grads + train_steps
-    return {**{k: 0 for k in counts()}, "attn_fwd": CLF_ATTN * (forwards + with_grad),
-            "attn_bwd": CLF_ATTN * with_grad, "gn_fwd": CLF_NORMS * (forwards + with_grad),
+    return {**{k: 0 for k in counts()}, "attn_fwd_f32": CLF_ATTN * (forwards + with_grad),
+            "attn_bwd_f32": CLF_ATTN * with_grad, "gn_fwd": CLF_NORMS * (forwards + with_grad),
             "gn_bwd": CLF_NORMS * with_grad}
 
 
@@ -2849,18 +2985,24 @@ def wide_grad_check(model, cfg, batch, gen, label):
     """One loss and backward at cfg.image_size px, the kernels against the
     all-plain model (attention, norms and convs): rel L2 over every
     parameter gradient, the step's launches as unet_train_expected gives
-    them. Returns the rel L2."""
+    them. A UNet with more input than output channels takes the rest as a
+    concatenated condition (a cloudy view), drawn after the rest. Returns
+    the rel L2."""
     size = cfg.image_size
-    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size)
-    x0 = torch.randn(batch, size, size, cfg.in_channels, generator=gen, device="cuda")
-    noise = torch.randn(batch, size, size, cfg.in_channels, generator=gen, device="cuda")
+    cc = cfg.in_channels - cfg.out_channels
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size,
+                                         **({"cond_type": "concat"} if cc else {}))
+    x0 = torch.randn(batch, size, size, cfg.out_channels, generator=gen, device="cuda")
+    noise = torch.randn(batch, size, size, cfg.out_channels, generator=gen, device="cuda")
     ts = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
-    model_fn = lambda x, t, c, y: model(x, t)
+    cond = (torch.randn(batch, size, size, cc, generator=gen, device="cuda").clamp(-1, 1)
+            if cc else None)
+    model_fn = lambda x, t, c, y: model(x, t, cond=c)
     grads, launched = {}, None
     for impl in ("auto", "plain"):
         model.set_impl(attn=impl, norm=impl, conv=impl).zero_grad(set_to_none=True)
         reset_counts()
-        diffusion.train_loss(model_fn, x0, t=ts, noise=noise).backward()
+        diffusion.train_loss(model_fn, x0, t=ts, noise=noise, cond=cond).backward()
         torch.cuda.synchronize()
         if impl == "auto":
             launched = counts()
@@ -2990,6 +3132,161 @@ def phase_5i(tmp, card):
     return out
 
 
+def f32_cases():
+    """The float32 kernel's rows at ``--no_bf16``'s 256 px shapes (B8 T4096 H8
+    D48 at ds 4, B8 T1024 H8 D64 at ds 8), as training runs them (forward
+    with the lse, backward), each beside the FMA kernel it replaced, plain and
+    SDPA; drawn from a generator of their own. Returns (forward rows,
+    backward rows)."""
+    fgen = torch.Generator(device="cuda").manual_seed(20)
+    f32 = torch.float32
+    fwd = [attention_case(8, t, 8, d, f32, False, fgen, with_lse=True)
+           for t, d in ((4096, 48), (1024, 64))]
+    torch.cuda.empty_cache()
+    bwd = [attention_bwd_case(8, t, 8, d, f32, False, fgen, fgen) for t, d in ((4096, 48),
+                                                                               (1024, 64))]
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_5j(tmp, card):
+    """``--no_bf16`` at 256 px: ``sen12mscr256`` at full width and depth,
+    batch 8, float32 end to end (TF32 off), through ``cli.inference``
+    DDIM-F32_STEPS and ``cli.train`` F32_TRAIN_STEPS steps. Every attention
+    launch is the float32 tensor-core kernel's (11 forward a UNet forward, 11
+    backward a step) and none the FMA kernels'. Each path is held against the
+    all-plain float32 model from the same seeded weights: a forward
+    (TOL_UNET_REL), the DDIM trajectory from one start and cloudy view
+    (TOL_SOLVER_REL), a loss's gradients at batch F32_GRAD_BATCH
+    (TOL_UNET_GRAD_REL). Also the device's ms a forward and a loss and
+    backward at b8 (CUDA events; single readings). Draws from a generator
+    of its own."""
+    jgen = torch.Generator(device="cuda").manual_seed(21)
+    size, batch, steps = 256, 8, F32_STEPS
+    cfg = get_preset("sen12mscr256").unet_config(bf16=False, cond_channels=3)
+    assert cfg.dtype == torch.float32
+    proc = GaussianDiffusion.create(timesteps=1000, image_size=size, cond_type="concat")
+    calls = make_ddim_schedule(proc.schedule, steps, 0.0).num_steps
+    res = run_cli(["--preset", "sen12mscr256", "--dataset", "synthetic", "--sampler", "ddim",
+                   "--sampler_steps", str(steps), "--batch_size", str(batch), "--n_iter", "1",
+                   "--no_bf16", "--device", "cuda"], cfg, seed=24, tmp=tmp)
+    assert res["samples"].shape == (batch, size, size, 3), res["samples"].shape
+    want = unet_expected(cfg, full=calls * res["batches"])
+    assert res["launches"] == want and want["attn_fwd_f32"] == 11 * calls * res["batches"], (
+        res["launches"], want)
+    img_s = batch / res["batch_seconds"][1]
+    out = {"sample": {"launches": res["launches"], "img_s": img_s,
+                      "batch_seconds": res["batch_seconds"]}}
+
+    # the same weights against the all-plain float32 model
+    model = randomize_parameters(build_denoiser(cfg), 24).cuda().eval()
+    cond = torch.randn(batch, size, size, 3, generator=jgen, device="cuda").clamp(-1, 1)
+    x = torch.randn(batch, size, size, 3, generator=jgen, device="cuda")
+    ts = torch.randint(0, 1000, (batch,), generator=jgen, device="cuda")
+    fn = lambda xx, tt, c, yy: model(xx, tt, cond=c)
+    with torch.inference_mode():
+        reset_counts()
+        out_k = model(x, ts, cond=cond)
+        launched = counts()
+        fwd_ms = cuda_ms(lambda: model(x, ts, cond=cond), 3, warmup=1)
+        model.set_impl(attn="plain", norm="plain")
+        out_p = model(x, ts, cond=cond)
+        plain_fwd_ms = cuda_ms(lambda: model(x, ts, cond=cond), 2, warmup=0)
+        x_T = torch.randn(batch, size, size, 3, generator=jgen, device="cuda")
+        run = lambda: proc.ddim_sample(fn, batch, device="cuda", num_steps=steps, cond=cond,
+                                       x_T=x_T).x
+        x_p = run()
+        model.set_impl(attn="auto", norm="auto")
+        x_k = run()
+    assert launched == unet_expected(cfg, full=1), launched
+    fwd_rel, ddim_rel = rel_l2(out_k, out_p), rel_l2(x_k, x_p)
+    assert bool(torch.isfinite(out_k).all()) and fwd_rel <= TOL_UNET_REL, fwd_rel
+    assert bool(torch.isfinite(x_k).all()) and ddim_rel <= TOL_SOLVER_REL, ddim_rel
+    print(f"5j cli.inference sen12mscr256 --no_bf16 DDIM-{steps} b{batch}: batch seconds "
+          f"{[round(v, 4) for v in res['batch_seconds']]}, {img_s:.4f} img/s (second batch, a "
+          f"single reading), launches { {k: v for k, v in res['launches'].items() if v} }; "
+          f"device ms a b{batch} forward {fwd_ms:.3f} (all-plain {plain_fwd_ms:.3f}); kernels vs "
+          f"all-plain float32: forward rel L2 {fwd_rel:.3e} (limit {TOL_UNET_REL}), DDIM-{steps} "
+          f"final samples {ddim_rel:.3e} (limit {TOL_SOLVER_REL}); peak memory "
+          f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+    out["sample"].update(forward_rel_l2=fwd_rel, ddim_rel_l2=ddim_rel, forward_device_ms=fwd_ms,
+                         plain_forward_device_ms=plain_fwd_ms)
+
+    # a loss and backward at b8 on the device, then the gradients against
+    # all-plain at F32_GRAD_BATCH
+    model.train()
+    diffusion = GaussianDiffusion.create(timesteps=1000, image_size=size, cond_type="concat")
+    noise = torch.randn(batch, size, size, 3, generator=jgen, device="cuda")
+    loss_fn = lambda: diffusion.train_loss(fn, x, t=ts, noise=noise, cond=cond).backward()
+    step_ms = cuda_ms(loss_fn, 3, warmup=1)
+    model.zero_grad(set_to_none=True)
+    grad_rel = wide_grad_check(model, cfg, F32_GRAD_BATCH, jgen, "sen12mscr256 --no_bf16")
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.chdir(tmp):
+        r = cli_train.main(cli_train.parse_args(
+            train_argv("sen12mscr256", batch, F32_TRAIN_STEPS, 25, "train_f32") + ["--no_bf16"]))
+    got = counts()
+    want = unet_train_expected(cfg, size, batch, F32_TRAIN_STEPS)
+    assert r["steps"] == F32_TRAIN_STEPS and all(math.isfinite(v) for v in r["losses"]), r
+    assert got == want and want["attn_bwd_f32"] == 11 * F32_TRAIN_STEPS, (got, want)
+    sps = steady_sps(r)
+    print(f"5j cli.train sen12mscr256 --no_bf16 b{batch}: {r['steps']} steps, loss "
+          f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}; {sps:.4f} steps/s over the last "
+          f"{F32_TRAIN_STEPS - 2} (a single reading); device ms a b{batch} loss and backward "
+          f"{step_ms:.3f}; gradients vs all-plain float32 (b{F32_GRAD_BATCH}) rel L2 "
+          f"{grad_rel:.3e} (limit {TOL_UNET_GRAD_REL}); launches "
+          f"{ {k: v for k, v in got.items() if v} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+    out["train"] = {"launches": got, "sps": sps, "loss_backward_device_ms": step_ms,
+                    "grad_rel_l2": grad_rel, "losses": r["losses"]}
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_kernel_rows(fwd_rows, bwd_rows, f32_phase, extra_fwd=None, extra_bwd=None):
+    """The kernels-line entries of the float32 kernel (attention_f32_sm90.cu):
+    launches from phase 5j (cli.inference's forwards, cli.train's
+    backwards), the times of ``--no_bf16``'s ds-4 row (B8 T4096 H8 D48), with
+    "was" the FMA kernel on the same tensors, and every row under
+    "shapes"."""
+    src = "eo_diffusion_torch/ops/csrc/attention_f32_sm90.cu"
+
+    def entry(name, rows, replaces, also, launches, old_src, extra):
+        r = rows[0]
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "replaces_also": also, "launches": launches,
+                "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["kernel_ms"],
+                "was_ms": r["mma_body_ms"], "was_source": old_src, "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "bound_rate": "165 TFLOP/s (a third of dense TF32), 3.35 TB/s",
+                "library_ms": r["library_ms"],
+                "library_call": "F.scaled_dot_product_attention in float32, TF32 off",
+                **(extra or {}),
+                "shapes": [{k: x.get(k) for k in ("shape", "kernel_ms", "mma_body_ms",
+                                                  "queued_ms", "mma_body_queued_ms",
+                                                  "library_ms", "bound_ms", "plain_ms",
+                                                  "max_abs_err", "unit_normal")}
+                           for x in rows]}
+
+    s, t = f32_phase["sample"]["launches"], f32_phase["train"]["launches"]
+    return [
+        entry("attention_f32_fwd", fwd_rows, "eo_diffusion_tpu/ops/attention.py:738",
+              ["eo_diffusion_tpu/ops/attention.py:697", "eo_diffusion_tpu/ops/attention.py:271",
+               "eo_diffusion_tpu/ops/attention.py:227"],
+              s["attn_fwd_f32"] + s["flash_fwd_f32"],
+              "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+              {"launches_train": t["attn_fwd_f32"] + t["flash_fwd_f32"], **(extra_fwd or {})}),
+        entry("attention_f32_bwd", bwd_rows, "eo_diffusion_tpu/ops/attention.py:502",
+              ["eo_diffusion_tpu/ops/attention.py:429"], t["attn_bwd_f32"] + t["flash_bwd_f32"],
+              "eo_diffusion_torch/ops/csrc/attention_bwd.cu", extra_bwd),
+    ]
+
+
 def wide_kernel_rows(wide_rows, wide_bwd_rows, wide512, extra_fwd=None, extra_bwd=None):
     """The kernels-line entries of the wide pair: launches from phase 5i's
     runs (inria64 at 512 px: DDIM sampling forward, training backward), the
@@ -3017,6 +3314,26 @@ def wide_kernel_rows(wide_rows, wide_bwd_rows, wide512, extra_fwd=None, extra_bw
               "eo_diffusion_tpu/ops/attention.py:502", runs["inria64_train"]["wide_bwd"],
               {**by_run("wide_bwd"), **(extra_bwd or {})}),
     ]
+
+
+def f32_only(card, sass):
+    """``--only f32``: phase 5j's kernel rows and runs, then the float32
+    kernel's kernels-line entries, the card line and the last line."""
+    f32_rows, f32_bwd_rows = f32_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        f32_phase = phase_5j(tmp, card)
+    fma = {"fma_launches_on_model_paths": sum(
+        r["launches"][k] for r in f32_phase.values()
+        for k in ("attn_fwd_mma", "flash_fwd_mma", "attn_bwd_mma", "flash_bwd_mma"))}
+    kernels = f32_kernel_rows(f32_rows, f32_bwd_rows, f32_phase,
+                              {**fma, "sass": sass["attention_f32_sm90"]},
+                              {**fma, "ptxas": sass["attention_f32_sm90_ptxas"]})
+    print(json.dumps({"kernels": kernels, "phase_5j": f32_phase}))
+    print(card)
+    print(json.dumps({"ok": True, "only": "f32",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def wide_only(card, sass):
@@ -3110,8 +3427,9 @@ def probe_kernel_rows(small, probes):
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--only", "wide"]):
-        print(f"chip_smoke: unknown arguments {args} (none, or --only wide)", file=sys.stderr)
+    if args not in ([], ["--only", "wide"], ["--only", "f32"]):
+        print(f"chip_smoke: unknown arguments {args} (none, --only wide or --only f32)",
+              file=sys.stderr)
         return 2
     only = args[1] if args else None
     # 1. the card
@@ -3140,8 +3458,22 @@ def main(argv=None) -> int:
     sass["attention_wide"] = sass_census(builds["attention_wide"]["path"])
     print(f"attention_wide SASS: {json.dumps(sass['attention_wide'])}", flush=True)
     assert sass["attention_wide"]["HMMA"] > 0, sass  # its bf16 products: mma.sync
+    sass["attention_f32_sm90"] = sass_census(builds["attention_f32_sm90"]["path"])
+    print(f"attention_f32_sm90 SASS: {json.dumps(sass['attention_f32_sm90'])}", flush=True)
+    assert sass["attention_f32_sm90"]["HMMA_TF32"] > 0, sass  # its products: TF32 mma.sync
+    sass["attention_f32_sm90_ptxas"] = ptxas_report(builds["attention_f32_sm90"]["log"])
+    for fn, r in sass["attention_f32_sm90_ptxas"].items():
+        print(f"attention_f32_sm90 ptxas: {fn}: {r}")
+        # the backward's accumulators stay in registers at D 64-128, and the
+        # forward spills nothing at the paths' head dims (48, 64)
+        dp = re.search(r"attn_(fwd|bwd)_tf32ILi(\d+)ELi3E", fn)
+        if dp and (dp.group(1) == "bwd" and int(dp.group(2)) >= 64
+                   or dp.group(1) == "fwd" and int(dp.group(2)) in (48, 64)):
+            assert r["spill_stores"] == 0 == r["spill_loads"], (fn, r)
     if only == "wide":
         return wide_only(card, sass)
+    if only == "f32":
+        return f32_only(card, sass)
 
     # 3. kernel vs plain at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3414,6 +3746,11 @@ def main(argv=None) -> int:
         # 5i. inria64 and eurosat64 at 512 px: the wide kernels at T 4096
         wide512 = phase_5i(tmp, card)
         wide_runs = list(wide512.values())
+        # 5j. --no_bf16 at 256 px: the float32 kernel's rows, then
+        # sen12mscr256 in float32 through cli.inference and cli.train
+        f32_rows, f32_bwd_rows = f32_cases()
+        f32_phase = phase_5j(tmp, card)
+        f32_runs = list(f32_phase.values())
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -3482,8 +3819,12 @@ def main(argv=None) -> int:
     old_wide_launches = lambda key: sum(
         r["launches"][key] for r in (main_res, res512, res64, train_res, train512, tiled,
                                      tiled_flow, *dit_res.values(), *latent_runs, *guided_runs,
-                                     *edm_runs, *clf_runs, *wide_runs))
+                                     *edm_runs, *clf_runs, *wide_runs, *f32_runs))
     assert not any(old_wide_launches(k) for k in ("wide_fwd_resident", "wide_bwd_resident"))
+    # the FMA kernels (and the mma.sync bodies) of attention_fwd.cu and
+    # attention_bwd.cu are yardsticks only: no model path launches them
+    assert not any(old_wide_launches(k) for k in ("attn_fwd_mma", "flash_fwd_mma",
+                                                  "attn_bwd_mma", "flash_bwd_mma"))
     kernels = [{
         "name": "attention_fwd_sm90",
         "route": "cuda",
@@ -3506,7 +3847,8 @@ def main(argv=None) -> int:
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs, *edm_runs, *clf_runs)
+                                       *guided_runs, *edm_runs, *clf_runs, *wide_runs,
+                                       *f32_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
@@ -3519,7 +3861,7 @@ def main(argv=None) -> int:
         "name": "qkv_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
-        "source_float32": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_f32_sm90.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:738",
         "launches": main_res["launches"]["attn_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
@@ -3574,7 +3916,8 @@ def main(argv=None) -> int:
         "mma_body_launches_on_model_paths": sum(
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
-                                       *guided_runs, *edm_runs, *clf_runs)
+                                       *guided_runs, *edm_runs, *clf_runs, *wide_runs,
+                                       *f32_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -3588,7 +3931,7 @@ def main(argv=None) -> int:
         "name": "qkv_attention_bwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu",
-        "source_float32": "eo_diffusion_torch/ops/csrc/attention_bwd.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_f32_sm90.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:502",
         "launches": train_res["launches"]["attn_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "bfloat16"),
@@ -3612,7 +3955,7 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
-        "source_float32": "eo_diffusion_torch/ops/csrc/attention_fwd.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_f32_sm90.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:271",
         "replaces_also": "eo_diffusion_tpu/ops/attention.py:227",
         "launches": res512["launches"]["flash_fwd"],
@@ -3629,7 +3972,7 @@ def main(argv=None) -> int:
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu",
-        "source_float32": "eo_diffusion_torch/ops/csrc/attention_bwd.cu",
+        "source_float32": "eo_diffusion_torch/ops/csrc/attention_f32_sm90.cu",
         "replaces": "eo_diffusion_tpu/ops/attention.py:502",
         "replaces_also": "eo_diffusion_tpu/ops/attention.py:669",
         "launches": train512["launches"]["flash_bwd"],
@@ -3652,7 +3995,18 @@ def main(argv=None) -> int:
          "sass": sass["attention_wide"]},
         {"launches_short_train": dit_train["short"]["inria64"]["launches"]["wide_bwd"],
          "old_body_launches_on_model_paths": old_wide_launches("wide_bwd_resident"),
-         "sass": sass["attention_wide"]}), {
+         "sass": sass["attention_wide"]}), *f32_kernel_rows(
+        f32_rows, f32_bwd_rows, f32_phase,
+        {"launches_classifier": clf_launches("attn_fwd_f32"),
+         "classifier_rows": [latent_row(r) for r in clf_phase["attn_rows"]],
+         "fma_launches_on_model_paths": old_wide_launches("attn_fwd_mma")
+         + old_wide_launches("flash_fwd_mma"),
+         "sass": sass["attention_f32_sm90"]},
+        {"launches_classifier": clf_launches("attn_bwd_f32"),
+         "classifier_rows": [latent_row(r) for r in clf_phase["bwd_rows"]],
+         "fma_launches_on_model_paths": old_wide_launches("attn_bwd_mma")
+         + old_wide_launches("flash_bwd_mma"),
+         "ptxas": sass["attention_f32_sm90_ptxas"]}), {
         "name": "int8_attention_fwd",
         "route": "cuda",
         "source": "eo_diffusion_torch/ops/csrc/int8_attention.cu",

@@ -32,6 +32,7 @@ KERNELS = {"attention_fwd": "attention_fwd.cu", "attention_fwd_sm90": "attention
            "attention_bwd": "attention_bwd.cu", "attention_bwd_sm90": "attention_bwd_sm90.cu",
            "attention_wide": "attention_wide.cu",
            "attention_wide_resident": "attention_wide_resident.cu",
+           "attention_f32_sm90": "attention_f32_sm90.cu",
            "group_norm": "group_norm.cu", "group_norm_sm90": "group_norm_sm90.cu",
            "int8_attention": "int8_attention.cu",
            "conv_wgrad": "conv_wgrad.cu", "conv_wgrad_sm90": "conv_wgrad_sm90.cu",

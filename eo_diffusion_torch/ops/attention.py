@@ -10,21 +10,26 @@ in float32.
 * :func:`qkv_attention_cuda` launches the hand-written CUDA kernel (the
   port of the TPU's fused-qkv kernel K1), which reads q/k/v straight out of
   the ``[B, T, 3C]`` projection: bf16 takes the wgmma/TMA body
-  (``csrc/attention_fwd_sm90.cu``), float32 the FMA kernel of
-  ``csrc/attention_fwd.cu`` (:func:`fwd_route` holds the rules).
-  :func:`qkv_attention_mma_cuda` / :func:`flash_attention_mma_cuda` launch
-  the earlier mma.sync body of ``attention_fwd.cu``, which no model path
-  calls: the attention probes copy its loop and time it as their yardstick.
+  (``csrc/attention_fwd_sm90.cu``); float32 goes to
+  :func:`qkv_attention_f32_cuda`, the tensor-core kernel of
+  ``csrc/attention_f32_sm90.cu`` (every product a three-term TF32 split, so
+  float32 accuracy), which counts its own launches (:func:`fwd_route` holds
+  the rules). :func:`qkv_attention_mma_cuda` / :func:`flash_attention_mma_cuda`
+  launch ``attention_fwd.cu``, which no model path calls: in bf16 the earlier
+  mma.sync body, which the attention probes copy and time as their
+  yardstick, in float32 the FMA kernel, the new float32 kernel's yardstick.
 * :func:`reference_attention_bwd` is the plain version of the backward,
   written out with the backward kernel's own recipe (where it rounds to the
   input dtype included); :func:`qkv_attention_bwd_cuda` launches that kernel
   (the port of the TPU's flash backward K4), which writes dq, dk, dv straight
   into ``dqkv [B, T, 3C]``: bf16 takes the wgmma/TMA body
-  (``csrc/attention_bwd_sm90.cu``), float32 the FMA kernel of
-  ``csrc/attention_bwd.cu`` (:func:`bwd_route` holds the rules).
+  (``csrc/attention_bwd_sm90.cu``), float32 goes to
+  :func:`qkv_attention_bwd_f32_cuda` (``csrc/attention_f32_sm90.cu``, its
+  own counter; :func:`bwd_route` holds the rules).
   :func:`qkv_attention_bwd_mma_cuda` / :func:`flash_attention_bwd_mma_cuda`
-  launch the earlier mma.sync body of ``attention_bwd.cu``, which no model
-  path calls: ``chip_smoke.py`` times it beside the new body.
+  launch ``attention_bwd.cu`` (bf16: the earlier mma.sync body; float32: the
+  FMA kernel), which no model path calls: ``chip_smoke.py`` times it beside
+  the new bodies.
 * :class:`QKVAttention` is the ``torch.autograd.Function`` joining the two
   kernels: it saves ``qkv``, ``out`` and the row logsumexp in the forward
   (only when a gradient is needed) and launches the backward kernel, or on
@@ -33,8 +38,10 @@ in float32.
   same two kernels through their separate-tensor entries: q, k, v as three
   strided ``[B, T, H, D]`` tensors or views. They are the port of the TPU's
   ``flash_attention`` forward (K2, the resident branch, and K3, the
-  grid-tiled one) and of K4 behind it; :class:`FlashAttention` joins them,
-  and :func:`flash_attention` / :func:`fused_attention` are the entries.
+  grid-tiled one) and of K4 behind it (float32 through
+  :func:`flash_attention_f32_cuda` / :func:`flash_attention_bwd_f32_cuda`);
+  :class:`FlashAttention` joins them, and :func:`flash_attention` /
+  :func:`fused_attention` are the entries.
 * :func:`wide_attention_cuda` / :func:`wide_attention_bwd_cuda` launch the
   kernels of ``csrc/attention_wide.cu``, which take the head dims above
   those bodies' limits (256 in bf16, 128 in float32) at any T, keys
@@ -76,8 +83,9 @@ __all__ = ["reference_attention", "reference_attention_bwd", "split_qkv",
            "bwd_route", "qkv_attention_mma_cuda", "flash_attention_mma_cuda",
            "qkv_attention_bwd_mma_cuda", "flash_attention_bwd_mma_cuda",
            "wide_attention_cuda", "wide_attention_bwd_cuda", "wide_attention_resident_cuda",
-           "wide_attention_bwd_resident_cuda",
-           "identity_attention", "identity_attention_hits"]
+           "wide_attention_bwd_resident_cuda", "qkv_attention_f32_cuda",
+           "qkv_attention_bwd_f32_cuda", "flash_attention_f32_cuda",
+           "flash_attention_bwd_f32_cuda", "identity_attention", "identity_attention_hits"]
 
 # PAG's perturbed branch (JAX ops/attention.py:61-90): inside
 # identity_attention() every self-attention map is the identity, so
@@ -111,8 +119,9 @@ _KERNEL_BWD = "attention_bwd"
 _KERNEL_BWD_SM90 = "attention_bwd_sm90"
 _KERNEL_WIDE = "attention_wide"
 _KERNEL_WIDE_RESIDENT = "attention_wide_resident"
+_KERNEL_F32 = "attention_f32_sm90"
 # head dims the kernels take: the wgmma bodies (bf16) up to wgmma's N, the
-# FMA kernels (float32) and the mma.sync bodies up to 128
+# float32 kernels (tensor-core and FMA) and the mma.sync bodies up to 128
 _MAX_D_SM90 = 256
 _MAX_D = 128
 # the first wide pair holds a CTA's rows of T scores in shared memory: T up
@@ -139,6 +148,9 @@ _ARGTYPES = {
     "eo_attention_wide_fwd": _FLASH_FWD, "eo_attention_wide_bwd": _WIDE_BWD,
     "eo_attention_wide_resident_fwd": _FLASH_FWD,
     "eo_attention_wide_resident_bwd": _RESIDENT_BWD,
+    "eo_qkv_attention_fwd_tf32x3": _QKV_FWD, "eo_attention_fwd_tf32x3": _FLASH_FWD,
+    "eo_qkv_attention_bwd_tf32x3": _QKV_BWD, "eo_attention_bwd_tf32x3": _FLASH_BWD,
+    "eo_attention_fwd_tf32x1": _FLASH_FWD, "eo_attention_bwd_tf32x1": _FLASH_BWD,
 }
 
 
@@ -260,8 +272,8 @@ def _entry(kernel: str, name: str):
 
 def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[int],
            fused: bool) -> str:
-    """What the wgmma/TMA bodies (bf16), the FMA kernels (float32) and the
-    wide kernels accept, for :func:`fwd_route` and :func:`bwd_route`."""
+    """What the wgmma/TMA bodies (bf16), the tensor-core float32 kernels and
+    the wide kernels accept, for :func:`fwd_route` and :func:`bwd_route`."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported dtype {dtype}")
     if d < 8 or d % 8:
@@ -274,7 +286,7 @@ def _route(dtype: torch.dtype, d: int, strides: Sequence[int], ptrs: Sequence[in
     if any(st % 8 for st in strides) or any(ptr % 16 for ptr in ptrs):
         raise ValueError("the kernels need strides that are multiples of 8 elements and "
                          "16-byte-aligned bases")
-    return "sm90" if dtype == torch.bfloat16 else "fma"
+    return "sm90" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
@@ -284,8 +296,9 @@ def fwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
     ``"sm90"``: bf16, the wgmma/TMA body (``csrc/attention_fwd_sm90.cu``), any
     head dim that is a multiple of 8 up to 256 on the separate-tensor entry
     and up to 128 on the fused-qkv one (the JAX package's gate, d <= 128);
-    ``"fma"``: float32, the FMA kernel of ``csrc/attention_fwd.cu``, up to
-    128. ``strides`` are the element strides and ``ptrs`` the base addresses
+    ``"tf32x3"``: float32, the tensor-core kernel of
+    ``csrc/attention_f32_sm90.cu`` (three-term TF32 products), up to 128.
+    ``strides`` are the element strides and ``ptrs`` the base addresses
     of what the kernel is handed (TMA reads rows of 16 bytes: strides that
     are multiples of 8 elements, 16-byte-aligned bases). ``"wide"``: a head
     dim above those on the separate-tensor entry, at any T, the kernel of
@@ -300,8 +313,9 @@ def bwd_route(dtype: torch.dtype, d: int, strides: Sequence[int] = (),
     """Which kernel takes a backward launch, from what the kernels accept:
     the rules of :func:`fwd_route`. ``"sm90"``: bf16, the wgmma/TMA body
     (``csrc/attention_bwd_sm90.cu``), D up to 256 on the separate-tensor
-    entry and 128 on the fused-qkv one; ``"fma"``: float32, the FMA kernel of
-    ``csrc/attention_bwd.cu``, up to 128; ``"wide"``: above those, at any
+    entry and 128 on the fused-qkv one; ``"tf32x3"``: float32, the
+    tensor-core kernel of ``csrc/attention_f32_sm90.cu``, up to 128;
+    ``"wide"``: above those, at any
     T, ``csrc/attention_wide.cu``. ``strides`` and ``ptrs`` are those of q,
     k and v. Raises ValueError on anything no backward kernel takes.
     """
@@ -334,15 +348,17 @@ def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
     ``qkv`` is ``[B, T, 3C]`` bf16 or float32 with unit stride along channels;
     returns ``o`` ``[B, T, C]`` (channel ``h*D + d``) and, with
     ``return_lse``, ``lse`` ``[B*H, T]`` float32. bf16 launches the wgmma/TMA
-    body, float32 the FMA kernel (:func:`fwd_route`); ``.launches`` counts
-    both. Raises on anything the kernel does not take and on a failed launch;
+    body (``.launches`` counts it); float32 goes to
+    :func:`qkv_attention_f32_cuda`, which counts its own (:func:`fwd_route`).
+    Raises on anything the kernel does not take and on a failed launch;
     never falls back.
     """
-    b, t, c, d = _check_qkv(qkv, heads, "qkv_attention_cuda")
-    route = fwd_route(qkv.dtype, d, qkv.stride()[:2], (qkv.data_ptr(),), fused=True)
-    kernel, name = ((_KERNEL_SM90, "eo_qkv_attention_fwd") if route == "sm90"
-                    else (_KERNEL, "eo_qkv_attention_fwd_mma"))
-    out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, kernel, name, (b, t, c, d))
+    dims = _check_qkv(qkv, heads, "qkv_attention_cuda")
+    route = fwd_route(qkv.dtype, dims[3], qkv.stride()[:2], (qkv.data_ptr(),), fused=True)
+    if route == "tf32x3":
+        return qkv_attention_f32_cuda(qkv, heads, new_order, return_lse)
+    out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, _KERNEL_SM90,
+                        "eo_qkv_attention_fwd", dims)
     qkv_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
@@ -350,11 +366,32 @@ def qkv_attention_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
 qkv_attention_cuda.launches = 0
 
 
+def qkv_attention_f32_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
+                           return_lse: bool = False):
+    """:func:`qkv_attention_cuda` in float32: the tensor-core kernel of
+    ``csrc/attention_f32_sm90.cu``, every product three TF32 products (the
+    hi/lo split), so float32 accuracy. ``.launches`` counts its launches.
+    Raises on anything it does not take (bf16 included) and on a failed
+    launch; never falls back."""
+    dims = _check_qkv(qkv, heads, "qkv_attention_f32_cuda")
+    if qkv.dtype != torch.float32:
+        raise ValueError(f"qkv_attention_f32_cuda takes float32, got {qkv.dtype}")
+    out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, _KERNEL_F32,
+                        "eo_qkv_attention_fwd_tf32x3", dims)
+    qkv_attention_f32_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+qkv_attention_f32_cuda.launches = 0
+
+
 def qkv_attention_mma_cuda(qkv: torch.Tensor, heads: int, new_order: bool = False,
                            return_lse: bool = False):
-    """:func:`qkv_attention_cuda` through the earlier mma.sync body (bf16) of
-    ``attention_fwd.cu``: the body the attention probes copy, kept as their
-    yardstick. No model path calls it; ``.launches`` counts its launches."""
+    """:func:`qkv_attention_cuda` through ``attention_fwd.cu``: in bf16 the
+    earlier mma.sync body, which the attention probes copy, kept as their
+    yardstick; in float32 the FMA kernel, the yardstick of
+    :func:`qkv_attention_f32_cuda`. No model path calls it; ``.launches``
+    counts its launches."""
     dims = _check_qkv(qkv, heads, "qkv_attention_mma_cuda")
     out, lse = _qkv_fwd(qkv, heads, new_order, return_lse, _KERNEL,
                         "eo_qkv_attention_fwd_mma", dims)
@@ -401,15 +438,17 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tens
     channel stride), ``out`` ``[B, T, C]`` and ``lse`` ``[B*H, T]`` float32
     what :func:`qkv_attention_cuda` returned for it, ``dout`` the gradient of
     ``out``. Returns ``dqkv`` ``[B, T, 3C]`` contiguous, in qkv's dtype and
-    head order. bf16 launches the wgmma/TMA body, float32 the FMA kernel
-    (:func:`bwd_route`); ``.launches`` counts both. Raises on anything the
-    kernel does not take and on a failed launch; never falls back.
+    head order. bf16 launches the wgmma/TMA body (``.launches`` counts it);
+    float32 goes to :func:`qkv_attention_bwd_f32_cuda`, which counts its own
+    (:func:`bwd_route`). Raises on anything the kernel does not take and on a
+    failed launch; never falls back.
     """
     dims = _check_qkv(qkv, heads, "qkv_attention_bwd_cuda")
     route = bwd_route(qkv.dtype, dims[3], qkv.stride()[:2], (qkv.data_ptr(),), fused=True)
-    kernel, name = ((_KERNEL_BWD_SM90, "eo_qkv_attention_bwd") if route == "sm90"
-                    else (_KERNEL_BWD, "eo_qkv_attention_bwd_mma"))
-    dqkv = _qkv_bwd(qkv, out, lse, dout, heads, new_order, kernel, name, dims)
+    if route == "tf32x3":
+        return qkv_attention_bwd_f32_cuda(qkv, out, lse, dout, heads, new_order)
+    dqkv = _qkv_bwd(qkv, out, lse, dout, heads, new_order, _KERNEL_BWD_SM90,
+                    "eo_qkv_attention_bwd", dims)
     qkv_attention_bwd_cuda.launches += 1
     return dqkv
 
@@ -417,12 +456,32 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tens
 qkv_attention_bwd_cuda.launches = 0
 
 
+def qkv_attention_bwd_f32_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                               dout: torch.Tensor, heads: int,
+                               new_order: bool = False) -> torch.Tensor:
+    """:func:`qkv_attention_bwd_cuda` in float32: the tensor-core backward of
+    ``csrc/attention_f32_sm90.cu`` (a delta kernel, then one grid of key and
+    query jobs, each CTA owning what it writes: no atomics, the same bits
+    every run). ``.launches`` counts its calls. Raises on anything it does
+    not take and on a failed launch; never falls back."""
+    dims = _check_qkv(qkv, heads, "qkv_attention_bwd_f32_cuda")
+    if qkv.dtype != torch.float32:
+        raise ValueError(f"qkv_attention_bwd_f32_cuda takes float32, got {qkv.dtype}")
+    dqkv = _qkv_bwd(qkv, out, lse, dout, heads, new_order, _KERNEL_F32,
+                    "eo_qkv_attention_bwd_tf32x3", dims)
+    qkv_attention_bwd_f32_cuda.launches += 1
+    return dqkv
+
+
+qkv_attention_bwd_f32_cuda.launches = 0
+
+
 def qkv_attention_bwd_mma_cuda(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                                dout: torch.Tensor, heads: int,
                                new_order: bool = False) -> torch.Tensor:
-    """:func:`qkv_attention_bwd_cuda` through the earlier mma.sync body (bf16)
-    of ``attention_bwd.cu``, kept as the new body's yardstick. No model path
-    calls it; ``.launches`` counts its launches."""
+    """:func:`qkv_attention_bwd_cuda` through ``attention_bwd.cu`` (bf16: the
+    earlier mma.sync body; float32: the FMA kernel), kept as the new bodies'
+    yardstick. No model path calls it; ``.launches`` counts its launches."""
     dims = _check_qkv(qkv, heads, "qkv_attention_bwd_mma_cuda")
     dqkv = _qkv_bwd(qkv, out, lse, dout, heads, new_order, _KERNEL_BWD,
                     "eo_qkv_attention_bwd_mma", dims)
@@ -548,11 +607,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with unit stride along D (the :func:`split_qkv` views and contiguous
     tensors need no copy; others are copied); returns ``o`` ``[B, T, H, D]``
     contiguous and, with ``return_lse``, ``lse`` ``[B*H, T]`` float32. Any T;
-    D a multiple of 8, up to 256 in bf16 (the wgmma/TMA body) and 128 in
-    float32 (the FMA kernel; :func:`fwd_route`). ``.launches`` counts both.
-    A wider head goes to :func:`wide_attention_cuda`, which counts its own
-    launches. Raises on anything no kernel takes and on a failed launch;
-    never falls back.
+    D a multiple of 8, up to 256 in bf16 (the wgmma/TMA body, which
+    ``.launches`` counts) and 128 in float32 (:func:`flash_attention_f32_cuda`;
+    :func:`fwd_route`). A wider head goes to :func:`wide_attention_cuda`.
+    Those two count their own launches. Raises on anything no kernel takes
+    and on a failed launch; never falls back.
     """
     b, t, h, d = _check_planes(q, k, v, "flash_attention_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
@@ -560,13 +619,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       [x.data_ptr() for x in (q, k, v)])
     if route == "wide":
         return wide_attention_cuda(q, k, v, return_lse)
-    if route == "sm90":
-        kernel, name = _KERNEL_SM90, "eo_attention_fwd"
-    else:
-        kernel, name = _KERNEL, "eo_attention_fwd_mma"
-        if k.stride(1) != v.stride(1):  # that kernel reads K and V rows at one token stride
-            k, v = k.contiguous(), v.contiguous()
-    out, lse = _flash_fwd(q, k, v, return_lse, kernel, name)
+    if route == "tf32x3":
+        return flash_attention_f32_cuda(q, k, v, return_lse)
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_SM90, "eo_attention_fwd")
     flash_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
@@ -574,12 +629,47 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def _flash_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str):
+    """q, k, v checked for the float32 kernels, with 16-byte rows."""
+    _check_planes(q, k, v, who)
+    if q.dtype != torch.float32:
+        raise ValueError(f"{who} takes float32, got {q.dtype}")
+    return _rows16(q), _rows16(k), _rows16(v)
+
+
+def flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             return_lse: bool = False):
+    """:func:`flash_attention_cuda` in float32: the tensor-core kernel of
+    ``csrc/attention_f32_sm90.cu`` (three-term TF32 products), any strides
+    with unit stride along D (copied to 16-byte rows where needed), D up to
+    128, any T. ``.launches`` counts its launches. Raises on anything it does
+    not take and on a failed launch; never falls back."""
+    q, k, v = _flash_f32(q, k, v, "flash_attention_f32_cuda")
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_F32, "eo_attention_fwd_tf32x3")
+    flash_attention_f32_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention_f32_cuda.launches = 0
+
+
+def _attention_f32_one_term(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            return_lse: bool = False):
+    """:func:`flash_attention_f32_cuda` with every product one TF32 product
+    (plain TF32, D 48 and 64): the planted fault the accuracy checks must
+    catch. No path of the port calls it."""
+    q, k, v = _flash_f32(q, k, v, "_attention_f32_one_term")
+    out, lse = _flash_fwd(q, k, v, return_lse, _KERNEL_F32, "eo_attention_fwd_tf32x1")
+    return (out, lse) if return_lse else out
+
+
 def flash_attention_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              return_lse: bool = False):
-    """:func:`flash_attention_cuda` through the earlier mma.sync body (bf16,
-    D up to 128) of ``attention_fwd.cu``: the body the attention probes copy,
-    kept as their yardstick. No model path calls it; ``.launches`` counts
-    its launches."""
+    """:func:`flash_attention_cuda` through ``attention_fwd.cu`` (D up to
+    128): in bf16 the earlier mma.sync body, which the attention probes copy,
+    kept as their yardstick; in float32 the FMA kernel, the yardstick of
+    :func:`flash_attention_f32_cuda`. No model path calls it; ``.launches``
+    counts its launches."""
     _check_planes(q, k, v, "flash_attention_mma_cuda")
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     if k.stride(1) != v.stride(1):  # the body reads K and V rows at one token stride
@@ -635,10 +725,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(dq, dk, dv)``, each ``[B, T, H, D]`` contiguous in q's dtype.
     Any T: beyond 4096, where the JAX package recomputes with XLA einsums,
     this kernel computes the same gradient. D a multiple of 8, up to 256 in
-    bf16 (the wgmma/TMA body) and 128 in float32 (the FMA kernel;
-    :func:`bwd_route`); ``.launches`` counts both. A wider head goes to
-    :func:`wide_attention_bwd_cuda`, which counts its own launches. Raises
-    on anything no kernel takes and on a failed launch; never falls back.
+    bf16 (the wgmma/TMA body, which ``.launches`` counts) and 128 in float32
+    (:func:`flash_attention_bwd_f32_cuda`; :func:`bwd_route`). A wider head
+    goes to :func:`wide_attention_bwd_cuda`. Those two count their own
+    launches. Raises on anything no kernel takes and on a failed launch;
+    never falls back.
     """
     dims = _check_planes(q, k, v, "flash_attention_bwd_cuda", None)
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
@@ -646,9 +737,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       [x.data_ptr() for x in (q, k, v)])
     if route == "wide":
         return wide_attention_bwd_cuda(q, k, v, out, lse, dout)
-    kernel, name = ((_KERNEL_BWD_SM90, "eo_attention_bwd") if route == "sm90"
-                    else (_KERNEL_BWD, "eo_attention_bwd_mma"))
-    grads = _flash_bwd(q, k, v, out, lse, dout, dims, kernel, name)
+    if route == "tf32x3":
+        return flash_attention_bwd_f32_cuda(q, k, v, out, lse, dout)
+    grads = _flash_bwd(q, k, v, out, lse, dout, dims, _KERNEL_BWD_SM90, "eo_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return grads
 
@@ -656,11 +747,39 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd_cuda.launches = 0
 
 
+def flash_attention_bwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """:func:`flash_attention_bwd_cuda` in float32: the tensor-core backward
+    of ``csrc/attention_f32_sm90.cu`` on the tensors of
+    :func:`flash_attention_f32_cuda`, ``out`` and ``lse`` what it returned
+    for them. Returns ``(dq, dk, dv)``, each ``[B, T, H, D]`` contiguous; no
+    atomics, the same bits every call. ``.launches`` counts its calls.
+    Raises on anything it does not take and on a failed launch; never falls
+    back."""
+    q, k, v = _flash_f32(q, k, v, "flash_attention_bwd_f32_cuda")
+    grads = _flash_bwd(q, k, v, out, lse, dout, q.shape, _KERNEL_F32, "eo_attention_bwd_tf32x3")
+    flash_attention_bwd_f32_cuda.launches += 1
+    return grads
+
+
+flash_attention_bwd_f32_cuda.launches = 0
+
+
+def _attention_bwd_f32_one_term(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """:func:`flash_attention_bwd_f32_cuda` with every product one TF32
+    product (plain TF32, D 48 and 64): the planted fault the accuracy checks
+    must catch. No path of the port calls it."""
+    q, k, v = _flash_f32(q, k, v, "_attention_bwd_f32_one_term")
+    return _flash_bwd(q, k, v, out, lse, dout, q.shape, _KERNEL_F32, "eo_attention_bwd_tf32x1")
+
+
 def flash_attention_bwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
-    """:func:`flash_attention_bwd_cuda` through the earlier mma.sync body
-    (bf16, D up to 128) of ``attention_bwd.cu``, kept as the new body's
-    yardstick. No model path calls it; ``.launches`` counts its launches."""
+    """:func:`flash_attention_bwd_cuda` through ``attention_bwd.cu`` (D up to
+    128; bf16: the earlier mma.sync body; float32: the FMA kernel), kept as
+    the new bodies' yardstick. No model path calls it; ``.launches`` counts
+    its launches."""
     dims = _check_planes(q, k, v, "flash_attention_bwd_mma_cuda")
     q, k, v = _rows16(q), _rows16(k), _rows16(v)
     grads = _flash_bwd(q, k, v, out, lse, dout, dims, _KERNEL_BWD, "eo_attention_bwd_mma")

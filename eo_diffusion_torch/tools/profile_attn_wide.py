@@ -46,8 +46,8 @@ import torch.nn.functional as F
 
 from eo_diffusion_torch.ops import _build
 from eo_diffusion_torch.ops import attention as A
-from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, card_line, cuda_ms,
-                                             queued_ms)
+from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, alternate_ms,
+                                             card_line, cuda_ms, queued_ms)
 
 KERNEL = "attention_wide"
 #: variant -> [(text of the source, its replacement)]
@@ -227,7 +227,7 @@ def variants(gen, names):
             q, k, v = _planes(gen, b, t, 1, d, torch.bfloat16)
             out = torch.empty_like(q)
             fns = {n: (lambda lib=lib: fwd(lib, q, k, v, out)) for n, lib in libs.items()}
-            rows.append(_alternate("fwd", f"B{b} T{t} H1 D{d}", fns, 10 if t >= 4096 else 50))
+            rows.append(alternate_ms("fwd", f"B{b} T{t} H1 D{d}", fns, 10 if t >= 4096 else 50))
         for b, t, d in BWD_TIMES:
             q, k, v = _planes(gen, b, t, 1, d, torch.bfloat16)
             o, lse = A.wide_attention_cuda(q, k, v, return_lse=True)
@@ -236,20 +236,8 @@ def variants(gen, names):
             delta = torch.empty(b, t, device="cuda")
             fns = {n: (lambda lib=lib: bwd(lib, q, k, v, o, lse, do, grads, delta))
                    for n, lib in libs.items() if n != "one_term_p"}
-            rows.append(_alternate("bwd", f"B{b} T{t} H1 D{d}", fns, 3 if t >= 4096 else 30))
+            rows.append(alternate_ms("bwd", f"B{b} T{t} H1 D{d}", fns, 3 if t >= 4096 else 30))
     return rows
-
-
-def _alternate(what, shape, fns, reps):
-    """Each function's device ms in two rounds, the second in reverse order."""
-    ms = {n: [] for n in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for n in order:
-            ms[n].append(queued_ms(fns[n], reps))
-    row = {"what": what, "shape": shape, "device_ms": ms,
-           "ratio": {n: sum(v) / sum(ms["body"]) for n, v in ms.items()}}
-    print(json.dumps(row), flush=True)
-    return row
 
 
 def main(argv=None) -> dict:

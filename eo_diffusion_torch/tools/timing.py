@@ -4,6 +4,7 @@ a piece of work."""
 
 from __future__ import annotations
 
+import json
 import subprocess
 
 import torch
@@ -14,6 +15,9 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# float32-accurate products on the tensor cores: three TF32 products each at
+# the dense TF32 peak (495 TFLOP/s), a third of it
+PEAK_TF32X3 = 495e12 / 3
 
 
 def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -46,6 +50,21 @@ def queued_ms(fn, reps: int = 100, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternate_ms(what: str, shape: str, fns: dict, reps: int) -> dict:
+    """Each of ``fns``' device ms (:func:`queued_ms`) in two rounds, the
+    second in reverse order, and its ratio to ``fns["body"]``'s: for timing
+    copies of a kernel's source against the source as built. Printed as one
+    JSON line and returned."""
+    ms = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            ms[n].append(queued_ms(fns[n], reps))
+    row = {"what": what, "shape": shape, "device_ms": ms,
+           "ratio": {n: sum(v) / sum(ms["body"]) for n, v in ms.items()}}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def bound_ms(ops: float, peak: float, nbytes: float):

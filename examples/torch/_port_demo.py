@@ -8,15 +8,9 @@ import os
 
 import torch
 
-
-def resolve_device(name: str, prog: str) -> torch.device:
-    """``name`` as a device; a CUDA device that is not there exits non-zero
-    (the demos run on the GPU unless asked for the CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{prog}: no CUDA device is available; pass --device cpu to run "
-                         "on the CPU")
-    return device
+# ``name`` as a device (a CUDA device that is not there exits non-zero: the
+# demos run on the GPU unless asked for the CPU), TF32 off, as the CLIs have it
+from eo_diffusion_torch.cli.common import resolve_device  # noqa: F401
 
 
 def load_weights(model: torch.nn.Module, path: str, cfg) -> None:

@@ -7,6 +7,7 @@ import stat
 from pathlib import Path
 
 import pytest
+import torch
 
 import shutil
 
@@ -117,6 +118,10 @@ def test_every_kernel_has_its_source():
      A._ARGTYPES["eo_attention_wide_resident_fwd"]),
     ("attention_wide_resident", "eo_attention_wide_resident_bwd",
      A._ARGTYPES["eo_attention_wide_resident_bwd"]),
+    *[("attention_f32_sm90", entry, A._ARGTYPES[entry])
+      for entry in ("eo_qkv_attention_fwd_tf32x3", "eo_attention_fwd_tf32x3",
+                    "eo_qkv_attention_bwd_tf32x3", "eo_attention_bwd_tf32x3",
+                    "eo_attention_fwd_tf32x1", "eo_attention_bwd_tf32x1")],
     ("group_norm_sm90", "eo_gn_sm90_fwd", GN._ARGTYPES["eo_gn_sm90_fwd"]),
     ("group_norm_sm90", "eo_gn_sm90_bwd", GN._ARGTYPES["eo_gn_sm90_bwd"]),
     ("group_norm_sm90", "eo_gn_sm90_blocks_per_sm", GN._ARGTYPES["eo_gn_sm90_blocks_per_sm"]),
@@ -165,6 +170,21 @@ def test_the_wgmma_backward_is_listed_and_its_header_hashed(tmp_path, monkeypatc
     header = copy / "wgmma_tile.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert all(_build.library_path(n) != first[n] for n in names)
+
+
+def test_the_f32_attention_kernel_is_listed_and_routed():
+    """The three-term TF32 kernel is a kernel of its own (built by build_all,
+    so by chip_smoke.py), on mma_tile.cuh, and float32 routes to it; the FMA
+    kernels it replaced keep their entries as the yardstick."""
+    csrc = Path(_build.__file__).parent / "csrc"
+    assert _build.KERNELS[A._KERNEL_F32] == "attention_f32_sm90.cu"
+    src = (csrc / "attention_f32_sm90.cu").read_text()
+    assert '#include "mma_tile.cuh"' in src and "cvt.rna.tf32.f32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert A.fwd_route(torch.float32, 48) == A.bwd_route(torch.float32, 64) == "tf32x3"
+    for source, stem in (("attention_fwd.cu", "fwd"), ("attention_bwd.cu", "bwd")):
+        entries = set(_c_entries(source))
+        assert {f"eo_qkv_attention_{stem}_mma", f"eo_attention_{stem}_mma"} <= entries
 
 
 def test_the_one_launch_group_norm_is_listed_and_its_header_hashed(tmp_path, monkeypatch):

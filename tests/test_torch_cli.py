@@ -51,12 +51,18 @@ def test_tiny_ddpm_runs_in_process(tmp_path):
 
 
 def test_no_gpu_without_device_cpu_fails_clearly(tmp_path):
+    """In process (the python -m path runs in test_tiny_cr_ddim_writes_grids):
+    the default --device cuda exits with a message naming --device cpu, a
+    non-zero exit status, before anything is written."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the default --device cuda is valid")
-    res = _cli("--preset", "tiny", "--sampler", "ddim", "--sampler_steps", "2",
-               "--n_iter", "0", "--outdir", str(tmp_path))
-    assert res.returncode != 0
-    assert "no CUDA device" in res.stderr and "--device cpu" in res.stderr
+    from eo_diffusion_torch.cli import inference
+
+    with pytest.raises(SystemExit) as exit_:
+        inference.main(inference.parse_args([
+            "--preset", "tiny", "--sampler", "ddim", "--sampler_steps", "2", "--n_iter", "0",
+            "--outdir", str(tmp_path)]))
+    assert "no CUDA device" in str(exit_.value.code) and "--device cpu" in str(exit_.value.code)
     assert not (tmp_path / "samples").exists()
 
 
@@ -186,3 +192,37 @@ def test_metrics_and_samples_fid_on_tiny_cr(tmp_path, capsys, counted_model):
     for i, name in enumerate(fid):  # one image, in a 2 px frame as the grids have
         png = np.asarray(Image.open(tmp_path / "samples_fid" / name))
         np.testing.assert_array_equal(png[2:-2, 2:-2], to_uint8(s01[i]))
+
+
+class _SetUpDone(Exception):
+    pass
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("inference", ["--preset", "tiny-cr", "--dataset", "synthetic"]),
+    ("train", ["--preset", "tiny-cr", "--dataset", "synthetic"]),
+    ("restore", ["--preset", "tiny", "--dataset", "synthetic", "--ckpt", "c"]),
+    ("evaluate", ["--real", "r", "--fake", "f"]),
+    ("train_classifier", ["--preset", "tiny"]),
+])
+def test_cli_set_up_switches_tf32_off(monkeypatch, name, argv):
+    """Every CLI resolves its device through cli.common.resolve_device, which
+    leaves TF32 off for float32 matmuls and cuDNN convolutions (cuDNN's own
+    default is on), so --no_bf16 and the classifier run in full float32."""
+    import importlib
+
+    from eo_diffusion_torch.cli import common
+
+    mod = importlib.import_module(f"eo_diffusion_torch.cli.{name}")
+
+    def stop_after(device, program):
+        common.resolve_device(device, program)
+        raise _SetUpDone
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(mod, "resolve_device", stop_after)
+    with pytest.raises(_SetUpDone):
+        mod.main(mod.parse_args([*argv, "--device", "cpu"]))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

@@ -27,6 +27,17 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
+def _counter(dtype, entry="fused", bwd=False):
+    """The wrapper whose ``.launches`` counts a dtype's launches of an entry:
+    float32 goes to the tensor-core float32 kernel's own wrappers."""
+    f32 = dtype == torch.float32
+    return {("fused", False): A.qkv_attention_f32_cuda if f32 else A.qkv_attention_cuda,
+            ("fused", True): A.qkv_attention_bwd_f32_cuda if f32 else A.qkv_attention_bwd_cuda,
+            ("flash", False): A.flash_attention_f32_cuda if f32 else A.flash_attention_cuda,
+            ("flash", True): (A.flash_attention_bwd_f32_cuda if f32
+                              else A.flash_attention_bwd_cuda)}[(entry, bwd)]
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
@@ -105,13 +116,14 @@ def test_unet_forward_kernel_matches_plain(dev, new_order):
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(2, 16, 16, 3, generator=g, device="cuda")
     t = torch.tensor([3, 700], device="cuda")
-    before = A.qkv_attention_cuda.launches
+    before = A.qkv_attention_f32_cuda.launches
     with torch.inference_mode():
         out, ref = model(x, t), plain(x, t)
     plan = TU.build_unet_plan(cfg)
     n_attn = sum(s.kind == "attn" for blk in (*plan.input_blocks, plan.middle_block,
                                                *plan.output_blocks) for s in blk)
-    assert A.qkv_attention_cuda.launches - before == n_attn == 7
+    # a float32 model: every attention launches the float32 kernel
+    assert A.qkv_attention_f32_cuda.launches - before == n_attn == 7
     # float32 model: kernel and plain attention agree to summation order
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
 
@@ -130,10 +142,11 @@ def _check_bwd(qkv, heads, new_order):
     out, lse = A.qkv_attention_cuda(qkv, heads, new_order, return_lse=True)
     g = torch.Generator(device="cuda").manual_seed(7)
     dout = torch.randn(out.shape, generator=g, device="cuda").to(qkv.dtype)
-    before = A.qkv_attention_bwd_cuda.launches
+    counter = _counter(qkv.dtype, bwd=True)
+    before = counter.launches
     dqkv = A.qkv_attention_bwd_cuda(qkv, out, lse, dout, heads, new_order)
     torch.cuda.synchronize()
-    assert A.qkv_attention_bwd_cuda.launches == before + 1
+    assert counter.launches == before + 1
     assert dqkv.shape == qkv.shape and dqkv.dtype == qkv.dtype and dqkv.is_contiguous()
     b, t, c = out.shape
     shape = (b, t, heads, c // heads)
@@ -188,9 +201,10 @@ def test_gradient_reaches_qkv_through_the_kernels(dev, new_order):
     qkv = _qkv(2, 96, 2, 32, torch.float32, seed=5).clone().requires_grad_()
     g = torch.Generator(device="cuda").manual_seed(6)
     dout = torch.randn(2, 96, 64, generator=g, device="cuda")
-    f0, b0 = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+    f0, b0 = A.qkv_attention_f32_cuda.launches, A.qkv_attention_bwd_f32_cuda.launches
     (got,) = torch.autograd.grad(A.attention_from_qkv(qkv, 2, new_order), qkv, dout)
-    assert (A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    assert (A.qkv_attention_f32_cuda.launches,
+            A.qkv_attention_bwd_f32_cuda.launches) == (f0 + 1, b0 + 1)
     (want,) = torch.autograd.grad(A.attention_from_qkv(qkv, 2, new_order, impl="plain"),
                                   qkv, dout)
     assert got.abs().max().item() > 0
@@ -207,10 +221,10 @@ def test_unet_backward_gives_attention_weights_a_gradient(dev):
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(2, 16, 16, 3, generator=g, device="cuda")
     t = torch.tensor([3, 700], device="cuda")
-    b0 = A.qkv_attention_bwd_cuda.launches
+    b0 = A.qkv_attention_bwd_f32_cuda.launches
     model(x, t).square().mean().backward()
     plain(x, t).square().mean().backward()
-    assert A.qkv_attention_bwd_cuda.launches - b0 == 7
+    assert A.qkv_attention_bwd_f32_cuda.launches - b0 == 7
     named, ref = dict(model.named_parameters()), dict(plain.named_parameters())
     # float32 model: the two gradient sets agree to summation order. A bias in
     # front of a GroupNorm whose groups hold one channel has a zero gradient
@@ -493,10 +507,11 @@ def _planes(b, t, h, d, dtype, seed, layout):
 
 
 def _check_flash(q, k, v):
-    f0 = A.flash_attention_cuda.launches
+    counter = _counter(q.dtype, "flash")
+    f0 = counter.launches
     out, lse = A.flash_attention_cuda(q, k, v, return_lse=True)
     torch.cuda.synchronize()
-    assert A.flash_attention_cuda.launches == f0 + 1
+    assert counter.launches == f0 + 1
     ref, ref_lse = A.reference_attention(q, k, v, return_lse=True)
     assert out.shape == q.shape and out.dtype == q.dtype and out.is_contiguous()
     assert lse.shape == ref_lse.shape and (lse - ref_lse).abs().max().item() <= 1e-3
@@ -513,10 +528,11 @@ def test_flash_fwd_and_bwd_match_plain(dev, t, dtype, layout):
     out, lse = _check_flash(q, k, v)
     g = torch.Generator(device="cuda").manual_seed(7)
     dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
-    b0 = A.flash_attention_bwd_cuda.launches
+    counter = _counter(dtype, "flash", bwd=True)
+    b0 = counter.launches
     got = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     torch.cuda.synchronize()
-    assert A.flash_attention_bwd_cuda.launches == b0 + 1
+    assert counter.launches == b0 + 1
     ref = A.reference_attention_bwd(q, k, v, out, lse, dout)
     rms = torch.stack([r.float() for r in ref]).pow(2).mean().sqrt().clamp(min=1e-12)
     for name, a, want in zip("qkv", got, ref):
@@ -698,8 +714,8 @@ def test_gradient_reaches_qkv_through_the_flash_route(dev, new_order):
     qkv = _qkv(2, 100, 2, 32, torch.float32, seed=5).clone().requires_grad_()
     g = torch.Generator(device="cuda").manual_seed(6)
     dout = torch.randn(2, 100, 64, generator=g, device="cuda")
-    counters = (A.flash_attention_cuda, A.flash_attention_bwd_cuda, A.qkv_attention_cuda,
-                A.qkv_attention_bwd_cuda)
+    counters = (A.flash_attention_f32_cuda, A.flash_attention_bwd_f32_cuda,
+                A.qkv_attention_f32_cuda, A.qkv_attention_bwd_f32_cuda)
     before = [c.launches for c in counters]
     out = A.attention_from_qkv(qkv, 2, new_order)
     assert type(out.grad_fn.next_functions[0][0]).__name__ == "FlashAttentionBackward"
@@ -845,6 +861,123 @@ def test_sm90_bwd_refuses(dev):
             A.flash_attention_bwd_mma_cuda.launches) == before
 
 
+# -- the float32 kernel (three-term TF32 on the tensor cores) -----------------------
+
+# its limits at unit-normal inputs (chip_smoke.py): TOL[float32] of max(rms,
+# |plain|) elementwise and a relative L2 of TOL_ATTN_L2_F32 forward, TOL_BWD
+# backward; one TF32 product (plain TF32) reads about 4e-4 of relative L2
+TOL_ATTN_L2_F32 = 1e-5
+# (B, T, H, D, layout): the float32 paths' shapes (the synthetic64
+# classifier, --no_bf16 at 256 px) and ragged ones, through both entries
+F32_SHAPES = [(8, 256, 4, 48, "legacy"), (8, 64, 4, 64, "legacy"), (8, 64, 4, 64, "new"),
+              (2, 1024, 8, 64, "legacy"), (2, 2309, 4, 48, "views"),
+              (2, 2309, 4, 48, "contiguous"), (8, 4096, 8, 48, "legacy"),
+              (8, 1024, 8, 64, "new"), (3, 65, 4, 48, "new"), (1, 1, 2, 64, "contiguous")]
+
+
+def _f32_errors(b, t, h, d, layout, seed):
+    from eo_diffusion_torch.tools import profile_attn_f32 as P
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, qkv = P.inputs(gen, b, t, h, d, layout)
+    entry = "fused" if qkv is not None else "flash"
+    f0, b0 = _counter(torch.float32, entry).launches, _counter(torch.float32, entry, True).launches
+    out, lse = P.forward(q, k, v, qkv, layout)
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda")
+    grads = P.backward(q, k, v, qkv, layout, out, lse, dout)
+    assert (_counter(torch.float32, entry).launches,
+            _counter(torch.float32, entry, True).launches) == (f0 + 1, b0 + 1)
+    refs = [A.reference_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], return_lse=True)
+            for i in range(b)]
+    ref, ref_lse = torch.cat([r[0] for r in refs]), torch.cat([r[1] for r in refs])
+    want = P.plain_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    return (P.errors(out, ref), (lse - ref_lse).abs().max().item(),
+            P.errors(P.flat(grads), P.flat(want)))
+
+
+@pytest.mark.parametrize("b,t,h,d,layout", F32_SHAPES)
+def test_f32_kernel_matches_plain_at_the_paths_shapes(dev, b, t, h, d, layout):
+    fwd, lse_err, bwd = _f32_errors(b, t, h, d, layout, seed=t + d)
+    assert fwd["max_rms_scaled_err"] <= TOL[torch.float32], fwd
+    assert fwd["rel_l2_err"] <= TOL_ATTN_L2_F32, fwd
+    assert lse_err <= 1e-3, lse_err
+    assert bwd["max_rms_scaled_err"] <= TOL_BWD[torch.float32], bwd
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_f32_kernel_every_head_dim(dev, d):
+    fwd, lse_err, bwd = _f32_errors(2, 77, 2, d, "views" if d % 16 else "new", seed=d)
+    assert fwd["max_rms_scaled_err"] <= TOL[torch.float32] and lse_err <= 1e-3, fwd
+    assert fwd["rel_l2_err"] <= TOL_ATTN_L2_F32, fwd
+    assert bwd["max_rms_scaled_err"] <= TOL_BWD[torch.float32], bwd
+
+
+@pytest.mark.parametrize("layout", ["legacy", "views"])
+def test_f32_backward_repeats_its_bits(dev, layout):
+    """No atomics: the float32 backward gives the same bits every call,
+    through either entry."""
+    from eo_diffusion_torch.tools import profile_attn_f32 as P
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, qkv = P.inputs(gen, 2, 300, 2, 48, layout)
+    out, lse = P.forward(q, k, v, qkv, layout)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    first = P.backward(q, k, v, qkv, layout, out, lse, dout)
+    for _ in range(3):
+        again = P.backward(q, k, v, qkv, layout, out, lse, dout)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("b,t,h,d", [(8, 256, 4, 48), (8, 64, 4, 64), (2, 1000, 2, 64)])
+def test_f32_one_term_variant_breaks_the_l2_limit(dev, b, t, h, d):
+    """The planted fault: with one TF32 product in place of three the
+    forward and the backward break TOL_ATTN_L2_F32, which the kernel holds,
+    so the limit tells the split from plain TF32."""
+    from eo_diffusion_torch.tools import profile_attn_f32 as P
+
+    row = P.one_term_row(torch.Generator(device="cuda").manual_seed(d), b, t, h, d)
+    assert row["fwd"]["rel_l2_err"] <= TOL_ATTN_L2_F32, row
+    assert row["fwd_one_term"]["rel_l2_err"] > TOL_ATTN_L2_F32, row
+    assert row["bwd_one_term"]["rel_l2_err"] > TOL_ATTN_L2_F32, row
+    assert row["bwd_one_term"]["rel_l2_err"] > 10 * row["bwd"]["rel_l2_err"], row
+
+
+@pytest.mark.parametrize("new_order", [False, True])
+def test_fma_kernels_still_match_plain_and_count_apart(dev, new_order):
+    """The FMA kernels (the float32 kernel's yardstick) through the _mma
+    entries, counted apart from the model paths' counters."""
+    qkv = _qkv(2, 130, 2, 64, torch.float32, seed=9)
+    counters = (A.qkv_attention_f32_cuda, A.qkv_attention_bwd_f32_cuda,
+                A.qkv_attention_mma_cuda, A.qkv_attention_bwd_mma_cuda)
+    before = [c.launches for c in counters]
+    out, lse = A.qkv_attention_mma_cuda(qkv, 2, new_order, return_lse=True)
+    dout = torch.ones_like(out)
+    dqkv = A.qkv_attention_bwd_mma_cuda(qkv, out, lse, dout, 2, new_order)
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 1, 1]
+    ref = A.attention_from_qkv(qkv, 2, new_order, impl="plain")
+    assert _scaled_err(out, ref, 1.0) <= TOL[torch.float32]
+    shape = (2, 130, 2, 64)
+    want = A.reference_attention_bwd(*A.split_qkv(qkv, 2, new_order), out.reshape(shape), lse,
+                                     dout.reshape(shape))
+    rms = torch.stack(want).pow(2).mean().sqrt().item()
+    got = A.split_qkv(dqkv, 2, new_order)
+    assert max(_scaled_err(a, w, rms) for a, w in zip(got, want)) <= TOL_BWD[torch.float32]
+
+
+def test_f32_wrappers_refuse_what_they_do_not_take(dev):
+    qkv = _qkv(1, 16, 2, 64, torch.bfloat16, seed=1)
+    before = (A.qkv_attention_f32_cuda.launches, A.flash_attention_f32_cuda.launches)
+    with pytest.raises(ValueError):  # bf16 is the wgmma bodies'
+        A.qkv_attention_f32_cuda(qkv, 2)
+    with pytest.raises(ValueError):
+        A.flash_attention_f32_cuda(*A.split_qkv(qkv, 2))
+    wide = [torch.zeros(1, 16, 1, 136, device="cuda")] * 3
+    with pytest.raises(ValueError):  # above 128: the wide kernels'
+        A.flash_attention_f32_cuda(*wide)
+    assert (A.qkv_attention_f32_cuda.launches, A.flash_attention_f32_cuda.launches) == before
+
+
 # the clouds UNet's attention launches a forward: (flash, fused-qkv)
 ROUTES = {256: (0, 11), 384: (11, 0), 512: (5, 6)}
 
@@ -925,13 +1058,14 @@ def test_dit_forward_kernel_matches_plain_and_launches_k1_a_block(dev, dtype):
     x = torch.randn(2, 64, 64, 3, generator=g, device="cuda")
     t = torch.tensor([999.0, 31.5], device="cuda")
     y = torch.tensor([1, 4], device="cuda")
-    q0, f0 = A.qkv_attention_cuda.launches, A.flash_attention_cuda.launches
+    fused, flash = _counter(dtype), _counter(dtype, "flash")
+    q0, f0 = fused.launches, flash.launches
     with torch.inference_mode():
         out = model(x, t, y=y).float()
-        assert (A.qkv_attention_cuda.launches - q0, A.flash_attention_cuda.launches - f0) \
+        assert (fused.launches - q0, flash.launches - f0) \
             == (cfg.depth, 0)  # T 256, D 64: the fused-qkv kernel, one a block
         ref = model.set_impl("plain")(x, t, y=y).float()
-        assert A.qkv_attention_cuda.launches - q0 == cfg.depth
+        assert fused.launches - q0 == cfg.depth
     assert out.shape == (2, 64, 64, 3) and torch.isfinite(out).all()
     rel = ((out - ref).norm() / ref.norm()).item()
     assert rel <= (1e-4 if dtype == torch.float32 else 3e-2), rel
@@ -957,10 +1091,11 @@ def test_dit_flow_training_step_kernels_match_plain(dev, dtype):
     losses, grads = {}, {}
     for impl in ("auto", "plain"):
         model.set_impl(impl).zero_grad(set_to_none=True)
-        q0, b0 = A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+        fwd, bwd = _counter(dtype), _counter(dtype, bwd=True)
+        q0, b0 = fwd.launches, bwd.launches
         loss = flow.train_loss(lambda a, tt, c, y: model(a, tt), x0, t=t, noise=noise)
         loss.backward()
-        launched = (A.qkv_attention_cuda.launches - q0, A.qkv_attention_bwd_cuda.launches - b0)
+        launched = (fwd.launches - q0, bwd.launches - b0)
         assert launched == ((cfg.depth, cfg.depth) if impl == "auto" else (0, 0)), launched
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
@@ -1628,9 +1763,11 @@ def test_deepcache_partial_call_on_the_card(dev):
 
 
 def _counts():
+    """The float32 classifier's launches: K1 and K4 (the float32 kernel's
+    counters), K5 forward and backward."""
     from eo_diffusion_torch.ops import group_norm as G
 
-    return (A.qkv_attention_cuda.launches, A.qkv_attention_bwd_cuda.launches,
+    return (A.qkv_attention_f32_cuda.launches, A.qkv_attention_bwd_f32_cuda.launches,
             G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches)
 
 

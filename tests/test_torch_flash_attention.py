@@ -133,9 +133,9 @@ ROUTES = [
     (torch.bfloat16, 264, False, (), (), "wide"),    # above wgmma's N: the wide kernel
     (torch.bfloat16, 128, True, (), (), "sm90"),     # D <= 128 on the fused entry
     (torch.bfloat16, 136, True, (), (), None),       # the JAX package's gate
-    (torch.float32, 64, False, (), (), "fma"),       # float32: the FMA kernel
-    (torch.float32, 128, True, (), (), "fma"),
-    (torch.float32, 136, False, (), (), "wide"),     # above the FMA kernel's 128
+    (torch.float32, 64, False, (), (), "tf32x3"),    # float32: three-term TF32 products
+    (torch.float32, 128, True, (), (), "tf32x3"),
+    (torch.float32, 136, False, (), (), "wide"),     # above the float32 kernel's 128
     (torch.float16, 64, False, (), (), None),
     (torch.bfloat16, 44, False, (), (), None),       # not a multiple of 8
     (torch.bfloat16, 64, False, (3 * 64 * 8, 3 * 64, 64), (0,), "sm90"),
@@ -157,13 +157,14 @@ def test_fwd_route(dtype, d, fused, strides, ptrs, kernel):
 
 # (dtype, d, fused, strides, ptrs): the kernel bwd_route picks, or None for a
 # refusal: bf16 the wgmma/TMA body up to 256 (128 on the fused entry), float32
-# the FMA kernel up to 128, q/k/v rows of 16 bytes; above those the wide
-# kernel on the separate-tensor entry, a refusal on the fused one (JAX's gate)
+# the tensor-core kernel (three-term TF32) up to 128, q/k/v rows of 16 bytes;
+# above those the wide kernel on the separate-tensor entry, a refusal on the
+# fused one (JAX's gate)
 BWD_ROUTES = [
     *[(torch.bfloat16, d, fused, (), (),
        "sm90" if d <= (128 if fused else 256) else None if fused else "wide")
       for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
-    *[(torch.float32, d, fused, (), (), "fma" if d <= 128 else None if fused else "wide")
+    *[(torch.float32, d, fused, (), (), "tf32x3" if d <= 128 else None if fused else "wide")
       for d in (48, 64, 128, 136, 256, 264) for fused in (False, True)],
     (torch.float16, 64, False, (), (), None),
     (torch.bfloat16, 40, False, (), (), "sm90"),     # padded to 64 inside
@@ -175,7 +176,7 @@ BWD_ROUTES = [
     (torch.bfloat16, 160, False, (4096, 516, 160), (0,), None),       # token stride
     (torch.bfloat16, 64, False, (4096, 512, 64), (0, 8, 0), None),    # k's base
     (torch.float32, 64, False, (4096, 512, 64), (0, 0, 24), None),    # v's base
-    (torch.float32, 64, True, (3 * 64 * 8, 3 * 64), (16,), "fma"),
+    (torch.float32, 64, True, (3 * 64 * 8, 3 * 64), (16,), "tf32x3"),
 ]
 
 
@@ -195,7 +196,7 @@ def test_bwd_route(dtype, d, fused, strides, ptrs, kernel):
     (64, 512, torch.bfloat16, "wide"),    # eurosat64's
     (1024, 264, torch.bfloat16, "wide"), (1040, 264, torch.bfloat16, "wide"),
     (64, 256, torch.bfloat16, "sm90"), (64, 136, torch.float32, "wide"),
-    (64, 128, torch.float32, "fma"), (2048, 1024, torch.bfloat16, "wide"),
+    (64, 128, torch.float32, "tf32x3"), (2048, 1024, torch.bfloat16, "wide"),
     (4096, 1024, torch.bfloat16, "wide"),  # inria64 at 512 px
     (4096, 1024, torch.float32, "wide"),
     (16384, 512, torch.bfloat16, "wide"),  # eurosat64 at 1024 px

@@ -28,8 +28,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_forward_matches_jax(case):
+def _inputs(case):
     kw = {**BASE, **CASES[case]}
     cond_ch = kw["in_channels"] - 3
     jcfg, tcfg = configs(**kw)
@@ -39,17 +38,36 @@ def test_forward_matches_jax(case):
     t = np.array([3, 41], np.int32)
     cond = rng.normal(size=(2, 8, 8, cond_ch)).astype(np.float32) if cond_ch else None
     y = np.array([0, 2], np.int32) if jcfg.num_classes else None
+    return jmodel, params, tcfg, (x, t, cond, y)
 
-    ref = jax.jit(jmodel.apply)(params, jnp.asarray(x), jnp.asarray(t),
-                                cond=None if cond is None else jnp.asarray(cond),
-                                y=None if y is None else jnp.asarray(y))
+
+@pytest.fixture(scope="module")
+def refs():
+    """Every case's JAX forward from one jitted function (one compile)."""
+    cases = {case: _inputs(case) for case in sorted(CASES)}
+    models = {case: c[0] for case, c in cases.items()}
+
+    @jax.jit
+    def forwards(params, inputs):
+        return {case: models[case].apply(params[case], x, t, cond=cond, y=y)
+                for case, (x, t, cond, y) in inputs.items()}
+
+    out = forwards({case: c[1] for case, c in cases.items()},
+                   jax.tree_util.tree_map(jnp.asarray, {case: c[3] for case, c in cases.items()}))
+    return {case: (cases[case][1], cases[case][2], cases[case][3], np.asarray(out[case]))
+            for case in cases}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_matches_jax(refs, case):
+    params, tcfg, (x, t, cond, y), ref = refs[case]
     model = port_model(tcfg, params)
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t),
                     cond=None if cond is None else torch.from_numpy(cond),
                     y=None if y is None else torch.from_numpy(y).long())
     assert out.shape == (2, 8, 8, 3) and out.dtype == torch.float32
-    assert np.abs(np.asarray(ref)).max() > 0.1  # no zero-init layer left
+    assert np.abs(ref).max() > 0.1  # no zero-init layer left
     assert rel_err(out, ref) <= REL_TOL
 
 
