@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only wide   # phases 1, 2, phase 3's wide rows, 5i
     python3 chip_smoke.py --only f32    # phases 1, 2, 5j (its kernel rows and runs)
+    python3 chip_smoke.py --only few    # phases 1, 2, 5k (its kernel rows and runs)
 
 Phases, in order; the first failure exits non-zero:
 
@@ -140,7 +141,32 @@ Phases, in order; the first failure exits non-zero:
    seeded weights (a forward, TOL_UNET_REL; the DDIM trajectory,
    TOL_SOLVER_REL; a loss's gradients at b2, TOL_UNET_GRAD_REL); img/s,
    steps/s and the device's ms a forward and a loss and backward (single
-   readings);
+   readings); 5k. the few-step families: the forward-mode rules of
+   GroupNormFn (the kernel's forward, the tangent from its statistics; at
+   the 64 px UNet's level shapes at N64 with FiLM tangents, and in float32)
+   and Conv3x3Fn against ``torch.func.jvp`` of their plain versions (TOL_GN,
+   TOL_JVP_CONV), K1 with the lse, K4 and K5 at ``synthetic64``'s b128
+   distillation shapes; one step of each distillation loss against the
+   all-plain model on the same draws (ReFlow on ``latent256``'s DiT-B/4 at
+   b32, consistency and progressive on ``synthetic64`` at b128: 3 forwards
+   and 1 backward a step, guided on ``cddpm64`` and ``cflow64`` at b64;
+   TOL_UNET_REL for the loss, TOL_UNET_GRAD_REL for the gradients); then
+   ``cli.distill --method reflow`` on ``latent256`` at full width (Heun-8
+   couplings, FEW_STEPS re-fit steps) and ``cli.inference --sampler flow
+   --flow_method euler --sampler_steps 1`` decoding through a seeded first
+   stage; ``--method consistency`` and ``progressive`` on ``synthetic64``,
+   then ``--sampler cm`` at 1 and 2 steps and ``pd`` at 2 beside the
+   teacher's DDIM-50, each student's final samples against the all-plain
+   model from one start (TOL_SOLVER_REL); ``--method guided`` on ``cddpm64``
+   and ``cflow64``; MeanFlow: ``meanflow64`` and ``cmeanflow64``, the
+   training step's ``u`` and ``du/dt`` (one ``torch.func.jvp`` through the
+   kernels, attention pinned to the plain version) against all-plain
+   (TOL_UNET_REL), its loss and gradients too, ``cli.train`` MF_TRAIN_STEPS
+   steps at b64 (K5 forward and backward at every GroupNorm, the routed
+   weight gradients, no attention launch) and ``cli.inference`` at 1 and 2
+   steps, MeanFlow-1's samples against all-plain. Every run's launches are
+   asserted; steps/s, img/s and the card's name and power limit printed
+   (single readings);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -276,7 +302,7 @@ from eo_diffusion_torch.tools.probe_packed_pv import attention_errors, planted_f
 from eo_diffusion_torch.tools.timing import (PEAK_BF16, PEAK_BYTES_PER_S, PEAK_F32, PEAK_INT8,
                                              PEAK_TF32X3, card_line, cuda_ms, queued_ms)
 from eo_diffusion_torch.train import ae_trainer as AET
-from eo_diffusion_torch.train.checkpoint import restore_checkpoint
+from eo_diffusion_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from eo_diffusion_torch.train.posthoc_ema import PowerEMA
 from eo_diffusion_torch.weights import randomize_parameters
 
@@ -530,6 +556,22 @@ TOL_DDNM_RANGE = 1e-5
 F32_STEPS = 10
 F32_TRAIN_STEPS = 4
 F32_GRAD_BATCH = 2
+# phase 5k: the few-step families. Consistency and progressive distillation
+# on synthetic64 at its batch (128), the x0 pool one batch of teacher
+# DDIM-FEW_POOL_STEPS samples; ReFlow on latent256 (b32); guidance
+# distillation on cddpm64 and cflow64 and MeanFlow on meanflow64 and
+# cmeanflow64 at their b64; FEW_STEPS student steps a method (a round),
+# MF_TRAIN_STEPS cli.train steps; the samplers at FEW_SAMPLE_BATCH, two batches
+FEW_PRESET = "synthetic64"
+FEW_BATCH = 128
+FEW_POOL_STEPS = 10
+FEW_STEPS = 4
+MF_BATCH = 64
+MF_TRAIN_STEPS = 4
+FEW_SAMPLE_BATCH = 8
+# Conv3x3Fn's forward-mode tangent against the plain conv's: the same cuDNN
+# bf16 conv of the tangent on both sides, so the bound is the wgrad's
+TOL_JVP_CONV = 1e-3
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -1106,14 +1148,9 @@ def dit_expected(forwards, backwards=0):
 
 def unet_train_expected(cfg, size, batch, steps):
     """The launch counts of ``steps`` training steps of ``cfg``'s UNet at
-    ``size`` px and ``batch``: one forward's attention and GroupNorm
-    launches (:func:`unet_expected`) forward and backward each step, and the
-    routed 3x3 convs' weight gradients."""
-    per = unet_expected(dataclasses.replace(cfg, image_size=size), full=1)
-    wg = wgrad_routes(cfg, size, batch, sites=None)
-    return {**{k: v * steps for k, v in per.items()},
-            **{BWD_OF[k]: v * steps for k, v in per.items() if k in BWD_OF},
-            "wgrad": wg["mma"] * steps, "wgrad_sm90": wg["sm90"] * steps}
+    ``size`` px and ``batch``: a forward and a backward each step
+    (:func:`few_expected`)."""
+    return few_expected(dataclasses.replace(cfg, image_size=size), batch, steps, steps)
 
 
 def gn_bound_ms(direction, act, n, hw, c, groups, esize):
@@ -3355,6 +3392,526 @@ def wide_only(card, sass):
     return 0
 
 
+# -- phase 5k: the few-step families -------------------------------------------
+
+
+def gn_jvp_case(n, hw, c, groups, act, dtype, gen, film=True):
+    """GroupNormFn's forward-mode rule on the card (the kernel's forward, the
+    tangent in plain PyTorch from its saved statistics) against
+    ``torch.func.jvp`` of the plain GroupNorm, with tangents on x and, with
+    ``film``, on the per-sample gamma and beta (MeanFlow's FiLM): primal and
+    tangent each within TOL_GN of max(1, |plain|). Returns a result row."""
+    x = torch.randn(n, hw, c, generator=gen, device="cuda").to(dtype)
+    dx = torch.randn(n, hw, c, generator=gen, device="cuda").to(dtype)
+    gamma = 1 + 0.1 * torch.randn(n, c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(n, c, generator=gen, device="cuda")
+    scale = 0.1 if film else 0.0
+    dg, db = (scale * torch.randn(n, c, generator=gen, device="cuda") for _ in range(2))
+    kern = lambda x, g, b: G.GroupNormFn.apply(x, g, b, groups, 1e-5, act)[0]
+    plain = lambda x, g, b: G.group_norm_reference(x, g, b, groups, 1e-5, act)
+    args, tans = (x, gamma, beta), (dx, dg, db)
+    reset_counts()
+    y, dy = torch.func.jvp(kern, args, tans)
+    launched = counts()
+    yp, dyp = torch.func.jvp(plain, args, tans)
+    assert launched["gn_fwd"] == 1 and launched["gn_bwd"] == 0, launched
+    label = f"N{n} HW{hw} C{c} G{groups} {act}{' film' if film else ''}"
+    errs = {}
+    for name, got, want in (("primal", y, yp), ("tangent", dy, dyp)):
+        diff = (got.float() - want.float()).abs()
+        errs[name] = (diff / want.float().abs().clamp(min=1.0)).max().item()
+        assert math.isfinite(errs[name]) and errs[name] <= TOL_GN[dtype], (
+            f"GroupNormFn jvp {name} vs plain at {label} {dtype}: {errs[name]} > "
+            f"{TOL_GN[dtype]}")
+    row = {"shape": label, "dtype": str(dtype).split(".")[-1],
+           "max_scaled_err": errs["tangent"], "primal_max_scaled_err": errs["primal"],
+           "jvp_ms": cuda_ms(lambda: torch.func.jvp(kern, args, tans), 20),
+           "plain_jvp_ms": cuda_ms(lambda: torch.func.jvp(plain, args, tans), 5, warmup=1)}
+    print("group_norm_jvp " + json.dumps(row), flush=True)
+    return row
+
+
+def conv_jvp_case(b, h, w, c, co, gen):
+    """Conv3x3Fn's forward-mode rule on the card (bf16, cuDNN's conv of the
+    tangent) against ``torch.func.jvp`` of the plain conv: the tangent within
+    TOL_JVP_CONV of max|plain|, without parameter tangents (the MeanFlow
+    path) and with them. Returns a result row."""
+    bf16 = torch.bfloat16
+    x, dx = (torch.randn(b, h, w, c, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    wt, dw = (torch.randn(co, c, 3, 3, generator=gen, device="cuda") / math.sqrt(9 * c)
+              for _ in range(2))
+    bias, db = (0.1 * torch.randn(co, generator=gen, device="cuda") for _ in range(2))
+    plain = lambda x, w, bb: F.conv2d(x.permute(0, 3, 1, 2), w.to(bf16), bb.to(bf16), 1,
+                                      1).permute(0, 2, 3, 1)
+    kern = lambda x: CW.Conv3x3Fn.apply(x, wt, bias, bf16, False)
+    _, dy = torch.func.jvp(kern, (x,), (dx,))
+    _, dyp = torch.func.jvp(lambda x: plain(x, wt, bias), (x,), (dx,))
+    _, dyf = torch.func.jvp(lambda x, w, bb: CW.Conv3x3Fn.apply(x, w, bb, bf16), (x, wt, bias),
+                            (dx, dw, db))
+    _, dyfp = torch.func.jvp(plain, (x, wt, bias), (dx, dw, db))
+    err = lambda got, want: ((got.float() - want.float()).abs().max()
+                             / want.float().abs().max()).item()
+    e, ef = err(dy, dyp), err(dyf, dyfp)
+    label = f"B{b} {h}x{w} C{c}->{co} bf16"
+    assert e <= TOL_JVP_CONV and ef <= TOL_JVP_CONV, (
+        f"Conv3x3Fn jvp vs plain at {label}: {e}, with parameter tangents {ef}")
+    row = {"shape": label, "max_rel_err": e, "max_rel_err_param_tangents": ef,
+           "route": CW.wgrad_route(b, h, w, c, co, bf16),
+           "jvp_ms": cuda_ms(lambda: torch.func.jvp(kern, (x,), (dx,)), 20),
+           "plain_jvp_ms": cuda_ms(lambda: torch.func.jvp(lambda x: plain(x, wt, bias), (x,),
+                                                          (dx,)), 20)}
+    print("conv3x3_jvp " + json.dumps(row), flush=True)
+    return row
+
+
+def few_expected(cfg, batch, forwards=0, backwards=0, dit=False):
+    """The launch counts of ``forwards`` forwards (each with or without a
+    gradient) and ``backwards`` backwards of ``cfg``'s backbone at
+    ``batch``: a UNet's attention and GroupNorm launches
+    (:func:`unet_expected`; none of attention for a MeanFlow UNet, whose
+    attention is pinned to the plain version) and its routed weight
+    gradients, or a DiT's K1 and K4 once a block."""
+    if dit:
+        return dit_expected(forwards, backwards)
+    if cfg.attn_impl == "plain":
+        _, norms = build_unet_plan(cfg).sites()
+        per = {**{k: 0 for k in counts()}, "gn_fwd": norms}
+    else:
+        per = unet_expected(cfg, full=1)
+    wg = wgrad_routes(cfg, cfg.image_size, batch, sites=None)
+    return {**{k: v * forwards for k, v in per.items()},
+            **{BWD_OF[k]: v * backwards for k, v in per.items() if k in BWD_OF and v},
+            "wgrad": wg["mma"] * backwards, "wgrad_sm90": wg["sm90"] * backwards}
+
+
+def loss_plain_check(models, loss_fn, label, expect, set_impl=None):
+    """One distillation loss and backward through the kernels and through the
+    all-plain models (``set_impl`` on every one, the same weights and draws):
+    the loss within TOL_UNET_REL relative, the first model's (the
+    student's) parameter gradients within TOL_UNET_GRAD_REL rel L2; the
+    kernels' launches must be ``expect``. Returns the readings."""
+    student = models[0]
+    plain = set_impl or (lambda m, impl: m.set_impl(attn=impl, norm=impl, conv=impl)
+                         if isinstance(m, UNet) else m.set_impl(attn=impl))
+    res = {}
+    for impl in ("auto", "plain"):
+        for m in models:
+            plain(m, impl)
+        student.zero_grad(set_to_none=True)
+        reset_counts()
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        res[impl] = (loss.item(), {n: p.grad.detach().float().clone()
+                                   for n, p in student.named_parameters()
+                                   if p.grad is not None}, counts())
+    for m in models:
+        plain(m, "auto")
+    loss_rel = abs(res["auto"][0] - res["plain"][0]) / max(abs(res["plain"][0]), 1e-12)
+    grad_rel = grads_rel_l2(res["auto"][1], res["plain"][1])
+    launched = res["auto"][2]
+    print(f"5k {label}: loss {res['auto'][0]:.6g} (all-plain {res['plain'][0]:.6g}, rel "
+          f"{loss_rel:.3e}, limit {TOL_UNET_REL}); gradients rel L2 {grad_rel:.3e} (limit "
+          f"{TOL_UNET_GRAD_REL}); launches {({k: v for k, v in launched.items() if v})}",
+          flush=True)
+    assert all(math.isfinite(v) for v in (loss_rel, grad_rel)), (loss_rel, grad_rel)
+    assert loss_rel <= TOL_UNET_REL and grad_rel <= TOL_UNET_GRAD_REL, (label, loss_rel,
+                                                                        grad_rel)
+    assert launched == expect, (label, launched, expect)
+    assert not any(res["plain"][2].values()), (label, res["plain"][2])
+    return {"loss": res["auto"][0], "loss_plain": res["plain"][0], "loss_rel": loss_rel,
+            "grad_rel_l2": grad_rel, "launches": launched}
+
+
+def seeded(cfg, seed, train=False):
+    model = randomize_parameters(build_denoiser(cfg), seed).cuda()
+    return model.train() if train else model.eval().requires_grad_(False)
+
+
+def save_teacher(tmp, cfg, seed, name):
+    """Seeded weights as a port checkpoint (the train state's model and EMA)."""
+    sd = randomize_parameters(build_denoiser(cfg), seed).state_dict()
+    return save_checkpoint(os.path.join(tmp, "teachers"), {"model": sd, "model_ema": sd},
+                           name=name)
+
+
+def run_distill(argv, label, expect, card):
+    """``cli.distill`` in process with the counters reset; its launches must be
+    ``expect``. Returns the results with the launches."""
+    from eo_diffusion_torch.cli import distill as cli_distill
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = cli_distill.main(cli_distill.parse_args(argv + ["--device", "cuda"]))
+    res["launches"] = counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    steps = res["timing"].get("step_seconds") or res["timing"]["round1"]["step_seconds"]
+    sps = res["timing"].get("steps_per_s") or res["timing"]["round1"]["steps_per_s"]
+    print(f"5k cli.distill {label}: {len(steps)} steps, {sps:.4f} steps/s over the last "
+          f"{len(steps) - 2} (single reading); launches "
+          f"{({k: v for k, v in res['launches'].items() if v})}; peak memory "
+          f"{res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+    assert res["launches"] == expect, (label, res["launches"], expect)
+    res["steps_per_s"] = sps
+    return res
+
+
+def few_sample(argv, cfg, tmp, label, expect_per_batch, card, ckpt=None, seed=31):
+    """``cli.inference`` (two batches of FEW_SAMPLE_BATCH) from ``ckpt`` or
+    seeded weights: the launches must be ``expect_per_batch`` a batch;
+    img/s over the second batch."""
+    res = run_cli(argv + ["--batch_size", str(FEW_SAMPLE_BATCH), "--n_iter", "1", "--device",
+                          "cuda"], cfg, seed=seed, tmp=tmp, ckpt=ckpt)
+    want = {k: v * res["batches"] for k, v in expect_per_batch.items()}
+    assert res["launches"] == want, (label, res["launches"], want)
+    img_s = FEW_SAMPLE_BATCH / res["batch_seconds"][1]
+    print(f"5k cli.inference {label} b{FEW_SAMPLE_BATCH}: batch seconds "
+          f"{[round(v, 4) for v in res['batch_seconds']]}, {img_s:.4f} img/s (second batch, a "
+          f"single reading); launches {({k: v for k, v in res['launches'].items() if v})}; "
+          f"{card}", flush=True)
+    return {"img_s": img_s, "batch_seconds": res["batch_seconds"], "launches": res["launches"]}
+
+
+def sample_plain_check(model, run, label, kinds=("attn", "norm")):
+    """A sampler's final samples through the kernels against the all-plain
+    model from one start and the same draws: rel L2 <= TOL_SOLVER_REL.
+    ``kinds``: the kinds of layer the kernels run (a MeanFlow UNet's
+    attention is plain already)."""
+    with torch.inference_mode():
+        got = run()
+        model.set_impl(**{k: "plain" for k in kinds})
+        want = run()
+        model.set_impl(**{k: "auto" for k in kinds})
+    rel = rel_l2(got, want)
+    print(f"5k {label} vs all-plain: final samples rel L2 {rel:.3e} (limit {TOL_SOLVER_REL})",
+          flush=True)
+    assert bool(torch.isfinite(got).all()) and rel <= TOL_SOLVER_REL, (label, rel)
+    return rel
+
+
+def load_student(cfg, path):
+    from eo_diffusion_torch.weights import load_reference_checkpoint
+
+    model = build_denoiser(cfg)
+    model.load_state_dict(load_reference_checkpoint(path, cfg), strict=True)
+    return model.cuda().eval().requires_grad_(False)
+
+
+def phase_5k(tmp, card):
+    """The few-step families at full width (``cli.distill``, ``--sampler
+    cm`` / ``pd``, MeanFlow through ``cli.train`` and ``cli.inference``),
+    each step's kernels against the all-plain model; draws from a generator
+    of its own."""
+    from eo_diffusion_torch.cli.presets import build_process
+    from eo_diffusion_torch.diffusion.consistency import ConsistencyDistillation
+    from eo_diffusion_torch.diffusion.distill import cfg_model_fn
+    from eo_diffusion_torch.diffusion.progressive import ProgressiveDistillation, pd_sample
+
+    kgen = torch.Generator(device="cuda").manual_seed(32)
+    bf16 = torch.bfloat16
+    sites = EDM64_GN_SITES
+    out = {"runs": {}, "checks": {}, "sample_checks": {}}
+    # phase 3's rows: the forward-mode rules, K1 (with the lse) and K4 and K5
+    # at the b128 distillation step's shapes
+    out["gn_jvp_rows"] = ([gn_jvp_case(MF_BATCH, hw, c, 32, act, bf16, kgen)
+                           for hw, c, act in sites]
+                          + [gn_jvp_case(8, 4096, 64, 32, "silu", torch.float32, kgen)])
+    out["conv_jvp_rows"] = [conv_jvp_case(MF_BATCH, 64, 64, 64, 64, kgen),
+                            conv_jvp_case(MF_BATCH, 16, 16, 192, 192, kgen)]
+    out["attn_rows"] = [attention_case(FEW_BATCH, 256, 4, 48, bf16, False, kgen, with_lse=True),
+                        attention_case(FEW_BATCH, 64, 4, 64, bf16, False, kgen, with_lse=True)]
+    out["bwd_rows"] = [attention_bwd_case(FEW_BATCH, 256, 4, 48, bf16, False, kgen, kgen),
+                       attention_bwd_case(FEW_BATCH, 64, 4, 64, bf16, False, kgen, kgen)]
+    out["gn_rows"] = [gn_case(FEW_BATCH, hw, c, 32, act, bf16, kgen) for hw, c, act in sites]
+    out["wgrad_row"] = wgrad_case(MF_BATCH, 64, 64, 64, 64, bf16, kgen)
+    torch.cuda.empty_cache()
+
+    # ReFlow on latent256 (DiT-B/4 on the 64 x 64 x 4 latent grid, b32)
+    lat = get_preset("latent256")
+    dcfg = lat.model_config()
+    flow = build_process(lat, lat.timesteps, lat.image_size)
+    teacher = seeded(dcfg, 33, train=True)
+    x1 = torch.randn(LATENT_BATCH, 64, 64, 4, generator=kgen, device="cuda")
+    eps = torch.randn(LATENT_BATCH, 64, 64, 4, generator=kgen, device="cuda")
+    tt = torch.rand(LATENT_BATCH, generator=kgen, device="cuda")
+    fn = lambda x, t, c, y: teacher(x, t, cond=c, y=y)
+    out["checks"]["reflow_latent256"] = loss_plain_check(
+        [teacher], lambda: flow.train_loss(fn, x1, noise=eps, t=tt), "ReFlow loss latent256 b32",
+        few_expected(dcfg, LATENT_BATCH, 1, 1, dit=True))
+    del teacher
+    torch.cuda.empty_cache()
+    ckpt = save_teacher(tmp, dcfg, 33, "latent256")
+    calls = 2 * 15 + 15 + 2 * (8 + 1 + 127)  # couplings, eval x1, two scores
+    res = run_distill(["--preset", "latent256", "--method", "reflow", "--ckpt", ckpt,
+                       "--pair_steps", "8", "--pair_method", "heun", "--n_pairs",
+                       str(2 * LATENT_BATCH), "--steps", str(FEW_STEPS), "--eval_n", "8",
+                       "--few_steps", "1", "--dir", os.path.join(tmp, "reflow")],
+                      "reflow latent256 (DiT-B/4, b32, Heun-8 couplings)",
+                      few_expected(dcfg, LATENT_BATCH, calls + FEW_STEPS, FEW_STEPS, dit=True),
+                      card)
+    out["runs"]["reflow_latent256"] = {k: res[k] for k in ("launches", "steps_per_s", "teacher",
+                                                           "student", "peak_mem_gb")}
+    ae_dir = os.path.join(tmp, "reflow_ae")
+    acfg = lat.ae_config()
+    AET.save_ae(ae_dir, acfg, randomize_parameters(ConvAutoencoder(acfg), 34), 0.5)
+    out["runs"]["reflow_euler1"] = few_sample(
+        ["--preset", "latent256", "--sampler", "flow", "--flow_method", "euler",
+         "--sampler_steps", "1", "--ae_ckpt", ae_dir], dcfg, tmp,
+        "latent256 ReFlow student, Euler-1 with the f4 decode",
+        {**dit_expected(1), "gn_fwd": AE_NORMS // 2}, card, ckpt=res["checkpoint"])
+    torch.cuda.empty_cache()
+
+    # consistency and progressive distillation on synthetic64 at its b128
+    syn = get_preset(FEW_PRESET)
+    ucfg = syn.model_config()
+    chain = build_process(syn, syn.timesteps, syn.image_size)
+    x0 = torch.randn(FEW_BATCH, 64, 64, 3, generator=kgen, device="cuda").clamp(-1, 1)
+    noise = torch.randn(FEW_BATCH, 64, 64, 3, generator=kgen, device="cuda")
+    student, target, teacher = (seeded(ucfg, 35, train=True), seeded(ucfg, 35),
+                                seeded(ucfg, 36))
+    fns = [lambda x, t, c, y, m=m: m(x, t, cond=c, y=y) for m in (student, target, teacher)]
+    cd = ConsistencyDistillation.create(chain)
+    idx = torch.randint(0, cd.n_points - 1, (FEW_BATCH,), generator=kgen, device="cuda")
+    out["checks"]["consistency"] = loss_plain_check(
+        [student, target, teacher], lambda: cd.distill_loss(*fns, x0, idx=idx, noise=noise),
+        f"consistency loss {FEW_PRESET} b{FEW_BATCH} (3 forwards, 1 backward)",
+        few_expected(ucfg, FEW_BATCH, 3, 1))
+    pdist = ProgressiveDistillation.create(chain, 2)
+    k = torch.randint(0, 2, (FEW_BATCH,), generator=kgen, device="cuda")
+    out["checks"]["progressive"] = loss_plain_check(
+        [student, teacher], lambda: pdist.distill_loss(fns[0], fns[2], x0, k=k, noise=noise),
+        f"progressive loss {FEW_PRESET} b{FEW_BATCH} (3 forwards, 1 backward)",
+        few_expected(ucfg, FEW_BATCH, 3, 1))
+    del student, target, teacher
+    torch.cuda.empty_cache()
+    ckpt = save_teacher(tmp, ucfg, 36, FEW_PRESET)
+    common = ["--n_pairs", str(FEW_BATCH), "--pair_steps", str(FEW_POOL_STEPS), "--steps",
+              str(FEW_STEPS), "--eval_n", str(FEW_SAMPLE_BATCH)]
+    res = run_distill(["--preset", FEW_PRESET, "--method", "consistency", "--ckpt", ckpt,
+                       *common, "--few_steps", "1", "2", "--dir", os.path.join(tmp, "cd")],
+                      f"consistency {FEW_PRESET} (b{FEW_BATCH})",
+                      few_expected(ucfg, FEW_BATCH, 2 * FEW_POOL_STEPS + 2 * 3 + 3 * FEW_STEPS,
+                                   FEW_STEPS), card)
+    out["runs"]["consistency"] = {k: res[k] for k in ("launches", "steps_per_s", "teacher_init",
+                                                      "student", "peak_mem_gb")}
+    cd_ckpt = res["checkpoint"]
+    res = run_distill(["--preset", FEW_PRESET, "--method", "progressive", "--ckpt", ckpt,
+                       *common, "--few_steps", "2", "--pd_base_steps", "4", "--pd_rounds", "1",
+                       "--dir", os.path.join(tmp, "pd")],
+                      f"progressive {FEW_PRESET} (b{FEW_BATCH}, 4 -> 2 steps)",
+                      few_expected(ucfg, FEW_BATCH, 2 * FEW_POOL_STEPS + 2 * 2 + 3 * FEW_STEPS,
+                                   FEW_STEPS), card)
+    out["runs"]["progressive"] = {k: res[k] for k in ("launches", "steps_per_s", "teacher_init",
+                                                      "round1", "peak_mem_gb")}
+    pd_ckpt = res["checkpoint"]
+    per_call = few_expected(ucfg, FEW_SAMPLE_BATCH, 1)
+    for steps in (1, 2):
+        out["runs"][f"cm{steps}"] = few_sample(
+            ["--preset", FEW_PRESET, "--sampler", "cm", "--sampler_steps", str(steps)], ucfg,
+            tmp, f"{FEW_PRESET} --sampler cm --sampler_steps {steps}",
+            {k: v * steps for k, v in per_call.items()}, card, ckpt=cd_ckpt)
+    out["runs"]["pd2"] = few_sample(
+        ["--preset", FEW_PRESET, "--sampler", "pd", "--sampler_steps", "2"], ucfg, tmp,
+        f"{FEW_PRESET} --sampler pd --sampler_steps 2", {k: v * 2 for k, v in per_call.items()},
+        card, ckpt=pd_ckpt)
+    out["runs"]["ddim50"] = few_sample(
+        ["--preset", FEW_PRESET, "--sampler", "ddim", "--sampler_steps", "50"], ucfg, tmp,
+        f"{FEW_PRESET} --sampler ddim --sampler_steps 50 (the teacher's)",
+        {k: v * 50 for k, v in per_call.items()}, card, ckpt=ckpt)
+    x_T = torch.randn(FEW_SAMPLE_BATCH, 64, 64, 3, generator=kgen, device="cuda")
+    hops = torch.randn(3, FEW_SAMPLE_BATCH, 64, 64, 3, generator=kgen, device="cuda")
+    model = load_student(ucfg, cd_ckpt)
+    sfn = lambda x, t, c, y: model(x, t, cond=c, y=y)
+    for steps in (1, 2):
+        out["sample_checks"][f"cm{steps}"] = sample_plain_check(
+            model, lambda: cd.sample(sfn, FEW_SAMPLE_BATCH, device="cuda", steps=steps, x_T=x_T,
+                                     dtype=bf16, noise_fn=lambda j, role: hops[j]).x,
+            f"cm-{steps} {FEW_PRESET}")
+    model = load_student(ucfg, pd_ckpt)
+    vchain = dataclasses.replace(chain, objective="v")
+    out["sample_checks"]["pd2"] = sample_plain_check(
+        model, lambda: pd_sample(vchain, sfn, FEW_SAMPLE_BATCH, device="cuda", steps=2, x_T=x_T,
+                                 dtype=bf16).x, f"pd-2 {FEW_PRESET}")
+    del model
+    torch.cuda.empty_cache()
+
+    # guidance distillation: cddpm64 (the guided eps regressed on a pool of
+    # guided DDIM samples) and cflow64 (guided couplings re-fit), b64
+    for preset in ("cddpm64", "cflow64"):
+        p = get_preset(preset)
+        gcfg = p.model_config(class_dropout_prob=p.class_dropout)
+        proc = build_process(p, p.timesteps, p.image_size)
+        ymix = torch.randint(0, p.num_classes, (p.batch_size,), generator=kgen, device="cuda")
+        xb = torch.randn(p.batch_size, 64, 64, 3, generator=kgen, device="cuda").clamp(-1, 1)
+        nb = torch.randn(p.batch_size, 64, 64, 3, generator=kgen, device="cuda")
+        student, teacher = seeded(gcfg, 37, train=True), seeded(gcfg, 38)
+        sfn = lambda x, t, c, y: student(x, t, cond=c, y=y)
+        if p.process == "ddpm":
+            guided = cfg_model_fn(lambda x, t, c, y: teacher(x, t, cond=c, y=y), 3.0,
+                                  p.num_classes)
+            tb = torch.randint(0, proc.timesteps, (p.batch_size,), generator=kgen, device="cuda")
+
+            def loss_fn():
+                x_t = proc.q_sample(xb, tb, nb).to(bf16)
+                with torch.no_grad():
+                    want = guided(x_t, tb, None, ymix)
+                return ((sfn(x_t, tb, None, ymix).float() - want) ** 2).mean()
+
+            fwd = 3
+        else:
+            tf = torch.rand(p.batch_size, generator=kgen, device="cuda")
+            loss_fn = lambda: proc.train_loss(sfn, xb, noise=nb, t=tf, y=ymix)
+            fwd = 1
+        out["checks"][f"guided_{preset}"] = loss_plain_check(
+            [student, teacher], loss_fn, f"guided loss {preset} b{p.batch_size}",
+            few_expected(gcfg, p.batch_size, fwd, 1))
+        del student, teacher
+        torch.cuda.empty_cache()
+        ckpt = save_teacher(tmp, gcfg, 38, preset)
+        if p.process == "ddpm":  # the pool's guided DDIM doubles its batch: one call a step
+            calls, extra = FEW_POOL_STEPS + 3 * FEW_STEPS, ["--pool_n", str(p.batch_size),
+                                                            "--pool_steps", str(FEW_POOL_STEPS)]
+        else:  # couplings, eval x1 and the teacher's score guided (two calls), the student's
+            calls = 2 * 15 + 2 * 15 + 2 * (8 + 1 + 127) + (8 + 1 + 127) + FEW_STEPS
+            extra = ["--n_pairs", str(p.batch_size), "--pair_steps", "8", "--eval_n",
+                     str(FEW_SAMPLE_BATCH), "--few_steps", "1"]
+        res = run_distill(["--preset", preset, "--method", "guided", "--ckpt", ckpt,
+                           "--steps", str(FEW_STEPS), *extra,
+                           "--dir", os.path.join(tmp, f"guided_{preset}")],
+                          f"guided {preset} (b{p.batch_size}, w 3)",
+                          few_expected(gcfg, p.batch_size, calls, FEW_STEPS), card)
+        out["runs"][f"guided_{preset}"] = {k: res[k] for k in ("launches", "steps_per_s",
+                                                               "teacher", "student")}
+
+    # MeanFlow: meanflow64 and cmeanflow64 at b64 through cli.train, then
+    # cli.inference at 1 and 2 steps; the training step's u, du/dt, loss and
+    # gradients against the all-plain model on the same draws
+    for preset in ("meanflow64", "cmeanflow64"):
+        p = get_preset(preset)
+        cfg_mf = p.mf_cfg_omega != 1.0
+        mcfg = p.model_config(class_dropout_prob=0.1 if cfg_mf else 0.0)
+        assert mcfg.dual_time and mcfg.attn_impl == "plain"
+        mf = build_process(p, p.timesteps, p.image_size)
+        model = seeded(mcfg, 39, train=True)
+        xb = torch.randn(MF_BATCH, 64, 64, 3, generator=kgen, device="cuda").clamp(-1, 1)
+        nb = torch.randn(MF_BATCH, 64, 64, 3, generator=kgen, device="cuda")
+        t, r = mf._sample_tr(MF_BATCH, kgen, "cuda")
+        drop = torch.rand(MF_BATCH, generator=kgen, device="cuda") < 0.5
+        ym = (torch.randint(0, p.num_classes, (MF_BATCH,), generator=kgen, device="cuda")
+              if p.num_classes else None)
+        fn = lambda x, tt, c, y: model(x, tt, cond=c, y=y)
+        z = (1 - t[:, None, None, None]) * xb + t[:, None, None, None] * nb
+        jvps = {}
+        for impl in ("auto", "plain"):
+            model.set_impl(norm=impl, conv=impl)
+            reset_counts()
+            u, dudt = torch.func.jvp(lambda zz, tt, rr: fn(zz, mf.pack_time(tt, rr), None, ym),
+                                     (z, t, r), (nb - xb, torch.ones_like(t), torch.zeros_like(r)))
+            jvps[impl] = (u.detach().float(), dudt.detach().float(), counts())
+        model.set_impl(norm="auto", conv="auto")
+        u_rel, d_rel = (rel_l2(jvps["auto"][i], jvps["plain"][i]) for i in (0, 1))
+        _, norms = build_unet_plan(mcfg).sites()
+        assert jvps["auto"][2] == {**{k: 0 for k in counts()}, "gn_fwd": norms}, jvps["auto"][2]
+        print(f"5k MeanFlow {preset} b{MF_BATCH} torch.func.jvp through the kernels vs "
+              f"all-plain: u rel L2 {u_rel:.3e}, du/dt {d_rel:.3e} (limit {TOL_UNET_REL})",
+              flush=True)
+        assert u_rel <= TOL_UNET_REL and d_rel <= TOL_UNET_REL, (preset, u_rel, d_rel)
+        check = loss_plain_check(
+            [model], lambda: mf.train_loss(fn, xb, y=ym, noise=nb, t=torch.stack([t, r], -1),
+                                           dropped=drop),
+            f"MeanFlow loss {preset} b{MF_BATCH} (K5 forward and backward through the "
+            "forward-mode rule, no attention kernel)",
+            few_expected(mcfg, MF_BATCH, 2 if cfg_mf else 1, 1),
+            set_impl=lambda m, impl: m.set_impl(norm=impl, conv=impl))
+        check.update(u_rel_l2=u_rel, dudt_rel_l2=d_rel)
+        out["checks"][f"meanflow_{preset}"] = check
+        with contextlib.chdir(tmp):
+            reset_counts()
+            tr = cli_train.main(cli_train.parse_args(
+                train_argv(preset, MF_BATCH, MF_TRAIN_STEPS, 40, f"train_{preset}")
+                + ["--dataset", p.dataset]))  # cmeanflow64's labels: synthetic_hard
+        got = counts()
+        want = few_expected(mcfg, MF_BATCH, MF_TRAIN_STEPS * (2 if cfg_mf else 1),
+                            MF_TRAIN_STEPS)
+        assert tr["steps"] == MF_TRAIN_STEPS and all(math.isfinite(v) for v in tr["losses"])
+        assert got == want, (preset, got, want)
+        sps = steady_sps(tr)
+        print(f"5k cli.train {preset} b{MF_BATCH}: {tr['steps']} steps, loss "
+              f"{tr['losses'][0]:.5f} -> {tr['losses'][-1]:.5f}; {sps:.4f} steps/s over the "
+              f"last {MF_TRAIN_STEPS - 2} (a single reading); launches "
+              f"{({k: v for k, v in got.items() if v})}; {card}", flush=True)
+        out["runs"][f"train_{preset}"] = {"launches": got, "sps": sps, "losses": tr["losses"]}
+        mf_ckpt = tr["checkpoint"]
+        del tr
+        for steps in ((1, 2) if preset == "meanflow64" else (1,)):
+            out["runs"][f"{preset}_{steps}"] = few_sample(
+                ["--preset", preset, "--sampler_steps", str(steps)], mcfg, tmp,
+                f"{preset} MeanFlow-{steps}",
+                {**{k: 0 for k in counts()}, "gn_fwd": norms * steps}, card, ckpt=mf_ckpt)
+        if preset == "meanflow64":  # from the seeded weights: no zero-initialised layer
+            out["sample_checks"]["meanflow1"] = sample_plain_check(
+                model.eval(), lambda: mf.sample(fn, FEW_SAMPLE_BATCH, device="cuda",
+                                                num_steps=1, x_T=x_T, dtype=bf16).x,
+                "MeanFlow-1 meanflow64", kinds=("norm",))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def few_kernel_rows(few):
+    """The kernels-line entries of phase 5k (``--only few``): K1 with the lse
+    and K4 at the b128 distillation shapes, K5 both ways at N128 and the
+    conv weight-gradient body at the MeanFlow step's level-0 site, with the
+    launches of 5k's runs and the forward-mode rules' readings."""
+    runs = few["runs"]
+    total = lambda key: sum(r["launches"][key] for r in runs.values())
+
+    def entry(name, source, replaces, row, key, extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": total(key), "max_abs_err": row["max_abs_err"],
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "launches_few": {k: r["launches"][key] for k, r in runs.items()}, **extra}
+
+    wg = few["wgrad_row"]
+    return [
+        entry("qkv_attention_fwd", "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:738", few["attn_rows"][0], "attn_fwd",
+              {"shapes": few["attn_rows"]}),
+        entry("qkv_attention_bwd", "eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:502", few["bwd_rows"][0], "attn_bwd",
+              {"shapes": few["bwd_rows"]}),
+        entry("group_norm_fwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:48", few["gn_rows"][0][0], "gn_fwd",
+              {"shapes": [r[0] for r in few["gn_rows"]], "jvp_rule": few["gn_jvp_rows"]}),
+        entry("group_norm_bwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:104", few["gn_rows"][0][1], "gn_bwd",
+              {"shapes": [r[1] for r in few["gn_rows"]]}),
+        {"name": "conv_wgrad_sm90", "route": "cuda",
+         "source": "eo_diffusion_torch/ops/csrc/conv_wgrad_sm90.cu",
+         "replaces": "tools/prototype_wgrad_kernel.py:40", "launches": total("wgrad_sm90"),
+         "max_abs_err": wg["sm90_max_abs_err"], "ms": wg["sm90_ms"], "plain_ms": wg["plain_ms"],
+         "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"], "library_ms": wg["library_ms"],
+         "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
+         "launches_few": {k: r["launches"]["wgrad_sm90"] for k, r in runs.items()},
+         "jvp_rule": few["conv_jvp_rows"], "shapes": [wg]},
+    ]
+
+
+def few_only(card):
+    """``--only few``: phase 5k, then its kernels line, the card line and the
+    last line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        few = phase_5k(tmp, card)
+    print(json.dumps({"kernels": few_kernel_rows(few),
+                      "phase_5k": {k: few[k] for k in ("runs", "checks", "sample_checks")}}))
+    print(card)
+    print(json.dumps({"ok": True, "only": "few",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -3425,11 +3982,19 @@ def probe_kernel_rows(small, probes):
     return rows
 
 
+_T0 = time.perf_counter()
+
+
+def stamp(phase):
+    """A line of the seconds since the script started, at a phase's start."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] phase {phase}", flush=True)
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--only", "wide"], ["--only", "f32"]):
-        print(f"chip_smoke: unknown arguments {args} (none, --only wide or --only f32)",
-              file=sys.stderr)
+    if args not in ([], ["--only", "wide"], ["--only", "f32"], ["--only", "few"]):
+        print(f"chip_smoke: unknown arguments {args} (none, --only wide, --only f32 or "
+              "--only few)", file=sys.stderr)
         return 2
     only = args[1] if args else None
     # 1. the card
@@ -3474,7 +4039,10 @@ def main(argv=None) -> int:
         return wide_only(card, sass)
     if only == "f32":
         return f32_only(card, sass)
+    if only == "few":
+        return few_only(card)
 
+    stamp("3")
     # 3. kernel vs plain at the path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -3604,6 +4172,7 @@ def main(argv=None) -> int:
     gn_rows += cfg_gn_rows
     torch.cuda.empty_cache()
 
+    stamp("4")
     # 4. UNet forward and backward at 256 px, batch 2, and (4b) at 384 px,
     # batch 1: the kernels against the all-plain model (plain attention and
     # plain norms), same weights. At 384 px every attention takes the
@@ -3615,6 +4184,7 @@ def main(argv=None) -> int:
         del model
         torch.cuda.empty_cache()
 
+    stamp("4c")
     # 4c. the DiT: a DiT-B/8 forward at 256 px, batch 8, and the probe's
     # DiT-B/4 call at the latent256 shape (4 channels, 64 x 64), batch 32
     dit_fwd = {
@@ -3626,6 +4196,7 @@ def main(argv=None) -> int:
     }
     torch.cuda.empty_cache()
 
+    stamp("4d")
     # 4d. a dit256 (DiT-B/8) flow-matching loss and backward at 256 px, batch
     # 16: K1 with the lse and K4 in the new head order inside a model
     cfg = dit_b(256, dtype=torch.bfloat16)
@@ -3636,11 +4207,13 @@ def main(argv=None) -> int:
     del model, x0
     torch.cuda.empty_cache()
 
+    stamp("4e")
     # 4e. latent256-cr: the f32 first stage and a DiT-B/4 flow step on its
     # latents, batch 32, kernels against the all-plain models
     latent_grad = latent_train_check(lgen)
 
     with tempfile.TemporaryDirectory() as tmp:
+        stamp("5")
         # 5. the main path through the entry point
         steps = 50
         sen = get_preset("sen12mscr256")
@@ -3657,6 +4230,7 @@ def main(argv=None) -> int:
               f"kernel launches {main_res['launches']}, peak memory "
               f"{main_res['peak_mem_gb']:.2f} GiB", flush=True)
 
+        stamp("5b")
         # 5b. the same entry point at 512 px: whole scenes, ds 4 at T 16384
         res512 = run_cli(["--preset", "sen12mscr256", "--image_size", "512", "--dataset",
                           "synthetic", "--sampler", "ddim", "--sampler_steps", str(STEPS_512),
@@ -3671,6 +4245,7 @@ def main(argv=None) -> int:
               f"kernel launches {res512['launches']}, peak memory "
               f"{res512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
+        stamp("5c")
         # 5c. the same scenes tiled: the 256 px denoiser over 3 x 3 tiles
         tiled = run_tiled(sen.unet_config(cond_channels=3), seed=2, gen=gen, n=8,
                           steps=STEPS_512)
@@ -3680,6 +4255,7 @@ def main(argv=None) -> int:
               f"{res512['sample_seconds']:.3f} s), kernel launches {tiled['launches']}, "
               f"peak memory {tiled['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
+        stamp("6")
         # 6. the reference's 64 px RePaint DDPM path
         t64 = 100
         res64 = run_cli(["--preset", "clouds64-attn", "--dataset", "synthetic",
@@ -3694,6 +4270,7 @@ def main(argv=None) -> int:
               f"{res64['images'] / res64['sample_seconds']:.4f} img/s, "
               f"kernel launches {res64['launches']}", flush=True)
 
+        stamp("5d")
         # 5d. the DiT family through the entry point: three batches of 8 each,
         # img/s over the last two (the first pays cuBLAS's first calls)
         dit_res = {}
@@ -3716,13 +4293,16 @@ def main(argv=None) -> int:
             del res["samples"]
             dit_res[tag] = res
 
+        stamp("5e")
         # 5e. tiled_flow_sample of 512 x 512 scenes with the dit256 denoiser
         tiled_flow = run_tiled_flow(seed=12, gen=lgen, n=TILED_FLOW_SCENES, steps=8, card=card)
 
+        stamp("5f")
         # 5f. the sampling CLI's solvers and guidance
         guided = phase_5f(tmp, card, cgen, main_res["images"] / main_res["sample_seconds"])
         guided_runs = (*guided["runs"].values(), guided["tiled"])
 
+        stamp("5g")
         # 5g. EDM and the Brownian bridge: training, sampling, the tiled
         # bridge and the demos
         edm_bridge = phase_5g(tmp, card)
@@ -3732,6 +4312,7 @@ def main(argv=None) -> int:
         edm_runs += [edm_bridge["tiled"], *edm_bridge["demos"].values()]
         rows += edm_bridge["attn_rows"]
         gn_rows += edm_bridge["gn_rows"]
+        stamp("5h")
         # 5h. classifier guidance and DDNM restoration
         clf_phase = phase_5h(tmp, card)
         clf_runs = [*clf_phase["runs"].values(), clf_phase["grad"], clf_phase["guided_plain"],
@@ -3743,20 +4324,28 @@ def main(argv=None) -> int:
             **{tag: r["launches"][key] for tag, r in clf_phase["runs"].items()},
             "input_grad_b8": clf_phase["grad"]["launches"][key],
             **{f"restore_{k}": r["launches"][key] for k, r in clf_phase["restore"].items()}}
+        stamp("5i")
         # 5i. inria64 and eurosat64 at 512 px: the wide kernels at T 4096
         wide512 = phase_5i(tmp, card)
         wide_runs = list(wide512.values())
+        stamp("5j")
         # 5j. --no_bf16 at 256 px: the float32 kernel's rows, then
         # sen12mscr256 in float32 through cli.inference and cli.train
         f32_rows, f32_bwd_rows = f32_cases()
         f32_phase = phase_5j(tmp, card)
         f32_runs = list(f32_phase.values())
+        stamp("5k")
+        # 5k. the few-step families: ReFlow, consistency, progressive and
+        # guidance distillation through cli.distill, cm / pd sampling, MeanFlow
+        few = phase_5k(tmp, card)
+        few_runs = list(few["runs"].values())
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
             "tiled_bridge": edm_bridge["tiled"]["launches"][key],
             **{f"demo_{d}": r["launches"][key] for d, r in edm_bridge["demos"].items()}}
 
+        stamp("7")
         # 7. the training path through the entry point
         train_res = run_train(tmp, seed=4)
         steady = train_res["step_seconds"][2:]  # after cuDNN's plan search
@@ -3768,6 +4357,7 @@ def main(argv=None) -> int:
               f"|d params| {train_res['param_delta']:.4e} |d ema| {train_res['ema_delta']:.4e}; "
               f"peak memory {train_res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
+        stamp("7b")
         # 7b. the training entry point at 512 px, batch 4
         train512 = run_train_512(tmp, seed=5)
         steady = train512["step_seconds"][2:]
@@ -3778,19 +4368,24 @@ def main(argv=None) -> int:
               f"{train512['losses'][-1]:.5f}; launches {train512['launches']}; peak memory "
               f"{train512['peak_mem_gb']:.2f} GiB; {card}", flush=True)
 
+        stamp("7c")
         # 7c. the SEN12MS-CR feed at full width: GeoTIFFs on disk to the card
         sen = phase_7c(tmp, card, train_res)
 
+        stamp("7d")
         # 7d. DiT and flow training through the entry point
         dit_train = run_train_dit(tmp, seed=10, card=card)
 
+        stamp("7e")
         # 7e. evaluation: SSIM/PSNR in the sampling CLI, cli.evaluate, the extractors
         evaluation = phase_7e(tmp, card, sen)
 
+        stamp("7f")
         # 7f. latent256-cr through the entry points: the first stage, then
         # DiT-B/4 on its latents, then sampling and decoding from both
         latent_train = run_train_latent(tmp, seed=15, card=card)
 
+    stamp("8")
     # 8. the W8A8 attention probe, once
     reset_counts()
     probe = probe_int8_attn.run(seed=0)
@@ -3798,12 +4393,15 @@ def main(argv=None) -> int:
     assert probe_launches["int8"] > 0, probe_launches
     print("probe_int8_attn " + json.dumps(probe), flush=True)
 
+    stamp("8b")
     # 8b. the conv weight-gradient kernel and the attention-matmul probes
     wgrad_rows, wgrad_deltas, attn_t_rows, sweep, mm, packed = phase_8b(gen, card)
 
+    stamp("8c")
     # 8c. the softmax-orientation probes and the attention variants
     small, probes = phase_8c(gen)
 
+    stamp("9")
     # 9. the result lines
     latent_runs = ({"launches": latent_train["ae_launches"]},
                    {"launches": latent_train["launches"]},
@@ -3819,7 +4417,7 @@ def main(argv=None) -> int:
     old_wide_launches = lambda key: sum(
         r["launches"][key] for r in (main_res, res512, res64, train_res, train512, tiled,
                                      tiled_flow, *dit_res.values(), *latent_runs, *guided_runs,
-                                     *edm_runs, *clf_runs, *wide_runs, *f32_runs))
+                                     *edm_runs, *clf_runs, *wide_runs, *f32_runs, *few_runs))
     assert not any(old_wide_launches(k) for k in ("wide_fwd_resident", "wide_bwd_resident"))
     # the FMA kernels (and the mma.sync bodies) of attention_fwd.cu and
     # attention_bwd.cu are yardsticks only: no model path launches them
@@ -3848,7 +4446,7 @@ def main(argv=None) -> int:
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
                                        *guided_runs, *edm_runs, *clf_runs, *wide_runs,
-                                       *f32_runs)
+                                       *f32_runs, *few_runs)
             for k in ("attn_fwd_mma", "flash_fwd_mma")),
         "unit_normal_max": attention_maxima(r["unit_normal"] for r in sm90_rows
                                             if r["unit_normal"]),
@@ -3917,7 +4515,7 @@ def main(argv=None) -> int:
             r["launches"][k] for r in (main_res, res512, res64, train_res, train512, tiled,
                                        tiled_flow, *dit_res.values(), *latent_runs,
                                        *guided_runs, *edm_runs, *clf_runs, *wide_runs,
-                                       *f32_runs)
+                                       *f32_runs, *few_runs)
             for k in ("attn_bwd_mma", "flash_bwd_mma")),
         "unit_normal_max": {
             "max_rms_scaled_err": max(r["unit_normal"]["max_rms_scaled_err"]
@@ -4039,7 +4637,8 @@ def main(argv=None) -> int:
         "old_body_launches_on_model_paths": sum(
             r["launches"][f"gn_{direction}_legacy"]
             for r in (main_res, res512, res64, train_res, train512, tiled, tiled_flow,
-                      *dit_res.values(), *latent_runs, *guided_runs, *edm_runs, *clf_runs)),
+                      *dit_res.values(), *latent_runs, *guided_runs, *edm_runs, *clf_runs,
+                      *few_runs)),
         **extra,
         "shapes": gn,
     } for direction, replaces, launches, gn, extra in (
@@ -4144,6 +4743,13 @@ def main(argv=None) -> int:
         "shapes": attn_t_rows,
     }]
     kernels += probe_kernel_rows(small, probes)
+    # phase 5k's launches, rows and forward-mode readings beside each kernel's
+    for row in few_kernel_rows(few):
+        entry = next(k for k in kernels if k["name"] == row["name"])
+        entry.update({f"few_{key}": row[key] for key in ("launches", "ms", "plain_ms",
+                                                         "bound_ms", "library_ms")},
+                     launches_few=row["launches_few"], few_shapes=row["shapes"],
+                     **({"jvp_rule": row["jvp_rule"]} if "jvp_rule" in row else {}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

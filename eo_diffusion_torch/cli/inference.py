@@ -16,9 +16,15 @@ test split of any dataset of ``DATASET_FACTORIES`` (``--dataset``, from
 DDPM, DDIM, DPM-Solver++ (``--sampler dpm``, ``--dpm_spacing``) or UniPC
 (``--sampler unipc``); flow-process presets (``dit256``, ``flow64``,
 ``cflow64``, ...), EDM presets (``edm64``, ...: Heun or Euler on the Karras
-grid, ``--flow_method``) and bridge presets (``bridge64``, ...: the strided
-posterior walk from the cloudy view, ``--eta``, no CFG) with their native
-sampler, ``--sampler flow``, which they force. Guidance:
+grid, ``--flow_method``), bridge presets (``bridge64``, ...: the strided
+posterior walk from the cloudy view, ``--eta``, no CFG) and MeanFlow presets
+(``meanflow64``, ``cmeanflow64``, ...: 1-4 average-velocity steps, Euler
+only) with their native sampler, ``--sampler flow``, which they force.
+Students of ``cli.distill`` sample with ``--sampler cm`` (consistency
+distillation: ``--sampler_steps`` f evaluations on the ``--cd_points`` grid
+with ``--sigma_data``) and ``--sampler pd`` (progressive distillation: a v
+head on the ``--sampler_steps`` grid); ReFlow and guided flow students with
+``--sampler flow``. Guidance:
 classifier-free (``--guidance_scale`` against the learned null class of a
 class-conditional preset, else against a zero cloudy view;
 ``--guidance_rescale``, ``--guidance_interval``), perturbed-attention
@@ -40,9 +46,9 @@ classifier's input gradient to eps at every step of ddpm/ddim/dpm/unipc
 classifier's classes for an unconditional denoiser. A latent preset
 (``latent256-cr``, ...) loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
 samples on the latent grid with the cloudy view encoded, and decodes: the
-metrics and PNGs are of the decoded pixels. Flags of the JAX CLI that later
-slices bring (the distilled samplers, FreeU, ...) exit naming their ROADMAP
-queue.
+metrics and PNGs are of the decoded pixels (``cm`` and ``pd`` run on the
+latent grid, then decode). Flags of the JAX CLI that later slices bring
+(FreeU, LoRA, ...) exit naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -60,12 +66,9 @@ from eo_diffusion_torch.cli.common import resolve_device
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
 UNPORTED_FLAGS = {
-    "--sigma_data": 12, "--cd_points": 12,
     "--freeu": 13, "--tome_ratio": 13, "--tome_mlp": 13, "--controlnet": 13,
     "--lora": 14, "--int8_compute": 15,
 }
-# samplers of the JAX CLI that are not ported yet -> ROADMAP queue
-UNPORTED_SAMPLERS = {"cm": 12, "pd": 12}
 
 
 def _unported_flag(arg: str):
@@ -86,10 +89,18 @@ def parse_args(argv=None):
     parser.add_argument("--timesteps", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--sampler", type=str, default="ddpm",
-                        choices=["ddpm", "ddim", "dpm", "unipc", "flow", *UNPORTED_SAMPLERS],
+                        choices=["ddpm", "ddim", "dpm", "unipc", "flow", "cm", "pd"],
                         help="dpm = DPM-Solver++(2M); unipc = UniPC-3 (num_steps + 1 model "
-                             "calls); flow = the ODE sampler of flow-process presets, which "
-                             "force it")
+                             "calls); flow = the native sampler of flow, EDM, bridge and "
+                             "MeanFlow presets, which force it; cm = consistency-model "
+                             "sampling (students of cli.distill --method consistency); pd = "
+                             "the progressive-distillation grid (students of cli.distill "
+                             "--method progressive; --sampler_steps = the student's steps)")
+    parser.add_argument("--cd_points", type=int, default=18,
+                        help="cm sampler: consistency grid points (must match distillation)")
+    parser.add_argument("--sigma_data", type=float, default=0.5,
+                        help="cm sampler: data std of the boundary coefficients (must match "
+                             "distillation)")
     parser.add_argument("--dpm_spacing", type=str, default="uniform_lambda",
                         choices=["uniform_lambda", "uniform_t", "karras"],
                         help="DPM-Solver grid: uniform half-log-SNR, DDIM-style t stride, or "
@@ -179,11 +190,7 @@ def parse_args(argv=None):
         hit = _unported_flag(arg)
         if hit:
             parser.error(f"{hit[0]} is not ported yet (ROADMAP queue {hit[1]})")
-    args = parser.parse_args(argv)
-    if args.sampler in UNPORTED_SAMPLERS:
-        parser.error(f"--sampler {args.sampler} is not ported yet "
-                     f"(ROADMAP queue {UNPORTED_SAMPLERS[args.sampler]})")
-    return args
+    return parser.parse_args(argv)
 
 
 def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None):
@@ -249,12 +256,25 @@ def main(args):
     assert not (args.classifier_scale and not args.classifier_ckpt), (
         "--classifier_scale needs --classifier_ckpt (train one with cli.train_classifier)")
     class_dropout = args.class_dropout or preset.class_dropout
+    if preset.process == "meanflow" and preset.mf_cfg_omega != 1.0 and not class_dropout:
+        class_dropout = 0.1  # cli.train's default there: the null row exists
+    # an explicit cm / pd request on a preset of another process is an
+    # error, not a coercion target
+    for sampler, method in (("cm", "consistency"), ("pd", "progressive")):
+        assert not (args.sampler == sampler and preset.process != "ddpm"), (
+            f"--sampler {sampler} samples a {method}-distilled DDPM-chain student "
+            f"(cli.distill --method {method}); {preset.name} trains {preset.process}")
     # "flow" means the process's native sampler: the flow ODE, EDM's Heun on
-    # the Karras grid, or the bridge's posterior walk (one .sample surface)
-    if preset.process in ("flow", "edm", "bridge") and args.sampler != "flow":
+    # the Karras grid, the bridge's posterior walk or MeanFlow's segments
+    # (one .sample surface)
+    if preset.process in ("flow", "edm", "bridge", "meanflow") and args.sampler != "flow":
         print(f"preset {preset.name} is a {preset.process} process; using --sampler flow "
               "(its native sampler)")
         args.sampler = "flow"
+    if preset.process == "meanflow" and args.flow_method != "euler":
+        print("note: MeanFlow applies its own average-velocity displacement; ignoring "
+              f"--flow_method {args.flow_method}")
+        args.flow_method = "euler"
     if preset.process == "bridge" and args.guidance_scale != 1.0:
         print("note: the bridge is endpoint-conditional; no CFG combine — ignoring "
               "--guidance_scale")
@@ -265,8 +285,8 @@ def main(args):
                          f"(use ddpm/ddim/dpm/unipc)")
     # the JAX CLI's compatibility checks (eo_diffusion_tpu/cli/inference.py:330-700)
     if args.sdedit_strength:
-        assert preset.process in ("ddpm", "flow"), (
-            f"SDEdit is wired for DDPM-chain and flow presets; {preset.name} trains "
+        assert preset.process in ("ddpm", "flow", "meanflow"), (
+            f"SDEdit is wired for DDPM-chain and flow/meanflow presets; {preset.name} trains "
             f"{preset.process}")
         assert cond_type != "sum", (
             "SDEdit starts FROM the source image; RePaint 'sum' masking is a different "
@@ -277,6 +297,17 @@ def main(args):
     assert args.dynamic_threshold is None or args.sampler in ("ddpm", "ddim", "dpm", "unipc"), (
         f"--dynamic_threshold rescales the DDPM-family pred-x0 clamp (ddpm/ddim/dpm/unipc); "
         f"the {args.sampler} sampler has no such site")
+    assert args.sdedit_strength == 0.0 or args.sampler in ("ddim", "flow"), (
+        f"--sdedit_strength does not compose with --sampler {args.sampler}")
+    assert not (args.sampler in ("cm", "pd") and args.deepcache > 1), (
+        f"{args.sampler} is already 1-4 evaluations; DeepCache does not apply")
+    assert not (args.sampler in ("cm", "pd") and cond_type == "sum"), (
+        f"{args.sampler} has no RePaint mask plumbing; cond_type='sum' metrics would compare "
+        "unconditional samples against gt (use ddim/dpm)")
+    if args.sampler in ("cm", "pd") and args.guidance_scale != 1.0:
+        print(f"note: the {args.sampler} sampler has no guidance combine; ignoring "
+              "--guidance_scale")
+        args.guidance_scale = 1.0
     assert args.deepcache <= 1 or preset.backbone == "unet", (
         "DeepCache caches the UNet's deep/shallow split; the DiT backbone has no "
         "resolution ladder to split")
@@ -384,7 +415,8 @@ def main(args):
         # in float32
         inner = diffusion.diffusion if preset.is_latent else diffusion
         nf = None
-        if preset.process == "flow":
+        if preset.process in ("flow", "meanflow"):
+            # MeanFlow packs t as [N, 2] = (t, r); row 0's first entry is the time
             nf = lambda t: noise_level(t.reshape(t.shape[0], -1)[0, 0], inner.time_scale)
         elif preset.process == "edm":
             nf = lambda t: noise_level(torch.exp(4.0 * t[0].float() / inner.time_scale),
@@ -469,6 +501,9 @@ def main(args):
                     args.sdedit_strength, num_steps=args.sampler_steps, eta=args.eta,
                     method=args.flow_method if args.sampler == "flow" else args.ddim_spacing,
                     cond=c_j, **skw)
+            elif args.sampler in ("cm", "pd"):
+                out = _distilled_sample(args, diffusion, preset.is_latent, fn_j, bsz, c_j,
+                                        skw)
             elif args.sampler == "flow" and preset.process == "bridge":
                 # paired translation: the source view is the bridge's endpoint;
                 # --eta scales the posterior noise as DDIM's does
@@ -537,6 +572,30 @@ def main(args):
     if args.metrics and n:
         res.update(ssim=ssim_sum / n, psnr=psnr_sum / n)
     return res
+
+
+def _distilled_sample(args, diffusion, is_latent, fn, bsz, cond, skw):
+    """``--sampler cm`` or ``pd``: the student of ``cli.distill`` on the
+    inner chain (the latent grid of a latent preset: the concat cond encoded
+    by the first stage, the result decoded), as the JAX CLI runs it."""
+    import dataclasses
+
+    from eo_diffusion_torch.diffusion.consistency import ConsistencyDistillation
+    from eo_diffusion_torch.diffusion.gaussian import DiffusionOutput
+    from eo_diffusion_torch.diffusion.progressive import pd_sample
+
+    inner = diffusion.diffusion if is_latent else diffusion
+    if is_latent and cond is not None:
+        cond = diffusion.encode(cond)
+    kw = dict(device=skw["device"], generator=skw["generator"], cond=cond, y=skw["y"])
+    if args.sampler == "cm":
+        cd = ConsistencyDistillation.create(inner, n_points=args.cd_points,
+                                            sigma_data=args.sigma_data)
+        z = cd.sample(fn, bsz, steps=args.sampler_steps, **kw).x
+    else:  # progressive students are v heads on the PD grid
+        z = pd_sample(dataclasses.replace(inner, objective="v"), fn, bsz,
+                      steps=args.sampler_steps, **kw).x
+    return DiffusionOutput(x=diffusion.decode(z) if is_latent else z)
 
 
 def _interval(text):

@@ -1,10 +1,14 @@
 """Named experiment presets for the port (the UNet and DiT presets, DDPM,
-rectified flow, EDM and the Brownian bridge, in pixels or behind a first
-stage, of ``eo_diffusion_tpu/cli/presets.py``).
+rectified flow, EDM, the Brownian bridge and MeanFlow, in pixels or behind a
+first stage, of ``eo_diffusion_tpu/cli/presets.py``).
 
 Each recipe is selectable with ``--preset``; presets of the other families
-(MeanFlow, MoE, SPADE, super-resolution) raise and name the ROADMAP queue
-that ports them. A latent preset (``latent_downs > 0``) is a two-stage
+(MoE, SPADE, super-resolution) raise and name the ROADMAP queue that ports
+them. A MeanFlow preset builds a dual-time backbone whose attention is
+pinned to its plain version (``attn_impl="plain"``, the JAX preset's
+``"xla"``): MeanFlow's loss takes a ``torch.func.jvp`` through the model,
+and the attention kernels' Functions have no forward-mode rule (the
+GroupNorm and conv kernels' have). A latent preset (``latent_downs > 0``) is a two-stage
 recipe: a :class:`ConvAutoencoder` first stage with ``2**latent_downs``
 spatial reduction, then the backbone and the process on the
 ``latent_size``-square, ``latent_channels``-deep latent grid.
@@ -22,6 +26,7 @@ from eo_diffusion_torch.diffusion.bridge import BrownianBridge
 from eo_diffusion_torch.diffusion.edm import EDMProcess
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
+from eo_diffusion_torch.diffusion.meanflow import MeanFlow
 from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
 from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.models.unet import UNet, UNetConfig
@@ -55,12 +60,16 @@ class Preset:
     # backbone "dit" selects models/dit.DiT (base_dim is the hidden size,
     # depth the block count, patch_size the patchify stride); process "flow"
     # trains and samples diffusion/flow.FlowMatching, "edm"
-    # diffusion/edm.EDMProcess and "bridge" diffusion/bridge.BrownianBridge
+    # diffusion/edm.EDMProcess, "bridge" diffusion/bridge.BrownianBridge and
+    # "meanflow" diffusion/meanflow.MeanFlow (on a dual-time backbone)
     # instead of the DDPM chain
     backbone: str = "unet"  # "unet" | "dit"
     patch_size: int = 4
     depth: int = 12
-    process: str = "ddpm"  # "ddpm" | "flow" | "edm" | "bridge"
+    process: str = "ddpm"  # "ddpm" | "flow" | "edm" | "bridge" | "meanflow"
+    # CFG-integrated MeanFlow (paper section 4): omega > 1 trains the
+    # omega-guided field, sampled with one conditional call. Needs classes
+    mf_cfg_omega: float = 1.0
     # default CFG label dropout of a class-conditional preset (allocates the
     # null embedding row; the CLIs' --class_dropout overrides)
     class_dropout: float = 0.0
@@ -92,9 +101,13 @@ class Preset:
                      num_classes: Optional[int] = None,
                      class_dropout_prob: float = 0.0) -> Union[UNetConfig, DiTConfig]:
         """The backbone config of the preset's family: :meth:`unet_config`,
-        or a :class:`DiTConfig` for ``backbone="dit"``."""
+        or a :class:`DiTConfig` for ``backbone="dit"``. A MeanFlow preset's
+        is dual-time with its attention pinned to the plain version."""
+        meanflow = self.process == "meanflow"
+        pin = dict(dual_time=True, attn_impl="plain") if meanflow else {}
         if self.backbone == "unet":
-            return self.unet_config(bf16, cond_channels, num_classes, class_dropout_prob)
+            cfg = self.unet_config(bf16, cond_channels, num_classes, class_dropout_prob)
+            return dataclasses.replace(cfg, **pin) if meanflow else cfg
         assert self.backbone == "dit", self.backbone
         size, chans = self._grid()
         return DiTConfig(
@@ -108,6 +121,7 @@ class Preset:
             num_classes=num_classes or self.num_classes or None,
             class_dropout_prob=class_dropout_prob,
             dtype=torch.bfloat16 if bf16 else torch.float32,
+            **pin,
         )
 
     def unet_config(self, bf16: bool = True, cond_channels: int = 0,
@@ -251,12 +265,27 @@ PRESETS = {
                                  1, cond_type="concat", timesteps=50, batch_size=16,
                                  process="bridge", latent_downs=1, latent_channels=4,
                                  ae_base_dim=16, ae_steps=60),
+    # MeanFlow (arXiv:2505.13447): a 1-4-call sampler trained from scratch,
+    # on flow64's UNet
+    "meanflow64": Preset("meanflow64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1, 4,
+                         batch_size=64, process="meanflow"),
+    "tiny-meanflow": Preset("tiny-meanflow", "synthetic", 8, 3, 32, (1, 2), (), 1, 1,
+                            batch_size=16, process="meanflow"),
+    # CFG-integrated MeanFlow: guided 1-call samples from one conditional call
+    "cmeanflow64": Preset("cmeanflow64", "synthetic_hard", 64, 3, 64, (1, 2, 3, 4), (4, 8), 1,
+                          4, batch_size=64, process="meanflow", num_classes=5,
+                          mf_cfg_omega=2.0),
+    "tiny-cmeanflow": Preset("tiny-cmeanflow", "synthetic_hard", 8, 3, 32, (1, 2), (), 1, 1,
+                             batch_size=16, process="meanflow", num_classes=5,
+                             mf_cfg_omega=2.0),
+    # the dual-time DiT under MeanFlow
+    "tiny-dit-meanflow": Preset("tiny-dit-meanflow", "synthetic", 16, 3, 64, (), (), 0, 4,
+                                batch_size=16, backbone="dit", patch_size=4, depth=2,
+                                process="meanflow"),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
 _LATER = {
-    "meanflow64": 12, "tiny-meanflow": 12, "cmeanflow64": 12, "tiny-cmeanflow": 12,
-    "tiny-dit-meanflow": 12,
     "spade64": 13, "tiny-spade": 13, "moe-dit64": 13, "tiny-moe": 13,
     "sr64-256": 14, "tiny-sr": 14,
 }
@@ -281,17 +310,26 @@ def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig]) -> nn.Module:
 
 def build_process(preset: Preset, timesteps: int, image_size: int,
                   cond_type: Optional[str] = None
-                  ) -> Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge]:
+                  ) -> Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
+                             MeanFlow]:
     """The preset's process on the model-facing grid (``image_size`` px, or
     the latent grid of a latent preset, which a caller wraps in
     ``LatentDiffusion``): the DDPM chain, rectified flow for ``process="flow"``
     or EDM for ``"edm"`` (where "sum" stays sampling-time inpainting and
     "concat" conditions the model), or the Brownian bridge for ``"bridge"``,
     whose cond must be "concat": the source image is the bridge's endpoint
-    and the model's input."""
+    and the model's input; or MeanFlow for ``"meanflow"`` (conditioned as
+    flow is; ``mf_cfg_omega != 1`` trains CFG-integrated against the null
+    class ``num_classes``)."""
     size, chans = preset._grid() if preset.is_latent else (image_size, preset.in_channels)
     if preset.process == "flow":
         return FlowMatching.create(image_size=size, in_channels=chans, cond_type=cond_type)
+    if preset.process == "meanflow":
+        kw = {}
+        if preset.mf_cfg_omega != 1.0:
+            assert preset.num_classes > 0, "mf_cfg_omega needs a class-conditional preset"
+            kw = dict(cfg_omega=preset.mf_cfg_omega, cfg_null_index=preset.num_classes)
+        return MeanFlow.create(image_size=size, in_channels=chans, cond_type=cond_type, **kw)
     if preset.process == "edm":
         return EDMProcess.create(image_size=size, in_channels=chans, cond_type=cond_type)
     if preset.process == "bridge":

@@ -17,7 +17,11 @@ checkpoints and exits. Every UNet and DiT preset of the port trains, with the
 DDPM chain, rectified flow (``dit256``, ``flow64``, ``tiny-dit``,
 ``tiny-flow``, ...), EDM (``edm64``, ``tiny-edm``, ``tiny-dit-edm``) or the
 Brownian bridge (``bridge64``, ``tiny-bridge``, ``tiny-latent-bridge``, on
-paired data: the concat cond is the bridge's source); a flow, EDM or bridge
+paired data: the concat cond is the bridge's source) or MeanFlow
+(``meanflow64``, ``cmeanflow64``, ``tiny-meanflow``, ``tiny-cmeanflow``,
+``tiny-dit-meanflow``: a dual-time backbone with plain attention, its loss a
+``torch.func.jvp`` through the model; a CFG-integrated preset's label dropout
+defaults to 0.1 and belongs to the loss); a flow, EDM, bridge or MeanFlow
 preset previews with its process's own sampler (``--preview_sampler flow``,
 which it forces). A latent preset (``latent256-cr``, ``tiny-latent``, ...)
 first loads its float32 first stage from ``<ckpt dir>/ae`` or ``--ae_ckpt``,
@@ -216,13 +220,14 @@ def main(args):
 
     device = resolve_device(args.device, "eo_diffusion_torch.cli.train")
     preset = get_preset(args.preset)
-    # flow, EDM and bridge presets preview with their process's own .sample;
-    # the DDPM chain has none, so fail before the first preview hours in
-    native = preset.process in ("flow", "edm", "bridge")
+    # flow, EDM, bridge and MeanFlow presets preview with their process's
+    # own .sample; the DDPM chain has none, so fail before the first preview
+    # hours in
+    native = preset.process in ("flow", "edm", "bridge", "meanflow")
     if args.preview_sampler == "flow" and not native:
         raise SystemExit(f"--preview_sampler flow requires a flow-process preset (a flow, "
-                         f"EDM or bridge process); {preset.name} trains the DDPM chain "
-                         f"(use ddpm/ddim)")
+                         f"EDM, bridge or MeanFlow process); {preset.name} trains the DDPM "
+                         f"chain (use ddpm/ddim)")
     preview_sampler = "flow" if native else args.preview_sampler
     dataset = args.dataset or preset.dataset
     factory = DATASET_FACTORIES[dataset]
@@ -241,6 +246,10 @@ def main(args):
         # class-conditional presets train with CFG label dropout by default
         # (the null embedding row must exist for guidance)
         args.class_dropout = preset.class_dropout
+    if preset.process == "meanflow" and preset.mf_cfg_omega != 1.0 and args.class_dropout == 0.0:
+        # CFG-integrated MeanFlow: the null row must exist; the loss owns
+        # the dropout itself (the trainer's is off for it)
+        args.class_dropout = 0.1
     num_classes = args.num_classes if args.num_classes > 0 else None
     ckpt_dir = os.path.join("logs", os.path.split(args.dir)[1])
 

@@ -72,6 +72,8 @@ class DiTConfig:
     moe_capacity: float = 1.25
     tome_ratio: float = 0.0
     tome_mlp: bool = False
+    # MeanFlow's two times: t comes in packed [N, 2] = (t, r), and r gets an
+    # embedding MLP of its own (r_embed_0 / r_embed_1) added to t's
     dual_time: bool = False
 
     @property
@@ -93,7 +95,7 @@ class DiTConfig:
 # option -> (the ROADMAP queue that ports it, the JAX default it must keep)
 _LATER = {"num_experts": (13, 0), "moe_top_k": (13, 1),
           "moe_every": (13, 2), "moe_capacity": (13, 1.25), "tome_ratio": (13, 0.0),
-          "tome_mlp": (13, False), "dual_time": (12, False)}
+          "tome_mlp": (13, False)}
 
 
 def posemb_sincos_2d(h: int, w: int, dim: int) -> torch.Tensor:
@@ -203,9 +205,10 @@ class DiT(nn.Module):
     """Diffusion transformer denoiser (JAX ``DiT``, ``models/dit.py:233``):
     ``embed`` -> ``block_i`` x depth -> ``final``. ``forward(x, t, cond=None,
     y=None, context=None)`` takes x ``[N, H, W, C]``, timesteps ``[N]``
-    (integer or fractional), concat ``cond`` ``[N, H, W, Cc]``, labels ``y``
-    ``[N]`` and, with ``context_dim``, context tokens ``[N, L, context_dim]``;
-    returns ``[N, H, W, out_channels]`` in the compute dtype."""
+    (integer or fractional; ``[N, 2]`` = (t, r) with ``dual_time``), concat
+    ``cond`` ``[N, H, W, Cc]``, labels ``y`` ``[N]`` and, with
+    ``context_dim``, context tokens ``[N, L, context_dim]``; returns ``[N, H,
+    W, out_channels]`` in the compute dtype."""
 
     def __init__(self, config: DiTConfig):
         super().__init__()
@@ -218,6 +221,9 @@ class DiT(nn.Module):
         self.patch_embed = Dense(p * p * cfg.in_channels, d, dtype=cfg.dtype)
         self.t_embed_0 = Dense(256, d)
         self.t_embed_1 = Dense(d, d)
+        if cfg.dual_time:
+            self.r_embed_0 = Dense(256, d)
+            self.r_embed_1 = Dense(d, d)
         if cfg.num_classes is not None:
             self.label_embed = nn.Embedding(cfg.label_vocab, d)
         self.blocks = []
@@ -253,10 +259,17 @@ class DiT(nn.Module):
         return h + self.pos_embed.to(h.dtype)[None]
 
     def condition(self, t: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Conditioning embedding ``[N, hidden]`` float32: the timestep MLP,
-        plus the label table (whose last row is the CFG null class when
-        ``class_dropout_prob > 0``)."""
+        """Conditioning embedding ``[N, hidden]`` float32: the timestep MLP
+        (with ``dual_time``, t packed ``[N, 2]`` = (t, r) and r's own MLP
+        added), plus the label table (whose last row is the CFG null class
+        when ``class_dropout_prob > 0``)."""
+        if self.config.dual_time:
+            assert t.ndim == 2 and t.shape[-1] == 2, (
+                "dual_time models take timesteps packed as [N, 2] = (t, r)", t.shape)
+            t, r = t[:, 0], t[:, 1]
         c = self.t_embed_1(F.silu(self.t_embed_0(timestep_embedding(t, 256))))
+        if self.config.dual_time:
+            c = c + self.r_embed_1(F.silu(self.r_embed_0(timestep_embedding(r, 256))))
         if self.config.num_classes is not None:
             assert y is not None, "class-conditional DiT requires y"
             c = c + self.label_embed(y)

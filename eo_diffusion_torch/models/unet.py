@@ -85,8 +85,10 @@ class UNetConfig:
     # a later slice of the port; the constructor raises when it is set
     context_dim: int = 0
     class_dropout_prob: float = 0.0  # > 0 adds the CFG null-class row
-    # later slices of the port; the constructor raises when they are set
+    # MeanFlow's two times: timesteps come in packed [N, 2] = (t, r), and r
+    # gets an embedding MLP of its own (time_embed_r) added to t's
     dual_time: bool = False
+    # a later slice of the port; the constructor raises when it is set
     freeu: Optional[Tuple[float, float, float, float]] = None
 
     def __post_init__(self):
@@ -349,8 +351,9 @@ class UNet(nn.Module):
     """The timestep-embedded UNet (reference ``UNetModel``, unet_openai.py:522-780).
 
     ``forward(x, timesteps, cond=None, y=None)`` with x ``[N, H, W, C]``
-    (NHWC), timesteps ``[N]``, cond ``[N, H, W, Cc]`` channel-concat
-    conditioning (unet_openai.py:754-756) and y ``[N]`` class labels whose
+    (NHWC), timesteps ``[N]`` (``[N, 2]`` = (t, r) with ``dual_time``), cond
+    ``[N, H, W, Cc]`` channel-concat conditioning (unet_openai.py:754-756)
+    and y ``[N]`` class labels whose
     embedding is added to the timestep embedding (:604-605, :764-766).
     Returns ``[N, H, W, out_channels]`` in x's dtype.
     """
@@ -359,7 +362,6 @@ class UNet(nn.Module):
         super().__init__()
         cfg = self.config = config
         for name, unset, queue in (("context_dim", cfg.context_dim == 0, 13),
-                                   ("dual_time", not cfg.dual_time, 12),
                                    ("freeu", cfg.freeu is None, 13)):
             if not unset:
                 raise NotImplementedError(
@@ -368,6 +370,9 @@ class UNet(nn.Module):
         ted, dt = cfg.time_embed_dim, cfg.dtype
         self.time_embed = nn.Sequential(Dense(cfg.model_channels, ted, dtype=dt), nn.SiLU(),
                                         Dense(ted, ted, dtype=dt))
+        if cfg.dual_time:  # JAX time_embed_r0 / time_embed_r2
+            self.time_embed_r = nn.Sequential(Dense(cfg.model_channels, ted, dtype=dt),
+                                              nn.SiLU(), Dense(ted, ted, dtype=dt))
         if cfg.num_classes is not None:
             self.label_emb = nn.Embedding(cfg.label_vocab, ted)
         mk = lambda block: nn.ModuleList([_make_layer(cfg, s) for s in block])
@@ -427,7 +432,13 @@ class UNet(nn.Module):
             "must specify y if and only if the model is class-conditional")
         assert x.shape[-1] == cfg.in_channels, (x.shape, cfg.in_channels)
 
+        if cfg.dual_time:
+            assert timesteps.ndim == 2 and timesteps.shape[-1] == 2, (
+                "dual_time models take timesteps packed as [N, 2] = (t, r)", timesteps.shape)
+            timesteps, r_times = timesteps[:, 0], timesteps[:, 1]
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels))
+        if cfg.dual_time:
+            emb = emb + self.time_embed_r(timestep_embedding(r_times, cfg.model_channels))
         if cfg.num_classes is not None:
             emb = emb + self.label_emb(y).to(emb.dtype)
 

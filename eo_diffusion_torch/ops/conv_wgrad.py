@@ -259,40 +259,73 @@ def conv_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return conv_wgrad_reference(x, dy)
 
 
+def _carries_tangent(t: torch.Tensor) -> bool:
+    """Whether ``t`` may carry a forward-mode tangent: a tensor wrapped by a
+    ``torch.func`` transform, or a dual tensor of ``torch.autograd.forward_ad``.
+    A module's parameter closed over by ``torch.func.jvp`` carries none."""
+    return (torch._C._functorch.is_functorch_wrapped_tensor(t)
+            or torch.autograd.forward_ad.unpack_dual(t).tangent is not None)
+
+
 class Conv3x3Fn(torch.autograd.Function):
     """A 3x3, stride-1, padding-1 conv on NHWC x whose weight gradient is
-    :func:`conv_wgrad`.
+    :func:`conv_wgrad`, with a forward-mode rule.
 
-    ``forward(x, weight, bias, dtype)`` with x ``[N, H, W, C]`` in ``dtype``,
-    weight ``[Co, C, 3, 3]`` and bias ``[Co]`` float32 parameters: cuDNN's
-    conv in ``dtype`` on the NCHW view, as ``nn.primitives.Conv`` computes it.
-    Backward: dx by cuDNN (``aten.convolution_backward``, input gradient
-    only), dW by :func:`conv_wgrad` returned in float32 (summed in f32 and
-    rounded nowhere, where autograd's goes through ``dtype`` once), db the
-    float32 sum of dy over the pixels."""
+    ``apply(x, weight, bias, dtype[, weight_tangent])`` with x ``[N, H, W,
+    C]`` in ``dtype``, weight ``[Co, C, 3, 3]`` and bias ``[Co]`` float32
+    parameters: cuDNN's conv in ``dtype`` on the NCHW view, as
+    ``nn.primitives.Conv`` computes it. Backward: dx by cuDNN
+    (``aten.convolution_backward``, input gradient only), dW by
+    :func:`conv_wgrad` returned in float32 (summed in f32 and rounded
+    nowhere, where autograd's goes through ``dtype`` once), db the float32
+    sum of dy over the pixels. Forward mode (``torch.func.jvp``: MeanFlow's
+    loss): ``dy = conv(dx, W) + conv(x, dW, db)`` in ``dtype``, plain cuDNN
+    calls in the order of autograd's rule for a conv; ``weight_tangent=False``
+    (:func:`conv3x3` passes it when the parameters carry no tangent) leaves
+    out ``db`` and ``dW``, which are then zero."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, dtype):
-        w = weight.to(dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, bias.to(dtype), 1, 1)
-        ctx.save_for_backward(x, w)
+    def forward(x, weight, bias, dtype, weight_tangent=True):
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(dtype), bias.to(dtype), 1, 1)
         return y.permute(0, 2, 3, 1)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, weight = inputs[:2]
+        ctx.dtype = inputs[3]
+        ctx.weight_tangent = inputs[4] if len(inputs) > 4 else True
+        ctx.save_for_backward(x, weight)
+        ctx.save_for_forward(x, weight)
+
+    @staticmethod
     def backward(ctx, dy):
-        x, w = ctx.saved_tensors
+        x, weight = ctx.saved_tensors
         dy = dy.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             # output_mask is (input, weight, bias)
             dx = torch.ops.aten.convolution_backward(
-                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [1, 1],
-                [1, 1], False, [0, 0], 1, [True, False, False])[0].permute(0, 2, 3, 1)
+                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight.to(ctx.dtype), None,
+                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, False, False])[0].permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
             dw = hwio_to_oihw(conv_wgrad(x, dy)).contiguous()
         if ctx.needs_input_grad[2]:  # summed in f32 from dy as it is: no f32 copy of dy
             db = dy.sum((0, 1, 2), dtype=torch.float32)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dweight, dbias, *_):
+        x, weight = ctx.saved_tensors
+        dt = ctx.dtype
+        conv = lambda a, w, b=None: F.conv2d(a.permute(0, 3, 1, 2), w.to(dt),
+                                             None if b is None else b.to(dt), 1, 1)
+        # autograd's own rule for a conv, in its order: conv(dx, W) + conv(x,
+        # dW, db), so the rounding in dtype is the plain conv's
+        dy = conv(torch.zeros_like(x) if dx is None else dx.to(dt), weight)
+        if ctx.weight_tangent and dweight is not None:
+            dy = dy + conv(x, dweight, dbias)
+        return dy.permute(0, 2, 3, 1)
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype,
@@ -307,6 +340,7 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: to
     x = x.to(dtype)
     if (impl == "auto" and x.is_cuda and torch.is_grad_enabled() and weight.requires_grad
             and wgrad_route(*x.shape, weight.shape[0], dtype) != "cudnn"):
-        return Conv3x3Fn.apply(x, weight, bias, dtype)
+        tangent = _carries_tangent(weight) or _carries_tangent(bias)
+        return Conv3x3Fn.apply(x, weight, bias, dtype, tangent)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(dtype), bias.to(dtype), 1, 1)
     return y.permute(0, 2, 3, 1)

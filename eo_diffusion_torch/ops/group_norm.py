@@ -28,7 +28,10 @@ differ by about one bf16 ulp.
   launch the old body, ``csrc/group_norm.cu`` (three launches a direction),
   kept as the new one's yardstick; no model path calls them.
 * :class:`GroupNormFn` joins them under autograd: it saves x, gamma, beta and
-  the ``[N, G]`` float32 mean and rstd (no output, no float32 copy of x).
+  the ``[N, G]`` float32 mean and rstd (no output, no float32 copy of x). Its
+  forward-mode rule (``torch.func.jvp``: MeanFlow's loss) runs the kernel's
+  forward and computes the tangent in plain PyTorch from the same saved
+  tensors (:func:`group_norm_jvp_reference`).
 * :func:`fused_group_norm` dispatches on the tensor's device: a CUDA tensor
   launches the kernels or raises, a CPU tensor takes the plain versions, and
   only an explicit ``impl="plain"`` runs the plain version on the card.
@@ -44,9 +47,9 @@ import torch
 
 from eo_diffusion_torch.ops import _build
 
-__all__ = ["group_norm_reference", "group_norm_backward_reference", "group_norm_fwd_cuda",
-           "group_norm_bwd_cuda", "group_norm_fwd_legacy_cuda", "group_norm_bwd_legacy_cuda",
-           "GNPlan", "plan", "GroupNormFn", "fused_group_norm"]
+__all__ = ["group_norm_reference", "group_norm_backward_reference", "group_norm_jvp_reference",
+           "group_norm_fwd_cuda", "group_norm_bwd_cuda", "group_norm_fwd_legacy_cuda",
+           "group_norm_bwd_legacy_cuda", "GNPlan", "plan", "GroupNormFn", "fused_group_norm"]
 
 _KERNEL_SM90 = "group_norm_sm90"
 _KERNEL = "group_norm"  # the old body, three launches a direction
@@ -479,35 +482,89 @@ def group_norm_bwd_legacy_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch
 group_norm_bwd_legacy_cuda.launches = 0
 
 
-class GroupNormFn(torch.autograd.Function):
-    """GroupNorm + affine + activation with a kernel on both sides.
+def group_norm_jvp_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                             mean: torch.Tensor, rstd: torch.Tensor, dx: torch.Tensor,
+                             dgamma: Optional[torch.Tensor], dbeta: Optional[torch.Tensor],
+                             groups: int, act: str = "none") -> torch.Tensor:
+    """The forward-mode derivative (the tangent of y) from the forward's saved
+    ``[N, G]`` mean and rstd, in float32, rounded once to x's dtype. With
+    ``r = rstd``, ``x_hat = (x - mean) * r`` and the means over a (sample,
+    group):
 
-    ``forward(x, gamma, beta, groups, eps, act)`` with gamma/beta ``[N, C]``
-    float32. On CUDA the kernels, on the CPU the plain versions (so the CPU
-    tests run the same plumbing). Saves x, gamma, beta and the float32
-    ``[N, G]`` mean and rstd, only when a gradient is needed.
+    * ``dx_hat = r * (dx - mean_g dx - x_hat * mean_g(x_hat * dx))``;
+    * ``dz = dgamma * x_hat + gamma * dx_hat + dbeta`` (gamma / beta ``[N,
+      C]``; a None tangent is zero);
+    * ``dy = act'(z) * dz``, for SiLU ``sigmoid(z) * (1 + z * (1 -
+      sigmoid(z)))`` at ``z = gamma * x_hat + beta``.
+    """
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    xhat = (_grouped(x, n, groups) - mean[:, None, :, None]) * rstd[:, None, :, None]
+    t = _grouped(dx, n, groups)
+    m1 = t.mean(dim=(1, 3), keepdim=True)
+    m2 = (xhat * t).mean(dim=(1, 3), keepdim=True)
+    dxhat = rstd[:, None, :, None] * (t - m1 - xhat * m2)
+    ga = gamma.float().reshape(n, 1, groups, cg)
+    dz = ga * dxhat
+    if dgamma is not None:
+        dz = dz + dgamma.float().reshape(n, 1, groups, cg) * xhat
+    if dbeta is not None:
+        dz = dz + dbeta.float().reshape(n, 1, groups, cg)
+    if act == "silu":
+        z = xhat * ga + beta.float().reshape(n, 1, groups, cg)
+        s = torch.sigmoid(z)
+        dz = dz * s * (1 + z * (1 - s))
+    return dz.reshape(x.shape).to(x.dtype)
+
+
+class GroupNormFn(torch.autograd.Function):
+    """GroupNorm + affine + activation with a kernel on both sides, and a
+    forward-mode rule.
+
+    ``apply(x, gamma, beta, groups, eps, act)`` with gamma/beta ``[N, C]``
+    float32 returns ``(y, mean, rstd)``, the statistics ``[N, G]`` float32
+    and not differentiable. On CUDA the kernels, on the CPU the plain
+    versions (so the CPU tests run the same plumbing). Saves x, gamma, beta,
+    mean and rstd: for the backward when a gradient is needed, and for
+    :meth:`jvp`, which ``torch.func.jvp`` (MeanFlow's loss) calls after the
+    kernel's forward: the tangent is plain PyTorch
+    (:func:`group_norm_jvp_reference`) from what the forward saved.
     """
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, groups: int, eps: float, act: str):
+    def forward(x, gamma, beta, groups: int, eps: float, act: str):
         if x.is_cuda:
-            y, mean, rstd = group_norm_fwd_cuda(x, gamma, beta, groups, eps, act)
-        elif x.device.type == "cpu":
+            return group_norm_fwd_cuda(x, gamma, beta, groups, eps, act)
+        if x.device.type == "cpu":
             mean, rstd = _stats(x, groups, eps)
-            y = _affine(x, gamma, beta, mean, rstd, groups, act)
-        else:
-            raise ValueError(f"no group_norm kernel for device {x.device}")
-        if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(x, gamma, beta, mean, rstd)
-            ctx.groups, ctx.act = groups, act
-        return y
+            return _affine(x, gamma, beta, mean, rstd, groups, act), mean, rstd
+        raise ValueError(f"no group_norm kernel for device {x.device}")
 
     @staticmethod
-    def backward(ctx, dy):
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, groups, _, act = inputs
+        _, mean, rstd = output
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.groups, ctx.act = groups, act
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.save_for_forward(x, gamma, beta, mean, rstd)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _drstd):
         x, gamma, beta, mean, rstd = ctx.saved_tensors
         bwd = group_norm_bwd_cuda if x.is_cuda else group_norm_backward_reference
         dx, dgamma, dbeta = bwd(x, gamma, beta, mean, rstd, dy.contiguous(), ctx.groups, ctx.act)
         return dx, dgamma, dbeta, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dgamma, dbeta, *_):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        if dx is None:
+            dx = torch.zeros_like(x)
+        dy = group_norm_jvp_reference(x, gamma, beta, mean, rstd, dx, dgamma, dbeta,
+                                      ctx.groups, ctx.act)
+        return dy, None, None
 
 
 def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -529,4 +586,4 @@ def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     gamma, beta = (t.float().expand(n, c) for t in (gamma, beta))
     if impl == "plain":
         return group_norm_reference(x, gamma, beta, groups, eps, act)
-    return GroupNormFn.apply(x, gamma, beta, groups, eps, act)
+    return GroupNormFn.apply(x, gamma, beta, groups, eps, act)[0]

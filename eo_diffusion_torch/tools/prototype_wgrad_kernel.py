@@ -168,6 +168,7 @@ def site_shapes(size: int = 256, batch: int = 8, cfg=None) -> list:
     """``(name, B, H, W, C, Co)`` of every stride-1 3x3 conv of a UNet
     forward at ``size`` px (``cfg``'s UNet, by default ``sen12mscr256``'s),
     in forward order, from a forward on the meta device (shapes only)."""
+    from eo_diffusion_torch.models import time_template
     from eo_diffusion_torch.models.unet import UNet
 
     cfg = _site_config(size) if cfg is None else dataclasses.replace(cfg, image_size=size)
@@ -182,7 +183,9 @@ def site_shapes(size: int = 256, batch: int = 8, cfg=None) -> list:
     try:
         with torch.inference_mode():
             x = torch.zeros(batch, size, size, cfg.in_channels, device="meta", dtype=cfg.dtype)
-            model(x, torch.zeros(batch, dtype=torch.long, device="meta"))
+            y = (None if cfg.num_classes is None
+                 else torch.zeros(batch, dtype=torch.long, device="meta"))
+            model(x, time_template(cfg, batch, device="meta"), y=y)
     finally:
         for hk in hooks:
             hk.remove()

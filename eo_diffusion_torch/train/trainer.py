@@ -22,12 +22,16 @@ optimizer and the EMA update, in that order. What it keeps of the JAX trainer:
   step before it is incremented.
 
 The process is the DDPM chain (:class:`GaussianDiffusion`), rectified flow
-(:class:`FlowMatching`), EDM (:class:`EDMProcess`) or the Brownian bridge
-(:class:`BrownianBridge`, whose concat cond is also its endpoint), in pixels
-or wrapped in :class:`LatentDiffusion` (a frozen first stage encodes the
-batch, previews decode), the backbone a UNet or a DiT: the loss goes through
-the process's ``train_loss`` as in JAX's ``loss_fn``. A flow, EDM or bridge
-process previews with its own ``.sample`` (``preview_sampler="flow"``). The
+(:class:`FlowMatching`), EDM (:class:`EDMProcess`), the Brownian bridge
+(:class:`BrownianBridge`, whose concat cond is also its endpoint) or MeanFlow
+(:class:`MeanFlow`, on a dual-time backbone; its loss takes a
+``torch.func.jvp`` through the model), in pixels or wrapped in
+:class:`LatentDiffusion` (a frozen first stage encodes the batch, previews
+decode), the backbone a UNet or a DiT: the loss goes through the process's
+``train_loss`` as in JAX's ``loss_fn``. A flow, EDM, bridge or MeanFlow
+process previews with its own ``.sample`` (``preview_sampler="flow"``).
+CFG-integrated MeanFlow (``cfg_omega != 1``) owns its label dropout, so the
+trainer's own is off for it (JAX ``train/trainer.py:340-347``). The
 backbone is built from its config for the grid it sees (the latent grid for a
 latent process), so :meth:`init` encodes nothing. Checkpoints carry
 ``{"model", "model_ema", "opt_state", "step", ...}``
@@ -53,6 +57,7 @@ from eo_diffusion_torch.diffusion.edm import EDMProcess
 from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.latent import LatentDiffusion
+from eo_diffusion_torch.diffusion.meanflow import MeanFlow
 from eo_diffusion_torch.train.ema import adjusted_decay, ema_update_every, warmed_decay
 from eo_diffusion_torch.train.lr_schedules import set_lr, warmup_cos_exp
 
@@ -180,7 +185,7 @@ class Trainer:
 
     def __init__(self, cfg: TrainerConfig, model: nn.Module,
                  diffusion: Union[GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
-                                  LatentDiffusion],
+                                  MeanFlow, LatentDiffusion],
                  steps_per_epoch: int, device=None):
         for name, queue in _LATER.items():
             if getattr(cfg, name) != getattr(TrainerConfig, name):
@@ -192,15 +197,17 @@ class Trainer:
         if getattr(getattr(model, "config", None), "num_experts", 0):
             raise NotImplementedError("MoE backbones are not ported yet (ROADMAP queue 13)")
         inner = diffusion.diffusion if isinstance(diffusion, LatentDiffusion) else diffusion
-        if not isinstance(inner, (GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge)):
+        if not isinstance(inner, (GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
+                                  MeanFlow)):
             raise NotImplementedError(f"{type(inner).__name__} processes are not ported yet")
         if cfg.preview_sampler not in ("ddpm", "ddim", "dpm", "flow"):
             raise ValueError(f"unknown preview_sampler {cfg.preview_sampler!r}")
-        # a flow, EDM or bridge process samples with its own .sample (the
-        # "flow" preview), a latent one too; flow times and EDM sigmas are
-        # floats, the DDPM chain's and the bridge's steps integers
-        native = isinstance(inner, (FlowMatching, EDMProcess, BrownianBridge))
-        self.float_t = isinstance(inner, (FlowMatching, EDMProcess))
+        # a flow, EDM, bridge or MeanFlow process samples with its own
+        # .sample (the "flow" preview), a latent one too; flow times, EDM
+        # sigmas and MeanFlow's (t, r) pairs are floats, the DDPM chain's and
+        # the bridge's steps integers
+        native = isinstance(inner, (FlowMatching, EDMProcess, BrownianBridge, MeanFlow))
+        self.float_t = isinstance(inner, (FlowMatching, EDMProcess, MeanFlow))
         if native != (cfg.preview_sampler == "flow"):
             # the native samplers have no DDPM/DDIM chain, the DDPM process no .sample
             raise ValueError(f"preview_sampler {cfg.preview_sampler!r} does not sample a "
@@ -224,10 +231,12 @@ class Trainer:
         # steps like the reference (train.py:122)
         self.ema_every = cfg.model_ema_steps * self.grad_accum
         self.class_conditional = cfg.num_classes > 0
-        # the train step is the single owner of CFG label dropout; the
-        # probability lives in the model's config, which allocates the null row
-        self.class_dropout_prob = getattr(getattr(model, "config", None),
-                                          "class_dropout_prob", 0.0)
+        # the train step is the single owner of CFG label dropout (the
+        # probability lives in the model's config, which allocates the null
+        # row), except for CFG-integrated MeanFlow, whose loss owns it
+        self.class_dropout_prob = (
+            0.0 if getattr(inner, "cfg_omega", 1.0) != 1.0
+            else getattr(getattr(model, "config", None), "class_dropout_prob", 0.0))
         # RePaint-"sum" conditioning is sampling-time only (model.py:52)
         self.use_cond = cfg.cond_type == "concat"
         self._gen: Optional[torch.Generator] = None
@@ -258,8 +267,8 @@ class Trainer:
         """The training loss of one batch: a dict with "image" [N,H,W,C] and
         optionally "cond", "label", a fixed "noise" (the paired eps of a
         ReFlow batch too) and fixed timesteps "t" (integer steps of the DDPM
-        chain or the bridge, flow times in [0, 1] or EDM sigmas; numpy
-        arrays or tensors)."""
+        chain or the bridge, flow times in [0, 1], EDM sigmas or MeanFlow's
+        ``[N, 2]`` (t, r) pairs; numpy arrays or tensors)."""
         cfg = self.cfg
         cond = self._to_device(batch.get("cond")) if self.use_cond else None
         y = (self._to_device(batch.get("label"), torch.long)

@@ -12,10 +12,14 @@ the reference's torch state-dict names and layouts, so:
 * a flax param tree maps over with the transposes of
   ``params_to_state_dict`` (:func:`state_dict_from_jax_params`): conv HWIO ->
   OIHW, Dense ``[I, O]`` -> Linear ``[O, I]``, attention ``qkv``/``proj_out``
-  -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``;
+  -> Conv1d ``[O, I, 1]``, GroupNorm ``scale`` -> ``weight``; a dual-time
+  (MeanFlow) UNet's ``time_embed_r0`` / ``time_embed_r2``, which the
+  reference does not have, become ``time_embed_r.0`` / ``time_embed_r.2``,
+  beside ``time_embed.0`` / ``.2``;
 * a flax DiT tree maps by module name (:func:`dit_state_dict_from_jax_params`):
   ``block_{i}.qkv.kernel [I, O]`` -> ``block_{i}.qkv.weight [O, I]``, the
-  label table's ``embedding`` -> ``label_embed.weight``, and with
+  label table's ``embedding`` -> ``label_embed.weight``, a dual-time DiT's
+  ``r_embed_0`` / ``r_embed_1`` by the same names, and with
   ``context_dim`` each block's ``cross.to_q`` / ``cross.to_kv`` /
   ``cross.proj_out``;
 * a flax ``ConvAutoencoder`` tree maps by module name too
@@ -146,6 +150,9 @@ def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, to
     sd: Dict[str, np.ndarray] = {}
     _dense(sd, "time_embed.0", p["time_embed_0"])
     _dense(sd, "time_embed.2", p["time_embed_2"])
+    if cfg.dual_time:
+        _dense(sd, "time_embed_r.0", p["time_embed_r0"])
+        _dense(sd, "time_embed_r.2", p["time_embed_r2"])
     if cfg.num_classes is not None:
         sd["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"])
     for bi, block in enumerate(plan.input_blocks):
@@ -158,6 +165,8 @@ def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, to
             _layer(sd, spec.kind, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
     _gn(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"])
+    if _leaves(p) != len(sd):
+        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the UNet {len(sd)} parameters")
     return _as_tensors(sd)
 
 
@@ -197,7 +206,8 @@ def _dit_linears(cfg: DiTConfig):
     if cfg.context_dim:
         mods += ("cross.to_q", "cross.to_kv", "cross.proj_out")
     blocks = [f"block_{i}.{m}" for i in range(cfg.depth) for m in mods]
-    return ["patch_embed", "t_embed_0", "t_embed_1", *blocks, "final_mod", "final_proj"]
+    times = ["t_embed_0", "t_embed_1", *(("r_embed_0", "r_embed_1") if cfg.dual_time else ())]
+    return ["patch_embed", *times, *blocks, "final_mod", "final_proj"]
 
 
 def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str, torch.Tensor]:

@@ -72,8 +72,9 @@ def test_unported_presets_and_datasets_raise(tmp_path):
     from eo_diffusion_torch.cli import inference
     from eo_diffusion_torch.cli.presets import get_preset
 
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        get_preset("tiny-meanflow")
+    with pytest.raises(NotImplementedError, match="queue 13"):
+        get_preset("tiny-spade")
+    assert get_preset("tiny-meanflow").process == "meanflow"  # ported (queue 12)
     with pytest.raises(ValueError):
         get_preset("no-such-preset")
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
@@ -146,12 +147,17 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
     with pytest.raises(SystemExit, match="flow-process preset"):
         inference.main(inference.parse_args(["--preset", "tiny-dit", "--sampler", "flow",
                                              "--device", "cpu", "--outdir", str(tmp_path)]))
-    for argv, queue in ((["--sigma_data", "0.5"], 12), (["--sampler", "cm"], 12),
+    # the few-step flags and samplers (queue 12) parse and reach the run now
+    args = inference.parse_args(["--preset", "tiny", "--sigma_data", "0.5", "--sampler", "cm"])
+    assert (args.sigma_data, args.sampler, args.cd_points) == (0.5, "cm", 18)
+    for argv, queue in ((["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14),
                         (["--int8_compute"], 15)):
         with pytest.raises(SystemExit) as exc:
             inference.parse_args(["--preset", "tiny", *argv])
         assert exc.value.code == 2 and f"queue {queue}" in capsys.readouterr().err
-    for name, queue in (("tiny-meanflow", 12), ("tiny-dit-meanflow", 12), ("moe-dit64", 13)):
+    for name in ("tiny-meanflow", "tiny-dit-meanflow"):
+        assert get_preset(name).model_config().dual_time
+    for name, queue in (("tiny-spade", 13), ("tiny-sr", 14), ("moe-dit64", 13)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             get_preset(name)
 

@@ -127,10 +127,10 @@ def test_a_cpu_conv_keeps_plain_autograd():
         CW.conv3x3(torch.randn(1, 4, 4, 8), conv.weight, conv.bias, torch.float32, impl="fast")
 
 
-# the JAX Preset fields whose port waits on ROADMAP queue 1, items 12-14
-# (MeanFlow's CFG omega, the MoE DiT, the super-resolution stage): the one
-# gap allowed in the field-order check
-PRESET_FIELDS_LATER = ("mf_cfg_omega", "num_experts", "moe_top_k", "moe_every", "sr_factor")
+# the JAX Preset fields whose port waits on ROADMAP queue 1, items 13-14
+# (the MoE DiT, the super-resolution stage): the one gap allowed in the
+# field-order check
+PRESET_FIELDS_LATER = ("num_experts", "moe_top_k", "moe_every", "sr_factor")
 CONFIG_PAIRS = {
     "UNetConfig": ("eo_diffusion_tpu.models.unet", "eo_diffusion_torch.models.unet",
                    "UNetConfig", ()),
@@ -145,7 +145,7 @@ CONFIG_PAIRS = {
 def test_unet_config_fields_sit_where_jax_has_them(name):
     """Every field of the port's UNetConfig, TrainerConfig and Preset sits
     at the index the JAX package's has it, so a config passed by position
-    means the same in both; the JAX-only Preset fields of items 12-14 are
+    means the same in both; the JAX-only Preset fields of items 13-14 are
     left out of the JAX list, and nothing else may differ."""
     import importlib
 

@@ -1909,3 +1909,106 @@ def test_first_wide_pair_still_matches_plain(dev):
     long = torch.zeros(1, 1040, 1, 264, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="1024"):
         A.wide_attention_resident_cuda(long, long, long)
+
+
+@pytest.mark.parametrize("n,hw,c,act,dtype", [(8, 4096, 64, "silu", torch.bfloat16),
+                                              (8, 256, 192, "none", torch.bfloat16),
+                                              (4, 1024, 128, "silu", torch.float32)])
+def test_group_norm_fn_jvp_runs_the_kernel_and_matches_plain(dev, n, hw, c, act, dtype):
+    """GroupNormFn's forward-mode rule on the card: the kernel's forward (one
+    launch, no backward), the tangent from its statistics, tangents on x and
+    on the per-sample gamma and beta, against torch.func.jvp of the plain
+    GroupNorm: TOL_GN of max(1, |plain|), bf16 1e-2, f32 1e-4."""
+    from eo_diffusion_torch.ops import group_norm as G
+
+    g = torch.Generator(device="cuda").manual_seed(hw + c)
+    x, dx = (torch.randn(n, hw, c, generator=g, device="cuda").to(dtype) for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(n, c, generator=g, device="cuda")
+    beta, dg, db = (0.1 * torch.randn(n, c, generator=g, device="cuda") for _ in range(3))
+    before = (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches)
+    y, dy = torch.func.jvp(lambda x, ga, be: G.GroupNormFn.apply(x, ga, be, 32, 1e-5, act)[0],
+                           (x, gamma, beta), (dx, dg, db))
+    assert (G.group_norm_fwd_cuda.launches - before[0],
+            G.group_norm_bwd_cuda.launches - before[1]) == (1, 0)
+    yp, dyp = torch.func.jvp(lambda x, ga, be: G.group_norm_reference(x, ga, be, 32, 1e-5, act),
+                             (x, gamma, beta), (dx, dg, db))
+    tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}[dtype]
+    for got, want in ((y, yp), (dy, dyp)):
+        err = ((got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)).max()
+        assert float(err) <= tol
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(8, 64, 64, 64, 64), (4, 16, 16, 192, 128)])
+def test_conv3x3_fn_jvp_matches_plain(dev, b, h, w, c, co):
+    """Conv3x3Fn's forward-mode rule on the card in bf16, with and without
+    parameter tangents, against torch.func.jvp of the plain conv: 1e-3 of
+    max|plain|; and inside a gradient-taking forward the route takes it."""
+    from eo_diffusion_torch.ops import conv_wgrad as CW
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(c)
+    x, dx = (torch.randn(b, h, w, c, generator=g, device="cuda").to(bf16) for _ in range(2))
+    wt, dw = (torch.randn(co, c, 3, 3, generator=g, device="cuda") / (3 * c ** 0.5)
+              for _ in range(2))
+    bias, dbias = (0.1 * torch.randn(co, generator=g, device="cuda") for _ in range(2))
+    plain = lambda x, w, bb: torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), w.to(bf16), bb.to(bf16), 1, 1).permute(0, 2, 3, 1)
+    for args, tans, fn in (((x,), (dx,), lambda x: CW.Conv3x3Fn.apply(x, wt, bias, bf16, False)),
+                           ((x, wt, bias), (dx, dw, dbias),
+                            lambda x, w, bb: CW.Conv3x3Fn.apply(x, w, bb, bf16))):
+        _, dy = torch.func.jvp(fn, args, tans)
+        _, dyp = torch.func.jvp(plain if len(args) == 3 else (lambda x: plain(x, wt, bias)),
+                                args, tans)
+        err = (dy.float() - dyp.float()).abs().max() / dyp.float().abs().max()
+        assert float(err) <= 1e-3
+    # inside a gradient-taking forward the route takes the Function: its
+    # backward launches the weight-gradient kernel
+    wp = wt.clone().requires_grad_()
+    y, _ = torch.func.jvp(lambda x: CW.conv3x3(x, wp, bias, bf16), (x,), (dx,))
+    before = CW.conv_wgrad_sm90_cuda.launches
+    y.float().sum().backward()
+    assert CW.conv_wgrad_sm90_cuda.launches == before + 1 and wp.grad is not None
+
+
+@pytest.mark.parametrize("preset", ["tiny-meanflow", "tiny-cmeanflow"])
+def test_meanflow_step_through_the_kernels_matches_plain(dev, preset):
+    """One MeanFlow loss and backward (a torch.func.jvp through the UNet) on
+    the card through the GroupNorm kernels (forward through the forward-mode
+    rule, backward) and the routed weight gradients, against the all-plain
+    model on the same draws: the loss within 3e-2, the gradients within
+    1e-2 rel L2; no attention kernel launches (the preset pins it plain)."""
+    from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
+    from eo_diffusion_torch.ops import group_norm as G
+
+    p = get_preset(preset)
+    cfg = dataclasses.replace(p.model_config(
+        class_dropout_prob=0.1 if p.mf_cfg_omega != 1.0 else 0.0), image_size=16)
+    mf = dataclasses.replace(build_process(p, p.timesteps, 16), image_size=16)
+    model = randomize_parameters(build_denoiser(cfg), seed=2).cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x0 = torch.randn(8, 16, 16, 3, generator=g, device="cuda").clamp(-1, 1)
+    noise = torch.randn(8, 16, 16, 3, generator=g, device="cuda")
+    t, r = mf._sample_tr(8, g, "cuda")
+    y = torch.randint(0, 5, (8,), generator=g, device="cuda") if p.num_classes else None
+    dropped = torch.arange(8, device="cuda") % 2 == 0
+    fn = lambda xx, tt, c, yy: model(xx, tt, cond=c, y=yy)
+    res = {}
+    for impl in ("auto", "plain"):
+        model.set_impl(norm=impl, conv=impl)
+        model.zero_grad(set_to_none=True)
+        before = (G.group_norm_fwd_cuda.launches, G.group_norm_bwd_cuda.launches,
+                  A.qkv_attention_cuda.launches)
+        loss = mf.train_loss(fn, x0, y=y, noise=noise, t=torch.stack([t, r], -1),
+                             dropped=dropped)
+        loss.backward()
+        res[impl] = (loss.item(), [p.grad.float().clone() for p in model.parameters()],
+                     (G.group_norm_fwd_cuda.launches - before[0],
+                      G.group_norm_bwd_cuda.launches - before[1],
+                      A.qkv_attention_cuda.launches - before[2]))
+    _, norms = TU.build_unet_plan(cfg).sites()
+    assert res["auto"][2] == (norms * (2 if p.num_classes else 1), norms, 0)
+    assert res["plain"][2] == (0, 0, 0)
+    assert abs(res["auto"][0] - res["plain"][0]) <= 3e-2 * abs(res["plain"][0])
+    num = sum(float((a - b).pow(2).sum()) for a, b in zip(res["auto"][1], res["plain"][1]))
+    den = sum(float(b.pow(2).sum()) for b in res["plain"][1])
+    assert (num / den) ** 0.5 <= 1e-2

@@ -115,7 +115,16 @@ def test_randomize_leaves_no_zero_layer():
 @pytest.mark.parametrize("option,queue", [("num_experts", 13), ("tome_ratio", 13),
                                           ("dual_time", 12)])
 def test_unported_options_raise(option, queue):
+    """MoE and ToMe raise naming queue 13; dual_time (queue 12) is ported: the
+    DiT builds r's embedding MLP and takes (t, r) packed [N, 2]."""
     value = {"num_experts": 2, "tome_ratio": 0.5, "dual_time": True}[option]
+    if queue == 12:
+        model = TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+        assert {"r_embed_0.weight", "r_embed_1.weight"} <= set(model.state_dict())
+        c = model.condition(torch.tensor([[500.0, 100.0], [20.0, 20.0]]),
+                            torch.tensor([0, 1]))
+        assert c.shape == (2, KW["hidden_size"]) and bool(torch.isfinite(c).all())
+        return
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         TD.DiT(TD.DiTConfig(**KW, **{option: value}))
 

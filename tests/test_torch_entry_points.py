@@ -159,7 +159,8 @@ def test_converted_latent_bridge_samples_in_the_port(workdir):
 
 def test_the_edm_and_bridge_presets_are_ported():
     """None of the six is refused any more, each builds its process, and
-    what the port still refuses are the presets of ROADMAP items 12-14."""
+    what the port still refuses are the presets of ROADMAP items 13-14 (item
+    12's MeanFlow presets are ported and match the JAX package's too)."""
     from eo_diffusion_torch.diffusion.bridge import BrownianBridge
     from eo_diffusion_torch.diffusion.edm import EDMProcess
     from eo_diffusion_tpu.cli import presets as JP
@@ -170,7 +171,11 @@ def test_the_edm_and_bridge_presets_are_ported():
         assert isinstance(proc, EDMProcess if pre.process == "edm" else BrownianBridge), name
         assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
                                                 for k in TP.Preset.__dataclass_fields__})
-    assert set(TP._LATER.values()) == {12, 13, 14}
+    for name in ("meanflow64", "tiny-meanflow", "cmeanflow64", "tiny-cmeanflow",
+                 "tiny-dit-meanflow"):
+        assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
+                                                for k in TP.Preset.__dataclass_fields__})
+    assert set(TP._LATER.values()) == {13, 14}
     assert set(TP._LATER) | set(TP.PRESETS) == set(JP.PRESETS)
     with pytest.raises(AssertionError, match="concat"):
         TP.build_process(TP.get_preset("tiny-bridge"), 50, 8, cond_type=None)

@@ -167,6 +167,14 @@ def test_the_jax_compatibility_checks_hold(tmp_path, argv, match):
                                        (["--cd_points", "9"], 12), (["--sampler", "pd"], 12),
                                        (["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14)])
 def test_waiting_flags_exit_naming_their_item(capsys, argv, item):
+    """Flags of later items exit naming theirs; item 12's (the distilled
+    samplers' --sigma_data, --cd_points and --sampler pd) are ported and
+    parse into the run's arguments."""
+    if item == 12:
+        args = inference.parse_args(["--preset", "tiny", *argv])
+        flag, value = argv[0].lstrip("-"), argv[1]
+        assert str(getattr(args, flag)) in (value, f"{value}.0")
+        return
     with pytest.raises(SystemExit) as exc:
         inference.parse_args(["--preset", "tiny", *argv])
     assert exc.value.code == 2 and f"ROADMAP queue {item}" in capsys.readouterr().err

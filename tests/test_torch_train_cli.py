@@ -109,8 +109,8 @@ def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
 def test_unported_presets_and_datasets_raise(workdir):
     from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        train.main(train.parse_args(["--preset", "tiny-meanflow", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="queue 13"):
+        train.main(train.parse_args(["--preset", "tiny-spade", "--device", "cpu"]))
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
     # tree (--data_root) trains; an unknown name fails as in JAX
     rng = np.random.default_rng(0)
@@ -134,8 +134,10 @@ def test_dit_and_flow_training_raises_until_ported(workdir, preset):
     """The DiT and flow presets train now (the tests below), and so does each
     one's latent counterpart (tests/test_torch_latent_cli.py): the same
     backbone and a flow, both on the latent grid behind a first stage. The
-    latent bridge trains too (tests/test_torch_entry_points.py); what still
-    raises is MeanFlow, naming ROADMAP queue 12."""
+    latent bridge trains too (tests/test_torch_entry_points.py), and so does
+    MeanFlow (tests/test_torch_distill_cli.py): its preset builds the
+    dual-time backbone with plain attention and the MeanFlow process; what
+    still raises is SPADE, naming ROADMAP queue 13."""
     from eo_diffusion_torch.cli.presets import build_process, get_preset
 
     latent = get_preset({"tiny-dit": "tiny-latent-dit", "tiny-flow": "tiny-latent-flow",
@@ -147,8 +149,14 @@ def test_dit_and_flow_training_raises_until_ported(workdir, preset):
     assert type(cfg) is type(pixel.model_config()) and latent.process == "flow"
     proc = build_process(latent, latent.timesteps, latent.image_size)
     assert (proc.image_size, proc.image_size, proc.in_channels) == grid
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        train.main(train.parse_args(["--preset", "tiny-meanflow", "--device", "cpu"]))
+    from eo_diffusion_torch.diffusion.meanflow import MeanFlow
+
+    mf = get_preset("tiny-meanflow")
+    mcfg = mf.model_config()
+    assert mcfg.dual_time and mcfg.attn_impl == "plain"
+    assert isinstance(build_process(mf, mf.timesteps, mf.image_size), MeanFlow)
+    with pytest.raises(NotImplementedError, match="queue 13"):
+        train.main(train.parse_args(["--preset", "tiny-spade", "--device", "cpu"]))
 
 
 DIT_FLOW = ["--dataset", "synthetic", "--device", "cpu", "--batch_size", "4",

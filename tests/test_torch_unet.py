@@ -82,6 +82,13 @@ def test_attention_block_count_of_clouds_unet():
 
 
 def test_unported_options_raise():
-    for kw in (dict(context_dim=8), dict(dual_time=True), dict(freeu=(1, 1, 1, 1))):
+    """context_dim and FreeU raise; dual_time is ported: r's embedding MLP
+    (``time_embed_r``) and timesteps packed [N, 2]."""
+    for kw in (dict(context_dim=8), dict(freeu=(1, 1, 1, 1))):
         with pytest.raises(NotImplementedError):
             TU.UNet(TU.UNetConfig(**BASE, **kw))
+    model = TU.UNet(TU.UNetConfig(**BASE, dual_time=True))
+    assert {"time_embed_r.0.weight", "time_embed_r.2.weight"} <= set(model.state_dict())
+    with torch.no_grad():
+        out = model(torch.zeros(2, 8, 8, 3), torch.tensor([[500.0, 100.0], [20.0, 20.0]]))
+    assert out.shape == (2, 8, 8, 3)
