@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only wide   # phases 1, 2, phase 3's wide rows, 5i
     python3 chip_smoke.py --only f32    # phases 1, 2, 5j (its kernel rows and runs)
     python3 chip_smoke.py --only few    # phases 1, 2, 5k (its kernel rows and runs)
+    python3 chip_smoke.py --only backbones  # phases 1, 2, 5l (its kernel rows and runs)
 
 Phases, in order; the first failure exits non-zero:
 
@@ -95,11 +96,12 @@ Phases, in order; the first failure exits non-zero:
    edm64`` and ``--preset bridge64`` (base 64, mults 1/2/3/4, attention at
    ds 4 and 8, 4 heads) for EDM_BRIDGE_STEPS steps at batch 64, the K1, K4,
    K5 and weight-gradient launches as ``unet_train_expected`` gives them;
-   ``cli.inference`` from each checkpoint, EDM Heun-18 (35 model calls) and
-   the bridge's 50 strided steps at ``--eta 0``, two batches of 8, img/s
-   over the second; from seeded weights and one start, EDM Heun-18, the
-   bridge's 50 steps and ``tiled_bridge_sample`` of a 128 x 256 scene (21
-   tiles of 64) through the kernels against the all-plain model
+   ``cli.inference`` from each checkpoint, EDM Heun-EDM_HEUN_STEPS
+   (EDM_HEUN_CALLS model calls) and the bridge's BRIDGE_STEPS strided steps
+   at ``--eta 0``, two batches of 8, img/s over the second; from seeded
+   weights and one start, the same EDM and bridge runs and
+   ``tiled_bridge_sample`` of a 128 x 256 scene (21 tiles of 64,
+   TILED_BRIDGE_STEPS steps) through the kernels against the all-plain model
    (TOL_SOLVER_REL, the final samples' relative L2); the change-pair and
    inpainting demos of ``examples/torch`` at ``unet_clouds(64)``, DDIM-5 on
    the card, their files written; 5h. classifier guidance and DDNM
@@ -109,7 +111,7 @@ Phases, in order; the first failure exits non-zero:
    --class_correlated`` at the preset's batch (128), 6 steps (2 K1, 2 K4, 15
    K5 each way a step); the classifier's input gradient at b8 inside
    ``torch.inference_mode()`` against the all-plain classifier (rel L2 <=
-   TOL_UNET_GRAD_REL); guided DDIM-50 at b8 through ``cli.inference
+   TOL_UNET_GRAD_REL); guided DDIM-GUIDED_STEPS at b8 through ``cli.inference
    --classifier_ckpt --classifier_scale`` beside the unguided run (img/s of
    the second batch; a guided step 7 + 2 K1, 2 K4, 36 + 15 K5 forward, 15
    backward), and the guided sampler against the all-plain denoiser and
@@ -117,7 +119,7 @@ Phases, in order; the first failure exits non-zero:
    64 px UNet, so the same carried error, and a float32 gradient that parts
    from plain's by about 1e-7); ``cli.restore`` sr4, inpaint and colorize on
    ``synthetic64`` and inpaint on ``inria64`` (whose one attention, T 64 D
-   1024, launches the wide kernel), DDNM-50 at b8, each with
+   1024, launches the wide kernel), DDNM-RESTORE_STEPS at b8, each with
    ``||A(x) - y|| / ||y|| <= TOL_DDNM_RANGE`` and against the all-plain model
    from one start and the same draws (TOL_SOLVER_REL); 5i. inria64 and
    eurosat64 at ``--image_size 512``, where their middle attention (one head
@@ -166,7 +168,31 @@ Phases, in order; the first failure exits non-zero:
    weight gradients, no attention launch) and ``cli.inference`` at 1 and 2
    steps, MeanFlow-1's samples against all-plain. Every run's launches are
    asserted; steps/s, img/s and the card's name and power limit printed
-   (single readings);
+   (single readings); 5l. the other backbones at full width, seeded
+   weights, cut in steps and batches only: K1 at ToMe's T 640 (B8 and, with
+   the lse, B16 H12 D64), at ``moe-dit64``'s B64 T256 H6 D64 with the lse and
+   B8, at ``spade64``'s B64 T64 H4 D64 (legacy order) with the lse; K4 at the
+   three training steps; K5 in float32 at SPADE's statistics (``spade64``'s
+   level shapes at N64); 2a at a SPADE modulation conv, each against its
+   plain version; ``cli.train --preset spade64`` (the synthetic segmaps as
+   ``--cond_type spade``) BB_STEPS steps at b64 and ``cli.inference``
+   DDIM-50 b8 from its checkpoint; a ``spade64`` loss's gradients at b64 and
+   DDIM-BB_PLAIN_STEPS from one x_T against all-plain; ``cli.train --preset
+   moe-dit64`` at b64 (the load-balance loss in it) and DDIM-50 b8; the MoE
+   layer against its dense one-hot plain version (TOL_MOE, both timed), the
+   share of routings that the kernels move, and the model with the plain
+   run's routing injected against all-plain; ``dit256`` Heun-8 b8 with and
+   without ``--tome_ratio 0.375 --tome_mlp`` (bench.py's rider), the merged
+   model against all-plain, and ``cli.train`` with ToMe at b16;
+   ``sen12mscr256`` DDIM-50 b8 plain, with ``--freeu 1.2,1.3,0.9,0.4`` and
+   with ``--controlnet`` on an adapter written by ``save_controlnet`` (its
+   encoder copied from the seeded base by ``init_from_base``, its zero heads
+   seeded away from zero), each held against all-plain from one x_T; the
+   UNet with ``context_dim`` through ``ConditioningWrapper`` ("crossattn",
+   "hybrid") at 64 px, ``ConvNextUNet`` at its defaults at 64 px and
+   ``TinyUNet`` at 28 px, a forward and a loss's gradients each at b8
+   against all-plain. Every run's launches are asserted against a forward on
+   the meta device (``backbone_expected``);
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -516,8 +542,8 @@ CFG_GN_SITES = ((65536, 128, "silu"), (16384, 256, "silu"), (4096, 384, "none"),
 # last step Euler), the bridge's 50 strided posterior steps at eta 0
 EDM_BRIDGE_BATCH = 64
 EDM_BRIDGE_STEPS = 4
-EDM_HEUN_STEPS, EDM_HEUN_CALLS = 18, 35
-BRIDGE_STEPS = 50
+EDM_HEUN_STEPS, EDM_HEUN_CALLS = 10, 19
+BRIDGE_STEPS = 25
 # kernels against the all-plain model from the same weights and start: the
 # relative L2 of the final samples (phase 5f's original solver limit, one
 # forward's limit TOL_UNET_REL carried to the end of a trajectory)
@@ -525,7 +551,7 @@ TOL_SOLVER_REL = 3e-2
 # tiled_bridge_sample: one 128 x 256 scene in 3 x 7 tiles of 64 at overlap
 # 0.5, one model call a step over the 21 tiles
 TILED_BRIDGE_SCENE = (128, 256)
-TILED_BRIDGE_STEPS = 20
+TILED_BRIDGE_STEPS = 10
 # the 64 px UNet's GroupNorm level shapes (the attention norm at level 2
 # without SiLU), phase 5g's rows at N8 (sampling) and N64 (training)
 EDM64_GN_SITES = ((4096, 64, "silu"), (1024, 128, "silu"), (256, 192, "none"), (64, 256, "silu"))
@@ -544,8 +570,8 @@ CLF_TRAIN_STEPS = 6  # at the preset's own batch (128)
 CLF_EVAL_N = 256  # cli.train_classifier's default held-out set, one forward a level
 CLF_ATTN, CLF_NORMS = 2, 15
 CLF_SCALE = 2.0
-GUIDED_STEPS = 50  # DDIM-50 at b8, eta 0, two batches, img/s over the second
-RESTORE_STEPS = 50  # DDNM's DDIM steps at b8, eta 0.85
+GUIDED_STEPS = 20  # DDIM-20 at b8, eta 0, two batches, img/s over the second
+RESTORE_STEPS = 20  # DDNM's DDIM steps at b8, eta 0.85
 # DDNM's final projection makes A(x) = y up to float32 rounding
 TOL_DDNM_RANGE = 1e-5
 # phase 5j: --no_bf16 at 256 px (sen12mscr256, b8, float32 end to end): DDIM
@@ -553,7 +579,7 @@ TOL_DDNM_RANGE = 1e-5
 # steps, and the batch of the gradient check against the all-plain float32
 # model (its backward holds five blocks' [B, 8, 4096, 4096] float32
 # softmaxes)
-F32_STEPS = 10
+F32_STEPS = 5
 F32_TRAIN_STEPS = 4
 F32_GRAD_BATCH = 2
 # phase 5k: the few-step families. Consistency and progressive distillation
@@ -572,6 +598,23 @@ FEW_SAMPLE_BATCH = 8
 # Conv3x3Fn's forward-mode tangent against the plain conv's: the same cuDNN
 # bf16 conv of the tangent on both sides, so the bound is the wgrad's
 TOL_JVP_CONV = 1e-3
+# phase 5l: the other backbones (ROADMAP queue 1, item 13) at full width:
+# spade64 and moe-dit64 train BB_STEPS steps at their presets' batch, then
+# sample DDIM-BB_SAMPLE_STEPS at b8 (two batches, img/s over the second);
+# the trajectories held against all-plain run BB_PLAIN_STEPS DDIM steps from
+# one x_T; ToMe merges 0.375 of dit256's tokens (bench.py's rider, T 1024 ->
+# 640) and trains at TOME_TRAIN_BATCH; FreeU takes the JAX CLI's example
+BB_BATCH = 64
+BB_STEPS = 4
+BB_SAMPLE_STEPS = 50
+BB_PLAIN_STEPS = 10
+TOME = ["--tome_ratio", "0.375", "--tome_mlp"]
+TOME_TRAIN_BATCH = 16
+FREEU = "1.2,1.3,0.9,0.4"
+TOL_MOE = 1e-2  # the MoE layer against its dense-dispatch plain version, rel L2
+# K5 in float32 at SPADE's parameter-free statistics: spade64's level
+# shapes (HW, C) at its b64
+SPADE_GN_SITES = ((4096, 64), (1024, 128), (256, 192), (64, 256))
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -3912,6 +3955,574 @@ def few_only(card):
     return 0
 
 
+def set_all(models, impl):
+    """Put every kernel site of ``models`` (attention blocks, GroupNorm and
+    SPADE norms, the routed convs) on its kernel (``"auto"``) or its plain
+    version (``"plain"``), whatever the backbone."""
+    for model in models:
+        for m in model.modules():
+            if hasattr(m, "impl"):
+                m.impl = impl
+            if hasattr(m, "attn_impl"):
+                m.attn_impl = impl
+
+
+def backbone_expected(build, call, forwards=0, backwards=0):
+    """The launch counts of ``forwards`` forwards and ``backwards``
+    backwards of the backbone ``build()`` returns, read from one forward on
+    the meta device (``call(model)``): one K1 (and K4) an attention-block
+    call, whose T and D must be in the fused-qkv kernel's range; one K5 each
+    way a GroupNorm32 or SPADE norm call; and in a backward the
+    weight-gradient kernel of each stride-1 3x3 conv that ``wgrad_route``
+    gives one."""
+    from eo_diffusion_torch.models.unet import AttentionBlock
+    from eo_diffusion_torch.models.unet_spade import SPADEGroupNorm
+    from eo_diffusion_torch.nn.primitives import Conv, GroupNorm32
+
+    with torch.device("meta"):
+        model = build()
+    set_all([model], "plain")
+    seen = {"attn": 0, "norm": 0, "sm90": 0, "mma": 0, "cudnn": 0}
+
+    def on_attn(mod, args, out):
+        b, h, w, c = args[0].shape
+        assert A._qkv_kernel_takes(h * w, c // mod.num_heads), (h * w, c, mod.num_heads)
+        seen["attn"] += 1
+
+    def on_norm(mod, args, out):
+        seen["norm"] += 1
+
+    def on_conv(mod, args, out):
+        seen[CW.wgrad_route(*args[0].shape, out.shape[-1], mod.compute_dtype)] += 1
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, AttentionBlock):
+            hooks.append(m.register_forward_hook(on_attn))
+        elif isinstance(m, (GroupNorm32, SPADEGroupNorm)):
+            hooks.append(m.register_forward_hook(on_norm))
+        elif isinstance(m, Conv) and m.kernel_size == (3, 3) and m.stride == (1, 1):
+            hooks.append(m.register_forward_hook(on_conv))
+    try:
+        with torch.inference_mode():
+            call(model)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return {**{k: 0 for k in counts()},
+            "attn_fwd": seen["attn"] * forwards, "attn_bwd": seen["attn"] * backwards,
+            "gn_fwd": seen["norm"] * forwards, "gn_bwd": seen["norm"] * backwards,
+            "wgrad_sm90": seen["sm90"] * backwards, "wgrad": seen["mma"] * backwards}
+
+
+def bb_grad_check(models, fwd, target, label, expect):
+    """One forward of ``fwd()`` and the backward of its mean square error
+    against ``target``, through the kernels and then all-plain (the same
+    weights and inputs): the outputs within TOL_UNET_REL and the first
+    model's parameter gradients within TOL_UNET_GRAD_REL (relative L2); the
+    kernel run's launches ``expect``, the plain run's none."""
+    res = {}
+    for impl in ("auto", "plain"):
+        set_all(models, impl)
+        models[0].zero_grad(set_to_none=True)
+        reset_counts()
+        out = fwd()
+        (out.float() - target).pow(2).mean().backward()
+        torch.cuda.synchronize()
+        res[impl] = (out.detach().float(), {n: p.grad.detach().float().clone()
+                                            for n, p in models[0].named_parameters()
+                                            if p.grad is not None}, counts())
+    set_all(models, "auto")
+    models[0].zero_grad(set_to_none=True)
+    out_rel = rel_l2(res["auto"][0], res["plain"][0])
+    grad_rel = grads_rel_l2(res["auto"][1], res["plain"][1])
+    launched = res["auto"][2]
+    print(f"5l {label}: output rel L2 {out_rel:.3e} (limit {TOL_UNET_REL}), gradients rel L2 "
+          f"{grad_rel:.3e} over {len(res['auto'][1])} parameters (limit {TOL_UNET_GRAD_REL}); "
+          f"launches {({k: v for k, v in launched.items() if v})}", flush=True)
+    assert bool(torch.isfinite(res["auto"][0]).all()), label
+    assert out_rel <= TOL_UNET_REL and grad_rel <= TOL_UNET_GRAD_REL, (label, out_rel, grad_rel)
+    assert launched == expect, (label, launched, expect)
+    assert not any(res["plain"][2].values()), (label, res["plain"][2])
+    return {"output_rel_l2": out_rel, "grad_rel_l2": grad_rel, "launches": launched}
+
+
+def bb_trajectory_check(models, run, label, expect, card):
+    """``run()`` (a sampler from fixed weights and one start) through the
+    kernels, then all-plain: the final samples within TOL_SOLVER_REL
+    (relative L2), the kernel run's launches ``expect``, the plain run's
+    none."""
+    with torch.inference_mode():
+        set_all(models, "auto")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_k = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        set_all(models, "plain")
+        reset_counts()
+        x_p = run()
+        plain_launched = counts()
+        set_all(models, "auto")
+    rel = rel_l2(x_k, x_p)
+    print(f"5l {label} kernels vs all-plain: final samples rel L2 {rel:.3e} (limit "
+          f"{TOL_SOLVER_REL}); {seconds:.4f} s through the kernels; launches "
+          f"{({k: v for k, v in launched.items() if v})}; {card}", flush=True)
+    assert bool(torch.isfinite(x_k).all()) and rel <= TOL_SOLVER_REL, (label, rel)
+    assert launched == expect, (label, launched, expect)
+    assert not any(plain_launched.values()), (label, plain_launched)
+    return {"rel_l2": rel, "seconds": seconds, "launches": launched}
+
+
+def bb_sample(argv, cfg, tmp, label, expect_per_batch, card, ckpt=None, seed=24):
+    """``cli.inference`` (two batches of 8) from ``ckpt`` or seeded weights:
+    the launches must be ``expect_per_batch`` a batch; img/s over the second
+    batch."""
+    res = run_cli(argv + ["--dataset", "synthetic", "--batch_size", "8", "--n_iter", "1",
+                          "--device", "cuda"], cfg, seed=seed, tmp=tmp, ckpt=ckpt)
+    want = {k: v * res["batches"] for k, v in expect_per_batch.items()}
+    assert res["launches"] == want, (label, res["launches"], want)
+    img_s = 8 / res["batch_seconds"][1]
+    print(f"5l cli.inference {label} b8: batch seconds "
+          f"{[round(v, 4) for v in res['batch_seconds']]}, {img_s:.4f} img/s (second batch, a "
+          f"single reading); launches {({k: v for k, v in res['launches'].items() if v})}; "
+          f"peak memory {res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
+    return {"img_s": img_s, "batch_seconds": res["batch_seconds"], "launches": res["launches"]}
+
+
+def bb_train(argv, tmp, label, expect, card):
+    """``cli.train`` in process with the counters reset: finite losses, the
+    launches ``expect``; steps/s of the step alone after the first two."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.chdir(tmp):
+        tr = cli_train.main(cli_train.parse_args(argv))
+    got = counts()
+    assert all(math.isfinite(v) for v in tr["losses"]), (label, tr["losses"])
+    assert got == expect, (label, got, expect)
+    sps = steady_sps(tr)
+    per_step = {k: v / tr["steps"] for k, v in got.items() if v}
+    print(f"5l cli.train {label}: {tr['steps']} steps, loss {tr['losses'][0]:.5f} -> "
+          f"{tr['losses'][-1]:.5f}; {sps:.4f} steps/s over the last {tr['steps'] - 2} (a single "
+          f"reading); launches a step {per_step}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+    return {"steps_per_s": sps, "losses": tr["losses"], "launches": got,
+            "checkpoint": tr["checkpoint"]}
+
+
+def moe_dense_reference(m, x):
+    """The JAX package's dense dispatch (``models/moe.py:71-121``) in plain
+    PyTorch: ``torch.topk`` routing, the one-hot ``[S, E, C]`` dispatch and
+    combine tensors and the three einsums, in ``m``'s compute dtype."""
+    b, t, d = x.shape
+    n_exp, k, cdt = m.num_experts, m.top_k, m.compute_dtype
+    s = b * t
+    cap = m.capacity(s)
+    xf = x.reshape(s, d)
+    probs = torch.softmax(m.router(xf.float()), dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    dispatch = torch.zeros(s, n_exp, cap, device=x.device)
+    combine = torch.zeros_like(dispatch)
+    prev = torch.zeros(n_exp, device=x.device)
+    for j in range(k):
+        mask = F.one_hot(idx[:, j], n_exp).float()
+        pos = torch.cumsum(mask, 0) - 1.0 + prev[None]
+        keep = mask * (pos < cap)
+        prev = prev + keep.sum(0)
+        slot = (pos * keep).sum(-1)
+        d_j = keep[:, :, None] * F.one_hot(slot.long(), cap).float()[:, None, :]
+        dispatch += d_j
+        combine += gate[:, j, None, None] * d_j
+        del mask, pos, keep, d_j
+    xe = torch.einsum("sec,sd->ecd", dispatch.to(cdt), xf.to(cdt))
+    h = torch.einsum("ecd,edh->ech", xe, m.w_in.to(cdt)) + m.b_in[:, None, :].to(cdt)
+    oe = (torch.einsum("ech,ehd->ecd", F.gelu(h, approximate="tanh"), m.w_out.to(cdt))
+          + m.b_out[:, None, :].to(cdt))
+    return torch.einsum("sec,ecd->sd", combine.to(cdt), oe).reshape(b, t, d).to(x.dtype)
+
+
+def moe_checks(cfg, gen, card):
+    """The MoE DiT at the training batch, seeded weights: the first MoE layer
+    against its dense-dispatch plain version on the same input (both timed);
+    the share of tokens whose top-k set or slot differs between the kernel
+    model and the all-plain one; and the kernel model with the all-plain
+    run's routing injected against it, forward (TOL_UNET_REL) and a loss's
+    gradients (TOL_UNET_GRAD_REL)."""
+    from eo_diffusion_torch.models.moe import MoEMLP, assign_slots, clear_moe_aux
+
+    model = randomize_parameters(DiT(cfg), seed=25).cuda().train()
+    moes = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    x = torch.randn(BB_BATCH, 64, 64, 3, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (BB_BATCH,), generator=gen, device="cuda")
+    target = torch.randn(BB_BATCH, 64, 64, 3, generator=gen, device="cuda")
+    out = {}
+    seen = {}
+    hook = moes[0].register_forward_hook(lambda m, a, o: seen.setdefault("h", a[0].detach()))
+    with torch.no_grad():
+        model(x, t)
+    hook.remove()
+    h = seen["h"]
+    with torch.no_grad():
+        y = moes[0](h)
+        y_ref = moe_dense_reference(moes[0], h)
+    layer_rel = rel_l2(y, y_ref)
+    gather_ms = cuda_ms(lambda: moes[0](h), 20)
+    dense_ms = cuda_ms(lambda: moe_dense_reference(moes[0], h), 3, warmup=1)
+    print(f"5l MoEMLP (block 1, {tuple(h.shape)} bf16, E {moes[0].num_experts} top-"
+          f"{moes[0].top_k} capacity {moes[0].capacity(h.shape[0] * h.shape[1])}) vs its dense "
+          f"one-hot plain version: rel L2 {layer_rel:.3e} (limit {TOL_MOE}); gather form "
+          f"{gather_ms:.4f} ms, dense dispatch {dense_ms:.4f} ms; {card}", flush=True)
+    assert layer_rel <= TOL_MOE, layer_rel
+    torch.cuda.empty_cache()
+    out["layer"] = {"rel_l2": layer_rel, "gather_ms": gather_ms, "dense_ms": dense_ms}
+
+    def loss_run(impl, inject=None):
+        set_all([model], impl)
+        for m, e in zip(moes, inject or [None] * len(moes)):
+            m.record_experts, m.inject_experts = True, e
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        pred = model(x, t)
+        (pred.float() - target).pow(2).mean().backward()
+        torch.cuda.synchronize()
+        launched = counts()
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        experts = [m.last_experts for m in moes]
+        for m in moes:
+            m.record_experts, m.inject_experts, m.last_experts = False, None, None
+        clear_moe_aux(model)
+        return pred.detach().float(), grads, experts, launched
+
+    plain = loss_run("plain")
+    free = loss_run("auto")
+    injected = loss_run("auto", inject=plain[2])
+    set_all([model], "auto")
+    cap = moes[0].capacity(x.shape[0] * cfg.tokens)
+    # per (token, layer): another top-k set; the same set but another kept /
+    # dropped status of a slot; the same set and status but another queue
+    # position (a token routed elsewhere shifts every later one in its queue)
+    moved = dropped = shifted = tokens = 0
+    for ek, ep in zip(free[2], plain[2]):
+        (sk, kk), (sp, kp) = (assign_slots(e, cfg.num_experts, cap) for e in (ek, ep))
+        ok_, op_ = ek.argsort(-1), ep.argsort(-1)
+        other_set = (ek.gather(1, ok_) != ep.gather(1, op_)).any(-1)
+        other_keep = ~other_set & (kk.gather(1, ok_) != kp.gather(1, op_)).any(-1)
+        other_pos = (~other_set & ~other_keep
+                     & (sk.gather(1, ok_) != sp.gather(1, op_)).any(-1))
+        moved += int(other_set.sum())
+        dropped += int(other_keep.sum())
+        shifted += int(other_pos.sum())
+        tokens += other_set.numel()
+    share = moved / tokens
+    free_rel = rel_l2(free[0], plain[0])
+    fwd_rel = rel_l2(injected[0], plain[0])
+    grad_rel = grads_rel_l2(injected[1], plain[1])
+    print(f"5l MoE DiT b{BB_BATCH} kernels vs all-plain, of {tokens} (token, layer) "
+          f"routings: {moved} ({100 * share:.4f} %) chose another top-k set, {dropped} "
+          f"({100 * dropped / tokens:.4f} %) kept or dropped a slot otherwise, {shifted} "
+          f"({100 * shifted / tokens:.4f} %) only queued at another position; forward rel L2 "
+          f"{free_rel:.3e} on its own routing; with the plain run's routing injected forward "
+          f"{fwd_rel:.3e} (limit {TOL_UNET_REL}), gradients {grad_rel:.3e} (limit "
+          f"{TOL_UNET_GRAD_REL}); launches {({k: v for k, v in injected[3].items() if v})}",
+          flush=True)
+    assert fwd_rel <= TOL_UNET_REL and grad_rel <= TOL_UNET_GRAD_REL, (fwd_rel, grad_rel)
+    assert injected[3] == dit_expected(1, 1) and not any(plain[3].values()), injected[3]
+    out.update(rerouted_share=share, rerouted=moved, keep_changed=dropped,
+               queue_shifted=shifted, routings=tokens, free_rel_l2=free_rel,
+               injected_rel_l2=fwd_rel, injected_grad_rel_l2=grad_rel, launches=injected[3])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_5l(tmp, card, plain=None):
+    """The other backbones at full width (ROADMAP queue 1, item 13): SPADE,
+    the MoE DiT, ToMe, FreeU, ControlNet and the library-level backbones,
+    through the entry points where the port has one, each against the
+    all-plain model; draws from a generator of its own. ``plain``: the img/s
+    of the runs the new options are read beside (``"dit256_heun8"``,
+    ``"sen12_ddim"``), where an earlier phase ran them with the same
+    protocol; each one missing runs here."""
+    plain = dict(plain or {})
+    from eo_diffusion_torch.cli.presets import build_process
+    from eo_diffusion_torch.models.controlnet import (ControlNet, init_from_base,
+                                                      save_controlnet)
+    from eo_diffusion_torch.models.unet import UNetConfig
+    from eo_diffusion_torch.models.unet_convnext import ConvNextUNet, ConvNextUNetConfig
+    from eo_diffusion_torch.models.unet_spade import SpadeUNet
+    from eo_diffusion_torch.models.unet_tiny import TinyUNet, TinyUNetConfig
+    from eo_diffusion_torch.models.wrapper import ConditioningWrapper
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    bf16 = torch.bfloat16
+    out = {"runs": {}, "checks": {}}
+    # phase 3's rows at this slice's new shapes: K1 at ToMe's T 640 (dit256
+    # sampling) and with the lse at moe-dit64's b64 step, the spade64 step and
+    # the ToMe b16 step; K1 at moe-dit64's b8 sampling; K4 at the three steps;
+    # K5 in float32 at SPADE's statistics (spade64's level shapes, b64); 2a at
+    # a SPADE modulation conv (128 -> 64 at 64 x 64, b64)
+    out["attn_rows"] = [attention_case(8, 640, 12, 64, bf16, True, g),
+                        attention_case(BB_BATCH, 256, 6, 64, bf16, True, g, with_lse=True),
+                        attention_case(8, 256, 6, 64, bf16, True, g),
+                        attention_case(BB_BATCH, 64, 4, 64, bf16, False, g, with_lse=True),
+                        attention_case(TOME_TRAIN_BATCH, 640, 12, 64, bf16, True, g,
+                                       with_lse=True)]
+    out["bwd_rows"] = [attention_bwd_case(TOME_TRAIN_BATCH, 640, 12, 64, bf16, True, g, g),
+                       attention_bwd_case(BB_BATCH, 256, 6, 64, bf16, True, g, g),
+                       attention_bwd_case(BB_BATCH, 64, 4, 64, bf16, False, g, g)]
+    out["gn_rows"] = [gn_case(BB_BATCH, hw, c, min(32, c), "none", torch.float32, g)
+                      for hw, c in SPADE_GN_SITES]
+    out["wgrad_row"] = wgrad_case(BB_BATCH, 64, 64, 128, 64, bf16, g)
+    torch.cuda.empty_cache()
+
+    stamp("5l a")
+    # a. spade64: cli.train at b64, cli.inference from its checkpoint, and the
+    # model against all-plain (a loss's gradients at b64, DDIM from one x_T)
+    pre = get_preset("spade64")
+    scfg = pre.model_config(cond_channels=1)
+    seg = (torch.rand(BB_BATCH, 64, 64, 1, generator=g, device="cuda") > 0.6).float()
+    x64 = torch.randn(BB_BATCH, 64, 64, 3, generator=g, device="cuda")
+    t64 = torch.randint(0, 1000, (BB_BATCH,), generator=g, device="cuda")
+    spade_call = lambda n: (lambda m: m(x64[:n].to("meta"), t64[:n].to("meta"),
+                                        cond=seg[:n].to("meta")))
+    per = lambda f, b, n: backbone_expected(lambda: SpadeUNet(scfg), spade_call(n), f, b)
+    tr = bb_train(train_argv("spade64", BB_BATCH, BB_STEPS, 26, "train_spade64"), tmp,
+                  f"spade64 b{BB_BATCH} bf16 (--cond_type spade: the synthetic segmaps)",
+                  per(BB_STEPS, BB_STEPS, BB_BATCH), card)
+    out["runs"]["spade64_train"] = tr
+    calls = make_ddim_schedule(GaussianDiffusion.create(timesteps=1000).schedule,
+                               BB_SAMPLE_STEPS, 0.0).num_steps
+    out["runs"]["spade64_ddim"] = bb_sample(
+        ["--preset", "spade64", "--sampler", "ddim", "--sampler_steps", str(BB_SAMPLE_STEPS)],
+        scfg, tmp, f"spade64 DDIM-{BB_SAMPLE_STEPS} from the trained checkpoint",
+        per(calls, 0, 8), card, ckpt=tr["checkpoint"])
+    model = randomize_parameters(SpadeUNet(scfg), seed=27).cuda().train()
+    out["checks"]["spade64_grad"] = bb_grad_check(
+        [model], lambda: model(x64, t64, cond=seg), torch.randn_like(x64),
+        f"spade64 forward and gradients b{BB_BATCH}", per(1, 1, BB_BATCH))
+    model.eval().requires_grad_(False)
+    proc = build_process(pre, pre.timesteps, pre.image_size, cond_type="spade")
+    x_T = torch.randn(8, 64, 64, 3, generator=g, device="cuda")
+    out["checks"]["spade64_ddim"] = bb_trajectory_check(
+        [model], lambda: proc.ddim_sample(lambda x, t, c, y: model(x, t, cond=c), 8,
+                                          device="cuda", num_steps=BB_PLAIN_STEPS,
+                                          cond=seg[:8], x_T=x_T).x,
+        f"spade64 DDIM-{BB_PLAIN_STEPS} b8", per(BB_PLAIN_STEPS, 0, 8), card)
+    del model
+    torch.cuda.empty_cache()
+
+    stamp("5l b")
+    # b. moe-dit64: cli.train at b64 (the load-balance loss in it), DDIM-50,
+    # and the MoE checks
+    mcfg = get_preset("moe-dit64").model_config()
+    out["runs"]["moe_dit64_train"] = bb_train(
+        train_argv("moe-dit64", BB_BATCH, BB_STEPS, 28, "train_moe"), tmp,
+        f"moe-dit64 b{BB_BATCH} bf16 (8 experts, top-2, every second block)",
+        dit_expected(BB_STEPS, BB_STEPS), card)
+    out["runs"]["moe_dit64_ddim"] = bb_sample(
+        ["--preset", "moe-dit64", "--sampler", "ddim", "--sampler_steps", str(BB_SAMPLE_STEPS)],
+        mcfg, tmp, f"moe-dit64 DDIM-{BB_SAMPLE_STEPS} (seeded weights)", dit_expected(calls),
+        card)
+    out["checks"]["moe"] = moe_checks(mcfg, g, card)
+
+    stamp("5l c")
+    # c. ToMe on dit256: Heun-8 with and without it (bench.py's rider), the
+    # merged model against all-plain, and cli.train with it at b16
+    dcfg = get_preset("dit256").model_config()
+    flow_argv = ["--preset", "dit256", "--sampler", "flow", "--flow_method", "heun",
+                 "--sampler_steps", "8"]
+    if "dit256_heun8" not in plain:
+        out["runs"]["dit256_heun8"] = bb_sample(flow_argv, dcfg, tmp, "dit256 Heun-8",
+                                                dit_expected(15), card)
+        plain["dit256_heun8"] = out["runs"]["dit256_heun8"]["img_s"]
+    out["runs"]["dit256_heun8_tome"] = bb_sample(
+        flow_argv + TOME, dcfg, tmp, "dit256 Heun-8 --tome_ratio 0.375 --tome_mlp",
+        dit_expected(15), card)
+    tcfg = dataclasses.replace(dcfg, tome_ratio=0.375, tome_mlp=True)
+    model = randomize_parameters(DiT(tcfg), seed=24).cuda().eval().requires_grad_(False)
+    tokens = []
+    hook = model.block_0.qkv.register_forward_hook(lambda m, a, o: tokens.append(a[0].shape[1]))
+    flow = FlowMatching.create(image_size=256)
+    x_T = torch.randn(8, 256, 256, 3, generator=g, device="cuda")
+    out["checks"]["tome_heun8"] = bb_trajectory_check(
+        [model], lambda: flow.sample(lambda x, t, c, y: model(x, t), 8, device="cuda",
+                                     num_steps=8, method="heun", x_T=x_T).x,
+        "dit256 ToMe 0.375 (+ MLP) Heun-8 b8", dit_expected(15), card)
+    hook.remove()
+    assert set(tokens) == {tcfg.tokens - tcfg.tome_r} == {640}, set(tokens)
+    print(f"5l ToMe: every block's attention at T {tokens[0]} (of {tcfg.tokens}); img/s "
+          f"{out['runs']['dit256_heun8_tome']['img_s']:.4f} against "
+          f"{plain['dit256_heun8']:.4f} without; {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    out["runs"]["dit256_tome_train"] = bb_train(
+        train_argv("dit256", TOME_TRAIN_BATCH, BB_STEPS, 29, "train_tome") + TOME[:2], tmp,
+        f"dit256 b{TOME_TRAIN_BATCH} --tome_ratio 0.375", dit_expected(BB_STEPS, BB_STEPS), card)
+
+    stamp("5l d")
+    # d. sen12mscr256: DDIM-50 plain, with FreeU and with a ControlNet adapter
+    # written by save_controlnet; each against all-plain (DDIM from one x_T)
+    sen = get_preset("sen12mscr256")
+    ccfg, bcfg = sen.model_config(cond_channels=3), sen.model_config(cond_channels=0)
+    ddim = ["--preset", "sen12mscr256", "--sampler", "ddim", "--sampler_steps",
+            str(BB_SAMPLE_STEPS)]
+    if "sen12_ddim" not in plain:
+        out["runs"]["sen12_ddim"] = bb_sample(ddim, ccfg, tmp,
+                                              f"sen12mscr256 DDIM-{BB_SAMPLE_STEPS}",
+                                              unet_expected(ccfg, full=calls), card)
+        plain["sen12_ddim"] = out["runs"]["sen12_ddim"]["img_s"]
+    out["runs"]["sen12_freeu"] = bb_sample(
+        ddim + ["--freeu", FREEU], ccfg, tmp,
+        f"sen12mscr256 DDIM-{BB_SAMPLE_STEPS} --freeu {FREEU}", unet_expected(ccfg, full=calls),
+        card)
+    base = randomize_parameters(UNet(bcfg), seed=24)
+    cnet = ControlNet(bcfg, 3)
+    copied = init_from_base(cnet, base)
+    heads = [cnet.hint_out, cnet.zero_middle, *cnet.zero_convs]
+    with torch.no_grad():
+        for i, m in enumerate(heads):  # steer: the zero heads seeded away from zero
+            randomize_parameters(m, seed=30 + i)
+            for p in m.parameters():
+                p.mul_(0.1)
+    adapter = os.path.join(tmp, "controlnet")
+    save_controlnet(adapter, cnet, {"hint_channels": 3, "base": "sen12mscr256, seed 24"})
+    enc = lambda f: backbone_expected(
+        lambda: ControlNet(bcfg, 3),
+        lambda m: m(torch.zeros(1, 256, 256, 3, device="meta", dtype=bf16),
+                    torch.zeros(1, dtype=torch.long, device="meta"),
+                    torch.zeros(1, 256, 256, 3, device="meta")), f)
+    cn_per = add_counts(unet_expected(bcfg, full=calls), enc(calls))
+    out["runs"]["sen12_controlnet"] = bb_sample(
+        ddim + ["--controlnet", adapter], bcfg, tmp,
+        f"sen12mscr256 DDIM-{BB_SAMPLE_STEPS} --controlnet ({copied} base tensors copied)",
+        cn_per, card)
+    print(f"5l sen12mscr256 DDIM-{BB_SAMPLE_STEPS} b8 img/s: plain {plain['sen12_ddim']:.4f}, "
+          f"--freeu {out['runs']['sen12_freeu']['img_s']:.4f}, --controlnet "
+          f"{out['runs']['sen12_controlnet']['img_s']:.4f}; {card}", flush=True)
+    out["plain_img_s"] = plain
+    proc = GaussianDiffusion.create(timesteps=1000, image_size=256, cond_type="concat")
+    cloudy = torch.rand(8, 256, 256, 3, generator=g, device="cuda") * 2 - 1
+    x_T = torch.randn(8, 256, 256, 3, generator=g, device="cuda")
+    fmodel = randomize_parameters(UNet(dataclasses.replace(ccfg, freeu=tuple(
+        float(v) for v in FREEU.split(",")))), seed=24).cuda().eval().requires_grad_(False)
+    out["checks"]["freeu_ddim"] = bb_trajectory_check(
+        [fmodel], lambda: proc.ddim_sample(lambda x, t, c, y: fmodel(x, t, cond=c), 8,
+                                           device="cuda", num_steps=BB_PLAIN_STEPS, cond=cloudy,
+                                           x_T=x_T).x,
+        f"sen12mscr256 --freeu {FREEU} DDIM-{BB_PLAIN_STEPS} b8",
+        unet_expected(ccfg, full=BB_PLAIN_STEPS), card)
+    del fmodel
+    base, cnet = (m.cuda().eval().requires_grad_(False) for m in (base, cnet))
+    fn = lambda x, t, c, y: base(x, t, control=cnet(x, t, c))
+    out["checks"]["controlnet_ddim"] = bb_trajectory_check(
+        [base, cnet], lambda: proc.ddim_sample(fn, 8, device="cuda", num_steps=BB_PLAIN_STEPS,
+                                               cond=cloudy, x_T=x_T).x,
+        f"sen12mscr256 ControlNet DDIM-{BB_PLAIN_STEPS} b8",
+        add_counts(unet_expected(bcfg, full=BB_PLAIN_STEPS), enc(BB_PLAIN_STEPS)), card)
+    del base, cnet
+    torch.cuda.empty_cache()
+
+    stamp("5l e")
+    # e. the library-level backbones, forward and a loss's backward at b8
+    syn = get_preset("synthetic64")
+    ctx = torch.randn(8, 16, 64, generator=g, device="cuda")
+    x8, t8, y8 = x64[:8], t64[:8], torch.arange(8, device="cuda") % 5
+    cond8 = torch.randn(8, 64, 64, 3, generator=g, device="cuda")
+    for key, kw, conditioning in (
+            ("crossattn", {}, {"c_crossattn": [ctx[:, :10], ctx[:, 10:]]}),
+            ("hybrid", {"cond_channels": 3, "num_classes": 5},
+             {"c_concat": [cond8], "c_crossattn": ctx, "c_adm": y8})):
+        ucfg = dataclasses.replace(syn.model_config(**kw), context_dim=64)
+        model = randomize_parameters(UNet(ucfg), seed=31).cuda().train()
+        wrap = ConditioningWrapper(model, key)
+        meta = lambda m, key=key, conditioning=conditioning: ConditioningWrapper(m, key)(
+            x8.to("meta"), t8.to("meta"), {k: ([c.to("meta") for c in v] if isinstance(v, list)
+                                               else v.to("meta"))
+                                           for k, v in conditioning.items()})
+        out["checks"][f"xattn_{key}"] = bb_grad_check(
+            [model], lambda: wrap(x8, t8, conditioning), torch.randn_like(x8),
+            f"UNet 64 px context_dim 64 through ConditioningWrapper({key!r}) b8",
+            backbone_expected(lambda: UNet(ucfg), meta, 1, 1))
+        del model
+    for name, build, xin, call in (
+            ("ConvNextUNet (defaults: dim 64, mults 1/2/4/8, float32) 64 px",
+             lambda: ConvNextUNet(ConvNextUNetConfig()), x8, lambda m, x: m(x, t8)),
+            ("TinyUNet (defaults: base 32, mults 2/4, float32) 28 px 1 channel",
+             lambda: TinyUNet(TinyUNetConfig()),
+             torch.randn(8, 28, 28, 1, generator=g, device="cuda"), lambda m, x: m(x, t8))):
+        model = randomize_parameters(build(), seed=32).cuda().train()
+        meta = lambda m, call=call, xin=xin: m(xin.to("meta"), t8.to("meta"))
+        out["checks"][name.split()[0]] = bb_grad_check(
+            [model], lambda: call(model, xin), torch.randn_like(xin), f"{name} b8",
+            backbone_expected(build, meta, 1, 1))
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def bb_kernel_rows(bb):
+    """The kernels-line entries of phase 5l (``--only backbones``): K1 at
+    ToMe's T 640 and the slice's other new shapes, K4 at its steps, K5 in
+    float32 at SPADE's statistics, the conv weight-gradient body at a SPADE
+    conv, with the launches of 5l's runs and checks."""
+    runs = {**bb["runs"], **{k: v for k, v in bb["checks"].items() if "launches" in v},
+            "moe_injected": bb["checks"]["moe"]}
+    total = lambda key: sum(r["launches"][key] for r in runs.values())
+
+    def entry(name, source, replaces, row, key, shapes):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": total(key), "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "launches_backbones": {k: r["launches"][key] for k, r in runs.items()},
+                "shapes": shapes}
+
+    wg = bb["wgrad_row"]
+    return [
+        entry("qkv_attention_fwd", "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:738", bb["attn_rows"][0], "attn_fwd",
+              bb["attn_rows"]),
+        entry("qkv_attention_bwd", "eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:502", bb["bwd_rows"][0], "attn_bwd",
+              bb["bwd_rows"]),
+        entry("group_norm_fwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:48", bb["gn_rows"][0][0], "gn_fwd",
+              [r[0] for r in bb["gn_rows"]]),
+        entry("group_norm_bwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:104", bb["gn_rows"][0][1], "gn_bwd",
+              [r[1] for r in bb["gn_rows"]]),
+        {"name": "conv_wgrad_sm90", "route": "cuda",
+         "source": "eo_diffusion_torch/ops/csrc/conv_wgrad_sm90.cu",
+         "replaces": "tools/prototype_wgrad_kernel.py:40", "launches": total("wgrad_sm90"),
+         "max_abs_err": wg["sm90_max_abs_err"], "ms": wg["sm90_ms"], "plain_ms": wg["plain_ms"],
+         "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"], "library_ms": wg["library_ms"],
+         "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
+         "launches_backbones": {k: r["launches"]["wgrad_sm90"] for k, r in runs.items()},
+         "shapes": [wg]},
+    ]
+
+
+def backbones_only(card):
+    """``--only backbones``: phase 5l, then its kernels line, the card line
+    and the last line."""
+    stamp("5l")
+    with tempfile.TemporaryDirectory() as tmp:
+        bb = phase_5l(tmp, card)
+    stamp("9")
+    print(json.dumps({"kernels": bb_kernel_rows(bb),
+                      "phase_5l": {k: bb[k] for k in ("runs", "checks", "plain_img_s")}},
+                     default=str))
+    print(card)
+    print(json.dumps({"ok": True, "only": "backbones",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -3992,9 +4603,10 @@ def stamp(phase):
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--only", "wide"], ["--only", "f32"], ["--only", "few"]):
-        print(f"chip_smoke: unknown arguments {args} (none, --only wide, --only f32 or "
-              "--only few)", file=sys.stderr)
+    if args not in ([], ["--only", "wide"], ["--only", "f32"], ["--only", "few"],
+                    ["--only", "backbones"]):
+        print(f"chip_smoke: unknown arguments {args} (none, --only wide, --only f32, --only "
+              "few or --only backbones)", file=sys.stderr)
         return 2
     only = args[1] if args else None
     # 1. the card
@@ -4041,6 +4653,8 @@ def main(argv=None) -> int:
         return f32_only(card, sass)
     if only == "few":
         return few_only(card)
+    if only == "backbones":
+        return backbones_only(card)
 
     stamp("3")
     # 3. kernel vs plain at the path's shapes
@@ -4339,6 +4953,14 @@ def main(argv=None) -> int:
         # guidance distillation through cli.distill, cm / pd sampling, MeanFlow
         few = phase_5k(tmp, card)
         few_runs = list(few["runs"].values())
+        stamp("5l")
+        # 5l. the other backbones: SPADE, the MoE DiT, ToMe, FreeU, ControlNet,
+        # the cross-attention UNet, ConvNeXt and the tiny UNet
+        bb = phase_5l(tmp, card, plain={
+            "dit256_heun8": dit_res["dit256 flow heun 8"]["img_s"],
+            "sen12_ddim": guided["runs"]["ddim50"]["img_s"]})
+        few_runs += [*bb["runs"].values(),
+                     *(v for v in bb["checks"].values() if "launches" in v)]
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -4750,7 +5372,14 @@ def main(argv=None) -> int:
                                                          "bound_ms", "library_ms")},
                      launches_few=row["launches_few"], few_shapes=row["shapes"],
                      **({"jvp_rule": row["jvp_rule"]} if "jvp_rule" in row else {}))
-    print(json.dumps({"kernels": kernels}))
+    # phase 5l's launches and rows beside each kernel's
+    for row in bb_kernel_rows(bb):
+        entry = next(k for k in kernels if k["name"] == row["name"])
+        entry.update({f"backbones_{key}": row[key] for key in ("launches", "ms", "plain_ms",
+                                                               "bound_ms", "library_ms")},
+                     launches_backbones=row["launches_backbones"],
+                     backbones_shapes=row["shapes"])
+    print(json.dumps({"kernels": kernels}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

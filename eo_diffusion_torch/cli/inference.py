@@ -47,13 +47,21 @@ classifier's classes for an unconditional denoiser. A latent preset
 (``latent256-cr``, ...) loads its first stage from ``--ae_ckpt`` (default ``ae`` beside ``--ckpt``),
 samples on the latent grid with the cloudy view encoded, and decodes: the
 metrics and PNGs are of the decoded pixels (``cm`` and ``pd`` run on the
-latent grid, then decode). Flags of the JAX CLI that later slices bring
-(FreeU, LoRA, ...) exit naming their ROADMAP queue.
+latent grid, then decode). The other backbones: SPADE presets (``spade64``,
+``tiny-spade``, ``--cond_type spade``: the test split's segmentation is the
+segmap), the MoE DiT (``moe-dit64``, ``tiny-moe``), token merging on a DiT
+preset (``--tome_ratio``, ``--tome_mlp``), FreeU on a UNet preset
+(``--freeu B1,B2,S1,S2``) and a ControlNet adapter on a pixel-space UNet
+preset (``--controlnet DIR``: the paired view is the hint that steers the
+frozen base, which sees no concat cond), each with the JAX CLI's checks.
+Flags of the JAX CLI that later slices bring (LoRA, int8 compute) exit
+naming their ROADMAP queue.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import time
@@ -65,10 +73,7 @@ from eo_diffusion_torch.cli.common import resolve_device
 
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
-UNPORTED_FLAGS = {
-    "--freeu": 13, "--tome_ratio": 13, "--tome_mlp": 13, "--controlnet": 13,
-    "--lora": 14, "--int8_compute": 15,
-}
+UNPORTED_FLAGS = {"--lora": 14, "--int8_compute": 15}
 
 
 def _unported_flag(arg: str):
@@ -186,6 +191,21 @@ def parse_args(argv=None):
     parser.add_argument("--ae_ckpt", type=str, default=None,
                         help="latent presets: trained first-stage directory "
                              "(default: 'ae' beside --ckpt)")
+    parser.add_argument("--tome_ratio", type=float, default=0.0,
+                        help="token merging (ToMe, arXiv:2303.17604) on DiT presets: the share "
+                             "of tokens merged inside every block's attention; parameter-free, "
+                             "so any checkpoint loads under it (~0.3-0.5 is the useful range)")
+    parser.add_argument("--tome_mlp", action="store_true",
+                        help="extend --tome_ratio's merge around the MLP branch")
+    parser.add_argument("--freeu", type=str, default=None, metavar="B1,B2,S1,S2",
+                        help="FreeU (arXiv:2309.11497) on UNet presets: amplify the backbone "
+                             "features (b > 1) and damp the skips' low frequencies (s < 1) at "
+                             "the two deepest decoder stages, e.g. 1.2,1.3,0.9,0.4")
+    parser.add_argument("--controlnet", type=str, default=None,
+                        help="ControlNet adapter directory (controlnet.npz, the JAX "
+                             "package's layout): the dataset's paired view steers the frozen "
+                             "base checkpoint through the zero-init control branch "
+                             "(arXiv:2302.05543; pixel-space UNet presets)")
     for arg in (argv if argv is not None else __import__("sys").argv[1:]):
         hit = _unported_flag(arg)
         if hit:
@@ -194,13 +214,19 @@ def parse_args(argv=None):
 
 
 def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None):
-    """(cond, mask) for one batch (reference inference.py:98-109): a paired
-    "cond_image" view is the concat conditioning; otherwise (image | mask)
+    """(cond, mask) for one batch (reference inference.py:98-109): the segmap
+    for ``cond_type="spade"``; a paired "cond_image" view is the concat
+    conditioning; otherwise (image | mask)
     with the mask inverted for ``cond_type="sum"`` (known = non-cloud), or a
     random rectangle a sample with ``random_label``."""
     if cond_type is None:
         return None, None
     image = np.asarray(batch["image"], np.float32)
+    if cond_type == "spade":
+        # the segmap itself is the conditioning (the SPADE norms read it)
+        if "segmentation" not in batch:
+            return None, None
+        return np.asarray(batch["segmentation"], np.float32), None
     if cond_type == "concat" and "cond_image" in batch:
         return np.asarray(batch["cond_image"], np.float32), None
     mask = (np.asarray(batch["segmentation"], np.float32)
@@ -247,9 +273,23 @@ def main(args):
     if args.model_base_dim:
         preset.base_dim = args.model_base_dim
     cond_type = args.cond_type or preset.cond_type
-    if cond_type not in (None, "sum", "concat"):
-        raise NotImplementedError(f"--cond_type {cond_type} is not ported yet "
-                                  "(ROADMAP queue 13)")
+    if args.controlnet:
+        # the hint rides the concat cond's data path (the paired view, the
+        # samplers' cond, the metrics against the ground truth) while the base
+        # stays unconditional: cond_channels is zeroed below and model_fn
+        # routes the cond into the control branch
+        assert preset.backbone == "unet" and not preset.is_latent, (
+            "--controlnet adapters are wired for pixel-space UNet presets")
+        assert cond_type in (None, "concat"), (
+            f"--controlnet replaces '{cond_type}' conditioning; use an unconditional or "
+            "concat-data preset")
+        assert args.deepcache <= 1, (
+            "DeepCache wraps the model directly and would bypass the control residuals; drop "
+            "one of the two")
+        assert args.autoguide_scale == 1.0, (
+            "autoguidance's degraded branch runs without the control residuals (and would "
+            "mis-concat the hint); drop one of the two")
+        cond_type = "concat"
     # class-conditional presets sample conditional, with their null row,
     # unless the flags say otherwise (the training CLI's defaults)
     num_classes = args.num_classes or preset.num_classes or None
@@ -301,6 +341,9 @@ def main(args):
         f"--sdedit_strength does not compose with --sampler {args.sampler}")
     assert not (args.sampler in ("cm", "pd") and args.deepcache > 1), (
         f"{args.sampler} is already 1-4 evaluations; DeepCache does not apply")
+    assert not (args.sampler in ("cm", "pd") and args.controlnet), (
+        f"the {args.sampler} sampler runs the distilled student directly; --controlnet wraps "
+        "the plain denoiser (use ddpm/ddim/dpm/unipc)")
     assert not (args.sampler in ("cm", "pd") and cond_type == "sum"), (
         f"{args.sampler} has no RePaint mask plumbing; cond_type='sum' metrics would compare "
         "unconditional samples against gt (use ddim/dpm)")
@@ -356,11 +399,34 @@ def main(args):
     data_range = test_loader.dataset.data_range
     peek = {k: np.asarray(v)[None] for k, v in test_loader.dataset[0].items()}
     peek_cond, _ = _build_cond(peek, cond_type)
-    cond_channels = (preset.cond_channels(peek_cond.shape[-1])
-                     if cond_type == "concat" and peek_cond is not None else 0)
+    # "spade" differs from "concat" only in how the cond is built (the segmap)
+    # and which backbone reads it; downstream it is a concat cond
+    build_cond_type = cond_type
+    if cond_type == "spade":
+        cond_type = "concat"
+    has_cond = cond_type == "concat" and peek_cond is not None
+    cond_channels = preset.cond_channels(peek_cond.shape[-1]) if has_cond else 0
+    hint_channels = 0
+    if args.controlnet:
+        assert has_cond, ("--controlnet needs a paired hint view from the dataset "
+                          "(cond_image / image|mask)")
+        hint_channels, cond_channels = cond_channels, 0
 
     ucfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels,
                                num_classes=num_classes, class_dropout_prob=class_dropout)
+    if args.tome_ratio:
+        assert preset.backbone == "dit", (
+            "--tome_ratio merges transformer tokens (DiT presets); the UNet has no token axis "
+            "(use --deepcache there)")
+        # parameter-free: any checkpoint loads under the merged config
+        ucfg = dataclasses.replace(ucfg, tome_ratio=args.tome_ratio, tome_mlp=args.tome_mlp)
+    if args.freeu:
+        assert preset.backbone == "unet", (
+            "--freeu re-weights the UNet decoder's skip joins; the DiT has no decoder ladder "
+            "(use --tome_ratio there)")
+        vals = tuple(float(v) for v in args.freeu.split(","))
+        assert len(vals) == 4, "--freeu needs B1,B2,S1,S2"
+        ucfg = dataclasses.replace(ucfg, freeu=vals)  # parameter-free, like ToMe
     model = build_denoiser(ucfg)
     if args.ckpt:
         print("loading checkpoint...")
@@ -390,6 +456,15 @@ def main(args):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Diffusion with {n_params / 1e6} M params on {device}")
     model_fn = lambda x, t, c, y: model(x, t, cond=c, y=y)
+    if args.controlnet:
+        from eo_diffusion_torch.models.controlnet import ControlNet, load_controlnet
+
+        cnet = ControlNet(ucfg, hint_channels)
+        load_controlnet(args.controlnet, cnet)
+        cnet = cnet.to(device).eval()
+        print(f"ControlNet adapter loaded from {args.controlnet} "
+              f"(hint_channels={hint_channels})")
+        model_fn = lambda x, t, c, y: model(x, t, y=y, control=cnet(x, t, c, y=y))
 
     if args.autoguide_scale > 1.0:
         # autoguidance: extrapolate away from a worse variant of the same model,
@@ -462,7 +537,8 @@ def main(args):
             print(f"data {j}")
             image = np.asarray(batch["image"], np.float32)
             bsz = image.shape[0]
-            cond, mask = _build_cond(batch, cond_type, image_size, args.random_label, mask_rng)
+            cond, mask = _build_cond(batch, build_cond_type, image_size, args.random_label,
+                                     mask_rng)
             # class rotation like the reference's inference.py:110
             y = (np.full((bsz,), min(j % max(num_classes - 1, 1), num_classes - 1))
                  if num_classes else None)

@@ -1,15 +1,17 @@
-"""Named experiment presets for the port (the UNet and DiT presets, DDPM,
-rectified flow, EDM, the Brownian bridge and MeanFlow, in pixels or behind a
-first stage, of ``eo_diffusion_tpu/cli/presets.py``).
+"""Named experiment presets for the port (the UNet, DiT, MoE-DiT and SPADE
+presets, DDPM, rectified flow, EDM, the Brownian bridge and MeanFlow, in
+pixels or behind a first stage, of ``eo_diffusion_tpu/cli/presets.py``).
 
-Each recipe is selectable with ``--preset``; presets of the other families
-(MoE, SPADE, super-resolution) raise and name the ROADMAP queue that ports
-them. A MeanFlow preset builds a dual-time backbone whose attention is
-pinned to its plain version (``attn_impl="plain"``, the JAX preset's
-``"xla"``): MeanFlow's loss takes a ``torch.func.jvp`` through the model,
-and the attention kernels' Functions have no forward-mode rule (the
-GroupNorm and conv kernels' have). A latent preset (``latent_downs > 0``) is a two-stage
-recipe: a :class:`ConvAutoencoder` first stage with ``2**latent_downs``
+Each recipe is selectable with ``--preset``; the super-resolution presets
+raise and name the ROADMAP queue that ports them. A ``backbone="spade"``
+preset builds a :class:`SpadeUNet` whose cond is the segmentation map
+(``--cond_type spade``; process-side that is ``concat``). A MeanFlow preset
+builds a dual-time backbone whose attention is pinned to its plain version
+(``attn_impl="plain"``, the JAX preset's ``"xla"``): MeanFlow's loss takes a
+``torch.func.jvp`` through the model, and the attention kernels' Functions
+have no forward-mode rule (the GroupNorm and conv kernels' have). A latent
+preset (``latent_downs > 0``) is a two-stage recipe: a
+:class:`ConvAutoencoder` first stage with ``2**latent_downs``
 spatial reduction, then the backbone and the process on the
 ``latent_size``-square, ``latent_channels``-deep latent grid.
 """
@@ -30,6 +32,7 @@ from eo_diffusion_torch.diffusion.meanflow import MeanFlow
 from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
 from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.models.unet import UNet, UNetConfig
+from eo_diffusion_torch.models.unet_spade import SpadeUNet, SpadeUNetConfig
 
 __all__ = ["Preset", "PRESETS", "get_preset", "build_denoiser", "build_process"]
 
@@ -58,12 +61,13 @@ class Preset:
     ae_base_dim: int = 64
     ae_steps: int = 2000  # default first-stage training budget (cli/train.py)
     # backbone "dit" selects models/dit.DiT (base_dim is the hidden size,
-    # depth the block count, patch_size the patchify stride); process "flow"
+    # depth the block count, patch_size the patchify stride), "spade"
+    # models/unet_spade.SpadeUNet (the segmap modulates every norm); process "flow"
     # trains and samples diffusion/flow.FlowMatching, "edm"
     # diffusion/edm.EDMProcess, "bridge" diffusion/bridge.BrownianBridge and
     # "meanflow" diffusion/meanflow.MeanFlow (on a dual-time backbone)
     # instead of the DDPM chain
-    backbone: str = "unet"  # "unet" | "dit"
+    backbone: str = "unet"  # "unet" | "dit" | "spade"
     patch_size: int = 4
     depth: int = 12
     process: str = "ddpm"  # "ddpm" | "flow" | "edm" | "bridge" | "meanflow"
@@ -77,6 +81,11 @@ class Preset:
     # Lin et al. 2023 (arXiv:2305.08891): rescale the schedule to SNR(T) = 0
     # (needs objective "v"); sample with --ddim_spacing trailing or dpm
     zero_terminal_snr: bool = False
+    # Mixture-of-Experts DiT (models/moe.py): > 0 routes every moe_every-th
+    # block's FFN over num_experts experts (top-k token choice)
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_every: int = 2
 
     @property
     def is_latent(self) -> bool:
@@ -99,15 +108,37 @@ class Preset:
 
     def model_config(self, bf16: bool = True, cond_channels: int = 0,
                      num_classes: Optional[int] = None,
-                     class_dropout_prob: float = 0.0) -> Union[UNetConfig, DiTConfig]:
+                     class_dropout_prob: float = 0.0
+                     ) -> Union[UNetConfig, DiTConfig, SpadeUNetConfig]:
         """The backbone config of the preset's family: :meth:`unet_config`,
-        or a :class:`DiTConfig` for ``backbone="dit"``. A MeanFlow preset's
-        is dual-time with its attention pinned to the plain version."""
+        a :class:`DiTConfig` for ``backbone="dit"`` (with the preset's MoE
+        fields) or a :class:`SpadeUNetConfig` for ``"spade"`` (the segmap's
+        ``cond_channels`` are its label channels). A MeanFlow preset's is
+        dual-time with its attention pinned to the plain version."""
         meanflow = self.process == "meanflow"
         pin = dict(dual_time=True, attn_impl="plain") if meanflow else {}
         if self.backbone == "unet":
             cfg = self.unet_config(bf16, cond_channels, num_classes, class_dropout_prob)
             return dataclasses.replace(cfg, **pin) if meanflow else cfg
+        if self.backbone == "spade":
+            # the segmap conditions spatially; the class embedding and CFG are not wired
+            assert not num_classes and class_dropout_prob == 0.0, (
+                "the SPADE backbone conditions on the segmap spatially; embedding-class "
+                "conditioning/CFG are not wired")
+            assert not self.is_latent, "spade presets are pixel-space"
+            return SpadeUNetConfig(
+                image_size=self.image_size,
+                in_channels=self.in_channels,
+                model_channels=self.base_dim,
+                out_channels=self.in_channels,
+                label_channels=max(cond_channels, 1),
+                num_res_blocks=self.num_res_blocks,
+                attention_resolutions=self.attention_resolutions,
+                channel_mult=self.dim_mults,
+                num_heads=self.num_heads,
+                spade_hidden=min(128, 2 * self.base_dim),
+                dtype=torch.bfloat16 if bf16 else torch.float32,
+            )
         assert self.backbone == "dit", self.backbone
         size, chans = self._grid()
         return DiTConfig(
@@ -121,6 +152,9 @@ class Preset:
             num_classes=num_classes or self.num_classes or None,
             class_dropout_prob=class_dropout_prob,
             dtype=torch.bfloat16 if bf16 else torch.float32,
+            num_experts=self.num_experts,
+            moe_top_k=self.moe_top_k,
+            moe_every=self.moe_every,
             **pin,
         )
 
@@ -282,13 +316,21 @@ PRESETS = {
     "tiny-dit-meanflow": Preset("tiny-dit-meanflow", "synthetic", 16, 3, 64, (), (), 0, 4,
                                 batch_size=16, backbone="dit", patch_size=4, depth=2,
                                 process="meanflow"),
+    # SPADE / SDM semantic-map conditioned generation: the dataset's
+    # segmentation is the segmap that modulates every norm (cond_type "spade")
+    "spade64": Preset("spade64", "synthetic", 64, 3, 64, (1, 2, 3, 4), (8,), 2, 4,
+                      cond_type="spade", backbone="spade", batch_size=64),
+    "tiny-spade": Preset("tiny-spade", "synthetic", 8, 3, 32, (1, 2), (), 1, 1,
+                         cond_type="spade", backbone="spade", timesteps=50, batch_size=16),
+    # Mixture-of-Experts DiT-S/4: 8 experts, top-2, in every second block
+    "moe-dit64": Preset("moe-dit64", "synthetic", 64, 3, 384, (), (), 0, 6, batch_size=64,
+                        backbone="dit", patch_size=4, depth=12, num_experts=8, moe_top_k=2),
+    "tiny-moe": Preset("tiny-moe", "synthetic", 16, 3, 64, (), (), 0, 4, timesteps=50,
+                       batch_size=16, backbone="dit", patch_size=4, depth=2, num_experts=4),
 }
 
 # presets of the JAX package that later slices port, by ROADMAP queue
-_LATER = {
-    "spade64": 13, "tiny-spade": 13, "moe-dit64": 13, "tiny-moe": 13,
-    "sr64-256": 14, "tiny-sr": 14,
-}
+_LATER = {"sr64-256": 14, "tiny-sr": 14}
 
 
 def get_preset(name: str) -> Preset:
@@ -300,10 +342,12 @@ def get_preset(name: str) -> Preset:
     return dataclasses.replace(PRESETS[name])
 
 
-def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig]) -> nn.Module:
+def build_denoiser(model_cfg: Union[UNetConfig, DiTConfig, SpadeUNetConfig]) -> nn.Module:
     """Instantiate the backbone for a config built by Preset.model_config."""
     if isinstance(model_cfg, DiTConfig):
         return DiT(model_cfg)
+    if isinstance(model_cfg, SpadeUNetConfig):
+        return SpadeUNet(model_cfg)
     assert isinstance(model_cfg, UNetConfig), type(model_cfg)
     return UNet(model_cfg)
 
@@ -320,8 +364,12 @@ def build_process(preset: Preset, timesteps: int, image_size: int,
     whose cond must be "concat": the source image is the bridge's endpoint
     and the model's input; or MeanFlow for ``"meanflow"`` (conditioned as
     flow is; ``mf_cfg_omega != 1`` trains CFG-integrated against the null
-    class ``num_classes``)."""
+    class ``num_classes``). ``cond_type="spade"`` is ``"concat"`` here: the
+    segmap is pass-through conditioning; only how the CLIs build it and which
+    backbone reads it differ."""
     size, chans = preset._grid() if preset.is_latent else (image_size, preset.in_channels)
+    if cond_type == "spade":
+        cond_type = "concat"
     if preset.process == "flow":
         return FlowMatching.create(image_size=size, in_channels=chans, cond_type=cond_type)
     if preset.process == "meanflow":

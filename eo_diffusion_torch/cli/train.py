@@ -21,7 +21,11 @@ paired data: the concat cond is the bridge's source) or MeanFlow
 (``meanflow64``, ``cmeanflow64``, ``tiny-meanflow``, ``tiny-cmeanflow``,
 ``tiny-dit-meanflow``: a dual-time backbone with plain attention, its loss a
 ``torch.func.jvp`` through the model; a CFG-integrated preset's label dropout
-defaults to 0.1 and belongs to the loss); a flow, EDM, bridge or MeanFlow
+defaults to 0.1 and belongs to the loss), the MoE DiT (``moe-dit64``,
+``tiny-moe``: the load-balance loss added) and SPADE (``spade64``,
+``tiny-spade``, ``--cond_type spade``: the dataset's segmentation is the
+segmap); ``--tome_ratio`` / ``--tome_mlp`` train a DiT preset with merged
+tokens (its checkpoints load under the plain config); a flow, EDM, bridge or MeanFlow
 preset previews with its process's own sampler (``--preview_sampler flow``,
 which it forces). A latent preset (``latent256-cr``, ``tiny-latent``, ...)
 first loads its float32 first stage from ``<ckpt dir>/ae`` or ``--ae_ckpt``,
@@ -40,6 +44,7 @@ their ROADMAP queue.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import math
 import os
@@ -53,7 +58,7 @@ from eo_diffusion_torch.cli.common import resolve_device
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--tome_ratio": 13, "--tome_mlp": 13, "--optimizer": 14, "--muon_lr_mult": 14,
+    "--optimizer": 14, "--muon_lr_mult": 14,
     "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
     "--model_parallel": 16, "--pp_micro": 16, "--pp_virtual": 16,
     "--profile_dir": 17, "--profile_steps": 17,
@@ -106,6 +111,13 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sample_every", type=int, default=1000)
     parser.add_argument("--save_every", type=int, default=1000)
+    parser.add_argument("--tome_ratio", type=float, default=0.0,
+                        help="token merging during training on DiT presets (ops/tome.py, "
+                             "arXiv:2303.17604): the merge is differentiable, so forward and "
+                             "backward run on the merged tokens; checkpoints stay "
+                             "interchangeable with the unmerged config")
+    parser.add_argument("--tome_mlp", action="store_true",
+                        help="extend --tome_ratio's merge around the MLP branch")
     parser.add_argument("--preview_sampler", type=str, default="ddpm",
                         choices=["ddpm", "ddim", "dpm", "flow"],
                         help="sampler for the periodic training previews "
@@ -144,6 +156,8 @@ def _to_model_batch(batch, cond_type):
 
     * cond_type="sum": cond = (image | 1-mask) channel-concat like the
       reference's inference.py:101,109 -- used at sampling time only.
+    * cond_type="spade": cond is the segmentation map itself (the SPADE
+      norms read it).
     * cond_type="concat": cond is the dataset's paired conditioning image
       ("cond_image", e.g. the cloudy SEN12MS-CR view), or (image | mask)
       when only a segmentation is available.
@@ -151,6 +165,8 @@ def _to_model_batch(batch, cond_type):
     out = {"image": batch["image"]}
     if cond_type == "sum" and "segmentation" in batch:
         out["cond"] = np.concatenate([batch["image"], 1.0 - batch["segmentation"]], axis=-1)
+    elif cond_type == "spade":
+        out["cond"] = batch["segmentation"]
     elif cond_type == "concat":
         if "cond_image" in batch:
             out["cond"] = batch["cond_image"]
@@ -237,9 +253,6 @@ def main(args):
     if args.model_base_dim:
         preset.base_dim = args.model_base_dim
     cond_type = args.cond_type or preset.cond_type
-    if cond_type not in (None, "sum", "concat"):
-        raise NotImplementedError(f"--cond_type {cond_type} is not ported yet "
-                                  "(ROADMAP queue 13)")
     if args.num_classes == 0 and preset.num_classes:
         args.num_classes = preset.num_classes
     if args.class_dropout == 0.0 and preset.class_dropout:
@@ -271,12 +284,17 @@ def main(args):
     # UNet stays unconditional. "concat" feeds the dataset's cond channels in.
     peek = {k: np.asarray(v)[None] for k, v in train_loader.dataset[0].items()}
     batch0 = _to_model_batch(peek, cond_type)
-    has_cond = cond_type == "concat" and "cond" in batch0
+    has_cond = cond_type in ("concat", "spade") and "cond" in batch0
     cond_channels = preset.cond_channels(batch0["cond"].shape[-1]) if has_cond else 0
+    mcfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels,
+                               num_classes=num_classes, class_dropout_prob=args.class_dropout)
+    if args.tome_ratio:
+        assert preset.backbone == "dit", (
+            "--tome_ratio merges transformer tokens (DiT presets only)")
+        # parameter-free: the checkpoints are the unmerged config's
+        mcfg = dataclasses.replace(mcfg, tome_ratio=args.tome_ratio, tome_mlp=args.tome_mlp)
     torch.manual_seed(args.seed)  # the model's initial weights
-    model = build_denoiser(preset.model_config(
-        bf16=not args.no_bf16, cond_channels=cond_channels, num_classes=num_classes,
-        class_dropout_prob=args.class_dropout))
+    model = build_denoiser(mcfg)
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
     ae_info = None
     if preset.is_latent:
@@ -287,7 +305,9 @@ def main(args):
         lr=args.lr, batch_size=args.batch_size, epochs=args.epochs, timesteps=timesteps,
         model_ema_steps=args.model_ema_steps, model_ema_decay=args.model_ema_decay,
         log_freq=args.log_freq, n_samples=args.n_samples, no_clip=args.no_clip,
-        num_classes=args.num_classes, cond_type=cond_type, ckpt_dir=ckpt_dir,
+        num_classes=args.num_classes,
+        # the segmap of "spade" passes through as a concat cond does; only its build differs
+        cond_type="concat" if cond_type == "spade" else cond_type, ckpt_dir=ckpt_dir,
         sample_dir=args.dir, seed=args.seed, grad_accum=args.grad_accum,
         grad_clip=args.grad_clip, skip_nonfinite=args.skip_nonfinite,
         preview_sampler=preview_sampler, preview_steps=args.preview_steps)

@@ -24,6 +24,14 @@ with channel-concat ``cond`` and class labels ``y``.
   ``models/dit.py:127-154``) between its self-attention and its MLP. The JAX
   side is an einsum with no Pallas kernel behind it, so the port's is plain
   PyTorch too.
+* ``num_experts > 0`` puts a routed :class:`~eo_diffusion_torch.models.moe.MoEMLP`
+  (``block_{i}.moe``) in place of the dense MLP of every block with ``i %
+  moe_every == moe_every - 1`` (JAX ``models/dit.py:266-268``).
+* ``tome_ratio > 0`` merges tokens inside every block's attention
+  (:mod:`eo_diffusion_torch.ops.tome`; ``tome_mlp`` around the MLP too): the
+  merge count comes from ``aligned_merge_count``, so at ``dit256`` a ratio of
+  0.375 runs the attention kernel at T 640. It is parameter-free: any
+  checkpoint loads under it.
 
 Submodule names follow the flax modules (``block_{i}.qkv``, ``t_embed_0``,
 ...), so :func:`eo_diffusion_torch.weights.dit_state_dict_from_jax_params`
@@ -33,14 +41,16 @@ maps a flax tree by name.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eo_diffusion_torch.models.moe import MoEMLP
 from eo_diffusion_torch.nn.primitives import Dense, ZeroDense, timestep_embedding
 from eo_diffusion_torch.ops.attention import attention_from_qkv
+from eo_diffusion_torch.ops.tome import aligned_merge_count, build_merge, tome_partition
 
 __all__ = ["DiTConfig", "DiT", "DiTBlock", "CrossAttentionTokens", "posemb_sincos_2d",
            "modulated_ln", "patchify", "unpatchify", "dit_s", "dit_b"]
@@ -48,8 +58,7 @@ __all__ = ["DiTConfig", "DiT", "DiTBlock", "CrossAttentionTokens", "posemb_sinco
 
 @dataclasses.dataclass(frozen=True)
 class DiTConfig:
-    """The JAX ``DiTConfig`` (``models/dit.py:45``); the options of later
-    slices are kept so configs carry over, and the model raises on them."""
+    """The JAX ``DiTConfig`` (``models/dit.py:45``), field for field."""
 
     image_size: int
     in_channels: int
@@ -65,11 +74,13 @@ class DiTConfig:
     attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
     # > 0: every block cross-attends to context tokens of this width
     context_dim: int = 0
-    # later slices of the port; the constructor raises when one leaves its JAX default
+    # > 0: a routed MoE FFN of num_experts experts in every moe_every-th block
     num_experts: int = 0
     moe_top_k: int = 1
     moe_every: int = 2
     moe_capacity: float = 1.25
+    # the share of tokens merged inside every block's attention (ops/tome.py);
+    # tome_mlp merges around the MLP / MoE branch too
     tome_ratio: float = 0.0
     tome_mlp: bool = False
     # MeanFlow's two times: t comes in packed [N, 2] = (t, r), and r gets an
@@ -91,11 +102,18 @@ class DiTConfig:
     def tokens(self) -> int:
         return self.grid * self.grid
 
+    @property
+    def tome_r(self) -> int:
+        """Tokens merged away inside each block (0 without ToMe)."""
+        if not self.tome_ratio:
+            return 0
+        _, src = tome_partition(self.grid, self.grid)
+        return aligned_merge_count(self.tokens, len(src), self.tome_ratio)
 
-# option -> (the ROADMAP queue that ports it, the JAX default it must keep)
-_LATER = {"num_experts": (13, 0), "moe_top_k": (13, 1),
-          "moe_every": (13, 2), "moe_capacity": (13, 1.25), "tome_ratio": (13, 0.0),
-          "tome_mlp": (13, False)}
+    def block_experts(self, i: int) -> int:
+        """The experts of block ``i``'s FFN (0: the dense MLP)."""
+        return (self.num_experts if self.num_experts and i % self.moe_every == self.moe_every - 1
+                else 0)
 
 
 def posemb_sincos_2d(h: int, w: int, dim: int) -> torch.Tensor:
@@ -170,34 +188,60 @@ class DiTBlock(nn.Module):
     ``DiTBlock``, ``models/dit.py:157``): six modulation vectors from
     ``ada_mod``; attention ``qkv`` -> ``attention_from_qkv(new_order=True)``
     -> ``proj_out``, gated; with ``context_dim`` the ungated cross-attention
-    ``cross``; MLP ``mlp_in`` -> tanh GELU -> ``mlp_out``, gated."""
+    ``cross``; MLP ``mlp_in`` -> tanh GELU -> ``mlp_out`` (or the routed
+    ``moe`` with ``num_experts``), gated. With ``tome_r`` the attention runs
+    on tokens merged by the attention input's similarity, unmerged after
+    ``proj_out`` (and around the MLP with ``tome_mlp``)."""
 
     def __init__(self, hidden: int, heads: int, mlp_ratio: float,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 context_dim: int = 0):
+                 context_dim: int = 0, num_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity: float = 1.25, tome_r: int = 0, tome_mlp: bool = False,
+                 grid_hw: Tuple[int, int] = (0, 0)):
         super().__init__()
         self.heads, self.attn_impl = heads, attn_impl
+        self.tome_r, self.tome_mlp, self.grid_hw = tome_r, tome_mlp, grid_hw
         mlp = int(hidden * mlp_ratio)
         self.ada_mod = ZeroDense(hidden, 6 * hidden)
         self.qkv = Dense(hidden, 3 * hidden, dtype=dtype)
         self.proj_out = Dense(hidden, hidden, dtype=dtype)
         self.cross = (CrossAttentionTokens(hidden, heads, context_dim, dtype)
                       if context_dim else None)
-        self.mlp_in = Dense(hidden, mlp, dtype=dtype)
-        self.mlp_out = Dense(mlp, hidden, dtype=dtype)
+        if num_experts:
+            self.moe = MoEMLP(hidden, mlp, num_experts, top_k=moe_top_k,
+                              capacity_factor=moe_capacity, dtype=dtype)
+        else:
+            self.mlp_in = Dense(hidden, mlp, dtype=dtype)
+            self.mlp_out = Dense(mlp, hidden, dtype=dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         mod = self.ada_mod(F.silu(c.float()))
         shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = mod.chunk(6, dim=-1)
         h = modulated_ln(x, shift_a, scale_a)
-        a = attention_from_qkv(self.qkv(h), self.heads, new_order=True, impl=self.attn_impl)
-        x = x + gate_a[:, None, :].to(x.dtype) * self.proj_out(a)
+        merge = unmerge = None
+        if self.tome_r:
+            # the metric is the attention input; one map serves both branches
+            merge, unmerge = build_merge(h, self.grid_hw, self.tome_r)
+            h = merge(h)
+        a = self.proj_out(attention_from_qkv(self.qkv(h), self.heads, new_order=True,
+                                             impl=self.attn_impl))
+        if unmerge is not None:
+            a = unmerge(a)
+        x = x + gate_a[:, None, :].to(x.dtype) * a
         if self.cross is not None:
             assert context is not None, "context_dim > 0 requires context"
             x = x + self.cross(x, context)
         h = modulated_ln(x, shift_m, scale_m)
-        h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
+        around_mlp = merge is not None and self.tome_mlp
+        if around_mlp:
+            h = merge(h)
+        if hasattr(self, "moe"):
+            h = self.moe(h)
+        else:
+            h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
+        if around_mlp:
+            h = unmerge(h)
         return x + gate_m[:, None, :].to(x.dtype) * h
 
 
@@ -213,10 +257,6 @@ class DiT(nn.Module):
     def __init__(self, config: DiTConfig):
         super().__init__()
         cfg = self.config = config
-        for name, (queue, default) in _LATER.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f"DiTConfig.{name} is not ported yet (ROADMAP queue {queue})")
         d, p = cfg.hidden_size, cfg.patch_size
         self.patch_embed = Dense(p * p * cfg.in_channels, d, dtype=cfg.dtype)
         self.t_embed_0 = Dense(256, d)
@@ -229,7 +269,10 @@ class DiT(nn.Module):
         self.blocks = []
         for i in range(cfg.depth):
             block = DiTBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.dtype, cfg.attn_impl,
-                             cfg.context_dim)
+                             cfg.context_dim, num_experts=cfg.block_experts(i),
+                             moe_top_k=cfg.moe_top_k, moe_capacity=cfg.moe_capacity,
+                             tome_r=cfg.tome_r, tome_mlp=cfg.tome_mlp,
+                             grid_hw=(cfg.grid, cfg.grid))
             self.add_module(f"block_{i}", block)  # the flax names
             self.blocks.append(block)
         self.final_mod = ZeroDense(d, 2 * d)

@@ -16,6 +16,20 @@ every GroupNorm, with the SiLU and the FiLM scale-shift that follow it
 folded in, through :func:`eo_diffusion_torch.ops.group_norm.fused_group_norm`;
 both launch their CUDA kernels on the card. :meth:`UNet.set_impl` puts
 either on its plain version.
+
+Two options of the JAX UNet, both parameter-free where they can be:
+
+* ``context_dim > 0`` follows every attention block with a zero-init
+  :class:`CrossAttentionBlock` over context tokens ``[N, L, context_dim]``
+  (``AttentionBlock.xattn``; JAX ``{name}_xattn``, ``models/unet.py:334-358``):
+  its GroupNorm through the kernel, its einsum attention plain PyTorch as
+  in JAX;
+* ``freeu=(b1, b2, s1, s2)`` re-weights the two deepest decoder stages' skip
+  joins at sampling time (FreeU, arXiv:2309.11497; :func:`_freeu_pair`).
+
+``forward(..., control=(block_residuals, middle_residual))`` adds a
+ControlNet adapter's residuals to the skips and the middle output
+(:mod:`eo_diffusion_torch.models.controlnet`).
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ from eo_diffusion_torch.nn.primitives import (
     GroupNorm32,
     PointwiseConv1d,
     ZeroConv,
+    ZeroDense,
     avg_pool_2d,
     nearest_upsample_2d,
     timestep_embedding,
@@ -82,18 +97,21 @@ class UNetConfig:
     use_new_attention_order: bool = False
     dtype: torch.dtype = torch.float32  # compute dtype (params stay float32)
     attn_impl: str = "auto"  # "auto" (the kernel on CUDA) | "plain"
-    # a later slice of the port; the constructor raises when it is set
+    # > 0: a zero-init cross-attention over context tokens after every attention block
     context_dim: int = 0
     class_dropout_prob: float = 0.0  # > 0 adds the CFG null-class row
     # MeanFlow's two times: timesteps come in packed [N, 2] = (t, r), and r
     # gets an embedding MLP of its own (time_embed_r) added to t's
     dual_time: bool = False
-    # a later slice of the port; the constructor raises when it is set
+    # FreeU (b1, b2, s1, s2) at the two deepest decoder stages; None: the plain forward
     freeu: Optional[Tuple[float, float, float, float]] = None
 
     def __post_init__(self):
         object.__setattr__(self, "attention_resolutions", tuple(self.attention_resolutions))
         object.__setattr__(self, "channel_mult", tuple(self.channel_mult))
+        if self.freeu is not None:
+            object.__setattr__(self, "freeu", tuple(self.freeu))
+            assert len(self.freeu) == 4, self.freeu
 
     @property
     def label_vocab(self) -> Optional[int]:
@@ -147,6 +165,24 @@ class UNetPlan:
         return tuple(((image_size // sp.ds) ** 2, sp.out_ch // sp.num_heads)
                      for blk in (*self.input_blocks, self.middle_block, *self.output_blocks)
                      for sp in blk if sp.kind == "attn")
+
+
+def _freeu_pair(h: torch.Tensor, skip: torch.Tensor, b: float, s: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FreeU at one skip join (JAX ``models/unet.py:146-167``): the first
+    half of ``h``'s channels times ``b``, and the central 3 x 3 of the skip's
+    shifted 2-D spectrum (over H, W) times ``s``; float32 throughout, NHWC."""
+    c = h.shape[-1] // 2
+    hf = h.float()
+    h = torch.cat([hf[..., :c] * b, hf[..., c:]], dim=-1)
+    sf = torch.fft.fftshift(torch.fft.fft2(skip.float(), dim=(1, 2)), dim=(1, 2))
+    hh, ww = skip.shape[1], skip.shape[2]
+    cy, cx = hh // 2, ww // 2
+    mask = torch.ones(hh, ww, dtype=torch.float32, device=skip.device)
+    mask[max(cy - 1, 0):cy + 2, max(cx - 1, 0):cx + 2] = s
+    sf = sf * mask[None, :, :, None]
+    skip = torch.fft.ifft2(torch.fft.ifftshift(sf, dim=(1, 2)), dim=(1, 2)).real
+    return h, skip
 
 
 def _attn_heads(cfg: UNetConfig, ch: int, upsample: bool) -> int:
@@ -273,29 +309,67 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
 
+class CrossAttentionBlock(nn.Module):
+    """Cross-attention from the spatial features to context tokens ``[N, L,
+    context_dim]`` (JAX ``CrossAttentionBlock``, ``models/unet.py:334-358``):
+    ``norm`` (GroupNorm32, through the kernel), ``to_q``, ``to_kv``, q and k
+    each scaled by ``1/sqrt(sqrt(ch))``, a float32 softmax, and a zero-init
+    ``proj_out``, so a fresh block is the identity."""
+
+    def __init__(self, ch: int, num_heads: int, context_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = GroupNorm32(ch)
+        self.to_q = Dense(ch, ch, dtype=dtype)
+        self.to_kv = Dense(context_dim, 2 * ch, dtype=dtype)
+        self.proj_out = ZeroDense(ch, ch, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, hgt, wid, c = x.shape
+        heads = self.num_heads
+        ch, t = c // heads, hgt * wid
+        xt = x.reshape(b, t, c)
+        h = self.norm(xt)
+        q = self.to_q(h).reshape(b, t, heads, ch)
+        kv = self.to_kv(context.to(h.dtype)).reshape(b, context.shape[1], 2, heads, ch)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        scale = 1.0 / torch.tensor(float(ch)).sqrt().sqrt().to(q.dtype)
+        w = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
+        w = torch.softmax(w.float(), dim=-1).to(v.dtype)
+        a = torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c)
+        return (xt + self.proj_out(a)).reshape(b, hgt, wid, c)
+
+
 class AttentionBlock(nn.Module):
     """Spatial self-attention (reference ``AttentionBlock``, unet_openai.py:388-433).
 
     The NHWC input is viewed as tokens ``[B, T, C]``; the fused ``qkv``
     projection feeds :func:`attention_from_qkv` in either reference head
-    order, and the zero-init ``proj_out`` closes the residual.
+    order, and the zero-init ``proj_out`` closes the residual. With
+    ``context_dim`` the block's :class:`CrossAttentionBlock` (``xattn``)
+    follows, over ``context``.
     """
 
     def __init__(self, ch: int, num_heads: int, use_new_attention_order: bool = False,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 context_dim: int = 0):
         super().__init__()
         self.num_heads, self.new_order, self.attn_impl = num_heads, use_new_attention_order, attn_impl
         self.norm = GroupNorm32(ch)
         self.qkv = PointwiseConv1d(ch, 3 * ch, dtype=dtype)
         self.proj_out = PointwiseConv1d(ch, ch, dtype=dtype, zero=True)
+        self.xattn = (CrossAttentionBlock(ch, num_heads, context_dim, dtype)
+                      if context_dim else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, hgt, wid, c = x.shape
         xt = x.reshape(b, hgt * wid, c)
         qkv = self.qkv(self.norm(xt))
         a = attention_from_qkv(qkv, self.num_heads, new_order=self.new_order,
                                impl=self.attn_impl)
-        return (xt + self.proj_out(a)).reshape(b, hgt, wid, c)
+        out = (xt + self.proj_out(a)).reshape(b, hgt, wid, c)
+        return out if self.xattn is None else self.xattn(out, context)
 
 
 class Upsample(nn.Module):
@@ -339,7 +413,8 @@ def _make_layer(cfg: UNetConfig, spec: LayerSpec) -> nn.Module:
                         down=spec.down, dtype=cfg.dtype, use_checkpoint=cfg.use_checkpoint)
     if spec.kind == "attn":
         return AttentionBlock(spec.out_ch, spec.num_heads, cfg.use_new_attention_order,
-                              dtype=cfg.dtype, attn_impl=cfg.attn_impl)
+                              dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+                              context_dim=cfg.context_dim)
     if spec.kind == "down":
         return Downsample(spec.in_ch, spec.out_ch, cfg.conv_resample, dtype=cfg.dtype)
     if spec.kind == "up":
@@ -350,22 +425,18 @@ def _make_layer(cfg: UNetConfig, spec: LayerSpec) -> nn.Module:
 class UNet(nn.Module):
     """The timestep-embedded UNet (reference ``UNetModel``, unet_openai.py:522-780).
 
-    ``forward(x, timesteps, cond=None, y=None)`` with x ``[N, H, W, C]``
-    (NHWC), timesteps ``[N]`` (``[N, 2]`` = (t, r) with ``dual_time``), cond
-    ``[N, H, W, Cc]`` channel-concat conditioning (unet_openai.py:754-756)
-    and y ``[N]`` class labels whose
-    embedding is added to the timestep embedding (:604-605, :764-766).
-    Returns ``[N, H, W, out_channels]`` in x's dtype.
+    ``forward(x, timesteps, cond=None, y=None, context=None)`` with x ``[N,
+    H, W, C]`` (NHWC), timesteps ``[N]`` (``[N, 2]`` = (t, r) with
+    ``dual_time``), cond ``[N, H, W, Cc]`` channel-concat conditioning
+    (unet_openai.py:754-756), y ``[N]`` class labels whose embedding is added
+    to the timestep embedding (:604-605, :764-766) and, with ``context_dim``,
+    context tokens ``[N, L, context_dim]``. Returns ``[N, H, W,
+    out_channels]`` in x's dtype.
     """
 
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
-        for name, unset, queue in (("context_dim", cfg.context_dim == 0, 13),
-                                   ("freeu", cfg.freeu is None, 13)):
-            if not unset:
-                raise NotImplementedError(
-                    f"UNetConfig.{name} is not ported yet (ROADMAP queue {queue})")
         plan = build_unet_plan(cfg)
         ted, dt = cfg.time_embed_dim, cfg.dtype
         self.time_embed = nn.Sequential(Dense(cfg.model_channels, ted, dtype=dt), nn.SiLU(),
@@ -402,16 +473,37 @@ class UNet(nn.Module):
         return self
 
     @staticmethod
-    def _run(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _run(block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
+             context: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in block:
-            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif isinstance(layer, AttentionBlock):
+                h = layer(h, context)
+            else:
+                h = layer(h)
         return h
+
+    def _join(self, h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """The decoder's skip concat, with FreeU at the two deepest stages'
+        widths (JAX ``models/unet.py:565-579``)."""
+        cfg = self.config
+        fre = cfg.freeu
+        if fre is not None:
+            mult = cfg.channel_mult
+            if h.shape[-1] == cfg.model_channels * mult[-1]:
+                h, skip = _freeu_pair(h, skip, fre[0], fre[2])
+            elif len(mult) > 1 and h.shape[-1] == cfg.model_channels * mult[-2]:
+                h, skip = _freeu_pair(h, skip, fre[1], fre[3])
+        return torch.cat([h.to(cfg.dtype), skip.to(cfg.dtype)], dim=-1)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 cond: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None, *,
+                y: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None, *,
                 deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False,
-                cache_depth: Optional[int] = None):
+                cache_depth: Optional[int] = None,
+                control: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]] = None):
         """The denoiser, with the DeepCache split (Ma et al., arXiv:2312.00858;
         JAX ``UNet.__call__``, ``models/unet.py:455-480``): the first
         ``cache_depth`` input blocks (default ``1 + num_res_blocks``, the
@@ -424,8 +516,16 @@ class UNet(nn.Module):
         * ``deep_cache=deep`` skips the deep branch and splices ``deep`` in:
           only the shallow blocks run, and ``partial(x, t, deep_cache=
           full(x, t).deep)`` equals ``full(x, t)`` bit for bit.
+
+        ``control=(block_residuals, middle_residual)``: a ControlNet
+        adapter's residuals, one a input block added to its skip where the
+        decoder reads it and one to the middle block's output (JAX
+        ``models/unet.py:553-557, :584``); they do not compose with the
+        DeepCache split.
         """
         cfg = self.config
+        assert (context is not None) == (cfg.context_dim > 0), (
+            "pass context iff the model was configured with context_dim")
         if cond is not None:
             x = torch.cat([x, cond.to(x.dtype)], dim=-1)
         assert (y is not None) == (cfg.num_classes is not None), (
@@ -447,24 +547,31 @@ class UNet(nn.Module):
         use_cache = deep_cache is not None or return_deep
         if use_cache:
             assert 0 < cd < n_blocks, (cd, n_blocks)
+        assert not (use_cache and control is not None), (
+            "ControlNet residuals land on the deep branch; they do not compose with the "
+            "DeepCache split")
         h = x.to(cfg.dtype)
         hs = []
         for block in (self.input_blocks[:cd] if deep_cache is not None else self.input_blocks):
-            h = self._run(block, h, emb)
+            h = self._run(block, h, emb, context)
             hs.append(h)
+        if control is not None:
+            block_res, mid_res = control
+            assert len(block_res) == len(hs), (len(block_res), len(hs))
+            hs = [s + r.to(s.dtype) for s, r in zip(hs, block_res)]
         split = n_blocks - cd if use_cache else n_blocks
         deep = None
         if deep_cache is None:
-            h = self._run(self.middle_block, h, emb)
+            h = self._run(self.middle_block, h, emb, context)
+            if control is not None:
+                h = h + mid_res.to(h.dtype)
             for block in self.output_blocks[:split]:
-                h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
-                h = self._run(block, h, emb)
+                h = self._run(block, self._join(h, hs.pop()), emb, context)
             deep = h
         else:
             h = deep_cache.to(cfg.dtype)
         for block in self.output_blocks[split:]:
-            h = torch.cat([h.to(cfg.dtype), hs.pop().to(cfg.dtype)], dim=-1)
-            h = self._run(block, h, emb)
+            h = self._run(block, self._join(h, hs.pop()), emb, context)
         h = self.out[2](self.out[0](h, act="silu"))
         out = h.to(x.dtype)
         return (out, deep) if return_deep else out

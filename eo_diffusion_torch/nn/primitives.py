@@ -35,6 +35,7 @@ __all__ = [
     "Dense",
     "ZeroDense",
     "PointwiseConv1d",
+    "DepthwiseConv",
     "avg_pool_2d",
     "nearest_upsample_2d",
 ]
@@ -170,6 +171,24 @@ class PointwiseConv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight[:, :, 0].to(dt), self.bias.to(dt))
+
+
+class DepthwiseConv(nn.Conv2d):
+    """A depthwise ``k x k`` conv on NHWC tensors (flax ``nn.Conv`` with
+    ``feature_group_count = C``; its ``[k, k, 1, C]`` kernel is this
+    ``[C, 1, k, k]`` weight), padding ``(k-1)//2``, computed in ``dtype``
+    with cuDNN's convolution."""
+
+    def __init__(self, ch: int, kernel: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(ch, ch, kernel, stride=stride, padding=(kernel - 1) // 2, groups=ch)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), self.bias.to(dt),
+                     self.stride, self.padding, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
 
 
 def avg_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:

@@ -4,6 +4,8 @@
     python -m eo_diffusion_torch.tools.profile_sample --image_size 512
     python -m eo_diffusion_torch.tools.profile_sample --preset dit256 --flow_method heun --steps 8
     python -m eo_diffusion_torch.tools.profile_sample --preset latent256-cr --flow_method heun --steps 8
+    python -m eo_diffusion_torch.tools.profile_sample --preset dit256 --flow_method heun --steps 8 \
+        --tome_ratio 0.375 --tome_mlp
 
 Builds the preset's denoiser (by default ``sen12mscr256``, concat cloud
 removal; ``clouds64-attn`` is the reference's 64 px UNet; ``dit256`` and
@@ -26,7 +28,12 @@ encodes the cond view and decodes the result once a batch, as
   separate-tensor entries apart);
 * the forward time with the kernels against the plain attention and
   norms, from CUDA events (the plain one up to 256 px: beyond, its
-  ``[B, H, T, T]`` f32 scores at batch 8 take tens of GB).
+  ``[B, H, T, T]`` f32 scores at batch 8 take tens of GB);
+* the host operations of most self time (``host_top_ms``), where a wait
+  for the device (a copy to the host, a synchronize) shows.
+
+``--tome_ratio`` / ``--tome_mlp`` merge a DiT preset's tokens as the
+sampling CLI's flags do.
 
 Prints one JSON line and writes it to ``--out`` as well.
 """
@@ -34,6 +41,7 @@ Prints one JSON line and writes it to ``--out`` as well.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -91,6 +99,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--flow_method", choices=["euler", "heun"], default="euler",
                     help="the flow sampler's integrator (flow-process presets)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tome_ratio", type=float, default=0.0,
+                    help="DiT presets: token merging inside every block (ops/tome.py)")
+    ap.add_argument("--tome_mlp", action="store_true")
     ap.add_argument("--out", default="results/profile_sample.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -105,6 +116,8 @@ def main(argv=None) -> dict:
     concat = preset.cond_type == "concat"
     cond_ch = preset.cond_channels(preset.in_channels) if concat else 0
     cfg = preset.model_config(cond_channels=cond_ch)
+    if args.tome_ratio:
+        cfg = dataclasses.replace(cfg, tome_ratio=args.tome_ratio, tome_mlp=args.tome_mlp)
     model = randomize_parameters(build_denoiser(cfg), args.seed).to(dev).eval()
     diffusion = build_process(preset, preset.timesteps, preset.image_size,
                               cond_type=preset.cond_type if concat else None)
@@ -149,6 +162,10 @@ def main(argv=None) -> dict:
         model_calls = calls[0]
         gn_launches = G.group_norm_fwd_cuda.launches
         by_class, by_kernel = defaultdict(float), defaultdict(float)
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3 / args.steps)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda kv: -kv[1])[:12]
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -181,7 +198,9 @@ def main(argv=None) -> dict:
     res = {
         "card": card.strip(),
         "config": f"{args.preset} at {s} px, "
-                  f"{'flow ' + args.flow_method if sampler == 'flow' else 'DDIM'}, bf16",
+                  f"{'flow ' + args.flow_method if sampler == 'flow' else 'DDIM'}, bf16"
+                  + (f", tome_ratio {args.tome_ratio}{' + MLP' if args.tome_mlp else ''}"
+                     if args.tome_ratio else ""),
         "batch_size": n, "steps": args.steps, "step_ms": step_ms,
         "model_calls_per_step": model_calls / args.steps,
         "img_per_s_at_50_steps": n / (step_ms * 50 / 1e3),
@@ -190,6 +209,7 @@ def main(argv=None) -> dict:
         "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[k[:90], v] for k, v in top],
+        "host_top_ms": [[k[:90], v] for k, v in host],
         "first_stage_ms": first_stage_ms,
         "forward_ms_kernels": fwd_kernel_ms,
         "forward_ms_plain": fwd_plain_ms,

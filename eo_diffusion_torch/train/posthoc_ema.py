@@ -164,9 +164,7 @@ def _list_snaps(dirpath: str):
 def _convert_flax(arrays: Mapping[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]:
     """A flat ``{keystr: array}`` of a flax param tree -> the port's state
     dict, through the converter of ``cfg``'s backbone."""
-    from eo_diffusion_torch.models.dit import DiTConfig
-    from eo_diffusion_torch.weights import (dit_state_dict_from_jax_params,
-                                            state_dict_from_jax_params)
+    from eo_diffusion_torch.weights import backbone_state_dict_from_jax_params
 
     if cfg is None:
         raise ValueError("a snapshot with flax keys needs the backbone's config (cfg=)")
@@ -179,9 +177,7 @@ def _convert_flax(arrays: Mapping[str, np.ndarray], cfg) -> Dict[str, torch.Tens
         for p in parts[:-1]:
             d = d.setdefault(p, {})
         d[parts[-1]] = arr
-    convert = (dit_state_dict_from_jax_params if isinstance(cfg, DiTConfig)
-               else state_dict_from_jax_params)
-    return convert(tree, cfg)
+    return backbone_state_dict_from_jax_params(tree, cfg)
 
 
 def load_tree(path: str, template: Mapping[str, torch.Tensor], cfg=None) -> Tree:

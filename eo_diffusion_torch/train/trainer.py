@@ -33,13 +33,16 @@ process previews with its own ``.sample`` (``preview_sampler="flow"``).
 CFG-integrated MeanFlow (``cfg_omega != 1``) owns its label dropout, so the
 trainer's own is off for it (JAX ``train/trainer.py:340-347``). The
 backbone is built from its config for the grid it sees (the latent grid for a
-latent process), so :meth:`init` encodes nothing. Checkpoints carry
-``{"model", "model_ema", "opt_state", "step", ...}``
+latent process), so :meth:`init` encodes nothing. A backbone with MoE
+experts adds ``moe_aux_weight`` times the mean of the load-balance values
+its MoE layers recorded in the step (every layer of every model call, a
+self-conditioned second call included; JAX ``train/trainer.py:98-125``).
+Checkpoints carry ``{"model", "model_ema", "opt_state", "step", ...}``
 (:mod:`eo_diffusion_torch.train.checkpoint`); a first stage is saved apart
 (:mod:`eo_diffusion_torch.train.ae_trainer`). The sharded and pipelined
-layouts of the JAX trainer (fsdp, tp, sp, ep, pp), the Muon optimizer and
-MoE backbones belong to later slices of the port; the constructor raises
-for them and names the ROADMAP queue.
+layouts of the JAX trainer (fsdp, tp, sp, ep, pp) and the Muon optimizer
+belong to later slices of the port; the constructor raises for them and
+names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from eo_diffusion_torch.diffusion.flow import FlowMatching
 from eo_diffusion_torch.diffusion.gaussian import GaussianDiffusion
 from eo_diffusion_torch.diffusion.latent import LatentDiffusion
 from eo_diffusion_torch.diffusion.meanflow import MeanFlow
+from eo_diffusion_torch.models.moe import clear_moe_aux, moe_aux_mean
 from eo_diffusion_torch.train.ema import adjusted_decay, ema_update_every, warmed_decay
 from eo_diffusion_torch.train.lr_schedules import set_lr, warmup_cos_exp
 
@@ -90,8 +94,9 @@ class TrainerConfig:
     # k micro-steps average into one optimizer update (reference lucidrains
     # trainer's gradient_accumulate_every)
     grad_accum: int = 1
-    # the sharded layouts, MoE and Muon: later slices of the port, with the
-    # JAX defaults; the Trainer raises when one leaves its default
+    # the sharded layouts and Muon: later slices of the port, with the JAX
+    # defaults; the Trainer raises when one leaves its default
+    # (moe_aux_weight is ported: the MoE load-balance loss's weight)
     fsdp: bool = False
     fsdp_min_size: int = 2**16
     tp: bool = False
@@ -117,7 +122,7 @@ class TrainerConfig:
 
 # option -> the ROADMAP queue that ports it
 _LATER = {"fsdp": 16, "fsdp_min_size": 16, "tp": 16, "sp": 16, "ep": 16, "pp_micro": 16,
-          "pp_virtual": 16, "moe_aux_weight": 13, "muon_lr_mult": 14}
+          "pp_virtual": 16, "muon_lr_mult": 14}
 
 
 class TrainState:
@@ -194,8 +199,6 @@ class Trainer:
         if cfg.optimizer != "adamw":
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP queue 14)")
-        if getattr(getattr(model, "config", None), "num_experts", 0):
-            raise NotImplementedError("MoE backbones are not ported yet (ROADMAP queue 13)")
         inner = diffusion.diffusion if isinstance(diffusion, LatentDiffusion) else diffusion
         if not isinstance(inner, (GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
                                   MeanFlow)):
@@ -239,6 +242,8 @@ class Trainer:
             else getattr(getattr(model, "config", None), "class_dropout_prob", 0.0))
         # RePaint-"sum" conditioning is sampling-time only (model.py:52)
         self.use_cond = cfg.cond_type == "concat"
+        # the MoE load-balance loss, only where the backbone has experts
+        self.has_experts = bool(getattr(getattr(model, "config", None), "num_experts", 0))
         self._gen: Optional[torch.Generator] = None
 
     # -- lifecycle -----------------------------------------------------------
@@ -279,10 +284,18 @@ class Trainer:
                               device=self.device) < self.class_dropout_prob
             y = torch.where(drop, torch.full_like(y, cfg.num_classes), y)
         model_fn = lambda x, t, c, yy: state.model(x, t, cond=c, y=yy)
-        return self.diffusion.train_loss(
+        if self.has_experts:
+            clear_moe_aux(state.model)
+        loss = self.diffusion.train_loss(
             model_fn, self._to_device(batch["image"]), generator=self._gen, cond=cond, y=y,
             noise=self._to_device(batch.get("noise")),
             t=self._to_device(batch.get("t"), torch.float32 if self.float_t else torch.long))
+        if self.has_experts:
+            aux = moe_aux_mean(state.model)
+            if aux is not None and cfg.moe_aux_weight > 0.0:
+                loss = loss + cfg.moe_aux_weight * aux
+            clear_moe_aux(state.model)
+        return loss
 
     def step(self, state: TrainState, batch: dict):
         """One micro-step: loss, backward, (clipped, accumulated, finite-

@@ -24,7 +24,18 @@ the reference's torch state-dict names and layouts, so:
   ``cross.proj_out``;
 * a flax ``ConvAutoencoder`` tree maps by module name too
   (:func:`ae_state_dict_from_jax_params`): conv HWIO -> OIHW, each
-  ``enc_norm{i}`` / ``dec_norm{i}`` GroupNorm's ``scale`` -> ``weight``.
+  ``enc_norm{i}`` / ``dec_norm{i}`` GroupNorm's ``scale`` -> ``weight``;
+* a backbone whose torch modules carry the flax names (the DiT with its MoE
+  blocks' ``moe.router`` and ``w_in / b_in / w_out / b_out`` with their
+  leading E, ``SpadeUNet``, ``ConvNextUNet``, ``TinyUNet``) maps by
+  :func:`flax_layout`, one entry a leaf by module type: a depthwise
+  ``[k, k, 1, C]`` kernel -> ``[C, 1, k, k]`` like any conv, a transposed
+  conv's kernel flipped in space -> ``[in, out, kh, kw]``;
+* a UNet's ``{name}_xattn`` cross-attention (``context_dim``) maps to
+  ``<layer>.xattn``, and a ``ControlNet``'s flax tree (its encoder copy under
+  the UNet's flax names, ``hint_*``, ``zero_*``) to the port's by
+  :func:`controlnet_layout`, whose ``keystr`` paths are also the keys of
+  the JAX package's ``controlnet.npz``.
 
 :func:`randomize_parameters` fills any of the port's modules, the DiT
 included, with seeded values.
@@ -39,9 +50,13 @@ import torch
 from torch import nn
 
 from eo_diffusion_torch.models.autoencoder import AutoencoderConfig
-from eo_diffusion_torch.models.dit import DiTConfig
+from eo_diffusion_torch.models.dit import DiT, DiTConfig
 from eo_diffusion_torch.models.encoder_unet import EncoderUNet, EncoderUNetConfig
-from eo_diffusion_torch.models.unet import UNetConfig, build_unet_plan
+from eo_diffusion_torch.models.moe import MoEMLP
+from eo_diffusion_torch.models.unet import LayerSpec, UNetConfig, build_unet_plan
+from eo_diffusion_torch.models.unet_convnext import ChannelLayerNorm
+from eo_diffusion_torch.models.unet_spade import SpadeUNet, SpadeUNetConfig
+from eo_diffusion_torch.nn.primitives import GroupNorm32, PointwiseConv1d
 
 __all__ = [
     "fix_legacy_dict",
@@ -49,6 +64,12 @@ __all__ = [
     "dit_state_dict_from_jax_params",
     "ae_state_dict_from_jax_params",
     "encoder_unet_state_dict_from_jax_params",
+    "backbone_state_dict_from_jax_params",
+    "flax_layout",
+    "flax_state_dict",
+    "unet_layout",
+    "controlnet_layout",
+    "keystr",
     "load_reference_checkpoint",
     "load_jax_train_state",
     "randomize_parameters",
@@ -106,35 +127,87 @@ def _conv(sd, prefix, d):
     _put(sd, prefix, np.asarray(d["kernel"]).transpose(3, 2, 0, 1), d["bias"])
 
 
-def _conv1d(sd, prefix, d):
-    _put(sd, prefix, np.asarray(d["kernel"]).T[:, :, None], d["bias"])
-
-
 def _gn(sd, prefix, d):
     _put(sd, prefix, np.asarray(d["GroupNorm_0"]["scale"]), d["GroupNorm_0"]["bias"])
+
+
+# (flax -> torch, torch -> flax) of one leaf
+_ID = (np.asarray, np.asarray)
+_TRANSPOSE = (lambda a: np.asarray(a).T, lambda w: np.asarray(w).T)  # Dense [I, O] <-> [O, I]
+_HWIO = (lambda a: np.asarray(a).transpose(3, 2, 0, 1),  # conv HWIO <-> OIHW
+         lambda w: np.asarray(w).transpose(2, 3, 1, 0))
+_CONV1D = (lambda a: np.asarray(a).T[:, :, None], lambda w: np.asarray(w)[:, :, 0].T)
+# flax ConvTranspose (a correlation of the dilated input) <-> torch's
+# [in, out, kh, kw], whose correlation kernel is the one flipped in space
+_TCONV = (lambda a: np.flip(np.asarray(a), (0, 1)).transpose(2, 3, 0, 1),
+          lambda w: np.flip(np.asarray(w).transpose(2, 3, 0, 1), (0, 1)))
+# module kind -> its leaves: (flax subpath, torch parameter, transforms)
+_LEAVES = {
+    "dense": ((("kernel",), "weight", _TRANSPOSE), (("bias",), "bias", _ID)),
+    "conv": ((("kernel",), "weight", _HWIO), (("bias",), "bias", _ID)),
+    "conv_nobias": ((("kernel",), "weight", _HWIO),),
+    "conv1d": ((("kernel",), "weight", _CONV1D), (("bias",), "bias", _ID)),
+    "tconv": ((("kernel",), "weight", _TCONV), (("bias",), "bias", _ID)),
+    "gn": ((("GroupNorm_0", "scale"), "weight", _ID), (("GroupNorm_0", "bias"), "bias", _ID)),
+    "embed": ((("embedding",), "weight", _ID),),
+    "ln": ((("g",), "g", _ID), (("b",), "b", _ID)),
+    "moe": tuple(((n,), n, _ID) for n in ("w_in", "b_in", "w_out", "b_out")),
+}
+# UNet layer kind -> (flax submodule, torch submodule, module kind)
+_UNET_LAYER = {
+    "conv": (((), "", "conv"),),
+    "res": ((("in_norm",), "in_layers.0", "gn"), (("in_conv",), "in_layers.2", "conv"),
+            (("emb_proj",), "emb_layers.1", "dense"), (("out_norm",), "out_layers.0", "gn"),
+            (("out_conv",), "out_layers.3", "conv")),
+    "attn": ((("norm",), "norm", "gn"), (("qkv",), "qkv", "conv1d"),
+             (("proj_out",), "proj_out", "conv1d")),
+    "down": ((("conv",), "op", "conv"),),
+    "up": ((("conv",), "conv", "conv"),),
+}
+_SKIP = (("skip_conv",), "skip_connection", "conv")
+_XATTN = ((("norm",), "norm", "gn"), (("to_q",), "to_q", "dense"), (("to_kv",), "to_kv", "dense"),
+          (("proj_out",), "proj_out", "dense"))
+
+
+def _entries(items, fprefix, tprefix):
+    """Layout entries ``(flax path, torch name, to_torch, to_flax)`` of the
+    modules ``items`` ((flax subpath, torch subname, kind), ...)."""
+    out = []
+    for fsub, tsub, kind in items:
+        tp = ".".join(p for p in (tprefix, tsub) if p)
+        for leaf, attr, (fwd, inv) in _LEAVES[kind]:
+            out.append((fprefix + fsub + leaf, f"{tp}.{attr}" if tp else attr, fwd, inv))
+    return out
+
+
+def _layer_layout(spec: LayerSpec, fname: str, tprefix: str, context_dim: int = 0):
+    """One UNet layer's layout: flax module ``fname``, torch ``tprefix``."""
+    items = _UNET_LAYER[spec.kind]
+    if spec.kind == "res" and spec.in_ch != spec.out_ch:
+        items = items + (_SKIP,)
+    out = _entries(items, (fname,), tprefix)
+    if spec.kind == "attn" and context_dim:
+        out += _entries(_XATTN, (f"{fname}_xattn",), f"{tprefix}.xattn")
+    return out
+
+
+def _get(d: Mapping, path):
+    for part in path:
+        d = d[part]
+    return d
 
 
 def _layer(sd, kind: str, d, prefix: str):
     """One UNet layer of kind ``kind`` (a ``LayerSpec.kind``) from its flax
     subtree ``d`` into ``sd`` under ``prefix``."""
-    if kind == "conv":
-        _conv(sd, prefix, d)
-    elif kind == "res":
-        _gn(sd, f"{prefix}.in_layers.0", d["in_norm"])
-        _conv(sd, f"{prefix}.in_layers.2", d["in_conv"])
-        _dense(sd, f"{prefix}.emb_layers.1", d["emb_proj"])
-        _gn(sd, f"{prefix}.out_layers.0", d["out_norm"])
-        _conv(sd, f"{prefix}.out_layers.3", d["out_conv"])
-        if "skip_conv" in d:
-            _conv(sd, f"{prefix}.skip_connection", d["skip_conv"])
-    elif kind == "attn":
-        _gn(sd, f"{prefix}.norm", d["norm"])
-        _conv1d(sd, f"{prefix}.qkv", d["qkv"])
-        _conv1d(sd, f"{prefix}.proj_out", d["proj_out"])
-    elif kind == "down":
-        _conv(sd, f"{prefix}.op", d["conv"])
-    elif kind == "up":
-        _conv(sd, f"{prefix}.conv", d["conv"])
+    items = _UNET_LAYER[kind] + ((_SKIP,) if kind == "res" and "skip_conv" in d else ())
+    for fpath, tname, fwd, _ in _entries(items, (), prefix):
+        sd[tname] = fwd(_get(d, fpath))
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys: ``['params']['a']``."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def _as_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
@@ -142,32 +215,66 @@ def _as_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
-    """Flax ``UNet`` params (numpy arrays; with or without the ``"params"``
-    level) -> the port's state dict."""
-    p = params["params"] if "params" in params else params
-    plan = build_unet_plan(cfg)
-    sd: Dict[str, np.ndarray] = {}
-    _dense(sd, "time_embed.0", p["time_embed_0"])
-    _dense(sd, "time_embed.2", p["time_embed_2"])
-    if cfg.dual_time:
-        _dense(sd, "time_embed_r.0", p["time_embed_r0"])
-        _dense(sd, "time_embed_r.2", p["time_embed_r2"])
+def _embeddings_layout(cfg):
+    """The time MLP (and r's, and the label table) of a UNet or ControlNet."""
+    out = _entries(((("time_embed_0",), "time_embed.0", "dense"),
+                    (("time_embed_2",), "time_embed.2", "dense")), (), "")
+    if getattr(cfg, "dual_time", False):
+        out += _entries(((("time_embed_r0",), "time_embed_r.0", "dense"),
+                         (("time_embed_r2",), "time_embed_r.2", "dense")), (), "")
     if cfg.num_classes is not None:
-        sd["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"])
+        out += _entries(((("label_emb",), "label_emb", "embed"),), (), "")
+    return out
+
+
+def unet_layout(cfg: UNetConfig):
+    """Every parameter of ``UNet(cfg)``: ``(flax path, torch name, to_torch,
+    to_flax)``; the reference's torch names (``input_blocks.{b}.{l}``, ...)
+    beside the flax ones (``input_{b}_{l}``, ...)."""
+    plan = build_unet_plan(cfg)
+    out = _embeddings_layout(cfg)
     for bi, block in enumerate(plan.input_blocks):
         for li, spec in enumerate(block):
-            _layer(sd, spec.kind, p[f"input_{bi}_{li}"], f"input_blocks.{bi}.{li}")
+            out += _layer_layout(spec, f"input_{bi}_{li}", f"input_blocks.{bi}.{li}",
+                                 cfg.context_dim)
     for li, spec in enumerate(plan.middle_block):
-        _layer(sd, spec.kind, p[f"middle_{li}"], f"middle_block.{li}")
+        out += _layer_layout(spec, f"middle_{li}", f"middle_block.{li}", cfg.context_dim)
     for bi, block in enumerate(plan.output_blocks):
         for li, spec in enumerate(block):
-            _layer(sd, spec.kind, p[f"output_{bi}_{li}"], f"output_blocks.{bi}.{li}")
-    _gn(sd, "out.0", p["out_norm"])
-    _conv(sd, "out.2", p["out_conv"])
+            out += _layer_layout(spec, f"output_{bi}_{li}", f"output_blocks.{bi}.{li}",
+                                 cfg.context_dim)
+    return out + _entries(((("out_norm",), "out.0", "gn"), (("out_conv",), "out.2", "conv")),
+                          (), "")
+
+
+def controlnet_layout(cfg: UNetConfig, hint_channels: int):
+    """Every parameter of ``ControlNet(cfg, hint_channels)``: ``(flax path,
+    torch name, to_torch, to_flax)``; the encoder copy under the UNet's
+    names, the hint encoder and the zero convs under flax's."""
+    plan = build_unet_plan(cfg)
+    out = _embeddings_layout(cfg)
+    out += _entries(tuple(((n,), n, "conv") for n in ("hint_0", "hint_1", "hint_out")), (), "")
+    for bi, block in enumerate(plan.input_blocks):
+        for li, spec in enumerate(block):
+            out += _layer_layout(spec, f"input_{bi}_{li}", f"input_blocks.{bi}.{li}")
+        out += _entries(((("zero_%d" % bi,), f"zero_{bi}", "conv"),), (), "")
+    for li, spec in enumerate(plan.middle_block):
+        out += _layer_layout(spec, f"middle_{li}", f"middle_block.{li}")
+    return out + _entries(((("zero_middle",), "zero_middle", "conv"),), (), "")
+
+
+def _from_layout(layout, params: Mapping, what: str) -> Dict[str, torch.Tensor]:
+    p = params["params"] if "params" in params else params
+    sd = {tname: fwd(_get(p, fpath)) for fpath, tname, fwd, _ in layout}
     if _leaves(p) != len(sd):
-        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the UNet {len(sd)} parameters")
+        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the {what} {len(sd)} parameters")
     return _as_tensors(sd)
+
+
+def state_dict_from_jax_params(params: Mapping, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``UNet`` params (numpy arrays; with or without the ``"params"``
+    level) -> the port's state dict (:func:`unet_layout`)."""
+    return _from_layout(unet_layout(cfg), params, "UNet")
 
 
 def encoder_unet_state_dict_from_jax_params(params: Mapping, cfg: EncoderUNetConfig
@@ -200,34 +307,63 @@ def _leaves(d: Mapping) -> int:
     return sum(_leaves(v) if isinstance(v, Mapping) else 1 for v in d.values())
 
 
-def _dit_linears(cfg: DiTConfig):
-    """The DiT's linear layers by name."""
-    mods = ("ada_mod", "qkv", "proj_out", "mlp_in", "mlp_out")
-    if cfg.context_dim:
-        mods += ("cross.to_q", "cross.to_kv", "cross.proj_out")
-    blocks = [f"block_{i}.{m}" for i in range(cfg.depth) for m in mods]
-    times = ["t_embed_0", "t_embed_1", *(("r_embed_0", "r_embed_1") if cfg.dual_time else ())]
-    return ["patch_embed", *times, *blocks, "final_mod", "final_proj"]
+def _kind(m: nn.Module) -> str:
+    if isinstance(m, nn.ConvTranspose2d):
+        return "tconv"
+    if isinstance(m, nn.Conv2d):
+        return "conv" if m.bias is not None else "conv_nobias"
+    if isinstance(m, PointwiseConv1d):
+        return "conv1d"
+    if isinstance(m, nn.Linear):
+        return "dense"
+    if isinstance(m, GroupNorm32):
+        return "gn"
+    if isinstance(m, nn.Embedding):
+        return "embed"
+    if isinstance(m, ChannelLayerNorm):
+        return "ln"
+    if isinstance(m, MoEMLP):
+        return "moe"
+    raise TypeError(f"no flax layout for {type(m).__name__}")
+
+
+def flax_layout(module: nn.Module):
+    """Every parameter of a module whose submodules carry the flax names:
+    ``(flax path, torch name, to_torch, to_flax)``, by module type."""
+    out = []
+    for name, m in module.named_modules():
+        if any(p is not None for p in m._parameters.values()):
+            out += _entries(((tuple(name.split(".")) if name else (), "", _kind(m)),), (), name)
+    return out
+
+
+def flax_state_dict(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params (numpy arrays; with or without the ``"params"`` level) of
+    the backbone ``module`` mirrors by name -> its state dict. Every leaf of
+    the tree is mapped, and every parameter filled; anything else raises."""
+    return _from_layout(flax_layout(module), params, type(module).__name__)
+
+
+def _meta(cls, cfg) -> nn.Module:
+    with torch.device("meta"):
+        return cls(cfg)
 
 
 def dit_state_dict_from_jax_params(params: Mapping, cfg: DiTConfig) -> Dict[str, torch.Tensor]:
     """Flax ``DiT`` params (numpy arrays; with or without the ``"params"``
-    level) -> the port's DiT state dict. Every leaf of the tree is mapped,
-    and every parameter of ``DiT(cfg)`` filled; anything else raises."""
-    p = params["params"] if "params" in params else params
-    sd: Dict[str, np.ndarray] = {}
-    for name in _dit_linears(cfg):
-        d = p
-        for part in name.split("."):
-            d = d[part]
-        if set(d) != {"kernel", "bias"}:
-            raise KeyError(f"{name}: expected kernel and bias, got {sorted(d)}")
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(d["kernel"]).T, d["bias"]
-    if cfg.num_classes is not None:
-        sd["label_embed.weight"] = p["label_embed"]["embedding"]
-    if _leaves(p) != len(sd):
-        raise KeyError(f"the flax tree has {_leaves(p)} leaves, the DiT {len(sd)} parameters")
-    return _as_tensors(sd)
+    level) -> the port's DiT state dict, its MoE blocks included. Every leaf
+    of the tree is mapped, and every parameter of ``DiT(cfg)`` filled;
+    anything else raises."""
+    return flax_state_dict(_meta(DiT, cfg), params)
+
+
+def backbone_state_dict_from_jax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The converter of ``cfg``'s backbone: a UNet, a DiT or a SpadeUNet."""
+    if isinstance(cfg, DiTConfig):
+        return dit_state_dict_from_jax_params(params, cfg)
+    if isinstance(cfg, SpadeUNetConfig):
+        return flax_state_dict(_meta(SpadeUNet, cfg), params)
+    return state_dict_from_jax_params(params, cfg)
 
 
 def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
@@ -254,7 +390,8 @@ def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
 
 
 @torch.no_grad()
-def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig], params: Mapping,
+def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig, SpadeUNetConfig],
+                         params: Mapping,
                          ema_params: Mapping,
                          mu: Mapping = None, nu: Mapping = None, step: int = 0,
                          opt_step: int = None):
@@ -263,10 +400,9 @@ def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig], params: Mappi
     trees), Adam's first and second moments ``mu`` / ``nu`` (same trees; None
     leaves the optimizer fresh), the micro-step counter ``step`` and the
     number of optimizer updates ``opt_step`` (default ``step``). ``cfg`` is
-    the backbone's config, a UNet's or a DiT's. Both trainers can then start
+    the backbone's config, a UNet's, a DiT's or a SpadeUNet's. Both trainers can then start
     from the same state, mid-run too."""
-    convert = (dit_state_dict_from_jax_params if isinstance(cfg, DiTConfig)
-               else state_dict_from_jax_params)
+    convert = backbone_state_dict_from_jax_params
     state.model.load_state_dict(convert(params, cfg), strict=True)
     state.ema_model.load_state_dict(convert(ema_params, cfg), strict=True)
     state.step = int(step)
@@ -286,16 +422,19 @@ def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig], params: Mappi
 def randomize_parameters(module: nn.Module, seed: int) -> nn.Module:
     """Overwrite every parameter with seeded values (numpy generator, in
     ``named_parameters`` order, so CPU and GPU copies agree). Weights draw
-    N(0, 1/fan_in), biases N(0, 0.05^2) and norm scales 1 + N(0, 0.05^2).
-    Unlike a fresh init this leaves no zero-initialized output layer, so a
-    forward pass exercises every block."""
+    N(0, 1/fan_in) (an MoE expert's ``[E, fan_in, out]`` weight too), biases
+    N(0, 0.05^2) (an expert's ``[E, out]`` bias too) and norm scales 1 +
+    N(0, 0.05^2). Unlike a fresh init this leaves no zero-initialized output
+    layer, so a forward pass exercises every block."""
     rng = np.random.default_rng(seed)
     for name, prm in module.named_parameters():
         shape = tuple(prm.shape)
-        if prm.ndim >= 2:
+        if name.endswith((".w_in", ".w_out")):
+            vals = rng.normal(size=shape) / np.sqrt(shape[1])
+        elif prm.ndim >= 2 and not name.endswith((".b_in", ".b_out")):
             fan_in = int(np.prod(shape[1:])) if "label_emb" not in name else 1
             vals = rng.normal(size=shape) / np.sqrt(fan_in)
-        elif name.endswith("weight"):
+        elif name.endswith(("weight", ".g")):
             vals = 1.0 + 0.05 * rng.normal(size=shape)
         else:
             vals = 0.05 * rng.normal(size=shape)

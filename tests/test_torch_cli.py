@@ -72,9 +72,17 @@ def test_unported_presets_and_datasets_raise(tmp_path):
     from eo_diffusion_torch.cli import inference
     from eo_diffusion_torch.cli.presets import get_preset
 
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        get_preset("tiny-spade")
+    with pytest.raises(NotImplementedError, match="queue 14"):
+        get_preset("tiny-sr")
     assert get_preset("tiny-meanflow").process == "meanflow"  # ported (queue 12)
+    # queue 13's presets are ported: tiny-spade samples from the test split's
+    # segmentation maps (its preset cond_type "spade")
+    res = inference.main(inference.parse_args([
+        "--preset", "tiny-spade", "--dataset", "synthetic", "--device", "cpu", "--sampler",
+        "ddim", "--sampler_steps", "2", "--batch_size", "2", "--n_iter", "0", "--metrics",
+        "--outdir", str(tmp_path / "spade")]))
+    assert res["samples"].shape == (2, 8, 8, 3) and np.isfinite(res["samples"]).all()
+    assert "ssim" in res  # a cond was built, so the samples were scored
     with pytest.raises(ValueError):
         get_preset("no-such-preset")
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
@@ -152,14 +160,34 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
     assert (args.sigma_data, args.sampler, args.cd_points) == (0.5, "cm", 18)
     for argv, queue in ((["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14),
                         (["--int8_compute"], 15)):
+        if queue == 13:  # ported: FreeU samples, and refuses a DiT preset as JAX does
+            args = inference.parse_args(["--preset", "tiny", *argv, "--device", "cpu",
+                                         "--sampler", "ddim", "--sampler_steps", "2",
+                                         "--batch_size", "2", "--n_iter", "0",
+                                         "--outdir", str(tmp_path / "freeu")])
+            assert np.isfinite(inference.main(args)["samples"]).all()
+            with pytest.raises(AssertionError, match="decoder ladder"):
+                inference.main(inference.parse_args(["--preset", "tiny-dit", *argv,
+                                                     "--device", "cpu"]))
+            continue
         with pytest.raises(SystemExit) as exc:
             inference.parse_args(["--preset", "tiny", *argv])
         assert exc.value.code == 2 and f"queue {queue}" in capsys.readouterr().err
     for name in ("tiny-meanflow", "tiny-dit-meanflow"):
         assert get_preset(name).model_config().dual_time
     for name, queue in (("tiny-spade", 13), ("tiny-sr", 14), ("moe-dit64", 13)):
+        if queue == 13:  # ported: the preset resolves to its backbone
+            cfg = get_preset(name).model_config(bf16=False, cond_channels=1)
+            assert type(cfg).__name__ == ("SpadeUNetConfig" if "spade" in name else "DiTConfig")
+            continue
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             get_preset(name)
+    # the MoE DiT samples with ToMe through the CLI
+    res = inference.main(inference.parse_args([
+        "--preset", "tiny-moe", "--dataset", "synthetic", "--device", "cpu", "--sampler",
+        "ddim", "--sampler_steps", "2", "--batch_size", "2", "--n_iter", "0", "--tome_ratio",
+        "0.375", "--tome_mlp", "--outdir", str(tmp_path / "moe")]))
+    assert res["samples"].shape == (2, 16, 16, 3)
 
 
 def test_metrics_and_samples_fid_on_tiny_cr(tmp_path, capsys, counted_model):

@@ -127,10 +127,10 @@ def test_a_cpu_conv_keeps_plain_autograd():
         CW.conv3x3(torch.randn(1, 4, 4, 8), conv.weight, conv.bias, torch.float32, impl="fast")
 
 
-# the JAX Preset fields whose port waits on ROADMAP queue 1, items 13-14
-# (the MoE DiT, the super-resolution stage): the one gap allowed in the
-# field-order check
-PRESET_FIELDS_LATER = ("num_experts", "moe_top_k", "moe_every", "sr_factor")
+# the JAX Preset field whose port waits on ROADMAP queue 1, item 14 (the
+# super-resolution stage): the one gap allowed in the field-order check; the
+# MoE fields of item 13 sit where JAX has them
+PRESET_FIELDS_LATER = ("sr_factor",)
 CONFIG_PAIRS = {
     "UNetConfig": ("eo_diffusion_tpu.models.unet", "eo_diffusion_torch.models.unet",
                    "UNetConfig", ()),
@@ -145,8 +145,8 @@ CONFIG_PAIRS = {
 def test_unet_config_fields_sit_where_jax_has_them(name):
     """Every field of the port's UNetConfig, TrainerConfig and Preset sits
     at the index the JAX package's has it, so a config passed by position
-    means the same in both; the JAX-only Preset fields of items 13-14 are
-    left out of the JAX list, and nothing else may differ."""
+    means the same in both; the JAX-only Preset field of item 14 is left
+    out of the JAX list, and nothing else may differ."""
     import importlib
 
     jmod, tmod, cls, later = CONFIG_PAIRS[name]

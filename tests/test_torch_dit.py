@@ -115,26 +115,43 @@ def test_randomize_leaves_no_zero_layer():
 @pytest.mark.parametrize("option,queue", [("num_experts", 13), ("tome_ratio", 13),
                                           ("dual_time", 12)])
 def test_unported_options_raise(option, queue):
-    """MoE and ToMe raise naming queue 13; dual_time (queue 12) is ported: the
-    DiT builds r's embedding MLP and takes (t, r) packed [N, 2]."""
+    """MoE and ToMe (queue 13) and dual_time (queue 12) are ported: the MoE
+    blocks carry ``moe`` in place of the MLP, ToMe keeps the parameters and
+    merges tokens (a forward runs), the dual-time DiT builds r's embedding MLP
+    and takes (t, r) packed [N, 2]."""
     value = {"num_experts": 2, "tome_ratio": 0.5, "dual_time": True}[option]
-    if queue == 12:
-        model = TD.DiT(TD.DiTConfig(**KW, **{option: value}))
-        assert {"r_embed_0.weight", "r_embed_1.weight"} <= set(model.state_dict())
+    model = TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+    names = set(model.state_dict())
+    if option == "dual_time":
+        assert {"r_embed_0.weight", "r_embed_1.weight"} <= names
         c = model.condition(torch.tensor([[500.0, 100.0], [20.0, 20.0]]),
                             torch.tensor([0, 1]))
         assert c.shape == (2, KW["hidden_size"]) and bool(torch.isfinite(c).all())
         return
-    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-        TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+    if option == "num_experts":  # every second block, GLaM's interleave
+        assert {"block_1.moe.w_in", "block_1.moe.router.weight"} <= names
+        assert "block_0.mlp_in.weight" in names and "block_1.mlp_in.weight" not in names
+    else:
+        assert names == set(TD.DiT(TD.DiTConfig(**KW)).state_dict())
+        assert model.config.tome_r == 8  # 16 tokens: 8 merged away
+    randomize_parameters(model, 3)
+    with torch.no_grad():
+        out = model(torch.randn(2, 16, 16, 5), torch.tensor([3.0, 9.0]), y=torch.tensor([0, 1]))
+    assert out.shape == (2, 16, 16, 3) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("option,value", [("moe_top_k", 2), ("moe_every", 1),
                                           ("moe_capacity", 2.0), ("tome_mlp", True)])
 def test_unported_moe_and_tome_fields_raise(option, value):
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        TD.DiT(TD.DiTConfig(**KW, **{option: value}))
+    """The MoE and ToMe fields (queue 13) are ported and keep the JAX
+    defaults; each reaches its block."""
     defaults = TD.DiTConfig(**KW)  # the JAX defaults construct
     assert (defaults.moe_top_k, defaults.moe_every, defaults.moe_capacity,
             defaults.tome_mlp) == (1, 2, 1.25, False)
-    TD.DiT(defaults)
+    base = dict(KW, num_experts=2, tome_ratio=0.5)
+    model = TD.DiT(TD.DiTConfig(**base, **{option: value}))
+    block = model.block_1
+    got = {"moe_top_k": lambda: block.moe.top_k, "moe_every": lambda: hasattr(model.block_0, "moe"),
+           "moe_capacity": lambda: block.moe.capacity_factor,
+           "tome_mlp": lambda: block.tome_mlp}[option]()
+    assert got == (True if option == "moe_every" else value)

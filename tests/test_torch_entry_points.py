@@ -159,8 +159,9 @@ def test_converted_latent_bridge_samples_in_the_port(workdir):
 
 def test_the_edm_and_bridge_presets_are_ported():
     """None of the six is refused any more, each builds its process, and
-    what the port still refuses are the presets of ROADMAP items 13-14 (item
-    12's MeanFlow presets are ported and match the JAX package's too)."""
+    what the port still refuses are the presets of ROADMAP item 14 (item 12's
+    MeanFlow presets and item 13's SPADE and MoE presets are ported and match
+    the JAX package's too)."""
     from eo_diffusion_torch.diffusion.bridge import BrownianBridge
     from eo_diffusion_torch.diffusion.edm import EDMProcess
     from eo_diffusion_tpu.cli import presets as JP
@@ -172,10 +173,10 @@ def test_the_edm_and_bridge_presets_are_ported():
         assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
                                                 for k in TP.Preset.__dataclass_fields__})
     for name in ("meanflow64", "tiny-meanflow", "cmeanflow64", "tiny-cmeanflow",
-                 "tiny-dit-meanflow"):
+                 "tiny-dit-meanflow", "spade64", "tiny-spade", "moe-dit64", "tiny-moe"):
         assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
                                                 for k in TP.Preset.__dataclass_fields__})
-    assert set(TP._LATER.values()) == {13, 14}
+    assert set(TP._LATER.values()) == {14}
     assert set(TP._LATER) | set(TP.PRESETS) == set(JP.PRESETS)
     with pytest.raises(AssertionError, match="concat"):
         TP.build_process(TP.get_preset("tiny-bridge"), 50, 8, cond_type=None)

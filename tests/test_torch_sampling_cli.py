@@ -166,21 +166,41 @@ def test_the_jax_compatibility_checks_hold(tmp_path, argv, match):
 @pytest.mark.parametrize("argv,item", [(["--sigma_data", "1"], 12),
                                        (["--cd_points", "9"], 12), (["--sampler", "pd"], 12),
                                        (["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14)])
-def test_waiting_flags_exit_naming_their_item(capsys, argv, item):
+def test_waiting_flags_exit_naming_their_item(tmp_path, capsys, argv, item):
     """Flags of later items exit naming theirs; item 12's (the distilled
-    samplers' --sigma_data, --cd_points and --sampler pd) are ported and
-    parse into the run's arguments."""
+    samplers' --sigma_data, --cd_points and --sampler pd) and item 13's
+    (--freeu, --tome_ratio, --tome_mlp, --controlnet, --cond_type spade) are
+    ported: they parse into the run's arguments and keep the JAX CLI's
+    checks."""
     if item == 12:
         args = inference.parse_args(["--preset", "tiny", *argv])
         flag, value = argv[0].lstrip("-"), argv[1]
         assert str(getattr(args, flag)) in (value, f"{value}.0")
         return
+    run = ["--device", "cpu", "--dataset", "synthetic", "--sampler", "ddim",
+           "--sampler_steps", "2", "--batch_size", "2", "--n_iter", "0",
+           "--outdir", str(tmp_path)]
+    if item == 13:
+        args = inference.parse_args(["--preset", "tiny", *argv, "--tome_ratio", "0.5",
+                                     "--tome_mlp", "--controlnet", "adapter"])
+        assert (args.freeu, args.tome_ratio, args.tome_mlp, args.controlnet) == (
+            "1,1,1,1", 0.5, True, "adapter")
+        for extra, match in ((["--preset", "tiny-cr", "--deepcache", "2"], "DeepCache wraps"),
+                             (["--preset", "tiny-dit"], "pixel-space UNet"),
+                             (["--preset", "tiny-cr", "--cond_type", "sum"], "replaces 'sum'")):
+            with pytest.raises(AssertionError, match=match):
+                inference.main(inference.parse_args([*extra, "--controlnet", "adapter", *run]))
+        with pytest.raises(AssertionError, match="no token axis"):
+            inference.main(inference.parse_args(["--preset", "tiny", "--tome_ratio", "0.5",
+                                                 *run]))
+        return
     with pytest.raises(SystemExit) as exc:
         inference.parse_args(["--preset", "tiny", *argv])
     assert exc.value.code == 2 and f"ROADMAP queue {item}" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        inference.main(inference.parse_args(["--preset", "tiny", "--cond_type", "spade",
-                                             "--device", "cpu"]))
+    # --cond_type spade on a UNet preset: the segmap rides in as a concat cond
+    res = inference.main(inference.parse_args(["--preset", "tiny", "--cond_type", "spade",
+                                               *run]))
+    assert res["samples"].shape == (2, 8, 8, 3)
 
 
 def test_posthoc_ema_feeds_phema_and_autoguide(tmp_path, monkeypatch, capsys):

@@ -99,7 +99,17 @@ def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, c
 @pytest.mark.parametrize("flag,queue", [("--fsdp", 16), ("--optimizer=muon", 14),
                                         ("--config", 14),
                                         ("--tome_ratio", 13), ("--profile_dir", 17)])
-def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
+def test_unported_flags_exit_naming_their_queue(flag, queue, capsys, workdir):
+    """Flags of later queues exit naming theirs; queue 13's --tome_ratio (and
+    --tome_mlp) are ported: they parse, and a UNet preset refuses them as the
+    JAX CLI does (DiT presets only)."""
+    if queue == 13:
+        args = train.parse_args(["--preset", "tiny", flag, "0.375", "--tome_mlp",
+                                 "--device", "cpu"])
+        assert (args.tome_ratio, args.tome_mlp) == (0.375, True)
+        with pytest.raises(AssertionError, match="DiT presets only"):
+            train.main(args)
+        return
     with pytest.raises(SystemExit) as exc:
         train.parse_args(["--preset", "tiny", flag])
     assert exc.value.code != 0
@@ -109,8 +119,16 @@ def test_unported_flags_exit_naming_their_queue(flag, queue, capsys):
 def test_unported_presets_and_datasets_raise(workdir):
     from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        train.main(train.parse_args(["--preset", "tiny-spade", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="queue 14"):
+        train.main(train.parse_args(["--preset", "tiny-sr", "--device", "cpu"]))
+    # queue 13's SPADE preset trains on the synthetic segmentation maps
+    res = train.main(train.parse_args([
+        "--preset", "tiny-spade", "--dataset", "synthetic", "--device", "cpu", "--batch_size",
+        "4", "--epochs", "1", "--steps_per_epoch", "2", "--sample_every", "2",
+        "--preview_sampler", "ddim", "--preview_steps", "2", "--n_samples", "2",
+        "--save_every", "0", "--dir", "results/s"]))
+    assert res["steps"] == 2 and all(np.isfinite(res["losses"]))
+    assert os.path.exists("results/s/steps_00000002.png")
     # every dataset of the JAX package's factories is ported: a tiny EuroSAT
     # tree (--data_root) trains; an unknown name fails as in JAX
     rng = np.random.default_rng(0)
@@ -136,8 +154,8 @@ def test_dit_and_flow_training_raises_until_ported(workdir, preset):
     backbone and a flow, both on the latent grid behind a first stage. The
     latent bridge trains too (tests/test_torch_entry_points.py), and so does
     MeanFlow (tests/test_torch_distill_cli.py): its preset builds the
-    dual-time backbone with plain attention and the MeanFlow process; what
-    still raises is SPADE, naming ROADMAP queue 13."""
+    dual-time backbone with plain attention and the MeanFlow process; and
+    since ROADMAP queue 13 the MoE DiT, here under ToMe."""
     from eo_diffusion_torch.cli.presets import build_process, get_preset
 
     latent = get_preset({"tiny-dit": "tiny-latent-dit", "tiny-flow": "tiny-latent-flow",
@@ -155,8 +173,11 @@ def test_dit_and_flow_training_raises_until_ported(workdir, preset):
     mcfg = mf.model_config()
     assert mcfg.dual_time and mcfg.attn_impl == "plain"
     assert isinstance(build_process(mf, mf.timesteps, mf.image_size), MeanFlow)
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        train.main(train.parse_args(["--preset", "tiny-spade", "--device", "cpu"]))
+    res = train.main(train.parse_args([
+        "--preset", "tiny-moe", "--dataset", "synthetic", "--device", "cpu", "--batch_size",
+        "4", "--epochs", "1", "--steps_per_epoch", "2", "--sample_every", "0",
+        "--save_every", "0", "--tome_ratio", "0.375", "--dir", f"results/{preset}"]))
+    assert res["steps"] == 2 and all(np.isfinite(res["losses"]))
 
 
 DIT_FLOW = ["--dataset", "synthetic", "--device", "cpu", "--batch_size", "4",

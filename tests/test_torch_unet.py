@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from eo_diffusion_torch.models import unet as TU
+from eo_diffusion_torch.weights import randomize_parameters
 from torch_parity import configs, one_torch_thread, port_model, random_params, rel_err  # noqa: F401
 
 # f32 forward: max |port - jax| / max |jax| (DESIGN.md:52-54)
@@ -82,11 +83,23 @@ def test_attention_block_count_of_clouds_unet():
 
 
 def test_unported_options_raise():
-    """context_dim and FreeU raise; dual_time is ported: r's embedding MLP
-    (``time_embed_r``) and timesteps packed [N, 2]."""
-    for kw in (dict(context_dim=8), dict(freeu=(1, 1, 1, 1))):
-        with pytest.raises(NotImplementedError):
-            TU.UNet(TU.UNetConfig(**BASE, **kw))
+    """context_dim and FreeU are ported (ROADMAP queue 13): a cross-attention
+    block after every attention block, whose zero proj_out leaves a fresh
+    model's output as the plain one's, and FreeU's re-weighted skips;
+    dual_time too: r's embedding MLP (``time_embed_r``) and timesteps packed
+    [N, 2]."""
+    x = torch.randn(2, 8, 8, 3, generator=torch.Generator().manual_seed(0))
+    t = torch.tensor([3, 9])
+    plain = randomize_parameters(TU.UNet(TU.UNetConfig(**BASE)), seed=1).eval()
+    xattn = TU.UNet(TU.UNetConfig(**BASE, context_dim=8)).eval()
+    assert {"middle_block.1.xattn.to_kv.weight"} <= set(xattn.state_dict())
+    xattn.load_state_dict(plain.state_dict(), strict=False)
+    freeu = TU.UNet(TU.UNetConfig(**BASE, freeu=(1.2, 1.3, 0.9, 0.4))).eval()
+    freeu.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        ref = plain(x, t)
+        torch.testing.assert_close(xattn(x, t, context=torch.randn(2, 5, 8)), ref)
+        assert not torch.allclose(freeu(x, t), ref)
     model = TU.UNet(TU.UNetConfig(**BASE, dual_time=True))
     assert {"time_embed_r.0.weight", "time_embed_r.2.weight"} <= set(model.state_dict())
     with torch.no_grad():

@@ -9,13 +9,12 @@ read one ``torch.save`` file. This script restores the JAX checkpoint's
 ``params`` and ``ema_params`` with ``eo_diffusion_tpu.train.checkpoint.
 restore_params`` against a template built from the preset's JAX model (a
 checkpoint of another shape is refused), converts both with the port's
-``weights.state_dict_from_jax_params`` (UNet) or
-``dit_state_dict_from_jax_params`` (DiT), and writes ``{"model",
-"model_ema"}`` at ``--out``. The backbone is the preset's, as the CLIs build
-it: ``--num_classes``, ``--class_dropout``, ``--model_base_dim`` and
+``weights.backbone_state_dict_from_jax_params`` (UNet, DiT with its MoE
+blocks, SPADE UNet), and writes ``{"model", "model_ema"}`` at ``--out``.
+The backbone is the preset's, as the CLIs build it: ``--num_classes``, ``--class_dropout``, ``--model_base_dim`` and
 ``--image_size`` override the preset as there, and ``--cond_channels`` the
 concat cond's channels (by default the image's, as on the image datasets
-with a paired view). For a latent preset it
+with a paired view; a SPADE preset's segmap has one). For a latent preset it
 also converts the first stage the JAX run saved (``--ae_ckpt``, default
 ``ae`` beside ``--ckpt``: orbax ``params/`` and ``ae_meta.json``) with
 ``ae_state_dict_from_jax_params`` into ``ae`` beside ``--out``, the
@@ -46,9 +45,7 @@ def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
     import torch
 
     from eo_diffusion_torch.cli import presets as TP
-    from eo_diffusion_torch.models.dit import DiTConfig
-    from eo_diffusion_torch.weights import (dit_state_dict_from_jax_params,
-                                            state_dict_from_jax_params)
+    from eo_diffusion_torch.weights import backbone_state_dict_from_jax_params as to_sd
     from eo_diffusion_tpu.cli import presets as JP
     from eo_diffusion_tpu.train.checkpoint import restore_params
 
@@ -60,7 +57,7 @@ def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
     drop = class_dropout or tpre.class_dropout
     grid_ch = tpre.latent_channels if tpre.is_latent else tpre.in_channels
     if cond_channels is None:  # a concat cond as the CLIs build it on the image datasets
-        cond_channels = grid_ch if tpre.cond_type == "concat" else 0
+        cond_channels = {"concat": grid_ch, "spade": 1}.get(tpre.cond_type, 0)
     # the template: the preset's JAX model, as the JAX sampling CLI builds it
     jcfg = jpre.model_config(num_classes=n_cls, bf16=False, cond_channels=cond_channels,
                              class_dropout_prob=drop)
@@ -80,8 +77,6 @@ def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
                              "--model_base_dim, --image_size)")
     tcfg = tpre.model_config(bf16=False, cond_channels=cond_channels, num_classes=n_cls,
                              class_dropout_prob=drop)
-    to_sd = (dit_state_dict_from_jax_params if isinstance(tcfg, DiTConfig)
-             else state_dict_from_jax_params)
     as_np = lambda tree: jax.tree.map(np.asarray, tree)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     torch.save({"model": to_sd(as_np(params), tcfg), "model_ema": to_sd(as_np(ema_params), tcfg)},
