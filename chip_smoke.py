@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only f32    # phases 1, 2, 5j (its kernel rows and runs)
     python3 chip_smoke.py --only few    # phases 1, 2, 5k (its kernel rows and runs)
     python3 chip_smoke.py --only backbones  # phases 1, 2, 5l (its kernel rows and runs)
+    python3 chip_smoke.py --only extras     # phases 1, 2, 5m (its kernel rows and runs)
 
 Phases, in order; the first failure exits non-zero:
 
@@ -192,7 +193,27 @@ Phases, in order; the first failure exits non-zero:
    "hybrid") at 64 px, ``ConvNextUNet`` at its defaults at 64 px and
    ``TinyUNet`` at 28 px, a forward and a loss's gradients each at b8
    against all-plain. Every run's launches are asserted against a forward on
-   the meta device (``backbone_expected``);
+   the meta device (``backbone_expected``); 5m. the training extras at full
+   width, seeded weights, cut in steps and batches only: K1 with the lse and
+   K4 at ``sr64-256``'s b16 step (B16 T4096 H8 D48, B16 T1024 H8 D64), K1 at
+   the cascade base's b16 (B16 T256 H4 D48, B16 T64 H4 D64), K5 at every
+   GroupNorm site of a 256 px b16 forward (each site shape once, the sums
+   over the 56 sites), 2a at its level 0, each against its plain version;
+   an ``sr64-256`` loss's gradients against all-plain (at b2:
+   EXTRA_GRAD_BATCH), then ``cli.train --preset sr64-256`` EXTRA_STEPS steps
+   at b16 with AdamW and as many with ``--optimizer muon``, each optimizer's
+   step timed on its run's parameters; ``cli.cascade`` ``synthetic64`` ->
+   ``sr64-256`` at b16, DDIM-CASCADE_STEPS a stage, two chunks from seeded
+   checkpoints (``cascade_rmse`` finite), and one chunk from shared start
+   noise against all-plain (TOL_SOLVER_REL); LoRA on ``oscd64`` at 256 px:
+   the adapters' gradients through the merge against all-plain (b2),
+   ``cli.finetune --method lora`` and ``--method controlnet`` EXTRA_STEPS
+   steps at b8 (a LoRA step launches 2a at every routed site on the merged
+   weights; a ControlNet step launches it only at the branch's sites, K4 and
+   K5 backward at the branch and the base's decoder), ``cli.inference
+   --lora`` DDIM-CASCADE_STEPS b8; ``cli.train --profile_dir`` on
+   ``synthetic64`` at b16, its trace holding exactly PROFILE_STEPS step
+   spans. Every run's launches are asserted;
 7. the training path through the entry point: ``eo_diffusion_torch.cli.train``
    with ``sen12mscr256`` at full width and depth, batch 8, bf16, a few
    steps from seeded weights; the attention counters must rise by 11 a step
@@ -615,6 +636,21 @@ TOL_MOE = 1e-2  # the MoE layer against its dense-dispatch plain version, rel L2
 # K5 in float32 at SPADE's parameter-free statistics: spade64's level
 # shapes (HW, C) at its b64
 SPADE_GN_SITES = ((4096, 64), (1024, 128), (256, 192), (64, 256))
+# phase 5m: the training extras. sr64-256 (the clouds UNet's widths at 256 px,
+# concat SR cond) trains at its preset's batch (16), EXTRA_STEPS steps with
+# AdamW and as many with Muon; the synthetic64 -> sr64-256 cascade samples two
+# chunks of 16 at DDIM-CASCADE_STEPS a stage; LoRA and ControlNet fine-tune
+# oscd64 at 256 px (b8, EXTRA_STEPS steps); the profiler window spans
+# PROFILE_STEPS steps
+EXTRA_BATCH = 16
+EXTRA_STEPS = 4
+CASCADE_STEPS = 20
+LORA_BATCH = 8
+PROFILE_STEPS = 3
+# the all-plain gradient checks at 256 px run at b2: plain attention keeps
+# an f32 [B, H, T, T] score tensor of each T 4096 block for the backward
+# (about 86 GB at b16)
+EXTRA_GRAD_BATCH = 2
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -4015,29 +4051,33 @@ def backbone_expected(build, call, forwards=0, backwards=0):
             "wgrad_sm90": seen["sm90"] * backwards, "wgrad": seen["mma"] * backwards}
 
 
-def bb_grad_check(models, fwd, target, label, expect):
+def bb_grad_check(models, fwd, target, label, expect, params=None, phase="5l"):
     """One forward of ``fwd()`` and the backward of its mean square error
     against ``target``, through the kernels and then all-plain (the same
-    weights and inputs): the outputs within TOL_UNET_REL and the first
-    model's parameter gradients within TOL_UNET_GRAD_REL (relative L2); the
-    kernel run's launches ``expect``, the plain run's none."""
+    weights and inputs): the outputs within TOL_UNET_REL and the gradients
+    of ``params`` (name -> tensor; default the first model's parameters)
+    within TOL_UNET_GRAD_REL (relative L2); the kernel run's launches
+    ``expect``, the plain run's none."""
+    params = params if params is not None else dict(models[0].named_parameters())
     res = {}
     for impl in ("auto", "plain"):
         set_all(models, impl)
-        models[0].zero_grad(set_to_none=True)
+        for p in params.values():
+            p.grad = None
         reset_counts()
         out = fwd()
         (out.float() - target).pow(2).mean().backward()
         torch.cuda.synchronize()
         res[impl] = (out.detach().float(), {n: p.grad.detach().float().clone()
-                                            for n, p in models[0].named_parameters()
+                                            for n, p in params.items()
                                             if p.grad is not None}, counts())
     set_all(models, "auto")
-    models[0].zero_grad(set_to_none=True)
+    for p in params.values():
+        p.grad = None
     out_rel = rel_l2(res["auto"][0], res["plain"][0])
     grad_rel = grads_rel_l2(res["auto"][1], res["plain"][1])
     launched = res["auto"][2]
-    print(f"5l {label}: output rel L2 {out_rel:.3e} (limit {TOL_UNET_REL}), gradients rel L2 "
+    print(f"{phase} {label}: output rel L2 {out_rel:.3e} (limit {TOL_UNET_REL}), gradients rel L2 "
           f"{grad_rel:.3e} over {len(res['auto'][1])} parameters (limit {TOL_UNET_GRAD_REL}); "
           f"launches {({k: v for k, v in launched.items() if v})}", flush=True)
     assert bool(torch.isfinite(res["auto"][0]).all()), label
@@ -4047,7 +4087,7 @@ def bb_grad_check(models, fwd, target, label, expect):
     return {"output_rel_l2": out_rel, "grad_rel_l2": grad_rel, "launches": launched}
 
 
-def bb_trajectory_check(models, run, label, expect, card):
+def bb_trajectory_check(models, run, label, expect, card, phase="5l"):
     """``run()`` (a sampler from fixed weights and one start) through the
     kernels, then all-plain: the final samples within TOL_SOLVER_REL
     (relative L2), the kernel run's launches ``expect``, the plain run's
@@ -4067,7 +4107,7 @@ def bb_trajectory_check(models, run, label, expect, card):
         plain_launched = counts()
         set_all(models, "auto")
     rel = rel_l2(x_k, x_p)
-    print(f"5l {label} kernels vs all-plain: final samples rel L2 {rel:.3e} (limit "
+    print(f"{phase} {label} kernels vs all-plain: final samples rel L2 {rel:.3e} (limit "
           f"{TOL_SOLVER_REL}); {seconds:.4f} s through the kernels; launches "
           f"{({k: v for k, v in launched.items() if v})}; {card}", flush=True)
     assert bool(torch.isfinite(x_k).all()) and rel <= TOL_SOLVER_REL, (label, rel)
@@ -4076,7 +4116,7 @@ def bb_trajectory_check(models, run, label, expect, card):
     return {"rel_l2": rel, "seconds": seconds, "launches": launched}
 
 
-def bb_sample(argv, cfg, tmp, label, expect_per_batch, card, ckpt=None, seed=24):
+def bb_sample(argv, cfg, tmp, label, expect_per_batch, card, ckpt=None, seed=24, phase="5l"):
     """``cli.inference`` (two batches of 8) from ``ckpt`` or seeded weights:
     the launches must be ``expect_per_batch`` a batch; img/s over the second
     batch."""
@@ -4085,31 +4125,36 @@ def bb_sample(argv, cfg, tmp, label, expect_per_batch, card, ckpt=None, seed=24)
     want = {k: v * res["batches"] for k, v in expect_per_batch.items()}
     assert res["launches"] == want, (label, res["launches"], want)
     img_s = 8 / res["batch_seconds"][1]
-    print(f"5l cli.inference {label} b8: batch seconds "
+    print(f"{phase} cli.inference {label} b8: batch seconds "
           f"{[round(v, 4) for v in res['batch_seconds']]}, {img_s:.4f} img/s (second batch, a "
           f"single reading); launches {({k: v for k, v in res['launches'].items() if v})}; "
           f"peak memory {res['peak_mem_gb']:.2f} GiB; {card}", flush=True)
     return {"img_s": img_s, "batch_seconds": res["batch_seconds"], "launches": res["launches"]}
 
 
-def bb_train(argv, tmp, label, expect, card):
+def bb_train(argv, tmp, label, expect, card, phase="5l", after=None):
     """``cli.train`` in process with the counters reset: finite losses, the
-    launches ``expect``; steps/s of the step alone after the first two."""
+    launches ``expect``; steps/s of the step alone after the first two.
+    ``after(result)`` sees the run's result, its train state included, after
+    the launches are read; the state is dropped before the return."""
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with contextlib.chdir(tmp):
         tr = cli_train.main(cli_train.parse_args(argv))
     got = counts()
+    if after is not None:
+        after(tr)
+    tr.pop("state")
     assert all(math.isfinite(v) for v in tr["losses"]), (label, tr["losses"])
     assert got == expect, (label, got, expect)
     sps = steady_sps(tr)
     per_step = {k: v / tr["steps"] for k, v in got.items() if v}
-    print(f"5l cli.train {label}: {tr['steps']} steps, loss {tr['losses'][0]:.5f} -> "
+    print(f"{phase} cli.train {label}: {tr['steps']} steps, loss {tr['losses'][0]:.5f} -> "
           f"{tr['losses'][-1]:.5f}; {sps:.4f} steps/s over the last {tr['steps'] - 2} (a single "
           f"reading); launches a step {per_step}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
     return {"steps_per_s": sps, "losses": tr["losses"], "launches": got,
-            "checkpoint": tr["checkpoint"]}
+            "checkpoint": tr["checkpoint"], "profile": tr["profile"]}
 
 
 def moe_dense_reference(m, x):
@@ -4523,6 +4568,324 @@ def backbones_only(card):
     return 0
 
 
+def gn_site_rows(cfg, size, batch, g, call):
+    """K5 at every GroupNorm site of one forward of ``cfg``'s UNet at
+    ``size`` px and ``batch`` (the sites read from a forward on the meta
+    device): each distinct site shape once against its plain version, and
+    the sums over all the sites (each shape's times its sites)."""
+    from eo_diffusion_torch.tools.bench_group_norm import collect_sites
+
+    with torch.device("meta"):
+        model = UNet(dataclasses.replace(cfg, image_size=size))
+    set_all([model], "plain")  # the meta device has no kernel
+    sites = collect_sites(model, *call(model))
+    rows, sums = [], {"fwd": {}, "bwd": {}, "sites": sum(sites.values())}
+    for ((n, hw, c), dtype, groups, act, film), k in sorted(sites.items(), key=str):
+        fwd, bwd = gn_case(n, hw, c, groups, act, dtype, g, film=film)
+        fwd["sites"] = bwd["sites"] = k
+        rows.append((fwd, bwd))
+        for direction, row in (("fwd", fwd), ("bwd", bwd)):
+            for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms"):
+                sums[direction][key] = sums[direction].get(key, 0.0) + k * row[key]
+    return rows, sums
+
+
+def decoder_backward(cfg, size, batch):
+    """The K4 and K5 backward launches of one backward through a frozen
+    UNet's decoder alone (its output blocks and output norm: what a
+    ControlNet's residuals reach), read from a forward on the meta device."""
+    from eo_diffusion_torch.models.unet import AttentionBlock
+    from eo_diffusion_torch.nn.primitives import GroupNorm32
+
+    with torch.device("meta"):
+        model = UNet(dataclasses.replace(cfg, image_size=size))
+    n = {"attn": 0, "norm": 0}
+    for name, m in model.named_modules():
+        if name.startswith(("output_blocks.", "out.")):
+            n["attn"] += isinstance(m, AttentionBlock)
+            n["norm"] += isinstance(m, GroupNorm32)
+    return {**{k: 0 for k in counts()}, "attn_bwd": n["attn"], "gn_bwd": n["norm"]}
+
+
+def scaled(per, k):
+    return {key: v * k for key, v in per.items()}
+
+
+def phase_5m(tmp, card):
+    """The training extras at full width (ROADMAP queue 1, items 14 and 17):
+    ``sr64-256`` training through ``cli.train`` with AdamW and with Muon, the
+    ``synthetic64`` -> ``sr64-256`` cascade through ``cli.cascade``, LoRA and
+    ControlNet fine-tuning through ``cli.finetune`` and LoRA sampling through
+    ``cli.inference --lora``, and the profiler window of ``cli.train``; each
+    model path against the all-plain model, every run's launches asserted;
+    draws from a generator of its own."""
+    from eo_diffusion_torch.cli import cascade as cli_cascade
+    from eo_diffusion_torch.cli import finetune as cli_finetune
+    from eo_diffusion_torch.cli.presets import build_process
+    from eo_diffusion_torch.models.controlnet import ControlNet
+    from eo_diffusion_torch.train import lora as TL
+    from eo_diffusion_torch.utils.profiling import STEP_SPAN
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    bf16 = torch.bfloat16
+    b = EXTRA_BATCH
+    out = {"runs": {}, "checks": {}}
+    sr = get_preset("sr64-256")
+    srcfg = sr.model_config(cond_channels=3)
+    syn = get_preset("synthetic64")
+    syncfg = syn.model_config()
+    # phase 3's rows at this slice's new shapes: K1 with the lse and K4 at
+    # sr64-256's b16 training step (ds 4 and 8 at 256 px), K1 at the cascade
+    # base's b16 (synthetic64 at ds 4 and 8), K5 at every site of a 256 px
+    # b16 step, 2a at level 0 of it
+    out["attn_rows"] = [attention_case(b, 4096, 8, 48, bf16, False, g, with_lse=True),
+                        attention_case(b, 1024, 8, 64, bf16, False, g, with_lse=True),
+                        attention_case(b, 256, 4, 48, bf16, False, g),
+                        attention_case(b, 64, 4, 64, bf16, False, g)]
+    out["bwd_rows"] = [attention_bwd_case(b, 4096, 8, 48, bf16, False, g, g),
+                       attention_bwd_case(b, 1024, 8, 64, bf16, False, g, g)]
+    meta_call = lambda n, size, ch: (lambda m: (torch.zeros(n, size, size, 3, device="meta"),
+                                                torch.zeros(n, dtype=torch.long, device="meta"),
+                                                torch.zeros(n, size, size, ch, device="meta")
+                                                if ch else None))
+    out["gn_rows"], out["gn_sums"] = gn_site_rows(srcfg, 256, b, g, meta_call(b, 256, 3))
+    print(f"5m K5 over the {out['gn_sums']['sites']} sites of a 256 px b{b} forward (sums): "
+          f"forward {json.dumps(out['gn_sums']['fwd'])}, backward "
+          f"{json.dumps(out['gn_sums']['bwd'])}; {card}", flush=True)
+    out["wgrad_row"] = wgrad_case(b, 256, 256, 128, 128, bf16, g)
+    torch.cuda.empty_cache()
+
+    stamp("5m a")
+    # a. sr64-256: the loss and backward against all-plain at b16, then
+    # cli.train at b16 with AdamW and with Muon; each optimizer's step timed
+    # on its run's parameters
+    gb = EXTRA_GRAD_BATCH
+    model = randomize_parameters(UNet(srcfg), seed=52).cuda().train()
+    x = torch.rand(gb, 256, 256, 3, generator=g, device="cuda") * 2 - 1
+    cond = torch.rand(gb, 256, 256, 3, generator=g, device="cuda") * 2 - 1
+    t = torch.randint(0, 1000, (gb,), generator=g, device="cuda")
+    out["checks"]["sr_grad"] = bb_grad_check(
+        [model], lambda: model(x, t, cond=cond), torch.randn_like(x),
+        f"sr64-256 forward and gradients b{gb}", few_expected(srcfg, gb, 1, 1), phase="5m")
+    del model
+    torch.cuda.empty_cache()
+    per_step = few_expected(srcfg, b, 1, 1)
+    opt_ms = {}
+
+    def time_optimizer(name):
+        def after(tr):
+            state = tr["state"]
+            gen = torch.Generator(device="cuda").manual_seed(53)
+            for p in state.model.parameters():
+                p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+            opt_ms[name] = cuda_ms(state.optimizer.step, reps=5, warmup=2)
+            state.model.zero_grad(set_to_none=True)
+        return after
+
+    for name, extra in (("adamw", []), ("muon", ["--optimizer", "muon"])):
+        run = bb_train(train_argv("sr64-256", b, EXTRA_STEPS, 54, f"train_sr_{name}") + extra,
+                       tmp, f"sr64-256 b{b} bf16 --optimizer {name}",
+                       scaled(per_step, EXTRA_STEPS), card, phase="5m",
+                       after=time_optimizer(name))
+        run["optimizer_ms"] = opt_ms[name]
+        out["runs"][f"sr_train_{name}"] = run
+        torch.cuda.empty_cache()
+    ad, mu = out["runs"]["sr_train_adamw"], out["runs"]["sr_train_muon"]
+    print(f"5m sr64-256 b{b}: AdamW {ad['steps_per_s']:.4f} steps/s, optimizer step "
+          f"{opt_ms['adamw']:.4f} ms; Muon {mu['steps_per_s']:.4f} steps/s, optimizer step "
+          f"{opt_ms['muon']:.4f} ms (single readings); {card}", flush=True)
+
+    stamp("5m b")
+    # b. the cascade: synthetic64 DDIM-20 then sr64-256 DDIM-20 at b16 from
+    # seeded checkpoints through cli.cascade (two chunks, img/s over the
+    # second); then one chunk from shared start noise against all-plain
+    base_ckpt = save_teacher(tmp, syncfg, 55, "cascade_base")
+    sr_ckpt = save_teacher(tmp, srcfg, 56, "cascade_sr")
+    calls = make_ddim_schedule(GaussianDiffusion.create(timesteps=1000).schedule,
+                               CASCADE_STEPS, 0.0).num_steps
+    chunk = add_counts(unet_expected(syncfg, full=calls), unet_expected(srcfg, full=calls))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    m = cli_cascade.main(cli_cascade.parse_args([
+        "--base_preset", "synthetic64", "--base_ckpt", base_ckpt, "--sr_preset", "sr64-256",
+        "--sr_ckpt", sr_ckpt, "--n", str(2 * b), "--batch_size", str(b), "--base_steps",
+        str(CASCADE_STEPS), "--sr_steps", str(CASCADE_STEPS), "--device", "cuda",
+        "--outdir", os.path.join(tmp, "cascade")]))
+    launched = counts()
+    img_s = b / m["chunk_seconds"][1]
+    print(f"5m cli.cascade synthetic64 -> sr64-256 b{b} DDIM-{CASCADE_STEPS} each: chunk seconds "
+          f"{[round(v, 4) for v in m['chunk_seconds']]}, {img_s:.4f} img/s (second chunk, a single "
+          f"reading), cascade_rmse {m['cascade_rmse']:.5f}; launches "
+          f"{({k: v for k, v in launched.items() if v})}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+    assert math.isfinite(m["cascade_rmse"]) and np.isfinite(m["sr_samples"]).all()
+    assert launched == scaled(chunk, 2), (launched, chunk)
+    out["runs"]["cascade"] = {"img_s": img_s, "chunk_seconds": m["chunk_seconds"],
+                              "cascade_rmse": m["cascade_rmse"], "launches": launched}
+    base_m = cli_cascade.load_stage(syn, base_ckpt, True, False, "cuda")
+    sr_m = cli_cascade.load_stage(sr, sr_ckpt, True, False, "cuda", cond_channels=3)
+    bd = build_process(syn, syn.timesteps, 64, cond_type=None)
+    sd = build_process(sr, sr.timesteps, 256, cond_type="concat")
+    xb_T = torch.randn(b, 64, 64, 3, generator=g, device="cuda")
+    xs_T = torch.randn(b, 256, 256, 3, generator=g, device="cuda")
+    out["checks"]["cascade"] = bb_trajectory_check(
+        [base_m, sr_m], lambda: cli_cascade.cascade(
+            syn, bd, base_m, sd, sr_m, sr.sr_factor, b, device="cuda", base_steps=CASCADE_STEPS,
+            sr_steps=CASCADE_STEPS, base_x_T=xb_T, sr_x_T=xs_T)[1],
+        f"cascade synthetic64 -> sr64-256 b{b} DDIM-{CASCADE_STEPS} each", chunk, card,
+        phase="5m")
+    del base_m, sr_m
+    torch.cuda.empty_cache()
+
+    stamp("5m c")
+    # c. LoRA on the clouds widths at 256 px (oscd64, unconditional): the
+    # adapters' gradients against all-plain, cli.finetune, cli.inference --lora
+    osc = get_preset("oscd64")
+    osc.image_size = 256
+    lcfg = osc.model_config()
+    lb = LORA_BATCH
+    lora_ckpt = save_teacher(tmp, lcfg, 57, "lora_base")
+    base = randomize_parameters(UNet(lcfg), seed=57).cuda().requires_grad_(False).eval()
+    lora = TL.lora_init(base, rank=8, generator=torch.Generator().manual_seed(58))
+    with torch.no_grad():  # B away from zero, so that A has a gradient too
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.01, generator=g)
+    targets = TL.lora_targets(base)
+    fwd = lambda: torch.func.functional_call(
+        base, TL.merged_parameters(base, lora, targets=targets), (x, t))
+    params = {f"{k}::{n}": v for k, ab in lora.items() for n, v in ab.items()}
+    out["checks"]["lora_grad"] = bb_grad_check(
+        [base], fwd, torch.randn_like(x), f"oscd64 at 256 px LoRA rank 8 ({len(lora)} "
+        f"kernels) forward and adapter gradients b{gb}", few_expected(lcfg, gb, 1, 1),
+        params=params, phase="5m")
+    lora_step = few_expected(lcfg, lb, 1, 1)
+    with torch.no_grad():
+        merge_ms = cuda_ms(lambda: TL.merged_parameters(base, lora, targets=targets), 20)
+    out["checks"]["lora_grad"]["merge_ms"] = merge_ms
+    print(f"5m LoRA merge (every adapted kernel, a training step's): {merge_ms:.4f} ms; "
+          f"{card}", flush=True)
+    del base, lora
+    torch.cuda.empty_cache()
+    ft = {}
+    for method in ("lora", "controlnet"):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = cli_finetune.main(cli_finetune.parse_args([
+            "--method", method, "--preset", "oscd64", "--image_size", "256", "--dataset",
+            "synthetic", "--ckpt", lora_ckpt, "--steps", str(EXTRA_STEPS), "--batch_size",
+            str(lb), "--device", "cuda", "--seed", "59", "--dir", os.path.join(tmp, method)]))
+        ft[method] = {"steps_per_s": res["steps_per_s"], "losses": res["losses"],
+                      "launches": counts()}
+        print(f"5m cli.finetune --method {method} oscd64 at 256 px b{lb}: {EXTRA_STEPS} steps, "
+              f"loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; "
+              f"{res['steps_per_s']:.4f} steps/s over the last {EXTRA_STEPS - 2} (a single "
+              f"reading); launches {({k: v for k, v in ft[method]['launches'].items() if v})}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+              flush=True)
+        assert all(math.isfinite(v) for v in res["losses"]), (method, res["losses"])
+        del res
+        torch.cuda.empty_cache()
+    assert ft["lora"]["launches"] == scaled(lora_step, EXTRA_STEPS), ft["lora"]["launches"]
+    # ControlNet: the frozen base forward, the branch forward and backward
+    # (its routed convs' weight gradients), and the base's decoder backward,
+    # which launches no weight gradient
+    branch = backbone_expected(
+        lambda: ControlNet(lcfg, 3),
+        lambda mm: mm(torch.zeros(lb, 256, 256, 3, device="meta", dtype=bf16),
+                      torch.zeros(lb, dtype=torch.long, device="meta"),
+                      torch.zeros(lb, 256, 256, 3, device="meta")), 1, 1)
+    cn_step = add_counts(unet_expected(lcfg, full=1), branch, decoder_backward(lcfg, 256, lb))
+    assert ft["controlnet"]["launches"] == scaled(cn_step, EXTRA_STEPS), (
+        ft["controlnet"]["launches"], cn_step)
+    assert ft["controlnet"]["launches"]["wgrad_sm90"] == EXTRA_STEPS * branch["wgrad_sm90"]
+    out["runs"]["finetune_lora"], out["runs"]["finetune_controlnet"] = ft["lora"], ft["controlnet"]
+    out["runs"]["lora_ddim"] = bb_sample(
+        ["--preset", "oscd64", "--image_size", "256", "--sampler", "ddim", "--sampler_steps",
+         str(CASCADE_STEPS), "--lora", os.path.join(tmp, "lora")], lcfg, tmp,
+        f"oscd64 at 256 px --lora DDIM-{CASCADE_STEPS}", unet_expected(lcfg, full=calls), card,
+        ckpt=lora_ckpt, phase="5m")
+
+    stamp("5m d")
+    # d. the profiler window: cli.train on synthetic64 at b16, the trace of
+    # PROFILE_STEPS steps from the second step on
+    prof_dir = os.path.join(tmp, "prof")
+    run = bb_train(train_argv("synthetic64", b, PROFILE_STEPS + 2, 60, "train_prof")
+                   + ["--profile_dir", prof_dir, "--profile_steps", str(PROFILE_STEPS)], tmp,
+                   f"synthetic64 b{b} --profile_dir (window of {PROFILE_STEPS} steps)",
+                   few_expected(syncfg, b, PROFILE_STEPS + 2, PROFILE_STEPS + 2), card,
+                   phase="5m")
+    events = json.load(open(run["profile"]["trace"]))["traceEvents"]
+    # a step's span on the host, and its projection on the card's timeline
+    spans, on_card = ([e for e in events if e.get("name") == STEP_SPAN and e.get("cat") == cat]
+                      for cat in ("user_annotation", "gpu_user_annotation"))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"5m profiler trace {run['profile']['trace']}: {len(spans)} {STEP_SPAN} spans "
+          f"(window {PROFILE_STEPS}; {len(on_card)} on the card's timeline), {len(kernels)} "
+          f"device kernel events, "
+          f"{os.path.getsize(run['profile']['trace']) / 2**20:.2f} MiB", flush=True)
+    assert run["profile"]["steps"] == PROFILE_STEPS == len(spans), (run["profile"], len(spans))
+    run["trace_spans"], run["trace_kernel_events"] = len(spans), len(kernels)
+    out["runs"]["profile"] = run
+    return out
+
+
+def extras_kernel_rows(ex):
+    """The kernels-line entries of phase 5m (``--only extras``): K1 and K4 at
+    ``sr64-256``'s b16 step and K1 at the cascade base, K5 over the 56 sites
+    of a 256 px b16 forward, the conv weight-gradient body at level 0 of it,
+    with the launches of 5m's runs and checks."""
+    runs = {**ex["runs"], **ex["checks"]}
+    total = lambda key: sum(r["launches"][key] for r in runs.values())
+    by_run = lambda key: {k: r["launches"][key] for k, r in runs.items()}
+
+    def entry(name, source, replaces, row, key, shapes, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": total(key), "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "launches_extras": by_run(key), "shapes": shapes, **extra}
+
+    gs = ex["gn_sums"]
+    wg = ex["wgrad_row"]
+    return [
+        entry("qkv_attention_fwd", "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:738", ex["attn_rows"][0], "attn_fwd",
+              ex["attn_rows"]),
+        entry("qkv_attention_bwd", "eo_diffusion_torch/ops/csrc/attention_bwd_sm90.cu",
+              "eo_diffusion_tpu/ops/attention.py:502", ex["bwd_rows"][0], "attn_bwd",
+              ex["bwd_rows"]),
+        entry("group_norm_fwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:48", {**gs["fwd"], "bound_by": "bytes"},
+              "gn_fwd", [r[0] for r in ex["gn_rows"]], sites=gs["sites"]),
+        entry("group_norm_bwd", "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+              "eo_diffusion_tpu/ops/group_norm.py:104", {**gs["bwd"], "bound_by": "bytes"},
+              "gn_bwd", [r[1] for r in ex["gn_rows"]], sites=gs["sites"]),
+        {"name": "conv_wgrad_sm90", "route": "cuda",
+         "source": "eo_diffusion_torch/ops/csrc/conv_wgrad_sm90.cu",
+         "replaces": "tools/prototype_wgrad_kernel.py:40", "launches": total("wgrad_sm90"),
+         "max_abs_err": wg["sm90_max_abs_err"], "ms": wg["sm90_ms"], "plain_ms": wg["plain_ms"],
+         "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"], "library_ms": wg["library_ms"],
+         "library_call": "aten.convolution_backward, weight gradient only (cuDNN)",
+         "launches_extras": by_run("wgrad_sm90"), "shapes": [wg]},
+    ]
+
+
+def extras_only(card):
+    """``--only extras``: phase 5m, then its kernels line, the card line and
+    the last line."""
+    stamp("5m")
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = phase_5m(tmp, card)
+    stamp("9")
+    print(json.dumps({"kernels": extras_kernel_rows(ex),
+                      "phase_5m": {k: ex[k] for k in ("runs", "checks")}}, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "only": "extras",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -4604,9 +4967,9 @@ def stamp(phase):
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--only", "wide"], ["--only", "f32"], ["--only", "few"],
-                    ["--only", "backbones"]):
+                    ["--only", "backbones"], ["--only", "extras"]):
         print(f"chip_smoke: unknown arguments {args} (none, --only wide, --only f32, --only "
-              "few or --only backbones)", file=sys.stderr)
+              "few, --only backbones or --only extras)", file=sys.stderr)
         return 2
     only = args[1] if args else None
     # 1. the card
@@ -4655,6 +5018,8 @@ def main(argv=None) -> int:
         return few_only(card)
     if only == "backbones":
         return backbones_only(card)
+    if only == "extras":
+        return extras_only(card)
 
     stamp("3")
     # 3. kernel vs plain at the path's shapes
@@ -4961,6 +5326,11 @@ def main(argv=None) -> int:
             "sen12_ddim": guided["runs"]["ddim50"]["img_s"]})
         few_runs += [*bb["runs"].values(),
                      *(v for v in bb["checks"].values() if "launches" in v)]
+        stamp("5m")
+        # 5m. the training extras: sr64-256 with AdamW and Muon, the cascade,
+        # LoRA and ControlNet fine-tuning, LoRA sampling, the profiler window
+        ex = phase_5m(tmp, card)
+        few_runs += [*ex["runs"].values(), *ex["checks"].values()]
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -5379,6 +5749,12 @@ def main(argv=None) -> int:
                                                                "bound_ms", "library_ms")},
                      launches_backbones=row["launches_backbones"],
                      backbones_shapes=row["shapes"])
+    # phase 5m's launches and rows beside each kernel's
+    for row in extras_kernel_rows(ex):
+        entry = next(k for k in kernels if k["name"] == row["name"])
+        entry.update({f"extras_{key}": row[key] for key in ("launches", "ms", "plain_ms",
+                                                            "bound_ms", "library_ms")},
+                     launches_extras=row["launches_extras"], extras_shapes=row["shapes"])
     print(json.dumps({"kernels": kernels}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

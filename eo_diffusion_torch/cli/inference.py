@@ -54,8 +54,13 @@ preset (``--tome_ratio``, ``--tome_mlp``), FreeU on a UNet preset
 (``--freeu B1,B2,S1,S2``) and a ControlNet adapter on a pixel-space UNet
 preset (``--controlnet DIR``: the paired view is the hint that steers the
 frozen base, which sees no concat cond), each with the JAX CLI's checks.
-Flags of the JAX CLI that later slices bring (LoRA, int8 compute) exit
-naming their ROADMAP queue.
+``--lora DIR`` merges a LoRA adapter of ``cli.finetune`` (``lora.npz`` +
+``lora.json``, the JAX package's files) into the sampled weights once, at
+load, with the ``alpha`` of its ``lora.json``. A super-resolution preset
+(``sr64-256``, ``tiny-sr``) conditions on the degraded view of the test
+batch's own ground truth (``data.transforms.sr_cond``), so ``--metrics``
+scores a super-resolution. The flag of the JAX CLI that a later slice brings
+(int8 compute) exits naming its ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ from eo_diffusion_torch.cli.common import resolve_device
 
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
 # name ending in "_" stands for every flag that starts with it
-UNPORTED_FLAGS = {"--lora": 14, "--int8_compute": 15}
+UNPORTED_FLAGS = {"--int8_compute": 15}
 
 
 def _unported_flag(arg: str):
@@ -206,6 +211,9 @@ def parse_args(argv=None):
                              "package's layout): the dataset's paired view steers the frozen "
                              "base checkpoint through the zero-init control branch "
                              "(arXiv:2302.05543; pixel-space UNet presets)")
+    parser.add_argument("--lora", type=str, default=None,
+                        help="LoRA adapter directory (lora.npz + lora.json from cli.finetune, "
+                             "the JAX package's layout) merged into the sampled weights")
     for arg in (argv if argv is not None else __import__("sys").argv[1:]):
         hit = _unported_flag(arg)
         if hit:
@@ -213,10 +221,12 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None):
+def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=None,
+                sr_factor=0):
     """(cond, mask) for one batch (reference inference.py:98-109): the segmap
-    for ``cond_type="spade"``; a paired "cond_image" view is the concat
-    conditioning; otherwise (image | mask)
+    for ``cond_type="spade"``; for an ``sr_factor`` preset the degraded view
+    of the batch's own image (``data.transforms.sr_cond``); a paired
+    "cond_image" view is the concat conditioning; otherwise (image | mask)
     with the mask inverted for ``cond_type="sum"`` (known = non-cloud), or a
     random rectangle a sample with ``random_label``."""
     if cond_type is None:
@@ -227,6 +237,10 @@ def _build_cond(batch, cond_type, image_size=None, random_label=False, mask_rng=
         if "segmentation" not in batch:
             return None, None
         return np.asarray(batch["segmentation"], np.float32), None
+    if cond_type == "concat" and sr_factor:
+        from eo_diffusion_torch.data.transforms import sr_cond
+
+        return sr_cond(image, sr_factor), None
     if cond_type == "concat" and "cond_image" in batch:
         return np.asarray(batch["cond_image"], np.float32), None
     mask = (np.asarray(batch["segmentation"], np.float32)
@@ -392,13 +406,15 @@ def main(args):
     if dataset == "synthetic":
         fkw["image_size"] = image_size
         fkw["channels"] = preset.in_channels
-        if cond_type == "concat":
-            fkw["with_cond_image"] = True  # synthetic cloudy view as cond
+        if cond_type == "concat" and not preset.sr_factor:
+            # the synthetic cloudy view as cond (an SR preset derives its cond
+            # from the ground truth)
+            fkw["with_cond_image"] = True
         fkw.pop("test")
     _, test_loader = factory(**fkw)
     data_range = test_loader.dataset.data_range
     peek = {k: np.asarray(v)[None] for k, v in test_loader.dataset[0].items()}
-    peek_cond, _ = _build_cond(peek, cond_type)
+    peek_cond, _ = _build_cond(peek, cond_type, sr_factor=preset.sr_factor)
     # "spade" differs from "concat" only in how the cond is built (the segmap)
     # and which backbone reads it; downstream it is a concat cond
     build_cond_type = cond_type
@@ -443,6 +459,15 @@ def main(args):
         _load_params(model, synthesize_from_dir(phema_dir, dict(model.named_parameters()),
                                                 args.phema_sigma_rel, cfg=ucfg))
         print(f"posthoc-ema: synthesized sigma_rel={args.phema_sigma_rel} from {phema_dir}")
+    if args.lora:
+        # the adapter merges into the sampled weights once (JAX merges it into
+        # the EMA tree it samples)
+        from eo_diffusion_torch.cli.finetune import load_lora
+        from eo_diffusion_torch.train.lora import lora_merge_
+
+        lora, lmeta = load_lora(args.lora)
+        lora_merge_(model, lora, alpha=lmeta.get("alpha", 8.0))
+        print(f"LoRA adapter merged: {len(lora)} kernels from {args.lora}")
     diffusion = build_process(preset, timesteps, image_size, cond_type=cond_type)
     if preset.is_latent:
         from eo_diffusion_torch.train import ae_trainer as AET
@@ -538,7 +563,7 @@ def main(args):
             image = np.asarray(batch["image"], np.float32)
             bsz = image.shape[0]
             cond, mask = _build_cond(batch, build_cond_type, image_size, args.random_label,
-                                     mask_rng)
+                                     mask_rng, sr_factor=preset.sr_factor)
             # class rotation like the reference's inference.py:110
             y = (np.full((bsz,), min(j % max(num_classes - 1, 1), num_classes - 1))
                  if num_classes else None)

@@ -2,8 +2,10 @@
 presets, DDPM, rectified flow, EDM, the Brownian bridge and MeanFlow, in
 pixels or behind a first stage, of ``eo_diffusion_tpu/cli/presets.py``).
 
-Each recipe is selectable with ``--preset``; the super-resolution presets
-raise and name the ROADMAP queue that ports them. A ``backbone="spade"``
+Each recipe is selectable with ``--preset``. A super-resolution preset
+(``sr_factor > 0``: ``sr64-256``, ``tiny-sr``) conditions on the degraded
+view of its own image (``data.transforms.sr_cond``) and is the second stage
+of ``cli.cascade``. A ``backbone="spade"``
 preset builds a :class:`SpadeUNet` whose cond is the segmentation map
 (``--cond_type spade``; process-side that is ``concat``). A MeanFlow preset
 builds a dual-time backbone whose attention is pinned to its plain version
@@ -86,6 +88,12 @@ class Preset:
     num_experts: int = 0
     moe_top_k: int = 1
     moe_every: int = 2
+    # super-resolution stage: sr_factor > 0 makes this a concat-conditioned
+    # SR model whose cond the CLIs derive from the image itself,
+    # data.transforms.sr_cond(image, factor) (average-pool, nearest-upsample
+    # back), so any dataset trains an SR stage, and cli.cascade chains it
+    # behind a base preset whose image_size * sr_factor matches
+    sr_factor: int = 0
 
     @property
     def is_latent(self) -> bool:
@@ -327,10 +335,17 @@ PRESETS = {
                         backbone="dit", patch_size=4, depth=12, num_experts=8, moe_top_k=2),
     "tiny-moe": Preset("tiny-moe", "synthetic", 16, 3, 64, (), (), 0, 4, timesteps=50,
                        batch_size=16, backbone="dit", patch_size=4, depth=2, num_experts=4),
+    # super-resolution stages: sr64-256 upsamples a 64 px base 4x at the clouds
+    # UNet's widths (cascade partner: synthetic64); tiny-sr 2x from 8 px
+    # (cascade partner: tiny)
+    "sr64-256": Preset("sr64-256", "synthetic", 256, 3, 128, (1, 2, 3, 4), (4, 8), 2, 8,
+                       cond_type="concat", batch_size=16, sr_factor=4),
+    "tiny-sr": Preset("tiny-sr", "synthetic", 16, 3, 32, (1, 2), (), 1, 1, cond_type="concat",
+                      timesteps=50, batch_size=16, sr_factor=2),
 }
 
-# presets of the JAX package that later slices port, by ROADMAP queue
-_LATER = {"sr64-256": 14, "tiny-sr": 14}
+# presets of the JAX package that later slices port, by ROADMAP queue (none left)
+_LATER = {}
 
 
 def get_preset(name: str) -> Preset:

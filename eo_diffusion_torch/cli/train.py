@@ -36,9 +36,18 @@ LR and the previews to Weights & Biases when the package is installed, and
 prints a line and logs to stdout only when it is not. ``--posthoc_ema`` keeps
 power-function EMA tracks beside the EMA and snapshots them under
 ``<ckpt dir>/phema`` at every ``--save_every`` and at the end, for the
-sampling CLI's ``--phema_sigma_rel`` and ``--autoguide_sigma_rel``. Flags of
-the JAX CLI that later slices of the port bring are rejected by name with
-their ROADMAP queue.
+sampling CLI's ``--phema_sigma_rel`` and ``--autoguide_sigma_rel``. A
+super-resolution preset (``sr64-256``, ``tiny-sr``) conditions on the
+degraded view of each batch's own image (``data.transforms.sr_cond``).
+``--optimizer muon`` trains with Muon on the matrix parameters and AdamW on
+the rest (``train/muon.py``; ``--muon_lr_mult``); ``--config FILE`` reads a
+JSON of flag values (the file overrides the defaults, the command line the
+file, an unknown key raises ``ValueError``); ``--profile_dir DIR`` captures
+a ``torch.profiler`` trace of ``--profile_steps`` steps from the second step
+on (``utils/profiling.py``: ``DIR/trace.json``, one ``train_step`` span a
+step). Flags of the JAX CLI that a later slice of the port brings are
+rejected by name with their ROADMAP queue, on the command line and in a
+``--config`` file.
 """
 
 from __future__ import annotations
@@ -53,15 +62,15 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from eo_diffusion_torch.cli.common import resolve_device
+from eo_diffusion_torch.utils.profiling import STEP_SPAN, start_trace
 
 # flags of the JAX training CLI that are not ported yet -> ROADMAP queue
 UNPORTED_FLAGS = {
-    "--optimizer": 14, "--muon_lr_mult": 14,
-    "--config": 14, "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
+    "--fsdp": 16, "--tp": 16, "--sp": 16, "--ep": 16,
     "--model_parallel": 16, "--pp_micro": 16, "--pp_virtual": 16,
-    "--profile_dir": 17, "--profile_steps": 17,
 }
 
 
@@ -96,6 +105,13 @@ def parse_args(argv=None):
                         help="global-norm gradient clipping (0 = off; "
                              "recommended ~1.0 for small micro-batches at "
                              "high resolution, e.g. the 256px presets)")
+    parser.add_argument("--optimizer", type=str, default="adamw", choices=["adamw", "muon"],
+                        help="adamw (reference parity) or muon (Newton-Schulz-orthogonalised "
+                             "momentum on the matrix parameters, adamw on the rest; "
+                             "train/muon.py)")
+    parser.add_argument("--muon_lr_mult", type=float, default=1.0,
+                        help="the muon group's LR as a multiple of the shared schedule "
+                             "(orthogonalised updates have another natural scale than adam's)")
     parser.add_argument("--skip_nonfinite", action="store_true",
                         help="drop updates with non-finite grads (params/opt "
                              "state untouched; count in the step metrics) "
@@ -144,21 +160,49 @@ def parse_args(argv=None):
                         help="latent presets: first-stage training steps when no saved "
                              "first stage exists (default: preset.ae_steps)")
     parser.add_argument("--ae_lr", type=float, default=2e-3)
-    for arg in (argv if argv is not None else __import__("sys").argv[1:]):
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="capture a torch.profiler trace (utils/profiling.py: "
+                             "<dir>/trace.json) of --profile_steps training steps, starting "
+                             "after the first step so that its warm-up stays out")
+    parser.add_argument("--profile_steps", type=int, default=3,
+                        help="steps inside the profiler's window")
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON config file; its keys override the defaults, flags given "
+                             "on the command line override the file")
+    argv = list(argv if argv is not None else __import__("sys").argv[1:])
+    for arg in argv:
         flag = arg.split("=")[0]
         if flag in UNPORTED_FLAGS:
             parser.error(f"{flag} is not ported yet (ROADMAP queue {UNPORTED_FLAGS[flag]})")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.config:
+        import json
+
+        with open(args.config) as f:
+            file_cfg = json.load(f)
+        explicit = {a.split("=")[0].lstrip("-").replace("-", "_")
+                    for a in argv if a.startswith("--")}
+        for k, v in file_cfg.items():
+            if f"--{k}" in UNPORTED_FLAGS:
+                parser.error(f"--config key {k!r} is not ported yet (ROADMAP queue "
+                             f"{UNPORTED_FLAGS[f'--{k}']})")
+            if not hasattr(args, k):
+                raise ValueError(f"unknown config key {k!r}")
+            if k not in explicit:
+                setattr(args, k, v)
+    return args
 
 
-def _to_model_batch(batch, cond_type):
+def _to_model_batch(batch, cond_type, sr_factor=0):
     """Build the model batch dict.
 
     * cond_type="sum": cond = (image | 1-mask) channel-concat like the
       reference's inference.py:101,109 -- used at sampling time only.
     * cond_type="spade": cond is the segmentation map itself (the SPADE
       norms read it).
-    * cond_type="concat": cond is the dataset's paired conditioning image
+    * cond_type="concat": cond is the SR view derived from the image itself
+      for an ``sr_factor`` preset (average-pool, nearest-upsample back:
+      ``data.transforms.sr_cond``), the dataset's paired conditioning image
       ("cond_image", e.g. the cloudy SEN12MS-CR view), or (image | mask)
       when only a segmentation is available.
     """
@@ -168,7 +212,11 @@ def _to_model_batch(batch, cond_type):
     elif cond_type == "spade":
         out["cond"] = batch["segmentation"]
     elif cond_type == "concat":
-        if "cond_image" in batch:
+        if sr_factor:
+            from eo_diffusion_torch.data.transforms import sr_cond
+
+            out["cond"] = sr_cond(np.asarray(batch["image"], np.float32), sr_factor)
+        elif "cond_image" in batch:
             out["cond"] = batch["cond_image"]
         elif "segmentation" in batch:
             out["cond"] = np.concatenate([batch["image"], batch["segmentation"]], axis=-1)
@@ -224,8 +272,9 @@ def main(args):
     taken, every step's loss and host-clock seconds (each ends in a fetch of
     the loss), the host-clock seconds each step waited for its batch from the
     feed before it, the seconds of the timed loop, the path of the last
-    checkpoint and the final train state; for a latent preset also ``ae``,
-    the first stage's (:func:`_latent_first_stage`)."""
+    checkpoint, the final train state and ``profile`` (the trace's path and
+    the steps in its window; None and 0 without ``--profile_dir``); for a
+    latent preset also ``ae``, the first stage's (:func:`_latent_first_stage`)."""
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.data.factories import DATASET_FACTORIES
     from eo_diffusion_torch.data.loader import device_prefetch
@@ -272,8 +321,10 @@ def main(args):
     if dataset == "synthetic":
         fkw["image_size"] = image_size
         fkw["channels"] = preset.in_channels
-        if cond_type == "concat":
-            fkw["with_cond_image"] = True  # synthetic cloudy view as cond
+        if cond_type == "concat" and not preset.sr_factor:
+            # the synthetic cloudy view as cond (an SR preset derives its cond
+            # from the image itself instead)
+            fkw["with_cond_image"] = True
     train_loader, _ = factory(**fkw)
     steps_per_epoch = len(train_loader)
     if args.steps_per_epoch:
@@ -283,7 +334,7 @@ def main(args):
     # "sum" (RePaint) conditions at sampling time only (model.py:52): the
     # UNet stays unconditional. "concat" feeds the dataset's cond channels in.
     peek = {k: np.asarray(v)[None] for k, v in train_loader.dataset[0].items()}
-    batch0 = _to_model_batch(peek, cond_type)
+    batch0 = _to_model_batch(peek, cond_type, sr_factor=preset.sr_factor)
     has_cond = cond_type in ("concat", "spade") and "cond" in batch0
     cond_channels = preset.cond_channels(batch0["cond"].shape[-1]) if has_cond else 0
     mcfg = preset.model_config(bf16=not args.no_bf16, cond_channels=cond_channels,
@@ -310,6 +361,7 @@ def main(args):
         cond_type="concat" if cond_type == "spade" else cond_type, ckpt_dir=ckpt_dir,
         sample_dir=args.dir, seed=args.seed, grad_accum=args.grad_accum,
         grad_clip=args.grad_clip, skip_nonfinite=args.skip_nonfinite,
+        optimizer=args.optimizer, muon_lr_mult=args.muon_lr_mult,
         preview_sampler=preview_sampler, preview_steps=args.preview_steps)
     trainer = Trainer(tcfg, model, diffusion, steps_per_epoch, device=device)
     state = trainer.init()
@@ -369,25 +421,40 @@ def main(args):
 
     losses, step_seconds, wait_seconds = [], [], []
     t_start = time.time()
+    # the profiler's window: opens after the first step (its warm-up and
+    # cuDNN's plan search stay out), spans args.profile_steps steps and
+    # closes exactly once, also on an early exit
+    prof = {"cap": None, "done": args.profile_dir is None, "count": 0,
+            "start_at": global_steps + 1, "path": None}
     start_epoch = min(global_steps // steps_per_epoch, args.epochs)
     for epoch in range(start_epoch, args.epochs):
         if preempt["sig"] is not None:
             break
-        feed = device_prefetch((_to_model_batch(b, cond_type) for b in
-                                itertools.islice(train_loader, steps_per_epoch)), device)
+        feed = device_prefetch((_to_model_batch(b, cond_type, sr_factor=preset.sr_factor)
+                                for b in itertools.islice(train_loader, steps_per_epoch)),
+                               device)
         t_wait = time.perf_counter()
         for j, mb in enumerate(feed):
             if preempt["sig"] is not None:
                 break
+            if not prof["done"] and prof["cap"] is None and global_steps >= prof["start_at"]:
+                prof["cap"] = start_trace(args.profile_dir)
             t_step = time.perf_counter()
             wait_seconds.append(t_step - t_wait)  # the feed's share of the step
-            state, metrics = trainer.step(state, mb)
+            with record_function(STEP_SPAN):
+                state, metrics = trainer.step(state, mb)
             global_steps += 1
             if tracks is not None:
                 phema.update(tracks, dict(state.model.named_parameters()), global_steps - 1)
             loss = float(metrics["loss"])  # host fetch: the step really ran
             step_seconds.append(time.perf_counter() - t_step)
             losses.append(loss)
+            if prof["cap"] is not None:  # after the step's time: writing the trace is not in it
+                prof["count"] += 1
+                if prof["count"] >= args.profile_steps:
+                    prof["path"] = prof["cap"].stop()
+                    prof["cap"], prof["done"] = None, True
+                    print(f"profiler trace ({prof['count']} steps) -> {prof['path']}")
             lr = trainer.current_lr(global_steps - 1)
             if args.log_freq and j % args.log_freq == 0:
                 print("Epoch[{}/{}],Step[{}/{}],loss:{:.5f},lr:{:.5f}".format(
@@ -431,6 +498,9 @@ def main(args):
             t_wait = time.perf_counter()
 
     signal.signal(signal.SIGTERM, old_term)
+    if prof["cap"] is not None:  # an early exit inside the window
+        prof["path"] = prof["cap"].stop()
+        print(f"profiler trace ({prof['count']} steps, early stop) -> {prof['path']}")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t_start
@@ -439,7 +509,8 @@ def main(args):
         phema.save_snapshots(phema_dir, tracks, global_steps - 1)
     result = {"steps": global_steps, "losses": losses, "seconds": dt,
               "step_seconds": step_seconds, "wait_seconds": wait_seconds,
-              "checkpoint": last_ckpt, "state": state, "preempted": preempt["sig"]}
+              "checkpoint": last_ckpt, "state": state, "preempted": preempt["sig"],
+              "profile": {"trace": prof["path"], "steps": prof["count"]}}
     if ae_info is not None:
         result["ae"] = ae_info
     if preempt["sig"] is not None:

@@ -193,10 +193,11 @@ class KeyframeSchedule:
 
 def set_lr(optimizer, table: np.ndarray, step: int) -> float:
     """Set every parameter group's ``lr`` to ``table[clip(step)]`` (``step``
-    counts optimizer steps) and return it."""
+    counts optimizer steps) times the group's ``lr_mult`` (1 where it has
+    none: Muon's group has ``muon_lr_mult``) and return the table's value."""
     lr = float(table[min(max(int(step), 0), len(table) - 1)])
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_mult", 1.0)
     return lr
 
 

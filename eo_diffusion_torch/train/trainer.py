@@ -37,12 +37,16 @@ latent process), so :meth:`init` encodes nothing. A backbone with MoE
 experts adds ``moe_aux_weight`` times the mean of the load-balance values
 its MoE layers recorded in the step (every layer of every model call, a
 self-conditioned second call included; JAX ``train/trainer.py:98-125``).
+``optimizer="muon"`` takes :class:`~eo_diffusion_torch.train.muon.MuonWithAdamW`
+in AdamW's place (Muon on the matrix parameters at ``muon_lr_mult`` times
+the table, AdamW on the rest), behind the same clip, accumulation and
+non-finite skip, in the JAX trainer's order.
 Checkpoints carry ``{"model", "model_ema", "opt_state", "step", ...}``
-(:mod:`eo_diffusion_torch.train.checkpoint`); a first stage is saved apart
+(:mod:`eo_diffusion_torch.train.checkpoint`), Muon's momentum buffers in the
+optimizer state; a first stage is saved apart
 (:mod:`eo_diffusion_torch.train.ae_trainer`). The sharded and pipelined
-layouts of the JAX trainer (fsdp, tp, sp, ep, pp) and the Muon optimizer
-belong to later slices of the port; the constructor raises for them and
-names the ROADMAP queue.
+layouts of the JAX trainer (fsdp, tp, sp, ep, pp) belong to a later slice
+of the port; the constructor raises for them and names the ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -94,15 +98,18 @@ class TrainerConfig:
     # k micro-steps average into one optimizer update (reference lucidrains
     # trainer's gradient_accumulate_every)
     grad_accum: int = 1
-    # the sharded layouts and Muon: later slices of the port, with the JAX
-    # defaults; the Trainer raises when one leaves its default
-    # (moe_aux_weight is ported: the MoE load-balance loss's weight)
+    # the sharded layouts: a later slice of the port, with the JAX defaults;
+    # the Trainer raises when one leaves its default (moe_aux_weight is
+    # ported: the MoE load-balance loss's weight)
     fsdp: bool = False
     fsdp_min_size: int = 2**16
     tp: bool = False
     ep: bool = False
     sp: bool = False
     moe_aux_weight: float = 0.01
+    # "adamw" (reference parity) or "muon" (train/muon.py: Newton-Schulz-
+    # orthogonalised momentum on the matrix parameters, AdamW on the rest);
+    # muon_lr_mult scales the Muon group against the shared table
     optimizer: str = "adamw"
     muon_lr_mult: float = 1.0
     # drop updates with a non-finite gradient instead of poisoning the run
@@ -122,7 +129,7 @@ class TrainerConfig:
 
 # option -> the ROADMAP queue that ports it
 _LATER = {"fsdp": 16, "fsdp_min_size": 16, "tp": 16, "sp": 16, "ep": 16, "pp_micro": 16,
-          "pp_virtual": 16, "muon_lr_mult": 14}
+          "pp_virtual": 16}
 
 
 class TrainState:
@@ -196,9 +203,8 @@ class Trainer:
             if getattr(cfg, name) != getattr(TrainerConfig, name):
                 raise NotImplementedError(
                     f"TrainerConfig.{name} is not ported yet (ROADMAP queue {queue})")
-        if cfg.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP queue 14)")
+        if cfg.optimizer not in ("adamw", "muon"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r} (adamw or muon)")
         inner = diffusion.diffusion if isinstance(diffusion, LatentDiffusion) else diffusion
         if not isinstance(inner, (GaussianDiffusion, FlowMatching, EDMProcess, BrownianBridge,
                                   MeanFlow)):
@@ -249,15 +255,22 @@ class Trainer:
     # -- lifecycle -----------------------------------------------------------
 
     def init(self) -> TrainState:
-        """Move the model to the device, copy it for the EMA, build AdamW
-        and seed the generators."""
+        """Move the model to the device, copy it for the EMA, build the
+        optimizer (AdamW, or Muon with AdamW) and seed the generators."""
         cfg = self.cfg
         torch.manual_seed(cfg.seed)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = self.model.to(self.device)
         ema_model = copy.deepcopy(model).requires_grad_(False).eval()
-        optimizer = torch.optim.AdamW(model.parameters(), lr=float(self.lr_table[0]),
-                                      betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+        if cfg.optimizer == "muon":
+            from eo_diffusion_torch.train.muon import MuonWithAdamW
+
+            optimizer = MuonWithAdamW(model, lr=float(self.lr_table[0]),
+                                      muon_lr_mult=cfg.muon_lr_mult)
+            set_lr(optimizer, self.lr_table, 0)
+        else:
+            optimizer = torch.optim.AdamW(model.parameters(), lr=float(self.lr_table[0]),
+                                          betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
         return TrainState(model, ema_model, optimizer)
 
     def _to_device(self, a, dtype=None):
@@ -299,7 +312,7 @@ class Trainer:
 
     def step(self, state: TrainState, batch: dict):
         """One micro-step: loss, backward, (clipped, accumulated, finite-
-        checked) AdamW update and the EMA tail. Returns ``(state, metrics)``
+        checked) optimizer update and the EMA tail. Returns ``(state, metrics)``
         with ``loss`` and ``grad_norm`` as 0-dim tensors on the device."""
         cfg = self.cfg
         if self._gen is None:
@@ -332,7 +345,8 @@ class Trainer:
         return state, metrics
 
     def _accumulate_and_update(self, state: TrainState, params, grads) -> None:
-        """Running mean over ``grad_accum`` micro-steps, then clip + AdamW."""
+        """Running mean over ``grad_accum`` micro-steps, then clip + the
+        optimizer."""
         k = self.grad_accum
         if k > 1:
             if state.acc_grads is None:

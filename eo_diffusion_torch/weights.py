@@ -37,6 +37,11 @@ the reference's torch state-dict names and layouts, so:
   :func:`controlnet_layout`, whose ``keystr`` paths are also the keys of
   the JAX package's ``controlnet.npz``.
 
+:func:`model_layout` gives any of those modules' layout, and
+:func:`torch_transforms` the torch twins of an entry's numpy transforms, so
+code that works on the device in flax's orientation (LoRA's deltas, Muon's
+orthogonalised updates) carries tensors across without leaving the card.
+
 :func:`randomize_parameters` fills any of the port's modules, the DiT
 included, with seeded values.
 """
@@ -67,6 +72,9 @@ __all__ = [
     "backbone_state_dict_from_jax_params",
     "flax_layout",
     "flax_state_dict",
+    "flax_shape",
+    "model_layout",
+    "torch_transforms",
     "unet_layout",
     "controlnet_layout",
     "keystr",
@@ -141,6 +149,33 @@ _CONV1D = (lambda a: np.asarray(a).T[:, :, None], lambda w: np.asarray(w)[:, :, 
 # [in, out, kh, kw], whose correlation kernel is the one flipped in space
 _TCONV = (lambda a: np.flip(np.asarray(a), (0, 1)).transpose(2, 3, 0, 1),
           lambda w: np.flip(np.asarray(w).transpose(2, 3, 0, 1), (0, 1)))
+# the torch twins of the pairs above, on tensors of any device, by name
+# (flax -> torch, torch -> flax); the numpy pairs' to_flax names them
+_TORCH = {
+    "id": (lambda a: a, lambda w: w),
+    "transpose": (lambda a: a.t(), lambda w: w.t()),
+    "hwio": (lambda a: a.permute(3, 2, 0, 1), lambda w: w.permute(2, 3, 1, 0)),
+    "conv1d": (lambda a: a.t()[:, :, None], lambda w: w[:, :, 0].t()),
+    "tconv": (lambda a: a.flip((0, 1)).permute(2, 3, 0, 1),
+              lambda w: w.permute(2, 3, 0, 1).flip((0, 1))),
+}
+_TWIN = {_ID[1]: "id", _TRANSPOSE[1]: "transpose", _HWIO[1]: "hwio", _CONV1D[1]: "conv1d",
+         _TCONV[1]: "tconv"}
+
+
+def torch_transforms(name: str):
+    """``(to_torch, to_flax)`` on torch tensors for the transform ``name``
+    (``_TWIN[entry's numpy to_flax]``): the same permutation (and flip) of
+    the same values, differentiable, on the tensor's device."""
+    return _TORCH[name]
+
+
+def flax_shape(shape, to_flax) -> tuple:
+    """The flax shape of a torch parameter of ``shape`` under its entry's
+    ``to_flax`` (a zero-strided view: nothing is allocated)."""
+    return tuple(to_flax(np.broadcast_to(np.float32(0), tuple(shape))).shape)
+
+
 # module kind -> its leaves: (flax subpath, torch parameter, transforms)
 _LEAVES = {
     "dense": ((("kernel",), "weight", _TRANSPOSE), (("bias",), "bias", _ID)),
@@ -261,6 +296,20 @@ def controlnet_layout(cfg: UNetConfig, hint_channels: int):
     for li, spec in enumerate(plan.middle_block):
         out += _layer_layout(spec, f"middle_{li}", f"middle_block.{li}")
     return out + _entries(((("zero_middle",), "zero_middle", "conv"),), (), "")
+
+
+def model_layout(module: nn.Module):
+    """The layout of any module the converters know: a ``UNet``'s
+    (:func:`unet_layout`), a ``ControlNet``'s (:func:`controlnet_layout`),
+    else that of a module carrying the flax names (:func:`flax_layout`)."""
+    from eo_diffusion_torch.models.controlnet import ControlNet
+    from eo_diffusion_torch.models.unet import UNet
+
+    if isinstance(module, ControlNet):
+        return controlnet_layout(module.config, module.hint_channels)
+    if isinstance(module, UNet):
+        return unet_layout(module.config)
+    return flax_layout(module)
 
 
 def _from_layout(layout, params: Mapping, what: str) -> Dict[str, torch.Tensor]:
@@ -389,27 +438,62 @@ def ae_state_dict_from_jax_params(params: Mapping, cfg: AutoencoderConfig
     return _as_tensors(sd)
 
 
+def _partial_from_layout(layout, params: Mapping, want: Mapping) -> Dict[str, torch.Tensor]:
+    """The leaves of a flax tree that an optax mask may have left out
+    (``MaskedNode`` where another branch of ``multi_transform`` owns the
+    leaf) as torch tensors by name: each entry whose leaf is an array of the
+    parameter's flax shape (``want``: name -> torch shape)."""
+    p = params["params"] if "params" in params else params
+    out = {}
+    for fpath, tname, fwd, inv in layout:
+        try:
+            leaf = _get(p, fpath)
+        except (KeyError, TypeError, AttributeError):
+            continue
+        if hasattr(leaf, "shape") and tuple(leaf.shape) == flax_shape(want[tname], inv):
+            out[tname] = torch.from_numpy(np.array(fwd(leaf), dtype=np.float32))
+    return out
+
+
 @torch.no_grad()
 def load_jax_train_state(state, cfg: Union[UNetConfig, DiTConfig, SpadeUNetConfig],
                          params: Mapping,
                          ema_params: Mapping,
                          mu: Mapping = None, nu: Mapping = None, step: int = 0,
-                         opt_step: int = None):
+                         opt_step: int = None, momentum: Mapping = None):
     """Fill the port's train state (``train.trainer.TrainState``) from a JAX
     ``TrainState`` given as numpy arrays: ``params`` and ``ema_params`` (flax
     trees), Adam's first and second moments ``mu`` / ``nu`` (same trees; None
     leaves the optimizer fresh), the micro-step counter ``step`` and the
     number of optimizer updates ``opt_step`` (default ``step``). ``cfg`` is
     the backbone's config, a UNet's, a DiT's or a SpadeUNet's. Both trainers can then start
-    from the same state, mid-run too."""
+    from the same state, mid-run too.
+
+    A Muon run (``TrainerConfig.optimizer == "muon"``, ``train/muon.py``)
+    also passes its ``momentum`` tree; then ``mu`` / ``nu`` hold arrays only
+    at the AdamW branch's leaves and ``momentum`` only at the Muon branch's
+    (optax's ``multi_transform`` masks the rest), and each parameter's state
+    goes to the group of the port's optimizer that owns it."""
     convert = backbone_state_dict_from_jax_params
     state.model.load_state_dict(convert(params, cfg), strict=True)
     state.ema_model.load_state_dict(convert(ema_params, cfg), strict=True)
     state.step = int(step)
     state.opt_step = int(step if opt_step is None else opt_step)
-    if mu is not None:
+    if mu is None and momentum is None:
+        return state
+    named = dict(state.model.named_parameters())
+    if momentum is None:
         mu_sd, nu_sd = (convert(m, cfg) for m in (mu, nu))
-        for name, prm in state.model.named_parameters():
+        buf_sd = {}
+    else:
+        layout = model_layout(state.model)
+        shapes = {n: tuple(p.shape) for n, p in named.items()}
+        mu_sd, nu_sd, buf_sd = (_partial_from_layout(layout, t, shapes)
+                                for t in (mu, nu, momentum))
+    for name, prm in named.items():
+        if name in buf_sd:
+            state.optimizer.state[prm] = {"momentum_buffer": buf_sd[name].to(prm.device)}
+        else:
             state.optimizer.state[prm] = {
                 "step": torch.tensor(float(state.opt_step)),
                 "exp_avg": mu_sd[name].to(prm.device),

@@ -72,8 +72,7 @@ def test_unported_presets_and_datasets_raise(tmp_path):
     from eo_diffusion_torch.cli import inference
     from eo_diffusion_torch.cli.presets import get_preset
 
-    with pytest.raises(NotImplementedError, match="queue 14"):
-        get_preset("tiny-sr")
+    assert get_preset("tiny-sr").sr_factor == 2  # ported (queue 14)
     assert get_preset("tiny-meanflow").process == "meanflow"  # ported (queue 12)
     # queue 13's presets are ported: tiny-spade samples from the test split's
     # segmentation maps (its preset cond_type "spade")
@@ -170,6 +169,14 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
                 inference.main(inference.parse_args(["--preset", "tiny-dit", *argv,
                                                      "--device", "cpu"]))
             continue
+        if queue == 14:  # ported: the adapter directory is read at load
+            args = inference.parse_args(["--preset", "tiny", *argv, "--device", "cpu",
+                                         "--sampler", "ddim", "--sampler_steps", "2",
+                                         "--n_iter", "0", "--outdir", str(tmp_path / "lora")])
+            assert args.lora == "x"
+            with pytest.raises(FileNotFoundError, match="lora.npz"):
+                inference.main(args)
+            continue
         with pytest.raises(SystemExit) as exc:
             inference.parse_args(["--preset", "tiny", *argv])
         assert exc.value.code == 2 and f"queue {queue}" in capsys.readouterr().err
@@ -180,8 +187,9 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
             cfg = get_preset(name).model_config(bf16=False, cond_channels=1)
             assert type(cfg).__name__ == ("SpadeUNetConfig" if "spade" in name else "DiTConfig")
             continue
-        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-            get_preset(name)
+        # queue 14's SR stage: a concat UNet whose cond is the image's own
+        cfg = get_preset(name).model_config(bf16=False, cond_channels=3)
+        assert type(cfg).__name__ == "UNetConfig" and cfg.in_channels == 6
     # the MoE DiT samples with ToMe through the CLI
     res = inference.main(inference.parse_args([
         "--preset", "tiny-moe", "--dataset", "synthetic", "--device", "cpu", "--sampler",

@@ -127,10 +127,10 @@ def test_a_cpu_conv_keeps_plain_autograd():
         CW.conv3x3(torch.randn(1, 4, 4, 8), conv.weight, conv.bias, torch.float32, impl="fast")
 
 
-# the JAX Preset field whose port waits on ROADMAP queue 1, item 14 (the
-# super-resolution stage): the one gap allowed in the field-order check; the
-# MoE fields of item 13 sit where JAX has them
-PRESET_FIELDS_LATER = ("sr_factor",)
+# JAX Preset fields whose port waits on a later ROADMAP item: none since item
+# 14 brought sr_factor (the super-resolution stage); the MoE fields of item 13
+# and sr_factor sit where JAX has them
+PRESET_FIELDS_LATER = ()
 CONFIG_PAIRS = {
     "UNetConfig": ("eo_diffusion_tpu.models.unet", "eo_diffusion_torch.models.unet",
                    "UNetConfig", ()),

@@ -158,10 +158,10 @@ def test_converted_latent_bridge_samples_in_the_port(workdir):
 
 
 def test_the_edm_and_bridge_presets_are_ported():
-    """None of the six is refused any more, each builds its process, and
-    what the port still refuses are the presets of ROADMAP item 14 (item 12's
-    MeanFlow presets and item 13's SPADE and MoE presets are ported and match
-    the JAX package's too)."""
+    """None of the six is refused any more, each builds its process, and the
+    port refuses no preset now (item 12's MeanFlow presets, item 13's SPADE
+    and MoE presets and item 14's super-resolution stages are ported and
+    match the JAX package's too)."""
     from eo_diffusion_torch.diffusion.bridge import BrownianBridge
     from eo_diffusion_torch.diffusion.edm import EDMProcess
     from eo_diffusion_tpu.cli import presets as JP
@@ -173,10 +173,12 @@ def test_the_edm_and_bridge_presets_are_ported():
         assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
                                                 for k in TP.Preset.__dataclass_fields__})
     for name in ("meanflow64", "tiny-meanflow", "cmeanflow64", "tiny-cmeanflow",
-                 "tiny-dit-meanflow", "spade64", "tiny-spade", "moe-dit64", "tiny-moe"):
+                 "tiny-dit-meanflow", "spade64", "tiny-spade", "moe-dit64", "tiny-moe",
+                 "sr64-256", "tiny-sr"):
         assert TP.PRESETS[name] == TP.Preset(**{k: getattr(JP.PRESETS[name], k)
                                                 for k in TP.Preset.__dataclass_fields__})
-    assert set(TP._LATER.values()) == {14}
-    assert set(TP._LATER) | set(TP.PRESETS) == set(JP.PRESETS)
+    assert TP._LATER == {}
+    assert set(TP.PRESETS) == set(JP.PRESETS)
+    assert TP.get_preset("sr64-256").sr_factor == 4 and TP.get_preset("tiny-sr").sr_factor == 2
     with pytest.raises(AssertionError, match="concat"):
         TP.build_process(TP.get_preset("tiny-bridge"), 50, 8, cond_type=None)

@@ -168,10 +168,11 @@ def test_the_jax_compatibility_checks_hold(tmp_path, argv, match):
                                        (["--freeu", "1,1,1,1"], 13), (["--lora", "x"], 14)])
 def test_waiting_flags_exit_naming_their_item(tmp_path, capsys, argv, item):
     """Flags of later items exit naming theirs; item 12's (the distilled
-    samplers' --sigma_data, --cd_points and --sampler pd) and item 13's
-    (--freeu, --tome_ratio, --tome_mlp, --controlnet, --cond_type spade) are
-    ported: they parse into the run's arguments and keep the JAX CLI's
-    checks."""
+    samplers' --sigma_data, --cd_points and --sampler pd), item 13's
+    (--freeu, --tome_ratio, --tome_mlp, --controlnet, --cond_type spade) and
+    item 14's (--lora) are ported: they parse into the run's arguments and
+    keep the JAX CLI's checks (an adapter of no target of the model is
+    refused)."""
     if item == 12:
         args = inference.parse_args(["--preset", "tiny", *argv])
         flag, value = argv[0].lstrip("-"), argv[1]
@@ -193,6 +194,17 @@ def test_waiting_flags_exit_naming_their_item(tmp_path, capsys, argv, item):
         with pytest.raises(AssertionError, match="no token axis"):
             inference.main(inference.parse_args(["--preset", "tiny", "--tome_ratio", "0.5",
                                                  *run]))
+        return
+    if item == 14:
+        from eo_diffusion_torch.cli.finetune import save_lora
+
+        bad = {"['params']['no_such_layer']['kernel']": {"a": torch.zeros(4, 2),
+                                                          "b": torch.zeros(2, 4)}}
+        save_lora(str(tmp_path / "bad"), bad, {"alpha": 8.0})
+        args = inference.parse_args(["--preset", "tiny", "--lora", str(tmp_path / "bad"), *run])
+        assert args.lora == str(tmp_path / "bad")
+        with pytest.raises(AssertionError, match="no LoRA target"):
+            inference.main(args)
         return
     with pytest.raises(SystemExit) as exc:
         inference.parse_args(["--preset", "tiny", *argv])

@@ -102,7 +102,27 @@ def test_sigterm_finishes_the_step_checkpoints_and_exits(workdir, monkeypatch, c
 def test_unported_flags_exit_naming_their_queue(flag, queue, capsys, workdir):
     """Flags of later queues exit naming theirs; queue 13's --tome_ratio (and
     --tome_mlp) are ported: they parse, and a UNet preset refuses them as the
-    JAX CLI does (DiT presets only)."""
+    JAX CLI does (DiT presets only); queue 14's --optimizer muon and --config
+    and queue 17's --profile_dir are ported: a short run trains with Muon, reads
+    the file, writes the trace."""
+    if queue in (14, 17):
+        run = ["--preset", "tiny", "--dataset", "synthetic", "--device", "cpu",
+               "--batch_size", "4", "--epochs", "1", "--steps_per_epoch", "3",
+               "--sample_every", "0", "--save_every", "0", "--dir", "results/f"]
+        extra = {"--optimizer=muon": ["--optimizer=muon"],
+                 "--config": ["--config", str(workdir / "cfg.json")],
+                 "--profile_dir": ["--profile_dir", str(workdir / "prof"),
+                                   "--profile_steps", "2"]}[flag]
+        (workdir / "cfg.json").write_text('{"optimizer": "muon", "muon_lr_mult": 0.5}')
+        res = train.main(train.parse_args(run + extra))
+        assert res["steps"] == 3 and all(np.isfinite(res["losses"]))
+        kinds = [g.get("kind") for g in res["state"].optimizer.param_groups]
+        assert (kinds == ["muon", "adamw"]) == (flag != "--profile_dir")
+        if flag == "--config":
+            assert res["state"].optimizer.param_groups[0]["lr_mult"] == 0.5
+        assert (res["profile"]["steps"] == 2) == (flag == "--profile_dir")
+        assert (workdir / "prof" / "trace.json").is_file() == (flag == "--profile_dir")
+        return
     if queue == 13:
         args = train.parse_args(["--preset", "tiny", flag, "0.375", "--tome_mlp",
                                  "--device", "cpu"])
@@ -119,8 +139,13 @@ def test_unported_flags_exit_naming_their_queue(flag, queue, capsys, workdir):
 def test_unported_presets_and_datasets_raise(workdir):
     from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="queue 14"):
-        train.main(train.parse_args(["--preset", "tiny-sr", "--device", "cpu"]))
+    # queue 14's SR preset trains on the degraded view of its own images
+    res = train.main(train.parse_args([
+        "--preset", "tiny-sr", "--dataset", "synthetic", "--device", "cpu", "--batch_size",
+        "4", "--epochs", "1", "--steps_per_epoch", "2", "--sample_every", "0",
+        "--save_every", "0", "--dir", "results/sr"]))
+    assert res["steps"] == 2 and all(np.isfinite(res["losses"]))
+    assert res["state"].model.config.in_channels == 6  # the image and its SR cond
     # queue 13's SPADE preset trains on the synthetic segmentation maps
     res = train.main(train.parse_args([
         "--preset", "tiny-spade", "--dataset", "synthetic", "--device", "cpu", "--batch_size",

@@ -279,12 +279,27 @@ def test_label_dropout_draws_from_the_explicit_generator():
                                          ("moe_aux_weight", 13), ("muon_lr_mult", 14)])
 def test_unported_layouts_raise_with_their_queue(field, queue):
     """The layouts of later queues raise naming theirs; moe_aux_weight (queue
-    13) is ported and adds nothing for a backbone without experts."""
+    13) is ported and adds nothing for a backbone without experts; the
+    optimizer and muon_lr_mult (queue 14) are ported: "muon" builds Muon with
+    AdamW and a step moves the parameters, muon_lr_mult alone (AdamW) is
+    taken and ignored, as in JAX."""
     value = {"pp_micro": 2, "optimizer": "muon", "fsdp_min_size": 1024,
              "moe_aux_weight": 0.1, "muon_lr_mult": 2.0}.get(field, True)
     if queue == 13:
         tr, state, batch = _port_trainer(**{field: value})
         assert not tr.has_experts and bool(torch.isfinite(tr.loss(state, batch)))
+        return
+    if queue == 14:
+        from eo_diffusion_torch.train.muon import MuonWithAdamW
+
+        tr, state, batch = _port_trainer(**{field: value})
+        assert isinstance(state.optimizer, MuonWithAdamW) == (field == "optimizer")
+        before = [p.detach().clone() for p in state.params]
+        state, m = tr.step(state, batch)
+        assert bool(torch.isfinite(m["loss"]))
+        assert any(not torch.equal(a, b) for a, b in zip(before, state.params))
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            _port_trainer(optimizer="sgd")
         return
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         _port_trainer(**{field: value})

@@ -5,10 +5,11 @@
 
 The JAX training CLI saves orbax directories (``logs/<run>/steps_<n>``,
 ``best``); the port's ``--ckpt`` and ``train.checkpoint.restore_params``
-read one ``torch.save`` file. This script restores the JAX checkpoint's
-``params`` and ``ema_params`` with ``eo_diffusion_tpu.train.checkpoint.
-restore_params`` against a template built from the preset's JAX model (a
-checkpoint of another shape is refused), converts both with the port's
+read one ``torch.save`` file. This script restores the JAX checkpoint
+with orbax (no template, as ``eo_diffusion_tpu.train.checkpoint.
+restore_params`` does), holds its ``params`` and ``ema_params`` against the
+shapes of the preset's JAX model (a checkpoint of another shape is
+refused), converts both with the port's
 ``weights.backbone_state_dict_from_jax_params`` (UNet, DiT with its MoE
 blocks, SPADE UNet), and writes ``{"model", "model_ema"}`` at ``--out``.
 The backbone is the preset's, as the CLIs build it: ``--num_classes``, ``--class_dropout``, ``--model_base_dim`` and
@@ -19,6 +20,15 @@ also converts the first stage the JAX run saved (``--ae_ckpt``, default
 ``ae`` beside ``--ckpt``: orbax ``params/`` and ``ae_meta.json``) with
 ``ae_state_dict_from_jax_params`` into ``ae`` beside ``--out``, the
 ``params.pt`` and ``ae_meta.json`` that ``ae_trainer.load_ae`` reads.
+
+The optimizer state comes along, so that ``cli.train --ckpt <out>`` resumes
+the run: the file is then the port's whole train state
+(``TrainState.state_dict()``: the step counter, the number of updates and
+the optimizer's state beside ``model`` / ``model_ema``). An AdamW run's
+``mu`` / ``nu``; a ``--optimizer muon`` run's Muon momentum on the matrix
+leaves and Adam's ``mu`` / ``nu`` on the rest (``train/muon.py``; resume
+it with ``--optimizer muon``). An accumulation in flight (``--grad_accum``)
+is not carried: the port starts the next accumulation afresh.
 
 It imports both packages and runs on the CPU; neither package imports it.
 """
@@ -33,21 +43,77 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import numpy as np
 
 
+def opt_trees(opt_state) -> dict:
+    """The optimizer trees of a JAX ``TrainState.opt_state``, in memory
+    (optax's named tuples) or restored without a template (dicts and lists):
+    Adam's ``mu``, ``nu`` and ``count`` and, for a Muon run, the
+    ``momentum`` tree (None where absent), whatever wraps them (clip,
+    ``MultiSteps``, ``apply_if_finite``, ``multi_transform``)."""
+    found = {}
+
+    def walk(node):
+        if hasattr(node, "_asdict"):
+            node = node._asdict()
+        if isinstance(node, dict):
+            if "mu" in node and "nu" in node and "mu" not in found:
+                found.update(mu=node["mu"], nu=node["nu"], count=node.get("count"))
+            if "momentum" in node and "momentum" not in found:
+                found["momentum"] = node["momentum"]
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(opt_state)
+    return {k: found.get(k) for k in ("mu", "nu", "count", "momentum")}
+
+
+def port_train_state(tcfg, params, ema_params, opt_state, step: int):
+    """The port's train state (``train.trainer.TrainState``) of the JAX state
+    ``params`` / ``ema_params`` / ``opt_state`` (numpy trees), its optimizer
+    AdamW, or Muon with AdamW where ``opt_state`` holds a Muon momentum."""
+    import copy
+
+    import torch
+
+    from eo_diffusion_torch.cli.presets import build_denoiser
+    from eo_diffusion_torch.train.muon import MuonWithAdamW
+    from eo_diffusion_torch.train.trainer import TrainState
+    from eo_diffusion_torch.weights import load_jax_train_state
+
+    trees = opt_trees(opt_state)
+    model = build_denoiser(tcfg)
+    ema = copy.deepcopy(model).requires_grad_(False)
+    if trees["momentum"] is not None:
+        optimizer = MuonWithAdamW(model, lr=0.0)
+    else:
+        optimizer = torch.optim.AdamW(model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=1e-4)
+    count = trees["count"]
+    return load_jax_train_state(
+        TrainState(model, ema, optimizer), tcfg, params, ema_params, mu=trees["mu"],
+        nu=trees["nu"], step=int(step), opt_step=None if count is None else int(count),
+        momentum=trees["momentum"])
+
+
 def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
             class_dropout: float = 0.0, model_base_dim=None, image_size=None,
             cond_channels=None, ae_ckpt=None) -> dict:
     """Convert ``ckpt`` (a JAX orbax training checkpoint of ``preset_name``)
     into the port's checkpoint file ``out``; returns ``{"out", "config",
-    "ae"}``: the file, the port's backbone config and the converted first
-    stage's directory (None for a pixel preset)."""
+    "ae", "optimizer"}``: the file, the port's backbone config, the converted
+    first stage's directory (None for a pixel preset) and the optimizer the
+    file's state is for ("adamw", "muon", or None when the checkpoint holds
+    no optimizer state)."""
     import jax
     import jax.numpy as jnp
+    import orbax.checkpoint as ocp
     import torch
 
     from eo_diffusion_torch.cli import presets as TP
     from eo_diffusion_torch.weights import backbone_state_dict_from_jax_params as to_sd
     from eo_diffusion_tpu.cli import presets as JP
-    from eo_diffusion_tpu.train.checkpoint import restore_params
 
     jpre, tpre = JP.get_preset(preset_name), TP.get_preset(preset_name)
     for pre in (jpre, tpre):
@@ -67,7 +133,8 @@ def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
         kw["y"] = jnp.zeros((1,), jnp.int32)
     template = jax.eval_shape(JP.build_denoiser(jcfg).init, jax.random.PRNGKey(0),
                               jnp.zeros((1, size, size, grid_ch)), jnp.zeros((1,)), **kw)
-    params, ema_params = restore_params(ckpt, template)
+    raw = ocp.StandardCheckpointer().restore(os.path.abspath(ckpt))
+    params, ema_params = raw["params"], raw["ema_params"]
     shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)
     for tree in (params, ema_params):
         if shapes(tree) != shapes(template):
@@ -79,14 +146,22 @@ def convert(preset_name: str, ckpt: str, out: str, num_classes: int = 0,
                              class_dropout_prob=drop)
     as_np = lambda tree: jax.tree.map(np.asarray, tree)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    torch.save({"model": to_sd(as_np(params), tcfg), "model_ema": to_sd(as_np(ema_params), tcfg)},
-               out)
+    opt = opt_trees(raw.get("opt_state"))
+    optimizer = None
+    if opt["mu"] is not None:
+        state = port_train_state(tcfg, as_np(params), as_np(ema_params),
+                                 as_np(raw["opt_state"]), int(np.asarray(raw.get("step", 0))))
+        torch.save(state.state_dict(), out)
+        optimizer = "muon" if opt["momentum"] is not None else "adamw"
+    else:
+        torch.save({"model": to_sd(as_np(params), tcfg),
+                    "model_ema": to_sd(as_np(ema_params), tcfg)}, out)
     ae_out = None
     if tpre.is_latent:
         ae_out = _convert_ae(ae_ckpt or os.path.join(os.path.dirname(os.path.abspath(ckpt)),
                                                      "ae"),
                              os.path.join(os.path.dirname(os.path.abspath(out)), "ae"))
-    return {"out": out, "config": tcfg, "ae": ae_out}
+    return {"out": out, "config": tcfg, "ae": ae_out, "optimizer": optimizer}
 
 
 def _convert_ae(src: str, dst: str) -> str:
@@ -126,6 +201,7 @@ def main(argv=None):
     res = convert(args.preset, args.ckpt, args.out, args.num_classes, args.class_dropout,
                   args.model_base_dim, args.image_size, args.cond_channels, args.ae_ckpt)
     print(f"wrote {res['out']}"
+          + (f" (the train state, {res['optimizer']}'s state)" if res["optimizer"] else "")
           + (f" and the first stage {res['ae']}" if res["ae"] else ""))
     return res
 
