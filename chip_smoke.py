@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only few    # phases 1, 2, 5k (its kernel rows and runs)
     python3 chip_smoke.py --only backbones  # phases 1, 2, 5l (its kernel rows and runs)
     python3 chip_smoke.py --only extras     # phases 1, 2, 5m (its kernel rows and runs)
+    python3 chip_smoke.py --only serve      # phases 1, 2, 5n (its kernel rows and runs)
 
 Phases, in order; the first failure exits non-zero:
 
@@ -73,15 +74,15 @@ Phases, in order; the first failure exits non-zero:
    512 x 512 scenes with the ``dit256`` denoiser (3 x 3 tiles at overlap
    0.5, Heun-8: 15 stitched calls, 180 K1 launches), finite; 5f. the
    sampling CLI's solvers and guidance on ``sen12mscr256`` (batch 8, two
-   batches a run, img/s over the second): DDIM-50, DPM-Solver++-20
-   (uniform-lambda and Karras grids), UniPC-10, image-CFG at scale 3 with
+   batches a run, img/s over the second): DPM-Solver++-20 (uniform-lambda
+   grid), UniPC-10, image-CFG at scale 3 with
    the rescale and the interval (K1 at B16), dynamic thresholding,
    DeepCache-3 on DDIM-50 (17 full calls, 33 shallow ones that launch no
-   attention), PAG (a perturbed call a step: no K1, one identity hit an
+   attention; its img/s beside phase 5's second batch), PAG (a perturbed call a step: no K1, one identity hit an
    attention block), SDEdit 0.5 from the cloudy view, then a short
    ``cli.train --posthoc_ema`` run whose snapshots feed
    ``--phema_sigma_rel`` and ``--autoguide_sigma_rel``; ``cddpm64`` with
-   label-CFG on DDIM and DPM, ``cflow64`` Heun-8 with CFG and ``vpred64``
+   label-CFG on DDIM, ``cflow64`` Heun-8 with CFG and ``vpred64``
    with DPM, at their own widths; ``tiled_ddim_sample`` of a 512 px scene
    with CFG and DeepCache (one state a chunk of tiles). Every run's
    launches are asserted against the counts ``build_unet_plan`` and the
@@ -158,8 +159,8 @@ Phases, in order; the first failure exits non-zero:
    couplings, FEW_STEPS re-fit steps) and ``cli.inference --sampler flow
    --flow_method euler --sampler_steps 1`` decoding through a seeded first
    stage; ``--method consistency`` and ``progressive`` on ``synthetic64``,
-   then ``--sampler cm`` at 1 and 2 steps and ``pd`` at 2 beside the
-   teacher's DDIM-50, each student's final samples against the all-plain
+   then ``--sampler cm`` at 1 and 2 steps and ``pd`` at 2 (beside 5h's
+   DDIM-50 of the same UNet), each student's final samples against the all-plain
    model from one start (TOL_SOLVER_REL); ``--method guided`` on ``cddpm64``
    and ``cflow64``; MeanFlow: ``meanflow64`` and ``cmeanflow64``, the
    training step's ``u`` and ``du/dt`` (one ``torch.func.jvp`` through the
@@ -651,6 +652,20 @@ PROFILE_STEPS = 3
 # an f32 [B, H, T, T] score tensor of each T 4096 block for the backward
 # (about 86 GB at b16)
 EXTRA_GRAD_BATCH = 2
+# phase 5n: serving and export. cli.serve on sen12mscr256 at b8, DDIM-50
+# (the main path's protocol); the exported artifact unrolls its trajectory,
+# so its trace time and graph grow with the steps: EXPORT_STEPS DDIM steps
+SERVE_BATCH = 8
+SERVE_STEPS = 50
+EXPORT_STEPS = 2
+# weight-only and W8A8 int8 against float: the JAX package's own limit on a
+# quantized engine's samples (rel L2, tests/test_serving.py)
+INT8_REL = 0.2
+# dit256 Heun-8: 15 model calls a batch; the W8A8 route takes qkv, proj_out,
+# mlp_in and mlp_out of each of its 12 blocks (8192 rows, widths 768-3072);
+# patch_embed (192 inputs) and the adaLN / time layers stay plain
+DIT_HEUN8_CALLS = 15
+W8A8_ROUTED = 4 * DIT_DEPTH
 
 
 def attention_case(b, t, heads, d, dtype, new_order, gen, with_lse=False):
@@ -2629,11 +2644,10 @@ def phase_5f(tmp, card, gen, main_img_s):
         del res["samples"]
         runs[tag] = res
 
+    # DDIM-50 at this preset and batch is phase 5's run, and the DPM grids
+    # share one route: each is driven once
     for tag, flags, full in (
-            ("ddim50", ["--sampler", "ddim", "--sampler_steps", "50"], 50),
             ("dpm20-uniform_lambda", ["--sampler", "dpm", "--sampler_steps", "20"], 20),
-            ("dpm20-karras", ["--sampler", "dpm", "--sampler_steps", "20", "--dpm_spacing",
-                              "karras"], 20),
             ("unipc10", ["--sampler", "unipc", "--sampler_steps", "10"], 11),
             # image-CFG against the zero cloudy view: K1 at B16, 11 a step
             ("cfg3-rescale0.7-interval-ddim20", ["--sampler", "ddim", "--sampler_steps", "20",
@@ -2649,8 +2663,7 @@ def phase_5f(tmp, card, gen, main_img_s):
                                        "--deepcache", "3"],
           unet_expected(cfg, full=2 * full, partial=2 * (50 - full)))
     print(f"5f DeepCache-3 DDIM-50 b8 {runs['deepcache3-ddim50']['img_s']:.4f} img/s against "
-          f"DDIM-50 {runs['ddim50']['img_s']:.4f} (5f, second batch) and phase 5's "
-          f"{main_img_s:.4f} (one batch); {card}", flush=True)
+          f"DDIM-50 {main_img_s:.4f} (phase 5, second batch); {card}", flush=True)
     # PAG: each step one call through the kernels, one perturbed (no K1)
     drive("pag2-ddim10", base + ["--sampler", "ddim", "--sampler_steps", "10", "--pag_scale",
                                  "2"],
@@ -2675,8 +2688,6 @@ def phase_5f(tmp, card, gen, main_img_s):
     # presets at their own widths, 64 px
     for preset, flags, calls in (
             ("cddpm64", ["--sampler", "ddim", "--sampler_steps", "20", "--guidance_scale", "4"],
-             20),
-            ("cddpm64", ["--sampler", "dpm", "--sampler_steps", "20", "--guidance_scale", "4"],
              20),
             ("cflow64", ["--flow_method", "heun", "--sampler_steps", "8", "--guidance_scale",
                          "3"], 15),
@@ -3793,10 +3804,6 @@ def phase_5k(tmp, card):
         ["--preset", FEW_PRESET, "--sampler", "pd", "--sampler_steps", "2"], ucfg, tmp,
         f"{FEW_PRESET} --sampler pd --sampler_steps 2", {k: v * 2 for k, v in per_call.items()},
         card, ckpt=pd_ckpt)
-    out["runs"]["ddim50"] = few_sample(
-        ["--preset", FEW_PRESET, "--sampler", "ddim", "--sampler_steps", "50"], ucfg, tmp,
-        f"{FEW_PRESET} --sampler ddim --sampler_steps 50 (the teacher's)",
-        {k: v * 50 for k, v in per_call.items()}, card, ckpt=ckpt)
     x_T = torch.randn(FEW_SAMPLE_BATCH, 64, 64, 3, generator=kgen, device="cuda")
     hops = torch.randn(3, FEW_SAMPLE_BATCH, 64, 64, 3, generator=kgen, device="cuda")
     model = load_student(ucfg, cd_ckpt)
@@ -4886,6 +4893,350 @@ def extras_only(card):
     return 0
 
 
+def _http(url, path, payload=None, stream=False):
+    """A JSON request to the local server: (status, body), or with
+    ``stream`` the NDJSON lines of a 200 reply."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=None if payload is None else
+                                 json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if stream:
+                return r.status, [json.loads(raw) for raw in r]
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _npy_b64(a):
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(a))
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _b64_npy(s):
+    import base64
+    import io
+
+    return np.load(io.BytesIO(base64.b64decode(s)), allow_pickle=False)
+
+
+def phase_5n(tmp, card):
+    """Serving and export at full width (ROADMAP queue 1, item 15), seeded
+    weights, cut in steps and batches only: ``cli.serve``'s engine on
+    ``sen12mscr256`` (b8, DDIM-SERVE_STEPS, bf16) behind its HTTP server on
+    ``127.0.0.1:0``: three concurrent unseeded requests of 3, 3 and 2 images
+    in one device batch; a seeded stream of 12 in two chunks, chunk 0 bit for
+    bit a solo seeded request of 8; that batch against the all-plain model
+    from the same seed's draws (TOL_SOLVER_REL); ``/v1/reload`` from a port
+    checkpoint and back; ``--int8`` (packed bytes, rel L2 < INT8_REL of
+    float); ``--int8_compute`` on ``dit256`` Heun-8 b8 beside bf16 (img/s of
+    a second batch, the routed int8 products a forward, rel L2 < INT8_REL);
+    then ``cli.export_model`` at DDIM-EXPORT_STEPS (export and load seconds,
+    artifact bytes): the artifact's batch for a seed is the live engine's bit
+    for bit and launches what it does, then the artifact server's round trip.
+    Every batch's launches asserted; draws from a generator of its own."""
+    import threading
+
+    from eo_diffusion_torch.cli import export_model as cli_export
+    from eo_diffusion_torch.cli import serve as cli_serve
+    from eo_diffusion_torch.nn import primitives as NP
+    from eo_diffusion_torch.serving.artifact_server import ArtifactEngine
+    from eo_diffusion_torch.serving.artifact_server import make_server as artifact_server
+    from eo_diffusion_torch.serving.http import make_server, serve_forever
+    from eo_diffusion_torch.utils.quantize import quantized_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    b, steps = SERVE_BATCH, SERVE_STEPS
+    out = {"runs": {}, "checks": {}}
+    sen = get_preset("sen12mscr256")
+    cfg = sen.model_config(cond_channels=3)
+    ckpt = save_teacher(tmp, cfg, 62, "serve")
+    alt = save_teacher(tmp, cfg, 63, "serve_alt")
+    per_batch = unet_expected(cfg, full=steps)
+    views = (torch.rand(12, 256, 256, 3, generator=g, device="cuda") * 2 - 1).cpu().numpy()
+    base = ["--preset", "sen12mscr256", "--ckpt", ckpt, "--batch_size", str(b), "--device",
+            "cuda", "--sampler", "ddim"]
+
+    stamp("5n a")
+    # a. the live engine behind the HTTP API
+    t0 = time.perf_counter()
+    engine, batcher, meta = cli_serve.build_engine(cli_serve.parse_args(
+        base + ["--sampler_steps", str(steps), "--batch_window_ms", "2000"]))
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    warm_s = engine.warmup()
+    assert counts() == per_batch, counts()
+    srv, port = make_server(batcher, meta, port=0, reload_fn=cli_serve.reload_fn(engine))
+    serve_forever(srv, background=True)
+    url = f"http://127.0.0.1:{port}"
+    print(f"5n cli.serve sen12mscr256 b{b} DDIM-{steps}: engine built in {build_s:.3f} s, "
+          f"warm-up batch {warm_s:.3f} s; {url}; {card}", flush=True)
+    try:
+        # three concurrent unseeded requests coalesce into one device batch
+        reset_counts()
+        st0 = batcher.stats()
+        replies = {}
+
+        def ask(i, lo, n):
+            replies[i] = _http(url, "/v1/generate", {"n": n, "format": "npy",
+                                                     "cond_b64": _npy_b64(views[lo:lo + n])})
+
+        ts = [threading.Thread(target=ask, args=a) for a in ((0, 0, 3), (1, 3, 3), (2, 6, 2))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        st = batcher.stats()
+        shapes = [tuple(_b64_npy(replies[i][1]["npy_b64"]).shape) for i in range(3)]
+        launched = counts()
+        print(f"5n three concurrent /v1/generate (n 3, 3, 2): statuses "
+              f"{[replies[i][0] for i in range(3)]}, shapes {shapes}, device batches "
+              f"{st['batches'] - st0['batches']}, launches "
+              f"{({k: v for k, v in launched.items() if v})}", flush=True)
+        assert [replies[i][0] for i in range(3)] == [200] * 3, replies
+        assert st["batches"] - st0["batches"] == 1 and st["images"] - st0["images"] == 8, st
+        assert launched == per_batch, launched
+        out["runs"]["coalesced"] = {"launches": launched, "batches": 1}
+
+        # a seeded stream of 12: two chunks, chunk 0 the bytes of a solo 8
+        reset_counts()
+        code, lines = _http(url, "/v1/generate_stream",
+                            {"n": 12, "seed": 7, "format": "npy", "cond_b64": _npy_b64(views)},
+                            stream=True)
+        streamed = [_b64_npy(ln["npy_b64"]) for ln in lines[:-1]]
+        assert code == 200 and lines[-1] == {"done": True, "images_total": 12}, lines[-1]
+        assert [c.shape[0] for c in streamed] == [8, 4]
+        assert counts() == scaled(per_batch, 2), counts()
+        out["runs"]["stream"] = {"launches": counts(), "batches": 2}
+        reset_counts()
+        code, solo = _http(url, "/v1/generate", {"n": 8, "seed": 7, "format": "npy",
+                                                 "cond_b64": _npy_b64(views[:8])})
+        solo = _b64_npy(solo["npy_b64"])
+        assert code == 200 and counts() == per_batch, counts()
+        out["runs"]["solo"] = {"launches": counts(), "batches": 1}
+        same = bool(np.array_equal(streamed[0], solo))
+        print(f"5n seeded /v1/generate_stream n 12: chunks {[c.shape[0] for c in streamed]}, "
+              f"chunk 0 == the solo seeded n 8: {same}", flush=True)
+        assert same and np.isfinite(solo).all()
+        st = batcher.stats()
+        img_s = st["images"] / (st["batches"] * st["avg_batch_ms"] / 1e3)
+        out["stats"] = {**st, "img_s": img_s}
+        print(f"5n served: {st['requests']} requests, {st['images']} images in {st['batches']} "
+              f"device batches, avg_batch_ms {st['avg_batch_ms']:.3f}, latency p50 "
+              f"{st['latency_ms_p50']:.3f} ms, p95 {st['latency_ms_p95']:.3f} ms, {img_s:.4f} "
+              f"img/s over the device batches (single readings); {card}", flush=True)
+
+        # that batch against the all-plain model from the same seed's draws
+        reset_counts()
+        engine.model.set_impl(attn="plain", norm="plain")
+        plain = engine.generate(7, None, views[:8])
+        engine.model.set_impl(attn="auto", norm="auto")
+        assert counts() == {k: 0 for k in counts()}, counts()
+        rel = rel_l2(torch.from_numpy(solo), torch.from_numpy(plain))
+        print(f"5n served batch vs all-plain (seed 7's draws): rel L2 {rel:.3e} (limit "
+              f"{TOL_SOLVER_REL})", flush=True)
+        assert rel <= TOL_SOLVER_REL, rel
+        out["checks"]["served_vs_plain"] = {"rel_l2": rel, "launches": counts()}
+
+        # /v1/reload from a port checkpoint changes the output, and back
+        code, resp = _http(url, "/v1/reload", {"ckpt": alt})
+        assert code == 200 and resp["ckpt"] == alt, resp
+        reset_counts()
+        other = batcher.submit(8, cond=views[:8], seed=7)
+        code, resp = _http(url, "/v1/reload", {"ckpt": ckpt})
+        again = batcher.submit(8, cond=views[:8], seed=7)
+        assert counts() == scaled(per_batch, 2), counts()
+        out["runs"]["reload"] = {"launches": counts(), "batches": 2}
+        print(f"5n /v1/reload: the other checkpoint's batch differs: "
+              f"{not np.array_equal(other, solo)}; back, the same bits: "
+              f"{bool(np.array_equal(again, solo))}", flush=True)
+        assert not np.array_equal(other, solo) and np.array_equal(again, solo)
+    finally:
+        srv.shutdown()
+        batcher.shutdown()
+    float_bytes = sum(p.numel() * 4 for p in engine.model.parameters())
+    del engine
+    torch.cuda.empty_cache()
+
+    stamp("5n b")
+    # b. --int8 (W8A16) on the same preset, seed and views
+    engine, batcher, _ = cli_serve.build_engine(cli_serve.parse_args(
+        base + ["--sampler_steps", str(steps), "--int8"]))
+    batcher.shutdown()
+    reset_counts()
+    t0 = time.perf_counter()
+    q8 = engine.generate(7, None, views[:8])
+    s8 = time.perf_counter() - t0
+    assert counts() == per_batch, counts()
+    packed = quantized_bytes(engine.params[0])
+    rel8 = rel_l2(torch.from_numpy(q8), torch.from_numpy(solo))
+    print(f"5n --int8 sen12mscr256 b{b} DDIM-{steps}: params {packed / 1e6:.3f} MB packed "
+          f"against {float_bytes / 1e6:.3f} MB float32 ({packed / float_bytes:.4f}); samples vs "
+          f"float rel L2 {rel8:.3e} (limit {INT8_REL}); first batch {s8:.3f} s; {card}",
+          flush=True)
+    assert np.isfinite(q8).all() and 0 < rel8 < INT8_REL, rel8
+    out["runs"]["int8"] = {"launches": counts(), "packed_bytes": packed,
+                           "float_bytes": float_bytes, "rel_l2": rel8, "first_batch_s": s8}
+    del engine
+    torch.cuda.empty_cache()
+
+    stamp("5n c")
+    # c. --int8_compute (W8A8) on dit256 flow Heun-8 b8 beside bf16: two
+    # batches each, the second timed; the routed int8 products counted
+    dit = get_preset("dit256")
+    dckpt = save_teacher(tmp, dit.model_config(), 64, "serve_dit")
+    calls, real = [], NP.int8_linear
+    w8 = {}
+    for flag in ((), ("--int8_compute",)):
+        engine, batcher, _ = cli_serve.build_engine(cli_serve.parse_args(
+            ["--preset", "dit256", "--ckpt", dckpt, "--batch_size", str(b), "--device", "cuda",
+             "--sampler_steps", "8", "--flow_method", "heun", *flag]))
+        batcher.shutdown()
+        engine.generate(1)
+        calls.clear()
+        reset_counts()
+        NP.int8_linear = lambda x, w, bias, dt: calls.append(
+            x.numel() // x.shape[-1] >= NP._INT8_MIN_ROWS
+            and min(w.shape) >= NP._INT8_MIN_DIM) or real(x, w, bias, dt)
+        try:
+            t0 = time.perf_counter()
+            x = engine.generate(2)
+            sec = time.perf_counter() - t0
+        finally:
+            NP.int8_linear = real
+        w8[bool(flag)] = {"img_s": b / sec, "samples": x, "launches": counts(),
+                          "routed_a_forward": sum(calls) / DIT_HEUN8_CALLS}
+        assert counts() == dit_expected(DIT_HEUN8_CALLS), counts()
+        del engine
+        torch.cuda.empty_cache()
+    relw = rel_l2(torch.from_numpy(w8[True]["samples"]), torch.from_numpy(w8[False]["samples"]))
+    print(f"5n dit256 Heun-8 b{b}: bf16 {w8[False]['img_s']:.4f} img/s, --int8_compute "
+          f"{w8[True]['img_s']:.4f} img/s (second batch each, single readings; no claim); "
+          f"int8 products a forward {w8[True]['routed_a_forward']:.1f} (thresholds give "
+          f"{W8A8_ROUTED}); K1 {w8[True]['launches']['attn_fwd']} a batch; samples vs bf16 "
+          f"rel L2 {relw:.3e} (limit {INT8_REL}); {card}", flush=True)
+    assert w8[True]["routed_a_forward"] == W8A8_ROUTED and w8[False]["routed_a_forward"] == 0
+    assert np.isfinite(w8[True]["samples"]).all() and 0 < relw < INT8_REL, relw
+    for k, v in w8.items():
+        del v["samples"]
+        out["runs"]["dit256_w8a8" if k else "dit256_bf16"] = v
+    out["runs"]["dit256_w8a8"]["rel_l2"] = relw
+
+    stamp("5n d")
+    # d. cli.export_model at DDIM-EXPORT_STEPS, its artifact against a live
+    # engine of the same flags, then the artifact server
+    art = os.path.join(tmp, "artifact")
+    man = cli_export.main(cli_export.parse_args(
+        base + ["--sampler_steps", str(EXPORT_STEPS), "--out", art]))
+    engine, batcher, _ = cli_serve.build_engine(cli_serve.parse_args(
+        base + ["--sampler_steps", str(EXPORT_STEPS)]))
+    batcher.shutdown()
+    live = engine.generate(5, None, views[:8])
+    loaded = ArtifactEngine(art)
+    reset_counts()
+    got = loaded.generate(5, cond=views[:8])
+    launched = counts()
+    want = unet_expected(cfg, full=EXPORT_STEPS)
+    ex = {"export_seconds": man["export_seconds"], "trace_seconds": man["trace_seconds"],
+          "artifact_bytes": man["artifact_bytes"], "graph_nodes": man["graph_nodes"],
+          "eo_ops": man["eo_ops"], "load_seconds": loaded.manifest["load_seconds"],
+          "launches": launched, "bit_exact": bool(np.array_equal(got, live))}
+    print(f"5n cli.export_model sen12mscr256 b{b} DDIM-{EXPORT_STEPS}: export "
+          f"{ex['export_seconds']:.3f} s (trace {ex['trace_seconds']:.3f} s, "
+          f"{ex['trace_seconds'] / EXPORT_STEPS:.3f} s a step), {ex['graph_nodes']} graph "
+          f"nodes, ops {ex['eo_ops']}, artifact {ex['artifact_bytes'] / 2**20:.3f} MiB, load "
+          f"{ex['load_seconds']:.3f} s; the artifact's batch == the live engine's: "
+          f"{ex['bit_exact']}; launches {({k: v for k, v in launched.items() if v})}; {card}",
+          flush=True)
+    assert ex["bit_exact"] and launched == want, (launched, want)
+    assert set(ex["eo_ops"]) == {"eo.qkv_attention.default", "eo.group_norm.default"}
+    srv, port = artifact_server(art, port=0, engine=loaded)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        reset_counts()
+        code, resp = _http(f"http://127.0.0.1:{port}", "/v1/generate",
+                           {"n": 2, "seed": 5, "cond_b64": _npy_b64(views[:2])})
+        assert code == 200, resp
+        pad = np.concatenate([views[:2], np.zeros((b - 2, 256, 256, 3), np.float32)])
+        rt = bool(np.array_equal(_b64_npy(resp["npy_b64"]), engine.generate(5, None, pad)[:2]))
+        ex["server_launches"] = counts()
+        print(f"5n artifact server /v1/generate n 2 seed 5: == the live engine's rows: {rt}",
+              flush=True)
+        assert rt and counts() == scaled(want, 2), counts()
+    finally:
+        srv.shutdown()
+    out["runs"]["export"] = ex
+    del engine, loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_kernel_rows(sv, rows=None):
+    """The kernels-line entries of phase 5n (``--only serve``): K1 and K5,
+    the kernels every served path launches, with the launches of 5n's runs
+    (``rows``: the rows at 5n's shapes, measured by ``--only serve``)."""
+    runs = sv["runs"]
+    total = lambda key: sum(r["launches"][key] for r in runs.values())
+    by_run = lambda key: {k: r["launches"][key] for k, r in runs.items()}
+    out = []
+    for name, key in (("qkv_attention_fwd", "attn_fwd"), ("group_norm_fwd", "gn_fwd")):
+        entry = {"name": name, "launches": total(key), "launches_serve": by_run(key)}
+        if rows is not None:
+            row = rows[name]
+            entry.update({"route": "cuda", "source": row["source"], "replaces": row["replaces"],
+                          "max_abs_err": max(r["max_abs_err"] for r in row["shapes"]),
+                          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                          "library_ms": row["library_ms"], "shapes": row["shapes"]})
+        out.append(entry)
+    return out
+
+
+def serve_only(card):
+    """``--only serve``: phase 5n with K1's and K5's rows at its shapes
+    (sen12mscr256's two attention shapes and dit256's at b8, K5 over the 56
+    sites of a 256 px b8 forward), then its kernels line, the card line and
+    the last line."""
+    g = torch.Generator(device="cuda").manual_seed(65)
+    bf16 = torch.bfloat16
+    attn = [attention_case(SERVE_BATCH, 4096, 8, 48, bf16, False, g),
+            attention_case(SERVE_BATCH, 1024, 8, 64, bf16, False, g),
+            attention_case(SERVE_BATCH, 1024, 12, 64, bf16, True, g)]
+    cfg = get_preset("sen12mscr256").model_config(cond_channels=3)
+    n = SERVE_BATCH
+    gn_rows, gs = gn_site_rows(cfg, 256, n, g, lambda m: (
+        torch.zeros(n, 256, 256, 3, device="meta"), torch.zeros(n, dtype=torch.long,
+                                                                  device="meta"),
+        torch.zeros(n, 256, 256, 3, device="meta")))
+    rows = {"qkv_attention_fwd": {**attn[0], "shapes": attn,
+                                  "source": "eo_diffusion_torch/ops/csrc/attention_fwd_sm90.cu",
+                                  "replaces": "eo_diffusion_tpu/ops/attention.py:738"},
+            "group_norm_fwd": {**gs["fwd"], "bound_by": "bytes",
+                               "shapes": [r[0] for r in gn_rows],
+                               "source": "eo_diffusion_torch/ops/csrc/group_norm_sm90.cu",
+                               "replaces": "eo_diffusion_tpu/ops/group_norm.py:48"}}
+    torch.cuda.empty_cache()
+    stamp("5n")
+    with tempfile.TemporaryDirectory() as tmp:
+        sv = phase_5n(tmp, card)
+    stamp("9")
+    print(json.dumps({"kernels": serve_kernel_rows(sv, rows),
+                      "phase_5n": {k: sv[k] for k in ("runs", "checks", "stats")}},
+                     default=str))
+    print(card)
+    print(json.dumps({"ok": True, "only": "serve",
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def attention_maxima(rows):
     """The largest errors of attention probe rows, under the names of the
     limits they are held to (TOL, TOL_ATTN_L2)."""
@@ -4967,9 +5318,9 @@ def stamp(phase):
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if args not in ([], ["--only", "wide"], ["--only", "f32"], ["--only", "few"],
-                    ["--only", "backbones"], ["--only", "extras"]):
+                    ["--only", "backbones"], ["--only", "extras"], ["--only", "serve"]):
         print(f"chip_smoke: unknown arguments {args} (none, --only wide, --only f32, --only "
-              "few, --only backbones or --only extras)", file=sys.stderr)
+              "few, --only backbones, --only extras or --only serve)", file=sys.stderr)
         return 2
     only = args[1] if args else None
     # 1. the card
@@ -5020,6 +5371,8 @@ def main(argv=None) -> int:
         return backbones_only(card)
     if only == "extras":
         return extras_only(card)
+    if only == "serve":
+        return serve_only(card)
 
     stamp("3")
     # 3. kernel vs plain at the path's shapes
@@ -5198,15 +5551,17 @@ def main(argv=None) -> int:
         sen = get_preset("sen12mscr256")
         main_res = run_cli(["--preset", "sen12mscr256", "--dataset", "synthetic",
                             "--sampler", "ddim", "--sampler_steps", str(steps),
-                            "--batch_size", "8", "--n_iter", "0", "--device", "cuda"],
+                            "--batch_size", "8", "--n_iter", "1", "--device", "cuda"],
                            sen.unet_config(cond_channels=3), seed=2, tmp=tmp)
         assert main_res["samples"].shape == (8, 256, 256, 3), main_res["samples"].shape
+        assert main_res["batches"] == 2, main_res["batches"]
         want = expected(256, steps * main_res["batches"])
         assert main_res["launches"] == want, (main_res["launches"], want)
+        main_img_s = 8 / main_res["batch_seconds"][1]
         print(f"main path sen12mscr256 DDIM-{steps} b8: {main_res['images']} images in "
-              f"{main_res['sample_seconds']:.3f} s = "
-              f"{main_res['images'] / main_res['sample_seconds']:.4f} img/s, "
-              f"kernel launches {main_res['launches']}, peak memory "
+              f"{main_res['sample_seconds']:.3f} s, batch seconds "
+              f"{[round(v, 4) for v in main_res['batch_seconds']]} = {main_img_s:.4f} img/s "
+              f"(second batch), kernel launches {main_res['launches']}, peak memory "
               f"{main_res['peak_mem_gb']:.2f} GiB", flush=True)
 
         stamp("5b")
@@ -5278,7 +5633,7 @@ def main(argv=None) -> int:
 
         stamp("5f")
         # 5f. the sampling CLI's solvers and guidance
-        guided = phase_5f(tmp, card, cgen, main_res["images"] / main_res["sample_seconds"])
+        guided = phase_5f(tmp, card, cgen, main_img_s)
         guided_runs = (*guided["runs"].values(), guided["tiled"])
 
         stamp("5g")
@@ -5323,7 +5678,7 @@ def main(argv=None) -> int:
         # the cross-attention UNet, ConvNeXt and the tiny UNet
         bb = phase_5l(tmp, card, plain={
             "dit256_heun8": dit_res["dit256 flow heun 8"]["img_s"],
-            "sen12_ddim": guided["runs"]["ddim50"]["img_s"]})
+            "sen12_ddim": main_img_s})
         few_runs += [*bb["runs"].values(),
                      *(v for v in bb["checks"].values() if "launches" in v)]
         stamp("5m")
@@ -5331,6 +5686,11 @@ def main(argv=None) -> int:
         # LoRA and ControlNet fine-tuning, LoRA sampling, the profiler window
         ex = phase_5m(tmp, card)
         few_runs += [*ex["runs"].values(), *ex["checks"].values()]
+        stamp("5n")
+        # 5n. serving and export: cli.serve's engine behind its HTTP API,
+        # --int8, --int8_compute, the torch.export artifact and its server
+        sv = phase_5n(tmp, card)
+        few_runs += [*sv["runs"].values(), *sv["checks"].values()]
         edm_launches = lambda key: {
             **{f"{p}_{k}": r[f"{k}_launches"][key] for p, r in edm_bridge["runs"].items()
                for k in ("train", "sample")},
@@ -5755,6 +6115,10 @@ def main(argv=None) -> int:
         entry.update({f"extras_{key}": row[key] for key in ("launches", "ms", "plain_ms",
                                                             "bound_ms", "library_ms")},
                      launches_extras=row["launches_extras"], extras_shapes=row["shapes"])
+    # phase 5n's launches beside each kernel's (its shapes are phase 3's main rows)
+    for row in serve_kernel_rows(sv):
+        entry = next(k for k in kernels if k["name"] == row["name"])
+        entry.update(serve_launches=row["launches"], launches_serve=row["launches_serve"])
     print(json.dumps({"kernels": kernels}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

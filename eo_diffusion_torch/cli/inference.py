@@ -59,8 +59,10 @@ frozen base, which sees no concat cond), each with the JAX CLI's checks.
 load, with the ``alpha`` of its ``lora.json``. A super-resolution preset
 (``sr64-256``, ``tiny-sr``) conditions on the degraded view of the test
 batch's own ground truth (``data.transforms.sr_cond``), so ``--metrics``
-scores a super-resolution. The flag of the JAX CLI that a later slice brings
-(int8 compute) exits naming its ROADMAP queue.
+scores a super-resolution. ``--int8_compute`` runs the whole sampling run
+inside ``nn.primitives.int8_dense_compute()`` (W8A8: the large ``Dense``
+products as int8 x int8 -> int32 with per-channel weight and per-tensor
+activation scales; a DiT-preset lever), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -77,8 +79,8 @@ import torch
 from eo_diffusion_torch.cli.common import resolve_device
 
 # flags of the JAX sampling CLI that are not ported yet -> ROADMAP queue; a
-# name ending in "_" stands for every flag that starts with it
-UNPORTED_FLAGS = {"--int8_compute": 15}
+# name ending in "_" stands for every flag that starts with it (none is left)
+UNPORTED_FLAGS = {}
 
 
 def _unported_flag(arg: str):
@@ -211,6 +213,10 @@ def parse_args(argv=None):
                              "package's layout): the dataset's paired view steers the frozen "
                              "base checkpoint through the zero-init control branch "
                              "(arXiv:2302.05543; pixel-space UNet presets)")
+    parser.add_argument("--int8_compute", action="store_true",
+                        help="W8A8: large Dense products as int8 x int8 -> int32 with "
+                             "per-channel weight and dynamic per-tensor activation scales "
+                             "(nn.primitives.int8_dense_compute); a DiT-preset lever")
     parser.add_argument("--lora", type=str, default=None,
                         help="LoRA adapter directory (lora.npz + lora.json from cli.finetune, "
                              "the JAX package's layout) merged into the sampled weights")
@@ -276,6 +282,14 @@ def main(args):
     from eo_diffusion_torch.utils import metrics as M
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
     from eo_diffusion_torch.weights import load_reference_checkpoint
+
+    if getattr(args, "int8_compute", False):
+        # every model call of the run takes the W8A8 Dense route
+        from eo_diffusion_torch.nn.primitives import int8_dense_compute
+
+        with int8_dense_compute():
+            args.int8_compute = False  # re-entry guard
+            return main(args)
 
     device = resolve_device(args.device, "eo_diffusion_torch.cli.inference")
     preset = get_preset(args.preset)

@@ -63,6 +63,8 @@ class ConvNextBlock(nn.Module):
         super().__init__()
         self.ds_conv = DepthwiseConv(dim_in, 7, dtype=dtype)
         self.time_proj = Dense(time_dim, dim_in, dtype=dtype) if time_dim else None
+        if self.time_proj is not None:
+            self.time_proj.int8 = False  # flax nn.Dense in JAX: no W8A8 route
         self.norm = ChannelLayerNorm(dim_in) if norm else None
         self.net_conv1 = Conv(dim_in, dim_out * mult, 3, dtype=dtype)
         self.net_conv2 = Conv(dim_out * mult, dim_out, 3, dtype=dtype)
@@ -121,6 +123,7 @@ class ConvNextUNet(nn.Module):
         if cfg.with_time_emb:
             self.time_fc1 = Dense(cfg.dim, cfg.dim * 4, dtype=dt)
             self.time_fc2 = Dense(cfg.dim * 4, cfg.dim, dtype=dt)
+            self.time_fc1.int8 = self.time_fc2.int8 = False  # flax nn.Dense in JAX
         dims = [in_channels or cfg.channels] + [cfg.dim * m for m in cfg.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.n_res = len(in_out)

@@ -114,6 +114,7 @@ class TimeMLP(nn.Module):
         super().__init__()
         self.fc1 = Dense(emb_dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype)
+        self.fc1.int8 = self.fc2.int8 = False  # flax nn.Dense in JAX: no W8A8 route
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         h = self.fc2(F.silu(self.fc1(t_emb)))

@@ -13,10 +13,16 @@ cast.
 * ``GroupNorm32``        -> reference ``unet_openai.py:11-13`` (f32 statistics),
   through the fused GroupNorm + FiLM + SiLU kernel on the card
 * ``Zero*``              -> reference ``zero_module`` (``unet_openai.py:62-68``)
+* ``int8_dense_compute`` -> the JAX package's W8A8 route (``nn/primitives.py:139-208``):
+  inside it, large ``Dense`` products (and the UNet attention's ``qkv``
+  projection, a ``Dense`` in the JAX package) run as int8 x int8 -> int32
+  products with a per-output-channel weight scale and a dynamic per-tensor
+  activation scale
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -35,6 +41,8 @@ __all__ = [
     "Dense",
     "ZeroDense",
     "PointwiseConv1d",
+    "int8_dense_compute",
+    "int8_linear",
     "DepthwiseConv",
     "avg_pool_2d",
     "nearest_upsample_2d",
@@ -134,8 +142,73 @@ class ZeroConv(Conv):
         nn.init.zeros_(self.bias)
 
 
+# W8A8 int8 compute (JAX nn/primitives.py:139-208). JAX routes while jit
+# traces; here the flag is read at every call. Products below the thresholds
+# (rows, or either width) stay the plain product in the layer's dtype.
+_INT8_DENSE = False
+_INT8_MIN_ROWS = 1024
+_INT8_MIN_DIM = 256
+
+
+@contextlib.contextmanager
+def int8_dense_compute():
+    """Route the large ``Dense`` products made inside through
+    :func:`int8_linear`'s int8 path (``cli.inference --int8_compute``,
+    ``ServingConfig.int8_compute``). Any float checkpoint serves under it:
+    the weights are quantized at the call."""
+    global _INT8_DENSE
+    prev, _INT8_DENSE = _INT8_DENSE, True
+    try:
+        yield
+    finally:
+        _INT8_DENSE = prev
+
+
+def _int_mm(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """``qx [M, K] @ qw[N, K]^T`` of int8 values, exact, as int32. On the
+    card ``torch._int_mm`` (M > 16, which the row threshold gives; K and N
+    multiples of 8: zero columns are padded in, which changes no sum); on the
+    CPU an int32 product of the same integers."""
+    if not qx.is_cuda:
+        return qx.to(torch.int32) @ qw.to(torch.int32).t()
+    n, k = qw.shape
+    pk, pn = -k % 8, -n % 8
+    if pk:
+        qx = F.pad(qx, (0, pk))
+    if pk or pn:
+        qw = F.pad(qw, (0, pk, 0, pn))
+    return torch._int_mm(qx.contiguous(), qw.contiguous().t())[:, :n]
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The JAX package's ``_Int8Dense`` on a torch ``[out, in]`` weight:
+    below ``_INT8_MIN_ROWS`` rows or ``_INT8_MIN_DIM`` in either width the
+    plain product in ``dtype``; above, ``w`` quantized per output channel and
+    ``x`` per tensor (float32 scales, ``round`` half to even, clipped to
+    +-127), an exact int8 x int8 -> int32 product, then ``y * (sx * sw) +
+    bias`` in float32, rounded to ``dtype``."""
+    out_f, in_f = weight.shape
+    rows = x.numel() // in_f
+    if rows < _INT8_MIN_ROWS or in_f < _INT8_MIN_DIM or out_f < _INT8_MIN_DIM:
+        return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+    wf = weight.float()
+    sw = torch.clamp(torch.amax(wf.abs(), dim=1), min=1e-12) / 127.0
+    qw = torch.clamp(torch.round(wf / sw[:, None]), -127, 127).to(torch.int8)
+    xf = x.float()
+    sx = torch.clamp(torch.amax(xf.abs()), min=1e-12) / 127.0
+    qx = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    y = _int_mm(qx.reshape(rows, in_f), qw)
+    y = y.float() * (sx * sw) + bias.float()
+    return y.reshape(x.shape[:-1] + (out_f,)).to(dtype)
+
+
 class Dense(nn.Linear):
-    """Linear layer over the last axis, computed in ``dtype``."""
+    """Linear layer over the last axis, computed in ``dtype``; inside
+    :func:`int8_dense_compute` through :func:`int8_linear` (``int8`` False
+    keeps a layer out, as the JAX package keeps ``ZeroDense`` out)."""
+
+    int8 = True
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -144,10 +217,14 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if _INT8_DENSE and self.int8:
+            return int8_linear(x, self.weight, self.bias, dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class ZeroDense(Dense):
+    int8 = False
+
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, dtype=dtype)
@@ -158,18 +235,24 @@ class ZeroDense(Dense):
 class PointwiseConv1d(nn.Conv1d):
     """A kernel-1 Conv1d (the reference attention's ``qkv``/``proj_out``)
     applied as a linear layer over the last axis of ``[B, T, C]``. The weight
-    keeps the reference's ``[O, I, 1]`` shape so checkpoints load unrenamed."""
+    keeps the reference's ``[O, I, 1]`` shape so checkpoints load unrenamed.
+    The non-zero one is a ``Dense`` in the JAX package, so it takes
+    :func:`int8_dense_compute`'s route; the zero one is a ``ZeroDense``
+    there and does not."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
                  zero: bool = False):
         super().__init__(in_ch, out_ch, 1)
         self.compute_dtype = dtype
+        self.int8 = not zero
         if zero:
             nn.init.zeros_(self.weight)
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if _INT8_DENSE and self.int8:
+            return int8_linear(x, self.weight[:, :, 0], self.bias, dt)
         return F.linear(x.to(dt), self.weight[:, :, 0].to(dt), self.bias.to(dt))
 
 

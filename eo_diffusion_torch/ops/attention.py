@@ -945,12 +945,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     covers the JAX package's resident and grid-tiled regimes, so there are no
     ``block_q``/``block_k`` knobs); the plain versions for CPU tensors.
     ``impl="plain"``: the plain version on any device, under ordinary
-    autograd.
+    autograd. With no gradient recorded, the auto path is the
+    ``eo::flash_attention`` custom op (:mod:`~eo_diffusion_torch.ops.library`).
     """
     if impl == "plain":
         return reference_attention(q, k, v)
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    from eo_diffusion_torch.ops import library
+
+    if library.sampling_call(q):  # no autograd: the eo:: custom op
+        return torch.ops.eo.flash_attention(q, k, v)
     return FlashAttention.apply(q, k, v)
 
 
@@ -994,6 +999,9 @@ def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
     ``return_lse`` also returns the ``[B*H, T]`` row logsumexp and
     is for inspection only: that call carries no gradient on the auto path.
     Inside :func:`identity_attention` it returns v, whatever ``impl``.
+    With no gradient recorded (sampling) the auto path calls the same
+    kernels, or plain versions, as the ``eo::`` custom ops of
+    :mod:`~eo_diffusion_torch.ops.library`, which ``torch.export`` traces.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
@@ -1008,6 +1016,13 @@ def attention_from_qkv(qkv: torch.Tensor, heads: int, new_order: bool = False,
         return v.reshape(b, t, c3 // 3)
     fused = _qkv_kernel_takes(t, c3 // 3 // heads)
     if impl == "auto" and not return_lse:
+        from eo_diffusion_torch.ops import library
+
+        if library.sampling_call(qkv):  # no autograd: the eo:: custom ops
+            if fused:
+                return torch.ops.eo.qkv_attention(qkv, heads, new_order)
+            return torch.ops.eo.flash_attention(
+                *split_qkv(qkv, heads, new_order)).reshape(b, t, c3 // 3)
         if fused:
             return QKVAttention.apply(qkv, heads, new_order)
         return FlashAttention.apply(*split_qkv(qkv, heads, new_order)).reshape(b, t, c3 // 3)

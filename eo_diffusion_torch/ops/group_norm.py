@@ -575,8 +575,11 @@ def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
     ``impl="auto"`` goes through :class:`GroupNormFn`: the CUDA kernels for a
     CUDA tensor (forward and backward; a shape they do not take raises), the
-    plain versions for a CPU tensor. ``impl="plain"``: the plain version on
-    any device, under ordinary autograd.
+    plain versions for a CPU tensor; with no gradient recorded, through the
+    ``eo::group_norm`` custom op (:mod:`~eo_diffusion_torch.ops.library`),
+    the same kernel or plain version, which ``torch.export`` traces.
+    ``impl="plain"``: the plain version on any device, under ordinary
+    autograd.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
@@ -586,4 +589,8 @@ def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     gamma, beta = (t.float().expand(n, c) for t in (gamma, beta))
     if impl == "plain":
         return group_norm_reference(x, gamma, beta, groups, eps, act)
+    from eo_diffusion_torch.ops import library
+
+    if library.sampling_call(x):  # no autograd: the eo:: custom op
+        return torch.ops.eo.group_norm(x, gamma, beta, groups, eps, act)
     return GroupNormFn.apply(x, gamma, beta, groups, eps, act)[0]

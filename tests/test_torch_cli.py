@@ -169,6 +169,25 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
                 inference.main(inference.parse_args(["--preset", "tiny-dit", *argv,
                                                      "--device", "cpu"]))
             continue
+        if queue == 15:  # ported: W8A8 routes every Dense call of the run
+            import eo_diffusion_torch.nn.primitives as P
+
+            calls, real = [], P.int8_linear
+            monkey = pytest.MonkeyPatch()
+            monkey.setattr(P, "int8_linear", lambda *a: calls.append(a[0].shape) or real(*a))
+            base = ["--preset", "tiny-dit", "--device", "cpu", "--sampler", "ddim",
+                    "--sampler_steps", "2", "--batch_size", "2", "--n_iter", "0"]
+            try:
+                got = inference.main(inference.parse_args(
+                    base + [*argv, "--outdir", str(tmp_path / "w8a8")]))["samples"]
+            finally:
+                monkey.undo()
+            assert calls and not P._INT8_DENSE  # routed inside, restored after
+            # tiny-dit's widths are under the thresholds: the plain products
+            ref = inference.main(inference.parse_args(
+                base + ["--outdir", str(tmp_path / "plain")]))["samples"]
+            np.testing.assert_array_equal(got, ref)
+            continue
         if queue == 14:  # ported: the adapter directory is read at load
             args = inference.parse_args(["--preset", "tiny", *argv, "--device", "cpu",
                                          "--sampler", "ddim", "--sampler_steps", "2",

@@ -138,12 +138,15 @@ CONFIG_PAIRS = {
                       "TrainerConfig", ()),
     "Preset": ("eo_diffusion_tpu.cli.presets", "eo_diffusion_torch.cli.presets", "Preset",
                PRESET_FIELDS_LATER),
+    "ServingConfig": ("eo_diffusion_tpu.serving.engine", "eo_diffusion_torch.serving.engine",
+                      "ServingConfig", ()),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CONFIG_PAIRS))
 def test_unet_config_fields_sit_where_jax_has_them(name):
-    """Every field of the port's UNetConfig, TrainerConfig and Preset sits
+    """Every field of the port's UNetConfig, TrainerConfig, Preset and
+    ServingConfig sits
     at the index the JAX package's has it, so a config passed by position
     means the same in both; the JAX-only Preset field of item 14 is left
     out of the JAX list, and nothing else may differ."""
