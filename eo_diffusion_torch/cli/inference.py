@@ -68,6 +68,7 @@ activation scales; a DiT-preset lever), as the JAX CLI does.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -274,7 +275,18 @@ def main(args):
     """Sample ``args.n_iter + 1`` batches. Returns a summary dict with the
     last batch's samples (``[N, H, W, C]`` float32 numpy), the batch and
     image counts and the seconds spent inside the samplers, in all and by
-    batch; with ``--metrics`` also the mean ``ssim`` and ``psnr``."""
+    batch; with ``--metrics`` also the mean ``ssim`` and ``psnr``. Under
+    ``--int8_compute`` every model call of the run takes the W8A8 ``Dense``
+    route."""
+    from eo_diffusion_torch.nn.primitives import int8_dense_compute
+
+    w8a8 = (int8_dense_compute() if getattr(args, "int8_compute", False)
+            else contextlib.nullcontext())
+    with w8a8:
+        return _run(args)
+
+
+def _run(args):
     from eo_diffusion_torch.cli.presets import build_denoiser, build_process, get_preset
     from eo_diffusion_torch.diffusion.gaussian import noise_level
     from eo_diffusion_torch.data.datasets import class_names
@@ -282,14 +294,6 @@ def main(args):
     from eo_diffusion_torch.utils import metrics as M
     from eo_diffusion_torch.utils.images import rescale_to_unit, save_image_grid
     from eo_diffusion_torch.weights import load_reference_checkpoint
-
-    if getattr(args, "int8_compute", False):
-        # every model call of the run takes the W8A8 Dense route
-        from eo_diffusion_torch.nn.primitives import int8_dense_compute
-
-        with int8_dense_compute():
-            args.int8_compute = False  # re-entry guard
-            return main(args)
 
     device = resolve_device(args.device, "eo_diffusion_torch.cli.inference")
     preset = get_preset(args.preset)

@@ -23,6 +23,7 @@ cast.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -143,25 +144,27 @@ class ZeroConv(Conv):
 
 
 # W8A8 int8 compute (JAX nn/primitives.py:139-208). JAX routes while jit
-# traces; here the flag is read at every call. Products below the thresholds
+# traces, so a compiled program's route is fixed; here the route is read at
+# every call from a context variable, which belongs to the thread (or task)
+# that entered the context: a serving worker under int8_dense_compute() does
+# not route another thread's model calls. Products below the thresholds
 # (rows, or either width) stay the plain product in the layer's dtype.
-_INT8_DENSE = False
+_INT8_DENSE = contextvars.ContextVar("int8_dense_compute", default=False)
 _INT8_MIN_ROWS = 1024
 _INT8_MIN_DIM = 256
 
 
 @contextlib.contextmanager
 def int8_dense_compute():
-    """Route the large ``Dense`` products made inside through
-    :func:`int8_linear`'s int8 path (``cli.inference --int8_compute``,
+    """Route the large ``Dense`` products made inside, in this thread,
+    through :func:`int8_linear`'s int8 path (``cli.inference --int8_compute``,
     ``ServingConfig.int8_compute``). Any float checkpoint serves under it:
     the weights are quantized at the call."""
-    global _INT8_DENSE
-    prev, _INT8_DENSE = _INT8_DENSE, True
+    token = _INT8_DENSE.set(True)
     try:
         yield
     finally:
-        _INT8_DENSE = prev
+        _INT8_DENSE.reset(token)
 
 
 def _int_mm(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
@@ -217,7 +220,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if _INT8_DENSE and self.int8:
+        if self.int8 and _INT8_DENSE.get():
             return int8_linear(x, self.weight, self.bias, dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -251,7 +254,7 @@ class PointwiseConv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if _INT8_DENSE and self.int8:
+        if self.int8 and _INT8_DENSE.get():
             return int8_linear(x, self.weight[:, :, 0], self.bias, dt)
         return F.linear(x.to(dt), self.weight[:, :, 0].to(dt), self.bias.to(dt))
 

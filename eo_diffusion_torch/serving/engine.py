@@ -12,9 +12,8 @@ of ``eo_diffusion_tpu/serving/engine.py``).
   through ``torch.func.functional_call``, so ``serving/export.py`` exports
   it with the parameters as inputs (``int8`` keeps them packed: int8 values
   and scales, dequantized inside). The live engine runs the same function
-  with the values bound into the model's own parameters (a hot swap copies
-  them in; ``int8`` dequantizes into them on every batch), which saves a
-  ``functional_call`` a model call and computes the same numbers.
+  on its stored leaves, so a hot swap replaces the leaves and leaves the
+  model's own parameters as they are.
 * **Draws are inputs too.** The start noise and every noise the sampler
   asks for come from the batch's seed (``serving/seeding.py``); the program
   receives them, so an exported artifact reproduces the live engine's bytes
@@ -180,17 +179,10 @@ class SamplerEngine:
                                    dict(zip(self.names, leaves[n:])))
         return dict(zip(self.names, leaves))
 
-    def _bind(self, params: Dict[str, torch.Tensor]) -> None:
-        """Copy float weights into the model's own parameters, which the live
-        engine's program calls."""
-        with torch.no_grad():
-            for n, prm in self.model.named_parameters():
-                prm.copy_(params[n])
-
     def swap_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Hot-swap the weights (a state dict of the model's parameters): into
-        the model's parameters, or with ``int8`` packed once as ``(int8 dict,
-        scale dict)``."""
+        """Hot-swap the weights (a state dict of the model's parameters): kept
+        as float32 on the engine's device, or with ``int8`` packed once as
+        ``(int8 dict, scale dict)``."""
         params = {n: params[n].detach().to(self.device, torch.float32) for n in self.names}
         if self.cfg.int8:
             from eo_diffusion_torch.utils.quantize import (flax_views, quantize_tree,
@@ -200,38 +192,32 @@ class SamplerEngine:
             print(f"serving int8: params packed to {quantized_bytes(packed[0]) / 1e6:.1f} MB "
                   "(weight-only W8A16)")
         with self._lock:
-            if self.cfg.int8:
-                self.params = packed
-            else:
-                self._bind(params)
-                self.params = {n: p.detach() for n, p in self.model.named_parameters()}
+            self.params = packed if self.cfg.int8 else params
 
     # -- the program -------------------------------------------------------------
     def program(self, leaves: Sequence[torch.Tensor], x_T: torch.Tensor, noise,
-                y: Optional[torch.Tensor], cond: Optional[torch.Tensor],
-                bound: bool = False) -> torch.Tensor:
+                y: Optional[torch.Tensor], cond: Optional[torch.Tensor]) -> torch.Tensor:
         """One full batch from the parameters ``leaves`` (:meth:`leaves`), the
         start noise ``x_T`` (the grid's shape), the sampler's noises
         (``noise``: a ``[k, *grid]`` tensor, or a function of the draw's
         index that draws it), labels ``y`` ``[B]`` and cond ``[B, H, W, Cc]``
         (None where the engine has none). Returns ``[B, H, W, C]`` float32.
-        The exported artifact runs this function; the live engine too, with
-        ``bound``: the model's own parameters hold the leaves' values, and it
-        is called directly."""
-        cfg, model, d, B = self.cfg, self.model, self.diffusion, self.cfg.batch_size
-        if bound:
-            def fn(x, t, c, yy):
-                return model(x, t, cond=c, y=yy)
-        else:
-            params = self._unflatten(leaves)
+        The live engine and the exported artifact both run this function."""
+        model, params = self.model, self._unflatten(leaves)
 
-            def fn(x, t, c, yy):
-                return torch.func.functional_call(model, params, (x, t), {"cond": c, "y": yy})
+        def fn(x, t, c, yy):
+            return torch.func.functional_call(model, params, (x, t), {"cond": c, "y": yy})
 
-        if cfg.pag_scale > 0.0:
+        if self.cfg.pag_scale > 0.0:
             from eo_diffusion_torch.diffusion.pag import pag_model_fn
 
-            fn = pag_model_fn(fn, cfg.pag_scale)
+            fn = pag_model_fn(fn, self.cfg.pag_scale)
+        return self._sample(fn, x_T, noise, y, cond)
+
+    def _sample(self, fn, x_T, noise, y, cond) -> torch.Tensor:
+        """The configured sampler over the model function ``fn(x, t, cond,
+        y)``, the rest as :meth:`program` takes them."""
+        cfg, d, B = self.cfg, self.diffusion, self.cfg.batch_size
         count = [0]
 
         def noise_fn(i, role):
@@ -265,7 +251,7 @@ class SamplerEngine:
                                 method=cfg.ddim_spacing, x_T=x_T, **common, **kw)
         return out.x.float()
 
-    def _run(self, leaves, x_T, noise, y, cond, bound: bool = False) -> torch.Tensor:
+    def _run(self, leaves, x_T, noise, y, cond) -> torch.Tensor:
         """:meth:`program` under ``no_grad`` on the engine's device, with
         ``int8_compute``'s context around it."""
         ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -276,7 +262,7 @@ class SamplerEngine:
 
             w8a8 = int8_dense_compute()
         with ctx, torch.no_grad(), w8a8:
-            return self.program(leaves, x_T, noise, y, cond, bound)
+            return self.program(leaves, x_T, noise, y, cond)
 
     def _inputs(self, y, cond):
         dev = self.device
@@ -291,42 +277,35 @@ class SamplerEngine:
         """One full device batch from ``seed`` -> ``[B, H, W, C]`` float32 numpy
         (the model's data range)."""
         with self._lock:
-            if self.cfg.int8:  # dequantized on every batch, as the JAX program does
-                self._bind(self._unflatten(self.leaves()))
             gen = seeding.generator(seed, self.device)
             x_T = seeding.normal(gen, self.grid)
             y_t, c_t = self._inputs(y, cond)
-            out = self._run(None, x_T, lambda j: seeding.normal(gen, self.grid), y_t, c_t,
-                            bound=True)
+            # int8 leaves are dequantized inside, on every batch, as the JAX
+            # program does
+            out = self._run(self.leaves(), x_T, lambda j: seeding.normal(gen, self.grid),
+                            y_t, c_t)
             return out.cpu().numpy()
 
     def count_draws(self):
         """``(draws, calls)``: the noises the sampler draws a batch after the
         start noise, and its model calls; the sampler run once with a
         stand-in model that returns zeros."""
-        model, counts = self.model, [0, 0]
+        counts = [0, 0]
 
         def counting(j):
             counts[0] += 1
             return torch.zeros(self.grid, device=self.device)
 
-        class _Zero(torch.nn.Module):
-            def forward(self, x, t, cond=None, y=None):
-                counts[1] += 1
-                return torch.zeros_like(x)
+        def zero(x, t, c, yy):
+            counts[1] += 1
+            return torch.zeros_like(x)
 
         y_t, c_t = self._inputs(self._blank_y(), self._blank_cond())
-        # the zero model has no parameters and no attention for PAG to
-        # perturb: PAG's second call is counted instead
-        cfg = self.cfg
-        self.model, self.cfg = _Zero(), dataclasses.replace(cfg, pag_scale=0.0)
-        try:
-            with torch.no_grad():
-                self.program(None, torch.zeros(self.grid, device=self.device), counting, y_t,
-                             c_t, bound=True)
-        finally:
-            self.model, self.cfg = model, cfg
-        return counts[0], counts[1] * (2 if cfg.pag_scale > 0.0 else 1)
+        with torch.no_grad():
+            self._sample(zero, torch.zeros(self.grid, device=self.device), counting, y_t, c_t)
+        # the zero model has no attention for PAG to perturb: PAG's second
+        # call a model call is counted instead
+        return counts[0], counts[1] * (2 if self.cfg.pag_scale > 0.0 else 1)
 
     def warmup(self) -> float:
         """One batch end to end (kernel builds and first calls included);

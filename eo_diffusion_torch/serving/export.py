@@ -82,22 +82,6 @@ def _fresh_tables(diffusion):
             d._tables.update(old)
 
 
-@contextlib.contextmanager
-def _no_stack_traces():
-    """Record no Python stack trace a node while tracing (a third of the
-    trace time on a long trajectory), where this torch has the setting."""
-    import torch.fx.config as fx_config
-
-    if not hasattr(fx_config, "do_not_emit_stack_traces"):
-        yield
-        return
-    prev, fx_config.do_not_emit_stack_traces = fx_config.do_not_emit_stack_traces, True
-    try:
-        yield
-    finally:
-        fx_config.do_not_emit_stack_traces = prev
-
-
 class _Program(torch.nn.Module):
     """The engine's program as a module that owns no parameter: the weights
     are the ``leaves`` input."""
@@ -130,7 +114,7 @@ def export_engine(engine, out_dir: str, extra_meta: Optional[dict] = None) -> di
     dev = (torch.cuda.device(engine.device) if engine.device.type == "cuda"
            else contextlib.nullcontext())
     w8a8 = int8_dense_compute() if cfg.int8_compute else contextlib.nullcontext()
-    with dev, w8a8, _fresh_tables(engine.diffusion), _no_stack_traces(), torch.no_grad():
+    with dev, w8a8, _fresh_tables(engine.diffusion), torch.no_grad():
         ep = torch.export.export(_Program(engine), (leaves, x_T, noise, y0, c0), strict=False)
     trace_s = time.perf_counter() - t0
 

@@ -182,7 +182,7 @@ def test_flow_sampler_on_a_ddpm_preset_and_unported_flags_exit(tmp_path, capsys)
                     base + [*argv, "--outdir", str(tmp_path / "w8a8")]))["samples"]
             finally:
                 monkey.undo()
-            assert calls and not P._INT8_DENSE  # routed inside, restored after
+            assert calls and not P._INT8_DENSE.get()  # routed inside, restored after
             # tiny-dit's widths are under the thresholds: the plain products
             ref = inference.main(inference.parse_args(
                 base + ["--outdir", str(tmp_path / "plain")]))["samples"]

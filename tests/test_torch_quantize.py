@@ -27,9 +27,11 @@ KW = dict(image_size=16, in_channels=3, out_channels=3, patch_size=4, hidden_siz
 SCALE_TOL = 1e-7
 DENSE_TOL = 1e-6
 # a whole W8A8 forward: the float forwards agree to ~1e-6, and an activation
-# an ulp apart can round to the other int8 value, moving its token's row
-# (on the CPU it reads 7.6e-4, against the route's own effect of 5.1e-3)
+# that close to a half-way point rounds to the other int8 value, moving its
+# token's row (on the CPU it reads 7.6e-4, against the route's own effect of
+# 5.1e-3); with JAX's inputs fed to the routed products, the forward bar
 W8A8_FORWARD_TOL = 2e-3
+W8A8_REPLAY_TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +108,7 @@ def test_w8a8_dense_matches_jax_int8_dense(rows, fin, fout):
         plain = layer(torch.from_numpy(x))
         with TP.int8_dense_compute():
             got = layer(torch.from_numpy(x))
-    assert not TP._INT8_DENSE  # the context restores the route
+    assert not TP._INT8_DENSE.get()  # the context restores the route
     assert rel_err(got, want) <= DENSE_TOL
     routed = rows >= 1024 and min(fin, fout) >= 256
     assert torch.equal(got, plain) != routed  # only the routed shape quantizes
@@ -129,29 +131,46 @@ def test_zero_dense_and_zero_projection_stay_plain():
         assert torch.equal(got, plain) != routed
 
 
-def test_dit_forward_under_w8a8_matches_jax(dit):
+def test_dit_forward_under_w8a8_matches_jax(dit, monkeypatch):
     """Every routed product of a DiT forward inside the context equals the
     JAX package's ``_Int8Dense`` on the same input (``DENSE_TOL``), and the
     whole forward stays within ``W8A8_FORWARD_TOL`` (rel L2) of JAX's inside
-    its context: far inside the route's own effect on the output."""
+    its context: far inside the route's own effect on the output. The gap is
+    the activations' rounding: fed JAX's inputs to its routed products, the
+    port's forward holds to ``W8A8_REPLAY_TOL``; at the first routed product
+    the two inputs part by a small fraction of a quantization step, and each
+    int8 value that differs there lies that close to a half-way point."""
+    from flax import linen as nn
+
     jmodel, params, model = dit
     rng = np.random.default_rng(1)
     x = rng.normal(size=(64, 16, 16, 3)).astype(np.float32)
     t = rng.uniform(0, 999, size=(64,)).astype(np.float32)
+    base = JP._Int8Dense
+
+    class Recorded(base):  # JAX's route, its input sown for the comparison
+        @nn.compact
+        def __call__(self, h):
+            self.sow("intermediates", "x", h)
+            return base.__call__(self, h)
+
+    monkeypatch.setattr(JP, "_Int8Dense", Recorded)
     with JP.int8_dense_compute():  # JAX routes while jit traces
-        want = np.asarray(jax.jit(lambda p, x, t: jmodel.apply(p, x, t))(
-            params, jnp.asarray(x), jnp.asarray(t)))
+        want, sown = jax.jit(lambda p, x, t: jmodel.apply(p, x, t, mutable=["intermediates"]))(
+            params, jnp.asarray(x), jnp.asarray(t))
+    monkeypatch.setattr(JP, "_Int8Dense", base)
+    want = np.asarray(want)
+    jax_in = [np.array(sown["intermediates"][f"block_{i}"][name]["x"][0])
+              for i in range(KW["depth"]) for name in ("qkv", "proj_out", "mlp_in", "mlp_out")]
     calls, real = [], TP.int8_linear
-    try:
-        TP.int8_linear = lambda *a: calls.append(a) or real(*a)
-        with torch.no_grad(), TP.int8_dense_compute():
-            got = model(torch.from_numpy(x), torch.from_numpy(t))
-    finally:
-        TP.int8_linear = real
+    monkeypatch.setattr(TP, "int8_linear", lambda *a: calls.append(a) or real(*a))
+    with torch.no_grad(), TP.int8_dense_compute():
+        got = model(torch.from_numpy(x), torch.from_numpy(t))
     routed = [a for a in calls
               if a[0].numel() // a[0].shape[-1] >= 1024 and min(a[1].shape) >= 256]
     assert len(routed) == 4 * KW["depth"]  # qkv, proj_out, mlp_in, mlp_out a block
-    for xin, w, b, dt in routed:
+    for (xin, w, b, dt), xj in zip(routed, jax_in):
+        assert xin.shape == xj.shape
         with torch.no_grad():
             mine = real(xin, w, b, dt)
         theirs = JP._Int8Dense(features=w.shape[0]).apply(
@@ -163,6 +182,26 @@ def test_dit_forward_under_w8a8_matches_jax(dit):
     effect = rel_l2(plain, want)
     assert effect > 1e-3  # the route changed the numbers
     assert rel_l2(got, want) <= W8A8_FORWARD_TOL < effect
+
+    # the first routed product: the float forwards feed it inputs a small
+    # fraction of a step apart; an int8 value differs only where its input
+    # lies within that of a half-way point (this input: 2 of 262144, within
+    # 5.7e-5 of a step, which the later products carry on)
+    u_t, u_j = (h / (np.abs(h).max() / np.float32(127.0))
+                for h in (routed[0][0].numpy(), jax_in[0]))
+    gap = float(np.abs(u_t - u_j).max())
+    flipped = np.round(u_t) != np.round(u_j)
+    assert gap < 1e-3
+    assert np.all(np.abs(np.abs(u_t - np.floor(u_t)) - 0.5)[flipped] <= gap)
+    # JAX's inputs to the routed products, the port's everything else
+    replay = iter(jax_in)
+    monkeypatch.setattr(TP, "int8_linear", lambda xin, w, b, dt: real(
+        torch.from_numpy(next(replay)) if xin.numel() // xin.shape[-1] >= 1024
+        and min(w.shape) >= 256 else xin, w, b, dt))
+    with torch.no_grad(), TP.int8_dense_compute():
+        replayed = model(torch.from_numpy(x), torch.from_numpy(t))
+    assert next(replay, None) is None
+    assert rel_l2(replayed, want) <= W8A8_REPLAY_TOL
 
 
 def rel_l2(a, b):

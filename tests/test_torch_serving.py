@@ -572,23 +572,31 @@ def test_int8_serves_close_to_float():
     assert np.isfinite(b).all() and 0 < rel < 0.2
 
 
-def test_w8a8_engine_serves_close_to_float():
-    """``int8_compute`` (W8A8) on a DiT wide enough for the route (hidden 256,
-    64 x 16 tokens): within the JAX package's own limit of the float engine
-    (rel < 0.2), and not equal to it."""
+def _wide_dit(**fields):
+    """``tiny-dit`` at hidden 256 (wide enough for the W8A8 route: 64 x 16
+    tokens) with seeded weights, and ``SamplerEngine`` s of it, batch 64,
+    DDIM-2, float32, one for each ``int8_compute`` given."""
     import dataclasses
 
     from eo_diffusion_torch.cli import presets as TP
-    from eo_diffusion_torch.nn import primitives as NP
 
     p = TP.get_preset("tiny-dit")
     cfg = dataclasses.replace(p.model_config(bf16=False), hidden_size=256, num_heads=4)
     model = randomize_parameters(TP.build_denoiser(cfg), 3)
+    return [SamplerEngine(model, None, TP.build_process(p, 50, 16), 16, 3,
+                          ServingConfig(batch_size=64, steps=2, bf16=False, int8_compute=w))
+            for w in (False, True)]
+
+
+def test_w8a8_engine_serves_close_to_float():
+    """``int8_compute`` (W8A8) on a DiT wide enough for the route (hidden 256,
+    64 x 16 tokens): within the JAX package's own limit of the float engine
+    (rel < 0.2), and not equal to it."""
+    from eo_diffusion_torch.nn import primitives as NP
+
     outs, calls, real = {}, [], NP.int8_linear
-    for w8a8 in (False, True):
-        eng = SamplerEngine(model, None, TP.build_process(p, 50, 16), 16, 3,
-                            ServingConfig(batch_size=64, steps=2, bf16=False,
-                                          int8_compute=w8a8))
+    for eng in _wide_dit():
+        w8a8 = eng.cfg.int8_compute
         NP.int8_linear = lambda *a: calls.append(w8a8) or real(*a)
         try:
             outs[w8a8] = eng.generate(3)
@@ -598,3 +606,48 @@ def test_w8a8_engine_serves_close_to_float():
     a, b = outs[False], outs[True]
     rel = np.linalg.norm(a - b) / np.linalg.norm(a)
     assert np.isfinite(b).all() and 0 < rel < 0.2
+
+
+def test_w8a8_route_belongs_to_the_engines_thread():
+    """A float engine's batch runs while another thread's ``int8_compute``
+    engine holds the W8A8 context (paused at its first model call): each
+    gives the bytes it gives alone. The route is the calling thread's, as
+    in JAX, where it is fixed when a program is traced."""
+    from eo_diffusion_torch.nn import primitives as NP
+
+    flt, w8 = _wide_dit()
+    alone = {eng.cfg.int8_compute: eng.generate(3) for eng in (flt, w8)}
+    assert not np.array_equal(alone[False], alone[True])
+    inside, release, got = threading.Event(), threading.Event(), {}
+
+    def pause(module, args):
+        if NP._INT8_DENSE.get() and not inside.is_set():
+            inside.set()
+            release.wait(60)
+
+    hook = flt.model.register_forward_pre_hook(pause)  # the engines share the model
+    worker = threading.Thread(target=lambda: got.update({True: w8.generate(3)}))
+    try:
+        worker.start()
+        assert inside.wait(60)
+        got[False] = flt.generate(3)
+    finally:
+        release.set()
+        worker.join(120)
+        hook.remove()
+    for w8a8 in (False, True):
+        np.testing.assert_array_equal(got[w8a8], alone[w8a8])
+
+
+def test_profile_serve_times_the_engine_beside_a_direct_call(tmp_path):
+    """``tools/profile_serve``: the engine's batch (``functional_call``) and
+    the direct call's are the same bits, and both are timed."""
+    from eo_diffusion_torch.tools import profile_serve
+
+    out = tmp_path / "p.json"
+    res = profile_serve.main(["--preset", "tiny-cr", "--device", "cpu", "--batch_size", "2",
+                              "--sampler_steps", "2", "--no_bf16", "--rounds", "1",
+                              "--out", str(out)])
+    assert json.loads(out.read_text()) == res
+    assert [len(v) for v in res["seconds"].values()] == [1, 1] and res["engine_over_direct"] > 0
+    assert (res["preset"], res["steps"], res["device"]) == ("tiny-cr", 2, "cpu")
